@@ -1,0 +1,44 @@
+"""SoC-Tuner core on PyTorch: the exact path of Algorithm 3.
+
+- ``space``       TABLE I design space (encode/sample/prune)
+- ``icd``         Algorithm 1 — inter-cluster-distance importance
+- ``sampling``    Algorithm 2 — importance-guided TED initialization
+- ``gp``          GP surrogates (Eqs. 3-4), objectives as a batch dimension
+- ``acquisition`` IMOO information-gain acquisition (Eqs. 5-10)
+- ``engine``      the exact ``BOEngine`` (cold fit + host argmax per round)
+- ``tuner``       Algorithm 3 — the full exploration loop
+- ``pareto``      dominance / Pareto front / ADRS (Eq. 12)
+
+Explore one scenario::
+
+    import torch
+    from repro_torch.core import make_space, pareto_front, soc_tuner
+    from repro_torch.soc import VLSIFlow
+
+    space = make_space()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pool = space.sample(gen, 500).cpu().numpy()
+    flow = VLSIFlow(space, "resnet50")
+    res = soc_tuner(space, pool, flow, T=15, n=20, b=12, seed=0)
+    print(res.pareto_y)
+"""
+from .space import DesignSpace, Feature, TABLE_I, make_space
+from .icd import icd_from_data
+from .pareto import adrs, dominance_counts, pareto_front, pareto_mask
+from .sampling import soc_init, ted_select, transform_to_icd
+from .gp import GPParams, GPState, fit_gp, gp_joint_samples, gp_predict, pad_training
+from .acquisition import frontier_maxima, imoo_scores, mes_information_gain
+from .engine import BOEngine, EngineStats
+from .tuner import TunerResult, explore_prologue, soc_tuner
+
+__all__ = [
+    "DesignSpace", "Feature", "TABLE_I", "make_space",
+    "icd_from_data",
+    "adrs", "dominance_counts", "pareto_front", "pareto_mask",
+    "soc_init", "ted_select", "transform_to_icd",
+    "GPParams", "GPState", "fit_gp", "gp_joint_samples", "gp_predict",
+    "pad_training",
+    "frontier_maxima", "imoo_scores", "mes_information_gain",
+    "BOEngine", "EngineStats",
+    "TunerResult", "explore_prologue", "soc_tuner",
+]

@@ -1,0 +1,21 @@
+"""Device resolution shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """``None`` means ``cuda``; a CUDA request without a card raises.
+
+    The port never carries on quietly on the CPU: the CPU runs only when
+    the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch: CUDA is not available; pass device='cpu' to run "
+            "the plain PyTorch versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"repro_torch: unsupported device {dev}")
+    return dev

@@ -1,0 +1,23 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+- ``systolic_eval``  batched SoC cost model (replaces the Pallas
+                     ``systolic_eval`` kernel)
+- ``pairdist``       pairwise squared distances + fused RBF (Pallas ``pairdist``)
+- ``pareto_count``   strict-dominance counts (Pallas ``pareto_count``)
+- ``build``          ``nvcc`` build of ``csrc/`` into one ctypes-loaded library
+
+A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
+launches the kernel or raises. Each keeps a plain-integer ``launches`` count.
+"""
+from . import pairdist, pareto_count, systolic_eval
+
+KERNELS = (systolic_eval, pairdist, pareto_count)
+
+__all__ = ["pairdist", "pareto_count", "systolic_eval", "KERNELS",
+           "reset_launches"]
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for k in KERNELS:
+        k.launches = 0

@@ -1,0 +1,61 @@
+"""``pairdist``: pairwise squared distances, optionally fused RBF (kernel K2).
+
+:func:`pairdist` returns ``max(‖x_i‖² + ‖y_j‖² − 2 x_i·y_j, 0)`` [N, M] for
+``x`` [N, D], ``y`` [M, D], or ``exp(−d² / (2σ² + 1e-12))`` when
+``bandwidth`` σ is given. On a CPU tensor it runs :func:`pairdist_plain`; on
+a CUDA tensor it launches ``csrc/pairdist.cu`` or raises.
+
+``differentiable=True`` takes the plain form on any device: the kernel has no
+backward, exactly as the JAX package pins its XLA form for the GP's NLL
+gradient. That is the reference's own rule, not a fallback.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from ._common import check_tensor, on_cpu
+
+__all__ = ["pairdist", "pairdist_plain", "launches"]
+
+#: kernel launches since the count was last set to 0
+launches = 0
+
+
+def pairdist_plain(x: torch.Tensor, y: torch.Tensor,
+                   bandwidth: float | None = None) -> torch.Tensor:
+    """The ‖a‖²+‖b‖²−2abᵀ form (``repro.kernels.backend.sqdist_xla`` /
+    ``rbf_xla``). ``torch.maximum`` splits the gradient at a tie like
+    ``jnp.maximum``, so autograd through it matches JAX's."""
+    aa = torch.sum(x * x, dim=-1)
+    bb = torch.sum(y * y, dim=-1)
+    d2 = torch.maximum(aa[:, None] + bb[None, :] - 2.0 * (x @ y.T),
+                       x.new_zeros(()))
+    if bandwidth is None:
+        return d2
+    return torch.exp(-d2 / (2.0 * bandwidth * bandwidth + 1e-12))
+
+
+def pairdist(x: torch.Tensor, y: torch.Tensor, *,
+             bandwidth: float | None = None,
+             differentiable: bool = False) -> torch.Tensor:
+    global launches
+    check_tensor("x", x, 2)
+    check_tensor("y", y, 2)
+    if x.shape[1] != y.shape[1]:
+        raise ValueError(f"pairdist: feature dims disagree (x has "
+                         f"D={x.shape[1]}, y has D={y.shape[1]})")
+    if differentiable or on_cpu(x, y):
+        return pairdist_plain(x, y, bandwidth)
+    n, m, d = x.shape[0], y.shape[0], x.shape[1]
+    out = torch.empty((n, m), dtype=torch.float32, device=x.device)
+    if n == 0 or m == 0:
+        return out
+    inv2s2 = 0.0 if bandwidth is None else \
+        1.0 / (2.0 * float(bandwidth) ** 2 + 1e-12)
+    err = build.library().pairdist_launch(
+        x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
+        int(bandwidth is not None), inv2s2, build.stream_ptr(x))
+    build.check(err, "pairdist")
+    launches += 1
+    return out

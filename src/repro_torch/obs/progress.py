@@ -1,0 +1,26 @@
+"""The per-round progress helper of the exploration drivers.
+
+:func:`log_progress` appends the history record that
+:func:`repro_torch.core.tuner.round_record` builds and optionally prints the
+progress line, in the reference's format. The reference also writes an
+event log; that part of ``repro.obs`` is not ported yet.
+"""
+from __future__ import annotations
+
+__all__ = ["log_progress"]
+
+
+def log_progress(history: list, y, n_evaluated: int, i: int,
+                 reference_front=None, *, verbose: bool = False,
+                 wall_s: float | None = None, device=None) -> dict:
+    """Append round ``i``'s record to ``history`` and return it."""
+    from repro_torch.core.tuner import round_record
+
+    rec = round_record(y, n_evaluated, i, reference_front, wall_s=wall_s,
+                       device=device)
+    history.append(rec)
+    if verbose:
+        print(f"[soc-tuner] round {i:3d} evals={rec['evaluations']:4d} "
+              f"front={rec['pareto_size']:3d}"
+              + (f" adrs={rec['adrs']:.4f}" if "adrs" in rec else ""))
+    return rec
