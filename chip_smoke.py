@@ -5,10 +5,16 @@
 
 Builds the port's CUDA kernels (``src/repro_torch/csrc``) with ``nvcc``,
 holds each kernel against its plain PyTorch version on the card at the main
-path's shapes and times both, then drives the main path — a paper-protocol
-``soc_tuner`` run (n_pool=2500, resnet50, T=20, n=30, b=20, gp_steps=150,
-10 frontier samples over a 512-row subset) with its reference front — and
-checks that every kernel was launched in it and that its results are right.
+path's shapes and times both, then drives the two main paths — a
+paper-protocol ``soc_tuner`` run (n_pool=2500, resnet50, T=20, n=30, b=20,
+gp_steps=150, 10 frontier samples over a 512-row subset) with its reference
+front, first with the exact engine, then with the incremental one
+(``incremental=True``: warm fits, block Cholesky updates, the
+``round_fused`` kernel) — and checks that every kernel of each path was
+launched in it and that its results are right. Then: the incremental run
+with ``pool_chunk=512`` picks the same rows; the exact and the incremental
+round, stage by stage, with the device's busy share; and at n_pool=64 the
+card's picks equal the CPU's (exact, incremental, and q=2 fantasy batches).
 It prints the card (``nvidia-smi``), the build time, one line per kernel
 check, the rounds, a ``{"kernels": [...]}`` JSON line and, last,
 ``{"ok": true, "device": {...}}``. Any failure raises; no phase is caught.
@@ -17,6 +23,7 @@ It needs a CUDA device and exits non-zero without one.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -37,10 +44,34 @@ K1_OPS_PER_PAIR = 129
 #: m `<=` and m `<` compares, m + 1 logic ops, one add.
 K3_OPS_PER_PAIR = lambda m: 3 * m + 2  # noqa: E731
 
+
+def k4_ops(nc, C, d, m, P, S, s0) -> int:
+    """float32 operations of one round_fused call (each +, -, *, / and each
+    exp/erf/log one operation), per column and objective: for each of the
+    P - s0 recomputed rows 6d + 6 for the RBF entry and 2r + 1 for its
+    substitution; 4P for the moments; ~20 per frontier sample; ~8 more."""
+    rows = range(min(s0, P), P)
+    per = sum(6 * d + 6 + 2 * r + 1 for r in rows) + 4 * P + 20 * S + 8
+    return nc * C * m * per
+
+
+def k4_bytes(nc, C, d, m, P, S) -> int:
+    """Bytes round_fused must move: V rows [0, s0) read and rows [s0, P)
+    written (P rows in all, whatever s0), the pool chunks, L, x, beta, y*,
+    the mask and the small vectors, each once."""
+    return 4 * (nc * m * P * C + nc * C * d + m * P * P + P * d + m * P
+                + S * m + m * d + 4 * m) + nc * C + 4
+
 MAIN = dict(n_pool=2500, workload="resnet50", T=20, n=30, b=20, gp_steps=150,
             s_frontiers=10, frontier_subset=512, seed=0)
 SMALL = dict(n_pool=64, workload="resnet50", T=6, n=10, b=8, gp_steps=25,
              s_frontiers=10, frontier_subset=512, seed=3)
+#: K4 shapes: the main path's one chunk of the 2500-row pool at its final
+#: padded train size P = 72, refactored (s0 = 0), block-updated (s0 = 64)
+#: and scored only (s0 = 72); and a chunked pool of 5 x 512 columns (ragged
+#: tail masked) at P = 256.
+K4_SHAPES = [(1, 2500, 72, 64), (1, 2500, 72, 0), (1, 2500, 72, 72),
+             (5, 512, 256, 248)]
 
 
 def _event_ms(fn, repeats: int) -> float:
@@ -89,6 +120,25 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _record(results, name, shape, err, tol_ok, t_k, t_p, t_lib, bound):
+    """Print and keep one kernel check; ``t_*`` are (device, eager) pairs
+    from :func:`time_ms`. Raises if the kernel disagreed."""
+    lib = "n/a" if t_lib is None else f"{t_lib[0]:.4f}/{t_lib[1]:.4f} ms"
+    print(f"  {name} {shape}: max_abs_err={err:.3e} ok={tol_ok} "
+          f"device/eager: kernel={t_k[0]:.4f}/{t_k[1]:.4f} ms "
+          f"plain={t_p[0]:.4f}/{t_p[1]:.4f} ms library={lib} "
+          f"bound={bound[0]:.5f} ms ({bound[1]})")
+    if not tol_ok:
+        raise AssertionError(f"{name} {shape}: kernel disagrees with its "
+                             f"plain version (max abs err {err:.3e})")
+    results.setdefault(name, []).append(dict(
+        shape=shape, max_abs_err=err, ms=t_k[0], plain_ms=t_p[0],
+        library_ms=None if t_lib is None else t_lib[0],
+        eager_ms=t_k[1], plain_eager_ms=t_p[1],
+        library_eager_ms=None if t_lib is None else t_lib[1],
+        bound_ms=bound[0], bound_by=bound[1]))
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
     import numpy as np
@@ -106,23 +156,7 @@ def check_kernels(dev) -> dict:
     layers = torch.as_tensor(get_workload("resnet50"), dtype=torch.float32,
                              device=dev)
     results = {}
-
-    def record(name, shape, err, tol_ok, t_k, t_p, t_lib, bound):
-        """``t_*`` are (device, eager) pairs from :func:`time_ms`."""
-        lib = "n/a" if t_lib is None else f"{t_lib[0]:.4f}/{t_lib[1]:.4f} ms"
-        print(f"  {name} {shape}: max_abs_err={err:.3e} ok={tol_ok} "
-              f"device/eager: kernel={t_k[0]:.4f}/{t_k[1]:.4f} ms "
-              f"plain={t_p[0]:.4f}/{t_p[1]:.4f} ms library={lib} "
-              f"bound={bound[0]:.5f} ms ({bound[1]})")
-        if not tol_ok:
-            raise AssertionError(f"{name} {shape}: kernel disagrees with its "
-                                 f"plain version (max abs err {err:.3e})")
-        results.setdefault(name, []).append(dict(
-            shape=shape, max_abs_err=err, ms=t_k[0], plain_ms=t_p[0],
-            library_ms=None if t_lib is None else t_lib[0],
-            eager_ms=t_k[1], plain_eager_ms=t_p[1],
-            library_eager_ms=None if t_lib is None else t_lib[1],
-            bound_ms=bound[0], bound_by=bound[1]))
+    record = functools.partial(_record, results)
 
     # --- K1 systolic_eval: the reference-front sweep (N=2500) and one
     # design (a BO round's evaluation) on resnet50's 54 layers.
@@ -189,10 +223,75 @@ def check_kernels(dev) -> dict:
     return results
 
 
-def run_tuner(cfg: dict, device, draws=None, pool_device=None):
+K4_ARGS = ("ls", "var", "L", "V", "x", "beta", "ystar", "pool_c", "evalm_c",
+           "y_mean", "y_std", "weights")
+
+
+def k4_problem(dev, nc, C, d, P, m=3, S=10, seed=0) -> dict:
+    """A round_fused problem on the card, made with numpy from ``seed``:
+    SPD Cholesky factors, a V consistent with them (the plain version at
+    s0 = 0), frontier maxima, 3 evaluated columns and, where nc·C exceeds
+    the pool, the ragged tail masked as the engine masks pad columns."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import round_fused as K4
+
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(m, P, P)) / np.sqrt(P)
+    evalm = np.zeros((nc, C), bool)
+    evalm[0, :3] = True
+    evalm.reshape(-1)[MAIN["n_pool"]:] = True
+    sc = 1.5 / np.sqrt(d)  # kernel entries O(0.1), as in the engine's rounds
+    p = dict(ls=np.exp(0.3 * rng.normal(size=(m, d))),
+             var=np.exp(0.2 * rng.normal(size=(m,))),
+             L=np.linalg.cholesky(A @ np.swapaxes(A, -1, -2) + 0.5 * np.eye(P)),
+             V=np.zeros((nc, m, P, C)), x=sc * rng.normal(size=(P, d)),
+             beta=rng.normal(size=(m, P)), ystar=rng.normal(size=(S, m)),
+             pool_c=sc * rng.normal(size=(nc, C, d)), evalm_c=evalm,
+             y_mean=np.linspace(-1, 1, m), y_std=np.linspace(0.5, 2, m),
+             weights=np.linspace(0.2, 1, m))
+    t = {k: torch.as_tensor(v if v.dtype == bool else v.astype(np.float32),
+                            device=dev) for k, v in p.items()}
+    K4.round_select_plain(*(t[k] for k in K4_ARGS), s0=0)
+    return t
+
+
+def check_round_fused(dev, d: int, results: dict) -> None:
+    """K4 against its plain version at ``K4_SHAPES``: equal picks, V within
+    rtol = atol = 2e-5 (expf/erff/logf here against correctly rounded
+    float64 ones there, through the substitution)."""
+    import torch
+
+    from repro_torch.kernels import round_fused as K4
+
+    m, S = 3, MAIN["s_frontiers"]
+    for nc, C, P, s0 in K4_SHAPES:
+        t = k4_problem(dev, nc, C, d, P, m, S, seed=nc * C + P + s0)
+        a = {k: v.clone() for k, v in t.items()}
+        b = {k: v.clone() for k, v in t.items()}
+        va, ia = K4.round_select(*(a[k] for k in K4_ARGS), s0=s0)
+        vb, ib = K4.round_select_plain(*(b[k] for k in K4_ARGS), s0=s0)
+        torch.cuda.synchronize()
+        err = float((va - vb).abs().max())
+        ok = (int(ia) == int(ib)
+              and bool(torch.allclose(va, vb, rtol=2e-5, atol=2e-5))
+              and (s0 < P or bool(torch.equal(va, t["V"]))))
+        print(f"  round_fused picks: kernel {int(ia)}, plain {int(ib)}")
+        args = [a[k] for k in K4_ARGS]
+        bnd = bound_ms(k4_bytes(nc, C, d, m, P, S),
+                       k4_ops(nc, C, d, m, P, S, s0))
+        _record(results, "round_fused", [nc, C, d, m, P, S, s0], err, ok,
+                time_ms(lambda: K4.round_select(*args, s0=s0)),
+                time_ms(lambda: K4.round_select_plain(*args, s0=s0),
+                        reps=2, repeats=3),
+                None, bnd)
+
+
+def run_tuner(cfg: dict, device, draws=None, pool_device=None, **extra):
     """One soc_tuner run through the user's entry points; returns
     (result, pool, reference front, flow). The pool is sampled on
-    ``pool_device`` (default: ``device``)."""
+    ``pool_device`` (default: ``device``); ``extra`` goes to soc_tuner."""
     import torch
 
     from repro_torch.core import make_space, pareto_front, soc_tuner
@@ -207,7 +306,8 @@ def run_tuner(cfg: dict, device, draws=None, pool_device=None):
     kw = {k: cfg[k] for k in ("T", "n", "b", "gp_steps", "s_frontiers",
                               "frontier_subset")}
     res = soc_tuner(space, pool, flow, reference_front=ref,
-                    seed=cfg["seed"], draws=draws, device=device, **kw)
+                    seed=cfg["seed"], draws=draws, device=device, **kw,
+                    **extra)
     return res, pool, ref, flow
 
 
@@ -224,6 +324,7 @@ def check_result(res, pool, ref, cfg) -> None:
     assert len(rows) == len(set(rows.tolist())), "a row was evaluated twice"
     assert res.y.shape == (len(rows), 3) and np.isfinite(res.y).all()
     assert len(res.history) == cfg["T"] + 1
+    assert res.engine_stats["rounds"] == cfg["T"]
     y_cpu = VLSIFlow(make_space(), cfg["workload"], device="cpu")(pool[rows])
     np.testing.assert_allclose(res.y, y_cpu, rtol=2e-5)
     final = res.history[-1]["adrs"]
@@ -231,23 +332,61 @@ def check_result(res, pool, ref, cfg) -> None:
     np.testing.assert_allclose(final, adrs(ref, res.pareto_y), rtol=1e-12)
 
 
-def round_breakdown(res, pool, flow, cfg: dict, dev) -> dict:
-    """One more exact round at the main path's final state, stage by stage:
-    host-clock seconds (each stage ends in a synchronize) of the GP fit, the
-    acquisition (posterior, frontier sampling, scoring) and one flow call.
-    The round then runs again under torch.profiler for the device's busy
-    seconds and launch count; the busy share divides those by the
-    unprofiled round, since the profiler slows the host but not the card."""
+def _pool_icd(res, pool, dev):
+    """The main path's pool in ICD space, as soc_tuner built it."""
+    import torch
+
+    from repro_torch.core import make_space
+    from repro_torch.core.sampling import transform_to_icd
+
+    pool_t = torch.as_tensor(pool, device=dev)
+    return transform_to_icd(make_space(), res.space.apply_pins(pool_t),
+                            res.v).contiguous()
+
+
+def device_busy(fn, wall_s: float) -> dict:
+    """Run ``fn`` once under torch.profiler: the device's busy seconds, its
+    share of ``wall_s`` (an unprofiled run of the same work: the profiler
+    slows the host, not the card), launches and the busiest kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import fit_gp, imoo_scores, make_space
-    from repro_torch.core.sampling import transform_to_icd
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
+    launches = sum(e.count for e in dev_events)
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
+    out = dict(device_busy_s=dev_s if launches else None,
+               device_busy_share=dev_s / wall_s if launches else None,
+               device_launches=launches,
+               top_kernels=[(e.key[:60], e.count, e.self_device_time_total)
+                            for e in top])
+    out["busy_text"] = (
+        "device busy: not measured (the profiler saw no device activity)"
+        if not launches else
+        f"device busy {dev_s:.4f} s ({100 * out['device_busy_share']:.1f} % "
+        f"of the round), {launches} launches")
+    return out
+
+
+def _print_top(out: dict) -> None:
+    for name, count, us in out["top_kernels"]:
+        print(f"    {us / 1e3:8.2f} ms {count:6d}x {name}")
+
+
+def round_breakdown(res, pool, flow, cfg: dict, dev) -> dict:
+    """One more exact round at the main path's final state, stage by stage:
+    host-clock seconds (each stage ends in a synchronize) of the GP fit, the
+    acquisition (posterior, frontier sampling, scoring) and one flow call;
+    then the same round under torch.profiler (:func:`device_busy`)."""
+    import torch
+
+    from repro_torch.core import fit_gp, imoo_scores
     from repro_torch.random import GeneratorDraws
 
-    pool_t = torch.as_tensor(pool, device=dev)
-    pool_icd = transform_to_icd(make_space(), res.space.apply_pins(pool_t),
-                                res.v).contiguous()
+    pool_icd = _pool_icd(res, pool, dev)
     x = pool_icd[torch.as_tensor(res.evaluated_rows, device=dev)]
     y = torch.as_tensor(-res.y, device=dev)
     sub, eps = GeneratorDraws(1, dev).round(len(pool), cfg["frontier_subset"],
@@ -268,31 +407,90 @@ def round_breakdown(res, pool, flow, cfg: dict, dev) -> dict:
         return t
 
     t = one_round()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        one_round()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_s = sum(e.self_device_time_total for e in dev_events) * 1e-6
-    launches = sum(e.count for e in dev_events)
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:6]
     out = dict(fit_s=t[1] - t[0], acquisition_s=t[2] - t[1],
-               flow_s=t[3] - t[2], round_s=t[3] - t[0],
-               device_busy_s=dev_s if launches else None,
-               device_busy_share=dev_s / (t[3] - t[0]) if launches else None,
-               device_launches=launches,
-               top_kernels=[(e.key[:60], e.count, e.self_device_time_total)
-                            for e in top])
-    busy = ("device busy: not measured (the profiler saw no device activity)"
-            if not launches else
-            f"device busy {dev_s:.3f} s ({100 * out['device_busy_share']:.1f} "
-            f"% of the round), {launches} launches")
-    print(f"  one round, stage by stage: fit {out['fit_s']:.3f} s "
+               flow_s=t[3] - t[2], round_s=t[3] - t[0])
+    out.update(device_busy(one_round, out["round_s"]))
+    print(f"  one exact round, stage by stage: fit {out['fit_s']:.3f} s "
           f"({cfg['gp_steps']} Adam steps), acquisition "
           f"{out['acquisition_s']:.4f} s, flow {out['flow_s']:.4f} s, round "
-          f"{out['round_s']:.3f} s; {busy}")
-    for name, count, us in out["top_kernels"]:
-        print(f"    {us / 1e3:8.2f} ms {count:6d}x {name}")
+          f"{out['round_s']:.3f} s; {out['busy_text']}")
+    _print_top(out)
     return out
+
+
+def incremental_breakdown(res, pool, cfg: dict, dev) -> dict:
+    """Warm incremental rounds at the incremental main path's final state:
+    an engine observes all but the last two evaluations, runs its cold
+    round, observes one more, and then runs warm rounds. With
+    ``profile_stages=True``: the seconds of each stage of one warm round.
+    Without: one warm round's wall seconds (host clock, ending in a
+    synchronize), its round_fused launches, and the same round under
+    torch.profiler (:func:`device_busy`)."""
+    import torch
+
+    from repro_torch.core import BOEngine
+    from repro_torch.core.engine import PROFILE_STAGES
+    from repro_torch.kernels import round_fused as K4
+    from repro_torch.random import GeneratorDraws
+
+    pool_icd = _pool_icd(res, pool, dev)
+    rows, y = res.evaluated_rows, res.y
+    draws = GeneratorDraws(2, dev)
+
+    def draw():
+        return draws.round(len(pool), cfg["frontier_subset"], 3,
+                           cfg["s_frontiers"])
+
+    def warm_engine(**kw):
+        eng = BOEngine(pool_icd, incremental=True, gp_steps=cfg["gp_steps"],
+                       s_frontiers=cfg["s_frontiers"], device=dev, **kw)
+        eng.observe(rows[:-2], y[:-2])
+        sub, eps = draw()
+        eng.select(eps, sub)
+        eng.observe(rows[-2:-1], y[-2:-1])
+        return eng
+
+    eng = warm_engine(profile_stages=True)
+    before = dict(eng.stats.stage_wall_s)
+    sub, eps = draw()
+    eng.select(eps, sub)
+    stages = {k: eng.stats.stage_wall_s[k] - before.get(k, 0.0)
+              for k in PROFILE_STAGES + ("round_total",)}
+
+    eng = warm_engine()
+    sub, eps = draw()
+    k4_before = K4.launches
+    refactors = eng.stats.refactors
+
+    def one_round():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.select(eps, sub)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = dict(stage_s=stages, round_s=one_round(),
+               k4_launches_per_round=K4.launches - k4_before,
+               refactored=eng.stats.refactors > refactors,
+               P=eng._P, warm_steps=eng.warm_steps)
+    out.update(device_busy(one_round, out["round_s"]))
+    print(f"  one warm incremental round ({out['warm_steps']} Adam steps, "
+          f"P={out['P']}, {'refactor' if out['refactored'] else 'block update'}"
+          f"): {out['round_s']:.4f} s, {out['k4_launches_per_round']} "
+          f"round_fused launch(es); {out['busy_text']}")
+    print("  the same round in profile mode, stage by stage: " + ", ".join(
+        f"{k} {v:.4f} s" for k, v in stages.items()))
+    _print_top(out)
+    return out
+
+
+def compare_rows(what: str, a, b) -> None:
+    """Assert that two soc_tuner results evaluated the same rows."""
+    import numpy as np
+
+    print(f"{what}: {a.evaluated_rows.tolist()}")
+    assert np.array_equal(a.evaluated_rows, b.evaluated_rows), \
+        f"{what}: the rows differ: {b.evaluated_rows.tolist()}"
 
 
 def main() -> int:
@@ -334,57 +532,93 @@ def main() -> int:
           "replay, eager = launched from Python):")
     checks = check_kernels(dev)
 
-    print("main path: soc_tuner", json.dumps(MAIN))
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    res, pool, ref, flow = run_tuner(MAIN, dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.__name__.rsplit(".", 1)[1]: k.launches for k in kernels.KERNELS}
-    for h in res.history:
-        print(f"  round {h['round']:2d} wall_s={h['wall_s']:.3f} "
-              f"evals={h['evaluations']} front={h['pareto_size']} "
-              f"adrs={h['adrs']:.5f}")
-    print(f"  main path: {wall:.1f} s, final ADRS {res.history[-1]['adrs']:.5f}, "
-          f"flow evaluations {flow.evaluated} in {flow.calls} calls, "
-          f"launches {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    def drive(label: str, **extra):
+        """One main-path run with every launch count set to 0 just before
+        it; returns (result, pool, ref, flow, launches, wall seconds)."""
+        print(f"main path ({label}): soc_tuner", json.dumps({**MAIN, **extra}))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        res, pool, ref, flow = run_tuner(MAIN, dev, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                    for k in kernels.KERNELS}
+        for h in res.history:
+            print(f"  round {h['round']:2d} wall_s={h['wall_s']:.3f} "
+                  f"evals={h['evaluations']} front={h['pareto_size']} "
+                  f"adrs={h['adrs']:.5f}")
+        st = res.engine_stats
+        print(f"  {label}: {wall:.1f} s, final ADRS "
+              f"{res.history[-1]['adrs']:.5f}, flow evaluations "
+              f"{flow.evaluated} in {flow.calls} calls, rounds {st['rounds']}, "
+              f"refactors {st['refactors']}, block updates "
+              f"{st['block_updates']}, launches {launches}")
+        check_result(res, pool, ref, MAIN)
+        return res, pool, ref, flow, launches, wall
+
+    res, pool, ref, flow, launches, wall = drive("exact")
+    missing = [k for k in ("systolic_eval", "pairdist", "pareto_count")
+               if launches[k] == 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    check_result(res, pool, ref, MAIN)
+        raise AssertionError(f"kernels not launched on the exact path: {missing}")
     breakdown = round_breakdown(res, pool, flow, MAIN, dev)
 
-    # Small input: the card's run picks what the CPU's plain run picks, with
+    res_i, pool_i, ref_i, flow_i, launches_i, wall_i = drive(
+        "incremental", incremental=True)
+    missing = [k for k, n in launches_i.items() if n == 0]
+    if missing:
+        raise AssertionError(
+            f"kernels not launched on the incremental path: {missing}")
+    if launches_i["round_fused"] < MAIN["T"]:
+        raise AssertionError(f"round_fused launched {launches_i['round_fused']}"
+                             f" times in {MAIN['T']} incremental rounds")
+    breakdown_i = incremental_breakdown(res_i, pool_i, MAIN, dev)
+
+    print("round_fused checks at the main path's shapes:")
+    check_round_fused(dev, _pool_icd(res_i, pool_i, dev).shape[1], checks)
+
+    # Chunking on the card: the same incremental run over 512-column chunks.
+    res_c = run_tuner(MAIN, dev, incremental=True, pool_chunk=512)[0]
+    print(f"incremental rows, pool_chunk=None: {res_i.evaluated_rows.tolist()}")
+    compare_rows("incremental rows, pool_chunk=512 ", res_c, res_i)
+
+    # Small input: the card's runs pick what the CPU's plain runs pick, with
     # the same draws (seeded on the CPU, handed to both).
-    small = {}
-    for d in ("cuda", "cpu"):
-        small[d] = run_tuner(SMALL, d, GeneratorDraws(SMALL["seed"], "cpu"),
-                             pool_device="cpu")
-        check_result(*small[d][:3], SMALL)
-    r_gpu, r_cpu = small["cuda"][0], small["cpu"][0]
-    print(f"small check (n_pool=64, T=6): cuda rows {r_gpu.evaluated_rows.tolist()}")
-    print(f"                             cpu  rows {r_cpu.evaluated_rows.tolist()}")
-    assert np.array_equal(r_gpu.evaluated_rows, r_cpu.evaluated_rows), \
-        "the card's small run picked other rows than the CPU's plain run"
-    np.testing.assert_allclose(r_gpu.history[-1]["adrs"],
-                               r_cpu.history[-1]["adrs"], rtol=1e-5)
+    for label, extra in (("exact", {}), ("incremental", dict(incremental=True)),
+                         ("incremental q=2", dict(incremental=True, q=2))):
+        small = {}
+        for d in ("cuda", "cpu"):
+            small[d] = run_tuner(SMALL, d, GeneratorDraws(SMALL["seed"], "cpu"),
+                                 pool_device="cpu", **extra)
+            check_result(*small[d][:3], SMALL)
+        r_gpu, r_cpu = small["cuda"][0], small["cpu"][0]
+        compare_rows(f"small check (n_pool=64, T=6, {label}): cuda rows",
+                     r_gpu, r_cpu)
+        np.testing.assert_allclose(r_gpu.history[-1]["adrs"],
+                                   r_cpu.history[-1]["adrs"], rtol=1e-5)
 
     src = "src/repro_torch/csrc/"
     meta = {
         "systolic_eval": ("systolic_eval.cu",
-                          "src/repro/kernels/systolic_eval/kernel.py:33"),
-        "pairdist": ("pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36"),
+                          "src/repro/kernels/systolic_eval/kernel.py:33",
+                          launches),
+        "pairdist": ("pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36",
+                     launches),
         "pareto_count": ("pareto_count.cu",
-                         "src/repro/kernels/pareto_count/kernel.py:34"),
+                         "src/repro/kernels/pareto_count/kernel.py:34",
+                         launches),
+        "round_fused": ("round_fused.cu",
+                        "src/repro/kernels/round_fused/kernel.py:142",
+                        launches_i),
     }
     entries = []
-    for name, (cu, replaces) in meta.items():
+    for name, (cu, replaces, counts) in meta.items():
         head = checks[name][0]
         errs = [c["max_abs_err"] for k in checks if k.startswith(name)
                 for c in checks[k]]
         entries.append(dict(
             name=name, route="cuda", source=src + cu, replaces=replaces,
-            launches=launches[name], max_abs_err=max(errs), ms=head["ms"],
+            launches=counts[name], max_abs_err=max(errs), ms=head["ms"],
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"]))
@@ -395,7 +629,13 @@ def main() -> int:
             build_s=build.build_seconds(), checks=checks, kernels=entries,
             main=dict(config=MAIN, wall_s=wall, history=res.history,
                       flow_evaluated=flow.evaluated, flow_calls=flow.calls,
-                      launches=launches, round_breakdown=breakdown)),
+                      launches=launches, round_breakdown=breakdown),
+            incremental=dict(config={**MAIN, "incremental": True},
+                             wall_s=wall_i, history=res_i.history,
+                             engine_stats=res_i.engine_stats,
+                             flow_evaluated=flow_i.evaluated,
+                             flow_calls=flow_i.calls, launches=launches_i,
+                             round_breakdown=breakdown_i)),
             indent=1))
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -9,10 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.engine import ENGINE_STATE_FORMAT
 from repro_torch.core.gp import GPParams, GPState
 from repro_torch.device import resolve_device
 
-__all__ = ["gp_params_from_numpy", "gp_state_from_numpy"]
+__all__ = ["gp_params_from_numpy", "gp_state_from_numpy",
+           "engine_state_from_numpy"]
 
 
 def _t(a, device) -> torch.Tensor:
@@ -35,3 +37,24 @@ def gp_state_from_numpy(params: dict, x, y, y_mean, y_std, chol, alpha,
     return GPState(gp_params_from_numpy(params, dev), _t(x, dev), _t(y, dev),
                    _t(y_mean, dev), _t(y_std, dev), _t(chol, dev),
                    _t(alpha, dev))
+
+
+def engine_state_from_numpy(d: dict) -> dict:
+    """A JAX ``BOEngine.state_dict()`` as a snapshot for the port's
+    ``BOEngine.load_state_dict``. The key layout is the same; every array is
+    copied into an owned numpy array of the port's dtype (JAX hands out
+    read-only views of its buffers)."""
+    if d.get("format") != ENGINE_STATE_FORMAT or d.get("kind") != "BOEngine":
+        raise ValueError(f"not a BOEngine snapshot of format "
+                         f"{ENGINE_STATE_FORMAT}: format={d.get('format')!r}, "
+                         f"kind={d.get('kind')!r}")
+    dtypes = {"rows": np.int64, "rows_pad": np.int32}
+
+    def copy(key, v):
+        if isinstance(v, dict):
+            return {k: copy(k, x) for k, x in v.items()}
+        if v is None or isinstance(v, (bool, int, float, str, list)):
+            return v
+        return np.array(v, dtypes.get(key, np.float32))
+
+    return {k: copy(k, v) for k, v in d.items()}

@@ -1,72 +1,412 @@
-"""The exact BO engine: one scenario's surrogate + acquisition rounds.
+"""The BO engine: one scenario's persistent surrogate + acquisition rounds.
 
-A port of ``repro.core.engine.BOEngine(incremental=False)``: each round is
-a cold ``fit_gp`` on every observation so far, IMOO scoring of the whole pool
-with frontier sampling over ``sub_rows``, never-re-evaluate masking and a
-host argmax (ties to the first index). The incremental engine (warm fits,
-rank-k Cholesky updates, the ``round_fused`` kernel) is not ported yet
-(ROADMAP queue 1, item 9).
+A port of ``repro.core.engine.BOEngine``. Two paths:
+
+* ``incremental=False`` (the exact path): each round is a ``fit_gp`` on every
+  observation so far (cold, or warm from the last round's hyperparameters
+  with ``warm_start``), IMOO scoring of the whole pool with frontier sampling
+  over ``sub_rows``, never-re-evaluate masking and a host argmax.
+* ``incremental=True``: the surrogate lives across rounds. Adam resumes from
+  the last round's hyperparameters for ``warm_steps`` steps; the Cholesky
+  factor ``L`` of the padded training set is extended by a rank-k block
+  update of its trailing rows, and refactored only on bucket growth or when
+  the fitted hyperparameters drift more than ``drift_tol`` from the ones
+  ``L`` was built with (``params_ref``). The pool is cut into ``nc`` column
+  chunks of ``C`` candidates (``pool_chunk``), and the cache
+  ``V = L⁻¹·K(train, pool)`` is kept as ``[nc, m, P, C]``. The V update,
+  the posterior moments, the MES scores, the mask and the argmax of a round
+  are one call of the ``round_fused`` kernel (K4): its plain version on a
+  CPU pool, its CUDA kernel on a GPU pool. Picks do not depend on the chunk
+  size.
+
+The refactor decision is taken on the host: the drift, a float32 scalar, is
+compared with ``float32(drift_tol)`` exactly as the reference's in-graph
+``lax.cond`` does. Where the reference donates its state buffers to the
+jitted round, K4 here writes the new rows of V **in place** into the cached
+tensor; :meth:`BOEngine.state_dict` therefore copies every array it returns.
+
+q-batches (:meth:`BOEngine.select_q`) impute each pick's outcome (posterior
+mean or a constant liar), extend L by the same block update and re-score the
+pool under the round's frozen frontier sample ``y*``. A fantasy step's V
+update and its re-score are one K4 call (the reference runs the append
+staged and then a score-only launch; the pick is the same). Fantasy rows
+live only in the trailing ``[s0, P)`` rows that the next real round
+recomputes.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from .acquisition import imoo_scores
-from .gp import fit_gp
+from repro_torch.device import resolve_device
+from repro_torch.kernels import round_fused as _rf
 
-__all__ = ["BOEngine", "EngineStats"]
+from .acquisition import imoo_scores
+from .gp import (JITTER, PAD_BUCKET, GPParams, _cholesky, _fit, _kernels,
+                 _standardize, default_params, fit_gp)
+
+__all__ = ["BOEngine", "EngineStats", "EngineState", "FANTASY_MODES",
+           "PROFILE_STAGES", "ENGINE_STATE_FORMAT", "auto_chunk"]
+
+#: imputation rules of fantasy (q-batch / pending) selection: ``"mean"`` —
+#: posterior mean at the pick; ``"cl_min"`` / ``"cl_max"`` — constant liar at
+#: the worst / best observed target per objective (in the engine's negated,
+#: standardized target space).
+FANTASY_MODES = ("mean", "cl_min", "cl_max")
+
+#: version tag of the ``state_dict`` layout (the reference's)
+ENGINE_STATE_FORMAT = 1
+
+#: stage keys a profiled select round fills, in execution order
+PROFILE_STAGES = ("fit", "factor", "v_update", "frontier", "moments",
+                  "score", "argmax")
+
+#: memory budget of one pool chunk under ``pool_chunk="auto"``
+DEFAULT_CHUNK_BUDGET_MB = 64
+
+
+def auto_chunk(n: int, *, bytes_per_col: int = 4 * 3 * 256,
+               budget_mb: int = DEFAULT_CHUNK_BUDGET_MB,
+               floor: int = 2048) -> int:
+    """Column-chunk size for an ``n``-wide pool under a memory budget
+    (``repro.kernels.backend.auto_chunk``): ``bytes_per_col`` models one
+    column of V (m = 3 objectives × P = 256 rows × float32); the result is
+    clamped to ``[min(floor, n), n]``."""
+    if n < 1:
+        raise ValueError(f"auto_chunk: n must be >= 1, got {n}")
+    c = (budget_mb << 20) // max(bytes_per_col, 1)
+    return int(min(n, max(floor, c)))
 
 
 @dataclasses.dataclass
 class EngineStats:
-    """Host-side counters for one engine run."""
+    """Host-side counters for one engine run (the reference's fields)."""
 
     rounds: int = 0
-    dispatches: int = 0  # round stages run (fit, posterior, frontier, predict, score)
+    refactors: int = 0       # full O(P³) factorizations
+    block_updates: int = 0   # rank-k trailing-block updates
+    dispatches: int = 0      # round programs (exact: 5 stages per round)
+    fantasy_steps: int = 0   # rank-1 fantasy appends (q-batch / pending)
+    frontier_resamples: int = 0  # joint frontier draws (1 per round)
+    last_drift: float = 0.0  # max |params − params_ref| at the last round
+    # counters of the batched engine and of pool edits (not ported yet);
+    # kept so snapshots carry the reference's keys
+    scenario_refactors: int = 0
+    scenario_block_updates: int = 0
+    mixed_rounds: int = 0
+    pool_appends: int = 0
+    pool_replacements: int = 0
+    v_chunk_refreshes: int = 0
+    #: cumulative wall seconds per stage of profiled rounds
+    #: (``profile_stages=True``): the ``PROFILE_STAGES`` keys plus
+    #: ``"round_total"`` around the whole staged round
+    stage_wall_s: dict = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> dict:
         return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "EngineStats":
+        """Build from a snapshot dict: unknown keys are dropped, missing keys
+        keep their defaults; ``stage_wall_s`` is copied."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        kept = {k: v for k, v in d.items() if k in fields}
+        if kept.get("stage_wall_s") is not None:
+            kept["stage_wall_s"] = {str(k): float(v)
+                                    for k, v in kept["stage_wall_s"].items()}
+        return cls(**kept)
+
+
+class EngineState(NamedTuple):
+    """The incremental engine's state between rounds."""
+
+    params: GPParams      # warm-evolving fit hyperparameters
+    params_ref: GPParams  # hyperparameters of the current factorization
+    L: torch.Tensor       # [m, P, P] Cholesky of K(params_ref) + noise
+    V: torch.Tensor       # [nc, m, P, C] L⁻¹·K(train_pad, pool chunk)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    """A numpy copy (``Tensor.numpy()`` on the CPU shares memory)."""
+    return t.detach().cpu().numpy().copy()
+
+
+def _params_to_np(p: GPParams) -> dict:
+    return {"log_ls": _np(p.log_ls), "log_var": _np(p.log_var),
+            "log_noise": _np(p.log_noise)}
+
+
+def _params_from_np(d: dict, device) -> GPParams:
+    return GPParams(*(torch.tensor(np.asarray(d[k], np.float32), device=device)
+                      for k in ("log_ls", "log_var", "log_noise")))
+
+
+def _drift(params: GPParams, params_ref: GPParams) -> torch.Tensor:
+    """max |Δ| over all log-domain hyperparameter leaves (float32)."""
+    return torch.stack([torch.max(torch.abs(a - b))
+                        for a, b in zip(params, params_ref)]).max()
+
+
+# ------------------------------------------------------------ factorization
+def _chol_refactor(params: GPParams, x, mask) -> torch.Tensor:
+    """[m, P, P] full train Cholesky factors (no pool work)."""
+    P = x.shape[0]
+    eye = torch.eye(P, dtype=x.dtype, device=x.device)
+    K = (_kernels(params, x, x)
+         + (torch.exp(params.log_noise) + JITTER)[:, None, None] * eye)
+    return _cholesky(K + torch.diag(1e6 * mask))
+
+
+def _chol_block(params_ref: GPParams, L, x, mask, s0: int) -> torch.Tensor:
+    """Rank-k extension of L: rows [s0, P) recomputed, rows above kept.
+
+    For ``K = [[K11, K12], [K21, K22]]``: ``L21 = (L11⁻¹ K12)ᵀ`` and
+    ``L22 = chol(K22 − L21 L21ᵀ)``, what a full factorization gives, at
+    O(P²·k). Valid while rows [0, s0) of ``x`` are unchanged since ``L``
+    was built."""
+    xa, xb = x[:s0], x[s0:]
+    B = x.shape[0] - s0
+    eye = torch.eye(B, dtype=x.dtype, device=x.device)
+    K12 = _kernels(params_ref, xa, xb)                          # [m, s0, B]
+    K22 = (_kernels(params_ref, xb, xb)
+           + (torch.exp(params_ref.log_noise) + JITTER)[:, None, None] * eye
+           + torch.diag(1e6 * mask[s0:]))
+    L21 = torch.linalg.solve_triangular(L[:, :s0, :s0], K12,
+                                        upper=False).transpose(1, 2)
+    L22 = _cholesky(K22 - L21 @ L21.transpose(1, 2))
+    out = L.clone()
+    out[:, s0:, :s0] = L21
+    out[:, s0:, s0:] = L22
+    return out
+
+
+# ----------------------------------------------------------------- scoring
+def _col_moments(log_var, beta, V):
+    """Posterior mean/std [m, C] of a V block [m, P, C] for whitened targets
+    ``beta`` [m, P], in the fixed sequential order (never a matmul: the
+    chunk-size invariance of the picks rests on it)."""
+    return _rf.col_moments_plain(torch.exp(log_var), beta, V)
+
+
+def _train_beta(L, yn) -> torch.Tensor:
+    """[m, P] whitened targets β = L⁻¹·y per objective."""
+    return torch.linalg.solve_triangular(L, yn.T[:, :, None],
+                                         upper=False)[:, :, 0]
+
+
+def _frontier_ystar(params_ref: GPParams, L, beta, x, xq, y_mean, y_std,
+                    eps) -> torch.Tensor:
+    """[s, m] sampled Pareto-frontier maxima over the ``xq`` [q, d] subset,
+    from the standard normals ``eps`` [m, q, s] (the joint draw of
+    ``gp_joint_samples`` + ``frontier_maxima``)."""
+    q = xq.shape[0]
+    Ks = _kernels(params_ref, x, xq)                            # [m, P, q]
+    Vs = torch.linalg.solve_triangular(L, Ks, upper=False)
+    mean_q, _ = _col_moments(params_ref.log_var, beta, Vs)      # [m, q]
+    cov = _kernels(params_ref, xq, xq) - Vs.transpose(1, 2) @ Vs
+    jit = 1e-4 * torch.exp(params_ref.log_var) + 1e-6
+    eye = torch.eye(q, dtype=xq.dtype, device=xq.device)
+    Lq = _cholesky(cov + jit[:, None, None] * eye)
+    samp = mean_q[:, :, None] + Lq @ eps                        # [m, q, s]
+    samp = samp.permute(2, 1, 0) * y_std + y_mean               # [s, q, m]
+    return torch.amax(samp, dim=1)
+
+
+def _beta_ystar(params_ref: GPParams, L, x, yn, y_mean, y_std, pool_flat,
+                sub, eps):
+    """Whitened targets and ONE sampled frontier maximum for a round."""
+    beta = _train_beta(L, yn)
+    ystar = _frontier_ystar(params_ref, L, beta, x, pool_flat[sub], y_mean,
+                            y_std, eps)
+    return beta, ystar
+
+
+def _round_fused(params_ref: GPParams, L, V, x, beta, ystar, pool_c,
+                 evalm_c, y_mean, y_std, weights, s0: int):
+    """K4 on the engine's state: ``(V, pick)`` with V updated in place."""
+    return _rf.round_select(torch.exp(params_ref.log_ls),
+                            torch.exp(params_ref.log_var), L, V, x, beta,
+                            ystar, pool_c, evalm_c, y_mean, y_std, weights,
+                            s0=s0)
+
+
+def _round_seq(state: EngineState, x, yn, y_mean, y_std, mask, pool_c,
+               evalm_c, sub, eps, force_refactor: bool, drift_tol: float,
+               weights, *, steps: int, s0: int):
+    """One incremental round: warm fit → drift check → block update or
+    refactor → frontier sample → one K4 call (V update, scores, argmax).
+
+    Returns ``(state, pick, refactored, drift, ystar)``; ``pick`` is a
+    0-dim int32 tensor on the pool's device."""
+    params = _fit(state.params, x, yn, mask, steps=steps)
+    drift = _drift(params, state.params_ref)
+    do_ref = (s0 <= 0 or force_refactor
+              or bool(np.float32(float(drift)) > np.float32(drift_tol)))
+    params_ref = params if do_ref else state.params_ref
+    L = (_chol_refactor(params_ref, x, mask) if do_ref
+         else _chol_block(params_ref, state.L, x, mask, s0))
+    beta, ystar = _beta_ystar(params_ref, L, x, yn, y_mean, y_std,
+                              pool_c.reshape(-1, pool_c.shape[-1]), sub, eps)
+    V, nxt = _round_fused(params_ref, L, state.V, x, beta, ystar, pool_c,
+                          evalm_c, y_mean, y_std, weights,
+                          0 if do_ref else s0)
+    return EngineState(params, params_ref, L, V), nxt, do_ref, drift, ystar
+
+
+# ------------------------------------------------------- fantasy (q-batch)
+def _liar_target(liar: str, mean_std, yn, mask) -> torch.Tensor:
+    """Imputed standardized target [m] of one fantasy row."""
+    if liar == "mean":
+        return mean_std
+    pad = mask[:, None] > 0
+    if liar == "cl_min":
+        return torch.where(pad, math.inf, yn).amin(dim=0)
+    return torch.where(pad, -math.inf, yn).amax(dim=0)
+
+
+def _fantasy_step(params_ref: GPParams, L, V, rows_pad, yn, mask, pool_c,
+                  evalm_c, weights, y_mean, y_std, ystar, pick: int,
+                  pos: int, *, s0: int, liar: str):
+    """Append ONE fantasy observation and re-score under the frozen
+    ``ystar``: the picked row takes pad position ``pos``, its target is
+    imputed under the current posterior (the moments' fixed order), L gets
+    the trailing block update from ``s0`` (the bucket floor of the real
+    rows), and one K4 call updates V in place and picks again."""
+    nc, C, d = pool_c.shape
+    P = L.shape[-1]
+    beta = _train_beta(L, yn)
+    Vcol = V[pick // C, :, :, pick % C]                         # [m, P]
+    mean_std = beta[:, 0] * Vcol[:, 0]
+    for p in range(1, P):
+        mean_std = mean_std + beta[:, p] * Vcol[:, p]
+    target = _liar_target(liar, mean_std, yn, mask)
+    rows2, mask2, yn2 = rows_pad.clone(), mask.clone(), yn.clone()
+    rows2[pos] = pick
+    mask2[pos] = 0.0
+    yn2[pos] = target
+    x2 = pool_c.reshape(-1, d)[rows2] + 10.0 * mask2[:, None]
+    L2 = (_chol_refactor(params_ref, x2, mask2) if s0 <= 0
+          else _chol_block(params_ref, L, x2, mask2, s0))
+    evalm2 = evalm_c.clone()
+    evalm2[pick // C, pick % C] = True
+    V2, nxt = _round_fused(params_ref, L2, V, x2, _train_beta(L2, yn2), ystar,
+                           pool_c, evalm2, y_mean, y_std, weights, max(s0, 0))
+    return L2, V2, rows2, mask2, yn2, evalm2, nxt
 
 
 class BOEngine:
     """Persistent surrogate + acquisition engine for one scenario::
 
-        engine = BOEngine(pool_icd, gp_steps=150)
+        engine = BOEngine(pool_icd, gp_steps=150)    # on cuda by default
         engine.observe(init_rows, y_init)            # raw (minimized) metrics
         for _ in range(T):
             sub, eps = draws.round(N, 512, m, s)
             nxt = engine.select(eps, sub)            # one BO round
             engine.observe([nxt], flow(pool_idx[nxt][None]))
 
-    The pool ``pool_icd`` [N, d] lives on its device; every round runs there.
+    The pool ``pool_icd`` [N, d] (numpy or tensor) is moved to ``device``
+    (default ``cuda``; the CPU only when asked for) and every round runs
+    there. See the module docstring for the two paths. ``pool_chunk``
+    (``None`` | int | ``"auto"``, incremental only) sets the chunk width;
+    any width picks the same rows. ``profile_stages`` (incremental only)
+    runs each select round as timed stages into ``stats.stage_wall_s``.
     """
 
     #: round stages of one exact round (fit, posterior cache, frontier
     #: sampling, predict, scoring) — the ``dispatches`` counter's unit
     EXACT_DISPATCHES_PER_ROUND = 5
 
-    def __init__(self, pool_icd: torch.Tensor, *, incremental: bool = False,
-                 gp_steps: int = 150, s_frontiers: int = 10, weights=None):
-        if incremental:
-            raise NotImplementedError(
-                "repro_torch: BOEngine(incremental=True) is not ported yet "
-                "(ROADMAP queue 1, item 9); use incremental=False")
-        self.pool = torch.as_tensor(pool_icd, dtype=torch.float32).contiguous()
-        self.device = self.pool.device
+    def __init__(self, pool_icd, *, incremental: bool = True,
+                 warm_start: bool | None = None, gp_steps: int = 150,
+                 warm_steps: int | None = None, drift_tol: float = 1.0,
+                 bucket: int = PAD_BUCKET, s_frontiers: int = 10,
+                 weights=None, pool_chunk: int | str | None = None,
+                 profile_stages: bool = False, device=None):
+        self.device = resolve_device(device)
+        self.pool = torch.as_tensor(pool_icd, dtype=torch.float32).to(
+            self.device).contiguous()
         self.N, self.d = self.pool.shape
+        self.incremental = bool(incremental)
+        self.warm_start = (self.incremental if warm_start is None
+                           else bool(warm_start))
         self.gp_steps = int(gp_steps)
+        self.warm_steps = (max(10, self.gp_steps // 10) if warm_steps is None
+                           else int(warm_steps))
+        self.drift_tol = float(drift_tol)
+        self.bucket = int(bucket)
         self.s_frontiers = int(s_frontiers)
         self.weights = (None if weights is None else torch.as_tensor(
             np.asarray(weights), dtype=torch.float32, device=self.device))
         self.stats = EngineStats()
+        self._C = self._resolve_chunk(pool_chunk, self.N)
+        self._regrid()
+        if profile_stages and not self.incremental:
+            raise ValueError("profile_stages requires incremental=True: the "
+                             "exact path has no staged round")
+        self.profile_stages = bool(profile_stages)
+
         self._rows: list[int] = []
         self._y: np.ndarray | None = None       # [k, m] raw minimized metrics
+        self._eval_mask = torch.zeros(self.N, dtype=torch.bool,
+                                      device=self.device)
+        self._state: EngineState | None = None
+        self._last_params: GPParams | None = None   # exact-path warm start
+        self._P = 0                              # current padded train size
+        self._n_at_last_select = 0
+        self._last_batch = None                  # (rows_pad, y_pad, mask)
+        self._last_ystar: torch.Tensor | None = None
 
+    # ---------------------------------------------------------- chunk grid
+    def _fit_schedule(self, first: bool) -> tuple[bool, int]:
+        """(cold, steps) of this round's Adam fit."""
+        cold = first or not self.warm_start
+        return cold, self.gp_steps if cold else self.warm_steps
+
+    def _resolve_chunk(self, pool_chunk, n: int) -> int:
+        """``pool_chunk`` -> chunk width C in [1, n]: ``None`` is one chunk,
+        ``"auto"`` is :func:`auto_chunk`."""
+        if pool_chunk is None:
+            return n
+        if not self.incremental:
+            raise ValueError(
+                "pool_chunk requires incremental=True: the exact path scores "
+                "the pool in one piece")
+        if pool_chunk == "auto":
+            return auto_chunk(n)
+        c = int(pool_chunk)
+        if c < 1:
+            raise ValueError(f"pool_chunk must be >= 1, got {pool_chunk}")
+        return min(c, n)
+
+    def _regrid(self) -> None:
+        """The chunked pool [nc, C, d]: padded to nc·C with copies of row 0
+        (pad columns are always masked, see :meth:`_evalm_chunks`)."""
+        self._nc = -(-self.N // self._C)
+        self._N_pad = self._nc * self._C
+        pool = self.pool
+        pad = self._N_pad - self.N
+        if pad:
+            pool = torch.cat([pool, pool[:1].repeat(pad, 1)])
+        self._pool_c = pool.reshape(self._nc, self._C, self.d).contiguous()
+
+    def _evalm_chunks(self) -> torch.Tensor:
+        """[nc, C] never-re-evaluate mask; pad columns always masked."""
+        em = self._eval_mask
+        pad = self._N_pad - self.N
+        if pad:
+            em = torch.cat([em, torch.ones(pad, dtype=torch.bool,
+                                           device=self.device)])
+        return em.reshape(self._nc, self._C).contiguous()
+
+    # ------------------------------------------------------------- observe
     def observe(self, rows, y) -> None:
         """Append flow evaluations: pool rows + raw (minimized) metrics."""
+        self._check_live()
         rows = [int(r) for r in np.asarray(rows).reshape(-1)]
         y = np.atleast_2d(np.asarray(y, np.float32))
         if len(rows) != y.shape[0]:
@@ -75,6 +415,7 @@ class BOEngine:
             return
         self._rows.extend(rows)
         self._y = y if self._y is None else np.concatenate([self._y, y], 0)
+        self._eval_mask[torch.as_tensor(rows, device=self.device)] = True
 
     @property
     def m(self) -> int:
@@ -82,34 +423,401 @@ class BOEngine:
             raise RuntimeError("engine has no observations yet")
         return self._y.shape[1]
 
+    def _weights(self) -> torch.Tensor:
+        return (torch.ones(self.m, device=self.device) if self.weights is None
+                else self.weights)
+
+    def _eps(self, eps) -> torch.Tensor:
+        return torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # -------------------------------------------------------------- select
     def select(self, eps, sub_rows=None) -> int:
         """Run one BO round and return the next pool row to evaluate.
 
         ``eps`` [m, q, s] are the standard normals of the joint frontier
         draw over ``sub_rows`` (q rows; the whole pool when None)."""
+        self._check_live()
         if self._y is None or not self._rows:
             raise RuntimeError("select() before observe(): nothing to fit")
+        if self.incremental:
+            return self._select_incremental(eps, sub_rows)
+        return self._select_exact(eps, sub_rows)
+
+    def select_q(self, eps, q: int = 1, sub_rows=None, *,
+                 pending: Sequence[int] = (),
+                 fantasy: str = "mean") -> list[int]:
+        """Select ``q`` distinct candidates in one round via fantasy updates.
+
+        After the round's first pick its outcome is imputed (``fantasy`` in
+        ``FANTASY_MODES``), L is block-updated, the pool re-scored under the
+        round's frozen ``y*`` and the next candidate picked. ``pending`` rows
+        (evaluations still in flight) are fantasized before any new pick.
+        ``q=1`` with no ``pending`` is :meth:`select`."""
+        self._check_live()
+        pending = [int(r) for r in pending]
+        if q < 1:
+            raise ValueError(f"select_q: q must be >= 1, got {q}")
+        if fantasy not in FANTASY_MODES:
+            raise ValueError(f"select_q: fantasy must be one of "
+                             f"{FANTASY_MODES}, got {fantasy!r}")
+        if q == 1 and not pending:
+            return [self.select(eps, sub_rows)]
+        if not self.incremental:
+            raise ValueError(
+                "q-batch / pending fantasy selection requires "
+                "incremental=True: fantasy appends reuse the incremental "
+                "engine's trailing Cholesky + V-cache updates")
+        if self._y is None or not self._rows:
+            raise RuntimeError("select_q() before observe(): nothing to fit")
+        n_fant = len(pending) + q - 1
+        if len(set(self._rows)) + len(pending) + q > self.N:
+            raise ValueError("select_q: pool has too few unevaluated rows "
+                             f"for q={q} with {len(pending)} pending")
+
+        # Round phase: fit + update-or-refactor + ONE frontier sample (+ the
+        # first pick when nothing is pending); `reserve` pads rows for the
+        # whole chain so no append grows the bucket mid-round.
+        pick0 = self._select_incremental(eps, sub_rows, reserve=n_fant,
+                                         do_select=not pending)
+        n = self._n_at_last_select
+        state = self._state
+        rows_np, y_pad, mask_np = self._last_batch
+        rows_pad = torch.as_tensor(rows_np, dtype=torch.int64,
+                                   device=self.device)
+        mask = torch.as_tensor(mask_np, device=self.device)
+        yn, y_mean, y_std = _standardize(
+            torch.as_tensor(y_pad, device=self.device), mask)
+        s0 = (n // self.bucket) * self.bucket
+        L, V, evalm = state.L, state.V, self._evalm_chunks()
+        weights = self._weights()
+
+        picks: list[int] = [] if pending else [pick0]
+        to_append = list(pending)
+        appended = 0
+        try:
+            while len(picks) < q:
+                if not to_append:
+                    to_append.append(picks[-1])
+                row = to_append.pop(0)
+                L, V, rows_pad, mask, yn, evalm, nxt = _fantasy_step(
+                    state.params_ref, L, V, rows_pad, yn, mask, self._pool_c,
+                    evalm, weights, y_mean, y_std, self._last_ystar, row,
+                    n + appended, s0=s0, liar=fantasy)
+                appended += 1
+                self.stats.fantasy_steps += 1
+                self.stats.dispatches += 1
+                if not to_append:  # the last append before a fresh pick
+                    picks.append(int(nxt))
+        except BaseException:
+            # K4 updates V in place; a broken chain leaves it half written.
+            # Drop to a cold rebuild (observations are on the host).
+            self._state = None
+            self._P = 0
+            raise
+        # fantasy rows live in [s0, P), which the next round recomputes
+        self._state = state._replace(L=L, V=V)
+        return picks
+
+    def _select_exact(self, eps, sub_rows) -> int:
+        """A from-scratch round (``fit_gp`` + ``imoo_scores`` + host argmax)."""
         rows = np.asarray(self._rows)
-        rows_t = torch.as_tensor(rows, device=self.device)
-        state = fit_gp(self.pool[rows_t],
+        state = fit_gp(self.pool[torch.as_tensor(rows, device=self.device)],
                        torch.as_tensor(-self._y, device=self.device),
-                       steps=self.gp_steps)
+                       steps=self.gp_steps,
+                       params=self._last_params if self.warm_start else None,
+                       bucket=self.bucket)
+        self._last_params = state.params
         fc = (self.pool if sub_rows is None else
               self.pool[torch.as_tensor(np.asarray(sub_rows),
                                         device=self.device)].contiguous())
-        eps = torch.as_tensor(eps, dtype=torch.float32, device=self.device)
-        scores = imoo_scores(state, self.pool, eps, frontier_cand=fc,
+        scores = imoo_scores(state, self.pool, self._eps(eps),
+                             frontier_cand=fc,
                              weights=self.weights).cpu().numpy()
         scores[rows] = -np.inf  # never re-evaluate
         self.stats.rounds += 1
         self.stats.dispatches += self.EXACT_DISPATCHES_PER_ROUND
+        self._n_at_last_select = len(self._rows)
         return int(np.argmax(scores))
 
-    def select_q(self, eps, q: int = 1, sub_rows=None) -> list[int]:
-        """``q`` picks in one round; only ``q = 1`` is ported (fantasy
-        q-batches need the incremental engine)."""
-        if q != 1:
+    def _select_incremental(self, eps, sub_rows, *, reserve: int = 0,
+                            do_select: bool = True) -> int:
+        """One incremental round. ``reserve`` extra pad rows are provisioned
+        for a following fantasy chain; ``do_select=False`` discards the pick
+        (returns -1)."""
+        n = len(self._rows)
+        P = n + reserve
+        P = P + (-P) % self.bucket
+        grew = P != self._P
+        first = self._state is None
+        rows_np, y_pad, mask_np = self._padded_batch(self._rows, self._y, P)
+        sub = (torch.arange(self.N, device=self.device) if sub_rows is None
+               else torch.as_tensor(np.asarray(sub_rows, np.int64),
+                                    device=self.device))
+        cold, steps = self._fit_schedule(first)
+        params0 = (default_params(self.m, self.d, self.device) if cold
+                   else self._state.params)
+        s0 = 0 if (first or grew) else \
+            (self._n_at_last_select // self.bucket) * self.bucket
+        state = self._alloc_state(params0, P, first or grew)
+        mask = torch.as_tensor(mask_np, device=self.device)
+        x = (self._pool_c.reshape(-1, self.d)[
+                torch.as_tensor(rows_np, dtype=torch.int64, device=self.device)]
+             + 10.0 * mask[:, None])
+        yn, y_mean, y_std = _standardize(
+            torch.as_tensor(y_pad, device=self.device), mask)
+        force, eps_t, weights = bool(first or grew), self._eps(eps), \
+            self._weights()
+        if self.profile_stages:
+            state, nxt, did_ref, drift, ystar = self._round_staged(
+                state, x, yn, y_mean, y_std, mask, sub, eps_t, force, weights,
+                steps=steps, s0=s0, select=do_select)
+            # the bookkeeping below counts 1 dispatch per round; a staged
+            # round runs one program per stage instead
+            self.stats.dispatches += (len(PROFILE_STAGES) if do_select
+                                      else len(PROFILE_STAGES) - 3) - 1
+        else:
+            state, nxt, did_ref, drift, ystar = _round_seq(
+                state, x, yn, y_mean, y_std, mask, self._pool_c,
+                self._evalm_chunks(), sub, eps_t, force, self.drift_tol,
+                weights, steps=steps, s0=s0)
+
+        self._state = state
+        self._P = P
+        self._n_at_last_select = n
+        self._last_batch = (rows_np, y_pad, mask_np)
+        self._last_ystar = ystar
+        self.stats.rounds += 1
+        self.stats.dispatches += 1
+        self.stats.frontier_resamples += 1
+        self.stats.last_drift = float(drift)
+        if did_ref:
+            self.stats.refactors += 1
+        else:
+            self.stats.block_updates += 1
+        return int(nxt) if do_select else -1
+
+    def _round_staged(self, state, x, yn, y_mean, y_std, mask, sub, eps,
+                      force_refactor: bool, weights, *, steps: int, s0: int,
+                      select: bool):
+        """One round as separately timed stages (profile mode).
+
+        The math of :func:`_round_seq` stage by stage, each stage ended by a
+        device synchronisation and its wall seconds added to
+        ``stats.stage_wall_s`` (plus ``"round_total"`` around the whole
+        round). The V update, moments, scores and argmax run as K4's plain
+        stages, split so that each can be timed; on a GPU that is PyTorch
+        on the card, a measurement mode and never the main path."""
+        acc = self.stats.stage_wall_s
+        t_round = time.perf_counter()
+
+        def timed(name, fn, *a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self._sync()
+            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0)
+            return out
+
+        def fit():
+            p = _fit(state.params, x, yn, mask, steps=steps)
+            return p, _drift(p, state.params_ref)
+
+        params, drift = timed("fit", fit)
+        do_ref = (force_refactor or s0 <= 0
+                  or bool(np.float32(float(drift)) > np.float32(self.drift_tol)))
+        params_ref = params if do_ref else state.params_ref
+        if do_ref:
+            L = timed("factor", _chol_refactor, params_ref, x, mask)
+        else:
+            L = timed("factor", _chol_block, params_ref, state.L, x, mask, s0)
+        V = timed("v_update", _rf.v_update_plain,
+                  torch.exp(params_ref.log_ls), torch.exp(params_ref.log_var),
+                  L, state.V, x, self._pool_c, 0 if do_ref else s0)
+        beta, ystar = timed("frontier", _beta_ystar, params_ref, L, x, yn,
+                            y_mean, y_std, self._pool_c.reshape(-1, self.d),
+                            sub, eps)
+        nxt = -1
+        if select:
+            mom = timed("moments", lambda: [
+                _col_moments(params_ref.log_var, beta, V[j])
+                for j in range(self._nc)])
+            evalm = self._evalm_chunks()
+            scores = timed("score", lambda: torch.stack([
+                torch.where(evalm[j], -math.inf, _rf.mes_plain(
+                    mu * y_std[:, None] + y_mean[:, None],
+                    sd * y_std[:, None], ystar, weights))
+                for j, (mu, sd) in enumerate(mom)]))
+            nxt = timed("argmax", _rf.select_plain, scores)
+        acc["round_total"] = (acc.get("round_total", 0.0)
+                              + (time.perf_counter() - t_round))
+        return EngineState(params, params_ref, L, V), nxt, do_ref, drift, ystar
+
+    # ------------------------------------------------------------- helpers
+    @staticmethod
+    def _padded_batch(rows: list[int], y: np.ndarray, P: int):
+        """Pad (rows, raw y) to P with ``pad_training``'s conventions: pad
+        rows repeat the last real row (the +10 x shift is applied in the
+        round), targets are negated; ``mask`` is 1.0 on pad rows."""
+        n = len(rows)
+        rows_pad = np.asarray(rows + [rows[-1]] * (P - n), np.int32)
+        y_neg = -np.asarray(y, np.float32)
+        y_pad = np.concatenate([y_neg, np.tile(y_neg[-1:], (P - n, 1))], 0)
+        mask = np.concatenate([np.zeros(n, np.float32),
+                               np.ones(P - n, np.float32)])
+        return rows_pad, y_pad, mask
+
+    def _alloc_state(self, params0: GPParams, P: int, fresh: bool) -> EngineState:
+        if self._state is not None and not fresh:
+            return self._state._replace(params=params0)
+        m = self.m
+        L = torch.zeros((m, P, P), device=self.device)
+        V = torch.zeros((self._nc, m, P, self._C), device=self.device)
+        ref = (GPParams(*(t.clone() for t in params0)) if self._state is None
+               else self._state.params_ref)
+        return EngineState(params0, ref, L, V)
+
+    def refactor_residual(self) -> float:
+        """max |L_incremental − L_full| under the current ``params_ref``: the
+        block-update error a full factorization would remove (a test hook;
+        runs a full O(P³) factorization)."""
+        if self._state is None or self._last_batch is None:
+            raise RuntimeError("no incremental state yet")
+        rows_np, _, mask_np = self._last_batch
+        mask = torch.as_tensor(mask_np, device=self.device)
+        x = (self._pool_c.reshape(-1, self.d)[
+                torch.as_tensor(rows_np, dtype=torch.int64, device=self.device)]
+             + 10.0 * mask[:, None])
+        L_full = _chol_refactor(self._state.params_ref, x, mask)
+        return float(torch.max(torch.abs(self._state.L - L_full)))
+
+    # --------------------------------------------------- lifecycle hooks
+    def _check_live(self) -> None:
+        if getattr(self, "_released", False):
+            raise RuntimeError(
+                "engine has been released: its device arrays are gone. "
+                "Build a fresh engine and load_state_dict() a snapshot "
+                "taken BEFORE release() to continue this trajectory")
+
+    def device_bytes(self) -> int:
+        """Bytes of the engine's persistent arrays (chunked pool, evaluated
+        mask, incremental state, last padded batch, frozen y*): exactly what
+        :meth:`release` frees."""
+        if getattr(self, "_released", False):
+            return 0
+        arrays = [self._pool_c, self._eval_mask, self._last_ystar]
+        if self._state is not None:
+            arrays += [*self._state.params, *self._state.params_ref,
+                       self._state.L, self._state.V]
+        if self._last_batch is not None:
+            arrays += list(self._last_batch)
+        return sum(a.nbytes if isinstance(a, np.ndarray)
+                   else a.numel() * a.element_size()
+                   for a in arrays if a is not None)
+
+    def release(self) -> None:
+        """Drop every persistent array; later observe/select/state_dict
+        calls raise. Idempotent."""
+        self._released = True
+        self._state = None
+        self._last_params = None
+        self._last_batch = None
+        self._last_ystar = None
+        self._eval_mask = None
+        self._pool_c = None
+        self.pool = None
+
+    # -------------------------------------------- state (de)serialization
+    def state_dict(self) -> dict:
+        """Complete engine snapshot in the reference's key layout: a nested
+        dict of numpy arrays (copies, never views of live state) and
+        JSON-able scalars. :meth:`load_state_dict` on a fresh engine (same
+        pool, same knobs) continues the trajectory bit-exactly."""
+        self._check_live()
+        d = {"format": ENGINE_STATE_FORMAT, "kind": type(self).__name__,
+             "incremental": self.incremental, "bucket": self.bucket,
+             "pool_shape": list(self.pool.shape), "P": self._P,
+             "n_at_last_select": self._n_at_last_select,
+             "stats": self.stats.as_dict()}
+        if self._state is not None:
+            d["state"] = {"params": _params_to_np(self._state.params),
+                          "params_ref": _params_to_np(self._state.params_ref),
+                          "L": _np(self._state.L), "V": _np(self._state.V)}
+        if self._last_params is not None:
+            d["last_params"] = _params_to_np(self._last_params)
+        if self._last_batch is not None:
+            rp, yp, mk = self._last_batch
+            d["last_batch"] = {"rows_pad": rp.copy(), "y_pad": yp.copy(),
+                               "mask": mk.copy()}
+        if self._last_ystar is not None:
+            d["last_ystar"] = _np(self._last_ystar)
+        d["rows"] = np.asarray(self._rows, np.int64)
+        d["y"] = None if self._y is None else self._y.copy()
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        """Restore a :meth:`state_dict` snapshot (validates format, engine
+        kind, bucket/incremental flags, pool shape and chunk grid)."""
+        self._check_live()
+        if d.get("format") != ENGINE_STATE_FORMAT:
+            raise ValueError(
+                f"engine snapshot format {d.get('format')!r} is not the "
+                f"supported format {ENGINE_STATE_FORMAT}")
+        if d.get("kind") != type(self).__name__:
+            raise ValueError(f"snapshot was taken from a {d.get('kind')!r}, "
+                             f"not a {type(self).__name__}")
+        for key in ("incremental", "bucket"):
+            if d.get(key) != getattr(self, key):
+                raise ValueError(
+                    f"snapshot {key}={d.get(key)!r} does not match this "
+                    f"engine's {key}={getattr(self, key)!r}")
+        if list(d.get("pool_shape", [])) != list(self.pool.shape):
+            raise ValueError(
+                f"snapshot pool shape {d.get('pool_shape')} does not match "
+                f"this engine's pool {list(self.pool.shape)}: resume must "
+                "use the identical candidate pool")
+        if "pool_edit" in d:
             raise NotImplementedError(
-                "repro_torch: select_q with q > 1 needs the incremental "
-                "engine, not ported yet (ROADMAP queue 1, item 9)")
-        return [self.select(eps, sub_rows)]
+                "repro_torch: snapshots of edited pools need pool_append / "
+                "pool_replace, not ported yet (ROADMAP queue 1, item 11)")
+        self._P = int(d["P"])
+        self._n_at_last_select = int(d["n_at_last_select"])
+        self.stats = EngineStats.from_dict(d["stats"])
+        if "state" in d:
+            st = d["state"]
+            V = np.asarray(st["V"], np.float32)
+            if V.shape[-1] != self._C or V.shape[-4] != self._nc:
+                raise ValueError(
+                    f"snapshot V cache has chunk grid nc={V.shape[-4]}, "
+                    f"C={V.shape[-1]} but this engine resolved nc="
+                    f"{self._nc}, C={self._C}: resume with the pool_chunk "
+                    "the snapshot was taken with")
+            self._state = EngineState(
+                _params_from_np(st["params"], self.device),
+                _params_from_np(st["params_ref"], self.device),
+                torch.tensor(np.asarray(st["L"], np.float32),
+                             device=self.device),
+                torch.tensor(V, device=self.device))
+        else:
+            self._state = None
+        self._last_params = (_params_from_np(d["last_params"], self.device)
+                             if "last_params" in d else None)
+        lb = d.get("last_batch")
+        self._last_batch = (None if lb is None else
+                            (np.array(lb["rows_pad"], np.int32),
+                             np.array(lb["y_pad"], np.float32),
+                             np.array(lb["mask"], np.float32)))
+        self._last_ystar = (None if d.get("last_ystar") is None else
+                            torch.tensor(np.asarray(d["last_ystar"],
+                                                    np.float32),
+                                         device=self.device))
+        self._rows = [int(r) for r in np.asarray(d["rows"]).reshape(-1)]
+        self._y = (None if d.get("y") is None
+                   else np.array(d["y"], np.float32))
+        self._eval_mask = torch.zeros(self.N, dtype=torch.bool,
+                                      device=self.device)
+        if self._rows:
+            self._eval_mask[torch.as_tensor(self._rows,
+                                            device=self.device)] = True

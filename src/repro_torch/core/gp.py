@@ -138,15 +138,15 @@ def _posterior_cache(params: GPParams, x, y, mask):
     return L, alpha
 
 
-def pad_training(x: torch.Tensor, y: torch.Tensor):
-    """Pad (x [n,d], y [n,m]) to the next multiple of ``PAD_BUCKET`` with inert
+def pad_training(x: torch.Tensor, y: torch.Tensor, bucket: int = PAD_BUCKET):
+    """Pad (x [n,d], y [n,m]) to the next multiple of ``bucket`` with inert
     rows; returns ``(x_pad, y_pad, mask)`` with ``mask`` 1.0 on padded rows.
     Padded rows copy the last real row, shifted by +10 in x, and are
     silenced in the GP by a 1e6 per-point noise."""
     x = x.to(torch.float32)
     y = y.to(torch.float32)
     n = x.shape[0]
-    pad = (-n) % PAD_BUCKET
+    pad = (-n) % bucket
     mask = torch.cat([torch.zeros(n, device=x.device),
                       torch.full((pad,), 1.0, device=x.device)])
     if pad:
@@ -172,13 +172,17 @@ def _standardize(y: torch.Tensor, mask: torch.Tensor):
     return (y - y_mean) / y_std, y_mean, y_std
 
 
-def fit_gp(x: torch.Tensor, y: torch.Tensor, steps: int = 200) -> GPState:
-    """Fit m independent GPs on (x [n,d], y [n,m]) from the default
-    hyperparameters (a cold fit); y standardized internally, the training
-    set padded to a multiple of ``PAD_BUCKET``."""
-    x, y, mask = pad_training(x, y)
+def fit_gp(x: torch.Tensor, y: torch.Tensor, steps: int = 200,
+           params: GPParams | None = None,
+           bucket: int = PAD_BUCKET) -> GPState:
+    """Fit m independent GPs on (x [n,d], y [n,m]); y standardized
+    internally, the training set padded to a multiple of ``bucket``. Adam
+    starts from ``params`` (a warm start) or, when None, from the default
+    hyperparameters (a cold fit)."""
+    x, y, mask = pad_training(x, y, bucket)
     yn, y_mean, y_std = _standardize(y, mask)
-    params = default_params(y.shape[1], x.shape[1], x.device)
+    if params is None:
+        params = default_params(y.shape[1], x.shape[1], x.device)
     params = _fit(params, x, yn, mask, steps=steps)
     chol, alpha = _posterior_cache(params, x, yn, mask)
     return GPState(params, x, yn, y_mean, y_std, chol, alpha)

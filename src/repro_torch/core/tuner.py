@@ -1,8 +1,8 @@
 """Algorithm 3 — SoC-Tuner(X, T, n, u, b, v_th): the full exploration loop.
 
 Operates over a finite candidate *pool*; the flow is any callable
-``idx [k,d] -> y [k,m]``. A port of the exact path of
-``repro.core.tuner.soc_tuner``: randomness comes from a
+``idx [k,d] -> y [k,m]``. A port of ``repro.core.tuner.soc_tuner`` (the
+exact and the incremental engine, q-batches): randomness comes from a
 :class:`repro_torch.random.TunerDraws` object instead of a JAX key.
 """
 from __future__ import annotations
@@ -130,7 +130,13 @@ def soc_tuner(
     reuse_icd_trials: bool = True,
     weights: np.ndarray | None = None,
     incremental: bool = False,
+    warm_start: bool | None = None,
+    warm_steps: int | None = None,
+    drift_tol: float = 1.0,
+    pool_chunk: int | str | None = None,
+    profile_stages: bool = False,
     q: int = 1,
+    fantasy: str = "mean",
     checkpoint_dir: str | None = None,
     proposer=None,
     draws: TunerDraws | None = None,
@@ -138,24 +144,36 @@ def soc_tuner(
     device=None,
     verbose: bool = False,
 ) -> TunerResult:
-    """Run SoC-Tuner over ``pool_idx`` [N, d] candidate designs (exact path).
+    """Run SoC-Tuner over ``pool_idx`` [N, d] candidate designs.
 
     Follows Algorithm 3 line by line; ``reference_front`` (the real Pareto
     front of the pool, if known) enables per-round ADRS logging. The GP and
     acquisition run on ``device`` (default ``cuda``; the CPU only when asked
     for). ``draws`` supplies the trial rows, frontier subsets and normals
     (default: :class:`GeneratorDraws` seeded with ``seed`` on ``device``).
-    ``incremental``, ``q > 1``, ``checkpoint_dir`` and ``proposer`` belong
-    to parts of the reference not ported yet and raise.
+
+    The rounds run on a :class:`BOEngine`: ``incremental=False`` is the
+    from-scratch round; ``incremental=True`` warm-starts the fits, updates
+    the Cholesky factor by blocks and scores the pool with the
+    ``round_fused`` kernel. ``warm_start`` (default: follow ``incremental``),
+    ``warm_steps``, ``drift_tol``, ``pool_chunk`` and ``profile_stages`` are
+    the engine's knobs. ``q > 1`` (incremental only) picks q candidates per
+    round by fantasy updates (``fantasy`` is the imputation rule) and
+    evaluates them in one flow call. ``checkpoint_dir`` and ``proposer``
+    belong to parts of the reference not ported yet and raise.
     """
-    for name, unported in (("incremental=True", incremental),
-                           ("q > 1", q != 1),
-                           ("checkpoint_dir", checkpoint_dir is not None),
+    for name, unported in (("checkpoint_dir", checkpoint_dir is not None),
                            ("proposer", bool(proposer))):
         if unported:
             raise NotImplementedError(
                 f"repro_torch.soc_tuner: {name} is not ported yet (ROADMAP "
-                "queue 1); the exact incremental=False, q=1 path is")
+                "queue 1)")
+    if q < 1:
+        raise ValueError(f"q must be >= 1, got {q}")
+    if q > 1 and not incremental:
+        raise ValueError(
+            "q > 1 requires incremental=True: fantasy q-batch selection "
+            "runs on the incremental engine")
     t0 = time.monotonic()
     dev = resolve_device(device)
     # IEEE float32 products everywhere, never TF32: the GP and the TED
@@ -184,13 +202,17 @@ def soc_tuner(
 
     # Lines 5-10: the BO loop. The engine negates targets (metrics are
     # minimized, MES maximizes) and owns the never-re-evaluate mask + argmax.
-    engine = BOEngine(pool_icd, gp_steps=gp_steps, s_frontiers=s_frontiers,
-                      weights=weights)
+    engine = BOEngine(pool_icd, incremental=incremental,
+                      warm_start=warm_start, gp_steps=gp_steps,
+                      warm_steps=warm_steps, drift_tol=drift_tol,
+                      s_frontiers=s_frontiers, weights=weights,
+                      pool_chunk=pool_chunk, profile_stages=profile_stages,
+                      device=dev)
     engine.observe(evaluated, y)
     for it in range(T):
         sub, eps = draws.round(N, frontier_subset, engine.m, s_frontiers)
-        picks = engine.select_q(eps, 1, sub_rows=sub)
-        # Line 8: evaluate and append
+        picks = engine.select_q(eps, q, sub_rows=sub, fantasy=fantasy)
+        # Line 8: evaluate and append (one flow call for the whole batch)
         y_new = np.asarray(flow(pool_idx[np.asarray(picks)]))
         evaluated.extend(picks)
         y = np.concatenate([y, y_new], axis=0)

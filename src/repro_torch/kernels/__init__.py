@@ -4,16 +4,18 @@
                      ``systolic_eval`` kernel)
 - ``pairdist``       pairwise squared distances + fused RBF (Pallas ``pairdist``)
 - ``pareto_count``   strict-dominance counts (Pallas ``pareto_count``)
+- ``round_fused``    one incremental acquisition round over the chunked pool
+                     (Pallas ``round_fused``)
 - ``build``          ``nvcc`` build of ``csrc/`` into one ctypes-loaded library
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches the kernel or raises. Each keeps a plain-integer ``launches`` count.
 """
-from . import pairdist, pareto_count, systolic_eval
+from . import pairdist, pareto_count, round_fused, systolic_eval
 
-KERNELS = (systolic_eval, pairdist, pareto_count)
+KERNELS = (systolic_eval, pairdist, pareto_count, round_fused)
 
-__all__ = ["pairdist", "pareto_count", "systolic_eval", "KERNELS",
+__all__ = ["pairdist", "pareto_count", "round_fused", "systolic_eval", "KERNELS",
            "reset_launches"]
 
 

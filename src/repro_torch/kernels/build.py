@@ -25,10 +25,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 COMMON_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
-#: per-source extra flags. systolic_eval rounds every product and sum on its
-#: own (no fused multiply-add contraction) so it matches its plain version's
-#: op-by-op float32 rounding; pairdist accumulates with FMA on purpose.
-EXTRA_FLAGS = {"systolic_eval.cu": ["-fmad=false"]}
+#: per-source extra flags. systolic_eval and round_fused round every product
+#: and sum on its own (no fused multiply-add contraction) so they match their
+#: plain versions' op-by-op float32 rounding; pairdist accumulates with FMA on
+#: purpose.
+EXTRA_FLAGS = {"systolic_eval.cu": ["-fmad=false"],
+               "round_fused.cu": ["-fmad=false"]}
 
 #: ctypes signature of each launch function: (argtypes) -> int error code
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -36,6 +38,7 @@ SIGNATURES = {
     "systolic_eval_launch": [_P, _P, _P, _I, _I, _P],
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pareto_count_launch": [_P, _P, _I, _I, _P],
+    "round_fused_launch": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 _LIB: ctypes.CDLL | None = None

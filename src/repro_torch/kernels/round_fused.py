@@ -1,0 +1,221 @@
+"""``round_fused``: one acquisition round over the chunked pool (kernel K4).
+
+:func:`round_select` does, for every pool column of ``pool_c`` [nc, C, d]:
+
+1. recomputes rows ``s0..P-1`` of the cached ``V = L⁻¹·K(x, pool)``
+   [nc, m, P, C] **in place**: the RBF entries ``K(x[r], col)`` and a
+   forward substitution over the full prefix of each row of ``L``
+   (``s0 = 0`` refactors the column, ``s0 >= P`` leaves V as it is);
+2. the posterior moments in the fixed order of ``engine._col_moments``
+   (start from ``beta[0]·V[0]``, then add rows 1..P-1), de-standardized;
+3. the closed-form MES gain averaged over the S frozen frontier samples
+   ``ystar`` [S, m] and weighted per objective;
+4. ``-inf`` for evaluated columns, and the global first-index argmax (a
+   chunk whose scores hold a NaN contributes nothing; all ``-inf`` gives 0).
+
+It returns ``(V, best_idx)`` with ``V`` the updated input tensor and
+``best_idx`` a 0-dim int32 tensor on V's device. On a CPU tensor it runs
+:func:`round_select_plain`; on a CUDA tensor it launches
+``csrc/round_fused.cu`` or raises.
+
+The plain version is written so that every column is computed by the same
+element-wise operations whatever the chunk width: sums run in a fixed order
+over explicit loops (never a matmul or a reduction whose order depends on the
+width), and ``exp``/``erf``/``erfc``/``log`` are taken in float64 and rounded
+to float32, because PyTorch's CPU kernels compute the tail of a vectorized
+loop with another formula than its body. So a pick does not depend on the
+chunk size, and duplicated columns tie exactly.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+from ._common import check_tensor, on_cpu
+
+__all__ = ["round_select", "round_select_plain", "v_update_plain",
+           "col_moments_plain", "mes_plain", "select_plain", "launches"]
+
+#: kernel launches since the count was last set to 0
+launches = 0
+
+_LOG_2PI = math.log(2.0 * math.pi)
+_HALF_SQRT2 = 0.5 * math.sqrt(2.0)
+
+
+def _f64(fn, t: torch.Tensor) -> torch.Tensor:
+    """``fn`` evaluated in float64 and rounded to float32 (see the module
+    docstring: the same value for every element position)."""
+    return fn(t.double()).float()
+
+
+def _ndtr(x: torch.Tensor) -> torch.Tensor:
+    """Φ(x) in ``jax.scipy.special.ndtr``'s form (``1 + erf`` near 0,
+    ``erfc`` in the tails); float32 arithmetic around float64 erf/erfc."""
+    w = x * _HALF_SQRT2
+    z = torch.abs(w)
+    y = torch.where(z < _HALF_SQRT2, 1.0 + _f64(torch.erf, w),
+                    torch.where(w > 0.0, 2.0 - _f64(torch.erfc, z),
+                                _f64(torch.erfc, z)))
+    return 0.5 * y
+
+
+def _sq_norms(a: torch.Tensor) -> torch.Tensor:
+    """Σ_k a[..., k]² summed in order k = 0, 1, ..."""
+    acc = a[..., 0] * a[..., 0]
+    for k in range(1, a.shape[-1]):
+        acc = acc + a[..., k] * a[..., k]
+    return acc
+
+
+def v_update_plain(ls, var, L, V, x, pool_c, s0: int) -> torch.Tensor:
+    """Rows ``s0..P-1`` of every chunk of ``V`` [nc, m, P, C], in place:
+    ``V[r] = (K(x[r], col) − Σ_{j<r} L[r, j]·V[j]) / L[r, r]``, the sum taken
+    in order j = 0, 1, ... (rows below ``s0`` are the cached ones)."""
+    nc, C, d = pool_c.shape
+    m, P, _ = L.shape
+    if s0 >= P:
+        return V
+    xs = x[None, s0:, :] / ls[:, None, :]                      # [m, B, d]
+    aa = _sq_norms(xs)                                         # [m, B]
+    for j in range(nc):
+        ps = pool_c[j][None] / ls[:, None, :]                  # [m, C, d]
+        bb = _sq_norms(ps)                                     # [m, C]
+        cross = xs[:, :, None, 0] * ps[:, None, :, 0]          # [m, B, C]
+        for k in range(1, d):
+            cross = cross + xs[:, :, None, k] * ps[:, None, :, k]
+        d2 = torch.clamp_min((aa[:, :, None] + bb[:, None, :]) - 2.0 * cross,
+                             0.0)
+        rhs = var[:, None, None] * _f64(torch.exp, -0.5 * d2)  # [m, B, C]
+        Vj = V[j]                                              # [m, P, C]
+        for r in range(P):
+            if r >= s0:
+                Vj[:, r] = rhs[:, r - s0] / L[:, r, r, None]
+            lo = max(r + 1, s0)
+            if lo < P:
+                rhs[:, lo - s0:] = (rhs[:, lo - s0:]
+                                    - L[:, lo:, r, None] * Vj[:, None, r])
+    return V
+
+
+def col_moments_plain(var, beta, Vc):
+    """Posterior mean and std [m, C] of one V chunk [m, P, C], accumulated
+    in the fixed order ``beta[0]·V[0]`` then rows 1..P-1 (never a matmul:
+    the pick's independence of the chunk size rests on it)."""
+    mu = beta[:, 0, None] * Vc[:, 0]
+    ss = Vc[:, 0] * Vc[:, 0]
+    for p in range(1, Vc.shape[1]):
+        mu = mu + beta[:, p, None] * Vc[:, p]
+        ss = ss + Vc[:, p] * Vc[:, p]
+    return mu, torch.sqrt(torch.clamp_min(var[:, None] - ss, 1e-10))
+
+
+def mes_plain(mean_d, std_d, ystar, weights) -> torch.Tensor:
+    """Weighted MES gain [C] from de-standardized moments [m, C] and frontier
+    maxima [S, m]: per objective the S terms are added in order, divided by
+    S, weighted, and the objectives added in order."""
+    gamma = (ystar[:, :, None] - mean_d[None]) / std_d[None]   # [S, m, C]
+    pdf = _f64(torch.exp, (_LOG_2PI + gamma * gamma) / -2.0)
+    cdf = torch.clamp(_ndtr(gamma), 1e-9, 1.0)
+    term = gamma * pdf / (2.0 * cdf) - _f64(torch.log, cdf)
+    af = term[0]
+    for s in range(1, term.shape[0]):
+        af = af + term[s]
+    per = (af / term.shape[0]) * weights[:, None]              # [m, C]
+    score = per[0]
+    for i in range(1, per.shape[0]):
+        score = score + per[i]
+    return score
+
+
+def select_plain(scores: torch.Tensor) -> torch.Tensor:
+    """Global first-index argmax of chunked scores [nc, C], as the engine's
+    chunk scan takes it: within a chunk the first maximum, across chunks a
+    strict ``>`` from ``(-inf, 0)``, so a chunk holding a NaN or only
+    ``-inf`` contributes nothing. No host synchronisation."""
+    nc, C = scores.shape
+    v = scores.amax(dim=1)
+    i = scores.argmax(dim=1)
+    ok = ~torch.isnan(scores).any(dim=1) & (v > -math.inf)
+    vv = torch.where(ok, v, torch.full_like(v, -math.inf))
+    j = torch.argmax((ok & (vv == vv.max())).to(torch.uint8)).reshape(1)
+    best = j * C + i.gather(0, j)  # gather: no host sync, unlike i[j]
+    return torch.where(ok.any(), best, torch.zeros_like(best))[0].to(torch.int32)
+
+
+def round_select_plain(ls, var, L, V, x, beta, ystar, pool_c, evalm_c,
+                       y_mean, y_std, weights, *, s0: int):
+    """The plain PyTorch version of the round (same arguments and in-place
+    V update as :func:`round_select`)."""
+    v_update_plain(ls, var, L, V, x, pool_c, s0)
+    scores = []
+    for j in range(pool_c.shape[0]):
+        mu, sd = col_moments_plain(var, beta, V[j])
+        mean_d = mu * y_std[:, None] + y_mean[:, None]
+        std_d = sd * y_std[:, None]
+        sc = mes_plain(mean_d, std_d, ystar, weights)
+        scores.append(torch.where(evalm_c[j], -math.inf, sc))
+    return V, select_plain(torch.stack(scores))
+
+
+def _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
+           weights, s0) -> None:
+    for name, t, nd in (("ls", ls, 2), ("var", var, 1), ("L", L, 3),
+                        ("V", V, 4), ("x", x, 2), ("beta", beta, 2),
+                        ("ystar", ystar, 2), ("pool_c", pool_c, 3),
+                        ("y_mean", y_mean, 1), ("y_std", y_std, 1),
+                        ("weights", weights, 1)):
+        check_tensor(name, t, nd)
+    check_tensor("evalm_c", evalm_c, 2, torch.bool)
+    nc, C, d = pool_c.shape
+    m, P = beta.shape
+    want = {"ls": (ls, (m, d)), "var": (var, (m,)), "L": (L, (m, P, P)),
+            "V": (V, (nc, m, P, C)), "x": (x, (P, d)),
+            "ystar": (ystar, (ystar.shape[0], m)),
+            "evalm_c": (evalm_c, (nc, C)), "y_mean": (y_mean, (m,)),
+            "y_std": (y_std, (m,)), "weights": (weights, (m,))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"round_select: {name} has shape "
+                             f"{tuple(t.shape)}, expected {shape} (nc={nc}, "
+                             f"C={C}, d={d}, m={m}, P={P})")
+    if min(nc, C, d, m, P, ystar.shape[0]) < 1:
+        raise ValueError("round_select: every dimension must be >= 1")
+    if int(s0) < 0:
+        raise ValueError(f"round_select: s0 must be >= 0, got {s0}")
+
+
+def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
+                 y_std, weights, *, s0: int):
+    """One fused round: ``(V, best_idx)``, V updated in place.
+
+    ``ls`` [m, d] and ``var`` [m] are the exp'd hyperparameters of the
+    factorization, ``L`` [m, P, P] its Cholesky factors, ``V`` [nc, m, P, C]
+    the cached whitened cross-covariance, ``x`` [P, d] the padded training
+    rows, ``beta`` [m, P] the whitened targets, ``ystar`` [S, m] the frozen
+    frontier maxima, ``pool_c`` [nc, C, d] the chunked pool, ``evalm_c``
+    [nc, C] the evaluated mask, ``y_mean``/``y_std``/``weights`` [m]. ``s0``
+    rows of V are reused (0: all recomputed; ``>= P``: score only).
+    """
+    global launches
+    _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
+           weights, s0)
+    args = (ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
+            weights)
+    if on_cpu(*args):
+        return round_select_plain(*args, s0=int(s0))
+    nc, C, d = pool_c.shape
+    m, P = beta.shape
+    if nc > 65535:
+        raise ValueError(f"round_select: {nc} chunks exceed the grid's 65535; "
+                         "use a larger pool_chunk")
+    scratch = torch.empty(2 * nc, dtype=torch.int64, device=V.device)
+    out = torch.empty((), dtype=torch.int32, device=V.device)
+    err = build.library().round_fused_launch(
+        *(t.data_ptr() for t in args), scratch.data_ptr(), out.data_ptr(),
+        nc, C, d, m, P, ystar.shape[0], min(int(s0), P), build.stream_ptr(V))
+    build.check(err, "round_fused")
+    launches += 1
+    return V, out

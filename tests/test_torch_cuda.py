@@ -14,6 +14,7 @@ import numpy as np
 from repro_torch.core import make_space
 from repro_torch.kernels import pairdist as K2
 from repro_torch.kernels import pareto_count as K3
+from repro_torch.kernels import round_fused as K4
 from repro_torch.kernels import systolic_eval as K1
 from repro_torch.soc.workloads import get_workload
 
@@ -82,6 +83,77 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         K3.dominance_counts(torch.rand((8, 9), device=dev))
 
 
+K4_NAMES = ("ls", "var", "L", "V", "x", "beta", "ystar", "pool_c", "evalm_c",
+            "y_mean", "y_std", "weights")
+
+
+def _k4_problem(dev, nc, C, d, P, m=3, S=10, seed=0):
+    """A round problem on the card: SPD factors, a V consistent with them
+    (from the plain version at s0 = 0), the last 5 columns of the last chunk
+    masked as pad columns are."""
+    rng = np.random.default_rng(seed)
+    f = np.float32
+    A = rng.normal(size=(m, P, P)) / np.sqrt(P)
+    evalm = np.zeros((nc, C), bool)
+    evalm[0, :3] = True
+    evalm[-1, C - 5:] = True
+    sc = 1.5 / np.sqrt(d)
+    p = dict(ls=np.exp(0.3 * rng.normal(size=(m, d))),
+             var=np.exp(0.2 * rng.normal(size=(m,))),
+             L=np.linalg.cholesky(A @ np.swapaxes(A, -1, -2) + 0.5 * np.eye(P)),
+             V=np.zeros((nc, m, P, C)), x=sc * rng.normal(size=(P, d)),
+             beta=rng.normal(size=(m, P)), ystar=rng.normal(size=(S, m)),
+             pool_c=sc * rng.normal(size=(nc, C, d)), evalm_c=evalm,
+             y_mean=np.linspace(-1, 1, m), y_std=np.linspace(0.5, 2, m),
+             weights=np.linspace(0.2, 1, m))
+    t = {k: torch.as_tensor(v if v.dtype == bool else v.astype(f), device=dev)
+         for k, v in p.items()}
+    K4.round_select_plain(*(t[k] for k in K4_NAMES), s0=0)
+    return t
+
+
+def _k4_both(t, s0):
+    """(kernel V, kernel index, plain V, plain index) on copies of ``t``."""
+    a = {k: v.clone() for k, v in t.items()}
+    b = {k: v.clone() for k, v in t.items()}
+    before = K4.launches
+    va, ia = K4.round_select(*(a[k] for k in K4_NAMES), s0=s0)
+    assert K4.launches == before + 1
+    vb, ib = K4.round_select_plain(*(b[k] for k in K4_NAMES), s0=s0)
+    torch.cuda.synchronize()
+    return va, int(ia), vb, int(ib)
+
+
+@pytest.mark.parametrize("nc,C,P,s0", [
+    (1, 2500, 72, 0), (1, 2500, 72, 64), (1, 2500, 72, 72), (1, 2500, 72, 99),
+    (5, 512, 256, 248), (3, 37, 8, 0), (3, 37, 8, 5), (2, 130, 256, 0)])
+def test_round_fused_matches_plain(dev, nc, C, P, s0):
+    t = _k4_problem(dev, nc, C, 11, P, seed=nc * C + P + s0)
+    va, ia, vb, ib = _k4_both(t, s0)
+    assert ia == ib
+    # expf/erff/logf against correctly rounded float64 ones, through the
+    # substitution: 2e-5, the tolerance of the JAX kernel tests
+    torch.testing.assert_close(va, vb, rtol=2e-5, atol=2e-5)
+    if s0 >= P:
+        assert torch.equal(va, t["V"])
+
+
+def test_round_fused_ties_and_nan_chunks(dev):
+    t = _k4_problem(dev, 3, 200, 7, 16, seed=4)
+    _, win, _, _ = _k4_both(t, 0)
+    j, c = divmod(win, 200)
+    for jj, cc in ((j, 199 if c < 199 else 198), ((j + 1) % 3, 5)):
+        t["pool_c"][jj, cc] = t["pool_c"][j, c]
+    _, ia, _, ib = _k4_both(t, 0)
+    assert ia == ib == min(win, ((j + 1) % 3) * 200 + 5,
+                           j * 200 + (199 if c < 199 else 198))
+    t["pool_c"][ia // 200, (ia + 1) % 200] = float("nan")  # poison that chunk
+    _, ia2, vb2, ib2 = _k4_both(t, 0)
+    assert ia2 == ib2 and ia2 // 200 != ia // 200
+    t["L"].fill_(float("nan"))
+    assert _k4_both(t, 0)[1] == _k4_both(t, 0)[3] == 0
+
+
 def test_small_tuner_on_the_card_picks_what_the_cpu_picks(dev):
     from repro_torch.core import soc_tuner
     from repro_torch.random import GeneratorDraws
@@ -89,10 +161,12 @@ def test_small_tuner_on_the_card_picks_what_the_cpu_picks(dev):
 
     space = make_space()
     pool = space.sample(torch.Generator().manual_seed(7), 64).numpy()
-    rows = {}
-    for d in ("cuda", "cpu"):
-        flow = VLSIFlow(space, "resnet50", device=d)
-        rows[d] = soc_tuner(space, pool, flow, T=4, n=10, b=8, gp_steps=25,
-                            draws=GeneratorDraws(3, "cpu"),
-                            device=d).evaluated_rows
-    np.testing.assert_array_equal(rows["cuda"], rows["cpu"])
+    for kw in (dict(), dict(incremental=True), dict(incremental=True, q=2),
+               dict(incremental=True, pool_chunk=24)):
+        rows = {}
+        for d in ("cuda", "cpu"):
+            flow = VLSIFlow(space, "resnet50", device=d)
+            rows[d] = soc_tuner(space, pool, flow, T=4, n=10, b=8, gp_steps=25,
+                                draws=GeneratorDraws(3, "cpu"), device=d,
+                                **kw).evaluated_rows
+        np.testing.assert_array_equal(rows["cuda"], rows["cpu"])

@@ -1,5 +1,6 @@
-"""The port's exact-mode ``soc_tuner`` against the live JAX package at the
-``soc_tuner_exact`` golden configuration (``tools/regen_golden.py``).
+"""The port's ``soc_tuner`` against the live JAX package at the
+``soc_tuner_exact`` and ``soc_tuner_incremental`` golden configurations
+(``tools/regen_golden.py``).
 
 The pool comes from JAX. :class:`JaxKeyDraws` replays the reference's key
 schedule with ``jax.random`` through the port's draws protocol, so both runs
@@ -34,6 +35,7 @@ regen_golden = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(regen_golden)
 
 CASE = regen_golden.CASES["soc_tuner_exact"]
+CASE_INC = regen_golden.CASES["soc_tuner_incremental"]
 
 
 class JaxKeyDraws:
@@ -91,8 +93,47 @@ def test_exact_tuner_picks_equal_live_jax(golden_pool, seed):
     assert got.space.pinned == want.space.pinned
     np.testing.assert_array_equal(got.pareto_rows, want.pareto_rows)
     assert (flow.calls, flow.evaluated) == (flow_j.calls, flow_j.evaluated)
-    assert got.engine_stats == {"rounds": kw["T"],
-                                "dispatches": 5 * kw["T"]}
+    assert got.engine_stats == want.engine_stats
+    assert got.engine_stats["dispatches"] == 5 * kw["T"]
+
+
+def _run_both(pool, ref, seed, **extra):
+    kw = dict(regen_golden.RUN_KW, **extra)
+    flow_j = VLSIFlowJ(make_space_j(), CASE_INC["workload"])
+    want = soc_tuner_j(make_space_j(), pool, flow_j,
+                       key=jax.random.PRNGKey(seed), reference_front=ref, **kw)
+    flow = VLSIFlow(make_space(), CASE_INC["workload"], device="cpu")
+    got = soc_tuner(make_space(), pool, flow,
+                    draws=JaxKeyDraws(jax.random.PRNGKey(seed)),
+                    reference_front=ref, device="cpu", **kw)
+    assert (flow.calls, flow.evaluated) == (flow_j.calls, flow_j.evaluated)
+    return got, want
+
+
+@pytest.mark.parametrize("seed", [CASE_INC["seed"], 5])
+def test_incremental_tuner_picks_equal_live_jax(golden_pool, seed):
+    pool, ref = golden_pool
+    assert CASE_INC["driver"] == "soc_tuner" and CASE_INC["incremental"]
+    got, want = _run_both(pool, ref, seed, incremental=True)
+    np.testing.assert_array_equal(got.evaluated_rows, want.evaluated_rows)
+    # metrics from two float32 SoC models (ulps apart), the rest float64
+    assert got.history[-1]["adrs"] == pytest.approx(want.history[-1]["adrs"],
+                                                     rel=1e-5)
+    keys = ("rounds", "refactors", "block_updates", "dispatches",
+            "frontier_resamples")
+    assert {k: got.engine_stats[k] for k in keys} == \
+        {k: want.engine_stats[k] for k in keys}
+
+
+def test_incremental_q2_tuner_picks_equal_live_jax(golden_pool):
+    pool, ref = golden_pool
+    got, want = _run_both(pool, ref, CASE_INC["seed"], incremental=True, q=2,
+                          T=3)
+    np.testing.assert_array_equal(got.evaluated_rows, want.evaluated_rows)
+    assert got.engine_stats["fantasy_steps"] == \
+        want.engine_stats["fantasy_steps"] == 3
+    assert got.history[-1]["adrs"] == pytest.approx(want.history[-1]["adrs"],
+                                                     rel=1e-5)
 
 
 def test_merge_trial_evals_equal():
@@ -107,8 +148,7 @@ def test_merge_trial_evals_equal():
         np.testing.assert_array_equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("kw", [dict(incremental=True), dict(q=2),
-                                dict(checkpoint_dir="ckpt"),
+@pytest.mark.parametrize("kw", [dict(checkpoint_dir="ckpt"),
                                 dict(proposer=True)])
 def test_unported_options_raise(kw):
     space = make_space()
@@ -119,15 +159,26 @@ def test_unported_options_raise(kw):
     assert flow.calls == 0  # checked before any flow budget is spent
 
 
-def test_engine_rejects_incremental_and_q_batches():
+def test_q_batches_need_the_incremental_engine():
+    space = make_space()
+    pool = space.sample(torch.Generator().manual_seed(0), 16).numpy()
+    flow = VLSIFlow(space, device="cpu")
+    with pytest.raises(ValueError, match="requires incremental=True"):
+        soc_tuner(space, pool, flow, T=1, n=4, b=2, q=2, device="cpu")
+    assert flow.calls == 0
+
+
+def test_engine_rejects_incremental_and_q_batches(monkeypatch):
     pool = torch.rand(10, 4)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        BOEngine(pool, incremental=True)
-    eng = BOEngine(pool, gp_steps=2)
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            BOEngine(pool)  # the default device is cuda
+    eng = BOEngine(pool, incremental=False, gp_steps=2, device="cpu")
     with pytest.raises(RuntimeError, match="before observe"):
         eng.select(torch.zeros(3, 10, 2))
     eng.observe([0, 1, 2], np.random.default_rng(0).random((3, 3)))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="requires incremental=True"):
         eng.select_q(torch.zeros(3, 10, 2), q=2)
     pick = eng.select(torch.zeros(3, 10, 2))
     assert pick not in (0, 1, 2) and eng.stats.rounds == 1
