@@ -46,13 +46,21 @@ K3_OPS_PER_PAIR = lambda m: 3 * m + 2  # noqa: E731
 
 
 def k4_ops(nc, C, d, m, P, S, s0) -> int:
-    """float32 operations of one round_fused call (each +, -, *, / and each
-    exp/erf/log one operation), per column and objective: for each of the
-    P - s0 recomputed rows 6d + 6 for the RBF entry and 2r + 1 for its
-    substitution; 4P for the moments; ~20 per frontier sample; ~8 more."""
-    rows = range(min(s0, P), P)
-    per = sum(6 * d + 6 + 2 * r + 1 for r in rows) + 4 * P + 20 * S + 8
-    return nc * C * m * per
+    """float32 operations that one round_fused call needs at least (each +,
+    -, *, / and each exp/erf/log one operation), whatever the kernel itself
+    recomputes. With w = 1/ls² per objective: per column, d squares shared
+    by the objectives; per column and objective, 2d for its w-weighted norm;
+    per recomputed train row and objective, 3d to weight it and take its
+    norm (once for all columns); per recomputed (row, column, objective),
+    2d for the cross term, 6 for d² = a + b − 2c, its clamp, −½, exp and
+    × var, and 2r + 1 for row r's substitution; per column and objective,
+    4P for the moments, ~20 per frontier sample and ~8 more."""
+    if s0 >= P:
+        rbf = 0
+    else:
+        rbf = (nc * C * (d + 2 * d * m) + 3 * d * m * (P - s0)
+               + nc * C * m * sum(2 * d + 6 + 2 * r + 1 for r in range(s0, P)))
+    return rbf + nc * C * m * (4 * P + 20 * S + 8)
 
 
 def k4_bytes(nc, C, d, m, P, S) -> int:
@@ -422,8 +430,9 @@ def incremental_breakdown(res, pool, cfg: dict, dev) -> dict:
     """Warm incremental rounds at the incremental main path's final state:
     an engine observes all but the last two evaluations, runs its cold
     round, observes one more, and then runs warm rounds. With
-    ``profile_stages=True``: the seconds of each stage of one warm round.
-    Without: one warm round's wall seconds (host clock, ending in a
+    ``profile_stages=True``: the seconds of each stage of one warm round
+    (fit, factor, frontier, and its one round_fused launch, each ended by a
+    synchronize). Without: one warm round's wall seconds (host clock, ending in a
     synchronize), its round_fused launches, and the same round under
     torch.profiler (:func:`device_busy`)."""
     import torch
@@ -453,7 +462,11 @@ def incremental_breakdown(res, pool, cfg: dict, dev) -> dict:
     eng = warm_engine(profile_stages=True)
     before = dict(eng.stats.stage_wall_s)
     sub, eps = draw()
+    k4_before = K4.launches
     eng.select(eps, sub)
+    if K4.launches != k4_before + 1:
+        raise AssertionError("the profiled round launched round_fused "
+                             f"{K4.launches - k4_before} times, not once")
     stages = {k: eng.stats.stage_wall_s[k] - before.get(k, 0.0)
               for k in PROFILE_STAGES + ("round_total",)}
 

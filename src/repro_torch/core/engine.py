@@ -62,9 +62,9 @@ FANTASY_MODES = ("mean", "cl_min", "cl_max")
 #: version tag of the ``state_dict`` layout (the reference's)
 ENGINE_STATE_FORMAT = 1
 
-#: stage keys a profiled select round fills, in execution order
-PROFILE_STAGES = ("fit", "factor", "v_update", "frontier", "moments",
-                  "score", "argmax")
+#: stage keys a profiled select round fills, in execution order; the last is
+#: the round's one ``round_fused`` call (one K4 launch on a GPU pool)
+PROFILE_STAGES = ("fit", "factor", "frontier", "round_fused")
 
 #: memory budget of one pool chunk under ``pool_chunk="auto"``
 DEFAULT_CHUNK_BUDGET_MB = 64
@@ -85,7 +85,9 @@ def auto_chunk(n: int, *, bytes_per_col: int = 4 * 3 * 256,
 
 @dataclasses.dataclass
 class EngineStats:
-    """Host-side counters for one engine run (the reference's fields)."""
+    """Host-side counters for one engine run: the reference's fields for
+    the code ported so far (the batched engine's and the pool edits'
+    counters come with that code)."""
 
     rounds: int = 0
     refactors: int = 0       # full O(P³) factorizations
@@ -94,17 +96,9 @@ class EngineStats:
     fantasy_steps: int = 0   # rank-1 fantasy appends (q-batch / pending)
     frontier_resamples: int = 0  # joint frontier draws (1 per round)
     last_drift: float = 0.0  # max |params − params_ref| at the last round
-    # counters of the batched engine and of pool edits (not ported yet);
-    # kept so snapshots carry the reference's keys
-    scenario_refactors: int = 0
-    scenario_block_updates: int = 0
-    mixed_rounds: int = 0
-    pool_appends: int = 0
-    pool_replacements: int = 0
-    v_chunk_refreshes: int = 0
     #: cumulative wall seconds per stage of profiled rounds
     #: (``profile_stages=True``): the ``PROFILE_STAGES`` keys plus
-    #: ``"round_total"`` around the whole staged round
+    #: ``"round_total"`` around the whole round
     stage_wall_s: dict = dataclasses.field(default_factory=dict)
 
     def as_dict(self) -> dict:
@@ -235,26 +229,33 @@ def _round_fused(params_ref: GPParams, L, V, x, beta, ystar, pool_c,
                             s0=s0)
 
 
+def _untimed(name: str, fn, *args, **kwargs):
+    """The default stage hook of :func:`_round_seq`: just ``fn(...)``."""
+    return fn(*args, **kwargs)
+
+
 def _round_seq(state: EngineState, x, yn, y_mean, y_std, mask, pool_c,
                evalm_c, sub, eps, force_refactor: bool, drift_tol: float,
-               weights, *, steps: int, s0: int):
+               weights, *, steps: int, s0: int, timed=_untimed):
     """One incremental round: warm fit → drift check → block update or
     refactor → frontier sample → one K4 call (V update, scores, argmax).
 
-    Returns ``(state, pick, refactored, drift, ystar)``; ``pick`` is a
-    0-dim int32 tensor on the pool's device."""
-    params = _fit(state.params, x, yn, mask, steps=steps)
+    ``timed(name, fn, *args)`` runs each stage (the ``PROFILE_STAGES``);
+    profile mode passes a hook that times it. Returns ``(state, pick,
+    refactored, drift, ystar)``; ``pick`` is a 0-dim int32 tensor on the
+    pool's device."""
+    params = timed("fit", _fit, state.params, x, yn, mask, steps=steps)
     drift = _drift(params, state.params_ref)
     do_ref = (s0 <= 0 or force_refactor
               or bool(np.float32(float(drift)) > np.float32(drift_tol)))
     params_ref = params if do_ref else state.params_ref
-    L = (_chol_refactor(params_ref, x, mask) if do_ref
-         else _chol_block(params_ref, state.L, x, mask, s0))
-    beta, ystar = _beta_ystar(params_ref, L, x, yn, y_mean, y_std,
-                              pool_c.reshape(-1, pool_c.shape[-1]), sub, eps)
-    V, nxt = _round_fused(params_ref, L, state.V, x, beta, ystar, pool_c,
-                          evalm_c, y_mean, y_std, weights,
-                          0 if do_ref else s0)
+    L = (timed("factor", _chol_refactor, params_ref, x, mask) if do_ref
+         else timed("factor", _chol_block, params_ref, state.L, x, mask, s0))
+    beta, ystar = timed("frontier", _beta_ystar, params_ref, L, x, yn, y_mean,
+                        y_std, pool_c.reshape(-1, pool_c.shape[-1]), sub, eps)
+    V, nxt = timed("round_fused", _round_fused, params_ref, L, state.V, x,
+                   beta, ystar, pool_c, evalm_c, y_mean, y_std, weights,
+                   0 if do_ref else s0)
     return EngineState(params, params_ref, L, V), nxt, do_ref, drift, ystar
 
 
@@ -277,13 +278,10 @@ def _fantasy_step(params_ref: GPParams, L, V, rows_pad, yn, mask, pool_c,
     imputed under the current posterior (the moments' fixed order), L gets
     the trailing block update from ``s0`` (the bucket floor of the real
     rows), and one K4 call updates V in place and picks again."""
-    nc, C, d = pool_c.shape
-    P = L.shape[-1]
+    _, C, d = pool_c.shape
     beta = _train_beta(L, yn)
-    Vcol = V[pick // C, :, :, pick % C]                         # [m, P]
-    mean_std = beta[:, 0] * Vcol[:, 0]
-    for p in range(1, P):
-        mean_std = mean_std + beta[:, p] * Vcol[:, p]
+    Vcol = V[pick // C, :, :, pick % C, None]                   # [m, P, 1]
+    mean_std = _col_moments(params_ref.log_var, beta, Vcol)[0][:, 0]
     target = _liar_target(liar, mean_std, yn, mask)
     rows2, mask2, yn2 = rows_pad.clone(), mask.clone(), yn.clone()
     rows2[pos] = pick
@@ -314,7 +312,10 @@ class BOEngine:
     there. See the module docstring for the two paths. ``pool_chunk``
     (``None`` | int | ``"auto"``, incremental only) sets the chunk width;
     any width picks the same rows. ``profile_stages`` (incremental only)
-    runs each select round as timed stages into ``stats.stage_wall_s``.
+    times each stage of a select round (``PROFILE_STAGES``: the fit, the
+    factor update, the frontier sample and the round's one K4 call), each
+    ended by a device synchronize, into ``stats.stage_wall_s``; the round
+    computes what it computes unprofiled.
     """
 
     #: round stages of one exact round (fit, posterior cache, frontier
@@ -347,7 +348,7 @@ class BOEngine:
         self._regrid()
         if profile_stages and not self.incremental:
             raise ValueError("profile_stages requires incremental=True: the "
-                             "exact path has no staged round")
+                             "exact path has no profiled round")
         self.profile_stages = bool(profile_stages)
 
         self._rows: list[int] = []
@@ -571,19 +572,19 @@ class BOEngine:
             torch.as_tensor(y_pad, device=self.device), mask)
         force, eps_t, weights = bool(first or grew), self._eps(eps), \
             self._weights()
+        t_round = time.perf_counter()
+        state, nxt, did_ref, drift, ystar = _round_seq(
+            state, x, yn, y_mean, y_std, mask, self._pool_c,
+            self._evalm_chunks(), sub, eps_t, force, self.drift_tol, weights,
+            steps=steps, s0=s0,
+            timed=self._timed if self.profile_stages else _untimed)
         if self.profile_stages:
-            state, nxt, did_ref, drift, ystar = self._round_staged(
-                state, x, yn, y_mean, y_std, mask, sub, eps_t, force, weights,
-                steps=steps, s0=s0, select=do_select)
-            # the bookkeeping below counts 1 dispatch per round; a staged
-            # round runs one program per stage instead
-            self.stats.dispatches += (len(PROFILE_STAGES) if do_select
-                                      else len(PROFILE_STAGES) - 3) - 1
-        else:
-            state, nxt, did_ref, drift, ystar = _round_seq(
-                state, x, yn, y_mean, y_std, mask, self._pool_c,
-                self._evalm_chunks(), sub, eps_t, force, self.drift_tol,
-                weights, steps=steps, s0=s0)
+            acc = self.stats.stage_wall_s
+            acc["round_total"] = (acc.get("round_total", 0.0)
+                                  + (time.perf_counter() - t_round))
+            # a profiled round runs its stages one by one: one dispatch each
+            # (the bookkeeping below counts one)
+            self.stats.dispatches += len(PROFILE_STAGES) - 1
 
         self._state = state
         self._P = P
@@ -600,60 +601,16 @@ class BOEngine:
             self.stats.block_updates += 1
         return int(nxt) if do_select else -1
 
-    def _round_staged(self, state, x, yn, y_mean, y_std, mask, sub, eps,
-                      force_refactor: bool, weights, *, steps: int, s0: int,
-                      select: bool):
-        """One round as separately timed stages (profile mode).
-
-        The math of :func:`_round_seq` stage by stage, each stage ended by a
-        device synchronisation and its wall seconds added to
-        ``stats.stage_wall_s`` (plus ``"round_total"`` around the whole
-        round). The V update, moments, scores and argmax run as K4's plain
-        stages, split so that each can be timed; on a GPU that is PyTorch
-        on the card, a measurement mode and never the main path."""
+    def _timed(self, name: str, fn, *args, **kwargs):
+        """The profile-mode stage hook of :func:`_round_seq`: ``fn(...)``
+        ended by a device synchronize, its wall seconds added to
+        ``stats.stage_wall_s[name]``."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self._sync()
         acc = self.stats.stage_wall_s
-        t_round = time.perf_counter()
-
-        def timed(name, fn, *a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            self._sync()
-            acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0)
-            return out
-
-        def fit():
-            p = _fit(state.params, x, yn, mask, steps=steps)
-            return p, _drift(p, state.params_ref)
-
-        params, drift = timed("fit", fit)
-        do_ref = (force_refactor or s0 <= 0
-                  or bool(np.float32(float(drift)) > np.float32(self.drift_tol)))
-        params_ref = params if do_ref else state.params_ref
-        if do_ref:
-            L = timed("factor", _chol_refactor, params_ref, x, mask)
-        else:
-            L = timed("factor", _chol_block, params_ref, state.L, x, mask, s0)
-        V = timed("v_update", _rf.v_update_plain,
-                  torch.exp(params_ref.log_ls), torch.exp(params_ref.log_var),
-                  L, state.V, x, self._pool_c, 0 if do_ref else s0)
-        beta, ystar = timed("frontier", _beta_ystar, params_ref, L, x, yn,
-                            y_mean, y_std, self._pool_c.reshape(-1, self.d),
-                            sub, eps)
-        nxt = -1
-        if select:
-            mom = timed("moments", lambda: [
-                _col_moments(params_ref.log_var, beta, V[j])
-                for j in range(self._nc)])
-            evalm = self._evalm_chunks()
-            scores = timed("score", lambda: torch.stack([
-                torch.where(evalm[j], -math.inf, _rf.mes_plain(
-                    mu * y_std[:, None] + y_mean[:, None],
-                    sd * y_std[:, None], ystar, weights))
-                for j, (mu, sd) in enumerate(mom)]))
-            nxt = timed("argmax", _rf.select_plain, scores)
-        acc["round_total"] = (acc.get("round_total", 0.0)
-                              + (time.perf_counter() - t_round))
-        return EngineState(params, params_ref, L, V), nxt, do_ref, drift, ystar
+        acc[name] = acc.get(name, 0.0) + (time.perf_counter() - t0)
+        return out
 
     # ------------------------------------------------------------- helpers
     @staticmethod

@@ -154,6 +154,32 @@ def test_round_fused_ties_and_nan_chunks(dev):
     assert _k4_both(t, 0)[1] == _k4_both(t, 0)[3] == 0
 
 
+def test_profiled_rounds_launch_round_fused_once_each(dev):
+    """Profile mode times the round the main path runs: one K4 launch per
+    round, and the picks of the unprofiled engine."""
+    from repro_torch.core import BOEngine
+    from repro_torch.core.engine import PROFILE_STAGES
+    from repro_torch.random import GeneratorDraws
+
+    rng = np.random.default_rng(5)
+    pool = rng.uniform(size=(96, 6)).astype(np.float32)
+    y = np.stack([pool.sum(1), (pool ** 2).sum(1), -pool[:, 0]], 1)
+    picks = {}
+    for profile in (False, True):
+        eng = BOEngine(pool, gp_steps=20, profile_stages=profile, device=dev)
+        eng.observe(list(range(10)), y[:10])
+        draws, out = GeneratorDraws(2, "cpu"), []
+        for _ in range(3):
+            sub, eps = draws.round(96, 32, 3, 4)
+            before = K4.launches
+            out.append(eng.select(eps, sub))
+            assert K4.launches == before + 1
+            eng.observe(out[-1:], y[out[-1:]])
+        picks[profile] = out
+    assert picks[True] == picks[False]
+    assert set(eng.stats.stage_wall_s) == set(PROFILE_STAGES) | {"round_total"}
+
+
 def test_small_tuner_on_the_card_picks_what_the_cpu_picks(dev):
     from repro_torch.core import soc_tuner
     from repro_torch.random import GeneratorDraws

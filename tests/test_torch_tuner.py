@@ -93,7 +93,12 @@ def test_exact_tuner_picks_equal_live_jax(golden_pool, seed):
     assert got.space.pinned == want.space.pinned
     np.testing.assert_array_equal(got.pareto_rows, want.pareto_rows)
     assert (flow.calls, flow.evaluated) == (flow_j.calls, flow_j.evaluated)
-    assert got.engine_stats == want.engine_stats
+    # the port keeps the counters of the code it has; the reference's others
+    # (batched engine, pool edits) stay 0 on this path
+    assert got.engine_stats == {k: want.engine_stats[k]
+                                for k in got.engine_stats}
+    assert not any(v for k, v in want.engine_stats.items()
+                   if k not in got.engine_stats)
     assert got.engine_stats["dispatches"] == 5 * kw["T"]
 
 
