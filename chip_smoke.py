@@ -15,10 +15,21 @@ launched in it and that its results are right. Then: the incremental run
 with ``pool_chunk=512`` picks the same rows; the exact and the incremental
 round, stage by stage, with the device's busy share; and at n_pool=64 the
 card's picks equal the CPU's (exact, incremental, and q=2 fantasy batches).
+
+The LM serving path: ``flash_attn`` (K5) against its plain version at the
+main path's shape, at S = 4096 and at a ragged S = 2000, timed beside
+``scaled_dot_product_attention``; then ``mistral-nemo-12b`` at full width
+(40 layers, d_model 5120, 32 heads / 8 KV heads, vocab 131072; random bf16
+weights from a seed) serving ``Engine.generate`` at batch 4, a 2048-token
+prompt and 32 greedy tokens, with exactly 40 K5 launches in the prefill;
+the same prefill again with K5's plain version passed in, its logits, its
+teacher-forced decode logits and its greedy tokens held against the kernel
+run's; and the smoke config's prefill on the card against the CPU's.
+
 It prints the card (``nvidia-smi``), the build time, one line per kernel
-check, the rounds, a ``{"kernels": [...]}`` JSON line and, last,
-``{"ok": true, "device": {...}}``. Any failure raises; no phase is caught.
-It needs a CUDA device and exits non-zero without one.
+check, the rounds, the serve phase, a ``{"kernels": [...]}`` JSON line and,
+last, ``{"ok": true, "device": {...}}``. Any failure raises; no phase is
+caught. It needs a CUDA device and exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -36,6 +47,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 #: (non-tensor-core) operations/s. Roofline bounds are stated against these.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+#: bf16 dense tensor-core peak (the same data sheet): K5's bf16 inputs
+PEAK_BF16_OPS_S = 989e12
 #: float32 operations per (design, layer) pair of the SoC model, counted by
 #: hand in repro_torch/soc/model.py (~101 in _layer_cost, ~28 in the
 #: per-layer epilogue and sums); the per-design epilogue is negligible.
@@ -122,15 +135,18 @@ def time_ms(fn, reps: int = 20, repeats: int = 7) -> tuple[float, float]:
     return device, eager
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_ops: float,
+             peak_ops: float = PEAK_F32_OPS_S) -> tuple[float, str]:
     t_bytes = n_bytes / PEAK_BYTES_S * 1e3
-    t_ops = n_ops / PEAK_F32_OPS_S * 1e3
+    t_ops = n_ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _record(results, name, shape, err, tol_ok, t_k, t_p, t_lib, bound):
+def _record(results, name, shape, err, tol_ok, t_k, t_p, t_lib, bound,
+            **extra):
     """Print and keep one kernel check; ``t_*`` are (device, eager) pairs
-    from :func:`time_ms`. Raises if the kernel disagreed."""
+    from :func:`time_ms`; ``extra`` is kept beside them. Raises if the
+    kernel disagreed."""
     lib = "n/a" if t_lib is None else f"{t_lib[0]:.4f}/{t_lib[1]:.4f} ms"
     print(f"  {name} {shape}: max_abs_err={err:.3e} ok={tol_ok} "
           f"device/eager: kernel={t_k[0]:.4f}/{t_k[1]:.4f} ms "
@@ -144,7 +160,7 @@ def _record(results, name, shape, err, tol_ok, t_k, t_p, t_lib, bound):
         library_ms=None if t_lib is None else t_lib[0],
         eager_ms=t_k[1], plain_eager_ms=t_p[1],
         library_eager_ms=None if t_lib is None else t_lib[1],
-        bound_ms=bound[0], bound_by=bound[1]))
+        bound_ms=bound[0], bound_by=bound[1], **extra))
 
 
 def check_kernels(dev) -> dict:
@@ -375,7 +391,7 @@ def device_busy(fn, wall_s: float) -> dict:
         "device busy: not measured (the profiler saw no device activity)"
         if not launches else
         f"device busy {dev_s:.4f} s ({100 * out['device_busy_share']:.1f} % "
-        f"of the round), {launches} launches")
+        f"of the wall time), {launches} launches")
     return out
 
 
@@ -497,6 +513,253 @@ def incremental_breakdown(res, pool, cfg: dict, dev) -> dict:
     return out
 
 
+#: K5 shapes (B, S, H, KV heads, hd): the serve phase's prefill, the S at
+#: which the reference's ``_sdpa`` chunks its keys, and a ragged S.
+K5_SHAPES = [(4, 2048, 32, 8, 128), (1, 4096, 32, 8, 128),
+             (2, 2000, 32, 8, 128)]
+#: bf16 outputs rounded from float32 results summed in another order may
+#: flip by one bf16 ulp (<= 2^-7 relative); atol for outputs near 0.
+K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
+#: the serve phase: mistral-nemo-12b at full width, Engine.generate
+SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=32,
+             max_len=2080, seed=0)
+#: kernel run vs K5's plain version, bf16 end to end through 40 layers:
+#: attention outputs differ by bf16 ulp flips, which the residual stream
+#: carries. Logits are O(1) (|max| ~4, one ulp 2^-6 there): max |diff| <=
+#: 0.125 (eight ulps) and mean |diff| <= 0.02. The same comparison (the
+#: CPU's _sdpa vs K5's plain version) at 40 layers and d_model 640 on the
+#: CPU gave max 0.031 and mean 0.0055; a wrong mask, head or tile moves
+#: logits by O(1).
+SERVE_ATOL, SERVE_MEAN_TOL = 0.125, 0.02
+
+
+def k5_bytes_ops(B, S, H, K, hd) -> tuple[int, int]:
+    """Bytes K5 must move (q and o at H heads, k and v at K, bf16, each
+    once) and its causal operations 2·B·H·S²·hd (the QKᵀ and PV products
+    over the S(S+1)/2 unmasked pairs, rounded to S²/2)."""
+    return 2 * B * S * hd * (2 * H + 2 * K), 2 * B * H * S * S * hd
+
+
+def check_flash_attn(dev, results: dict) -> None:
+    """K5 against its plain version at ``K5_SHAPES`` (bf16), timed beside
+    the plain version and ``scaled_dot_product_attention`` (the library
+    call, timed only: the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as K5
+
+    def library(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True)
+
+    for B, S, H, K, hd in K5_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B * S + H)
+        q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, S, K, hd), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, S, K, hd), generator=g, device=dev).bfloat16()
+        out_k = K5.flash_attention(q, k, v)
+        out_p = K5.flash_attention_plain(q, k, v)
+        out_l = library(q, k, v).transpose(1, 2)
+        torch.cuda.synchronize()
+        err = float((out_k.float() - out_p.float()).abs().max())
+        ok = bool(torch.allclose(out_k.float(), out_p.float(), rtol=K5_RTOL,
+                                 atol=K5_ATOL))
+        lib_err = float((out_l.float() - out_p.float()).abs().max())
+        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, hd)
+        _record(results, "flash_attn", [B, S, H, K, hd], err, ok,
+                time_ms(lambda: K5.flash_attention(q, k, v), reps=5,
+                        repeats=5),
+                time_ms(lambda: K5.flash_attention_plain(q, k, v), reps=2,
+                        repeats=3),
+                time_ms(lambda: library(q, k, v), reps=5, repeats=5),
+                bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
+                bound_f32_ms=bound_ms(n_bytes, n_ops)[0],
+                library_max_abs_err=lib_err)
+        print(f"    (float32 CUDA-core bound "
+              f"{results['flash_attn'][-1]['bound_f32_ms']:.3f} ms; the "
+              f"library's max abs err against the plain version {lib_err:.3e})")
+        del q, k, v, out_k, out_p, out_l
+        torch.cuda.empty_cache()
+
+
+def _logit_diff(a, b) -> tuple[float, float]:
+    d = (a.float() - b.float()).abs()
+    return float(d.max()), float(d.mean())
+
+
+def serve_phase(dev) -> dict:
+    """The LM serving path at full width (``SERVE``): build, generate with
+    K5 (every launch count set to 0 just before, read just after), then the
+    same prefill with K5's plain version and a teacher-forced decode fed the
+    kernel run's tokens. Raises on any failed check."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import decode_step, init, init_cache, prefill
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(SERVE["arch"])
+    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = init(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    B, S0, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    tokens = torch.randint(0, cfg.vocab, (B, S0), generator=gen, device=dev)
+    eng = Engine(cfg, model, ServeConfig(max_len=SERVE["max_len"]))
+    print(f"serve: {cfg.arch_id} at full width, {n_params / 1e9:.3f} B "
+          f"parameters in bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated), built in {init_s:.1f} s; generate batch {B}, prompt "
+          f"{S0}, {steps} greedy tokens, max_len {SERVE['max_len']}")
+
+    logits, marks = [], {}
+
+    def timed(name, fn, *args, **kw):
+        if name == "prefill":
+            torch.cuda.synchronize()
+            marks["t0"], marks["k5_0"] = time.perf_counter(), K5.launches
+        out = fn(*args, **kw)
+        if name == "prefill":
+            torch.cuda.synchronize()
+            marks["t1"], marks["k5_1"] = time.perf_counter(), K5.launches
+        logits.append(out[1])
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    out = eng.generate(tokens, steps, timed=timed)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                for k in kernels.KERNELS}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prefill_s = marks["t1"] - marks["t0"]
+    decode_s = t_end - marks["t1"]
+    k5_prefill = marks["k5_1"] - marks["k5_0"]
+    res = dict(config=SERVE, n_params=n_params, init_s=init_s,
+               prefill_s=prefill_s, decode_s=decode_s,
+               decode_tok_s=B * steps / decode_s,
+               decode_ms_per_step=decode_s / steps * 1e3,
+               peak_memory_gb=peak_gb, launches=launches,
+               k5_prefill_launches=k5_prefill)
+    print(f"  kernel run: prefill {prefill_s:.3f} s, decode {decode_s:.3f} s "
+          f"({res['decode_ms_per_step']:.2f} ms/step, "
+          f"{res['decode_tok_s']:.1f} tokens/s), peak memory {peak_gb:.2f} GB, "
+          f"launches {launches} (flash_attn in the prefill: {k5_prefill})")
+    if k5_prefill != cfg.n_layers or launches["flash_attn"] != cfg.n_layers:
+        raise AssertionError(f"flash_attn launched {k5_prefill} times in the "
+                             f"prefill and {launches['flash_attn']} in all, "
+                             f"not {cfg.n_layers} and {cfg.n_layers}")
+    toks = out.cpu()
+    assert toks.shape == (B, steps) and int(toks.min()) >= 0 and \
+        int(toks.max()) < cfg.vocab
+    assert len(logits) == steps + 1 and all(
+        bool(torch.isfinite(lg.float()).all()) for lg in logits)
+
+    # the same prefill with K5's plain version, then teacher forcing
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    k5_before = K5.launches
+    cache_p, logit_p = prefill(model, tokens,
+                               attention=K5.flash_attention_plain)
+    torch.cuda.synchronize()
+    plain_prefill_s = time.perf_counter() - t0
+    if K5.launches != k5_before:
+        raise AssertionError("the plain prefill launched flash_attn")
+    dec = eng._merge_caches(init_cache(cfg, B, SERVE["max_len"], device=dev),
+                            cache_p, S0)
+    del cache_p
+    diffs, gaps_checked = [], 0
+    for i in range(steps + 1):
+        dmax, dmean = _logit_diff(logits[i], logit_p)
+        diffs.append((dmax, dmean))
+        if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL:
+            raise AssertionError(f"logits of step {i}: kernel vs plain max "
+                                 f"{dmax:.4f}, mean {dmean:.5f} (tolerance "
+                                 f"{SERVE_ATOL}, {SERVE_MEAN_TOL})")
+        if i == steps:
+            break
+        top2 = torch.topk(logit_p.float(), 2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1] > SERVE_ATOL).cpu()
+        pick_p = torch.argmax(logit_p, dim=-1).cpu()
+        if not torch.equal(pick_p[clear], toks[clear, i].long()):
+            raise AssertionError(f"step {i}: greedy tokens differ where the "
+                                 "plain run's top-2 gap is clear")
+        gaps_checked += int(clear.sum())
+        dec, logit_p = decode_step(model, dec, out[:, i], S0 + i)
+    if gaps_checked == 0:
+        raise AssertionError("no step had a clear top-2 gap to check")
+
+    # where the time goes: one prefill (K5) and one decode step (the last
+    # position again, the cache full) under torch.profiler
+    def one_prefill():
+        prefill(model, tokens)
+
+    def one_step():
+        decode_step(model, dec, out[:, -1], S0 + steps - 1)
+
+    for name, fn in (("prefill", one_prefill), ("decode step", one_step)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof = device_busy(fn, wall)
+        prof["wall_s"] = wall
+        res[f"{name.replace(' ', '_')}_profile"] = prof
+        print(f"  one {name}: {wall:.4f} s; {prof['busy_text']}")
+        _print_top(prof)
+    res.update(plain_prefill_s=plain_prefill_s, logit_diffs=diffs,
+               tokens_checked=gaps_checked, tokens=toks[0].tolist())
+    print(f"  plain prefill {plain_prefill_s:.3f} s; kernel vs plain logits: "
+          f"prefill max {diffs[0][0]:.4f} mean {diffs[0][1]:.5f}, decode "
+          f"(teacher-forced) max {max(d[0] for d in diffs[1:]):.4f} mean "
+          f"{max(d[1] for d in diffs[1:]):.5f}; greedy tokens equal at "
+          f"{gaps_checked} of {B * steps} (sequence, step) pairs with a clear "
+          f"top-2 gap")
+    print(f"  tokens[0]: {toks[0].tolist()}")
+    del model, eng, dec, logits
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_small_card_vs_cpu(dev) -> None:
+    """The smoke config's weights on the card and on the CPU: the card's
+    prefill (K5) and a decode step match the CPU's plain run (bf16 ulp
+    flips over 2 layers: 0.0625, as the CPU tests against JAX)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import decode_step, init, init_cache, prefill
+
+    cfg = get_config("mistral-nemo-12b@smoke")
+    cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab, (3, 75),
+                         generator=torch.Generator().manual_seed(5))
+    before = K5.launches
+    runs = {}
+    for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+        cache, lg = prefill(model, toks.to(d))
+        dec = init_cache(cfg, 3, 80, device=d)
+        dec.k[:, :, :75], dec.v[:, :, :75] = cache.k, cache.v
+        _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 75)
+        runs[name] = (lg.float().cpu(), lg2.float().cpu())
+    assert K5.launches == before + cfg.n_layers
+    for a, b in zip(runs["cuda"], runs["cpu"]):
+        dmax, dmean = _logit_diff(a, b)
+        print(f"  smoke config, card vs CPU logits: max {dmax:.4f} mean "
+              f"{dmean:.5f}")
+        assert dmax <= 0.0625 and dmean <= 0.01
+
+
 def compare_rows(what: str, a, b) -> None:
     """Assert that two soc_tuner results evaluated the same rows."""
     import numpy as np
@@ -578,7 +841,8 @@ def main() -> int:
 
     res_i, pool_i, ref_i, flow_i, launches_i, wall_i = drive(
         "incremental", incremental=True)
-    missing = [k for k, n in launches_i.items() if n == 0]
+    missing = [k for k, n in launches_i.items()
+               if n == 0 and k != "flash_attn"]
     if missing:
         raise AssertionError(
             f"kernels not launched on the incremental path: {missing}")
@@ -610,6 +874,11 @@ def main() -> int:
         np.testing.assert_allclose(r_gpu.history[-1]["adrs"],
                                    r_cpu.history[-1]["adrs"], rtol=1e-5)
 
+    print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
+    check_flash_attn(dev, checks)
+    serve = serve_phase(dev)
+    serve_small_card_vs_cpu(dev)
+
     src = "src/repro_torch/csrc/"
     meta = {
         "systolic_eval": ("systolic_eval.cu",
@@ -623,6 +892,9 @@ def main() -> int:
         "round_fused": ("round_fused.cu",
                         "src/repro/kernels/round_fused/kernel.py:142",
                         launches_i),
+        "flash_attn": ("flash_attn.cu",
+                       "src/repro/kernels/flash_attn/kernel.py:61",
+                       serve["launches"]),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():
@@ -635,6 +907,8 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"]))
+        if "bound_f32_ms" in head:
+            entries[-1]["bound_f32_ms"] = head["bound_f32_ms"]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
@@ -648,7 +922,8 @@ def main() -> int:
                              engine_stats=res_i.engine_stats,
                              flow_evaluated=flow_i.evaluated,
                              flow_calls=flow_i.calls, launches=launches_i,
-                             round_breakdown=breakdown_i)),
+                             round_breakdown=breakdown_i),
+            serve=serve),
             indent=1))
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -2,7 +2,8 @@
 
 A JAX ``GPParams`` / ``GPState`` is a NamedTuple of arrays; ``np.asarray``
 of each field gives what these functions take. Candidate pools and the
-importance vector ``v`` already pass as numpy arrays.
+importance vector ``v`` already pass as numpy arrays; an LM's parameter tree
+passes as nested dicts of numpy arrays (``jax.tree.map(np.asarray, params)``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from repro_torch.core.gp import GPParams, GPState
 from repro_torch.device import resolve_device
 
 __all__ = ["gp_params_from_numpy", "gp_state_from_numpy",
-           "engine_state_from_numpy"]
+           "engine_state_from_numpy", "lm_params_from_numpy"]
 
 
 def _t(a, device) -> torch.Tensor:
@@ -58,3 +59,34 @@ def engine_state_from_numpy(d: dict) -> dict:
         return np.array(v, dtypes.get(key, np.float32))
 
     return {k: copy(k, v) for k, v in d.items()}
+
+
+def lm_params_from_numpy(cfg, tree: dict, device=None):
+    """The reference's ``repro.models.init`` tree (numpy, the layers stacked
+    ``[L, ...]`` under ``layers.b0``) as the port's
+    :class:`~repro_torch.models.LM` on ``device``: matrices rounded to bf16
+    (as the reference casts them at use), norm scales kept in float32."""
+    from repro_torch.models import LM
+
+    model = LM(cfg, device)
+    stacked = tree["layers"]["b0"]
+    with torch.no_grad():
+        def load(dst: torch.Tensor, src) -> None:
+            src = np.asarray(src)
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"shape {src.shape} does not fit "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+
+        load(model.embed, tree["embed"])
+        if model.head is not None:
+            load(model.head, tree["head"])
+        load(model.final_ln, tree["final_ln"])
+        for i, block in enumerate(model.layers):
+            load(block.ln1, stacked["ln1"][i])
+            load(block.ln2, stacked["ln2"][i])
+            for name, w in block.attn.named_parameters():
+                load(w, stacked["attn"][name][i])
+            for name, w in block.mlp.named_parameters():
+                load(w, stacked["mlp"][name][i])
+    return model

@@ -6,17 +6,18 @@
 - ``pareto_count``   strict-dominance counts (Pallas ``pareto_count``)
 - ``round_fused``    one incremental acquisition round over the chunked pool
                      (Pallas ``round_fused``)
+- ``flash_attn``     causal attention of the LM prefill (Pallas ``flash_attn``)
 - ``build``          ``nvcc`` build of ``csrc/`` into one ctypes-loaded library
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
 launches the kernel or raises. Each keeps a plain-integer ``launches`` count.
 """
-from . import pairdist, pareto_count, round_fused, systolic_eval
+from . import flash_attn, pairdist, pareto_count, round_fused, systolic_eval
 
-KERNELS = (systolic_eval, pairdist, pareto_count, round_fused)
+KERNELS = (systolic_eval, pairdist, pareto_count, round_fused, flash_attn)
 
-__all__ = ["pairdist", "pareto_count", "round_fused", "systolic_eval", "KERNELS",
-           "reset_launches"]
+__all__ = ["flash_attn", "pairdist", "pareto_count", "round_fused",
+           "systolic_eval", "KERNELS", "reset_launches"]
 
 
 def reset_launches() -> None:

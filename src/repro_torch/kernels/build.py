@@ -39,6 +39,7 @@ SIGNATURES = {
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pareto_count_launch": [_P, _P, _I, _I, _P],
     "round_fused_launch": [_P] * 14 + [_I] * 7 + [_P],
+    "flash_attn_launch": [_P] * 4 + [_I] * 6 + [_F, _P],
 }
 
 _LIB: ctypes.CDLL | None = None

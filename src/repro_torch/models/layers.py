@@ -1,0 +1,134 @@
+"""Shared model building blocks: the math of ``repro.models.layers`` on
+tensors, and initializers that draw from an explicit ``torch.Generator``.
+
+Compute is bf16 with float32 norm and rotary internals, cast back to the
+input dtype in the reference's order. Parameters are stored as the serving
+path uses them: matrices in bf16, norm scales in float32 (the reference's
+launcher casts every parameter with more than one dim to bf16 and keeps the
+rest). ``cross_entropy`` and ``stack_inits`` wait for training.
+"""
+from __future__ import annotations
+
+import math
+import torch
+import torch.nn.functional as F
+
+__all__ = ["dense_init_", "embedding_init_", "rms_norm_init_", "rms_norm",
+           "rope", "gated_mlp", "embed", "lm_head", "GatedMLP", "param"]
+
+#: float32 elements drawn at a time when a bf16 tensor is initialized, so a
+#: full-width embedding (131072 x 5120) never has a float32 copy
+_INIT_CHUNK = 1 << 24
+_SQRT2 = math.sqrt(2.0)
+#: Φ(-2) and Φ(2), the truncation bounds of ``dense_init`` as CDF values
+_PHI_M2 = (1.0 + math.erf(-2.0 / _SQRT2)) / 2.0
+_PHI_P2 = (1.0 + math.erf(2.0 / _SQRT2)) / 2.0
+
+
+def param(shape: tuple[int, ...], device, dtype=torch.bfloat16
+          ) -> torch.nn.Parameter:
+    """An uninitialized serving parameter (no gradient)."""
+    return torch.nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                              requires_grad=False)
+
+
+def _fill_(w: torch.Tensor, draw, scale: float) -> torch.Tensor:
+    """Fill ``w`` with ``scale * draw(buf)`` computed in float32, chunk by
+    chunk, each chunk rounded once into ``w``'s dtype."""
+    flat = w.view(-1)
+    buf = torch.empty(min(flat.numel(), _INIT_CHUNK), dtype=torch.float32,
+                      device=w.device)
+    for i in range(0, flat.numel(), buf.numel()):
+        part = buf[: min(buf.numel(), flat.numel() - i)]
+        draw(part)
+        flat[i: i + part.numel()].copy_(part.mul_(scale))
+    return w
+
+
+@torch.no_grad()
+def dense_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """``repro.models.layers.dense_init``: a standard normal truncated to
+    [-2, 2] (by its inverse CDF), times ``1/sqrt(shape[0])``."""
+    def draw(buf):
+        buf.uniform_(2.0 * _PHI_M2 - 1.0, 2.0 * _PHI_P2 - 1.0,
+                     generator=generator)
+        buf.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
+
+    return _fill_(w, draw, 1.0 / math.sqrt(w.shape[0]))
+
+
+@torch.no_grad()
+def embedding_init_(w: torch.Tensor, generator: torch.Generator
+                    ) -> torch.Tensor:
+    """``embedding_init``: a standard normal times ``1/sqrt(d)``."""
+    return _fill_(w, lambda buf: buf.normal_(generator=generator),
+                  1.0 / math.sqrt(w.shape[1]))
+
+
+@torch.no_grad()
+def rms_norm_init_(w: torch.Tensor) -> torch.Tensor:
+    """``rms_norm_init``: ones."""
+    return w.fill_(1.0)
+
+
+# ------------------------------------------------------------------ compute
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e4) -> torch.Tensor:
+    """Rotary embedding on the last dim of ``x`` [..., S, n, d] with
+    ``positions`` [..., S] (broadcastable)."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = torch.exp(-math.log(theta) * torch.arange(
+        half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freq          # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]                 # over the heads dim
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """``silu(x·wg) * (x·wu) · wd`` for ``p`` with ``wg``/``wu`` [d, ff] and
+    ``wd`` [ff, d]."""
+    dt = x.dtype
+    h = F.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
+    return h @ p.wd.to(dt)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          dtype=torch.bfloat16) -> torch.Tensor:
+    return F.embedding(tokens, table.to(dtype))
+
+
+def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
+            tied: bool) -> torch.Tensor:
+    """Logits [..., V]. ``tied`` uses the embedding table transposed."""
+    w = table_or_w.to(x.dtype)
+    return x @ (w.T if tied else w)
+
+
+class GatedMLP(torch.nn.Module):
+    """The parameters of ``gated_mlp_init``: ``wg``, ``wu`` [d, ff] and
+    ``wd`` [ff, d]."""
+
+    def __init__(self, d: int, ff: int, device=None):
+        super().__init__()
+        self.wg = param((d, ff), device)
+        self.wu = param((d, ff), device)
+        self.wd = param((ff, d), device)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wg, self.wu, self.wd):
+            dense_init_(w, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gated_mlp(self, x)

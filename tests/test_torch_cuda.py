@@ -196,3 +196,113 @@ def test_small_tuner_on_the_card_picks_what_the_cpu_picks(dev):
                                 draws=GeneratorDraws(3, "cpu"), device=d,
                                 **kw).evaluated_rows
         np.testing.assert_array_equal(rows["cuda"], rows["cpu"])
+
+
+# ------------------------------------------------------------ K5 flash_attn
+# bf16 outputs are rounded from float32 results that differ in the last
+# bits (another summation order), so one may flip by a bf16 ulp (<= 2^-7
+# relative); float32 outputs agree to 2e-5.
+K5_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+          torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (1, 1, 4, 2, 16), (2, 77, 4, 2, 16), (1, 64, 4, 4, 64), (2, 200, 8, 2, 64),
+    (1, 129, 4, 1, 128), (2, 512, 32, 8, 128), (1, 1000, 8, 8, 128)])
+def test_flash_attn_matches_plain(dev, dtype, B, S, H, K, hd):
+    from repro_torch.kernels import flash_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(B * S + H + hd)
+    q = torch.randn((B, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, K, hd), generator=g, device=dev).to(dtype)
+    before = K5.launches
+    got = K5.flash_attention(q, k, v)
+    assert K5.launches == before + 1
+    want = K5.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+
+
+def test_flash_attn_refuses_instead_of_falling_back(dev):
+    from repro_torch.kernels import flash_attn as K5
+
+    q = torch.zeros((1, 8, 4, 64), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    with pytest.raises(ValueError, match="head dim"):
+        K5.flash_attention(*(torch.zeros((1, 8, 4, 96), device=dev),) * 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K5.flash_attention(*(q.half(),) * 3)
+    with pytest.raises(ValueError, match="different devices"):
+        K5.flash_attention(q, q.cpu(), q)
+
+
+def _deep_smoke(n_layers):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("mistral-nemo-12b@smoke"),
+                               n_layers=n_layers)
+
+
+def test_prefill_launches_k5_once_per_layer_and_decode_never(dev):
+    """40 layers (the mistral-nemo-12b depth, at smoke width): one K5 launch
+    each in the prefill, none in decode; the logits match the prefill with
+    K5's plain version passed in (bf16 end to end: ulp flips through the
+    layers, ~0.7-magnitude logits, atol 0.0625)."""
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import init
+    from repro_torch.models import prefill as lm_prefill
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = _deep_smoke(40)
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab, (2, 96), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    counts = []
+
+    def timed(name, fn, *args, **kw):
+        before = K5.launches
+        out = fn(*args, **kw)
+        counts.append((name, K5.launches - before))
+        return out
+
+    out = Engine(cfg, model, ServeConfig(max_len=104)).generate(
+        tokens, 8, timed=timed)
+    assert out.shape == (2, 8)
+    assert counts[0] == ("prefill", 40)
+    assert [c for name, c in counts[1:]] == [0] * 8
+    _, logits = lm_prefill(model, tokens)
+    _, plain = lm_prefill(model, tokens, attention=K5.flash_attention_plain)
+    torch.testing.assert_close(logits.float(), plain.float(), rtol=0,
+                               atol=0.0625)
+
+
+def test_cuda_prefill_refuses_what_k5_does_not_compute(dev):
+    """A sliding window or other positions on the card raise; they never
+    drop to the plain version."""
+    import dataclasses
+
+    from repro_torch.models import LM
+    from repro_torch.models import attention as tattn
+    from repro_torch.models import init
+
+    cfg = _deep_smoke(1)
+    model = init(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    attn = model.layers[0].attn
+    x = torch.randn((1, 16, cfg.d_model), device=dev).to(torch.bfloat16)
+    pos = torch.arange(16, device=dev).expand(1, 16)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tattn.gqa_apply(attn, cfg, x, pos + 3)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tattn.gqa_apply(attn, cfg, x, pos, causal=False)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tattn.gqa_apply(attn, dataclasses.replace(cfg, window=8), x, pos)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        LM(dataclasses.replace(cfg, window=8), dev)

@@ -1,0 +1,165 @@
+"""K5 ``flash_attn`` and the model's attention, on the CPU: the port's plain
+versions against the live JAX package.
+
+- K5's plain version (``repro_torch.kernels.flash_attn``) against the JAX
+  oracle ``flash_attn/ref.py::attention`` and the Pallas kernel run in
+  interpret mode (``flash_attn/ops.py``, as ``tests/test_kernels.py`` runs
+  it), in float32 and bf16, at ragged and tile-multiple S, head dims 16, 64
+  and 128, with fewer KV heads than query heads (the JAX side gets K/V
+  repeated to H heads, as its callers pass them).
+- The port's ``_sdpa`` against the reference's, unchunked and on its
+  Sk = 4096 online-softmax chunk path, with causal, sliding-window and
+  decode (``valid_to``) masks.
+
+Inputs are made with numpy from a seed. Tolerances: float32 work in two
+frameworks sums in another order (rtol = atol = 2e-5, the reference's own
+kernel-test bound); bf16 outputs are rounded from float32 values that
+differ in the last bits, so a result may flip by one bf16 ulp (2^-7
+relative at most; atol 1e-3 for outputs near 0).
+"""
+import math
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+import numpy as np
+
+from repro.kernels.flash_attn import ops as fa_ops
+from repro.kernels.flash_attn import ref as fa_ref
+from repro.models import attention as jattn
+from repro_torch.kernels import flash_attn as K5
+from repro_torch.models import attention as tattn
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2.0 ** -7, atol=1e-3)}
+TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX_DT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _qkv(B, S, H, K, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, S, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, S, K, hd)).astype(np.float32)
+    v = rng.normal(size=(B, S, K, hd)).astype(np.float32)
+    return q, k, v
+
+
+def _port(q, k, v, dtype):
+    t = [torch.as_tensor(a).to(TORCH_DT[dtype]) for a in (q, k, v)]
+    return K5.flash_attention(*t).float().numpy()
+
+
+def _jax_repeat(a, H, dtype):
+    return jnp.repeat(jnp.asarray(a, JAX_DT[dtype]), H // a.shape[2], axis=2)
+
+
+SHAPES = [  # (B, S, H, K, hd): ragged and tile-multiple S, GQA and MHA
+    (2, 77, 4, 2, 16), (1, 128, 4, 1, 64), (1, 200, 4, 4, 128),
+    (2, 256, 4, 2, 64), (1, 33, 2, 2, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_jax_ref(shape, dtype):
+    B, S, H, K, hd = shape
+    q, k, v = _qkv(*shape, seed=S + hd)
+    got = _port(q, k, v, dtype)
+
+    def fold(t):
+        return jnp.moveaxis(t, 2, 1).reshape(B * H, S, hd)
+
+    want = fa_ref.attention(fold(jnp.asarray(q, JAX_DT[dtype])),
+                            fold(_jax_repeat(k, H, dtype)),
+                            fold(_jax_repeat(v, H, dtype)),
+                            scale=1.0 / math.sqrt(hd), causal=True)
+    want = np.moveaxis(np.asarray(want.astype(jnp.float32)).reshape(
+        B, H, S, hd), 1, 2)
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 100, 4, 2, 16), (1, 256, 2, 1, 64),
+                                   (1, 130, 2, 2, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_plain_matches_pallas_kernel_in_interpret_mode(shape, dtype):
+    B, S, H, K, hd = shape
+    q, k, v = _qkv(*shape, seed=7 * S + hd)
+    got = _port(q, k, v, dtype)
+    want = fa_ops.flash_attention(jnp.asarray(q, JAX_DT[dtype]),
+                                  _jax_repeat(k, H, dtype),
+                                  _jax_repeat(v, H, dtype), causal=True)
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                               **TOL[dtype])
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    q = torch.zeros((1, 8, 4, 16))
+    with pytest.raises(ValueError, match="head dim"):
+        K5.flash_attention(*(torch.zeros((1, 8, 4, 32)),) * 3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        K5.flash_attention(*(q.half(),) * 3)
+    with pytest.raises(ValueError, match="do not divide"):
+        K5.flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                           torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError, match="disagree"):
+        K5.flash_attention(q, torch.zeros((1, 9, 2, 16)),
+                           torch.zeros((1, 9, 2, 16)))
+    before = K5.launches
+    K5.flash_attention(q, q, q)  # CPU: the plain version, no launch
+    assert K5.launches == before
+
+
+def _sdpa_pair(q, k, v, **kw):
+    """The reference's and the port's ``_sdpa`` on the same numpy inputs;
+    ``kw`` holds numpy position/mask arrays and plain numbers."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    jkw = {n: jnp.asarray(a) if isinstance(a, np.ndarray) else a
+           for n, a in kw.items()}
+    tkw = {n: torch.as_tensor(a) if isinstance(a, np.ndarray) else a
+           for n, a in kw.items()}
+    want = jattn._sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                       **jkw)
+    got = tattn._sdpa(torch.as_tensor(q), torch.as_tensor(k),
+                      torch.as_tensor(v), scale, **tkw)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("S,window", [(64, None), (64, 16), (4096, None),
+                                      (4096, 1000)])
+def test_sdpa_matches_reference(S, window):
+    """Prefill masks; S = 4096 takes the reference's chunked path (4 key
+    chunks of 1024) in both packages."""
+    assert (tattn._pick_chunk(S) == jattn._pick_chunk(S)) and \
+        bool(tattn._pick_chunk(S)) == (S >= 4096)
+    B, H, hd = 1, 2, 8
+    q, k, v = _qkv(B, S, H, H, hd, seed=S + (window or 0))
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    got, want = _sdpa_pair(q, k, v, qpos=pos, kpos=pos, causal=True,
+                           window=window)
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_sdpa_decode_mask_matches_reference():
+    """One query against a cache whose slots past ``valid_to`` are masked."""
+    B, Sk, H, hd = 3, 40, 4, 16
+    rng = np.random.default_rng(11)
+    q = rng.normal(size=(B, 1, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, H, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, H, hd)).astype(np.float32)
+    got, want = _sdpa_pair(q, k, v, causal=False,
+                           valid_to=np.array([0, 17, 39], np.int32))
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_k5_plain_is_the_models_causal_attention():
+    """K5's plain version computes what the model's ``_sdpa`` computes over
+    positions arange(S) with K/V repeated to H heads (float32)."""
+    B, S, H, K, hd = 2, 50, 4, 2, 16
+    q, k, v = (torch.as_tensor(a) for a in _qkv(B, S, H, K, hd, seed=3))
+    pos = torch.arange(S).expand(B, S)
+    want = tattn._sdpa(q, tattn._repeat_kv(k, H), tattn._repeat_kv(v, H),
+                       1.0 / math.sqrt(hd), qpos=pos, kpos=pos)
+    torch.testing.assert_close(K5.flash_attention_plain(q, k, v), want,
+                               rtol=2e-5, atol=2e-5)

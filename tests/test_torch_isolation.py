@@ -107,3 +107,21 @@ def test_chip_smoke_refuses_to_run_without_the_card(tmp_path):
                          capture_output=True, text=True, timeout=120,
                          cwd=tmp_path)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_serve_entry_points_need_the_card_unless_asked_for_the_cpu(
+        monkeypatch, capsys):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import LM, init, init_cache
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("mistral-nemo-12b@smoke")
+    for build in (lambda: LM(cfg), lambda: init_cache(cfg, 1, 8),
+                  lambda: init(cfg, torch.Generator()),
+                  lambda: serve_cli.main(["--arch", cfg.arch_id])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    assert serve_cli.main(["--arch", cfg.arch_id, "--device", "cpu",
+                           "--gen", "3"]) == 0
+    assert "generated (4, 3)" in capsys.readouterr().out

@@ -6,8 +6,10 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp
 import numpy as np
 
+from repro.configs import get_config as jget_config
 from repro.core import space as jspace
 from repro.soc import workloads as jworkloads
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core import space as tspace
 from repro_torch.soc import workloads as tworkloads
 
@@ -78,5 +80,24 @@ def test_workload_arrays_are_equal(name):
 
 
 def test_lm_workloads_are_not_ported_yet():
-    with pytest.raises(KeyError, match="not yet ported"):
-        tworkloads.get_workload("qwen3-14b")
+    """Once refused ("not yet ported"); the LM workloads are ported now, so
+    an LM id gives the reference's table and an unknown id is refused with
+    the known names."""
+    np.testing.assert_array_equal(tworkloads.get_workload("qwen3-14b"),
+                                  jworkloads.get_workload("qwen3-14b"))
+    with pytest.raises(KeyError, match="mistral-nemo-12b"):
+        tworkloads.get_workload("no-such-arch")
+
+
+@pytest.mark.parametrize("mode", ["decode", "prefill"])
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_lm_workload_tables_are_equal(arch, mode):
+    got = tworkloads.get_workload(f"{arch}:{mode}")
+    want = jworkloads.get_workload(f"{arch}:{mode}")
+    assert got.dtype == want.dtype == np.float64
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        tworkloads.from_arch_config(get_config(arch, smoke=True), mode,
+                                    seq=64, ctx=32),
+        jworkloads.from_arch_config(jget_config(arch, smoke=True), mode,
+                                    seq=64, ctx=32))
