@@ -36,6 +36,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -528,8 +529,8 @@ SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=32,
 #: carries. Logits are O(1) (|max| ~4, one ulp 2^-6 there): max |diff| <=
 #: 0.125 (eight ulps) and mean |diff| <= 0.02. The same comparison (the
 #: CPU's _sdpa vs K5's plain version) at 40 layers and d_model 640 on the
-#: CPU gave max 0.031 and mean 0.0055; a wrong mask, head or tile moves
-#: logits by O(1).
+#: CPU gave max 0.031 and mean 0.0055. The serve phase plants two faults
+#: (``planted_faults``) and fails unless these tolerances reject both.
 SERVE_ATOL, SERVE_MEAN_TOL = 0.125, 0.02
 
 
@@ -582,6 +583,35 @@ def check_flash_attn(dev, results: dict) -> None:
               f"library's max abs err against the plain version {lib_err:.3e})")
         del q, k, v, out_k, out_p, out_l
         torch.cuda.empty_cache()
+
+
+def planted_faults() -> dict:
+    """Attention functions with K5's signature that are wrong on purpose,
+    for the serve phase to show that its checks would catch a wrong K5:
+    query head h reading KV head h % K in place of h // (H/K), and the
+    causal mask shifted by one key (query i also sees key i + 1)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+
+    def kv_head(q, k, v):
+        idx = torch.arange(q.shape[2], device=q.device) % k.shape[2]
+        return K5.flash_attention_plain(q, k[:, :, idx], v[:, :, idx])
+
+    def next_key(q, k, v):
+        S, H = q.shape[1], q.shape[2]
+        group = H // k.shape[2]
+        qf = q.float().transpose(1, 2)
+        kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+        vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
+        logits = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(
+            q.shape[3])
+        mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril(1)
+        logits = torch.where(mask, logits, K5.NEG_INF)
+        out = torch.matmul(torch.softmax(logits, dim=-1), vf)
+        return out.transpose(1, 2).to(q.dtype)
+
+    return {"KV head h % K": kv_head, "mask shifted by one key": next_key}
 
 
 def _logit_diff(a, b) -> tuple[float, float]:
@@ -695,6 +725,35 @@ def serve_phase(dev) -> dict:
         dec, logit_p = decode_step(model, dec, out[:, i], S0 + i)
     if gaps_checked == 0:
         raise AssertionError("no step had a clear top-2 gap to check")
+    # a random-weight model may repeat one token; then the token check
+    # shows little, and the logits checks must catch a wrong K5 alone
+    distinct = [len(set(row)) for row in toks.tolist()]
+    print(f"  distinct greedy tokens per sequence: {distinct} of {steps}")
+
+    # the same prefill and first teacher-forced decode step with each
+    # planted fault: the logits checks above must reject every one
+    faults = {}
+    for name, fault in planted_faults().items():
+        cache_f, logit_f = prefill(model, tokens, attention=fault)
+        dec_f = eng._merge_caches(
+            init_cache(cfg, B, SERVE["max_len"], device=dev), cache_f, S0)
+        del cache_f
+        _, logit_f1 = decode_step(model, dec_f, out[:, 0], S0)
+        del dec_f
+        faults[name] = dict(prefill=_logit_diff(logits[0], logit_f),
+                            decode=_logit_diff(logits[1], logit_f1))
+        rejected = [k for k, (dmax, dmean) in faults[name].items()
+                    if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL]
+        print(f"  planted fault, {name}: kernel vs fault logits, prefill max "
+              f"{faults[name]['prefill'][0]:.4f} mean "
+              f"{faults[name]['prefill'][1]:.5f}, decode max "
+              f"{faults[name]['decode'][0]:.4f} mean "
+              f"{faults[name]['decode'][1]:.5f}; rejected by "
+              f"{', '.join(rejected) or 'nothing'}")
+        if not rejected:
+            raise AssertionError(f"the planted fault '{name}' passes the "
+                                 "serve phase's logits checks")
+        torch.cuda.empty_cache()
 
     # where the time goes: one prefill (K5) and one decode step (the last
     # position again, the cache full) under torch.profiler
@@ -716,7 +775,8 @@ def serve_phase(dev) -> dict:
         print(f"  one {name}: {wall:.4f} s; {prof['busy_text']}")
         _print_top(prof)
     res.update(plain_prefill_s=plain_prefill_s, logit_diffs=diffs,
-               tokens_checked=gaps_checked, tokens=toks[0].tolist())
+               tokens_checked=gaps_checked, tokens=toks[0].tolist(),
+               distinct_tokens=distinct, planted_faults=faults)
     print(f"  plain prefill {plain_prefill_s:.3f} s; kernel vs plain logits: "
           f"prefill max {diffs[0][0]:.4f} mean {diffs[0][1]:.5f}, decode "
           f"(teacher-forced) max {max(d[0] for d in diffs[1:]):.4f} mean "

@@ -160,7 +160,8 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
-                       attention: Optional[Attention]) -> torch.Tensor:
+                       attention: Optional[Attention],
+                       from_zero: bool) -> torch.Tensor:
     H = q.shape[2]
     if attention is None and q.device.type == "cpu":
         return _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), scale,
@@ -171,25 +172,35 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
     if not causal:
         raise _not_ported("bidirectional attention")
     B, S = q.shape[:2]
-    ar = torch.arange(S, dtype=positions.dtype, device=positions.device)
-    if not torch.equal(positions, ar.expand(B, S)):
-        # the kernel's mask is the causal one over positions arange(S)
+    # the kernel's mask is the causal one over positions arange(S): given
+    # positions are checked on the device (a synchronize); the model's
+    # prefill passes None, so its layers check nothing
+    if not from_zero and not torch.equal(positions, torch.arange(
+            S, dtype=positions.dtype, device=positions.device).expand(B, S)):
         raise _not_ported("prefill at positions other than arange(S)")
     return (attention or flash_attn.flash_attention)(q, k, v)
 
 
-def gqa_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
+def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
               cache: Optional[KVCache] = None,
               cache_pos: Optional[int] = None, causal: bool = True,
               use_rope: bool = True, *,
               attention: Optional[Attention] = None,
               ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """x [B, S, d]; prefill when ``cache`` is None (causal; returns the
-    layer's KVCache when ``cache_pos`` is given), else one-step decode
-    (S == 1) writing k/v into ``cache`` in place at slot ``cache_pos`` (a
-    ring slot when the config has a sliding window, on the CPU)."""
+    """x [B, S, d] at ``positions`` [B, S] (None: a prefill at positions
+    arange(S), as the model's prefill runs it); prefill when ``cache`` is
+    None (causal; returns the layer's KVCache when ``cache_pos`` is given),
+    else one-step decode (S == 1) writing k/v into ``cache`` in place at
+    slot ``cache_pos`` (a ring slot when the config has a sliding window, on
+    the CPU)."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
+    from_zero = positions is None
+    if from_zero:
+        if cache is not None:
+            raise ValueError("gqa_apply: a decode step needs its positions")
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
     if cfg.window and x.device.type == "cuda":
         raise _not_ported("sliding-window attention")
     q = _heads(x, p.wq)
@@ -205,7 +216,7 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: torch.Tensor,
 
     if cache is None:  # prefill: causal mask
         out = _prefill_attention(q, k, v, positions, cfg, causal, scale,
-                                 attention)
+                                 attention, from_zero)
         new_cache = KVCache(k, v) if cache_pos is not None else None
     else:  # decode: S == 1
         if S != 1:

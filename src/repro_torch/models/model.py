@@ -118,12 +118,13 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
     return model
 
 
-def _forward(model: LM, tokens: torch.Tensor, positions: torch.Tensor,
+def _forward(model: LM, tokens: torch.Tensor,
+             positions: Optional[torch.Tensor],
              cache_pos: int, cache: Optional[attn.KVCache] = None,
              attention=None) -> tuple[torch.Tensor, attn.KVCache]:
     """The prefill/decode trunk -> (hidden [B, S, d], cache): a prefill
-    (``cache`` None) returns the layers' new K/V stacked, a decode step the
-    ``cache`` it wrote into."""
+    (``cache`` and ``positions`` None: positions arange(S)) returns the
+    layers' new K/V stacked, a decode step the ``cache`` it wrote into."""
     cfg = model.cfg
     x = embed(model.embed, tokens, torch.bfloat16)
     layer_caches = []
@@ -148,10 +149,8 @@ def prefill(model: LM, tokens: torch.Tensor, *, attention=None
     """Process the prompt ``tokens`` [B, S]; returns (cache [L, B, S, K,
     hd], last-position logits [B, V]). ``attention`` replaces the causal
     prefill attention (see :mod:`repro_torch.models.attention`)."""
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    x, cache = _forward(model, tokens, positions, S, attention=attention)
+    x, cache = _forward(model, tokens, None, tokens.shape[1],
+                        attention=attention)
     logits = lm_head(_head(model), x[:, -1:], model.cfg.tie_embeddings)[:, 0]
     return cache, logits
 

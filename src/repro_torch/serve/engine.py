@@ -31,12 +31,10 @@ def _untimed(name: str, fn, *args, **kwargs):
 
 
 class Engine:
-    """``Engine(cfg, model, scfg)``; ``attention`` replaces K5 in the
-    prefill (see :mod:`repro_torch.models.attention`; the tests and
-    ``chip_smoke.py`` pass K5's plain version)."""
+    """``Engine(cfg, model, scfg)``: ``model`` an
+    :class:`~repro_torch.models.LM` on the device that serves."""
 
-    def __init__(self, cfg, model, scfg: ServeConfig = ServeConfig(), *,
-                 attention=None):
+    def __init__(self, cfg, model, scfg: ServeConfig = ServeConfig()):
         if cfg.window:
             raise NotImplementedError(
                 f"repro_torch: the sliding-window ring cache ({cfg.arch_id}) "
@@ -44,7 +42,6 @@ class Engine:
         self.cfg = cfg
         self.scfg = scfg
         self.model = model
-        self.attention = attention
 
     # ------------------------------------------------------------ handoff
     def _merge_caches(self, dec: KVCache, pre: KVCache, s0: int) -> KVCache:
@@ -65,8 +62,7 @@ class Engine:
         if S0 + steps > self.scfg.max_len:
             raise ValueError(f"generate: {S0} prompt + {steps} new tokens "
                              f"exceed max_len={self.scfg.max_len}")
-        pre, logits = timed("prefill", prefill, self.model, tokens,
-                            attention=self.attention)
+        pre, logits = timed("prefill", prefill, self.model, tokens)
         dec = init_cache(self.cfg, B, self.scfg.max_len, device=tokens.device)
         cache = self._merge_caches(dec, pre, S0)
         del pre

@@ -95,6 +95,9 @@ def test_gqa_apply_prefill_and_decode(setup):
     _close(yt, yj)
     _close(ct.k, cj.k)
     _close(ct.v, cj.v)
+    # positions None (the model's prefill) is the prefill at arange(S0)
+    yn, cn = tattn.gqa_apply(attn0, cfg, xt, None, None, S0)
+    assert torch.equal(yn, yt) and torch.equal(cn.k, ct.k)
 
     L = S0 + 1
     zj = jnp.zeros((B, L, cfg.n_kv_heads, cfg.head_dim), jnp.bfloat16)
@@ -111,6 +114,9 @@ def test_gqa_apply_prefill_and_decode(setup):
     _close(yt, yj)
     _close(ct.k, cj.k)
     assert ct.k is cache_t.k  # written in place
+    with pytest.raises(ValueError, match="needs its positions"):
+        tattn.gqa_apply(attn0, cfg, torch.as_tensor(xd).to(torch.bfloat16),
+                        None, cache_t, S0)
 
 
 def test_prefill_and_teacher_forced_decode(setup):

@@ -80,11 +80,8 @@ def test_workload_arrays_are_equal(name):
 
 
 def test_lm_workloads_are_not_ported_yet():
-    """Once refused ("not yet ported"); the LM workloads are ported now, so
-    an LM id gives the reference's table and an unknown id is refused with
-    the known names."""
-    np.testing.assert_array_equal(tworkloads.get_workload("qwen3-14b"),
-                                  jworkloads.get_workload("qwen3-14b"))
+    """An id that is neither a DNN nor an LM is refused with the known
+    names (LM ids: ``test_lm_workload_tables_are_equal``)."""
     with pytest.raises(KeyError, match="mistral-nemo-12b"):
         tworkloads.get_workload("no-such-arch")
 
