@@ -16,12 +16,16 @@ with ``pool_chunk=512`` picks the same rows; the exact and the incremental
 round, stage by stage, with the device's busy share; and at n_pool=64 the
 card's picks equal the CPU's (exact, incremental, and q=2 fantasy batches).
 
-The LM serving path: ``flash_attn`` (K5) against its plain version at the
-main path's shape, at S = 4096 and at a ragged S = 2000, timed beside
-``scaled_dot_product_attention``; then ``mistral-nemo-12b`` at full width
+The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
+route, ``csrc/flash_attn_tc.cu``, whose ptxas registers and spills and whose
+``wgmma`` and TMA instructions in the built SASS are printed first) against
+its plain version at the main path's shape, at S = 4096 and at a ragged
+S = 2000, timed beside ``scaled_dot_product_attention``; then
+``mistral-nemo-12b`` at full width
 (40 layers, d_model 5120, 32 heads / 8 KV heads, vocab 131072; random bf16
 weights from a seed) serving ``Engine.generate`` at batch 4, a 2048-token
-prompt and 32 greedy tokens, with exactly 40 K5 launches in the prefill;
+prompt and 32 greedy tokens, with exactly 40 K5 launches in the prefill,
+all on the tensor-core route;
 the same prefill again with K5's plain version passed in, its logits, its
 teacher-forced decode logits and its greedy tokens held against the kernel
 run's; and the smoke config's prefill on the card against the CPU's.
@@ -37,6 +41,9 @@ import argparse
 import functools
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -541,6 +548,89 @@ def k5_bytes_ops(B, S, H, K, hd) -> tuple[int, int]:
     return 2 * B * S * hd * (2 * H + 2 * K), 2 * B * H * S * S * hd
 
 
+def _demangle(names: list[str]) -> list[str]:
+    """Short kernel names (``flash_attn_tc_kernel<128>``) by ``c++filt``,
+    or the mangled names where it is missing."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return names
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, check=True).stdout.splitlines()
+    short = [re.search(r"(\w+(?:<[^>]*>)?)\(", d) for d in out]
+    return [m.group(1) if m else d for m, d in zip(short, out)]
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack and spills of each kernel entry in the ``-Xptxas -v``
+    log of the build, keyed by short kernel name."""
+    entries, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            entries[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entries[cur].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entries[cur]["registers"] = int(m.group(1))
+    return dict(zip(_demangle(list(entries)), entries.values()))
+
+
+def sass_counts(lib: Path, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How many of each SASS opcode every kernel of the built library holds
+    (``cuobjdump --dump-sass``), keyed by short kernel name."""
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or str(Path(home) / "bin" / "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            counts[cur] = dict.fromkeys(opcodes, 0)
+        elif cur is not None:
+            for op in opcodes:
+                counts[cur][op] += bool(re.search(rf"\b{op}\b", line))
+    return dict(zip(_demangle(list(counts)), counts.values()))
+
+
+def k5_build_report() -> dict:
+    """The bf16 K5 kernel as built, at each head dim: ptxas's registers,
+    stack and spills, its dynamic shared memory, and its ``wgmma`` (HGMMA)
+    and TMA load (UTMALDG) instructions in the SASS. Raises if a head dim's
+    kernel holds no HGMMA or no UTMALDG."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attn as K5
+
+    ptxas = ptxas_report(build.build_log())
+    sass = sass_counts(build.library_path())
+    lib = build.library()
+    report = {}
+    for hd in K5.HEAD_DIMS:
+        name = f"flash_attn_tc_kernel<{hd}>"
+        regs, ops = ptxas.get(name, {}), sass.get(name, {})
+        report[hd] = dict(regs, smem_bytes=lib.flash_attn_tc_smem_bytes(hd),
+                          **ops)
+        print(f"  {name}: {regs.get('registers')} registers, "
+              f"{regs.get('stack')} bytes stack, {regs.get('spill_stores')}/"
+              f"{regs.get('spill_loads')} bytes spill stores/loads, "
+              f"{report[hd]['smem_bytes']} bytes dynamic shared memory; SASS: "
+              f"{ops.get('HGMMA', 0)} HGMMA, {ops.get('UTMALDG', 0)} UTMALDG")
+        if not (ops.get("HGMMA") and ops.get("UTMALDG")):
+            raise AssertionError(f"{name}: no wgmma (HGMMA) or no TMA load "
+                                 f"(UTMALDG) in its SASS: {ops}")
+    return report
+
+
 def check_flash_attn(dev, results: dict) -> None:
     """K5 against its plain version at ``K5_SHAPES`` (bf16), timed beside
     the plain version and ``scaled_dot_product_attention`` (the library
@@ -555,12 +645,17 @@ def check_flash_attn(dev, results: dict) -> None:
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True)
 
+    route, _, source = K5.ROUTES[torch.bfloat16]
     for B, S, H, K, hd in K5_SHAPES:
         g = torch.Generator(device=dev).manual_seed(B * S + H)
         q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
         k = torch.randn((B, S, K, hd), generator=g, device=dev).bfloat16()
         v = torch.randn((B, S, K, hd), generator=g, device=dev).bfloat16()
+        before = K5.route_launches[route]
         out_k = K5.flash_attention(q, k, v)
+        if K5.route_launches[route] != before + 1:
+            raise AssertionError(f"a bf16 flash_attn call did not take the "
+                                 f"{route} route")
         out_p = K5.flash_attention_plain(q, k, v)
         out_l = library(q, k, v).transpose(1, 2)
         torch.cuda.synchronize()
@@ -577,8 +672,10 @@ def check_flash_attn(dev, results: dict) -> None:
                 time_ms(lambda: library(q, k, v), reps=5, repeats=5),
                 bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
                 bound_f32_ms=bound_ms(n_bytes, n_ops)[0],
-                library_max_abs_err=lib_err)
-        print(f"    (float32 CUDA-core bound "
+                library_max_abs_err=lib_err, k5_route=route,
+                source="src/repro_torch/csrc/" + source)
+        print(f"    ({route} route, src/repro_torch/csrc/{source}; float32 "
+              f"CUDA-core bound "
               f"{results['flash_attn'][-1]['bound_f32_ms']:.3f} ms; the "
               f"library's max abs err against the plain version {lib_err:.3e})")
         del q, k, v, out_k, out_p, out_l
@@ -668,6 +765,7 @@ def serve_phase(dev) -> dict:
     t_end = time.perf_counter()
     launches = {k.__name__.rsplit(".", 1)[1]: k.launches
                 for k in kernels.KERNELS}
+    k5_routes = dict(K5.route_launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     prefill_s = marks["t1"] - marks["t0"]
     decode_s = t_end - marks["t1"]
@@ -677,15 +775,19 @@ def serve_phase(dev) -> dict:
                decode_tok_s=B * steps / decode_s,
                decode_ms_per_step=decode_s / steps * 1e3,
                peak_memory_gb=peak_gb, launches=launches,
-               k5_prefill_launches=k5_prefill)
+               k5_prefill_launches=k5_prefill, k5_route_launches=k5_routes)
     print(f"  kernel run: prefill {prefill_s:.3f} s, decode {decode_s:.3f} s "
           f"({res['decode_ms_per_step']:.2f} ms/step, "
           f"{res['decode_tok_s']:.1f} tokens/s), peak memory {peak_gb:.2f} GB, "
-          f"launches {launches} (flash_attn in the prefill: {k5_prefill})")
+          f"launches {launches} (flash_attn in the prefill: {k5_prefill}; "
+          f"by route: {k5_routes})")
     if k5_prefill != cfg.n_layers or launches["flash_attn"] != cfg.n_layers:
         raise AssertionError(f"flash_attn launched {k5_prefill} times in the "
                              f"prefill and {launches['flash_attn']} in all, "
                              f"not {cfg.n_layers} and {cfg.n_layers}")
+    if k5_routes != {"tensor_core": cfg.n_layers, "cuda_core": 0}:
+        raise AssertionError(f"the bf16 prefill's flash_attn launches went "
+                             f"by {k5_routes}, not all by the tensor cores")
     toks = out.cpu()
     assert toks.shape == (B, steps) and int(toks.min()) >= 0 and \
         int(toks.max()) < cfg.vocab
@@ -859,10 +961,10 @@ def main() -> int:
 
     build.library()
     print(f"kernel build: {build.build_seconds():.1f} s")
-    for line in build.build_log().splitlines():
-        if "registers" in line or ("spill" in line and " 0 bytes spill stores, 0"
-                                   not in f" {line.strip()}"):
-            print("  ptxas:", line.strip())
+    for name, info in ptxas_report(build.build_log()).items():
+        print(f"  ptxas: {name}: {info}")
+    print("flash_attn, bf16 route (csrc/flash_attn_tc.cu), as built:")
+    k5_build = k5_build_report()
 
     print("kernel checks (CUDA events, median, warm L2; device = CUDA-graph "
           "replay, eager = launched from Python):")
@@ -952,7 +1054,7 @@ def main() -> int:
         "round_fused": ("round_fused.cu",
                         "src/repro/kernels/round_fused/kernel.py:142",
                         launches_i),
-        "flash_attn": ("flash_attn.cu",
+        "flash_attn": ("flash_attn_tc.cu",
                        "src/repro/kernels/flash_attn/kernel.py:61",
                        serve["launches"]),
     }
@@ -967,13 +1069,15 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"]))
-        if "bound_f32_ms" in head:
-            entries[-1]["bound_f32_ms"] = head["bound_f32_ms"]
+        for key in ("bound_f32_ms", "k5_route"):
+            if key in head:
+                entries[-1][key] = head[key]
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             card=card, torch=torch.__version__, cuda=torch.version.cuda,
-            build_s=build.build_seconds(), checks=checks, kernels=entries,
+            build_s=build.build_seconds(), k5_build=k5_build, checks=checks,
+            kernels=entries,
             main=dict(config=MAIN, wall_s=wall, history=res.history,
                       flow_evaluated=flow.evaluated, flow_calls=flow.calls,
                       launches=launches, round_breakdown=breakdown),

@@ -1,31 +1,29 @@
-// flash_attn: causal online-softmax attention for the LM prefill on Hopper
-// (kernel K5).
+// flash_attn: the float32 route of kernel K5 (causal online-softmax
+// attention for the LM prefill), on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/kernel.py::
 // flash_attention (body _body; wrapper ops.py::flash_attention). Plain
 // version: repro_torch/kernels/flash_attn.py::flash_attention_plain (the
-// materialized softmax of flash_attn/ref.py).
+// materialized softmax of flash_attn/ref.py). bf16 inputs take the
+// tensor-core kernel of flash_attn_tc.cu instead; this kernel is the only
+// one that computes float32 inputs in IEEE float32 (never TF32).
 //
 // Computes, for q [B, S, H, hd] and k, v [B, S, KH, hd] (KH divides H),
 //   o[b, i, h] = sum_{j <= i} softmax_j((q[b, i, h] * scale) . k[b, j, g])
 //                * v[b, j, g],      g = h / (H / KH),
 // with the logits of masked keys set to -2e38 (not -inf), a running max,
-// sum and accumulator in float32, and o = acc / max(l, 1e-30) cast to the
-// input type.
+// sum and accumulator in float32, and o = acc / max(l, 1e-30).
 //
-// What bounds it here: at the main path's shape (B 4, S 2048, H 32, KH 8,
-// hd 128, bf16) it must move 168 MB (0.050 ms at 3.35 TB/s) and do
-// 2*B*H*S^2*hd = 1.37e11 causal operations: 0.139 ms at the bf16
-// tensor-core peak, 2.05 ms at the float32 CUDA-core peak. This kernel's
-// arithmetic is float32 on the CUDA cores, so it is held to the 2.05 ms;
-// tensor-core products (mma/wgmma) and TMA are later work.
+// What bounds it here: at the prefill's shape (B 4, S 2048, H 32, KH 8,
+// hd 128) 2*B*H*S^2*hd = 1.37e11 causal operations, 2.05 ms at the
+// float32 CUDA-core peak; its arithmetic is float32 on the CUDA cores.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, batch*head).
-// The scaled query tile stays in shared memory in float32; for each key tile
+// The scaled query tile stays in shared memory; for each key tile
 // of 64 positions at or below the tile's last row (tiles past the diagonal
 // are fully masked and skipped: they would add exp(-2e38 - m) = 0 with
-// alpha = 1), the K and V rows of KV head g are staged in shared memory as
-// float32, read in place from the [B, S, KH, hd] layout (no repeat to H
+// alpha = 1), the K and V rows of KV head g are staged in shared memory,
+// read in place from the [B, S, KH, hd] layout (no repeat to H
 // heads: 4x fewer K/V bytes at H/KH = 4). Each thread owns 4 query rows and
 // computes a 4 x 4 block of the 64 x 64 logits, then 4 rows x hd/16 columns
 // of the output; a row's max and sum are reduced over the 16 lanes that
@@ -34,7 +32,6 @@
 // query tiles nearest the end of the sequence are launched first (they have
 // the most key tiles). Shared-memory rows are padded by one float against
 // bank conflicts.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,25 +41,16 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 lanes
 constexpr float kNegInf = -2.0e38f;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);  // round to nearest even, as torch's .to(bf16)
-}
-
 template <int HD>
 constexpr int smem_floats() {
   return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                  int KH, float scale) {
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int S,
+                  int H, int KH, float scale) {
   constexpr int kQS = HD + 1;   // row strides in shared memory
   constexpr int kKS = HD + 1;
   constexpr int kPS = kBK + 1;
@@ -84,14 +72,14 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const size_t q_step = (size_t)H * HD;   // elements between positions
   const size_t kv_step = (size_t)KH * HD;
-  const T* qb = q + ((size_t)b * S * H + h) * HD;
-  const T* kb = k + ((size_t)b * S * KH + g) * HD;
-  const T* vb = v + ((size_t)b * S * KH + g) * HD;
-  T* ob = o + ((size_t)b * S * H + h) * HD;
+  const float* qb = q + ((size_t)b * S * H + h) * HD;
+  const float* kb = k + ((size_t)b * S * KH + g) * HD;
+  const float* vb = v + ((size_t)b * S * KH + g) * HD;
+  float* ob = o + ((size_t)b * S * H + h) * HD;
 
   for (int e = tid; e < kBQ * HD; e += kThreads) {
     const int r = e / HD, c = e % HD, s = q0 + r;
-    qs[r * kQS + c] = s < S ? load_f32(qb + s * q_step + c) * scale : 0.0f;
+    qs[r * kQS + c] = s < S ? qb[s * q_step + c] * scale : 0.0f;
   }
 
   float m[4], l[4], acc[4][kCols];
@@ -109,8 +97,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBK * HD; e += kThreads) {
       const int r = e / HD, c = e % HD, s = k0 + r;
       const bool in = s < S;
-      ks[r * kKS + c] = in ? load_f32(kb + s * kv_step + c) : 0.0f;
-      vs[r * HD + c] = in ? load_f32(vb + s * kv_step + c) : 0.0f;
+      ks[r * kKS + c] = in ? kb[s * kv_step + c] : 0.0f;
+      vs[r * HD + c] = in ? vb[s * kv_step + c] : 0.0f;
     }
     __syncthreads();
 
@@ -186,53 +174,44 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      store_f32(ob + s * q_step + tx + 16 * c, acc[i][c] / den);
+      ob[s * q_step + tx + 16 * c] = acc[i][c] / den;
   }
 }
 
-template <typename T, int HD>
+template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_attn_kernel<T, HD><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, H, KH, scale);
+  flash_attn_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH,
+      scale);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
-              int S, int H, int KH, int hd, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, H, KH, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, H, KH, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, H, KH, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace
 
-// q, o [B, S, H, hd] and k, v [B, S, KH, hd], contiguous, all float32
-// (dtype 0) or all bfloat16 (dtype 1); hd in {16, 64, 128}; KH divides H.
-// Anything else returns cudaErrorInvalidValue without launching.
+// q, o [B, S, H, hd] and k, v [B, S, KH, hd], contiguous float32; hd in
+// {16, 64, 128}; KH divides H. Anything else returns cudaErrorInvalidValue
+// without launching.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int hd,
-                                 int dtype, float scale, void* stream) {
+                                 float scale, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || S > 65535 * kBQ)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_hd<float>(q, k, v, o, B, S, H, KH, hd, scale, st);
-  if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KH, hd, scale, st);
-  return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch<16>(q, k, v, o, B, S, H, KH, scale, st);
+    case 64: return launch<64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 128: return launch<128>(q, k, v, o, B, S, H, KH, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

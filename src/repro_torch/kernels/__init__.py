@@ -6,7 +6,8 @@
 - ``pareto_count``   strict-dominance counts (Pallas ``pareto_count``)
 - ``round_fused``    one incremental acquisition round over the chunked pool
                      (Pallas ``round_fused``)
-- ``flash_attn``     causal attention of the LM prefill (Pallas ``flash_attn``)
+- ``flash_attn``     causal attention of the LM prefill (Pallas ``flash_attn``):
+                     bf16 on the tensor cores, float32 on the CUDA cores
 - ``build``          ``nvcc`` build of ``csrc/`` into one ctypes-loaded library
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
@@ -21,6 +22,8 @@ __all__ = ["flash_attn", "pairdist", "pareto_count", "round_fused",
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count (and per-route count) to 0."""
     for k in KERNELS:
         k.launches = 0
+        for route in getattr(k, "route_launches", ()):
+            k.route_launches[route] = 0

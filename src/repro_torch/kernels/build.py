@@ -19,7 +19,8 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["library", "BUILD_DIR", "CSRC", "build_seconds", "build_log"]
+__all__ = ["library", "library_path", "BUILD_DIR", "CSRC", "build_seconds",
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -39,7 +40,9 @@ SIGNATURES = {
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
     "pareto_count_launch": [_P, _P, _I, _I, _P],
     "round_fused_launch": [_P] * 14 + [_I] * 7 + [_P],
-    "flash_attn_launch": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "flash_attn_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "flash_attn_tc_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "flash_attn_tc_smem_bytes": [_I],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -110,10 +113,11 @@ def _build(target: Path) -> None:
 
 def build_log() -> str:
     """The compiler output of the library :func:`library` loaded."""
-    return _target().with_suffix(".log").read_text()
+    return library_path().with_suffix(".log").read_text()
 
 
-def _target() -> Path:
+def library_path() -> Path:
+    """Where the library of the current sources is (or will be) built."""
     return BUILD_DIR / f"librepro_torch_kernels_{_tag(_sources())}.so"
 
 
@@ -122,7 +126,7 @@ def library() -> ctypes.CDLL:
     global _LIB, _BUILD_SECONDS
     if _LIB is None:
         t0 = time.perf_counter()
-        target = _target()
+        target = library_path()
         if not target.exists():
             _build(target)
         lib = ctypes.CDLL(str(target))

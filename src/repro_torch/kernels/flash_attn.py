@@ -6,13 +6,19 @@ function of the reference's ``_repeat_kv`` without the repeat), causal
 softmax attention with scale 1/√hd: masked logits are set to ``-2e38``, the
 softmax is taken in float32, and the output [B, S, H, hd] has ``q``'s dtype.
 On a CPU tensor it runs :func:`flash_attention_plain`; on a CUDA tensor it
-launches ``csrc/flash_attn.cu`` or raises.
+launches the kernel of the inputs' dtype or raises. Each dtype has one
+route (``ROUTES``), and neither gives way to the other:
 
-The kernel takes the [B, S, H, hd] layout the model produces as it is (no
-fold to [BH, S, hd], no padding of S or hd): the inputs must be contiguous,
-and a non-contiguous tensor is refused, never copied. It supports the head
-dims of the dense configs (128; 16 and 64 for the smoke configs and tests)
-in bfloat16 and float32, and raises for anything else.
+- bfloat16: ``csrc/flash_attn_tc.cu``, tensor-core ``wgmma`` products on
+  tiles that TMA loads into a shared-memory ring;
+- float32: ``csrc/flash_attn.cu``, IEEE float32 on the CUDA cores (never
+  TF32).
+
+The kernels take the [B, S, H, hd] layout the model produces as it is (no
+fold to [BH, S, hd], no padding of S or hd): the inputs must be contiguous
+(and 16-byte aligned), and any other tensor is refused, never copied. They
+support the head dims of the dense configs (128; 16 and 64 for the smoke
+configs and tests), and the wrapper raises for anything else.
 """
 from __future__ import annotations
 
@@ -24,16 +30,21 @@ from . import build
 from ._common import on_cpu
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
-           "NEG_INF", "launches"]
+           "NEG_INF", "ROUTES", "launches", "route_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: the same launches by route (keys of ``ROUTES``)
+route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 #: head dims the kernel is built for
 HEAD_DIMS = (16, 64, 128)
 #: the mask value of the reference (``flash_attn/kernel.py``, ``ref.py``)
 NEG_INF = -2.0e38
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: dtype -> (route, C launch function, source under ``repro_torch/csrc``)
+ROUTES = {torch.bfloat16: ("tensor_core", "flash_attn_tc_launch",
+                           "flash_attn_tc.cu"),
+          torch.float32: ("cuda_core", "flash_attn_launch", "flash_attn.cu")}
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -60,7 +71,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         if t.dim() != 4:
             raise ValueError(f"flash_attention: {name} must be [B, S, heads, "
                              f"hd], got shape {tuple(t.shape)}")
-        if t.dtype not in _DTYPES:
+        if t.dtype not in ROUTES:
             raise TypeError(f"flash_attention: {name} is {t.dtype}; the "
                             "kernel takes float32 or bfloat16")
     if not q.dtype == k.dtype == v.dtype:
@@ -89,10 +100,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out
-    err = build.library().flash_attn_launch(
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: kernel inputs must be 16-byte "
+                         "aligned")
+    route, fn, _ = ROUTES[q.dtype]
+    err = getattr(build.library(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], hd, _DTYPES[q.dtype], 1.0 / math.sqrt(hd),
-        build.stream_ptr(q))
-    build.check(err, "flash_attn")
+        k.shape[2], hd, 1.0 / math.sqrt(hd), build.stream_ptr(q))
+    build.check(err, f"flash_attn ({route})")
     launches += 1
+    route_launches[route] += 1
     return out

@@ -210,7 +210,12 @@ K5_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
                          ids=["bf16", "f32"])
 @pytest.mark.parametrize("B,S,H,K,hd", [
     (1, 1, 4, 2, 16), (2, 77, 4, 2, 16), (1, 64, 4, 4, 64), (2, 200, 8, 2, 64),
-    (1, 129, 4, 1, 128), (2, 512, 32, 8, 128), (1, 1000, 8, 8, 128)])
+    (1, 129, 4, 1, 128), (2, 512, 32, 8, 128), (1, 1000, 8, 8, 128),
+    # the bf16 kernel's edges: a ragged last tile, one exact query tile,
+    # the KV head h // 5 (qwen3-14b, 40/8) and h // 12 (starcoder2-3b,
+    # 24/2), and hd 16 (32-byte swizzle) at a ragged S
+    (1, 127, 8, 8, 128), (1, 128, 8, 2, 128), (2, 2000, 40, 8, 128),
+    (1, 257, 24, 2, 128), (3, 129, 4, 2, 16)])
 def test_flash_attn_matches_plain(dev, dtype, B, S, H, K, hd):
     from repro_torch.kernels import flash_attn as K5
 
@@ -225,6 +230,19 @@ def test_flash_attn_matches_plain(dev, dtype, B, S, H, K, hd):
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+
+
+def test_flash_attn_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(dev):
+    from repro_torch.kernels import flash_attn as K5
+
+    for dtype, route in ((torch.bfloat16, "tensor_core"),
+                         (torch.float32, "cuda_core")):
+        q = torch.randn((1, 64, 4, 64), device=dev).to(dtype)
+        kv = torch.randn((1, 64, 2, 64), device=dev).to(dtype)
+        before = dict(K5.route_launches)
+        K5.flash_attention(q, kv, kv)
+        moved = {r: n - before[r] for r, n in K5.route_launches.items()}
+        assert moved == {r: int(r == route) for r in moved}
 
 
 def test_flash_attn_refuses_instead_of_falling_back(dev):

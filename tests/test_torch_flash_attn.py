@@ -7,6 +7,11 @@ versions against the live JAX package.
   it), in float32 and bf16, at ragged and tile-multiple S, head dims 16, 64
   and 128, with fewer KV heads than query heads (the JAX side gets K/V
   repeated to H heads, as its callers pass them).
+- The arithmetic of the bf16 tensor-core kernel (``csrc/flash_attn_tc.cu``),
+  emulated in plain torch (bf16 products summed in float32, the scale on the
+  float32 logits, online softmax over the kernel's key tiles, P multiplied
+  as bf16 hi + lo), against K5's plain version and the JAX oracle at the
+  bf16 tolerance: the rounding scheme fits before any card runs it.
 - The port's ``_sdpa`` against the reference's, unchunked and on its
   Sk = 4096 online-softmax chunk path, with causal, sliding-window and
   decode (``valid_to``) masks.
@@ -109,6 +114,96 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     before = K5.launches
     K5.flash_attention(q, q, q)  # CPU: the plain version, no launch
     assert K5.launches == before
+
+
+#: the bf16 kernel's keys per tile at each head dim (``Tiles<HD>::BK`` in
+#: ``csrc/flash_attn_tc.cu``)
+TC_BLOCK_K = {16: 128, 64: 64, 128: 64}
+
+
+def _tc_emulation(q, k, v):
+    """The bf16 tensor-core kernel's arithmetic in plain torch: q, k, v bf16
+    [B, S, heads, hd]; exact float32 products of bf16 values; logits scaled
+    inside exp2 by scale·log2(e); a running max and sum over key tiles of
+    ``TC_BLOCK_K[hd]``; P multiplied as bf16(P) + bf16(P − bf16(P)); the
+    output acc / max(l, 1e-30) rounded to bf16."""
+    B, S, H, hd = q.shape
+    group = H // k.shape[2]
+    bk = TC_BLOCK_K[hd]
+    c = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) * \
+        torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qf = q.float().transpose(1, 2)                      # [B, H, S, hd]
+    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    m = torch.full((B, H, S, 1), K5.NEG_INF)
+    l = torch.zeros((B, H, S, 1))
+    acc = torch.zeros((B, H, S, hd))
+    rows = torch.arange(S)[:, None]
+    for k0 in range(0, S, bk):
+        kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        s = torch.matmul(qf, kt.transpose(-1, -2))
+        cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        s = torch.where(cols <= rows, s, K5.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2((m - m_new) * c)
+        p = torch.exp2(s * c - m_new * c)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        lo = (p - hi).bfloat16().float()
+        acc = acc * alpha + torch.matmul(hi, vt) + torch.matmul(lo, vt)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.bfloat16().transpose(1, 2)
+
+
+@pytest.mark.parametrize("hd", [16, 64, 128])
+@pytest.mark.parametrize("H,K", [(2, 2), (4, 1), (5, 1)],
+                         ids=["group1", "group4", "group5"])
+@pytest.mark.parametrize("S", [1, 2, 3, 129, 300])
+def test_tensor_core_rounding_matches_plain_and_jax_ref(S, H, K, hd):
+    """Rows with few keys are the case to watch: there one rounding of P
+    weighs most. The kernel's hi + lo split keeps P to ~16 bits."""
+    B = 2
+    q, k, v = _qkv(B, S, H, K, hd, seed=31 * S + 7 * H + hd)
+    qt, kt, vt = (torch.as_tensor(a).bfloat16() for a in (q, k, v))
+    got = _tc_emulation(qt, kt, vt).float()
+    plain = K5.flash_attention_plain(qt, kt, vt).float()
+    torch.testing.assert_close(got, plain, **TOL["bfloat16"])
+
+    def fold(t):
+        return jnp.moveaxis(t, 2, 1).reshape(B * H, S, hd)
+
+    want = fa_ref.attention(fold(jnp.asarray(q, jnp.bfloat16)),
+                            fold(_jax_repeat(k, H, "bfloat16")),
+                            fold(_jax_repeat(v, H, "bfloat16")),
+                            scale=1.0 / math.sqrt(hd), causal=True)
+    want = np.moveaxis(np.asarray(want.astype(jnp.float32)).reshape(
+        B, H, S, hd), 1, 2)
+    np.testing.assert_allclose(got.numpy(), want, **TOL["bfloat16"])
+
+
+def test_routes_and_their_counts():
+    """One route per dtype, each naming a source that exists; the CPU path
+    moves no count, and ``reset_launches`` sets the per-route counts to 0."""
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    assert set(K5.ROUTES) == {torch.bfloat16, torch.float32}
+    assert {r for r, _, _ in K5.ROUTES.values()} == set(K5.route_launches)
+    for route, fn, src in K5.ROUTES.values():
+        assert fn in build.SIGNATURES and (build.CSRC / src).is_file()
+    q = torch.zeros((1, 8, 4, 16), dtype=torch.bfloat16)
+    before = dict(K5.route_launches)
+    K5.flash_attention(q, q, q)
+    assert K5.route_launches == before
+    saved = dict(K5.route_launches), K5.launches
+    try:
+        K5.route_launches.update(tensor_core=3, cuda_core=2)
+        kernels.reset_launches()
+        assert K5.route_launches == {"tensor_core": 0, "cuda_core": 0}
+    finally:
+        K5.route_launches.update(saved[0])
+        K5.launches = saved[1]
 
 
 def _sdpa_pair(q, k, v, **kw):
