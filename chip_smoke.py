@@ -562,13 +562,19 @@ def _demangle(names: list[str]) -> list[str]:
 
 def ptxas_report(log: str) -> dict:
     """Registers, stack and spills of each kernel entry in the ``-Xptxas -v``
-    log of the build, keyed by short kernel name."""
+    log of the build, and ptxas's notes of lost performance (``wgmma``
+    serialized), keyed by short kernel name."""
     entries, cur = {}, None
     for line in log.splitlines():
+        m = re.search(r"Potential Performance Loss: (.*) in the function "
+                      r"'([^']+)'", line)
+        if m:
+            entries.setdefault(m.group(2), {})["performance_loss"] = m.group(1)
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur = m.group(1)
-            entries[cur] = {}
+            entries.setdefault(cur, {})
             continue
         if cur is None:
             continue
@@ -624,7 +630,9 @@ def k5_build_report() -> dict:
               f"{regs.get('stack')} bytes stack, {regs.get('spill_stores')}/"
               f"{regs.get('spill_loads')} bytes spill stores/loads, "
               f"{report[hd]['smem_bytes']} bytes dynamic shared memory; SASS: "
-              f"{ops.get('HGMMA', 0)} HGMMA, {ops.get('UTMALDG', 0)} UTMALDG")
+              f"{ops.get('HGMMA', 0)} HGMMA, {ops.get('UTMALDG', 0)} UTMALDG"
+              + (f"; ptxas: {regs['performance_loss']}"
+                 if "performance_loss" in regs else ""))
         if not (ops.get("HGMMA") and ops.get("UTMALDG")):
             raise AssertionError(f"{name}: no wgmma (HGMMA) or no TMA load "
                                  f"(UTMALDG) in its SASS: {ops}")

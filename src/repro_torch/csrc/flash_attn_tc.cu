@@ -50,9 +50,13 @@
 //   MN-major shared-memory B operand, transpose bit set), which keeps
 //   about 16 bits of P: a single bf16 P would round each probability by up
 //   to 2^-9, close to the bf16 output tolerance on rows with few keys.
-// - Tiles: BK = 128 keys at hd 16 and 64, 64 at hd 128, where the
-//   accumulators are 64 floats (O) + 32 (S) a thread; with 288 threads and
-//   one block per SM a thread may hold 224 registers.
+// - Overlap inside a warpgroup: S(j+1) = Q.K(j+1)^T and O += P(j).V(j) are
+//   issued together; the softmax of tile j+1 runs on the CUDA cores while
+//   the tensor cores take P(j).V(j), and O is rescaled once that is done.
+//   The two warpgroups overlap each other besides.
+// - Tiles: BK = 64 keys at every head dim. A block's 288 threads count as
+//   three warpgroups, so a thread may hold 168 registers; at hd 128 the
+//   live accumulators are O (64 floats), S(j+1) (32) and P(j) (32 words).
 // - Epilogue: acc / max(l, 1e-30), round to nearest even, 4-byte stores;
 //   no row at or past S is written.
 #include <cuda.h>
@@ -71,7 +75,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 struct Tiles {
-  static constexpr int BK = HD == 16 ? 128 : 64;     // keys per tile
+  static constexpr int BK = 64;  // keys per tile (the width of wgmma_ss_n64)
   static constexpr int kCols = HD < 64 ? HD : 64;    // columns per TMA box
   static constexpr int kRowBytes = kCols * 2;        // 128 or 32
   static constexpr int kColBlocks = HD / kCols;      // 2 at hd 128, else 1
@@ -148,9 +152,6 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
 
 // Keep the compiler from moving reads or writes of a register across an
 // asynchronous wgmma that uses it.
@@ -181,30 +182,6 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[64] (+)= A·B: A [64 x 16] and B [16 x 128] both K-major in shared
-// memory (descriptors da, db); d is overwritten when accumulate is 0.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -268,14 +245,6 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 }
 
 template <int N>
-__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
-                                         uint64_t db, int accumulate) {
-  static_assert(N == 64 || N == 128, "S tile width");
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db, accumulate);
-  else wgmma_ss_n128(d, da, db, accumulate);
-}
-
-template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
   static_assert(N == 16 || N == 64 || N == 128, "head dim");
@@ -287,6 +256,129 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 __device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo_col, hi_col);
   return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// The running max (raw logits) and this thread's share of the running sum
+// of rows r and r + 8 of a warpgroup.
+struct Rows {
+  float m0, m1, l0, l1;
+};
+
+template <int N, int M>
+__device__ __forceinline__ void keep(uint32_t (&r)[N][M]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int x = 0; x < M; ++x) keep(r[i][x]);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Issue S = Q.K^T for one key tile (hd / 16 steps of 16 columns): qa is the
+// warpgroup's 64 query rows, ka the tile's first column block.
+template <int HD>
+__device__ __forceinline__ void issue_qk(float (&s)[Tiles<HD>::BK / 2],
+                                         uint32_t qa, uint32_t ka) {
+  using T = Tiles<HD>;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const int cb = kk * 16 / T::kCols;
+    const uint32_t off = (kk * 16 % T::kCols) * 2;
+    const uint64_t da = desc(qa + cb * kBQ * T::kRowBytes + off, 16,
+                             T::kAtomBytes, T::kLayout);
+    const uint64_t db = desc(ka + cb * T::BK * T::kRowBytes + off, 16,
+                             T::kAtomBytes, T::kLayout);
+    wgmma_ss_n64(s, da, db, kk > 0);
+  }
+}
+
+// Issue O += P_hi.V + P_lo.V for one key tile (BK / 16 steps of 16 keys);
+// va is the V tile's first column block.
+template <int HD, int BK>
+__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
+                                         const uint32_t (&phi)[BK / 16][4],
+                                         const uint32_t (&plo)[BK / 16][4],
+                                         uint32_t va) {
+  using T = Tiles<HD>;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) {
+    const uint64_t db = desc(va + kk * 16 * T::kRowBytes, BK * T::kRowBytes,
+                             T::kAtomBytes, T::kLayout);
+    wgmma_rs<HD>(o, phi[kk], db);
+    wgmma_rs<HD>(o, plo[kk], db);
+  }
+}
+
+// The online softmax of one key tile on the accumulator fragment, in place:
+// mask (when the tile reaches past a row's keys), the new row max over the
+// quad, p = exp2(s * c - m * c) with c = scale * log2(e), and this thread's
+// share of the row sum. Returns the factors alpha that rescale the earlier
+// sums and outputs.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0,
+                                             bool masked, int row0, int row1,
+                                             int S, int col_of,
+                                             float scale_log2, Rows& st,
+                                             float& alpha0, float& alpha1) {
+  if (masked) {
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = k0 + 8 * i + col_of + e;
+        if (col > row0 || col >= S) s[4 * i + e] = kNegInf;
+        if (col > row1 || col >= S) s[4 * i + 2 + e] = kNegInf;
+      }
+  }
+  float mx0 = st.m0, mx1 = st.m1;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  alpha0 = exp2f((st.m0 - mx0) * scale_log2);
+  alpha1 = exp2f((st.m1 - mx1) * scale_log2);
+  st.m0 = mx0;
+  st.m1 = mx1;
+  const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
+  float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BK / 8; ++i) {
+    s[4 * i] = exp2f(fmaf(s[4 * i], scale_log2, -mb0));
+    s[4 * i + 1] = exp2f(fmaf(s[4 * i + 1], scale_log2, -mb0));
+    s[4 * i + 2] = exp2f(fmaf(s[4 * i + 2], scale_log2, -mb1));
+    s[4 * i + 3] = exp2f(fmaf(s[4 * i + 3], scale_log2, -mb1));
+    rs0 += s[4 * i] + s[4 * i + 1];
+    rs1 += s[4 * i + 2] + s[4 * i + 3];
+  }
+  st.l0 = st.l0 * alpha0 + rs0;  // reduced over the quad at the end
+  st.l1 = st.l1 * alpha1 + rs1;
+}
+
+// P as bf16 hi + lo A fragments: k step kk of the PV product takes
+// s[8 kk, 8 kk + 8), which is element for element its A-register layout.
+template <int BK>
+__device__ __forceinline__ void split_p(const float (&s)[BK / 2],
+                                        uint32_t (&phi)[BK / 16][4],
+                                        uint32_t (&plo)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float p0 = s[8 * kk + 2 * x], p1 = s[8 * kk + 2 * x + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
+      const float2 hf = __bfloat1622float2(hi);
+      phi[kk][x] = *reinterpret_cast<const uint32_t*>(&hi);
+      plo[kk][x] = pack_bf16(p0 - hf.x, p1 - hf.y);
+    }
 }
 
 template <int HD>
@@ -362,78 +454,56 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int nkw = min(wg_first + 63, S - 1) / BK + 1;  // <= nk
   const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
 
+  const uint32_t qa = qs + wg * 64 * T::kRowBytes;  // this warpgroup's rows
   float oacc[HD / 2];
 #pragma unroll
   for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.0f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.0f, l1 = 0.0f;
+  Rows st_rows{kNegInf, kNegInf, 0.0f, 0.0f};
+  float sacc[BK / 2];
+  uint32_t phi[BK / 16][4], plo[BK / 16][4];
+  float alpha0, alpha1;
+  auto masked = [&](int k0) { return k0 + BK - 1 > wg_first || k0 + BK > S; };
+  auto release = [&](int st) {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
 
+  // tile 0: S, its softmax and P
   mbar_wait(q_full, 0);
-  for (int j = 0; j < nkw; ++j) {
-    const int st = j % kStages;
-    const uint32_t parity = (j / kStages) & 1;
-    const int k0 = j * BK;
+  mbar_wait(k_full(0), 0);
+  wgmma_fence();
+  issue_qk<HD>(sacc, qa, ks);
+  wgmma_commit();
+  wgmma_wait<0>();
+  keep(sacc);
+  softmax_tile<BK>(sacc, 0, masked(0), row0, row1, S, col_of, scale_log2,
+                   st_rows, alpha0, alpha1);
+  split_p<BK>(sacc, phi, plo);
 
-    // S = Q.K^T over hd / 16 steps of 16 columns
-    float sacc[BK / 2];
-    mbar_wait(k_full(st), parity);
+  // tile j < last: issue S(j + 1) = Q.K(j + 1)^T, then O += P(j).V(j); the
+  // softmax of tile j + 1 runs while the tensor cores take P(j).V(j). (No
+  // wgmma sits in a branch: ptxas serializes those.)
+  for (int j = 0; j + 1 < nkw; ++j) {
+    const int st = j % kStages, sn = (j + 1) % kStages;
+    keep(oacc);
+    keep(phi);
+    keep(plo);
+    mbar_wait(k_full(sn), ((j + 1) / kStages) & 1);
+    mbar_wait(v_full(st), (j / kStages) & 1);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const int cb = kk * 16 / T::kCols;
-      const uint32_t off = (kk * 16 % T::kCols) * 2;
-      const uint64_t da = desc(qs + cb * kBQ * T::kRowBytes +
-                                   wg * 64 * T::kRowBytes + off,
-                               16, T::kAtomBytes, T::kLayout);
-      const uint64_t db = desc(ks + st * T::kKVBytes + cb * BK * T::kRowBytes +
-                                   off,
-                               16, T::kAtomBytes, T::kLayout);
-      wgmma_ss<BK>(sacc, da, db, kk > 0);
-    }
+    issue_qk<HD>(sacc, qa, ks + sn * T::kKVBytes);
     wgmma_commit();
-    wgmma_wait_all();
+    issue_pv<HD, BK>(oacc, phi, plo, vs + st * T::kKVBytes);
+    wgmma_commit();
+    wgmma_wait<1>();  // S(j + 1) is in; P(j).V(j) may still run
     keep(sacc);
-
-    // causal and length mask, only in tiles that reach past a row's keys
-    if (k0 + BK - 1 > wg_first || k0 + BK > S) {
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = k0 + 8 * i + col_of + e;
-          if (col > row0 || col >= S) sacc[4 * i + e] = kNegInf;
-          if (col > row1 || col >= S) sacc[4 * i + 2 + e] = kNegInf;
-        }
-    }
-
-    // online softmax on the fragment: row max over the quad
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      mx0 = fmaxf(mx0, fmaxf(sacc[4 * i], sacc[4 * i + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sacc[4 * i + 2], sacc[4 * i + 3]));
-    }
-#pragma unroll
-    for (int off = 1; off <= 2; off <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-    }
-    const float alpha0 = exp2f((m0 - mx0) * scale_log2);
-    const float alpha1 = exp2f((m1 - mx1) * scale_log2);
-    m0 = mx0;
-    m1 = mx1;
-    const float mb0 = mx0 * scale_log2, mb1 = mx1 * scale_log2;
-    float rs0 = 0.0f, rs1 = 0.0f;
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      sacc[4 * i] = exp2f(fmaf(sacc[4 * i], scale_log2, -mb0));
-      sacc[4 * i + 1] = exp2f(fmaf(sacc[4 * i + 1], scale_log2, -mb0));
-      sacc[4 * i + 2] = exp2f(fmaf(sacc[4 * i + 2], scale_log2, -mb1));
-      sacc[4 * i + 3] = exp2f(fmaf(sacc[4 * i + 3], scale_log2, -mb1));
-      rs0 += sacc[4 * i] + sacc[4 * i + 1];
-      rs1 += sacc[4 * i + 2] + sacc[4 * i + 3];
-    }
-    l0 = l0 * alpha0 + rs0;  // this thread's share; reduced at the end
-    l1 = l1 * alpha1 + rs1;
+    softmax_tile<BK>(sacc, (j + 1) * BK, masked((j + 1) * BK), row0, row1, S,
+                     col_of, scale_log2, st_rows, alpha0, alpha1);
+    wgmma_wait<0>();
+    keep(oacc);
+    keep(phi);
+    keep(plo);
+    release(st);
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) {
       oacc[4 * c] *= alpha0;
@@ -441,51 +511,24 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       oacc[4 * c + 2] *= alpha1;
       oacc[4 * c + 3] *= alpha1;
     }
-
-    // P as bf16 hi + lo A fragments: k step kk takes sacc[8 kk, 8 kk + 8)
-    uint32_t phi[BK / 16][4], plo[BK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float p0 = sacc[8 * kk + 2 * x], p1 = sacc[8 * kk + 2 * x + 1];
-        const __nv_bfloat162 hi = __floats2bfloat162_rn(p0, p1);
-        const float2 hf = __bfloat1622float2(hi);
-        phi[kk][x] = *reinterpret_cast<const uint32_t*>(&hi);
-        plo[kk][x] = pack_bf16(p0 - hf.x, p1 - hf.y);
-      }
-
-    // O += P_hi.V + P_lo.V over BK / 16 steps of 16 keys
-    keep(oacc);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        keep(phi[kk][x]);
-        keep(plo[kk][x]);
-      }
-    mbar_wait(v_full(st), parity);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t db = desc(vs + st * T::kKVBytes + kk * 16 * T::kRowBytes,
-                               BK * T::kRowBytes, T::kAtomBytes, T::kLayout);
-      wgmma_rs<HD>(oacc, phi[kk], db);
-      wgmma_rs<HD>(oacc, plo[kk], db);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    keep(oacc);
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        keep(phi[kk][x]);
-        keep(plo[kk][x]);
-      }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(st));  // this warp is done with stage st
+    split_p<BK>(sacc, phi, plo);
   }
+  {  // the last tile: O += P.V
+    const int st = (nkw - 1) % kStages;
+    keep(oacc);
+    keep(phi);
+    keep(plo);
+    mbar_wait(v_full(st), ((nkw - 1) / kStages) & 1);
+    wgmma_fence();
+    issue_pv<HD, BK>(oacc, phi, plo, vs + st * T::kKVBytes);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(oacc);
+    keep(phi);
+    keep(plo);
+    release(st);
+  }
+  float l0 = st_rows.l0, l1 = st_rows.l1;
 
 #pragma unroll
   for (int off = 1; off <= 2; off <<= 1) {

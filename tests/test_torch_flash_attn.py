@@ -116,20 +116,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     assert K5.launches == before
 
 
-#: the bf16 kernel's keys per tile at each head dim (``Tiles<HD>::BK`` in
-#: ``csrc/flash_attn_tc.cu``)
-TC_BLOCK_K = {16: 128, 64: 64, 128: 64}
+#: the bf16 kernel's keys per tile (``Tiles<HD>::BK`` in
+#: ``csrc/flash_attn_tc.cu``, the same at every head dim)
+TC_BLOCK_K = 64
 
 
 def _tc_emulation(q, k, v):
     """The bf16 tensor-core kernel's arithmetic in plain torch: q, k, v bf16
     [B, S, heads, hd]; exact float32 products of bf16 values; logits scaled
     inside exp2 by scale·log2(e); a running max and sum over key tiles of
-    ``TC_BLOCK_K[hd]``; P multiplied as bf16(P) + bf16(P − bf16(P)); the
+    ``TC_BLOCK_K``; P multiplied as bf16(P) + bf16(P − bf16(P)); the
     output acc / max(l, 1e-30) rounded to bf16."""
     B, S, H, hd = q.shape
     group = H // k.shape[2]
-    bk = TC_BLOCK_K[hd]
+    bk = TC_BLOCK_K
     c = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) * \
         torch.tensor(1.4426950408889634, dtype=torch.float32)
     qf = q.float().transpose(1, 2)                      # [B, H, S, hd]
