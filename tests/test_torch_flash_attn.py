@@ -121,12 +121,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 TC_BLOCK_K = 64
 
 
-def _tc_emulation(q, k, v):
+def _tc_emulation(q, k, v, split=True):
     """The bf16 tensor-core kernel's arithmetic in plain torch: q, k, v bf16
     [B, S, heads, hd]; exact float32 products of bf16 values; logits scaled
     inside exp2 by scale·log2(e); a running max and sum over key tiles of
-    ``TC_BLOCK_K``; P multiplied as bf16(P) + bf16(P − bf16(P)); the
-    output acc / max(l, 1e-30) rounded to bf16."""
+    ``TC_BLOCK_K``; P multiplied as bf16(P) + bf16(P − bf16(P)) (as bf16(P)
+    alone with ``split=False``, which the kernel does not do); the output
+    acc / max(l, 1e-30) rounded to bf16."""
     B, S, H, hd = q.shape
     group = H // k.shape[2]
     bk = TC_BLOCK_K
@@ -149,8 +150,9 @@ def _tc_emulation(q, k, v):
         p = torch.exp2(s * c - m_new * c)
         l = l * alpha + p.sum(-1, keepdim=True)
         hi = p.bfloat16().float()
-        lo = (p - hi).bfloat16().float()
-        acc = acc * alpha + torch.matmul(hi, vt) + torch.matmul(lo, vt)
+        acc = acc * alpha + torch.matmul(hi, vt)
+        if split:
+            acc = acc + torch.matmul((p - hi).bfloat16().float(), vt)
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)
     return out.bfloat16().transpose(1, 2)
@@ -180,6 +182,19 @@ def test_tensor_core_rounding_matches_plain_and_jax_ref(S, H, K, hd):
     want = np.moveaxis(np.asarray(want.astype(jnp.float32)).reshape(
         B, H, S, hd), 1, 2)
     np.testing.assert_allclose(got.numpy(), want, **TOL["bfloat16"])
+
+
+def test_a_single_bf16_p_would_not_fit_the_tolerance():
+    """Why the kernel multiplies P twice: P rounded once to bf16 (2^-9
+    relative) moves outputs near 0 past atol 1e-3 where the hi + lo split
+    stays inside the tolerance."""
+    q, k, v = (torch.as_tensor(a).bfloat16()
+               for a in _qkv(2, 129, 4, 1, 128, seed=5))
+    plain = K5.flash_attention_plain(q, k, v).float()
+    torch.testing.assert_close(_tc_emulation(q, k, v).float(), plain,
+                               **TOL["bfloat16"])
+    assert not torch.allclose(_tc_emulation(q, k, v, split=False).float(),
+                              plain, **TOL["bfloat16"])
 
 
 def test_routes_and_their_counts():
