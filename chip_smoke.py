@@ -30,6 +30,15 @@ the same prefill again with K5's plain version passed in, its logits, its
 teacher-forced decode logits and its greedy tokens held against the kernel
 run's; and the smoke config's prefill on the card against the CPU's.
 
+``round_fused`` (K4) is held against its plain version at six shapes
+(``K4_SHAPES``: the main path's refactor, block update and score-only
+rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
+refactored and block-updated), timed with its shipped plan and with its
+other substitution scheme; ``pairdist`` (K2) at TED's shape and at the GP's
+(``K2_SHAPES``). The main runs print K2's launches by shape and K4's by
+class; the build report gives the K4 and K2 kernels' registers, spills and
+shared memory.
+
 It prints the card (``nvidia-smi``), the build time, one line per kernel
 check, the rounds, the serve phase, a ``{"kernels": [...]}`` JSON line and,
 last, ``{"ok": true, "device": {...}}``. Any failure raises; no phase is
@@ -95,12 +104,24 @@ MAIN = dict(n_pool=2500, workload="resnet50", T=20, n=30, b=20, gp_steps=150,
             s_frontiers=10, frontier_subset=512, seed=0)
 SMALL = dict(n_pool=64, workload="resnet50", T=6, n=10, b=8, gp_steps=25,
              s_frontiers=10, frontier_subset=512, seed=3)
-#: K4 shapes: the main path's one chunk of the 2500-row pool at its final
-#: padded train size P = 72, refactored (s0 = 0), block-updated (s0 = 64)
-#: and scored only (s0 = 72); and a chunked pool of 5 x 512 columns (ragged
-#: tail masked) at P = 256.
+#: K4 shapes (nc, C, P, s0): the main path's one chunk of the 2500-row pool
+#: at its final padded train size P = 72, refactored (s0 = 0), block-updated
+#: (s0 = 64) and scored only (s0 = 72); a chunked pool of 5 x 512 columns
+#: (ragged tail masked) at P = 256; and a large pool of 16 x 16,384 columns
+#: (262,144 candidates, the chunked engine's scale), refactored and
+#: block-updated.
 K4_SHAPES = [(1, 2500, 72, 64), (1, 2500, 72, 0), (1, 2500, 72, 72),
-             (5, 512, 256, 248)]
+             (5, 512, 256, 248), (16, 16384, 72, 0), (16, 16384, 72, 64)]
+#: K4 shapes whose plain version is timed once (reps=1, repeats=1)
+K4_LARGE = 100_000
+#: K2 shapes (n, m), D = 26: TED's 2500 x 2500 and a 64 x 2500 block (both
+#: also in RBF mode), then the GP's calls at the main path's final P = 72:
+#: the train block, the posterior over the pool, the joint samples over the
+#: 512-row frontier subset and that subset with itself (d² mode, as
+#: core/gp.py calls it).
+K2_SHAPES = [(2500, 2500), (64, 2500), (72, 72), (72, 2500), (72, 512),
+             (512, 512)]
+K2_RBF_SHAPES = {(2500, 2500), (64, 2500)}
 
 
 def _event_ms(fn, repeats: int) -> float:
@@ -210,10 +231,10 @@ def check_kernels(dev) -> dict:
         if n == 2500:
             y_pool = out_p
 
-    # --- K2 pairdist: TED (2500 x 2500) and a GP inference block (64 x 2500),
-    # D = 26, in the d² mode the main path uses and the fused RBF mode.
+    # --- K2 pairdist at K2_SHAPES, D = 26, in the d² mode the main path
+    # uses and (for two of them) the fused RBF mode.
     x_all = torch.rand((2500, 26), generator=gen, device=dev)
-    for n, m in ((2500, 2500), (64, 2500)):
+    for n, m in K2_SHAPES:
         x, y = x_all[:n].contiguous(), x_all.flip(0)[:m].contiguous()
         scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
         # cancellation in |x|^2+|y|^2-2xy: float32 error up to ~D*2^-24 of
@@ -221,7 +242,8 @@ def check_kernels(dev) -> dict:
         atol = 2 * 26 * 2.0 ** -24 * scale
         bw = 1.3
         inv2s2 = 1.0 / (2 * bw * bw + 1e-12)
-        for bandwidth, tol in ((None, atol), (bw, inv2s2 * atol + 1e-6)):
+        modes = ((None, atol), (bw, inv2s2 * atol + 1e-6))
+        for bandwidth, tol in modes[:2 if (n, m) in K2_RBF_SHAPES else 1]:
             out_k = K2.pairdist(x, y, bandwidth=bandwidth)
             out_p = K2.pairdist_plain(x, y, bandwidth)
             torch.cuda.synchronize()
@@ -263,7 +285,9 @@ def k4_problem(dev, nc, C, d, P, m=3, S=10, seed=0) -> dict:
     """A round_fused problem on the card, made with numpy from ``seed``:
     SPD Cholesky factors, a V consistent with them (the plain version at
     s0 = 0), frontier maxima, 3 evaluated columns and, where nc·C exceeds
-    the pool, the ragged tail masked as the engine masks pad columns."""
+    the main path's pool (a chunking of those 2500 rows), the ragged tail
+    masked as the engine masks pad columns; a larger pool is its own size,
+    every column live."""
     import numpy as np
     import torch
 
@@ -273,7 +297,8 @@ def k4_problem(dev, nc, C, d, P, m=3, S=10, seed=0) -> dict:
     A = rng.normal(size=(m, P, P)) / np.sqrt(P)
     evalm = np.zeros((nc, C), bool)
     evalm[0, :3] = True
-    evalm.reshape(-1)[MAIN["n_pool"]:] = True
+    if nc * C < 2 * MAIN["n_pool"]:
+        evalm.reshape(-1)[MAIN["n_pool"]:] = True
     sc = 1.5 / np.sqrt(d)  # kernel entries O(0.1), as in the engine's rounds
     p = dict(ls=np.exp(0.3 * rng.normal(size=(m, d))),
              var=np.exp(0.2 * rng.normal(size=(m,))),
@@ -292,7 +317,11 @@ def k4_problem(dev, nc, C, d, P, m=3, S=10, seed=0) -> dict:
 def check_round_fused(dev, d: int, results: dict) -> None:
     """K4 against its plain version at ``K4_SHAPES``: equal picks, V within
     rtol = atol = 2e-5 (expf/erff/logf here against correctly rounded
-    float64 ones there, through the substitution)."""
+    float64 ones there, through the substitution), V bitwise unchanged when
+    s0 >= P. Timed with the shipped plan (8 lanes a column and objective,
+    the right-looking substitution) and, as ``ms_lanes1``, with the other
+    scheme (one thread down all rows); the plain version once at a large
+    pool (``K4_LARGE`` columns or more)."""
     import torch
 
     from repro_torch.kernels import round_fused as K4
@@ -310,14 +339,28 @@ def check_round_fused(dev, d: int, results: dict) -> None:
               and bool(torch.allclose(va, vb, rtol=2e-5, atol=2e-5))
               and (s0 < P or bool(torch.equal(va, t["V"]))))
         print(f"  round_fused picks: kernel {int(ia)}, plain {int(ib)}")
+        del b, vb
         args = [a[k] for k in K4_ARGS]
         bnd = bound_ms(k4_bytes(nc, C, d, m, P, S),
                        k4_ops(nc, C, d, m, P, S, s0))
+        plan = K4.launch_plan(nc, C, d, m, P, s0)
+        plan1 = K4.launch_plan(nc, C, d, m, P, s0, lanes=1)
+        large = nc * C >= K4_LARGE
+        t1 = time_ms(lambda: K4.launch(args, plan1, s0), reps=3 if large
+                     else 20, repeats=3 if large else 7)
         _record(results, "round_fused", [nc, C, d, m, P, S, s0], err, ok,
-                time_ms(lambda: K4.round_select(*args, s0=s0)),
+                time_ms(lambda: K4.round_select(*args, s0=s0),
+                        reps=5 if large else 20, repeats=5 if large else 7),
                 time_ms(lambda: K4.round_select_plain(*args, s0=s0),
-                        reps=2, repeats=3),
-                None, bnd)
+                        reps=1 if large else 2, repeats=1 if large else 3),
+                None, bnd, ms_lanes1=t1[0], eager_ms_lanes1=t1[1],
+                plan={k: plan[k] for k in K4.PLAN_KEYS + ("threads",
+                                                          "tiles")})
+        print(f"    (plan {results['round_fused'][-1]['plan']}; the other "
+              f"scheme, one thread down all rows: {t1[0]:.4f}/{t1[1]:.4f} "
+              "ms)")
+        del a, args, t
+        torch.cuda.empty_cache()
 
 
 def run_tuner(cfg: dict, device, draws=None, pool_device=None, **extra):
@@ -587,6 +630,8 @@ def ptxas_report(log: str) -> dict:
         m = re.search(r"Used (\d+) registers", line)
         if m:
             entries[cur]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            entries[cur]["static_smem"] = int(m.group(1)) if m else 0
     return dict(zip(_demangle(list(entries)), entries.values()))
 
 
@@ -636,6 +681,40 @@ def k5_build_report() -> dict:
         if not (ops.get("HGMMA") and ops.get("UTMALDG")):
             raise AssertionError(f"{name}: no wgmma (HGMMA) or no TMA load "
                                  f"(UTMALDG) in its SASS: {ops}")
+    return report
+
+
+def k2k4_build_report() -> dict:
+    """The redesigned K4 (``round_kernel<G>``, G = 8 lanes shipped, G = 1
+    the other scheme) and K2 (``pairdist_kernel<TM>``) as built: ptxas's
+    registers, stack, spills and static shared memory, and K4's dynamic
+    shared memory at each ``K4_SHAPES`` entry (its plan, d = 26). Raises if
+    a kernel is missing from the build log."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import round_fused as K4
+
+    ptxas = ptxas_report(build.build_log())
+    names = ["round_kernel<8>", "round_kernel<1>"] + [
+        f"pairdist_kernel<{tm}>" for tm in (8, 4, 2, 1)]
+    report = {}
+    for name in names:
+        if name not in ptxas:
+            raise AssertionError(f"{name} is not in the build log")
+        r = ptxas[name]
+        report[name] = r
+        print(f"  {name}: {r.get('registers')} registers, {r.get('stack')} "
+              f"bytes stack, {r.get('spill_stores')}/{r.get('spill_loads')} "
+              f"bytes spill stores/loads, {r.get('static_smem')} bytes static "
+              "shared memory")
+    for nc, C, P, s0 in K4_SHAPES:
+        plan = K4.launch_plan(nc, C, 26, 3, P, s0)
+        report[f"round_fused {[nc, C, P, s0]}"] = plan
+        print(f"  round_fused plan at {[nc, C, 26, 3, P, 10, s0]}: "
+              f"{plan['threads']} threads, {plan['ct']} columns x "
+              f"{plan['w']} objectives a tile, {plan['tiles']} tiles, L "
+              f"{('resident', 'ring', 'device')[plan['lmode']]} (panels of "
+              f"{plan['R']} rows), {plan['smem_bytes']} bytes dynamic shared "
+              "memory")
     return report
 
 
@@ -973,6 +1052,9 @@ def main() -> int:
         print(f"  ptxas: {name}: {info}")
     print("flash_attn, bf16 route (csrc/flash_attn_tc.cu), as built:")
     k5_build = k5_build_report()
+    print("round_fused (csrc/round_fused.cu) and pairdist (csrc/pairdist.cu), "
+          "as built:")
+    k2k4_build = k2k4_build_report()
 
     print("kernel checks (CUDA events, median, warm L2; device = CUDA-graph "
           "replay, eager = launched from Python):")
@@ -980,7 +1062,11 @@ def main() -> int:
 
     def drive(label: str, **extra):
         """One main-path run with every launch count set to 0 just before
-        it; returns (result, pool, ref, flow, launches, wall seconds)."""
+        it; returns (result, pool, ref, flow, launches, wall seconds) and
+        keeps K2's launches by shape and K4's by class in ``by_class``."""
+        from repro_torch.kernels import pairdist as K2
+        from repro_torch.kernels import round_fused as K4
+
         print(f"main path ({label}): soc_tuner", json.dumps({**MAIN, **extra}))
         kernels.reset_launches()
         t0 = time.perf_counter()
@@ -989,6 +1075,10 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches = {k.__name__.rsplit(".", 1)[1]: k.launches
                     for k in kernels.KERNELS}
+        by_class[label] = dict(
+            pairdist={f"{n}x{m}x{d} {mode}": c for (n, m, d, mode), c in
+                      sorted(K2.shape_launches.items())},
+            round_fused=dict(K4.class_launches))
         for h in res.history:
             print(f"  round {h['round']:2d} wall_s={h['wall_s']:.3f} "
                   f"evals={h['evaluations']} front={h['pareto_size']} "
@@ -999,9 +1089,13 @@ def main() -> int:
               f"{flow.evaluated} in {flow.calls} calls, rounds {st['rounds']}, "
               f"refactors {st['refactors']}, block updates "
               f"{st['block_updates']}, launches {launches}")
+        print(f"  {label}: pairdist launches by shape (n x m x d): "
+              f"{by_class[label]['pairdist']}; round_fused launches by class: "
+              f"{by_class[label]['round_fused']}")
         check_result(res, pool, ref, MAIN)
         return res, pool, ref, flow, launches, wall
 
+    by_class = {}
     res, pool, ref, flow, launches, wall = drive("exact")
     missing = [k for k in ("systolic_eval", "pairdist", "pareto_count")
                if launches[k] == 0]
@@ -1084,16 +1178,19 @@ def main() -> int:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
             card=card, torch=torch.__version__, cuda=torch.version.cuda,
-            build_s=build.build_seconds(), k5_build=k5_build, checks=checks,
+            build_s=build.build_seconds(), k5_build=k5_build,
+            k2k4_build=k2k4_build, checks=checks,
             kernels=entries,
             main=dict(config=MAIN, wall_s=wall, history=res.history,
                       flow_evaluated=flow.evaluated, flow_calls=flow.calls,
-                      launches=launches, round_breakdown=breakdown),
+                      launches=launches, launches_by_class=by_class["exact"],
+                      round_breakdown=breakdown),
             incremental=dict(config={**MAIN, "incremental": True},
                              wall_s=wall_i, history=res_i.history,
                              engine_stats=res_i.engine_stats,
                              flow_evaluated=flow_i.evaluated,
                              flow_calls=flow_i.calls, launches=launches_i,
+                             launches_by_class=by_class["incremental"],
                              round_breakdown=breakdown_i),
             serve=serve),
             indent=1))

@@ -22,8 +22,12 @@ __all__ = ["flash_attn", "pairdist", "pareto_count", "round_fused",
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count (and per-route count) to 0."""
+    """Set every kernel's launch count (and its counts by route, class or
+    shape) to 0."""
     for k in KERNELS:
         k.launches = 0
-        for route in getattr(k, "route_launches", ()):
-            k.route_launches[route] = 0
+        for by in ("route_launches", "class_launches"):
+            counts = getattr(k, by, {})
+            for key in counts:
+                counts[key] = 0
+        getattr(k, "shape_launches", {}).clear()

@@ -16,10 +16,35 @@ import torch
 from . import build
 from ._common import check_tensor, on_cpu
 
-__all__ = ["pairdist", "pairdist_plain", "launches"]
+__all__ = ["pairdist", "pairdist_plain", "launch_plan", "launches",
+           "shape_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: the same launches by shape: (n, m, d, "d2" or "rbf") -> count
+shape_launches: dict = {}
+
+#: threads per block edge and columns per tile of ``csrc/pairdist.cu``
+SIDE, COLS = 16, 64
+#: blocks a plan aims to put in flight: two on each of the H100's 132 SMs
+TARGET_BLOCKS = 2 * 132
+
+
+def launch_plan(n: int, m: int, d: int) -> dict:
+    """The launch plan of one call: ``tm`` rows per thread (8, 4, 2 or 1), the
+    tile (16·tm rows × 64 columns, 256 threads), the grid, and the static
+    shared bytes. The tallest tile that still gives ``TARGET_BLOCKS``
+    blocks, else the smallest; features are staged 32 at a time."""
+    col_tiles = -(-m // COLS)
+    for tm in (8, 4, 2, 1):
+        blocks = col_tiles * -(-n // (SIDE * tm))
+        if blocks >= TARGET_BLOCKS or tm == 1:
+            break
+    rows = SIDE * tm
+    smem = 4 * (32 * (rows + 1) + 32 * (COLS + 4) + rows + COLS)
+    return dict(tm=tm, threads=SIDE * SIDE, tile=(rows, COLS),
+                grid=(col_tiles, -(-n // rows)), blocks=blocks,
+                chunk=min(d, 32), smem_bytes=smem)
 
 
 def pairdist_plain(x: torch.Tensor, y: torch.Tensor,
@@ -55,7 +80,10 @@ def pairdist(x: torch.Tensor, y: torch.Tensor, *,
         1.0 / (2.0 * float(bandwidth) ** 2 + 1e-12)
     err = build.library().pairdist_launch(
         x.data_ptr(), y.data_ptr(), out.data_ptr(), n, m, d,
-        int(bandwidth is not None), inv2s2, build.stream_ptr(x))
+        int(bandwidth is not None), inv2s2, launch_plan(n, m, d)["tm"],
+        build.stream_ptr(x))
     build.check(err, "pairdist")
     launches += 1
+    key = (n, m, d, "d2" if bandwidth is None else "rbf")
+    shape_launches[key] = shape_launches.get(key, 0) + 1
     return out

@@ -16,7 +16,8 @@
 It returns ``(V, best_idx)`` with ``V`` the updated input tensor and
 ``best_idx`` a 0-dim int32 tensor on V's device. On a CPU tensor it runs
 :func:`round_select_plain`; on a CUDA tensor it launches
-``csrc/round_fused.cu`` or raises.
+``csrc/round_fused.cu`` once, with the plan of :func:`launch_plan`, or
+raises.
 
 The plain version is written so that every column is computed by the same
 element-wise operations whatever the chunk width: sums run in a fixed order
@@ -36,10 +37,13 @@ from . import build
 from ._common import check_tensor, on_cpu
 
 __all__ = ["round_select", "round_select_plain", "v_update_plain",
-           "col_moments_plain", "mes_plain", "select_plain", "launches"]
+           "col_moments_plain", "mes_plain", "select_plain", "launch_plan",
+           "launch", "launch_class", "launches", "class_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
+#: the same launches by class (:func:`launch_class`)
+class_launches = {"refactor": 0, "block_update": 0, "score_only": 0}
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _HALF_SQRT2 = 0.5 * math.sqrt(2.0)
@@ -199,7 +203,6 @@ def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
     [nc, C] the evaluated mask, ``y_mean``/``y_std``/``weights`` [m]. ``s0``
     rows of V are reused (0: all recomputed; ``>= P``: score only).
     """
-    global launches
     _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
            weights, s0)
     args = (ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
@@ -208,14 +211,134 @@ def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
         return round_select_plain(*args, s0=int(s0))
     nc, C, d = pool_c.shape
     m, P = beta.shape
-    if nc > 65535:
-        raise ValueError(f"round_select: {nc} chunks exceed the grid's 65535; "
-                         "use a larger pool_chunk")
-    scratch = torch.empty(2 * nc, dtype=torch.int64, device=V.device)
+    return V, launch(args, launch_plan(nc, C, d, m, P, int(s0)), int(s0))
+
+
+def launch(args, plan: dict, s0: int) -> torch.Tensor:
+    """Launch the kernel on ``args`` (``round_select``'s tensors, checked)
+    with ``plan`` (from :func:`launch_plan`); returns the pick. Counts the
+    launch, by class too. ``chip_smoke.py`` calls it with the other
+    substitution scheme (``launch_plan(..., lanes=1)``) to time both."""
+    global launches
+    V, pool_c, beta, ystar = args[3], args[7], args[5], args[6]
+    nc, C, d = pool_c.shape
+    m, P = beta.shape
     out = torch.empty((), dtype=torch.int32, device=V.device)
     err = build.library().round_fused_launch(
-        *(t.data_ptr() for t in args), scratch.data_ptr(), out.data_ptr(),
-        nc, C, d, m, P, ystar.shape[0], min(int(s0), P), build.stream_ptr(V))
+        *(t.data_ptr() for t in args), _scratch(V.device, nc).data_ptr(),
+        out.data_ptr(), nc, C, d, m, P, ystar.shape[0], min(s0, P),
+        *(plan[k] for k in PLAN_KEYS), build.stream_ptr(V))
     build.check(err, "round_fused")
     launches += 1
-    return V, out
+    class_launches[launch_class(s0, P)] += 1
+    return out
+
+
+def launch_class(s0: int, P: int) -> str:
+    """``refactor`` (s0 = 0), ``block_update`` (0 < s0 < P) or
+    ``score_only`` (s0 >= P)."""
+    return ("refactor" if s0 <= 0 else "block_update" if s0 < P
+            else "score_only")
+
+
+#: the arguments of a plan, in the launch function's order
+PLAN_KEYS = ("lanes", "ct", "w", "R", "lmode", "xs", "pv", "smem_bytes")
+#: dynamic shared memory a plan may take: the 232,448 bytes a Hopper block
+#: may opt into, less a margin for the kernel's static shared variable
+SMEM_LIMIT = 232_448 - 256
+#: threads a block may have, by lanes (``max_threads`` in the kernel)
+MAX_THREADS = {8: 768, 1: 256}
+MAX_ROWS = 32
+#: L staging modes: every row once per block, a two-slot ring of panels,
+#: or read from device memory
+RESIDENT, RING, DEVICE = 0, 1, 2
+
+
+def _lstride(P: int) -> int:
+    """Row stride of a staged L row (``lstride`` in the kernel): a multiple
+    of 4 floats that is 4 mod 8."""
+    s = -(-P // 4) * 4
+    return s + 4 if s % 8 == 0 else s
+
+
+def _smem_floats(d, m, P, B, ct, w, R, lmode, xs, pv) -> int:
+    """Floats of dynamic shared memory a plan takes (``layout`` in the
+    kernel): L, scaled x, its norms, scaled pool, its norms, the V tile
+    (a column's rows contiguous), beta's rows beside it and the
+    per-objective scores, each region rounded up to 4 floats."""
+    Ps, dp, vst = _lstride(P), _lstride(d), _lstride(pv)
+    xs = bool(B and xs)
+    sizes = (
+        0 if not B else m * B * Ps if lmode == RESIDENT
+        else 2 * w * R * Ps if lmode == RING else 0,
+        0 if not xs else m * B * dp if lmode == RESIDENT else w * R * dp,
+        0 if not xs else m * B if lmode == RESIDENT else w * R,
+        0 if not xs else w * ct * dp,
+        w * ct if B else 0,
+        w * ct * vst,
+        w * vst,
+        w * ct)
+    return sum(-(-n // 4) * 4 for n in sizes)
+
+
+def launch_plan(nc: int, C: int, d: int, m: int, P: int, s0: int, *,
+                lanes: int = 8) -> dict:
+    """The launch plan of one call: ``lanes`` G per (column, objective)
+    pair (8: the right-looking substitution across a group; 1: one thread
+    down all rows), ``ct`` columns per tile, ``w`` objectives per wave,
+    ``R`` rows per L panel, ``lmode`` (``RESIDENT``/``RING``/``DEVICE``),
+    ``xs`` (scaled inputs staged), ``pv`` rows of the V tile in shared
+    memory, ``threads`` per block, ``tiles`` and ``smem_bytes``.
+
+    Preference: L resident, then in a ring, then in device memory; within
+    each, the most objectives per wave, the widest tile and the tallest
+    panel that hold all P rows of the V tile. Where nothing holds them, the
+    smallest plan keeps what fits of V and reads the rest from device
+    memory. Every shape gets a plan."""
+    if lanes not in MAX_THREADS:
+        raise ValueError(f"round_fused: lanes must be 8 or 1, got {lanes}")
+    G = lanes
+    s0 = min(max(int(s0), 0), P)
+    B = P - s0
+    ct_min = 32 // G  # a warp holds one objective's columns
+    cts = [c for c in (32, 16, 8, 4) if c >= ct_min]
+    w0 = min(m, max(1, MAX_THREADS[G] // (32 * G)))
+    ws = sorted({w0, max(1, w0 // 2), 1}, reverse=True)
+    Rs = [r for r in (MAX_ROWS, MAX_ROWS // 2, MAX_ROWS // 4) if r >= G]
+    budget = SMEM_LIMIT // 4
+
+    def plan(ct, w, R, lmode, xs, pv):
+        n = _smem_floats(d, m, P, B, ct, w, R, lmode, xs, pv)
+        return dict(lanes=G, ct=ct, w=w, R=R, lmode=lmode, xs=int(xs), pv=pv,
+                    threads=w * ct * G, tiles=nc * -(-C // ct),
+                    smem_bytes=4 * n)
+
+    for lmode, xs in ((RESIDENT, 1), (RING, 1), (DEVICE, 1), (DEVICE, 0)):
+        for w in ws:
+            for ct in cts:
+                for R in (Rs if lmode == RING else Rs[:1]):
+                    if _smem_floats(d, m, P, B, ct, w, R, lmode, xs,
+                                    P) <= budget:
+                        return plan(ct, w, R, lmode, xs, P)
+    pv = min(P, budget // (ct_min + 1))
+    while pv > 0 and _smem_floats(d, m, P, B, ct_min, 1, G, DEVICE, 0,
+                                  pv) > budget:
+        pv -= 1 + pv // 64
+    return plan(ct_min, 1, G, DEVICE, 0, pv)
+
+
+_SCRATCH: dict = {}
+
+
+def _scratch(device, nc: int) -> torch.Tensor:
+    """The kernel's zeroed scratch on ``device``: per chunk a packed best
+    key (8 bytes) and a NaN flag (4), then a block ticket (4). The kernel's
+    last block sets it back to zero, so it is allocated (and zeroed) only
+    when a call needs more chunks than any before; calls on one device
+    share it, so they must run on one stream."""
+    words = -(-(12 * nc + 4) // 8)
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int64, device=device)
+        _SCRATCH[device] = buf
+    return buf

@@ -198,6 +198,127 @@ def test_small_tuner_on_the_card_picks_what_the_cpu_picks(dev):
         np.testing.assert_array_equal(rows["cuda"], rows["cpu"])
 
 
+
+# The redesigned K4 at the edges of its launch plan (kernels/round_fused.py::
+# launch_plan): L in panels through the ring (P = 512 at s0 = 0), wide
+# features, one and five objectives, one column a chunk, a ragged last chunk.
+@pytest.mark.parametrize("nc,C,d,P,m,s0,pad", [
+    (2, 37, 11, 512, 3, 0, 5),    # L in panels (1 MB an objective)
+    (2, 37, 11, 512, 3, 504, 5),  # block update at P = 512
+    (2, 40, 64, 24, 1, 0, 5),     # d = 64, one objective
+    (2, 40, 64, 24, 5, 16, 5),    # d = 64, five objectives (two waves)
+    (7, 1, 11, 16, 3, 0, 0),      # one column a chunk
+    (4, 50, 26, 72, 3, 64, 23),   # ragged last chunk: 23 pad columns
+    (3, 200, 26, 72, 3, 0, 0)])
+def test_round_fused_plan_edges_match_plain(dev, nc, C, d, P, m, s0, pad):
+    t = _k4_problem(dev, nc, C, d, P, m=m, seed=nc + C + d + P + m + s0)
+    t["evalm_c"][-1] = False
+    t["evalm_c"][0, :min(3, C)] = True
+    if pad:
+        t["evalm_c"][-1, C - pad:] = True
+    va, ia, vb, ib = _k4_both(t, s0)
+    assert ia == ib
+    # the same tolerance as test_round_fused_matches_plain
+    torch.testing.assert_close(va, vb, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("C,d,P,s0,lmode,xs,pv_all", [
+    (8, 5, 3500, 0, "DEVICE", 1, True),       # L read from device memory
+    (8, 6000, 16, 0, "DEVICE", 0, True),      # pool and x divided inline
+    (8, 5, 12000, 11992, "DEVICE", 0, False)])  # V rows >= pv in device memory
+def test_round_fused_device_memory_modes_match_plain(dev, C, d, P, s0, lmode,
+                                                     xs, pv_all):
+    """Where even the smallest staging does not fit in shared memory, the
+    same kernel reads that part from device memory (one objective, one
+    chunk; L built triangular and well conditioned, V from the plain
+    version at s0 = 0)."""
+    plan = K4.launch_plan(1, C, d, 1, P, s0)
+    assert (plan["lmode"], plan["xs"], plan["pv"] == P) == \
+        (getattr(K4, lmode), xs, pv_all)
+    rng = np.random.default_rng(P + d)
+    sc = 1.5 / np.sqrt(d)
+    L = np.tril(rng.standard_normal((P, P), dtype=np.float32)) * np.float32(
+        0.3 / np.sqrt(P))
+    L[np.diag_indices(P)] = 1.0 + rng.random(P, dtype=np.float32)
+    p = dict(ls=np.exp(0.3 * rng.normal(size=(1, d))),
+             var=np.ones(1), L=L[None], V=np.zeros((1, 1, P, C)),
+             x=sc * rng.normal(size=(P, d)), beta=rng.normal(size=(1, P)),
+             ystar=rng.normal(size=(10, 1)),
+             pool_c=sc * rng.normal(size=(1, C, d)),
+             evalm_c=np.zeros((1, C), bool), y_mean=np.zeros(1),
+             y_std=np.ones(1), weights=np.ones(1))
+    t = {k: torch.as_tensor(v if v.dtype == bool else v.astype(np.float32),
+                            device=dev) for k, v in p.items()}
+    del L, p
+    K4.round_select_plain(*(t[k] for k in K4_NAMES), s0=0)
+    va, ia, vb, ib = _k4_both(t, s0)
+    assert ia == ib
+    # the same tolerance as test_round_fused_matches_plain
+    torch.testing.assert_close(va, vb, rtol=2e-5, atol=2e-5)
+
+def test_round_fused_is_deterministic(dev):
+    """Two calls on the same inputs give bitwise-equal V and the same pick
+    (the argmax's atomics do not depend on their order)."""
+    for nc, C, P, s0 in ((1, 2500, 72, 0), (3, 517, 72, 64)):
+        t = _k4_problem(dev, nc, C, 26, P, seed=C + s0)
+        a = {k: v.clone() for k, v in t.items()}
+        b = {k: v.clone() for k, v in t.items()}
+        va, ia = K4.round_select(*(a[k] for k in K4_NAMES), s0=s0)
+        vb, ib = K4.round_select(*(b[k] for k in K4_NAMES), s0=s0)
+        torch.cuda.synchronize()
+        assert torch.equal(va, vb) and int(ia) == int(ib)
+
+
+def test_round_fused_score_only_leaves_v_bitwise(dev):
+    t = _k4_problem(dev, 2, 300, 26, 40, seed=3)
+    for s0 in (40, 41, 1000):
+        before = t["V"].clone()
+        _, ia, _, ib = _k4_both(t, s0)
+        assert ia == ib
+        assert torch.equal(t["V"], before)
+
+
+def test_round_fused_is_one_device_operation_per_call(dev):
+    """One call is one kernel launch and nothing else on the device: no
+    memset (the kernel's last block zeroes its scratch for the next call),
+    no second pass; counted with torch.profiler after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for nc, C, P, s0 in ((1, 2500, 72, 0), (5, 512, 256, 248),
+                         (3, 37, 8, 8)):
+        t = _k4_problem(dev, nc, C, 26, P, seed=1)
+        args = [t[k] for k in K4_NAMES]
+        K4.round_select(*args, s0=s0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            K4.round_select(*args, s0=s0)
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert len(ops) == 1, [e.name for e in ops]
+        assert "round_kernel" in ops[0].name
+
+
+@pytest.mark.parametrize("n,m,d", [(70, 131, 33), (9, 2501, 64), (130, 66, 100),
+                                   (72, 70, 26), (1, 5, 7)])
+def test_pairdist_wide_features_and_ragged_rows_match_plain(dev, n, m, d):
+    """K2 with d > 32 (features staged in chunks) and m not a multiple of 4
+    (the scalar store path); the tolerance of test_pairdist_matches_plain."""
+    g = torch.Generator(device=dev).manual_seed(n * m + d)
+    x = torch.rand((n, d), generator=g, device=dev)
+    y = torch.rand((m, d), generator=g, device=dev)
+    scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+    atol = 2 * d * 2.0 ** -24 * scale
+    before = K2.launches
+    torch.testing.assert_close(K2.pairdist(x, y), K2.pairdist_plain(x, y),
+                               rtol=1e-5, atol=atol)
+    inv2s2 = 1.0 / (2 * 0.9 ** 2 + 1e-12)
+    torch.testing.assert_close(K2.pairdist(x, y, bandwidth=0.9),
+                               K2.pairdist_plain(x, y, 0.9),
+                               rtol=1e-5, atol=inv2s2 * atol + 1e-6)
+    assert K2.launches == before + 2
+    assert K2.shape_launches[(n, m, d, "d2")] >= 1
+
 # ------------------------------------------------------------ K5 flash_attn
 # bf16 outputs are rounded from float32 results that differ in the last
 # bits (another summation order), so one may flip by a bf16 ulp (<= 2^-7
