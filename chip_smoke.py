@@ -33,8 +33,7 @@ run's; and the smoke config's prefill on the card against the CPU's.
 ``round_fused`` (K4) is held against its plain version at six shapes
 (``K4_SHAPES``: the main path's refactor, block update and score-only
 rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
-refactored and block-updated), timed with its shipped plan and with its
-other substitution scheme; ``pairdist`` (K2) at TED's shape and at the GP's
+refactored and block-updated); ``pairdist`` (K2) at TED's shape and at the GP's
 (``K2_SHAPES``). The main runs print K2's launches by shape and K4's by
 class; the build report gives the K4 and K2 kernels' registers, spills and
 shared memory.
@@ -318,10 +317,8 @@ def check_round_fused(dev, d: int, results: dict) -> None:
     """K4 against its plain version at ``K4_SHAPES``: equal picks, V within
     rtol = atol = 2e-5 (expf/erff/logf here against correctly rounded
     float64 ones there, through the substitution), V bitwise unchanged when
-    s0 >= P. Timed with the shipped plan (8 lanes a column and objective,
-    the right-looking substitution) and, as ``ms_lanes1``, with the other
-    scheme (one thread down all rows); the plain version once at a large
-    pool (``K4_LARGE`` columns or more)."""
+    s0 >= P. The plain version is timed once at a large pool (``K4_LARGE``
+    columns or more)."""
     import torch
 
     from repro_torch.kernels import round_fused as K4
@@ -344,21 +341,14 @@ def check_round_fused(dev, d: int, results: dict) -> None:
         bnd = bound_ms(k4_bytes(nc, C, d, m, P, S),
                        k4_ops(nc, C, d, m, P, S, s0))
         plan = K4.launch_plan(nc, C, d, m, P, s0)
-        plan1 = K4.launch_plan(nc, C, d, m, P, s0, lanes=1)
         large = nc * C >= K4_LARGE
-        t1 = time_ms(lambda: K4.launch(args, plan1, s0), reps=3 if large
-                     else 20, repeats=3 if large else 7)
         _record(results, "round_fused", [nc, C, d, m, P, S, s0], err, ok,
                 time_ms(lambda: K4.round_select(*args, s0=s0),
                         reps=5 if large else 20, repeats=5 if large else 7),
                 time_ms(lambda: K4.round_select_plain(*args, s0=s0),
                         reps=1 if large else 2, repeats=1 if large else 3),
-                None, bnd, ms_lanes1=t1[0], eager_ms_lanes1=t1[1],
-                plan={k: plan[k] for k in K4.PLAN_KEYS + ("threads",
-                                                          "tiles")})
-        print(f"    (plan {results['round_fused'][-1]['plan']}; the other "
-              f"scheme, one thread down all rows: {t1[0]:.4f}/{t1[1]:.4f} "
-              "ms)")
+                None, bnd, plan={k: plan[k] for k in K4.PLAN_KEYS
+                                 + ("threads", "tiles")})
         del a, args, t
         torch.cuda.empty_cache()
 
@@ -685,8 +675,8 @@ def k5_build_report() -> dict:
 
 
 def k2k4_build_report() -> dict:
-    """The redesigned K4 (``round_kernel<G>``, G = 8 lanes shipped, G = 1
-    the other scheme) and K2 (``pairdist_kernel<TM>``) as built: ptxas's
+    """The redesigned K4 (``round_kernel``) and K2 (``pairdist_kernel<TM>``)
+    as built: ptxas's
     registers, stack, spills and static shared memory, and K4's dynamic
     shared memory at each ``K4_SHAPES`` entry (its plan, d = 26). Raises if
     a kernel is missing from the build log."""
@@ -694,7 +684,7 @@ def k2k4_build_report() -> dict:
     from repro_torch.kernels import round_fused as K4
 
     ptxas = ptxas_report(build.build_log())
-    names = ["round_kernel<8>", "round_kernel<1>"] + [
+    names = ["round_kernel"] + [
         f"pairdist_kernel<{tm}>" for tm in (8, 4, 2, 1)]
     report = {}
     for name in names:

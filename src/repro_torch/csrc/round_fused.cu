@@ -25,11 +25,12 @@
 // launch_plan, and checked here):
 // - A block owns a tile of `ct` columns of one chunk and runs the m
 //   objectives in waves of `w` slots; each (column, objective) pair has a
-//   group of G lanes. G = 8 is shipped (a warp holds 4 columns of one
-//   objective; at the main path 32 columns x 3 objectives, 768 threads, 79
-//   blocks); G = 1 (one thread runs down all rows) is the other scheme,
-//   kept to be timed. Blocks are persistent: they walk the tiles of every
-//   chunk, so what a block stages once serves all its tiles.
+//   group of G = 8 lanes (a warp holds 4 columns of one objective; at the
+//   main path 32 columns x 3 objectives, 768 threads, 79 blocks). One
+//   thread per pair running down all rows measured 1.2-3.1x slower at
+//   every timed shape (PERF.md). Blocks are persistent: they walk the
+//   tiles of every chunk, so what a block stages once serves all its
+//   tiles.
 // - Scaled inputs once: x[r]/ls[i] and its norm aa for the rows s0..P-1, and
 //   pool/ls and its norm bb for the tile's columns, go to shared memory,
 //   each sum in feature order as the plain version takes it.
@@ -71,12 +72,10 @@
 
 namespace {
 
-// threads a block of G lanes a pair may have: 768 caps G = 8 at 80
-// registers a thread (it spills ~190 bytes; a 384-thread variant without
-// spills measured no faster), 256 lets G = 1 keep its 32 rows in registers
-__host__ __device__ constexpr int max_threads(int G) {
-  return G == 8 ? 768 : 256;
-}
+constexpr int G = 8;  // lanes a (column, objective) pair
+// 768 threads a block cap a thread at 80 registers (it spills ~190 bytes;
+// a 384-thread variant without spills measured no faster)
+constexpr int kMaxThreads = 768;
 constexpr int kMaxRows = 32;  // panel rows R <= 32: G * (rows per lane)
 constexpr float kLog2Pi = 1.8378770664093453f;
 constexpr float kHalfSqrt2 = 0.70710678118654752f;
@@ -272,8 +271,7 @@ __device__ void row_norms(float* out, const float* rows, int n, int d,
   }
 }
 
-template <int G>
-__global__ void __launch_bounds__(max_threads(G), 1)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 round_kernel(const Args a, const Plan p) {
   constexpr int RPT = kMaxRows / G;  // rows a lane owns in a panel
   extern __shared__ float4 smem4[];
@@ -542,7 +540,7 @@ round_kernel(const Args a, const Plan p) {
             const int q = r0 + rq;
             float v = 0.0f;
             if (t == tq) v = acc[kq] / Lrow[kq * lsk + q];
-            if constexpr (G > 1) v = __shfl_sync(0xffffffffu, v, tq, G);
+            v = __shfl_sync(0xffffffffu, v, tq, G);
             if (t == tq) {
               if (q < p.pv) {
                 Vt[q] = v;
@@ -623,11 +621,11 @@ round_kernel(const Args a, const Plan p) {
           ss = ss + v * v;
         }
       }
-      if constexpr (G > 1) ss = __shfl_sync(0xffffffffu, ss, 0, G);
+      ss = __shfl_sync(0xffffffffu, ss, 0, G);
       float tv = vari - ss;
       tv = (tv < 1e-10f) ? 1e-10f : tv;  // NaN stays NaN, like clamp_min
       float mean_d = mu * ystd + ymean;
-      if constexpr (G > 1) mean_d = __shfl_sync(0xffffffffu, mean_d, 0, G);
+      mean_d = __shfl_sync(0xffffffffu, mean_d, 0, G);
       const float std_d = sqrtf(tv) * ystd;
 
       // MES: the S terms spread over the lanes, added in order
@@ -645,8 +643,7 @@ round_kernel(const Args a, const Plan p) {
         }
 #pragma unroll
         for (int u = 0; u < G; ++u) {
-          float tu = term;
-          if constexpr (G > 1) tu = __shfl_sync(0xffffffffu, term, u, G);
+          const float tu = __shfl_sync(0xffffffffu, term, u, G);
           if (sb + u < S) af = (sb + u == 0) ? tu : af + tu;
         }
       }
@@ -712,16 +709,15 @@ round_kernel(const Args a, const Plan p) {
   }
 }
 
-template <int G>
 cudaError_t launch(const Args& a, const Plan& p, int smem_bytes,
                    cudaStream_t st) {
   const int threads = p.w * p.ct * G;
   cudaError_t err = cudaFuncSetAttribute(
-      round_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel<G>,
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel,
                                                       threads, smem_bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
@@ -733,7 +729,7 @@ cudaError_t launch(const Args& a, const Plan& p, int smem_bytes,
       (long long)a.nc * ((a.C + p.ct - 1) / p.ct);
   const long long cap = (long long)per_sm * sms;
   const int grid = (int)(ntiles < cap ? ntiles : cap);
-  round_kernel<G><<<grid, threads, smem_bytes, st>>>(a, p);
+  round_kernel<<<grid, threads, smem_bytes, st>>>(a, p);
   return cudaGetLastError();
 }
 
@@ -743,16 +739,16 @@ cudaError_t launch(const Args& a, const Plan& p, int smem_bytes,
 // x [P, d], beta [m, P], ystar [S, m], pool_c [nc, C, d] float32; evalm
 // [nc, C] bool; y_mean, y_std, weights [m] float32; scratch: nc uint64 then
 // nc int32 then one uint32, all zero (the kernel leaves them zero); out: one
-// int32. All contiguous on the current device. The plan (lanes G, ct, w, R,
-// lmode, xs, pv, smem_bytes) comes from kernels/round_fused.py::launch_plan;
+// int32. All contiguous on the current device. The plan (ct, w, R, lmode,
+// xs, pv, smem_bytes) comes from kernels/round_fused.py::launch_plan;
 // a plan whose shared memory does not add up is refused.
 extern "C" int round_fused_launch(
     const void* ls, const void* var, const void* L, void* V, const void* x,
     const void* beta, const void* ystar, const void* pool_c,
     const void* evalm, const void* y_mean, const void* y_std,
     const void* weights, void* scratch, void* out, int nc, int C, int d,
-    int m, int P, int S, int s0, int lanes, int ct, int w, int R, int lmode,
-    int xs, int pv, int smem_bytes, void* stream) {
+    int m, int P, int S, int s0, int ct, int w, int R, int lmode, int xs,
+    int pv, int smem_bytes, void* stream) {
   Args a;
   a.ls = (const float*)ls;
   a.var = (const float*)var;
@@ -781,14 +777,12 @@ extern "C" int round_fused_launch(
   const Plan p{ct, w, R, lmode, xs, pv};
   const int B = P - a.s0;
   const bool ok =
-      (lanes == 1 || lanes == 8) && ct >= 1 &&
-      (ct * lanes) % 32 == 0 && w >= 1 && w <= m &&
-      w * ct * lanes <= max_threads(lanes) && R >= lanes &&
-      R <= kMaxRows && R % lanes == 0 && lmode >= kResident &&
+      ct >= 1 && (ct * G) % 32 == 0 && w >= 1 && w <= m &&
+      w * ct * G <= kMaxThreads && R >= G && R <= kMaxRows && R % G == 0 &&
+      lmode >= kResident &&
       lmode <= kDevice && (lmode != kResident || xs) && pv >= 0 && pv <= P &&
       (size_t)layout(p, d, m, P, B).total * 4 <= (size_t)smem_bytes;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(lanes == 8 ? launch<8>(a, p, smem_bytes, st)
-                          : launch<1>(a, p, smem_bytes, st));
+  return (int)launch(a, p, smem_bytes, st);
 }

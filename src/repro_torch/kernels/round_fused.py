@@ -217,8 +217,7 @@ def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
 def launch(args, plan: dict, s0: int) -> torch.Tensor:
     """Launch the kernel on ``args`` (``round_select``'s tensors, checked)
     with ``plan`` (from :func:`launch_plan`); returns the pick. Counts the
-    launch, by class too. ``chip_smoke.py`` calls it with the other
-    substitution scheme (``launch_plan(..., lanes=1)``) to time both."""
+    launch, by class too."""
     global launches
     V, pool_c, beta, ystar = args[3], args[7], args[5], args[6]
     nc, C, d = pool_c.shape
@@ -242,12 +241,12 @@ def launch_class(s0: int, P: int) -> str:
 
 
 #: the arguments of a plan, in the launch function's order
-PLAN_KEYS = ("lanes", "ct", "w", "R", "lmode", "xs", "pv", "smem_bytes")
+PLAN_KEYS = ("ct", "w", "R", "lmode", "xs", "pv", "smem_bytes")
 #: dynamic shared memory a plan may take: the 232,448 bytes a Hopper block
 #: may opt into, less a margin for the kernel's static shared variable
 SMEM_LIMIT = 232_448 - 256
-#: threads a block may have, by lanes (``max_threads`` in the kernel)
-MAX_THREADS = {8: 768, 1: 256}
+#: lanes per (column, objective) pair and threads a block may have
+LANES, MAX_THREADS = 8, 768
 MAX_ROWS = 32
 #: L staging modes: every row once per block, a two-slot ring of panels,
 #: or read from device memory
@@ -281,11 +280,9 @@ def _smem_floats(d, m, P, B, ct, w, R, lmode, xs, pv) -> int:
     return sum(-(-n // 4) * 4 for n in sizes)
 
 
-def launch_plan(nc: int, C: int, d: int, m: int, P: int, s0: int, *,
-                lanes: int = 8) -> dict:
-    """The launch plan of one call: ``lanes`` G per (column, objective)
-    pair (8: the right-looking substitution across a group; 1: one thread
-    down all rows), ``ct`` columns per tile, ``w`` objectives per wave,
+def launch_plan(nc: int, C: int, d: int, m: int, P: int, s0: int) -> dict:
+    """The launch plan of one call: ``ct`` columns per tile, ``w``
+    objectives per wave (``LANES`` threads per column and objective),
     ``R`` rows per L panel, ``lmode`` (``RESIDENT``/``RING``/``DEVICE``),
     ``xs`` (scaled inputs staged), ``pv`` rows of the V tile in shared
     memory, ``threads`` per block, ``tiles`` and ``smem_bytes``.
@@ -295,21 +292,19 @@ def launch_plan(nc: int, C: int, d: int, m: int, P: int, s0: int, *,
     panel that hold all P rows of the V tile. Where nothing holds them, the
     smallest plan keeps what fits of V and reads the rest from device
     memory. Every shape gets a plan."""
-    if lanes not in MAX_THREADS:
-        raise ValueError(f"round_fused: lanes must be 8 or 1, got {lanes}")
-    G = lanes
+    G = LANES
     s0 = min(max(int(s0), 0), P)
     B = P - s0
     ct_min = 32 // G  # a warp holds one objective's columns
     cts = [c for c in (32, 16, 8, 4) if c >= ct_min]
-    w0 = min(m, max(1, MAX_THREADS[G] // (32 * G)))
+    w0 = min(m, max(1, MAX_THREADS // (32 * G)))
     ws = sorted({w0, max(1, w0 // 2), 1}, reverse=True)
     Rs = [r for r in (MAX_ROWS, MAX_ROWS // 2, MAX_ROWS // 4) if r >= G]
     budget = SMEM_LIMIT // 4
 
     def plan(ct, w, R, lmode, xs, pv):
         n = _smem_floats(d, m, P, B, ct, w, R, lmode, xs, pv)
-        return dict(lanes=G, ct=ct, w=w, R=R, lmode=lmode, xs=int(xs), pv=pv,
+        return dict(ct=ct, w=w, R=R, lmode=lmode, xs=int(xs), pv=pv,
                     threads=w * ct * G, tiles=nc * -(-C // ct),
                     smem_bytes=4 * n)
 

@@ -23,20 +23,19 @@ def _s0_classes(P):
     return sorted({0, max(0, P - 8), P - 1, P} - {-1})
 
 
-@pytest.mark.parametrize("lanes", [8, 1])
 @pytest.mark.parametrize("P", PS)
-def test_round_fused_plans_fit_a_hopper_block(lanes, P):
+def test_round_fused_plans_fit_a_hopper_block(P):
+    lanes = K4.LANES
     for d, m in itertools.product(DS, MS):
         for s0 in _s0_classes(P):
-            plan = K4.launch_plan(1, 2500, d, m, P, s0, lanes=lanes)
+            plan = K4.launch_plan(1, 2500, d, m, P, s0)
             assert 0 < plan["smem_bytes"] <= HOPPER_BLOCK_SMEM, plan
             assert plan["smem_bytes"] <= K4.SMEM_LIMIT
             assert plan["smem_bytes"] == 4 * K4._smem_floats(
                 d, m, P, P - min(s0, P), *(plan[k] for k in
                                            ("ct", "w", "R", "lmode", "xs",
                                             "pv")))
-            assert plan["lanes"] == lanes
-            assert 32 <= plan["threads"] <= K4.MAX_THREADS[lanes]
+            assert 32 <= plan["threads"] <= K4.MAX_THREADS
             assert plan["threads"] == plan["w"] * plan["ct"] * lanes
             assert plan["threads"] % 32 == 0
             assert 1 <= plan["w"] <= m
@@ -82,8 +81,6 @@ def test_round_fused_plans_streams_what_does_not_fit():
     assert big["smem_bytes"] <= K4.SMEM_LIMIT
     wide = K4.launch_plan(1, 100, 20_000, 3, 72, 0)
     assert wide["xs"] == 0 and wide["smem_bytes"] <= K4.SMEM_LIMIT
-    with pytest.raises(ValueError, match="lanes"):
-        K4.launch_plan(1, 100, 26, 3, 72, 0, lanes=4)
 
 
 def test_round_fused_launch_classes():
