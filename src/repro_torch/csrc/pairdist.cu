@@ -17,9 +17,10 @@
 // consecutive columns, so a tile is 16*TM rows x 64 columns and each row of
 // the tile is stored as 16-byte vectors (a scalar path takes a ragged or
 // unaligned row). TM (8, 4, 2 or 1) is chosen per call by kernels/pairdist.py::
-// launch_plan: the tallest tile that still puts two blocks on every SM, so
-// the small GP shapes get 4x more blocks than 64 x 64 tiles give, and many
-// blocks per SM overlap one tile's stores with another's arithmetic. The
+// launch_plan from the grid it gives: TED's 2500 x 2500 takes 128-row tiles
+// (800 blocks, several an SM, so one tile's stores overlap another's
+// arithmetic); the small GP shapes take 32- or 16-row tiles, two to four
+// times the blocks 64 x 64 tiles give. The
 // features are staged feature-major in shared memory all at once when
 // d <= 32 (in chunks of 32 beyond). Each row's and column's squared norm is
 // computed once, by one thread, beside its cross-term products, into shared

@@ -26,19 +26,22 @@ shape_launches: dict = {}
 
 #: threads per block edge and columns per tile of ``csrc/pairdist.cu``
 SIDE, COLS = 16, 64
-#: blocks a plan aims to put in flight: two on each of the H100's 132 SMs
-TARGET_BLOCKS = 2 * 132
+#: blocks a tile of 16·tm rows needs before it is taken (tallest first):
+#: 64-row and 128-row tiles two on each of the H100's 132 SMs, 32-row tiles
+#: 64 (at the GP's 64 × 2500, 72 × 2500 and 512 × 512 they beat 16-row
+#: tiles; ``tools/kernel_timing.py --sweep`` times every tm)
+TARGET_BLOCKS = {8: 2 * 132, 4: 2 * 132, 2: 64, 1: 0}
 
 
 def launch_plan(n: int, m: int, d: int) -> dict:
     """The launch plan of one call: ``tm`` rows per thread (8, 4, 2 or 1), the
     tile (16·tm rows × 64 columns, 256 threads), the grid, and the static
-    shared bytes. The tallest tile that still gives ``TARGET_BLOCKS``
-    blocks, else the smallest; features are staged 32 at a time."""
+    shared bytes. The tallest tile whose grid has ``TARGET_BLOCKS[tm]``
+    blocks; features are staged 32 at a time."""
     col_tiles = -(-m // COLS)
     for tm in (8, 4, 2, 1):
         blocks = col_tiles * -(-n // (SIDE * tm))
-        if blocks >= TARGET_BLOCKS or tm == 1:
+        if blocks >= TARGET_BLOCKS[tm]:
             break
     rows = SIDE * tm
     smem = 4 * (32 * (rows + 1) + 32 * (COLS + 4) + rows + COLS)

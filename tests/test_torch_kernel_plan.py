@@ -101,14 +101,15 @@ def test_pairdist_plans(n, m, d):
     assert plan["grid"] == (-(-m // 64), -(-n // (16 * plan["tm"])))
     assert plan["smem_bytes"] <= 48 * 1024  # static shared memory
     assert plan["chunk"] == min(d, 32)
-    if plan["tm"] < 8:  # a taller tile would have left SMs idle
-        taller = -(-m // 64) * -(-n // (32 * plan["tm"]))
-        assert taller < K2.TARGET_BLOCKS
+    if plan["tm"] < 8:  # a taller tile would have had too few blocks
+        tm = 2 * plan["tm"]
+        assert -(-m // 64) * -(-n // (16 * tm)) < K2.TARGET_BLOCKS[tm]
 
 
 def test_pairdist_small_gp_shapes_get_more_blocks():
     """The GP's 72 x 72 block gets 10 blocks (4 with 64 x 64 tiles) and
-    512 x 512 gets 256 (64); TED's 2500 x 2500 takes 128-row tiles."""
+    512 x 512 gets 128 (64); TED's 2500 x 2500 takes 128-row tiles."""
     assert K2.launch_plan(72, 72, 26)["blocks"] == 10
-    assert K2.launch_plan(512, 512, 26)["blocks"] == 256
+    assert K2.launch_plan(512, 512, 26)["blocks"] == 128
+    assert K2.launch_plan(64, 2500, 26)["tm"] == 2
     assert K2.launch_plan(2500, 2500, 26)["tm"] == 8

@@ -2,7 +2,7 @@
 """Device times of K2 ``pairdist`` and K4 ``round_fused`` at
 ``chip_smoke.py``'s shapes, for one source tree of the port.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--out results.json]
+    python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--out results.json]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so a
 ``git archive`` of another commit unpacked into ``DIR`` is timed with this
@@ -29,6 +29,9 @@ def main() -> int:
     ap.add_argument("--tree", default=str(ROOT),
                     help="root of the source tree whose kernels are timed")
     ap.add_argument("--out", help="also write the times as JSON here")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time K2 at every tile height tm (a tree "
+                         "whose pairdist has a launch plan)")
     args = ap.parse_args()
 
     import chip_smoke as cs  # puts this checkout's src first on sys.path
@@ -58,7 +61,21 @@ def main() -> int:
         x, y = x_all[:n].contiguous(), x_all.flip(0)[:m].contiguous()
         ms = cs.time_ms(lambda: K2.pairdist(x, y))[0]
         out["pairdist"][f"{n}x{m}x26"] = ms
-        print(f"  pairdist [{n}, {m}, 26] d²: {ms:.4f} ms")
+        line = f"  pairdist [{n}, {m}, 26] d²: {ms:.4f} ms"
+        if args.sweep:
+            from repro_torch.kernels import build
+
+            o = torch.empty((n, m), device=dev)
+            by_tm = {tm: cs.time_ms(lambda: build.check(
+                build.library().pairdist_launch(
+                    x.data_ptr(), y.data_ptr(), o.data_ptr(), n, m, 26, 0,
+                    0.0, tm, build.stream_ptr(x)), "pairdist"))[0]
+                for tm in (8, 4, 2, 1)}
+            out["pairdist"][f"{n}x{m}x26 by tm"] = by_tm
+            line += (f" (plan tm {K2.launch_plan(n, m, 26)['tm']}; "
+                     + ", ".join(f"tm {tm}: {v:.4f}" for tm, v in
+                                 by_tm.items()) + ")")
+        print(line)
 
     for nc, C, P, s0 in cs.K4_SHAPES:
         t = cs.k4_problem(dev, nc, C, 26, P, 3, 10, seed=nc * C + P + s0)
