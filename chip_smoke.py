@@ -33,10 +33,10 @@ run's; and the smoke config's prefill on the card against the CPU's.
 ``round_fused`` (K4) is held against its plain version at six shapes
 (``K4_SHAPES``: the main path's refactor, block update and score-only
 rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
-refactored and block-updated); ``pairdist`` (K2) at TED's shape and at the GP's
-(``K2_SHAPES``). The main runs print K2's launches by shape and K4's by
-class; the build report gives the K4 and K2 kernels' registers, spills and
-shared memory.
+refactored and block-updated); ``pairdist`` (K2) at TED's shape and at
+the GP's (``K2_SHAPES``). The main runs print K2's launches by shape and
+K4's by class; the build report gives the K4 and K2 kernels' registers,
+spills and shared memory.
 
 It prints the card (``nvidia-smi``), the build time, one line per kernel
 check, the rounds, the serve phase, a ``{"kernels": [...]}`` JSON line and,
@@ -676,10 +676,9 @@ def k5_build_report() -> dict:
 
 def k2k4_build_report() -> dict:
     """The redesigned K4 (``round_kernel``) and K2 (``pairdist_kernel<TM>``)
-    as built: ptxas's
-    registers, stack, spills and static shared memory, and K4's dynamic
-    shared memory at each ``K4_SHAPES`` entry (its plan, d = 26). Raises if
-    a kernel is missing from the build log."""
+    as built: ptxas's registers, stack, spills and static shared memory,
+    and K4's plan, with its dynamic shared memory, at each ``K4_SHAPES``
+    entry (d = 26). Raises if a kernel is missing from the build log."""
     from repro_torch.kernels import build
     from repro_torch.kernels import round_fused as K4
 

@@ -38,7 +38,7 @@ from ._common import check_tensor, on_cpu
 
 __all__ = ["round_select", "round_select_plain", "v_update_plain",
            "col_moments_plain", "mes_plain", "select_plain", "launch_plan",
-           "launch", "launch_class", "launches", "class_launches"]
+           "launch_class", "launches", "class_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -209,19 +209,11 @@ def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
             weights)
     if on_cpu(*args):
         return round_select_plain(*args, s0=int(s0))
-    nc, C, d = pool_c.shape
-    m, P = beta.shape
-    return V, launch(args, launch_plan(nc, C, d, m, P, int(s0)), int(s0))
-
-
-def launch(args, plan: dict, s0: int) -> torch.Tensor:
-    """Launch the kernel on ``args`` (``round_select``'s tensors, checked)
-    with ``plan`` (from :func:`launch_plan`); returns the pick. Counts the
-    launch, by class too."""
     global launches
-    V, pool_c, beta, ystar = args[3], args[7], args[5], args[6]
     nc, C, d = pool_c.shape
     m, P = beta.shape
+    s0 = int(s0)
+    plan = launch_plan(nc, C, d, m, P, s0)
     out = torch.empty((), dtype=torch.int32, device=V.device)
     err = build.library().round_fused_launch(
         *(t.data_ptr() for t in args), _scratch(V.device, nc).data_ptr(),
@@ -230,7 +222,7 @@ def launch(args, plan: dict, s0: int) -> torch.Tensor:
     build.check(err, "round_fused")
     launches += 1
     class_launches[launch_class(s0, P)] += 1
-    return out
+    return V, out
 
 
 def launch_class(s0: int, P: int) -> str:

@@ -99,21 +99,20 @@ def main() -> int:
     problems = []
     for nc, C, P, s0 in cs.K4_SHAPES:
         t = cs.k4_problem(dev, nc, C, 26, P, 3, 10, seed=nc * C + P + s0)
-        problems.append(((nc, C, P, s0), [t[k] for k in cs.K4_ARGS],
-                         K4.launch_plan(nc, C, 26, 3, P, s0)))
+        problems.append(((nc, C, P, s0), [t[k] for k in cs.K4_ARGS]))
     print("variant              " + " ".join(
-        f"{str(list(shape)):>22s}" for shape, _, _ in problems))
+        f"{str(list(shape)):>22s}" for shape, _ in problems))
     times = {}
     library = build.library()
     for name in variants:
         lib = ctypes.CDLL(str(out_dir / f"{name}.so"))
         lib.round_fused_launch.argtypes = build.SIGNATURES["round_fused_launch"]
         lib.round_fused_launch.restype = ctypes.c_int
-        build._LIB = lib  # K4.launch calls build.library()
+        build._LIB = lib  # round_select calls build.library()
         row = []
-        for (nc, C, P, s0), kargs, plan in problems:
+        for (nc, C, P, s0), kargs in problems:
             large = nc * C >= cs.K4_LARGE
-            row.append(cs.time_ms(lambda: K4.launch(kargs, plan, s0),
+            row.append(cs.time_ms(lambda: K4.round_select(*kargs, s0=s0),
                                   reps=3 if large else 10,
                                   repeats=3 if large else 5)[0])
         times[name] = row
@@ -123,7 +122,7 @@ def main() -> int:
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(
-            card=card, shapes=[list(s) for s, _, _ in problems],
+            card=card, shapes=[list(s) for s, _ in problems],
             ms=times), indent=1))
     return 0
 
