@@ -675,15 +675,16 @@ def k5_build_report() -> dict:
 
 
 def k2k4_build_report() -> dict:
-    """The redesigned K4 (``round_kernel``) and K2 (``pairdist_kernel<TM>``)
-    as built: ptxas's registers, stack, spills and static shared memory,
+    """The redesigned K4 (``round_kernel<RPT>``: 4 rows a lane, or 1 for
+    block updates of up to 8 rows) and K2 (``pairdist_kernel<TM>``) as
+    built: ptxas's registers, stack, spills and static shared memory,
     and K4's plan, with its dynamic shared memory, at each ``K4_SHAPES``
     entry (d = 26). Raises if a kernel is missing from the build log."""
     from repro_torch.kernels import build
     from repro_torch.kernels import round_fused as K4
 
     ptxas = ptxas_report(build.build_log())
-    names = ["round_kernel"] + [
+    names = ["round_kernel<4>", "round_kernel<1>"] + [
         f"pairdist_kernel<{tm}>" for tm in (8, 4, 2, 1)]
     report = {}
     for name in names:

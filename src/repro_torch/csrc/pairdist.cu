@@ -95,7 +95,8 @@ pairdist_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
         for (int i = 0; i < TM; ++i) xs[k][ty + kSide * i] = xv[i][u];
 #pragma unroll
-        for (int i = 0; i < kCols / kSide; ++i) ys[k][ty + kSide * i] = yv[i][u];
+        for (int i = 0; i < kCols / kSide; ++i)
+          ys[k][ty + kSide * i] = yv[i][u];
       }
     }
     __syncthreads();

@@ -43,8 +43,10 @@
 //   16-byte loads); the new rows stay there through the substitution and
 //   the moments and are written once (rows >= pv, for very large P only,
 //   live in device memory as the output itself).
-// - Substitution, panel by panel: each lane keeps the accumulators of its
-//   rows (r = r0 + k*G + t) in registers: the RBF entry, then the sum over
+// - Substitution, panel by panel (32 rows, or one 8-row panel for a block
+//   update of up to 8 rows, where a lane owns one row and the instance
+//   with one accumulator a lane runs): each lane keeps the accumulators of
+//   its rows (r = r0 + k*G + t) in registers: the RBF entry, then the sum over
 //   all rows above the panel (independent across rows; four L entries per
 //   16-byte shared load), then the panel's triangle in the right-looking
 //   form: the lane that owns row q divides, the value goes to the group by
@@ -271,9 +273,12 @@ __device__ void row_norms(float* out, const float* rows, int n, int d,
   }
 }
 
+// RPT: rows a lane owns in a panel (R <= G * RPT). 4 takes panels of up to
+// 32 rows; 1 takes 8-row panels without the instructions of three idle
+// rows, for a block update of up to 8 new rows (the engine's bucket).
+template <int RPT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 round_kernel(const Args a, const Plan p) {
-  constexpr int RPT = kMaxRows / G;  // rows a lane owns in a panel
   extern __shared__ float4 smem4[];
   float* sm = reinterpret_cast<float*>(smem4);
   __shared__ int last_block;
@@ -709,16 +714,17 @@ round_kernel(const Args a, const Plan p) {
   }
 }
 
+template <int RPT>
 cudaError_t launch(const Args& a, const Plan& p, int smem_bytes,
                    cudaStream_t st) {
   const int threads = p.w * p.ct * G;
   cudaError_t err = cudaFuncSetAttribute(
-      round_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      round_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, round_kernel,
-                                                      threads, smem_bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, round_kernel<RPT>, threads, smem_bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   err = cudaGetDevice(&dev);
@@ -729,7 +735,7 @@ cudaError_t launch(const Args& a, const Plan& p, int smem_bytes,
       (long long)a.nc * ((a.C + p.ct - 1) / p.ct);
   const long long cap = (long long)per_sm * sms;
   const int grid = (int)(ntiles < cap ? ntiles : cap);
-  round_kernel<<<grid, threads, smem_bytes, st>>>(a, p);
+  round_kernel<RPT><<<grid, threads, smem_bytes, st>>>(a, p);
   return cudaGetLastError();
 }
 
@@ -784,5 +790,6 @@ extern "C" int round_fused_launch(
       (size_t)layout(p, d, m, P, B).total * 4 <= (size_t)smem_bytes;
   if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)launch(a, p, smem_bytes, st);
+  return (int)(R <= G ? launch<1>(a, p, smem_bytes, st)
+                      : launch<kMaxRows / G>(a, p, smem_bytes, st));
 }

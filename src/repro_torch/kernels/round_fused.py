@@ -275,7 +275,8 @@ def _smem_floats(d, m, P, B, ct, w, R, lmode, xs, pv) -> int:
 def launch_plan(nc: int, C: int, d: int, m: int, P: int, s0: int) -> dict:
     """The launch plan of one call: ``ct`` columns per tile, ``w``
     objectives per wave (``LANES`` threads per column and objective),
-    ``R`` rows per L panel, ``lmode`` (``RESIDENT``/``RING``/``DEVICE``),
+    ``R`` rows per L panel (8 selects the kernel's instance with one row
+    a lane), ``lmode`` (``RESIDENT``/``RING``/``DEVICE``),
     ``xs`` (scaled inputs staged), ``pv`` rows of the V tile in shared
     memory, ``threads`` per block, ``tiles`` and ``smem_bytes``.
 
@@ -291,7 +292,9 @@ def launch_plan(nc: int, C: int, d: int, m: int, P: int, s0: int) -> dict:
     cts = [c for c in (32, 16, 8, 4) if c >= ct_min]
     w0 = min(m, max(1, MAX_THREADS // (32 * G)))
     ws = sorted({w0, max(1, w0 // 2), 1}, reverse=True)
-    Rs = [r for r in (MAX_ROWS, MAX_ROWS // 2, MAX_ROWS // 4) if r >= G]
+    # panel rows: one 8-row panel for a block update of up to 8 rows (the
+    # kernel's 1-row-a-lane instance), else the tallest that fits
+    Rs = [G] if B <= G else [MAX_ROWS, MAX_ROWS // 2, MAX_ROWS // 4]
     budget = SMEM_LIMIT // 4
 
     def plan(ct, w, R, lmode, xs, pv):

@@ -35,8 +35,9 @@ CUTS = {
                "      for (int sb = 0; sb < 0; sb += G) {"),
     "no_moments": ("        for (; q + 8 <= qs; q += 8) {",
                    "        q = P;\n        for (; q + 8 <= qs; q += 8) {"),
-    "no_division": ("            if (t == tq) v = acc[kq] / Lrow[kq * lsk + q];",
-                    "            if (t == tq) v = acc[kq];"),
+    "no_division": (
+        "            if (t == tq) v = acc[kq] / Lrow[kq * lsk + q];",
+        "            if (t == tq) v = acc[kq];"),
     "no_rows_above": ("          int q = 0;\n          if (lvec) {",
                       "          int q = r0;\n          if (lvec) {"),
     "no_cross": ("          int f = 1;\n          if (d >= 4) {",
