@@ -34,9 +34,13 @@ run's; and the smoke config's prefill on the card against the CPU's.
 (``K4_SHAPES``: the main path's refactor, block update and score-only
 rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
 refactored and block-updated); ``pairdist`` (K2) at TED's shape and at
-the GP's (``K2_SHAPES``). The main runs print K2's launches by shape and
-K4's by class; the build report gives the K4 and K2 kernels' registers,
-spills and shared memory.
+the GP's (``K2_SHAPES``); ``systolic_eval`` (K1) on resnet50 at 2500, 30
+and 1 designs and on minicpm3-4b's 559-row table at 2500 (``K1_SHAPES``,
+with a sha1 of each output); ``pareto_count`` (K3) at 2500 and 64 rows
+with duplicates, a +inf row and a NaN (``K3_SHAPES``). The main runs print
+K1's and K2's launches by shape and K3's and K4's by class, and check
+K1's and K3's against the protocol's; the build report gives the K1-K4
+kernels' registers, spills and shared memory, and their plans.
 
 It prints the card (``nvidia-smi``), the build time, one line per kernel
 check, the rounds, the serve phase, a ``{"kernels": [...]}`` JSON line and,
@@ -121,6 +125,67 @@ K4_LARGE = 100_000
 K2_SHAPES = [(2500, 2500), (64, 2500), (72, 72), (72, 2500), (72, 512),
              (512, 512)]
 K2_RBF_SHAPES = {(2500, 2500), (64, 2500)}
+#: K1 shapes (workload, designs): resnet50's 54 layers at the reference
+#: front's sweep (2500), the ICD trials (30) and a BO round's one design
+#: (20 launches a run), and the 559-row table of minicpm3-4b
+#: (``soc/workloads.py::from_arch_config``) at 2500 designs.
+K1_SHAPES = [("resnet50", 2500), ("resnet50", 30), ("resnet50", 1),
+             ("minicpm3-4b", 2500)]
+#: K3 shapes (rows, m = 3): the reference front and a round's front; and
+#: the smallest and largest of the main path's round fronts (timed by
+#: ``tools/kernel_timing.py``).
+K3_SHAPES = [2500, 64]
+K3_ROUND_FRONTS = [50, 70]
+#: K3's planted rows: one all +inf, one with a NaN objective.
+K3_INF_ROW, K3_NAN_ROW = 7, 11
+
+
+def k1_inputs(dev, pool, workload: str, n: int):
+    """K1's inputs: the first ``n`` designs of ``pool`` (TABLE I indices)
+    as values [n, 26] and ``workload``'s layer table, on ``dev``."""
+    import torch
+
+    from repro_torch.core.space import make_space
+    from repro_torch.soc.workloads import get_workload
+
+    vals = torch.as_tensor(make_space().values(pool[:n]), dtype=torch.float32,
+                           device=dev).contiguous()
+    layers = torch.as_tensor(get_workload(workload), dtype=torch.float32,
+                             device=dev).contiguous()
+    return vals, layers
+
+
+def k1_pool(dev):
+    """The 2500 TABLE I designs K1 is checked and timed on (seed 1234)."""
+    import torch
+
+    from repro_torch.core.space import make_space
+
+    gen = torch.Generator(device=dev).manual_seed(1234)
+    return make_space().sample(gen, 2500).cpu().numpy()
+
+
+def k3_inputs(y_pool, n: int):
+    """K3's input [n, 3] from the pool's metrics ``y_pool`` [2500, 3]: the
+    first 4n/5 rows, then the first n/5 again (duplicates), with row
+    ``K3_INF_ROW`` set to +inf and one objective of row ``K3_NAN_ROW`` to
+    NaN."""
+    import torch
+
+    k = n // 5
+    y = torch.cat([y_pool[:n - k], y_pool[:k]]).contiguous()
+    y[K3_INF_ROW] = float("inf")
+    y[K3_NAN_ROW, 1] = float("nan")
+    return y
+
+
+def tensor_sha1(t) -> str:
+    """sha1 of a tensor's bytes (on the host), to show two runs agree
+    bitwise."""
+    import hashlib
+
+    return hashlib.sha1(t.detach().cpu().contiguous().numpy().tobytes()
+                        ).hexdigest()
 
 
 def _event_ms(fn, repeats: int) -> float:
@@ -193,45 +258,45 @@ def _record(results, name, shape, err, tol_ok, t_k, t_p, t_lib, bound,
 
 def check_kernels(dev) -> dict:
     """Each kernel against its plain version at the main path's shapes."""
-    import numpy as np
     import torch
 
-    from repro_torch.core.space import make_space
     from repro_torch.kernels import pairdist as K2
     from repro_torch.kernels import pareto_count as K3
     from repro_torch.kernels import systolic_eval as K1
-    from repro_torch.soc.workloads import get_workload
 
-    space = make_space()
-    gen = torch.Generator(device=dev).manual_seed(1234)
-    pool = space.sample(gen, 2500).cpu().numpy()
-    layers = torch.as_tensor(get_workload("resnet50"), dtype=torch.float32,
-                             device=dev)
+    pool = k1_pool(dev)
     results = {}
     record = functools.partial(_record, results)
 
-    # --- K1 systolic_eval: the reference-front sweep (N=2500) and one
-    # design (a BO round's evaluation) on resnet50's 54 layers.
-    for n in (2500, 1):
-        vals = torch.as_tensor(space.values(pool[:n]), dtype=torch.float32,
-                               device=dev).contiguous()
+    # --- K1 systolic_eval at K1_SHAPES: resnet50's 54 layers at the
+    # reference-front sweep (N=2500), the ICD trials (30) and a BO round's
+    # one design, and minicpm3-4b's 559-row table at 2500 designs.
+    for workload, n in K1_SHAPES:
+        vals, layers = k1_inputs(dev, pool, workload, n)
         out_k = K1.soc_metrics(vals, layers)
         out_p = K1.soc_metrics_plain(vals, layers)
         torch.cuda.synchronize()
-        # float32 sums over L=54 layers in another order (<= L*2^-24 ~ 3.2e-6
-        # relative) plus powf/log2f ulps: rtol 2e-5
+        # float32 sums over the L layers in another order (<= L*2^-24
+        # relative in the worst case, ~sqrt(L)*2^-24 typically) plus
+        # powf/log2f ulps: rtol 2e-5
         ok = bool(torch.allclose(out_k, out_p, rtol=2e-5, atol=0.0))
         err = float((out_k - out_p).abs().max())
         L = layers.shape[0]
         bnd = bound_ms(4 * (n * 26 + L * 5 + n * 3), n * L * K1_OPS_PER_PAIR)
+        plan = K1.launch_plan(n, L)
         record("systolic_eval", [n, 26, L], err, ok,
                time_ms(lambda: K1.soc_metrics(vals, layers)),
-               time_ms(lambda: K1.soc_metrics_plain(vals, layers)), None, bnd)
-        if n == 2500:
+               time_ms(lambda: K1.soc_metrics_plain(vals, layers)), None, bnd,
+               workload=workload, sha1=tensor_sha1(out_k),
+               plan={k: plan[k] for k in ("g", "kr", "threads", "blocks",
+                                          "smem_bytes")})
+        if (workload, n) == ("resnet50", 2500):
             y_pool = out_p
 
     # --- K2 pairdist at K2_SHAPES, D = 26, in the d² mode the main path
-    # uses and (for two of them) the fused RBF mode.
+    # uses and (for two of them) the fused RBF mode (tools/kernel_timing.py's
+    # inputs).
+    gen = torch.Generator(device=dev).manual_seed(1234)
     x_all = torch.rand((2500, 26), generator=gen, device=dev)
     for n, m in K2_SHAPES:
         x, y = x_all[:n].contiguous(), x_all.flip(0)[:m].contiguous()
@@ -259,20 +324,27 @@ def check_kernels(dev) -> dict:
                    time_ms(lambda: K2.pairdist_plain(x, y, bandwidth)),
                    lib, bnd)
 
-    # --- K3 pareto_count: the reference front's N=2500, m=3, with the last
-    # 500 rows duplicates of the first 500 (ties dominate nothing).
-    yd = torch.cat([y_pool[:2000], y_pool[:500]]).contiguous()
-    c_k = K3.dominance_counts(yd)
-    c_p = K3.dominance_counts_plain(yd)
-    torch.cuda.synchronize()
-    ok = bool(torch.equal(c_k, c_p))  # integer counts: exactly equal
-    err = float((c_k - c_p).abs().max())
-    n = yd.shape[0]
-    record("pareto_count", [n, 3], err, ok,
-           time_ms(lambda: K3.dominance_counts(yd)),
-           time_ms(lambda: K3.dominance_counts_plain(yd)), None,
-           bound_ms(4 * (n * 3 + n), n * n * K3_OPS_PER_PAIR(3)))
-    assert int((c_k == 0).sum()) > 0 and np.isfinite(yd.cpu().numpy()).all()
+    # --- K3 pareto_count at K3_SHAPES: the reference front's N=2500 and a
+    # round's front of 64 rows, m=3, each with duplicated rows (ties
+    # dominate nothing), one +inf row and one row holding a NaN.
+    for n in K3_SHAPES:
+        yd = k3_inputs(y_pool, n)
+        c_k = K3.dominance_counts(yd)
+        c_p = K3.dominance_counts_plain(yd)
+        torch.cuda.synchronize()
+        ok = bool(torch.equal(c_k, c_p))  # integer counts: exactly equal
+        err = float((c_k - c_p).abs().max())
+        plan = K3.launch_plan(n, 3)
+        record("pareto_count", [n, 3], err, ok,
+               time_ms(lambda: K3.dominance_counts(yd)),
+               time_ms(lambda: K3.dominance_counts_plain(yd)), None,
+               bound_ms(4 * (n * 3 + n), n * n * K3_OPS_PER_PAIR(3)),
+               plan={k: plan[k] for k in ("rows_per_block", "threads",
+                                          "blocks", "smem_bytes")})
+        # the NaN row is dominated by nothing, the +inf row by every row
+        # with no NaN and no +inf
+        assert int(c_k[K3_NAN_ROW]) == 0
+        assert int(c_k[K3_INF_ROW]) == n - 2
     return results
 
 
@@ -708,6 +780,50 @@ def k2k4_build_report() -> dict:
     return report
 
 
+def k1k3_build_report() -> dict:
+    """The redesigned K1 (``systolic_eval_kernel<KR>``: KR layers a lane in
+    registers, 0 for shared memory) and K3 (``pareto_count_kernel<M, R>``:
+    M objectives, R rows a thread) as
+    built: ptxas's registers, stack, spills and static shared memory, and
+    their plans at ``K1_SHAPES`` and ``K3_SHAPES``. Raises if a kernel is
+    missing from the build log."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import pareto_count as K3
+    from repro_torch.kernels import systolic_eval as K1
+    from repro_torch.soc.workloads import get_workload
+
+    ptxas = {k.replace(" ", ""): v
+             for k, v in ptxas_report(build.build_log()).items()}
+    names = [f"systolic_eval_kernel<{kr}>" for kr in (0, 1, 2, 4)] + [
+        f"pareto_count_kernel<{m},{r}>" for m in range(1, 9)
+        for r in (2, 4)]
+    report = {}
+    for name in names:
+        if name not in ptxas:
+            raise AssertionError(f"{name} is not in the build log")
+        r = report[name] = ptxas[name]
+        print(f"  {name}: {r.get('registers')} registers, {r.get('stack')} "
+              f"bytes stack, {r.get('spill_stores')}/{r.get('spill_loads')} "
+              f"bytes spill stores/loads, {r.get('static_smem')} bytes static "
+              "shared memory")
+    for workload, n in K1_SHAPES:
+        L = len(get_workload(workload))
+        plan = report[f"systolic_eval {[n, L]}"] = K1.launch_plan(n, L)
+        print(f"  systolic_eval plan at {[n, 26, L]}: {plan['g']} lanes a "
+              f"design, {plan['kr'] or 'no'} layers a lane in registers, "
+              f"{plan['threads']} threads x {plan['blocks']} blocks, "
+              f"{plan['smem_bytes']} bytes dynamic shared memory")
+    for n in K3_SHAPES:
+        plan = report[f"pareto_count {[n, 3]}"] = K3.launch_plan(n, 3)
+        print(f"  pareto_count plan at {[n, 3]}: {plan['rows_per_block']} "
+              f"rows a block ({plan['row_threads']} row threads of "
+              f"{plan['rows_per_thread']} rows x {plan['splits']} splits = "
+              f"{plan['threads']} threads), {plan['blocks']} blocks, "
+              f"{plan['tiles']} tile(s) of {plan['tile_rows']} rows, "
+              f"{plan['smem_bytes']} bytes dynamic shared memory")
+    return report
+
+
 def check_flash_attn(dev, results: dict) -> None:
     """K5 against its plain version at ``K5_SHAPES`` (bf16), timed beside
     the plain version and ``scaled_dot_product_attention`` (the library
@@ -1045,6 +1161,9 @@ def main() -> int:
     print("round_fused (csrc/round_fused.cu) and pairdist (csrc/pairdist.cu), "
           "as built:")
     k2k4_build = k2k4_build_report()
+    print("systolic_eval (csrc/systolic_eval.cu) and pareto_count "
+          "(csrc/pareto_count.cu), as built:")
+    k1k3_build = k1k3_build_report()
 
     print("kernel checks (CUDA events, median, warm L2; device = CUDA-graph "
           "replay, eager = launched from Python):")
@@ -1055,7 +1174,9 @@ def main() -> int:
         it; returns (result, pool, ref, flow, launches, wall seconds) and
         keeps K2's launches by shape and K4's by class in ``by_class``."""
         from repro_torch.kernels import pairdist as K2
+        from repro_torch.kernels import pareto_count as K3
         from repro_torch.kernels import round_fused as K4
+        from repro_torch.kernels import systolic_eval as K1
 
         print(f"main path ({label}): soc_tuner", json.dumps({**MAIN, **extra}))
         kernels.reset_launches()
@@ -1066,8 +1187,11 @@ def main() -> int:
         launches = {k.__name__.rsplit(".", 1)[1]: k.launches
                     for k in kernels.KERNELS}
         by_class[label] = dict(
+            systolic_eval={f"{n}x26x{L}": c for (n, L), c in
+                           sorted(K1.shape_launches.items())},
             pairdist={f"{n}x{m}x{d} {mode}": c for (n, m, d, mode), c in
                       sorted(K2.shape_launches.items())},
+            pareto_count=dict(K3.shape_launches),
             round_fused=dict(K4.class_launches))
         for h in res.history:
             print(f"  round {h['round']:2d} wall_s={h['wall_s']:.3f} "
@@ -1079,9 +1203,25 @@ def main() -> int:
               f"{flow.evaluated} in {flow.calls} calls, rounds {st['rounds']}, "
               f"refactors {st['refactors']}, block updates "
               f"{st['block_updates']}, launches {launches}")
+        print(f"  {label}: systolic_eval launches by shape (designs x 26 x "
+              f"layers): {by_class[label]['systolic_eval']}; pareto_count "
+              f"launches by class (small: a round's front, up to "
+              f"{K3.FRONT_ROWS} rows): {by_class[label]['pareto_count']}")
         print(f"  {label}: pairdist launches by shape (n x m x d): "
               f"{by_class[label]['pairdist']}; round_fused launches by class: "
               f"{by_class[label]['round_fused']}")
+        # the protocol's flow calls: the reference sweep, the ICD trials,
+        # the TED init and one design a round; its fronts: the reference
+        # and one a logged round (rounds 0..T) and the final one
+        T = MAIN["T"]
+        k1_one = K1.shape_launches.get((1, 54), 0)
+        if (launches["systolic_eval"], k1_one) != (T + 3, T) or \
+                K3.shape_launches != {"large": 1, "small": T + 2}:
+            raise AssertionError(
+                f"{label}: K1 launched {launches['systolic_eval']} times "
+                f"({k1_one} at one design), K3 by class "
+                f"{K3.shape_launches}; the protocol makes {T + 3} ({T}) and "
+                f"1 large + {T + 2} small")
         check_result(res, pool, ref, MAIN)
         return res, pool, ref, flow, launches, wall
 
@@ -1169,7 +1309,7 @@ def main() -> int:
         Path(args.out).write_text(json.dumps(dict(
             card=card, torch=torch.__version__, cuda=torch.version.cuda,
             build_s=build.build_seconds(), k5_build=k5_build,
-            k2k4_build=k2k4_build, checks=checks,
+            k2k4_build=k2k4_build, k1k3_build=k1k3_build, checks=checks,
             kernels=entries,
             main=dict(config=MAIN, wall_s=wall, history=res.history,
                       flow_evaluated=flow.evaluated, flow_calls=flow.calls,

@@ -6,21 +6,35 @@
 // kernel repeats op for op (it is built with -fmad=false so no product is
 // fused into an add the plain version rounds separately).
 //
-// What bounds it here: at the main path's shapes (N = 2500 designs x L = 54
-// resnet50 layers) the inputs are 260 KB and the output 30 KB, so the bytes
-// take ~0.1 us at 3.35 TB/s; the ~100 float32 operations per (design, layer)
-// pair take ~0.2 us at 67 TFLOP/s. Both are far below one launch, so the
-// kernel is bound by launch latency and by the serial chain of divisions,
-// ceilings and powf within one thread.
+// What bounds it here: at the main path's shapes (N = 2500 designs, or one
+// design, x L = 54 resnet50 layers) the inputs are at most 260 KB and the
+// output 30 KB, so the bytes take ~0.1 us at 3.35 TB/s; the ~130 float32
+// operations per (design, layer) pair take ~0.3 us at 67 TFLOP/s. Both are
+// far below one launch (~2.2 us), so what is left to cut is latency: the
+// chain of IEEE divisions, ceilings and sums that one design walks. The
+// first port ran one thread per design through all L layers twice (a
+// round's one design: 108 layer evaluations in a row, ~20 us), and at 2500
+// designs filled only 20 blocks of 128 threads.
 //
-// Design: one thread per design, so nothing is reduced across threads. The
-// layer table [L, 5] is staged once per block in shared memory (every thread
-// reads every layer). Two passes over the layers: the first sums the DRAM
-// bytes that the L2 hit rate needs (model.py: working / n_layers); the
-// second recomputes each layer's cost and accumulates cycles, MACs, stream
-// bytes and host cycles, so no [N, L] intermediate ever leaves registers
-// (the plain version writes ~60 of them to device memory).
+// Design: a group of G lanes takes one design: a warp, or as many lanes as
+// layers when L is small, so one design's chain is short; once the designs
+// fill the card (2500 x 54), the fewest lanes that hold 4 layers each, so
+// several designs share a warp's sums and epilogue. Lane t evaluates layers
+// t, t + G, t + 2G, ... (the layer table [L, 5] is staged once per block in
+// shared memory, by 16-byte loads all in flight at once). Pass 1 computes each
+// layer's cost once and keeps what pass 2 needs (compute cycles, DRAM
+// bytes, tiles) in registers while a lane holds at most KR layers, else in
+// shared memory; pass 2 never calls layer_cost again. Every sum keeps the
+// first port's order, one sequential chain over layers 0..L-1: each lane
+// writes its layers' terms to the group's shared arrays, and then lanes 0,
+// 1 and 2 add the DRAM bytes (the L2 working set, also the DRAM total),
+// MACs and stream bytes side by side, and after pass 2 lanes 0 and 1 add the
+// cycles and the host cycles. So the output is bitwise the first port's.
+// decode and the per-design epilogue (powf, log2f, area) run once per
+// design. The plan (G, KR, designs per block, shared bytes) comes from
+// kernels/systolic_eval.py::launch_plan.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -32,7 +46,8 @@ enum Feat : int {
   kMemReq, kDMABus, kDMABytes, kTLBSize, kNumFeat
 };
 
-constexpr int kThreads = 128;
+constexpr int kMaxThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Design {
   float core, R, C, ib, ab, ob, dataflow, spad_bytes, spad_banks, acc_rows,
@@ -83,8 +98,9 @@ __device__ Design decode(const float* v) {
 }
 
 // model.py::_layer_cost for one (design, layer) pair.
-__device__ LayerCost layer_cost(const Design& d, float M, float K, float N,
-                                float reps, float kind) {
+__device__ __forceinline__ LayerCost layer_cost(const Design& d,
+                                                const float* r) {
+  const float M = r[0], K = r[1], N = r[2], reps = r[3], kind = r[4];
   const float R = d.R, C = d.C, ib = d.ib, ob = d.ob;
   // WS dataflow
   const float Mb = fminf(M, d.acc_rows);
@@ -135,66 +151,191 @@ __device__ float area(const Design& d) {
   return (arr + sram + queues + dma + core) * 1.08f;
 }
 
-__global__ void __launch_bounds__(kThreads)
-systolic_eval_kernel(const float* __restrict__ vals,
-                     const float* __restrict__ layers,
-                     float* __restrict__ out, int n, int n_layers) {
-  extern __shared__ float lay[];  // [n_layers, 5]
-  for (int e = threadIdx.x; e < n_layers * 5; e += blockDim.x)
-    lay[e] = layers[e];
-  __syncthreads();
+// The design-level constants of pass 2 (model.py: bandwidth, host issue,
+// double buffering), from the DRAM total of pass 1.
+struct Pass2 {
+  float bw, issue, host_scale, buf;
+};
 
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float v[kNumFeat];
-#pragma unroll
-  for (int f = 0; f < kNumFeat; ++f) v[f] = vals[(size_t)i * kNumFeat + f];
-  const Design d = decode(v);
-
-  // pass 1: total DRAM traffic (the L2 working set)
-  float working = 0.0f;
-  for (int l = 0; l < n_layers; ++l) {
-    const float* r = lay + 5 * l;
-    working += layer_cost(d, r[0], r[1], r[2], r[3], r[4]).dram;
-  }
+__device__ __forceinline__ Pass2 pass2_constants(const Design& d,
+                                                 float working,
+                                                 int n_layers) {
   // memory bandwidth (bytes / cycle)
   float l2_hit = 3.0f * d.l2_bytes / (working / (float)n_layers + 1.0f);
   l2_hit = fminf(fmaxf(l2_hit, 0.0f), 0.85f) *
            (1.0f + 0.05f * log2f(d.l2_way / 4.0f));
   const float mem_lat = l2_hit * 24.0f + (1.0f - l2_hit) * 120.0f;
   const float eff = d.dmabytes / (d.dmabytes + 16.0f);
-  const float bw = fminf(d.dmabus / 8.0f, d.memreq * d.dmabytes / mem_lat) * eff;
+  Pass2 p;
+  p.bw = fminf(d.dmabus / 8.0f, d.memreq * d.dmabytes / mem_lat) * eff;
   // host / RoCC control
-  const float issue = select3(d.core, 2.0f, 5.0f, 8.0f);
+  p.issue = select3(d.core, 2.0f, 5.0f, 8.0f);
   const float q_eff = fminf(fminf(d.ldq, d.ldr), fminf(d.exq, d.exr));
-  const float host_scale = 1.0f + 2.0f / q_eff;
-  const float buf =
-      fminf(fmaxf((d.spad_banks - 4.0f) / 12.0f, 0.0f), 1.0f) * 0.8f +
-      fminf(fmaxf((d.acc_banks - 1.0f) / 7.0f, 0.0f), 1.0f) * 0.2f;
+  p.host_scale = 1.0f + 2.0f / q_eff;
+  p.buf = fminf(fmaxf((d.spad_banks - 4.0f) / 12.0f, 0.0f), 1.0f) * 0.8f +
+          fminf(fmaxf((d.acc_banks - 1.0f) / 7.0f, 0.0f), 1.0f) * 0.2f;
+  return p;
+}
 
-  // pass 2: per-layer overlap of compute, DMA and host cycles
-  float cycles = 0.0f, macs = 0.0f, stream = 0.0f, dram = 0.0f, host = 0.0f;
-  for (int l = 0; l < n_layers; ++l) {
-    const float* r = lay + 5 * l;
-    const LayerCost c = layer_cost(d, r[0], r[1], r[2], r[3], r[4]);
-    const float pages = c.dram / 4096.0f;
-    const float tlb_miss = fmaxf(pages - d.tlb * 8.0f, 0.0f);
-    const float dma_cycles = c.dram / bw + tlb_miss * 40.0f;
-    const float cmds = 4.0f * c.n_tiles + 24.0f;
-    const float host_cycles = cmds * issue * host_scale;
-    const float hi = fmaxf(fmaxf(c.compute, dma_cycles), host_cycles);
-    const float rest = c.compute + dma_cycles + host_cycles - hi;
-    cycles += hi + (1.0f - buf) * 0.5f * rest + 400.0f * issue;
-    macs += c.macs;
-    stream += c.stream;
-    dram += c.dram;
-    host += host_cycles;
+// One layer's pass-2 terms: its cycles (overlap of compute, DMA and host)
+// and its host cycles.
+__device__ __forceinline__ void pass2_layer(const Design& d, const Pass2& p,
+                                            float compute, float dram,
+                                            float n_tiles, float* cyc,
+                                            float* host) {
+  const float pages = dram / 4096.0f;
+  const float tlb_miss = fmaxf(pages - d.tlb * 8.0f, 0.0f);
+  const float dma_cycles = dram / p.bw + tlb_miss * 40.0f;
+  const float cmds = 4.0f * n_tiles + 24.0f;
+  const float host_cycles = cmds * p.issue * p.host_scale;
+  const float hi = fmaxf(fmaxf(compute, dma_cycles), host_cycles);
+  const float rest = compute + dma_cycles + host_cycles - hi;
+  *cyc = hi + (1.0f - p.buf) * 0.5f * rest + 400.0f * p.issue;
+  *host = host_cycles;
+}
+
+// Copies n floats from device memory to shared memory with the block's
+// threads: 16-byte loads, kBatch of them in flight a thread before their
+// stores (one round trip to L2 for resnet50's table), scalar loads where
+// the source is not 16-byte aligned.
+constexpr int kBatch = 4;
+
+__device__ __forceinline__ void stage_table(float* dst,
+                                            const float* __restrict__ src,
+                                            int n) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int n4 = n >> 2;
+    const float4* src4 = reinterpret_cast<const float4*>(src);
+    for (int base = t; base < n4; base += kBatch * nt) {
+      float4 w[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (base + u * nt < n4) w[u] = src4[base + u * nt];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u)
+        if (base + u * nt < n4) {
+          float* o = dst + 4 * (base + u * nt);
+          o[0] = w[u].x;
+          o[1] = w[u].y;
+          o[2] = w[u].z;
+          o[3] = w[u].w;
+        }
+    }
+    done = 4 * n4;
   }
-  const float latency_ms = cycles / 1.0e9f * 1.0e3f;
+#pragma unroll 4
+  for (int e = done + t; e < n; e += nt) dst[e] = src[e];
+}
+
+// Lane `lane` (< 3) of a group adds arrays[lane][0..n) in order.
+__device__ __forceinline__ float ordered_sum(const float* a, int n) {
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int l = 0; l < n; ++l) acc += a[l];
+  return acc;
+}
+
+// KR > 0: a lane keeps its (at most KR) layers' pass-1 values in
+// registers; KR == 0: in the group's shared arrays (any L).
+template <int KR>
+__global__ void __launch_bounds__(kMaxThreads)
+systolic_eval_kernel(const float* __restrict__ vals,
+                     const float* __restrict__ layers,
+                     float* __restrict__ out, int n, int n_layers,
+                     int g_log2, int stride) {
+  extern __shared__ float smem[];
+  const int L = n_layers;
+  const int G = 1 << g_log2;
+  const int lane = threadIdx.x & (G - 1);
+  const int groups = blockDim.x >> g_log2;
+  const int slot = blockIdx.x * groups + (threadIdx.x >> g_log2);
+  // a group past the last design evaluates it again and stores nothing, so
+  // every lane of a warp runs the same loops (shuffles and __syncwarp)
+  const int i = slot < n ? slot : n - 1;
+  constexpr int kArrays = KR > 0 ? 3 : 5;
+  float* lay = smem;  // [L, 5]
+  // the group's arrays, `stride` floats each (odd: lanes 0..2 of a sum
+  // read three banks): DRAM bytes, MACs then cycles, stream bytes then
+  // host cycles, and with KR == 0 compute cycles and tiles
+  float* s_dram = smem + 5 * L + (threadIdx.x >> g_log2) * kArrays * stride;
+  float* s_a = s_dram + stride;
+  float* s_b = s_a + stride;
+  float* s_comp = s_b + stride;
+  float* s_tiles = s_comp + stride;
+
+  float v[kNumFeat];
+#pragma unroll
+  for (int f = 0; f < kNumFeat; ++f) v[f] = vals[(size_t)i * kNumFeat + f];
+  stage_table(lay, layers, 5 * L);
+  __syncthreads();
+  const Design d = decode(v);
+  // the epilogue's per-design terms, early: their powf/log2f latency
+  // overlaps pass 1
+  const float a = area(d);
   const float e_mac = 0.25f * powf(d.ib, 1.7f);
+
+  // pass 1: each layer's cost, once
+  float r_comp[KR > 0 ? KR : 1], r_dram[KR > 0 ? KR : 1],
+      r_tiles[KR > 0 ? KR : 1];
+  if constexpr (KR > 0) {
+#pragma unroll
+    for (int j = 0; j < KR; ++j) {
+      const int l = lane + j * G;
+      if (l < L) {
+        const LayerCost c = layer_cost(d, lay + 5 * l);
+        s_dram[l] = c.dram;
+        s_a[l] = c.macs;
+        s_b[l] = c.stream;
+        r_comp[j] = c.compute;
+        r_dram[j] = c.dram;
+        r_tiles[j] = c.n_tiles;
+      }
+    }
+  } else {
+#pragma unroll 2
+    for (int l = lane; l < L; l += G) {
+      const LayerCost c = layer_cost(d, lay + 5 * l);
+      s_dram[l] = c.dram;
+      s_a[l] = c.macs;
+      s_b[l] = c.stream;
+      s_comp[l] = c.compute;
+      s_tiles[l] = c.n_tiles;
+    }
+  }
+  __syncwarp();
+  // ordered sums over layers 0..L-1: lane 0 the DRAM bytes (the L2 working
+  // set and the DRAM total alike), lane 1 the MACs, lane 2 the stream bytes
+  const float sum1 = lane < 3 ? ordered_sum(s_dram + lane * stride, L) : 0.0f;
+  __syncwarp();
+  const float working = __shfl_sync(kFull, sum1, 0, G);
+  const Pass2 p = pass2_constants(d, working, L);
+
+  // pass 2: the per-layer cycles and host cycles, into the arrays of the
+  // MACs and stream bytes (summed above)
+  if constexpr (KR > 0) {
+#pragma unroll
+    for (int j = 0; j < KR; ++j) {
+      const int l = lane + j * G;
+      if (l < L)
+        pass2_layer(d, p, r_comp[j], r_dram[j], r_tiles[j], s_a + l, s_b + l);
+    }
+  } else {
+#pragma unroll 2
+    for (int l = lane; l < L; l += G)
+      pass2_layer(d, p, s_comp[l], s_dram[l], s_tiles[l], s_a + l, s_b + l);
+  }
+  __syncwarp();
+  const float sum2 = lane < 2 ? ordered_sum(s_a + lane * stride, L) : 0.0f;
+  const float macs = __shfl_sync(kFull, sum1, 1, G);
+  const float stream = __shfl_sync(kFull, sum1, 2, G);
+  const float host = __shfl_sync(kFull, sum2, 1, G);
+  if (lane != 0 || slot >= n) return;
+  const float cycles = sum2, dram = working;
+  const float latency_ms = cycles / 1.0e9f * 1.0e3f;
   const float pj = macs * e_mac + stream * 0.45f + dram * 18.0f;
   const float nj = pj * 1.0e-3f + host * select3(d.core, 0.35f, 0.18f, 0.12f);
-  const float a = area(d);
   const float power_mw =
       (nj * 1.0e-9f) / (cycles / 1.0e9f) * 1.0e3f + 2.0f + 0.6f * a;
   out[(size_t)i * 3 + 0] = latency_ms;
@@ -202,15 +343,62 @@ systolic_eval_kernel(const float* __restrict__ vals,
   out[(size_t)i * 3 + 2] = a;
 }
 
+template <int KR>
+cudaError_t launch(const float* vals, const float* layers, float* out, int n,
+                   int n_layers, int g_log2, int threads, int stride,
+                   int smem_bytes, cudaStream_t st) {
+  static int opted_in = 0;  // bytes this instance may use (opt in once)
+  if (smem_bytes > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        systolic_eval_kernel<KR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return err;
+    opted_in = smem_bytes;
+  }
+  const int groups = threads >> g_log2;
+  const int blocks = (n + groups - 1) / groups;
+  systolic_eval_kernel<KR><<<blocks, threads, smem_bytes, st>>>(
+      vals, layers, out, n, n_layers, g_log2, stride);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // vals [n, 26], layers [n_layers, 5], out [n, 3]; all float32, contiguous.
+// The plan from kernels/systolic_eval.py::launch_plan: 2^g_log2 lanes a
+// design (4..32), kr layers a lane in registers (1, 2 or 4; 0: shared
+// memory), threads a block, the odd stride of the per-design arrays and the
+// dynamic shared bytes; a plan that does not add up is refused.
 extern "C" int systolic_eval_launch(const void* vals, const void* layers,
                                     void* out, int n, int n_layers,
+                                    int g_log2, int kr, int threads,
+                                    int stride, int smem_bytes,
                                     void* stream) {
-  const int blocks = (n + kThreads - 1) / kThreads;
-  const size_t smem = sizeof(float) * 5 * (size_t)n_layers;
-  systolic_eval_kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)vals, (const float*)layers, (float*)out, n, n_layers);
-  return (int)cudaGetLastError();
+  const int G = 1 << g_log2;
+  const int arrays = kr > 0 ? 3 : 5;
+  const bool ok =
+      n > 0 && n_layers > 0 && g_log2 >= 2 && g_log2 <= 5 &&
+      (kr == 0 || kr == 1 || kr == 2 || kr == 4) &&
+      (kr == 0 || n_layers <= kr * G) && threads >= 32 &&
+      threads <= kMaxThreads && threads % 32 == 0 && stride >= n_layers &&
+      (size_t)4 * (5 * (size_t)n_layers +
+                   (size_t)(threads / G) * arrays * stride) <=
+          (size_t)smem_bytes;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const float* v = (const float*)vals;
+  const float* l = (const float*)layers;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (kr) {
+    case 1: err = launch<1>(v, l, o, n, n_layers, g_log2, threads, stride,
+                            smem_bytes, st); break;
+    case 2: err = launch<2>(v, l, o, n, n_layers, g_log2, threads, stride,
+                            smem_bytes, st); break;
+    case 4: err = launch<4>(v, l, o, n, n_layers, g_log2, threads, stride,
+                            smem_bytes, st); break;
+    default: err = launch<0>(v, l, o, n, n_layers, g_log2, threads, stride,
+                             smem_bytes, st); break;
+  }
+  return (int)err;
 }

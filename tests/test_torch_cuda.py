@@ -45,6 +45,104 @@ def test_systolic_eval_matches_plain(dev, workload, n):
                                rtol=2e-5, atol=0)
 
 
+def _long_table(n_layers):
+    """A layer table of ``n_layers`` rows: minicpm3-4b's 559 rows
+    (``from_arch_config``), repeated."""
+    return np.resize(get_workload("minicpm3-4b"), (n_layers, 5))
+
+
+@pytest.mark.parametrize("L", [559, K1.MAX_LAYERS])
+@pytest.mark.parametrize("n", [1, 31, 2500])
+def test_systolic_eval_long_tables_match_plain(dev, L, n):
+    """The redesigned K1 with its per-layer values in shared memory (more
+    than 4 layers a lane): 559 rows (minicpm3-4b) and the largest table."""
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(n + L), n).numpy()
+    vals = torch.as_tensor(space.values(idx), dtype=torch.float32, device=dev)
+    layers = torch.as_tensor(_long_table(L), dtype=torch.float32, device=dev)
+    assert K1.launch_plan(n, L)["kr"] == 0
+    before = K1.launches
+    got = K1.soc_metrics(vals, layers)
+    assert K1.launches == before + 1
+    assert K1.shape_launches[(n, L)] >= 1
+    # 559 rows: the tolerance of test_systolic_eval_matches_plain. The
+    # largest table: the kernel adds the L positive terms of each sum one
+    # after another (the first port's order, kept bit for bit), an error of
+    # up to (L - 1) * 2^-24 of the sum where the plain version's tree order
+    # stays near 2^-24; power is a ratio of two such sums, so 2 * L * 2^-24
+    rtol = 2e-5 if L <= 559 else 2 * L * 2.0 ** -24
+    torch.testing.assert_close(got, K1.soc_metrics_plain(vals, layers),
+                               rtol=rtol, atol=0)
+
+
+@pytest.mark.parametrize("L", [1, 3, 5, 17, 33, 128, 129])
+def test_systolic_eval_group_widths_match_plain(dev, L):
+    """Every group width (4 to 32 lanes a design) and register count (1, 2,
+    4 layers a lane, or shared memory), with designs past the last in a
+    block's last group."""
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(L), 77).numpy()
+    vals = torch.as_tensor(space.values(idx), dtype=torch.float32, device=dev)
+    layers = torch.as_tensor(_long_table(L), dtype=torch.float32, device=dev)
+    got = K1.soc_metrics(vals, layers)
+    torch.testing.assert_close(got, K1.soc_metrics_plain(vals, layers),
+                               rtol=2e-5, atol=0)
+    # one design alone gets what it gets in a batch, bit for bit
+    one = K1.soc_metrics(vals[5:6].contiguous(), layers)
+    assert torch.equal(one, got[5:6])
+
+
+@pytest.mark.parametrize("L", [54, 559])
+def test_systolic_eval_output_does_not_depend_on_the_group_width(dev, L):
+    """Every sum runs over layers 0..L-1 in order whatever the lanes a
+    design: the outputs at 4, 8, 16 and 32 lanes are bitwise equal."""
+    from repro_torch.kernels import build
+
+    space = make_space()
+    n = 300
+    idx = space.sample(torch.Generator().manual_seed(L), n).numpy()
+    vals = torch.as_tensor(space.values(idx), dtype=torch.float32, device=dev)
+    layers = torch.as_tensor(_long_table(L), dtype=torch.float32, device=dev)
+    outs = []
+    for g in (4, 8, 16, 32):
+        p = K1.launch_plan(n, L, g)
+        o = torch.empty((n, 3), device=dev)
+        build.check(build.library().systolic_eval_launch(
+            vals.data_ptr(), layers.data_ptr(), o.data_ptr(), n, L,
+            p["g_log2"], p["kr"], p["threads"], p["stride"], p["smem_bytes"],
+            build.stream_ptr(vals)), "systolic_eval")
+        outs.append(o)
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    assert torch.equal(outs[0], K1.soc_metrics(vals, layers))
+
+
+def _k3_rows(n, m, seed):
+    """Many ties, duplicated rows, two +inf rows, a row with a NaN and an
+    all-NaN row."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 9, (n, m)).astype(np.float32)
+    y[n // 2:] = y[: n - n // 2]
+    y[3] = np.inf
+    y[n - 3] = np.inf
+    y[7, m // 2] = np.nan
+    y[n - 1] = np.nan
+    return y
+
+
+@pytest.mark.parametrize("n", [50, 64, 70, 2500, 20_000])
+@pytest.mark.parametrize("m", [3, 8])
+def test_pareto_count_inf_and_nan_rows_equal_plain(dev, n, m):
+    yt = torch.as_tensor(_k3_rows(n, m, n + m), device=dev)
+    before = K3.launches
+    got = K3.dominance_counts(yt)
+    assert K3.launches == before + 1
+    want = K3.dominance_counts_plain(yt)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, want)
+    assert int(got[7]) == 0 and int(got[n - 1]) == 0
+
+
 @pytest.mark.parametrize("n,m,d", [(1, 1, 1), (63, 65, 26), (130, 257, 26),
                                    (64, 2500, 26), (200, 100, 40)])
 def test_pairdist_matches_plain(dev, n, m, d):
@@ -445,3 +543,48 @@ def test_cuda_prefill_refuses_what_k5_does_not_compute(dev):
         tattn.gqa_apply(attn, dataclasses.replace(cfg, window=8), x, pos)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         LM(dataclasses.replace(cfg, window=8), dev)
+
+
+# K1's and K3's one-operation checks run last in this file: run before
+# test_round_fused_is_one_device_operation_per_call, their profiler
+# sessions left that test's session with no device events on the card.
+def _one_device_operation(fn, name, sessions=3):
+    """``fn()`` runs one kernel named ``name`` on the device and nothing
+    else (after a warm-up call), by torch.profiler. A session that records
+    no device activity at all is a lost trace, not a count: the next one is
+    read (at most ``sessions``); the first that records must show exactly
+    one operation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ops:
+            break
+    assert len(ops) == 1, [e.name for e in ops]
+    assert name in ops[0].name
+
+
+def test_systolic_eval_is_one_device_operation_per_call(dev):
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(2), 2500).numpy()
+    vals = torch.as_tensor(space.values(idx), dtype=torch.float32, device=dev)
+    for workload in ("resnet50", "minicpm3-4b"):
+        layers = torch.as_tensor(get_workload(workload), dtype=torch.float32,
+                                 device=dev)
+        for n in (1, 2500):
+            v = vals[:n].contiguous()
+            _one_device_operation(lambda: K1.soc_metrics(v, layers),
+                                  "systolic_eval_kernel")
+
+
+def test_pareto_count_is_one_device_operation_per_call(dev):
+    for n in (64, 2500, 20_000):
+        yt = torch.as_tensor(_k3_rows(n, 3, n), device=dev)
+        _one_device_operation(lambda: K3.dominance_counts(yt),
+                              "pareto_count_kernel")

@@ -1,8 +1,9 @@
 """Launch plans of the redesigned kernels, on the CPU: K4 ``round_fused``
-(``kernels/round_fused.py::launch_plan``) and K2 ``pairdist``
-(``kernels/pairdist.py::launch_plan``). Every shape of the grid gets a plan,
-none raises, and no plan asks for more shared memory than a Hopper block may
-opt into (232,448 bytes)."""
+(``kernels/round_fused.py::launch_plan``), K2 ``pairdist``
+(``kernels/pairdist.py::launch_plan``), K1 ``systolic_eval`` and K3
+``pareto_count``. Every shape of the grid gets a plan, none raises, and no
+plan asks for more shared memory than a Hopper block may opt into (232,448
+bytes)."""
 import itertools
 
 import pytest
@@ -10,7 +11,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import pairdist as K2
+from repro_torch.kernels import pareto_count as K3
 from repro_torch.kernels import round_fused as K4
+from repro_torch.kernels import systolic_eval as K1
 
 HOPPER_BLOCK_SMEM = 232_448
 PS = (1, 8, 72, 256, 1024)
@@ -113,3 +116,97 @@ def test_pairdist_small_gp_shapes_get_more_blocks():
     assert K2.launch_plan(512, 512, 26)["blocks"] == 128
     assert K2.launch_plan(64, 2500, 26)["tm"] == 2
     assert K2.launch_plan(2500, 2500, 26)["tm"] == 8
+
+
+@pytest.mark.parametrize("n", [1, 30, 2500, 100_000])
+@pytest.mark.parametrize("L", [1, 54, 559, K1.MAX_LAYERS])
+def test_systolic_eval_plans_fit_a_hopper_block(n, L):
+    plan = K1.launch_plan(n, L)
+    g, kr = plan["g"], plan["kr"]
+    assert g == 1 << plan["g_log2"] and 4 <= g <= 32
+    few = min(32, max(4, K1._pow2(L)))  # as many lanes as layers
+    if g != few:  # many designs: the fewest lanes with 4 layers a lane
+        assert n >= K1.SMS * K1.THROUGHPUT_WARPS * (32 // g)
+        assert kr == 4 and (g == 4 or -(-L // (g // 2)) > 4)
+    assert kr in (0,) + K1.REGISTER_LAYERS
+    assert kr == 0 or -(-L // g) <= kr
+    if kr == 0:
+        assert -(-L // g) > max(K1.REGISTER_LAYERS)
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 128
+    assert plan["designs_per_block"] == plan["threads"] // g
+    assert plan["blocks"] * plan["designs_per_block"] >= n
+    assert (plan["blocks"] - 1) * plan["designs_per_block"] < n
+    assert plan["stride"] % 2 == 1 and plan["stride"] >= L
+    arrays = 3 if kr else 5
+    assert plan["smem_bytes"] == 4 * (
+        5 * L + plan["designs_per_block"] * arrays * plan["stride"])
+    assert plan["smem_bytes"] <= HOPPER_BLOCK_SMEM
+
+
+def test_systolic_eval_main_path_plans():
+    """resnet50's 54 layers: one design, the TED init's 20 and the ICD
+    trials' 30 take a warp a design (2 layers a lane in registers) and a
+    warp a block (a block an SM); 2500 designs take 16 lanes a design (4
+    layers a lane), 4 warps a block (313 blocks)."""
+    for n, g, kr, threads, blocks in ((1, 32, 2, 32, 1), (20, 32, 2, 32, 20),
+                                      (30, 32, 2, 32, 30),
+                                      (2500, 16, 4, 128, 313)):
+        plan = K1.launch_plan(n, 54)
+        assert (plan["g"], plan["kr"]) == (g, kr)
+        assert (plan["threads"], plan["blocks"]) == (threads, blocks)
+    assert K1.launch_plan(2500, 559)["kr"] == 0
+
+
+@pytest.mark.parametrize("g", [4, 8, 16, 32])
+@pytest.mark.parametrize("L", [1, 54, 559, K1.MAX_LAYERS])
+def test_systolic_eval_every_group_width_has_a_plan(g, L):
+    """A forced group width gets a plan that fits, or raises where a warp
+    of designs (32 / g of them) cannot hold its per-layer arrays."""
+    need = 4 * (5 * L + (32 // g) * 5 * (L | 1))
+    if -(-L // g) > 4 and need > HOPPER_BLOCK_SMEM:
+        with pytest.raises(ValueError, match="shared memory"):
+            K1.launch_plan(2500, L, g)
+        return
+    plan = K1.launch_plan(2500, L, g)
+    assert plan["g"] == g and plan["smem_bytes"] <= HOPPER_BLOCK_SMEM
+    assert plan["kr"] == 0 or -(-L // g) <= plan["kr"]
+    with pytest.raises(ValueError, match="lanes"):
+        K1.launch_plan(2500, L, 64)
+
+
+@pytest.mark.parametrize("n", [1, 64, 70, 2500, 20_000])
+@pytest.mark.parametrize("m", range(1, 9))
+def test_pareto_count_plans_fit_a_hopper_block(n, m):
+    plan = K3.launch_plan(n, m)
+    r, a, s = plan["rows_per_thread"], plan["row_threads"], plan["splits"]
+    assert r in (2, 4) and plan["rows_per_block"] <= r * a
+    assert -(-plan["rows_per_block"] // r) <= 32  # row threads with rows
+    assert s == 1 << plan["s_log2"]
+    assert plan["threads"] == a * s <= 1024 and plan["threads"] % 32 == 0
+    assert plan["blocks"] == -(-n // plan["rows_per_block"])
+    assert plan["pad"] == (4 if m <= 4 else 8)
+    assert 1 <= plan["tile_rows"] <= n
+    assert plan["tiles"] * plan["tile_rows"] >= n
+    assert plan["smem_bytes"] == 4 * (plan["pad"] * plan["tile_rows"]
+                                      + -(-s // 32) * r * a)
+    assert plan["smem_bytes"] <= HOPPER_BLOCK_SMEM
+    if n <= K3.FRONT_ROWS:
+        assert plan["rows_per_block"] == min(n, K3.SMALL_ROWS)
+    if n >= 2500:
+        assert plan["blocks"] >= 132
+
+
+def test_pareto_count_plans_for_round_fronts_and_the_reference_front():
+    """A round's front (50-70 rows): blocks of 16 rows, 128 threads (8 row
+    threads of 2 rows, 16 splits); the reference front (2500 x 3): one block
+    of 19 rows on each of the 132 SMs (5 row threads of 4 rows, 128
+    splits)."""
+    for n, blocks in ((50, 4), (64, 4), (70, 5)):
+        plan = K3.launch_plan(n, 3)
+        assert (plan["blocks"], plan["threads"]) == (blocks, 128)
+    plan = K3.launch_plan(2500, 3)
+    assert (plan["blocks"], plan["rows_per_block"], plan["threads"]) == \
+        (132, 19, 640)
+    assert K3.launch_plan(2500, 3, per_sm=2)["rows_per_block"] == 16
+    assert K3.launch_plan(129, 3)["rows_per_block"] == K3.SMALL_ROWS
+    assert K3.launch_plan(20_000, 3)["blocks"] >= 132

@@ -64,3 +64,21 @@ def test_adrs_equal(seed):
     norm = np.array([2.0, 1.0, 0.5])
     assert tpareto.adrs(ref, lrn, norm) == jpareto.adrs(ref, lrn, norm)
     assert tpareto.adrs(ref, lrn[:0]) == float("inf")
+
+
+@pytest.mark.parametrize("n,m", [(64, 3), (70, 3), (130, 2), (300, 5)])
+def test_counts_with_inf_and_nan_rows_equal_xla_and_pallas(n, m):
+    """+inf rows (as the Pallas wrapper's pad rows), a row holding a NaN
+    (dominates nothing, dominated by nothing) and an all-NaN row: the plain
+    counts equal JAX's XLA form and its Pallas kernel in interpret mode."""
+    y = _metrics(n * m, n, m, 9)
+    y[3] = np.inf
+    y[n - 2] = np.inf
+    y[5, m - 1] = np.inf
+    y[7, m // 2] = np.nan
+    y[n - 1] = np.nan
+    got = K3.dominance_counts(torch.from_numpy(y)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(dominance_counts_xla(jnp.asarray(y))))
+    np.testing.assert_array_equal(got, np.asarray(pc_ops.dominance_counts(jnp.asarray(y))))
+    assert got[7] == 0 and got[n - 1] == 0
+    assert got[3] == got[n - 2] > 0

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of K2 ``pairdist`` and K4 ``round_fused`` at
-``chip_smoke.py``'s shapes, for one source tree of the port.
+"""Device times of K1 ``systolic_eval``, K2 ``pairdist``, K3
+``pareto_count`` and K4 ``round_fused`` at ``chip_smoke.py``'s shapes, for
+one source tree of the port.
 
     python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--out results.json]
 
@@ -9,8 +10,9 @@ Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so a
 script's shapes, inputs and timing (``chip_smoke.time_ms``: calls replayed
 from a CUDA graph, warm L2, median of CUDA-event windows). To compare two
 trees on one card, run them in turns in one command (A, B, B, A). Prints
-the card's name and power limit and one line per shape. Needs a CUDA
-device.
+the card's name and power limit and one line per shape; ``--out`` also
+keeps a sha1 of K1's output at each shape, so two trees' JSON files show
+whether their K1 agrees bitwise. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -30,8 +32,9 @@ def main() -> int:
                     help="root of the source tree whose kernels are timed")
     ap.add_argument("--out", help="also write the times as JSON here")
     ap.add_argument("--sweep", action="store_true",
-                    help="also time K2 at every tile height tm (a tree "
-                         "whose pairdist has a launch plan)")
+                    help="also time K1 at every group width, K2 at every "
+                         "tile height tm and K3 at other plans and shapes (a "
+                         "tree whose kernels have launch plans)")
     args = ap.parse_args()
 
     import chip_smoke as cs  # puts this checkout's src first on sys.path
@@ -43,8 +46,11 @@ def main() -> int:
         print("kernel_timing: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch
+    from repro_torch.kernels import build
     from repro_torch.kernels import pairdist as K2
+    from repro_torch.kernels import pareto_count as K3
     from repro_torch.kernels import round_fused as K4
+    from repro_torch.kernels import systolic_eval as K1
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -53,7 +59,74 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"card: {card} | tree {args.tree} | repro_torch from "
           f"{Path(repro_torch.__file__).parent}")
-    out = dict(card=card, tree=args.tree, pairdist={}, round_fused={})
+    out = dict(card=card, tree=args.tree, systolic_eval={},
+               systolic_eval_sha1={}, pairdist={}, pareto_count={},
+               round_fused={})
+
+    pool = cs.k1_pool(dev)
+    for workload, n in cs.K1_SHAPES:
+        vals, layers = cs.k1_inputs(dev, pool, workload, n)
+        key = f"{workload} {n}x26x{layers.shape[0]}"
+        y = K1.soc_metrics(vals, layers)
+        out["systolic_eval_sha1"][key] = cs.tensor_sha1(y)
+        ms = cs.time_ms(lambda: K1.soc_metrics(vals, layers))[0]
+        out["systolic_eval"][key] = ms
+        line = (f"  systolic_eval [{n}, 26, {layers.shape[0]}] ({workload}): "
+                f"{ms:.4f} ms, output sha1 {out['systolic_eval_sha1'][key]}")
+        if args.sweep and hasattr(K1, "launch_plan"):
+            o = torch.empty((n, 3), device=dev)
+            L = layers.shape[0]
+
+            def launch(p):
+                build.check(build.library().systolic_eval_launch(
+                    vals.data_ptr(), layers.data_ptr(), o.data_ptr(), n, L,
+                    p["g_log2"], p["kr"], p["threads"], p["stride"],
+                    p["smem_bytes"], build.stream_ptr(vals)), "systolic_eval")
+
+            by_g = {}
+            for g in (32, 16, 8, 4):
+                try:
+                    p = K1.launch_plan(n, L, g)
+                except ValueError:  # a warp of designs does not fit
+                    continue
+                by_g[g] = cs.time_ms(lambda: launch(p))[0]
+            out["systolic_eval"][f"{key} by lanes"] = by_g
+            line += (f" (plan {K1.launch_plan(n, L)['g']} lanes a design; "
+                     + ", ".join(f"{g}: {v:.4f}" for g, v in by_g.items())
+                     + ")")
+        print(line)
+        if (workload, n) == ("resnet50", 2500):
+            y_pool = K1.soc_metrics_plain(vals, layers)
+
+    for n in cs.K3_SHAPES + cs.K3_ROUND_FRONTS:
+        yd = cs.k3_inputs(y_pool, n)
+        ms = cs.time_ms(lambda: K3.dominance_counts(yd))[0]
+        out["pareto_count"][f"{n}x3"] = ms
+        line = f"  pareto_count [{n}, 3]: {ms:.4f} ms"
+        if args.sweep and hasattr(K3, "launch_plan"):
+            c = torch.empty((n,), dtype=torch.int32, device=dev)
+
+            def launch(p):
+                build.check(build.library().pareto_count_launch(
+                    yd.data_ptr(), c.data_ptr(), n, 3, p["rows_per_thread"],
+                    p["rows_per_block"], p["s_log2"], p["threads"],
+                    p["tile_rows"], p["smem_bytes"], build.stream_ptr(yd)),
+                    "pareto_count")
+
+            if n > K3.FRONT_ROWS:  # blocks an SM, splits a row thread
+                plans = {f"{k} an SM, {s} splits":
+                         K3.launch_plan(n, 3, k, s)
+                         for k in (1, 2) for s in (32, 64, 128)}
+            else:  # rows a block, splits a row thread
+                plans = {f"{b} rows a block, {s} splits":
+                         K3.launch_plan(n, 3, splits=s, block_rows=b)
+                         for b in (8, 16, 32, n) for s in (8, 16, 32)}
+            by_plan = {key: cs.time_ms(lambda: launch(p))[0]
+                       for key, p in plans.items()}
+            out["pareto_count"][f"{n}x3 by plan"] = by_plan
+            line += (" (" + ", ".join(f"{key}: {v:.4f}"
+                                      for key, v in by_plan.items()) + ")")
+        print(line)
 
     gen = torch.Generator(device=dev).manual_seed(1234)
     x_all = torch.rand((2500, 26), generator=gen, device=dev)
@@ -63,8 +136,6 @@ def main() -> int:
         out["pairdist"][f"{n}x{m}x26"] = ms
         line = f"  pairdist [{n}, {m}, 26] d²: {ms:.4f} ms"
         if args.sweep:
-            from repro_torch.kernels import build
-
             o = torch.empty((n, m), device=dev)
             by_tm = {tm: cs.time_ms(lambda: build.check(
                 build.library().pairdist_launch(
