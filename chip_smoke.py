@@ -16,6 +16,19 @@ with ``pool_chunk=512`` picks the same rows; the exact and the incremental
 round, stage by stage, with the device's busy share; and at n_pool=64 the
 card's picks equal the CPU's (exact, incremental, and q=2 fantasy batches).
 
+The fleet: ``fleet_tuner`` over six scenarios (resnet50, mobilenet and
+transformer x seeds 0 and 1, each at the paper protocol), exact and
+incremental, with every count set to 0 before each run: each scenario's
+final ADRS, the seconds a fleet round, the cache, K1's launches by shape
+(single and multi-workload) and K4's a round (6 in every incremental round,
+or it fails); one more fleet round of each under torch.profiler beside six
+``soc_tuner`` rounds, and the launches of one Adam step for one and for six
+scenarios; a fleet of one (resnet50, seed 0, the main path's draws) whose
+rows and ADRS equal the main runs' bit for bit; and at n_pool=64 the card's
+fleet picks equal the CPU's. K1's multi-workload entry is held against its
+plain version at 3 x {60, 40, 2, 2500} designs (``K1_MULTI_SHAPES``), each
+workload's slice bitwise a single launch.
+
 The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
 route, ``csrc/flash_attn_tc.cu``, whose ptxas registers and spills and whose
 ``wgmma`` and TMA instructions in the built SASS are printed first) against
@@ -131,6 +144,16 @@ K2_RBF_SHAPES = {(2500, 2500), (64, 2500)}
 #: (``soc/workloads.py::from_arch_config``) at 2500 designs.
 K1_SHAPES = [("resnet50", 2500), ("resnet50", 30), ("resnet50", 1),
              ("minicpm3-4b", 2500)]
+#: the fleet phase: resnet50, mobilenet and transformer x seeds 0 and 1
+#: (``benchmarks/fleet_sweep.py``'s default workloads and seed count), each
+#: scenario at the paper protocol of ``MAIN`` (``benchmarks/common.py``)
+FLEET_WORKLOADS = ("resnet50", "mobilenet", "transformer")
+FLEET_SEEDS = (0, 1)
+#: K1's multi-workload entry over ``FLEET_WORKLOADS`` (W = 3, Lmax = 54):
+#: designs a workload at the fleet's flushes: the most the ICD trials of two
+#: seeds can miss (60), the TED init (at most b = 20 a seed: 40), a round's
+#: picks (2), and 2500 for timing
+K1_MULTI_SHAPES = [60, 40, 2, 2500]
 #: K3 shapes (rows, m = 3): the reference front and a round's front; and
 #: the smallest and largest of the main path's round fronts (timed by
 #: ``tools/kernel_timing.py``).
@@ -153,6 +176,25 @@ def k1_inputs(dev, pool, workload: str, n: int):
     layers = torch.as_tensor(get_workload(workload), dtype=torch.float32,
                              device=dev).contiguous()
     return vals, layers
+
+
+def k1_multi_inputs(dev, n: int):
+    """K1 multi's inputs: ``n`` TABLE I designs a workload of
+    ``FLEET_WORKLOADS`` (3n drawn with seed 4321) as values [3, n, 26], and
+    the padded tables and mask (``pad_workloads``)."""
+    import torch
+
+    from repro_torch.core.space import make_space
+    from repro_torch.soc.workloads import get_workload, pad_workloads
+
+    W = len(FLEET_WORKLOADS)
+    space = make_space()
+    idx = space.sample(torch.Generator(device=dev).manual_seed(4321), W * n)
+    vals = torch.as_tensor(space.values(idx.cpu().numpy()).reshape(W, n, -1),
+                           dtype=torch.float32, device=dev).contiguous()
+    layers, mask = pad_workloads([get_workload(w) for w in FLEET_WORKLOADS])
+    return (vals, torch.as_tensor(layers, dtype=torch.float32, device=dev),
+            torch.as_tensor(mask, dtype=torch.float32, device=dev))
 
 
 def k1_pool(dev):
@@ -292,6 +334,37 @@ def check_kernels(dev) -> dict:
                                           "smem_bytes")})
         if (workload, n) == ("resnet50", 2500):
             y_pool = out_p
+
+    # --- K1's multi-workload entry at the fleet's flush shapes (W = 3
+    # workloads of n designs each, Lmax = 54): K1's tolerance against the
+    # plain version, and each workload's slice bitwise a single launch on
+    # its own table.
+    from repro_torch.soc.workloads import get_workload
+
+    for n in K1_MULTI_SHAPES:
+        vals, layers, mask = k1_multi_inputs(dev, n)
+        out_k = K1.soc_metrics_multi(vals, layers, mask)
+        out_p = K1.soc_metrics_multi_plain(vals, layers, mask)
+        singles = [K1.soc_metrics(vals[w], torch.as_tensor(
+            get_workload(wl), dtype=torch.float32, device=dev))
+            for w, wl in enumerate(FLEET_WORKLOADS)]
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(out_k[w], o) for w, o in enumerate(singles))
+        ok = bitwise and bool(torch.allclose(out_k, out_p, rtol=2e-5, atol=0.0))
+        err = float((out_k - out_p).abs().max())
+        W, L = layers.shape[:2]
+        real = int(mask.sum())  # the layers this input's sums run over
+        bnd = bound_ms(4 * (W * n * 26 + W * L * 5 + W * L + W * n * 3),
+                       n * real * K1_OPS_PER_PAIR)
+        plan = K1.launch_plan(n, L, workloads=W)
+        print(f"  systolic_eval_multi [{W}, {n}, 26, {L}]: each workload's "
+              f"slice bitwise a single launch: {bitwise}")
+        record("systolic_eval_multi", [W, n, 26, L], err, ok,
+               time_ms(lambda: K1.soc_metrics_multi(vals, layers, mask)),
+               time_ms(lambda: K1.soc_metrics_multi_plain(vals, layers, mask)),
+               None, bnd, sha1=tensor_sha1(out_k),
+               plan={k: plan[k] for k in ("g", "kr", "threads", "grid",
+                                          "smem_bytes")})
 
     # --- K2 pairdist at K2_SHAPES, D = 26, in the d² mode the main path
     # uses and (for two of them) the fused RBF mode (tools/kernel_timing.py's
@@ -624,6 +697,271 @@ def incremental_breakdown(res, pool, cfg: dict, dev) -> dict:
         f"{k} {v:.4f} s" for k, v in stages.items()))
     _print_top(out)
     return out
+
+
+class RoundProbe:
+    """A scenario's draws that note K4's launch count each time a fleet
+    round starts (``fleet_tuner`` calls ``round`` once a scenario at the top
+    of every round): the differences are K4's launches a round."""
+
+    def __init__(self, draws):
+        self.draws, self.k4_at_round = draws, []
+
+    def prologue(self, n_pool, n):
+        return self.draws.prologue(n_pool, n)
+
+    def round(self, n_pool, frontier_subset, m, s):
+        from repro_torch.kernels import round_fused as K4
+
+        self.k4_at_round.append(K4.launches)
+        return self.draws.round(n_pool, frontier_subset, m, s)
+
+
+def fleet_inputs(cfg: dict, device, pool_device=None):
+    """The fleet's pool (as ``run_tuner`` samples it: the same seed gives
+    the main path's pool) and each workload's reference front."""
+    import torch
+
+    from repro_torch.core import make_space, pareto_front
+    from repro_torch.soc import VLSIFlow
+
+    space = make_space()
+    gen = torch.Generator(device=pool_device or device).manual_seed(cfg["seed"])
+    pool = space.sample(gen, cfg["n_pool"]).cpu().numpy()
+    fronts = {w: pareto_front(VLSIFlow(space, w, device=device)(pool),
+                              device=device) for w in FLEET_WORKLOADS}
+    return pool, fronts
+
+
+def run_fleet(cfg: dict, device, scenarios, pool, fronts, draws=None,
+              **extra):
+    """One fleet_tuner run at ``cfg``'s protocol through the user's entry
+    point; ``extra`` goes to fleet_tuner."""
+    from repro_torch.core import FleetScenario, fleet_tuner, make_space
+
+    kw = {k: cfg[k] for k in ("T", "n", "b", "gp_steps", "s_frontiers",
+                              "frontier_subset")}
+    return fleet_tuner(make_space(), pool,
+                       [FleetScenario(w, seed=s) for w, s in scenarios],
+                       reference_fronts=fronts, draws=draws, device=device,
+                       **kw, **extra)
+
+
+def adam_step_launches(dev, S: int, P: int = 72, d: int = 26, m: int = 3,
+                       steps: int = 10) -> dict:
+    """Device launches and wall seconds of one Adam step of the GP fit at
+    the main path's final padded size, for one scenario (``gp._fit``) and
+    for S scenarios folded into one loop (``gp._fit_batch``)."""
+    import torch
+
+    from repro_torch.core import gp
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = 0.3 * torch.randn((S, P, d), generator=gen, device=dev)
+    y = torch.randn((S, P, m), generator=gen, device=dev)
+    mask = torch.zeros((S, P), device=dev)
+    p0 = gp.default_params(m, d, dev)
+    batch = gp.GPParams(*(t.expand(S, *t.shape) for t in p0))
+    out = {}
+    for label, fn in (("one scenario", lambda: gp._fit(p0, x[0], y[0], mask[0],
+                                                       steps=steps)),
+                      (f"{S} scenarios", lambda: gp._fit_batch(
+                          batch, x, y, mask, steps))):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+        busy = device_busy(fn, wall * steps)
+        out[label] = dict(launches_per_step=busy["device_launches"] / steps,
+                          wall_s_per_step=wall,
+                          device_busy_share=busy["device_busy_share"])
+    print("  one Adam step of the GP fit (P=72): " + "; ".join(
+        f"{k}: {v['launches_per_step']:.1f} launches, "
+        f"{1e3 * v['wall_s_per_step']:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def fleet_breakdown(fr, pool, cfg: dict, dev, incremental: bool) -> dict:
+    """One more fleet round at the fleet's final state on a fresh
+    BatchedBOEngine (the exact round as is; the incremental one warm, after
+    a cold round one evaluation earlier): its wall seconds (host clock,
+    ending in a synchronize) and the same round under torch.profiler
+    (:func:`device_busy`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BatchedBOEngine
+    from repro_torch.random import GeneratorDraws
+
+    pool_icd = torch.stack([_pool_icd(r, pool, dev) for r in fr.results])
+    rows = [r.evaluated_rows for r in fr.results]
+    ys = [r.y for r in fr.results]
+    eng = BatchedBOEngine(pool_icd, incremental=incremental,
+                          gp_steps=cfg["gp_steps"],
+                          s_frontiers=cfg["s_frontiers"], device=dev)
+    draws = [GeneratorDraws(2 + i, dev) for i in range(len(rows))]
+
+    def draw():
+        subs, eps = zip(*(d.round(len(pool), cfg["frontier_subset"], 3,
+                                  cfg["s_frontiers"]) for d in draws))
+        return list(eps), None if subs[0] is None else np.stack(subs)
+
+    if incremental:
+        eng.observe([r[:-2] for r in rows], [y[:-2] for y in ys])
+        eng.select(*draw())
+        eng.observe([r[-2:-1] for r in rows], [y[-2:-1] for y in ys])
+    else:
+        eng.observe([r[:-1] for r in rows], [y[:-1] for y in ys])
+    eps, sub = draw()
+
+    def one_round():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.select(eps, sub)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out = dict(round_s=one_round(), P=eng._P)
+    out.update(device_busy(one_round, out["round_s"]))
+    print(f"  one {'warm incremental' if incremental else 'exact'} fleet "
+          f"round ({len(rows)} scenarios, P={out['P']}): {out['round_s']:.4f} "
+          f"s; {out['busy_text']}")
+    _print_top(out)
+    return out
+
+
+def fleet_phase(dev, single: dict, card: str) -> dict:
+    """The six-scenario fleet at the paper protocol, exact and incremental:
+    each scenario's final ADRS and evaluations, the fleet round's seconds and
+    busy share beside six soc_tuner rounds (``single``: the main path's round
+    breakdowns), the cache, K1's launches by shape (single and multi) and
+    K4's launches a round, which must be 6 on every incremental round.
+    Each time is printed beside ``card`` (nvidia-smi's name and power
+    limit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import round_fused as K4
+    from repro_torch.kernels import systolic_eval as K1
+    from repro_torch.random import GeneratorDraws
+
+    scen = [(w, s) for w in FLEET_WORKLOADS for s in FLEET_SEEDS]
+    S, T = len(scen), MAIN["T"]
+    pool, fronts = fleet_inputs(MAIN, dev)
+    out = {"scenarios": [f"{w}:s{s}" for w, s in scen]}
+    for label, inc in (("exact", False), ("incremental", True)):
+        probe = RoundProbe(GeneratorDraws(scen[0][1], dev))
+        draws = [probe] + [GeneratorDraws(s, dev) for _, s in scen[1:]]
+        print(f"fleet ({label}): fleet_tuner, {S} scenarios",
+              json.dumps({**MAIN, "workload": list(FLEET_WORKLOADS),
+                          "seeds": list(FLEET_SEEDS), "incremental": inc}))
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fr = run_fleet(MAIN, dev, scen, pool, fronts, draws=draws,
+                       incremental=inc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4_rounds = np.diff(probe.k4_at_round + [K4.launches]).tolist()
+        launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                    for k in kernels.KERNELS}
+        k1_single = {f"{n}x26x{L}": c for (n, L), c in
+                     sorted(K1.shape_launches.items())}
+        k1_multi = {f"{W}x{n}x26x{L}": c for (W, n, L), c in
+                    sorted(K1.multi_shape_launches.items())}
+        round_s = [h["wall_s"] for h in fr.results[0].history[1:]]
+        for sc, res in zip(fr.scenarios, fr.results):
+            check_result(res, pool, fronts[sc.workload],
+                         {**MAIN, "workload": sc.workload})
+            print(f"  {sc.label}: final ADRS {res.history[-1]['adrs']:.5f}, "
+                  f"{len(res.evaluated_rows)} evaluations")
+        print(f"  {label} [{card}]: {wall:.1f} s, {np.mean(round_s):.4f} s a "
+              f"fleet round (median {np.median(round_s):.4f}), "
+              f"{fr.cache.summary()}")
+        print(f"  {label}: launches {launches}; systolic_eval single by "
+              f"shape (designs x 26 x layers): {k1_single}, multi by shape "
+              f"(workloads x designs x 26 x Lmax): {k1_multi}; round_fused "
+              f"launches a round: {k4_rounds}")
+        st = fr.results[0].engine_stats
+        print(f"  {label}: engine rounds {st['rounds']}, refactors "
+              f"{st['refactors']}, block updates {st['block_updates']}, mixed "
+              f"rounds {st['mixed_rounds']}, scenario refactors "
+              f"{st['scenario_refactors']}, scenario block updates "
+              f"{st['scenario_block_updates']}")
+        missing = [k for k in ("systolic_eval", "pairdist", "pareto_count")
+                   + (("round_fused",) if inc else ()) if not launches[k]]
+        if missing or not k1_multi:
+            raise AssertionError(f"fleet ({label}): not launched: {missing}"
+                                 + ("" if k1_multi else
+                                    ", K1's multi-workload entry"))
+        if inc and (k4_rounds != [S] * T or launches["round_fused"] != S * T):
+            raise AssertionError(
+                f"fleet ({label}): round_fused launched {k4_rounds} a round "
+                f"({launches['round_fused']} in all), not {S} in each of {T}")
+        if not inc and launches["round_fused"]:
+            raise AssertionError("the exact fleet launched round_fused")
+        brk = fleet_breakdown(fr, pool, MAIN, dev, inc)
+        one = single[label]["round_s"]
+        print(f"  {label} [{card}]: one fleet round {brk['round_s']:.4f} s against "
+              f"{S} x {one:.4f} s = {S * one:.4f} s of soc_tuner rounds "
+              f"({brk['round_s'] / (S * one):.3f} of them); fleet round "
+              f"{brk['device_launches']} launches, a soc_tuner round "
+              f"{single[label]['device_launches']}")
+        out[label] = dict(
+            wall_s=wall, round_wall_s=round_s, breakdown=brk,
+            single_round_s=one, launches=launches, systolic_eval=k1_single,
+            systolic_eval_multi=k1_multi, round_fused_per_round=k4_rounds,
+            cache=dict(requests=fr.cache.requests, hits=fr.cache.hits,
+                       evaluated=fr.cache.evaluated,
+                       flow_calls=fr.cache.flow_calls),
+            final_adrs=fr.final_adrs(), engine_stats=st)
+    print(f"  [{card}]", end="")
+    out["adam_step"] = adam_step_launches(dev, S)
+    return out
+
+
+def fleet_of_one(dev, main_runs: dict) -> None:
+    """A fleet of [resnet50, seed 0] on the main path's draws (the default
+    ``GeneratorDraws(0, cuda)``) and pool: its rows and final ADRS equal the
+    main soc_tuner runs', bit for bit, exact and incremental."""
+    import numpy as np
+
+    pool, fronts = fleet_inputs(MAIN, dev)
+    for label, inc in (("exact", False), ("incremental", True)):
+        res = main_runs[label]
+        one = run_fleet(MAIN, dev, [("resnet50", MAIN["seed"])], pool, fronts,
+                        incremental=inc).results[0]
+        compare_rows(f"fleet of one ({label}) rows", one, res)
+        a, b = one.history[-1]["adrs"], res.history[-1]["adrs"]
+        print(f"  fleet of one ({label}): final ADRS {a!r}, soc_tuner {b!r}")
+        assert a == b, f"fleet of one ({label}): ADRS {a!r} != {b!r}"
+        assert np.array_equal(one.y, res.y)
+
+
+def fleet_card_vs_cpu() -> None:
+    """At the golden size (``SMALL``; scenarios resnet50/0 and
+    transformer/1), draws made once on the CPU and handed to both runs: the
+    card's fleet picks equal the CPU's plain picks, exact and
+    incremental."""
+    import numpy as np
+
+    from repro_torch.random import GeneratorDraws
+
+    scen = [("resnet50", 0), ("transformer", 1)]
+    pool, fronts = fleet_inputs(SMALL, "cpu")
+    for label, inc in (("exact", False), ("incremental", True)):
+        runs = {d: run_fleet(SMALL, d, scen, pool, fronts,
+                             draws=[GeneratorDraws(s, "cpu") for _, s in scen],
+                             incremental=inc)
+                for d in ("cuda", "cpu")}
+        for i, (w, s) in enumerate(scen):
+            a, b = runs["cuda"].results[i], runs["cpu"].results[i]
+            compare_rows(f"fleet small check (n_pool=64, T=6, {label}, "
+                         f"{w}:s{s}): cuda rows", a, b)
+            np.testing.assert_allclose(a.history[-1]["adrs"],
+                                       b.history[-1]["adrs"], rtol=1e-5)
 
 
 #: K5 shapes (B, S, H, KV heads, hd): the serve phase's prefill, the S at
@@ -1268,6 +1606,13 @@ def main() -> int:
         np.testing.assert_allclose(r_gpu.history[-1]["adrs"],
                                    r_cpu.history[-1]["adrs"], rtol=1e-5)
 
+    # The fleet: six scenarios at the paper protocol (exact, incremental),
+    # a fleet of one against the main runs, and the card against the CPU.
+    fleet = fleet_phase(dev, {"exact": breakdown, "incremental": breakdown_i},
+                        card)
+    fleet_of_one(dev, {"exact": res, "incremental": res_i})
+    fleet_card_vs_cpu()
+
     print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
     check_flash_attn(dev, checks)
     serve = serve_phase(dev)
@@ -1278,6 +1623,11 @@ def main() -> int:
         "systolic_eval": ("systolic_eval.cu",
                           "src/repro/kernels/systolic_eval/kernel.py:33",
                           launches),
+        # the multi-workload entry: its launches in the exact fleet run
+        "systolic_eval_multi": (
+            "systolic_eval.cu", "src/repro/kernels/systolic_eval/kernel.py:33",
+            {"systolic_eval_multi":
+             sum(fleet["exact"]["systolic_eval_multi"].values())}),
         "pairdist": ("pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36",
                      launches),
         "pareto_count": ("pareto_count.cu",
@@ -1293,7 +1643,8 @@ def main() -> int:
     entries = []
     for name, (cu, replaces, counts) in meta.items():
         head = checks[name][0]
-        errs = [c["max_abs_err"] for k in checks if k.startswith(name)
+        errs = [c["max_abs_err"] for k in checks  # pairdist_rbf with pairdist
+                if k == name or k.startswith(name + "_") and k not in meta
                 for c in checks[k]]
         entries.append(dict(
             name=name, route="cuda", source=src + cu, replaces=replaces,
@@ -1322,7 +1673,7 @@ def main() -> int:
                              flow_calls=flow_i.calls, launches=launches_i,
                              launches_by_class=by_class["incremental"],
                              round_breakdown=breakdown_i),
-            serve=serve),
+            fleet=fleet, serve=serve),
             indent=1))
     print(smi)
     print(json.dumps({"kernels": entries}))

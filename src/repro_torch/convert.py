@@ -41,19 +41,21 @@ def gp_state_from_numpy(params: dict, x, y, y_mean, y_std, chol, alpha,
 
 
 def engine_state_from_numpy(d: dict) -> dict:
-    """A JAX ``BOEngine.state_dict()`` as a snapshot for the port's
-    ``BOEngine.load_state_dict``. The key layout is the same; every array is
-    copied into an owned numpy array of the port's dtype (JAX hands out
-    read-only views of its buffers)."""
-    if d.get("format") != ENGINE_STATE_FORMAT or d.get("kind") != "BOEngine":
-        raise ValueError(f"not a BOEngine snapshot of format "
+    """A JAX ``BOEngine.state_dict()`` (or ``BatchedBOEngine``'s) as a
+    snapshot for the port's ``load_state_dict``. The key layout is the same;
+    every array is copied into an owned numpy array of the port's dtype (JAX
+    hands out read-only views of its buffers)."""
+    if d.get("format") != ENGINE_STATE_FORMAT or \
+            d.get("kind") not in ("BOEngine", "BatchedBOEngine"):
+        raise ValueError(f"not an engine snapshot of format "
                          f"{ENGINE_STATE_FORMAT}: format={d.get('format')!r}, "
                          f"kind={d.get('kind')!r}")
     dtypes = {"rows": np.int64, "rows_pad": np.int32}
 
     def copy(key, v):
-        if isinstance(v, dict):
-            return {k: copy(k, x) for k, x in v.items()}
+        if isinstance(v, dict):  # the batched engine's per-scenario rows/ys
+            return {k: copy(key if key in ("rows", "ys") else k, x)
+                    for k, x in v.items()}
         if v is None or isinstance(v, (bool, int, float, str, list)):
             return v
         return np.array(v, dtypes.get(key, np.float32))

@@ -1,12 +1,13 @@
-"""SoC-Tuner core on PyTorch: the exact path of Algorithm 3.
+"""SoC-Tuner core on PyTorch: Algorithm 3 for one scenario and for a fleet.
 
 - ``space``       TABLE I design space (encode/sample/prune)
 - ``icd``         Algorithm 1 — inter-cluster-distance importance
 - ``sampling``    Algorithm 2 — importance-guided TED initialization
 - ``gp``          GP surrogates (Eqs. 3-4), objectives as a batch dimension
 - ``acquisition`` IMOO information-gain acquisition (Eqs. 5-10)
-- ``engine``      the exact ``BOEngine`` (cold fit + host argmax per round)
+- ``engine``      ``BOEngine`` (one scenario) and ``BatchedBOEngine`` (a fleet)
 - ``tuner``       Algorithm 3 — the full exploration loop
+- ``fleet``       Algorithm 3 over a fleet of scenarios, one batched engine
 - ``pareto``      dominance / Pareto front / ADRS (Eq. 12)
 
 Explore one scenario::
@@ -26,19 +27,26 @@ from .space import DesignSpace, Feature, TABLE_I, make_space
 from .icd import icd_from_data
 from .pareto import adrs, dominance_counts, pareto_front, pareto_mask
 from .sampling import soc_init, ted_select, transform_to_icd
-from .gp import GPParams, GPState, fit_gp, gp_joint_samples, gp_predict, pad_training
-from .acquisition import frontier_maxima, imoo_scores, mes_information_gain
-from .engine import BOEngine, EngineStats
+from .gp import (GPParams, GPState, fit_gp, fit_gp_batch, gp_joint_samples,
+                 gp_predict, pad_training)
+from .acquisition import (frontier_maxima, imoo_scores, imoo_scores_batch,
+                          mes_information_gain)
+from .engine import BatchedBOEngine, BOEngine, EngineStats
 from .tuner import TunerResult, explore_prologue, soc_tuner
+from .fleet import (FleetResult, FleetScenario, FlowEvalCache, fleet_prologue,
+                    fleet_tuner)
 
 __all__ = [
     "DesignSpace", "Feature", "TABLE_I", "make_space",
     "icd_from_data",
     "adrs", "dominance_counts", "pareto_front", "pareto_mask",
     "soc_init", "ted_select", "transform_to_icd",
-    "GPParams", "GPState", "fit_gp", "gp_joint_samples", "gp_predict",
-    "pad_training",
-    "frontier_maxima", "imoo_scores", "mes_information_gain",
-    "BOEngine", "EngineStats",
+    "GPParams", "GPState", "fit_gp", "fit_gp_batch", "gp_joint_samples",
+    "gp_predict", "pad_training",
+    "frontier_maxima", "imoo_scores", "imoo_scores_batch",
+    "mes_information_gain",
+    "BOEngine", "BatchedBOEngine", "EngineStats",
     "TunerResult", "explore_prologue", "soc_tuner",
+    "FleetResult", "FleetScenario", "FlowEvalCache", "fleet_prologue",
+    "fleet_tuner",
 ]

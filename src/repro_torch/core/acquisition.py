@@ -17,9 +17,10 @@ import math
 
 import torch
 
-from .gp import GPState, gp_joint_samples, gp_predict
+from .gp import GPState, gp_joint_samples, gp_predict, take
 
-__all__ = ["frontier_maxima", "mes_information_gain", "imoo_scores"]
+__all__ = ["frontier_maxima", "mes_information_gain", "imoo_scores",
+           "imoo_scores_batch"]
 
 
 def frontier_maxima(state: GPState, cand: torch.Tensor,
@@ -76,3 +77,20 @@ def imoo_scores(state: GPState, cand: torch.Tensor, eps: torch.Tensor,
     ystar = frontier_maxima(state, fc, eps)
     mean, std = gp_predict(state, cand)
     return mes_information_gain(mean, std, ystar, weights)
+
+
+def imoo_scores_batch(states: GPState, cand: torch.Tensor, eps: torch.Tensor,
+                      frontier_cand: torch.Tensor | None = None,
+                      weights: torch.Tensor | None = None) -> torch.Tensor:
+    """IMOO scores of S scenarios -> [S, N]: scenario i is
+    :func:`imoo_scores` of ``take(states, i)`` (a batched state from
+    ``fit_gp_batch``) over ``cand[i]``, with its frontier subset
+    ``frontier_cand[i]`` (default ``cand[i]``), its normals ``eps[i]``
+    (``eps`` [S, m, q, s]) and its weights ``weights[i]`` (``weights`` [S, m],
+    or None for uniform weights)."""
+    return torch.stack([
+        imoo_scores(take(states, i), cand[i], eps[i],
+                    frontier_cand=None if frontier_cand is None
+                    else frontier_cand[i],
+                    weights=None if weights is None else weights[i])
+        for i in range(cand.shape[0])])

@@ -1,6 +1,8 @@
-"""The BO engine: one scenario's persistent surrogate + acquisition rounds.
+"""The BO engines: persistent surrogates + acquisition rounds.
 
-A port of ``repro.core.engine.BOEngine``. Two paths:
+A port of ``repro.core.engine``: :class:`BOEngine` runs one scenario,
+:class:`BatchedBOEngine` a fleet of S scenarios (see its docstring); both
+share their pool, chunk and snapshot code in ``_EngineBase``. Two paths:
 
 * ``incremental=False`` (the exact path): each round is a ``fit_gp`` on every
   observation so far (cold, or warm from the last round's hyperparameters
@@ -32,6 +34,9 @@ update and its re-score are one K4 call (the reference runs the append
 staged and then a score-only launch; the pick is the same). Fantasy rows
 live only in the trailing ``[s0, P)`` rows that the next real round
 recomputes.
+
+The factor and frontier helpers below batch G scenarios' m objectives as
+one batch of G·m factors; :class:`BOEngine` calls them with G = 1.
 """
 from __future__ import annotations
 
@@ -46,12 +51,14 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import round_fused as _rf
 
-from .acquisition import imoo_scores
-from .gp import (JITTER, PAD_BUCKET, GPParams, _cholesky, _fit, _kernels,
-                 _standardize, default_params, fit_gp)
+from .acquisition import imoo_scores, imoo_scores_batch
+from .gp import (JITTER, PAD_BUCKET, GPParams, _cholesky, _fit, _fit_batch,
+                 _kernels, _standardize, default_params, fit_gp, fit_gp_batch,
+                 fold, pad_training, take)
 
-__all__ = ["BOEngine", "EngineStats", "EngineState", "FANTASY_MODES",
-           "PROFILE_STAGES", "ENGINE_STATE_FORMAT", "auto_chunk"]
+__all__ = ["BOEngine", "BatchedBOEngine", "EngineStats", "EngineState",
+           "FANTASY_MODES", "PROFILE_STAGES", "ENGINE_STATE_FORMAT",
+           "auto_chunk"]
 
 #: imputation rules of fantasy (q-batch / pending) selection: ``"mean"`` —
 #: posterior mean at the pick; ``"cl_min"`` / ``"cl_max"`` — constant liar at
@@ -86,8 +93,7 @@ def auto_chunk(n: int, *, bytes_per_col: int = 4 * 3 * 256,
 @dataclasses.dataclass
 class EngineStats:
     """Host-side counters for one engine run: the reference's fields for
-    the code ported so far (the batched engine's and the pool edits'
-    counters come with that code)."""
+    the code ported so far (the pool edits' counters come with that code)."""
 
     rounds: int = 0
     refactors: int = 0       # full O(P³) factorizations
@@ -96,6 +102,11 @@ class EngineStats:
     fantasy_steps: int = 0   # rank-1 fantasy appends (q-batch / pending)
     frontier_resamples: int = 0  # joint frontier draws (1 per round)
     last_drift: float = 0.0  # max |params − params_ref| at the last round
+    # per-scenario factorization decisions (batched engine): in a mixed
+    # round only the drifting scenarios refactor, the rest block-update
+    scenario_refactors: int = 0
+    scenario_block_updates: int = 0
+    mixed_rounds: int = 0    # rounds where the fleet split ref/update
     #: cumulative wall seconds per stage of profiled rounds
     #: (``profile_stages=True``): the ``PROFILE_STAGES`` keys plus
     #: ``"round_total"`` around the whole round
@@ -147,77 +158,146 @@ def _drift(params: GPParams, params_ref: GPParams) -> torch.Tensor:
 
 
 # ------------------------------------------------------------ factorization
-def _chol_refactor(params: GPParams, x, mask) -> torch.Tensor:
-    """[m, P, P] full train Cholesky factors (no pool work)."""
-    P = x.shape[0]
-    eye = torch.eye(P, dtype=x.dtype, device=x.device)
-    K = (_kernels(params, x, x)
-         + (torch.exp(params.log_noise) + JITTER)[:, None, None] * eye)
-    return _cholesky(K + torch.diag(1e6 * mask))
+# The factor, whitening and frontier helpers take G scenarios at once:
+# hyperparameters [G, m, ...], L [G, m, P, P], x [G, P, d], mask [G, P],
+# yn [G, P, m]. The G·m factors are one batch of the linear algebra, as the
+# fit's objectives are; only the inference kernel matrices (``pairdist``)
+# are built one (scenario, objective) at a time. The single-scenario names
+# below lift their arguments to G = 1.
+def _one(params: GPParams) -> GPParams:
+    """One scenario's hyperparameters [m, ...] as G = 1: [1, m, ...]."""
+    return GPParams(*(t[None] for t in params))
 
 
-def _chol_block(params_ref: GPParams, L, x, mask, s0: int) -> torch.Tensor:
-    """Rank-k extension of L: rows [s0, P) recomputed, rows above kept.
+def _kernels_batch(params: GPParams, a, b) -> torch.Tensor:
+    """[G·m, |a|, |b|] inference kernel matrices of ``a`` [G, na, d] and
+    ``b`` [G, nb, d], scenario-major."""
+    return torch.cat([_kernels(take(params, g), a[g], b[g])
+                      for g in range(a.shape[0])])
+
+
+def _noise_diag(params: GPParams, mask, n: int, device):
+    """The noise + jitter diagonals [G·m, 1, 1]·I and the pad rows' 1e6
+    [G·m, n, n] of ``mask`` [G, n]."""
+    m = params.log_var.shape[1]
+    eye = torch.eye(n, device=device)
+    return ((torch.exp(fold(params).log_noise) + JITTER)[:, None, None] * eye,
+            torch.diag_embed(1e6 * mask.repeat_interleave(m, dim=0)))
+
+
+def _chol_refactor_batch(params: GPParams, x, mask) -> torch.Tensor:
+    """[G, m, P, P] full train Cholesky factors (no pool work)."""
+    G, P, _ = x.shape
+    noise, pads = _noise_diag(params, mask, P, x.device)
+    L = _cholesky(_kernels_batch(params, x, x) + noise + pads)
+    return L.reshape(G, -1, P, P)
+
+
+def _chol_block_batch(params_ref: GPParams, L, x, mask, s0: int) -> torch.Tensor:
+    """Rank-k extension of L [G, m, P, P]: rows [s0, P) recomputed, rows
+    above kept.
 
     For ``K = [[K11, K12], [K21, K22]]``: ``L21 = (L11⁻¹ K12)ᵀ`` and
     ``L22 = chol(K22 − L21 L21ᵀ)``, what a full factorization gives, at
     O(P²·k). Valid while rows [0, s0) of ``x`` are unchanged since ``L``
     was built."""
-    xa, xb = x[:s0], x[s0:]
-    B = x.shape[0] - s0
-    eye = torch.eye(B, dtype=x.dtype, device=x.device)
-    K12 = _kernels(params_ref, xa, xb)                          # [m, s0, B]
-    K22 = (_kernels(params_ref, xb, xb)
-           + (torch.exp(params_ref.log_noise) + JITTER)[:, None, None] * eye
-           + torch.diag(1e6 * mask[s0:]))
-    L21 = torch.linalg.solve_triangular(L[:, :s0, :s0], K12,
+    G, P, _ = x.shape
+    xa, xb = x[:, :s0], x[:, s0:]
+    noise, pads = _noise_diag(params_ref, mask[:, s0:], P - s0, x.device)
+    K12 = _kernels_batch(params_ref, xa, xb)                    # [G·m, s0, B]
+    K22 = _kernels_batch(params_ref, xb, xb) + noise + pads
+    Lf = L.reshape(-1, P, P)
+    L21 = torch.linalg.solve_triangular(Lf[:, :s0, :s0], K12,
                                         upper=False).transpose(1, 2)
     L22 = _cholesky(K22 - L21 @ L21.transpose(1, 2))
-    out = L.clone()
+    out = Lf.clone()
     out[:, s0:, :s0] = L21
     out[:, s0:, s0:] = L22
-    return out
+    return out.reshape(G, -1, P, P)
+
+
+def _chol_refactor(params: GPParams, x, mask) -> torch.Tensor:
+    """One scenario's [m, P, P] full train Cholesky factors."""
+    return _chol_refactor_batch(_one(params), x[None], mask[None])[0]
+
+
+def _chol_block(params_ref: GPParams, L, x, mask, s0: int) -> torch.Tensor:
+    """One scenario's rank-k extension of L [m, P, P] (rows [s0, P))."""
+    return _chol_block_batch(_one(params_ref), L[None], x[None], mask[None],
+                             s0)[0]
 
 
 # ----------------------------------------------------------------- scoring
 def _col_moments(log_var, beta, V):
-    """Posterior mean/std [m, C] of a V block [m, P, C] for whitened targets
-    ``beta`` [m, P], in the fixed sequential order (never a matmul: the
+    """Posterior mean/std [B, C] of V blocks [B, P, C] for whitened targets
+    ``beta`` [B, P], in the fixed sequential order (never a matmul: the
     chunk-size invariance of the picks rests on it)."""
     return _rf.col_moments_plain(torch.exp(log_var), beta, V)
 
 
+def _train_beta_batch(L, yn) -> torch.Tensor:
+    """[G, m, P] whitened targets β = L⁻¹·y per scenario and objective."""
+    G, m, P, _ = L.shape
+    yt = yn.transpose(1, 2).reshape(G * m, P)
+    beta = torch.linalg.solve_triangular(L.reshape(G * m, P, P),
+                                         yt[:, :, None], upper=False)
+    return beta[:, :, 0].reshape(G, m, P)
+
+
 def _train_beta(L, yn) -> torch.Tensor:
-    """[m, P] whitened targets β = L⁻¹·y per objective."""
-    return torch.linalg.solve_triangular(L, yn.T[:, :, None],
-                                         upper=False)[:, :, 0]
+    """One scenario's [m, P] whitened targets."""
+    return _train_beta_batch(L[None], yn[None])[0]
+
+
+def _frontier_ystar_batch(params_ref: GPParams, L, beta, x, xq, y_mean,
+                          y_std, eps) -> torch.Tensor:
+    """[G, s, m] sampled Pareto-frontier maxima over the ``xq`` [G, q, d]
+    subsets, from the standard normals ``eps`` [G, m, q, s] (the joint draw
+    of ``gp_joint_samples`` + ``frontier_maxima``)."""
+    G, m, P, _ = L.shape
+    q, s = xq.shape[1], eps.shape[-1]
+    pf = fold(params_ref)
+    Ks = _kernels_batch(params_ref, x, xq)                      # [G·m, P, q]
+    Vs = torch.linalg.solve_triangular(L.reshape(G * m, P, P), Ks,
+                                       upper=False)
+    mean_q, _ = _col_moments(pf.log_var, beta.reshape(G * m, P), Vs)
+    cov = _kernels_batch(params_ref, xq, xq) - Vs.transpose(1, 2) @ Vs
+    jit = 1e-4 * torch.exp(pf.log_var) + 1e-6
+    eye = torch.eye(q, dtype=xq.dtype, device=xq.device)
+    Lq = _cholesky(cov + jit[:, None, None] * eye)
+    samp = mean_q[:, :, None] + Lq @ eps.reshape(G * m, q, s)   # [G·m, q, s]
+    samp = (samp.reshape(G, m, q, s).permute(0, 3, 2, 1)
+            * y_std[:, None, None, :] + y_mean[:, None, None, :])  # [G,s,q,m]
+    return torch.amax(samp, dim=2)
 
 
 def _frontier_ystar(params_ref: GPParams, L, beta, x, xq, y_mean, y_std,
                     eps) -> torch.Tensor:
-    """[s, m] sampled Pareto-frontier maxima over the ``xq`` [q, d] subset,
-    from the standard normals ``eps`` [m, q, s] (the joint draw of
-    ``gp_joint_samples`` + ``frontier_maxima``)."""
-    q = xq.shape[0]
-    Ks = _kernels(params_ref, x, xq)                            # [m, P, q]
-    Vs = torch.linalg.solve_triangular(L, Ks, upper=False)
-    mean_q, _ = _col_moments(params_ref.log_var, beta, Vs)      # [m, q]
-    cov = _kernels(params_ref, xq, xq) - Vs.transpose(1, 2) @ Vs
-    jit = 1e-4 * torch.exp(params_ref.log_var) + 1e-6
-    eye = torch.eye(q, dtype=xq.dtype, device=xq.device)
-    Lq = _cholesky(cov + jit[:, None, None] * eye)
-    samp = mean_q[:, :, None] + Lq @ eps                        # [m, q, s]
-    samp = samp.permute(2, 1, 0) * y_std + y_mean               # [s, q, m]
-    return torch.amax(samp, dim=1)
+    """One scenario's [s, m] frontier maxima over ``xq`` [q, d]."""
+    return _frontier_ystar_batch(_one(params_ref), L[None], beta[None],
+                                 x[None], xq[None], y_mean[None],
+                                 y_std[None], eps[None])[0]
+
+
+def _beta_ystar_batch(params_ref: GPParams, L, x, yn, y_mean, y_std,
+                      pool_flat, sub, eps):
+    """Whitened targets [G, m, P] and ONE sampled frontier maximum [G, s, m]
+    a scenario for a round; ``sub`` [G, q] indexes ``pool_flat`` [G, N, d]."""
+    beta = _train_beta_batch(L, yn)
+    xq = pool_flat[torch.arange(sub.shape[0], device=sub.device)[:, None],
+                   sub]
+    ystar = _frontier_ystar_batch(params_ref, L, beta, x, xq, y_mean, y_std,
+                                  eps)
+    return beta, ystar
 
 
 def _beta_ystar(params_ref: GPParams, L, x, yn, y_mean, y_std, pool_flat,
                 sub, eps):
-    """Whitened targets and ONE sampled frontier maximum for a round."""
-    beta = _train_beta(L, yn)
-    ystar = _frontier_ystar(params_ref, L, beta, x, pool_flat[sub], y_mean,
-                            y_std, eps)
-    return beta, ystar
+    """One scenario's whitened targets and frontier maximum for a round."""
+    beta, ystar = _beta_ystar_batch(_one(params_ref), L[None], x[None],
+                                    yn[None], y_mean[None], y_std[None],
+                                    pool_flat[None], sub[None], eps[None])
+    return beta[0], ystar[0]
 
 
 def _round_fused(params_ref: GPParams, L, V, x, beta, ystar, pool_c,
@@ -297,41 +377,20 @@ def _fantasy_step(params_ref: GPParams, L, V, rows_pad, yn, mask, pool_c,
     return L2, V2, rows2, mask2, yn2, evalm2, nxt
 
 
-class BOEngine:
-    """Persistent surrogate + acquisition engine for one scenario::
+class _EngineBase:
+    """Knobs, chunk grid, lifecycle and the shared half of the snapshot of
+    both engines (the reference's ``_EngineBase``). ``self.pool`` is [N, d]
+    (:class:`BOEngine`) or [S, N, d] (:class:`BatchedBOEngine`); every
+    helper here works on either."""
 
-        engine = BOEngine(pool_icd, gp_steps=150)    # on cuda by default
-        engine.observe(init_rows, y_init)            # raw (minimized) metrics
-        for _ in range(T):
-            sub, eps = draws.round(N, 512, m, s)
-            nxt = engine.select(eps, sub)            # one BO round
-            engine.observe([nxt], flow(pool_idx[nxt][None]))
-
-    The pool ``pool_icd`` [N, d] (numpy or tensor) is moved to ``device``
-    (default ``cuda``; the CPU only when asked for) and every round runs
-    there. See the module docstring for the two paths. ``pool_chunk``
-    (``None`` | int | ``"auto"``, incremental only) sets the chunk width;
-    any width picks the same rows. ``profile_stages`` (incremental only)
-    times each stage of a select round (``PROFILE_STAGES``: the fit, the
-    factor update, the frontier sample and the round's one K4 call), each
-    ended by a device synchronize, into ``stats.stage_wall_s``; the round
-    computes what it computes unprofiled.
-    """
-
-    #: round stages of one exact round (fit, posterior cache, frontier
-    #: sampling, predict, scoring) — the ``dispatches`` counter's unit
-    EXACT_DISPATCHES_PER_ROUND = 5
-
-    def __init__(self, pool_icd, *, incremental: bool = True,
-                 warm_start: bool | None = None, gp_steps: int = 150,
-                 warm_steps: int | None = None, drift_tol: float = 1.0,
-                 bucket: int = PAD_BUCKET, s_frontiers: int = 10,
-                 weights=None, pool_chunk: int | str | None = None,
-                 profile_stages: bool = False, device=None):
+    def _configure(self, pool_icd, *, incremental: bool,
+                   warm_start: bool | None, gp_steps: int,
+                   warm_steps: int | None, drift_tol: float, bucket: int,
+                   s_frontiers: int, weights, pool_chunk, device) -> None:
         self.device = resolve_device(device)
         self.pool = torch.as_tensor(pool_icd, dtype=torch.float32).to(
             self.device).contiguous()
-        self.N, self.d = self.pool.shape
+        self.N, self.d = self.pool.shape[-2:]
         self.incremental = bool(incremental)
         self.warm_start = (self.incremental if warm_start is None
                            else bool(warm_start))
@@ -346,15 +405,6 @@ class BOEngine:
         self.stats = EngineStats()
         self._C = self._resolve_chunk(pool_chunk, self.N)
         self._regrid()
-        if profile_stages and not self.incremental:
-            raise ValueError("profile_stages requires incremental=True: the "
-                             "exact path has no profiled round")
-        self.profile_stages = bool(profile_stages)
-
-        self._rows: list[int] = []
-        self._y: np.ndarray | None = None       # [k, m] raw minimized metrics
-        self._eval_mask = torch.zeros(self.N, dtype=torch.bool,
-                                      device=self.device)
         self._state: EngineState | None = None
         self._last_params: GPParams | None = None   # exact-path warm start
         self._P = 0                              # current padded train size
@@ -385,24 +435,227 @@ class BOEngine:
         return min(c, n)
 
     def _regrid(self) -> None:
-        """The chunked pool [nc, C, d]: padded to nc·C with copies of row 0
-        (pad columns are always masked, see :meth:`_evalm_chunks`)."""
+        """The chunked pool [..., nc, C, d]: padded to nc·C with copies of
+        row 0 (pad columns are always masked, see :meth:`_evalm_chunks`)."""
         self._nc = -(-self.N // self._C)
         self._N_pad = self._nc * self._C
         pool = self.pool
         pad = self._N_pad - self.N
         if pad:
-            pool = torch.cat([pool, pool[:1].repeat(pad, 1)])
-        self._pool_c = pool.reshape(self._nc, self._C, self.d).contiguous()
+            pool = torch.cat([pool, pool[..., :1, :].expand(
+                *pool.shape[:-2], pad, self.d)], dim=-2)
+        self._pool_c = pool.reshape(*pool.shape[:-2], self._nc, self._C,
+                                    self.d).contiguous()
 
     def _evalm_chunks(self) -> torch.Tensor:
-        """[nc, C] never-re-evaluate mask; pad columns always masked."""
+        """[..., nc, C] never-re-evaluate mask; pad columns always masked."""
         em = self._eval_mask
         pad = self._N_pad - self.N
         if pad:
-            em = torch.cat([em, torch.ones(pad, dtype=torch.bool,
-                                           device=self.device)])
-        return em.reshape(self._nc, self._C).contiguous()
+            em = torch.cat([em, torch.ones(*em.shape[:-1], pad,
+                                           dtype=torch.bool,
+                                           device=self.device)], dim=-1)
+        return em.reshape(*em.shape[:-1], self._nc, self._C).contiguous()
+
+    def _eps(self, eps) -> torch.Tensor:
+        """The round's normals as one float32 tensor on the engine's device
+        (a per-scenario sequence is stacked)."""
+        if isinstance(eps, (list, tuple)):
+            return torch.stack([self._eps(e) for e in eps])
+        return torch.as_tensor(eps, dtype=torch.float32, device=self.device)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @staticmethod
+    def _padded_batch(rows: list[int], y: np.ndarray, P: int):
+        """Pad (rows, raw y) to P with ``pad_training``'s conventions: pad
+        rows repeat the last real row (the +10 x shift is applied in the
+        round), targets are negated; ``mask`` is 1.0 on pad rows."""
+        n = len(rows)
+        rows_pad = np.asarray(rows + [rows[-1]] * (P - n), np.int32)
+        y_neg = -np.asarray(y, np.float32)
+        y_pad = np.concatenate([y_neg, np.tile(y_neg[-1:], (P - n, 1))], 0)
+        mask = np.concatenate([np.zeros(n, np.float32),
+                               np.ones(P - n, np.float32)])
+        return rows_pad, y_pad, mask
+
+    def _alloc_state(self, params0: GPParams, P: int,
+                     fresh: bool) -> EngineState:
+        """The round's starting state: the live one with ``params0``, or
+        zero factors [..., m, P, P] and V cache [..., nc, m, P, C]."""
+        if self._state is not None and not fresh:
+            return self._state._replace(params=params0)
+        lead, m = self.pool.shape[:-2], self.m
+        L = torch.zeros((*lead, m, P, P), device=self.device)
+        V = torch.zeros((*lead, self._nc, m, P, self._C), device=self.device)
+        ref = (GPParams(*(t.clone() for t in params0)) if self._state is None
+               else self._state.params_ref)
+        return EngineState(params0, ref, L, V)
+
+    # --------------------------------------------------- lifecycle hooks
+    def _check_live(self) -> None:
+        if getattr(self, "_released", False):
+            raise RuntimeError(
+                "engine has been released: its device arrays are gone. "
+                "Build a fresh engine and load_state_dict() a snapshot "
+                "taken BEFORE release() to continue this trajectory")
+
+    def device_bytes(self) -> int:
+        """Bytes of the engine's persistent arrays (chunked pool, evaluated
+        mask, incremental state, last padded batch, frozen y*): exactly what
+        :meth:`release` frees."""
+        if getattr(self, "_released", False):
+            return 0
+        arrays = [self._pool_c, self._eval_mask, self._last_ystar]
+        if self._state is not None:
+            arrays += [*self._state.params, *self._state.params_ref,
+                       self._state.L, self._state.V]
+        if self._last_batch is not None:
+            arrays += list(self._last_batch)
+        return sum(a.nbytes if isinstance(a, np.ndarray)
+                   else a.numel() * a.element_size()
+                   for a in arrays if a is not None)
+
+    def release(self) -> None:
+        """Drop every persistent array; later observe/select/state_dict
+        calls raise. Idempotent."""
+        self._released = True
+        self._state = None
+        self._last_params = None
+        self._last_batch = None
+        self._last_ystar = None
+        self._eval_mask = None
+        self._pool_c = None
+        self.pool = None
+
+    # -------------------------------------------- state (de)serialization
+    def _base_state_dict(self) -> dict:
+        """The snapshot's shared half in the reference's key layout: numpy
+        copies (never views of live state) and JSON-able scalars."""
+        self._check_live()
+        d = {"format": ENGINE_STATE_FORMAT, "kind": type(self).__name__,
+             "incremental": self.incremental, "bucket": self.bucket,
+             "pool_shape": list(self.pool.shape), "P": self._P,
+             "n_at_last_select": self._n_at_last_select,
+             "stats": self.stats.as_dict()}
+        if self._state is not None:
+            d["state"] = {"params": _params_to_np(self._state.params),
+                          "params_ref": _params_to_np(self._state.params_ref),
+                          "L": _np(self._state.L), "V": _np(self._state.V)}
+        if self._last_params is not None:
+            d["last_params"] = _params_to_np(self._last_params)
+        if self._last_batch is not None:
+            rp, yp, mk = self._last_batch
+            d["last_batch"] = {"rows_pad": rp.copy(), "y_pad": yp.copy(),
+                               "mask": mk.copy()}
+        if self._last_ystar is not None:
+            d["last_ystar"] = _np(self._last_ystar)
+        return d
+
+    def _load_base_state_dict(self, d: dict) -> None:
+        """Restore the shared half (validates format, engine kind,
+        bucket/incremental flags, pool shape and chunk grid)."""
+        self._check_live()
+        if d.get("format") != ENGINE_STATE_FORMAT:
+            raise ValueError(
+                f"engine snapshot format {d.get('format')!r} is not the "
+                f"supported format {ENGINE_STATE_FORMAT}")
+        if d.get("kind") != type(self).__name__:
+            raise ValueError(f"snapshot was taken from a {d.get('kind')!r}, "
+                             f"not a {type(self).__name__}")
+        for key in ("incremental", "bucket"):
+            if d.get(key) != getattr(self, key):
+                raise ValueError(
+                    f"snapshot {key}={d.get(key)!r} does not match this "
+                    f"engine's {key}={getattr(self, key)!r}")
+        if list(d.get("pool_shape", [])) != list(self.pool.shape):
+            raise ValueError(
+                f"snapshot pool shape {d.get('pool_shape')} does not match "
+                f"this engine's pool {list(self.pool.shape)}: resume must "
+                "use the identical candidate pool")
+        if "pool_edit" in d:
+            raise NotImplementedError(
+                "repro_torch: snapshots of edited pools need pool_append / "
+                "pool_replace, not ported yet (ROADMAP queue 1, item 11)")
+        self._P = int(d["P"])
+        self._n_at_last_select = int(d["n_at_last_select"])
+        self.stats = EngineStats.from_dict(d["stats"])
+        if "state" in d:
+            st = d["state"]
+            V = np.asarray(st["V"], np.float32)
+            if V.shape[-1] != self._C or V.shape[-4] != self._nc:
+                raise ValueError(
+                    f"snapshot V cache has chunk grid nc={V.shape[-4]}, "
+                    f"C={V.shape[-1]} but this engine resolved nc="
+                    f"{self._nc}, C={self._C}: resume with the pool_chunk "
+                    "the snapshot was taken with")
+            self._state = EngineState(
+                _params_from_np(st["params"], self.device),
+                _params_from_np(st["params_ref"], self.device),
+                torch.tensor(np.asarray(st["L"], np.float32),
+                             device=self.device),
+                torch.tensor(V, device=self.device))
+        else:
+            self._state = None
+        self._last_params = (_params_from_np(d["last_params"], self.device)
+                             if "last_params" in d else None)
+        lb = d.get("last_batch")
+        self._last_batch = (None if lb is None else
+                            (np.array(lb["rows_pad"], np.int32),
+                             np.array(lb["y_pad"], np.float32),
+                             np.array(lb["mask"], np.float32)))
+        self._last_ystar = (None if d.get("last_ystar") is None else
+                            torch.tensor(np.asarray(d["last_ystar"],
+                                                    np.float32),
+                                         device=self.device))
+
+
+class BOEngine(_EngineBase):
+    """Persistent surrogate + acquisition engine for one scenario::
+
+        engine = BOEngine(pool_icd, gp_steps=150)    # on cuda by default
+        engine.observe(init_rows, y_init)            # raw (minimized) metrics
+        for _ in range(T):
+            sub, eps = draws.round(N, 512, m, s)
+            nxt = engine.select(eps, sub)            # one BO round
+            engine.observe([nxt], flow(pool_idx[nxt][None]))
+
+    The pool ``pool_icd`` [N, d] (numpy or tensor) is moved to ``device``
+    (default ``cuda``; the CPU only when asked for) and every round runs
+    there. See the module docstring for the two paths. ``pool_chunk``
+    (``None`` | int | ``"auto"``, incremental only) sets the chunk width;
+    any width picks the same rows. ``profile_stages`` (incremental only)
+    times each stage of a select round (``PROFILE_STAGES``: the fit, the
+    factor update, the frontier sample and the round's one K4 call), each
+    ended by a device synchronize, into ``stats.stage_wall_s``; the round
+    computes what it computes unprofiled.
+    """
+
+    #: round stages of one exact round (fit, posterior cache, frontier
+    #: sampling, predict, scoring) — the ``dispatches`` counter's unit
+    EXACT_DISPATCHES_PER_ROUND = 5
+
+    def __init__(self, pool_icd, *, incremental: bool = True,
+                 warm_start: bool | None = None, gp_steps: int = 150,
+                 warm_steps: int | None = None, drift_tol: float = 1.0,
+                 bucket: int = PAD_BUCKET, s_frontiers: int = 10,
+                 weights=None, pool_chunk: int | str | None = None,
+                 profile_stages: bool = False, device=None):
+        self._configure(pool_icd, incremental=incremental,
+                        warm_start=warm_start, gp_steps=gp_steps,
+                        warm_steps=warm_steps, drift_tol=drift_tol,
+                        bucket=bucket, s_frontiers=s_frontiers,
+                        weights=weights, pool_chunk=pool_chunk, device=device)
+        if profile_stages and not self.incremental:
+            raise ValueError("profile_stages requires incremental=True: the "
+                             "exact path has no profiled round")
+        self.profile_stages = bool(profile_stages)
+        self._rows: list[int] = []
+        self._y: np.ndarray | None = None       # [k, m] raw minimized metrics
+        self._eval_mask = torch.zeros(self.N, dtype=torch.bool,
+                                      device=self.device)
 
     # ------------------------------------------------------------- observe
     def observe(self, rows, y) -> None:
@@ -427,13 +680,6 @@ class BOEngine:
     def _weights(self) -> torch.Tensor:
         return (torch.ones(self.m, device=self.device) if self.weights is None
                 else self.weights)
-
-    def _eps(self, eps) -> torch.Tensor:
-        return torch.as_tensor(eps, dtype=torch.float32, device=self.device)
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     # -------------------------------------------------------------- select
     def select(self, eps, sub_rows=None) -> int:
@@ -613,29 +859,6 @@ class BOEngine:
         return out
 
     # ------------------------------------------------------------- helpers
-    @staticmethod
-    def _padded_batch(rows: list[int], y: np.ndarray, P: int):
-        """Pad (rows, raw y) to P with ``pad_training``'s conventions: pad
-        rows repeat the last real row (the +10 x shift is applied in the
-        round), targets are negated; ``mask`` is 1.0 on pad rows."""
-        n = len(rows)
-        rows_pad = np.asarray(rows + [rows[-1]] * (P - n), np.int32)
-        y_neg = -np.asarray(y, np.float32)
-        y_pad = np.concatenate([y_neg, np.tile(y_neg[-1:], (P - n, 1))], 0)
-        mask = np.concatenate([np.zeros(n, np.float32),
-                               np.ones(P - n, np.float32)])
-        return rows_pad, y_pad, mask
-
-    def _alloc_state(self, params0: GPParams, P: int, fresh: bool) -> EngineState:
-        if self._state is not None and not fresh:
-            return self._state._replace(params=params0)
-        m = self.m
-        L = torch.zeros((m, P, P), device=self.device)
-        V = torch.zeros((self._nc, m, P, self._C), device=self.device)
-        ref = (GPParams(*(t.clone() for t in params0)) if self._state is None
-               else self._state.params_ref)
-        return EngineState(params0, ref, L, V)
-
     def refactor_residual(self) -> float:
         """max |L_incremental − L_full| under the current ``params_ref``: the
         block-update error a full factorization would remove (a test hook;
@@ -650,66 +873,13 @@ class BOEngine:
         L_full = _chol_refactor(self._state.params_ref, x, mask)
         return float(torch.max(torch.abs(self._state.L - L_full)))
 
-    # --------------------------------------------------- lifecycle hooks
-    def _check_live(self) -> None:
-        if getattr(self, "_released", False):
-            raise RuntimeError(
-                "engine has been released: its device arrays are gone. "
-                "Build a fresh engine and load_state_dict() a snapshot "
-                "taken BEFORE release() to continue this trajectory")
-
-    def device_bytes(self) -> int:
-        """Bytes of the engine's persistent arrays (chunked pool, evaluated
-        mask, incremental state, last padded batch, frozen y*): exactly what
-        :meth:`release` frees."""
-        if getattr(self, "_released", False):
-            return 0
-        arrays = [self._pool_c, self._eval_mask, self._last_ystar]
-        if self._state is not None:
-            arrays += [*self._state.params, *self._state.params_ref,
-                       self._state.L, self._state.V]
-        if self._last_batch is not None:
-            arrays += list(self._last_batch)
-        return sum(a.nbytes if isinstance(a, np.ndarray)
-                   else a.numel() * a.element_size()
-                   for a in arrays if a is not None)
-
-    def release(self) -> None:
-        """Drop every persistent array; later observe/select/state_dict
-        calls raise. Idempotent."""
-        self._released = True
-        self._state = None
-        self._last_params = None
-        self._last_batch = None
-        self._last_ystar = None
-        self._eval_mask = None
-        self._pool_c = None
-        self.pool = None
-
     # -------------------------------------------- state (de)serialization
     def state_dict(self) -> dict:
         """Complete engine snapshot in the reference's key layout: a nested
         dict of numpy arrays (copies, never views of live state) and
         JSON-able scalars. :meth:`load_state_dict` on a fresh engine (same
         pool, same knobs) continues the trajectory bit-exactly."""
-        self._check_live()
-        d = {"format": ENGINE_STATE_FORMAT, "kind": type(self).__name__,
-             "incremental": self.incremental, "bucket": self.bucket,
-             "pool_shape": list(self.pool.shape), "P": self._P,
-             "n_at_last_select": self._n_at_last_select,
-             "stats": self.stats.as_dict()}
-        if self._state is not None:
-            d["state"] = {"params": _params_to_np(self._state.params),
-                          "params_ref": _params_to_np(self._state.params_ref),
-                          "L": _np(self._state.L), "V": _np(self._state.V)}
-        if self._last_params is not None:
-            d["last_params"] = _params_to_np(self._last_params)
-        if self._last_batch is not None:
-            rp, yp, mk = self._last_batch
-            d["last_batch"] = {"rows_pad": rp.copy(), "y_pad": yp.copy(),
-                               "mask": mk.copy()}
-        if self._last_ystar is not None:
-            d["last_ystar"] = _np(self._last_ystar)
+        d = self._base_state_dict()
         d["rows"] = np.asarray(self._rows, np.int64)
         d["y"] = None if self._y is None else self._y.copy()
         return d
@@ -717,59 +887,7 @@ class BOEngine:
     def load_state_dict(self, d: dict) -> None:
         """Restore a :meth:`state_dict` snapshot (validates format, engine
         kind, bucket/incremental flags, pool shape and chunk grid)."""
-        self._check_live()
-        if d.get("format") != ENGINE_STATE_FORMAT:
-            raise ValueError(
-                f"engine snapshot format {d.get('format')!r} is not the "
-                f"supported format {ENGINE_STATE_FORMAT}")
-        if d.get("kind") != type(self).__name__:
-            raise ValueError(f"snapshot was taken from a {d.get('kind')!r}, "
-                             f"not a {type(self).__name__}")
-        for key in ("incremental", "bucket"):
-            if d.get(key) != getattr(self, key):
-                raise ValueError(
-                    f"snapshot {key}={d.get(key)!r} does not match this "
-                    f"engine's {key}={getattr(self, key)!r}")
-        if list(d.get("pool_shape", [])) != list(self.pool.shape):
-            raise ValueError(
-                f"snapshot pool shape {d.get('pool_shape')} does not match "
-                f"this engine's pool {list(self.pool.shape)}: resume must "
-                "use the identical candidate pool")
-        if "pool_edit" in d:
-            raise NotImplementedError(
-                "repro_torch: snapshots of edited pools need pool_append / "
-                "pool_replace, not ported yet (ROADMAP queue 1, item 11)")
-        self._P = int(d["P"])
-        self._n_at_last_select = int(d["n_at_last_select"])
-        self.stats = EngineStats.from_dict(d["stats"])
-        if "state" in d:
-            st = d["state"]
-            V = np.asarray(st["V"], np.float32)
-            if V.shape[-1] != self._C or V.shape[-4] != self._nc:
-                raise ValueError(
-                    f"snapshot V cache has chunk grid nc={V.shape[-4]}, "
-                    f"C={V.shape[-1]} but this engine resolved nc="
-                    f"{self._nc}, C={self._C}: resume with the pool_chunk "
-                    "the snapshot was taken with")
-            self._state = EngineState(
-                _params_from_np(st["params"], self.device),
-                _params_from_np(st["params_ref"], self.device),
-                torch.tensor(np.asarray(st["L"], np.float32),
-                             device=self.device),
-                torch.tensor(V, device=self.device))
-        else:
-            self._state = None
-        self._last_params = (_params_from_np(d["last_params"], self.device)
-                             if "last_params" in d else None)
-        lb = d.get("last_batch")
-        self._last_batch = (None if lb is None else
-                            (np.array(lb["rows_pad"], np.int32),
-                             np.array(lb["y_pad"], np.float32),
-                             np.array(lb["mask"], np.float32)))
-        self._last_ystar = (None if d.get("last_ystar") is None else
-                            torch.tensor(np.asarray(d["last_ystar"],
-                                                    np.float32),
-                                         device=self.device))
+        self._load_base_state_dict(d)
         self._rows = [int(r) for r in np.asarray(d["rows"]).reshape(-1)]
         self._y = (None if d.get("y") is None
                    else np.array(d["y"], np.float32))
@@ -778,3 +896,407 @@ class BOEngine:
         if self._rows:
             self._eval_mask[torch.as_tensor(self._rows,
                                             device=self.device)] = True
+
+
+def _drift_batch(params: GPParams, params_ref: GPParams) -> torch.Tensor:
+    """[S] max |Δ| over each scenario's log-domain hyperparameter leaves."""
+    return torch.stack([torch.abs(a - b).reshape(a.shape[0], -1).amax(1)
+                        for a, b in zip(params, params_ref)]).amax(0)
+
+
+def _scatter(old: torch.Tensor, new: torch.Tensor, idx: torch.Tensor):
+    """``old`` with the scenarios ``idx`` taken from ``new`` (a copy)."""
+    out = old.clone()
+    out[idx] = new[idx]
+    return out
+
+
+class BatchedBOEngine(_EngineBase):
+    """:class:`BOEngine` with a leading scenario axis [S]: the fleet's
+    backend (``repro.core.engine.BatchedBOEngine``)::
+
+        engine = BatchedBOEngine(pool_icd_stack)     # [S, N, d], on cuda
+        engine.observe(rows_per_scenario, ys_per_scenario)
+        picks = engine.select(eps, sub_rows)         # eps [S, m, q, s]
+
+    ``eps`` holds each scenario's normals (one ``TunerDraws.round`` a
+    scenario; a sequence of S arrays is stacked), ``sub_rows`` [S, q] its
+    frontier subsets (None: the whole pool).
+
+    The exact path (``incremental=False``) runs the reference's fleet round:
+    ``pad_training`` to the fleet-wide padded size, ``fit_gp_batch`` (one
+    Adam loop for the whole fleet), ``imoo_scores_batch``, then masking and
+    a first-index argmax per scenario on the host.
+
+    The incremental path: the warm fits of every scenario in one Adam loop
+    and each scenario's drift (phase 1); then, decided on the host per
+    scenario in float32 against ``drift_tol``, a refactor or a block update
+    of its factors. A fresh or grown padded size refactors the whole fleet;
+    otherwise only the drifting scenarios refactor, and a mixed round runs
+    each group on its own and scatters L, V, y* and the picks back, with
+    ``params_ref`` mixed per scenario. The factors and the frontier samples
+    of a group are one batch of G·m.
+
+    **K4 runs once per scenario a round, one scenario after another on one
+    stream**, as the reference's vmapped round calls ``round_score_auto``
+    once a scenario: every K4 call on a device shares one scratch buffer
+    (``kernels/round_fused.py::_scratch``), so scenarios on streams of their
+    own need a scratch a stream first. K4 writes each scenario's V rows in
+    place into the cached [S, nc, m, P, C] tensor.
+
+    ``mesh`` (the reference's ``shard_map`` of the scenario axis) is not
+    ported: the port runs a fleet on one device (ROADMAP queue 1, item
+    14b.8).
+    """
+
+    #: fit_gp_batch, frontier + predict, scores: the ``dispatches`` unit
+    EXACT_DISPATCHES_PER_ROUND = 3
+
+    def __init__(self, pool_icd, *, incremental: bool = True,
+                 warm_start: bool | None = None, gp_steps: int = 150,
+                 warm_steps: int | None = None, drift_tol: float = 1.0,
+                 bucket: int = PAD_BUCKET, s_frontiers: int = 10,
+                 weights=None, pool_chunk: int | str | None = None,
+                 mesh=None, mesh_axis: str | None = None, device=None):
+        if mesh is not None or mesh_axis is not None:
+            raise NotImplementedError(
+                "repro_torch: BatchedBOEngine(mesh=...) is not ported; a "
+                "fleet runs on one device (ROADMAP queue 1, item 14b.8: "
+                "scenario groups, one engine a GPU)")
+        # weights: [S, m] per-scenario acquisition weights or None (None
+        # stays None: the unweighted scores, bit for bit)
+        self._configure(pool_icd, incremental=incremental,
+                        warm_start=warm_start, gp_steps=gp_steps,
+                        warm_steps=warm_steps, drift_tol=drift_tol,
+                        bucket=bucket, s_frontiers=s_frontiers,
+                        weights=weights, pool_chunk=pool_chunk, device=device)
+        if self.pool.dim() != 3:
+            raise ValueError("BatchedBOEngine: pool_icd must be [S, N, d], "
+                             f"got {tuple(self.pool.shape)}")
+        self.S = self.pool.shape[0]
+        self._rows: list[list[int]] = [[] for _ in range(self.S)]
+        self._ys: list[np.ndarray | None] = [None] * self.S
+        self._eval_mask = torch.zeros((self.S, self.N), dtype=torch.bool,
+                                      device=self.device)
+
+    @property
+    def m(self) -> int:
+        if self._ys[0] is None:
+            raise RuntimeError("engine has no observations yet")
+        return self._ys[0].shape[1]
+
+    def _weights(self) -> torch.Tensor:
+        return (torch.ones((self.S, self.m), device=self.device)
+                if self.weights is None else self.weights)
+
+    def _sub(self, sub_rows) -> torch.Tensor:
+        """[S, q] frontier rows on the device (the whole pool when None)."""
+        if sub_rows is None:
+            return torch.arange(self.N, device=self.device).expand(
+                self.S, self.N)
+        return torch.as_tensor(np.asarray(sub_rows, np.int64),
+                               device=self.device)
+
+    # ------------------------------------------------------------- observe
+    def observe(self, rows_per_scenario: Sequence,
+                ys_per_scenario: Sequence) -> None:
+        """Append per-scenario evaluations (lists of rows, [k, m] raw
+        metrics); a scenario's entry may be empty."""
+        self._check_live()
+        if len(rows_per_scenario) != self.S or len(ys_per_scenario) != self.S:
+            raise ValueError(f"expected {self.S} per-scenario entries")
+        scat_s, scat_r = [], []
+        for si, (rows, y) in enumerate(zip(rows_per_scenario,
+                                           ys_per_scenario)):
+            rows = [int(r) for r in np.asarray(rows).reshape(-1)]
+            if not rows:
+                continue
+            y = np.atleast_2d(np.asarray(y, np.float32))
+            if len(rows) != y.shape[0]:
+                raise ValueError(f"observe: scenario {si} has {len(rows)} "
+                                 f"rows but {y.shape[0]} metric rows")
+            self._rows[si].extend(rows)
+            self._ys[si] = (y if self._ys[si] is None
+                            else np.concatenate([self._ys[si], y], 0))
+            scat_s += [si] * len(rows)
+            scat_r += rows
+        if scat_r:
+            self._eval_mask[torch.as_tensor(scat_s, device=self.device),
+                            torch.as_tensor(scat_r, device=self.device)] = True
+
+    # -------------------------------------------------------------- select
+    def select(self, eps, sub_rows=None) -> np.ndarray:
+        """One fleet round; returns the next pool row of each scenario [S]."""
+        self._check_live()
+        if any(y is None for y in self._ys):
+            raise RuntimeError("select() before observe(): nothing to fit")
+        if self.incremental:
+            return self._select_incremental(eps, sub_rows)
+        return self._select_exact(eps, sub_rows)
+
+    def select_q(self, eps, q: int = 1, sub_rows=None, *,
+                 pending: Sequence[Sequence[int]] | None = None,
+                 fantasy: str = "mean") -> np.ndarray:
+        """Select ``q`` candidates a scenario in one round via fantasy
+        updates (:meth:`BOEngine.select_q` for each scenario); returns an
+        [S, q] int array.
+
+        ``pending`` holds each scenario's rows still in flight (ragged):
+        shorter chains are front-padded with steps that leave the scenario
+        as it is, so every scenario's first pick lands on the same step.
+        Each scenario's y* from the round is frozen across the chain. ``q=1``
+        with nothing pending is :meth:`select`. As in the reference, a
+        scenario that runs out of unevaluated rows mid-chain may repeat
+        picks; the caller consumes at most ``N − #evaluated − #pending``
+        fresh picks a scenario."""
+        self._check_live()
+        pending = ([[] for _ in range(self.S)] if pending is None
+                   else [[int(r) for r in p] for p in pending])
+        if len(pending) != self.S:
+            raise ValueError(f"select_q: pending must have {self.S} "
+                             f"per-scenario entries, got {len(pending)}")
+        if q < 1:
+            raise ValueError(f"select_q: q must be >= 1, got {q}")
+        if fantasy not in FANTASY_MODES:
+            raise ValueError(f"select_q: fantasy must be one of "
+                             f"{FANTASY_MODES}, got {fantasy!r}")
+        if q == 1 and not any(pending):
+            return np.asarray(self.select(eps, sub_rows)).reshape(self.S, 1)
+        if not self.incremental:
+            raise ValueError(
+                "q-batch / pending fantasy selection requires "
+                "incremental=True: fantasy appends reuse the incremental "
+                "engine's trailing Cholesky + V-cache updates")
+        if any(y is None for y in self._ys):
+            raise RuntimeError("select_q() before observe(): nothing to fit")
+        for si in range(self.S):
+            if len(set(self._rows[si])) + len(pending[si]) > self.N:
+                raise ValueError(
+                    f"select_q: scenario {si}'s evaluated + pending rows "
+                    f"exceed the pool ({len(pending[si])} pending, pool "
+                    f"{self.N}): pending must be unevaluated pool rows")
+        k_max = max(len(p) for p in pending)
+
+        picks0 = self._select_incremental(eps, sub_rows,
+                                          reserve=k_max + q - 1,
+                                          do_select=(k_max == 0))
+        state, ystar = self._state, self._last_ystar
+        rows_np, y_pad, mask_np = self._last_batch
+        dev, P = self.device, self._P
+        rows_pad = list(torch.as_tensor(rows_np, dtype=torch.int64,
+                                        device=dev))
+        mask = list(torch.as_tensor(mask_np, device=dev))
+        yt = torch.as_tensor(y_pad, device=dev)
+        yn, y_mean, y_std = map(list, zip(*(_standardize(yt[si], mask[si])
+                                            for si in range(self.S))))
+        s0 = (self._n_at_last_select // self.bucket) * self.bucket
+        L, V, weights = list(state.L), state.V, self._weights()
+        evalm = list(self._evalm_chunks())
+        pool_c = self._pool_c
+
+        chains = [[None] * (k_max - len(p)) + list(p) for p in pending]
+        picks: list[list[int]] = ([[] for _ in range(self.S)] if k_max
+                                  else [[int(x)] for x in picks0])
+        ns = [len(r) for r in self._rows]
+        appended = [0] * self.S
+        try:
+            for step in range(k_max + q - 1):
+                need_pick = step >= k_max - 1
+                nxt_step = []
+                for si in range(self.S):
+                    row = (chains[si][step] if step < k_max
+                           else picks[si][-1])
+                    pr = take(state.params_ref, si)
+                    if row is not None:
+                        (L[si], _, rows_pad[si], mask[si], yn[si], evalm[si],
+                         nxt) = _fantasy_step(
+                            pr, L[si], V[si], rows_pad[si], yn[si], mask[si],
+                            pool_c[si], evalm[si], weights[si], y_mean[si],
+                            y_std[si], ystar[si], row, ns[si] + appended[si],
+                            s0=s0, liar=fantasy)
+                        appended[si] += 1
+                        self.stats.fantasy_steps += 1
+                    elif need_pick:  # an idle step: the round's own pick
+                        x = (pool_c[si].reshape(-1, self.d)[rows_pad[si]]
+                             + 10.0 * mask[si][:, None])
+                        _, nxt = _round_fused(
+                            pr, L[si], V[si], x, _train_beta(L[si], yn[si]),
+                            ystar[si], pool_c[si], evalm[si], y_mean[si],
+                            y_std[si], weights[si], P)
+                    if need_pick:
+                        nxt_step.append(nxt)
+                self.stats.dispatches += 1
+                if need_pick:
+                    for si, p in enumerate(torch.stack(nxt_step).tolist()):
+                        picks[si].append(int(p))
+        except BaseException:
+            # K4 updates V in place; a broken chain leaves it half written.
+            # Drop to a cold rebuild (observations are on the host).
+            self._state = None
+            self._P = 0
+            raise
+        # fantasy rows live in [s0, P), which the next round recomputes
+        self._state = state._replace(L=torch.stack(L), V=V)
+        return np.asarray(picks, np.int64)
+
+    def _select_exact(self, eps, sub_rows) -> np.ndarray:
+        """The reference's exact fleet round: every scenario padded to the
+        fleet-wide size, ``fit_gp_batch``, ``imoo_scores_batch``, host
+        masking and argmax."""
+        n_max = max(len(r) for r in self._rows)
+        P = n_max + (-n_max) % self.bucket
+        dev = self.device
+        xs, ys, masks = [], [], []
+        for si in range(self.S):
+            rows = torch.as_tensor(np.asarray(self._rows[si]), device=dev)
+            xp, yp, mk = pad_training(
+                self.pool[si][rows],
+                torch.as_tensor(-self._ys[si], device=dev), P)
+            xs.append(xp), ys.append(yp), masks.append(mk)
+        gp_states = fit_gp_batch(
+            torch.stack(xs), torch.stack(ys), torch.stack(masks),
+            steps=self.gp_steps,
+            params=self._last_params if self.warm_start else None)
+        self._last_params = gp_states.params
+        sub = None if sub_rows is None else self._sub(sub_rows)
+        fc = (None if sub is None else self.pool[
+            torch.arange(self.S, device=dev)[:, None], sub])
+        scores = imoo_scores_batch(gp_states, self.pool, self._eps(eps),
+                                   frontier_cand=fc,
+                                   weights=self.weights).cpu().numpy()
+        picks = np.empty((self.S,), np.int64)
+        for si in range(self.S):
+            s_row = scores[si]
+            s_row[np.asarray(self._rows[si])] = -np.inf  # never re-evaluate
+            picks[si] = int(np.argmax(s_row))
+        self.stats.rounds += 1
+        self.stats.dispatches += self.EXACT_DISPATCHES_PER_ROUND
+        self._n_at_last_select = min(len(r) for r in self._rows)
+        self._P = P
+        return picks
+
+    def _select_incremental(self, eps, sub_rows, *, reserve: int = 0,
+                            do_select: bool = True) -> np.ndarray:
+        """One incremental fleet round. ``reserve`` extra pad rows are
+        provisioned beyond the fleet-wide largest training set for a
+        following fantasy chain; ``do_select=False`` discards the picks
+        (returns -1s)."""
+        n_max = max(len(r) for r in self._rows)
+        P = n_max + reserve
+        P = P + (-P) % self.bucket
+        grew = P != self._P
+        first = self._state is None
+        S, dev = self.S, self.device
+        padded = [self._padded_batch(self._rows[si], self._ys[si], P)
+                  for si in range(S)]
+        rows_np, y_pad, mask_np = (np.stack([p[k] for p in padded])
+                                   for k in range(3))
+        cold, steps = self._fit_schedule(first)
+        if cold:
+            p0 = default_params(self.m, self.d, dev)
+            params0 = GPParams(*(t.expand(S, *t.shape) for t in p0))
+        else:
+            params0 = self._state.params
+        state = self._alloc_state(params0, P, first or grew)
+
+        # phase 1: the fleet's fits in one Adam loop, each scenario's drift
+        mask = torch.as_tensor(mask_np, device=dev)
+        pool_flat = self._pool_c.reshape(S, self._N_pad, self.d)
+        sidx = torch.arange(S, device=dev)
+        x = (pool_flat[sidx[:, None],
+                       torch.as_tensor(rows_np, dtype=torch.int64, device=dev)]
+             + 10.0 * mask[:, :, None])
+        yt = torch.as_tensor(y_pad, device=dev)
+        yn, y_mean, y_std = (torch.stack(t) for t in zip(
+            *(_standardize(yt[si], mask[si]) for si in range(S))))
+        params = _fit_batch(state.params, x, yn, mask, steps)
+        drift = _drift_batch(params, state.params_ref).cpu().numpy()
+        s0 = 0 if (first or grew) else \
+            (self._n_at_last_select // self.bucket) * self.bucket
+        if first or grew or s0 <= 0:
+            ref_idx = np.arange(S)
+        else:
+            ref_idx = np.flatnonzero(drift > np.float32(self.drift_tol))
+        upd_idx = np.setdiff1d(np.arange(S), ref_idx)
+
+        # phase 2: each group's factors and frontier samples, then one K4
+        # launch a scenario (V updated in place)
+        if upd_idx.size == 0:
+            params_ref = params
+        elif ref_idx.size == 0:
+            params_ref = state.params_ref
+        else:
+            ri = torch.as_tensor(ref_idx, device=dev)
+            params_ref = GPParams(*(_scatter(o, n, ri) for n, o in
+                                    zip(params, state.params_ref)))
+        sub, eps_t = self._sub(sub_rows), self._eps(eps)
+        evalm, weights = self._evalm_chunks(), self._weights()
+        L = torch.empty_like(state.L)
+        ystar = torch.empty((S, self.s_frontiers, self.m), device=dev)
+        picks_t = [None] * S
+        for idx, refactor in ((ref_idx, True), (upd_idx, False)):
+            if not idx.size:
+                continue
+            ii = torch.as_tensor(idx, device=dev)
+            g = ((lambda t: t) if idx.size == S else (lambda t: t[ii]))
+            pr = params_ref if idx.size == S else take(params_ref, ii)
+            L_g = (_chol_refactor_batch(pr, g(x), g(mask)) if refactor else
+                   _chol_block_batch(pr, g(state.L), g(x), g(mask), s0))
+            beta, ystar_g = _beta_ystar_batch(pr, L_g, g(x), g(yn),
+                                              g(y_mean), g(y_std),
+                                              g(pool_flat), g(sub), g(eps_t))
+            L[ii], ystar[ii] = L_g, ystar_g
+            for j, si in enumerate(idx):
+                _, picks_t[si] = _round_fused(
+                    take(pr, j), L_g[j], state.V[si], x[si], beta[j],
+                    ystar_g[j], self._pool_c[si], evalm[si], y_mean[si],
+                    y_std[si], weights[si], 0 if refactor else s0)
+        if ref_idx.size == S:
+            self.stats.refactors += 1
+        elif upd_idx.size == S:
+            self.stats.block_updates += 1
+        else:
+            self.stats.mixed_rounds += 1
+            self.stats.dispatches += 1  # the group split costs one extra
+        self.stats.scenario_refactors += int(ref_idx.size)
+        self.stats.scenario_block_updates += int(upd_idx.size)
+
+        self._state = EngineState(params, params_ref, L, state.V)
+        self._P = P
+        self._n_at_last_select = min(len(r) for r in self._rows)
+        self._last_batch = (rows_np, y_pad, mask_np)
+        self._last_ystar = ystar
+        self.stats.rounds += 1
+        self.stats.dispatches += 2
+        self.stats.frontier_resamples += 1
+        self.stats.last_drift = float(drift.max())
+        if not do_select:
+            return np.full((S,), -1, np.int64)
+        return torch.stack(picks_t).cpu().numpy().astype(np.int64)
+
+    # -------------------------------------------- state (de)serialization
+    def state_dict(self) -> dict:
+        """:meth:`BOEngine.state_dict` of the fleet: the training sets are
+        ragged, so rows and targets are stored per scenario index."""
+        d = self._base_state_dict()
+        d["rows"] = {str(si): np.asarray(r, np.int64)
+                     for si, r in enumerate(self._rows)}
+        d["ys"] = {str(si): None if y is None else y.copy()
+                   for si, y in enumerate(self._ys)}
+        return d
+
+    def load_state_dict(self, d: dict) -> None:
+        self._load_base_state_dict(d)
+        self._rows = [[int(r) for r in
+                       np.asarray(d["rows"][str(si)]).reshape(-1)]
+                      for si in range(self.S)]
+        self._ys = [None if d["ys"].get(str(si)) is None
+                    else np.array(d["ys"][str(si)], np.float32)
+                    for si in range(self.S)]
+        self._eval_mask = torch.zeros((self.S, self.N), dtype=torch.bool,
+                                      device=self.device)
+        scat_s = [si for si, rows in enumerate(self._rows) for _ in rows]
+        scat_r = [r for rows in self._rows for r in rows]
+        if scat_r:
+            self._eval_mask[torch.as_tensor(scat_s, device=self.device),
+                            torch.as_tensor(scat_r, device=self.device)] = True

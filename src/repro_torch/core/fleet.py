@@ -1,0 +1,421 @@
+"""Fleet runner: several SoC exploration scenarios in one batched run.
+
+A port of ``repro.core.fleet``. ``soc_tuner`` explores one (workload, seed);
+the fleet turns the outer loop over scenarios inside out:
+
+* every round fits and scores ALL scenarios on one
+  :class:`~repro_torch.core.engine.BatchedBOEngine` (one Adam loop for the
+  whole fleet's GPs);
+* flow evaluations go through a memoized cache keyed by (workload, pool
+  row), shared by the scenarios: two seeds exploring resnet50 never pay
+  twice for the same design;
+* cache misses pending for different workloads are evaluated by one launch
+  of the ``systolic_eval`` kernel's multi-workload entry
+  (``soc_metrics_multi``).
+
+Each scenario draws from its own :class:`repro_torch.random.TunerDraws`,
+consumed exactly as ``soc_tuner`` consumes it (``prologue`` once, then
+``round`` once a round), so a fleet of one picks what ``soc_tuner`` picks on
+the same draws, and its flushes are the flow calls ``soc_tuner`` makes.
+
+Usage::
+
+    from repro_torch.core import FleetScenario, fleet_tuner, make_space
+    space = make_space()
+    pool = space.sample(torch.Generator("cuda").manual_seed(0), 1000)
+    fr = fleet_tuner(space, pool.cpu().numpy(),
+                     [FleetScenario("resnet50", seed=0),
+                      FleetScenario("transformer", seed=0,
+                                    weights=(2.0, 1.0, 1.0))],
+                     T=15, n=20, b=12)
+    print(fr.cache.summary())
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import systolic_eval as _systolic_eval
+from repro_torch.obs.progress import log_progress
+from repro_torch.random import GeneratorDraws, TunerDraws
+from repro_torch.soc.workloads import get_workload, pad_workloads
+
+from .engine import BatchedBOEngine
+from .icd import icd_from_data
+from .sampling import soc_init
+from .space import DesignSpace
+from .tuner import TunerResult, _front, merge_trial_evals
+
+__all__ = ["FleetScenario", "FleetResult", "FlowEvalCache", "fleet_tuner",
+           "fleet_prologue"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetScenario:
+    """One exploration scenario: a workload, a seed (of its default draws)
+    and an optional per-objective acquisition weighting (latency, power,
+    area)."""
+
+    workload: str
+    seed: int = 0
+    weights: tuple[float, float, float] = (1.0, 1.0, 1.0)
+
+    @property
+    def label(self) -> str:
+        w = ""
+        if tuple(self.weights) != (1.0, 1.0, 1.0):
+            w = ":w" + "x".join(f"{x:g}" for x in self.weights)
+        return f"{self.workload}:s{self.seed}{w}"
+
+
+class FlowEvalCache:
+    """Memoized flow evaluations shared across a fleet, keyed by
+    ``(workload, pool row)``.
+
+    A flush evaluates every miss of a request: one ``systolic_eval`` launch
+    when one workload is pending (the call ``VLSIFlow`` makes, so a fleet of
+    one evaluates bit for bit what ``soc_tuner`` does), one launch of its
+    multi-workload entry when several are (rows padded to a common count by
+    repeating each workload's first row), or, with ``flow_factory``
+    (``workload -> flow callable``), one call of each pending workload's
+    flow on the design-index rows. ``hits``/``misses`` count requested
+    rows, ``evaluated`` the designs evaluated (the stored entries),
+    ``flow_calls`` the flushes' calls; ``peek_hits``/``peek_misses`` the
+    lookups of :meth:`peek`, ``invalidated`` the entries
+    :meth:`invalidate_rows` dropped. The reference's on-disk cache
+    (``disk``) is not ported yet and raises."""
+
+    def __init__(self, space: DesignSpace, pool_idx: np.ndarray,
+                 workloads: Sequence[str], disk=None, flow_factory=None,
+                 device=None):
+        if disk is not None:
+            raise NotImplementedError(
+                "repro_torch.FlowEvalCache: the on-disk flow cache is not "
+                "ported yet (ROADMAP queue 1, item 12)")
+        self.space = space
+        self.pool_idx = np.asarray(pool_idx)
+        self.device = resolve_device(device)
+        self.layers = {w: np.asarray(get_workload(w), np.float64)
+                       for w in dict.fromkeys(workloads)}
+        self._layers_t = {w: torch.as_tensor(l, dtype=torch.float32,
+                                             device=self.device).contiguous()
+                          for w, l in self.layers.items()}
+        self._store: dict[str, dict[int, np.ndarray]] = {
+            w: {} for w in self.layers}
+        self._flows = (None if flow_factory is None
+                       else {w: flow_factory(w) for w in self.layers})
+        self.hits = 0
+        self.misses = 0
+        self.flow_calls = 0
+        self.evaluated = 0
+        self.peek_hits = 0
+        self.peek_misses = 0
+        self.invalidated = 0
+
+    def invalidate_rows(self, rows) -> None:
+        """Drop the entries of pool rows whose design changed (the memo is
+        keyed by row index)."""
+        for r in np.asarray(rows).reshape(-1):
+            for store in self._store.values():
+                if store.pop(int(r), None) is not None:
+                    self.invalidated += 1
+
+    def peek(self, workload: str, row) -> np.ndarray | None:
+        """Lookup of one pool row without evaluating it (counted apart from
+        the flushes' hits and misses)."""
+        y = self._store[workload].get(int(row))
+        if y is None:
+            self.peek_misses += 1
+        else:
+            self.peek_hits += 1
+        return y
+
+    def store(self, workload: str, row, y) -> None:
+        """Record a result evaluated elsewhere."""
+        if int(row) not in self._store[workload]:
+            self.evaluated += 1
+        self._store[workload][int(row)] = np.asarray(y)
+
+    @property
+    def requests(self) -> int:
+        return self.hits + self.misses
+
+    @property
+    def hit_rate(self) -> float:
+        return self.hits / max(self.requests, 1)
+
+    def summary(self) -> str:
+        return (f"cache: {self.requests} requests, {self.hits} hits "
+                f"({100.0 * self.hit_rate:.1f}%), {self.evaluated} "
+                f"designs evaluated in {self.flow_calls} flow dispatches")
+
+    def evaluate_many(self, reqs: list[tuple[str, np.ndarray]]
+                      ) -> list[np.ndarray]:
+        """Resolve ``[(workload, rows), ...]`` -> ``[y [len(rows), 3], ...]``;
+        every miss of every request is evaluated in one flush first."""
+        pending: dict[str, list[int]] = {}
+        for wl, rows in reqs:
+            store = self._store[wl]
+            seen = pending.setdefault(wl, [])
+            for r in np.asarray(rows).reshape(-1):
+                r = int(r)
+                if r in store or r in seen:
+                    self.hits += 1
+                else:
+                    seen.append(r)
+                    self.misses += 1
+        self._flush({w: rows for w, rows in pending.items() if rows})
+        return [np.stack([self._store[wl][int(r)]
+                          for r in np.asarray(rows).reshape(-1)])
+                for wl, rows in reqs]
+
+    def evaluate(self, workload: str, rows: np.ndarray) -> np.ndarray:
+        return self.evaluate_many([(workload, rows)])[0]
+
+    def _values(self, rows: list[int]) -> torch.Tensor:
+        """Raw design values [k, 26] of pool rows, on the device."""
+        return torch.as_tensor(self.space.values(self.pool_idx[np.asarray(rows)]),
+                               dtype=torch.float32, device=self.device)
+
+    def _flush(self, pending: dict[str, list[int]]) -> None:
+        if not pending:
+            return
+        if self._flows is not None:
+            for wl, rows in pending.items():
+                self.flow_calls += 1
+                self.evaluated += len(rows)
+                y = np.atleast_2d(np.asarray(
+                    self._flows[wl](self.pool_idx[np.asarray(rows)])))
+                for r, yr in zip(rows, y):
+                    self._store[wl][r] = yr
+            return
+        self.flow_calls += 1
+        self.evaluated += sum(len(r) for r in pending.values())
+        if len(pending) == 1:
+            (wl, rows), = pending.items()
+            y = _systolic_eval.soc_metrics(
+                self._values(rows).contiguous(),
+                self._layers_t[wl]).cpu().numpy()
+            for r, yr in zip(rows, y):
+                self._store[wl][r] = yr
+            return
+        names = list(pending)
+        rmax = max(len(pending[w]) for w in names)
+        vals = torch.stack([
+            self._values(pending[w] + pending[w][:1] * (rmax - len(pending[w])))
+            for w in names]).contiguous()
+        layers, mask = pad_workloads([self.layers[w] for w in names])
+        y = _systolic_eval.soc_metrics_multi(
+            vals, torch.as_tensor(layers, dtype=torch.float32,
+                                  device=self.device).contiguous(),
+            torch.as_tensor(mask, dtype=torch.float32,
+                            device=self.device).contiguous()).cpu().numpy()
+        for wi, w in enumerate(names):
+            for ri, r in enumerate(pending[w]):
+                self._store[w][r] = y[wi, ri]
+
+
+@dataclasses.dataclass
+class FleetResult:
+    scenarios: list[FleetScenario]
+    results: list[TunerResult]      # per scenario, soc_tuner's layout
+    cache: FlowEvalCache
+    wall_s: float
+
+    def final_adrs(self) -> dict[str, float]:
+        """label -> last-round ADRS (scenarios with a reference front)."""
+        return {sc.label: res.history[-1]["adrs"]
+                for sc, res in zip(self.scenarios, self.results)
+                if "adrs" in res.history[-1]}
+
+
+@dataclasses.dataclass
+class _ScenarioState:
+    """Host-side bookkeeping of one scenario between fleet rounds."""
+
+    draws: TunerDraws
+    v: np.ndarray
+    pruned: DesignSpace
+    pool_icd: torch.Tensor           # [N, d]
+    evaluated: list[int]
+    y: np.ndarray                    # [k, 3]
+    weights: tuple[float, ...] | None
+    history: list[dict]
+
+
+def fleet_prologue(space: DesignSpace, pool_idx: np.ndarray,
+                   scenarios: Sequence[FleetScenario], cache: FlowEvalCache,
+                   draws: Sequence[TunerDraws], *, n: int, mu: float, b: int,
+                   v_th: float, reuse_icd_trials: bool,
+                   device=None) -> list[_ScenarioState]:
+    """Algorithm 3 lines 1-4 for every scenario: the ICD trials of all
+    scenarios in one flush, then each scenario's importance, pruning and
+    TED init, then the init evaluations in one flush. Scenario i's
+    ``draws[i].prologue`` is called once, as ``soc_tuner`` calls it."""
+    dev = resolve_device(device)
+    N = pool_idx.shape[0]
+    trial_sets = [np.asarray(dr.prologue(N, n)) for dr in draws]
+    states = [_ScenarioState(
+        draws=dr, v=np.zeros(space.d), pruned=space, pool_icd=None,
+        evaluated=[], y=np.zeros((0, 3)),
+        weights=(None if tuple(sc.weights) == (1.0, 1.0, 1.0)
+                 else tuple(float(w) for w in sc.weights)),
+        history=[]) for sc, dr in zip(scenarios, draws)]
+    trial_ys = cache.evaluate_many(
+        [(sc.workload, rows) for sc, rows in zip(scenarios, trial_sets)])
+
+    init_reqs = []
+    for sc, st, trial_rows, trial_y in zip(scenarios, states, trial_sets,
+                                           trial_ys):
+        st.v = icd_from_data(space, pool_idx[trial_rows], trial_y)
+        init_rows, st.pruned, st.pool_icd = soc_init(
+            space, pool_idx, st.v, v_th=v_th, b=b, mu=mu, device=dev)
+        st.evaluated = list(dict.fromkeys(int(r) for r in init_rows))
+        init_reqs.append((sc.workload, np.asarray(st.evaluated)))
+    init_ys = cache.evaluate_many(init_reqs)
+
+    for sc, st, trial_rows, trial_y, init_y in zip(
+            scenarios, states, trial_sets, trial_ys, init_ys):
+        st.evaluated, st.y = merge_trial_evals(
+            st.evaluated, init_y, trial_rows, trial_y, reuse_icd_trials)
+    return states
+
+
+def fleet_tuner(
+    space: DesignSpace,
+    pool_idx: np.ndarray,
+    scenarios: Sequence[FleetScenario],
+    *,
+    T: int = 40,
+    n: int = 30,
+    mu: float = 0.1,
+    b: int = 20,
+    v_th: float = 0.07,
+    s_frontiers: int = 10,
+    frontier_subset: int = 512,
+    gp_steps: int = 150,
+    reference_fronts: dict[str, np.ndarray] | None = None,
+    reuse_icd_trials: bool = True,
+    incremental: bool = False,
+    warm_start: bool | None = None,
+    warm_steps: int | None = None,
+    drift_tol: float = 1.0,
+    pool_chunk: int | str | None = None,
+    mesh=None,
+    mesh_axis: str | None = None,
+    disk_cache=None,
+    flow_factory=None,
+    checkpoint_dir: str | None = None,
+    resume: bool = False,
+    proposer=None,
+    draws: Sequence[TunerDraws] | None = None,
+    device=None,
+    verbose: bool = False,
+) -> FleetResult:
+    """Explore every scenario of a fleet over the SAME candidate pool.
+
+    The knobs are :func:`repro_torch.core.soc_tuner`'s and apply to every
+    scenario; ``reference_fronts`` maps a workload to its true Pareto front
+    for the per-round ADRS. ``draws`` holds one :class:`TunerDraws` a
+    scenario (default: ``GeneratorDraws(sc.seed, device)``). The rounds run
+    on one :class:`BatchedBOEngine` on ``device`` (default ``cuda``; the CPU
+    only when asked for): ``incremental=False`` is the exact fleet round,
+    ``incremental=True`` warm fits, block Cholesky updates and one
+    ``round_fused`` launch a scenario, the refactor decided per scenario.
+    ``flow_factory`` (``workload -> flow``) replaces the built-in cost model
+    (see :class:`FlowEvalCache`). Returns one ``TunerResult`` a scenario,
+    in ``soc_tuner``'s layout (each round's ``wall_s`` is the fleet round's),
+    and the cache.
+
+    ``mesh``/``mesh_axis`` (ROADMAP queue 1, item 14b.8), ``disk_cache``,
+    ``checkpoint_dir``/``resume`` (item 12) and ``proposer`` (item 11)
+    belong to parts of the reference not ported yet and raise.
+    """
+    for name, unported, item in (
+            ("mesh", mesh is not None or mesh_axis is not None, "14b.8"),
+            ("disk_cache", disk_cache is not None, "12"),
+            ("checkpoint_dir", checkpoint_dir is not None, "12"),
+            ("resume", bool(resume), "12"),
+            ("proposer", bool(proposer), "11")):
+        if unported:
+            raise NotImplementedError(
+                f"repro_torch.fleet_tuner: {name} is not ported yet (ROADMAP "
+                f"queue 1, item {item})")
+    t0 = time.monotonic()
+    dev = resolve_device(device)
+    # IEEE float32 products everywhere, never TF32 (as soc_tuner)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scenarios = list(scenarios)
+    draws = ([GeneratorDraws(sc.seed, dev) for sc in scenarios]
+             if draws is None else list(draws))
+    if len(draws) != len(scenarios):
+        raise ValueError(f"fleet_tuner: {len(scenarios)} scenarios but "
+                         f"{len(draws)} draws")
+    pool_idx = np.asarray(pool_idx)
+    N = pool_idx.shape[0]
+    reference_fronts = reference_fronts or {}
+    cache = FlowEvalCache(space, pool_idx, [sc.workload for sc in scenarios],
+                          flow_factory=flow_factory, device=dev)
+
+    states = fleet_prologue(space, pool_idx, scenarios, cache, draws, n=n,
+                            mu=mu, b=b, v_th=v_th,
+                            reuse_icd_trials=reuse_icd_trials, device=dev)
+    t_round = time.monotonic()
+
+    def log_round(i: int) -> None:
+        nonlocal t_round
+        now = time.monotonic()
+        for sc, st in zip(scenarios, states):
+            log_progress(st.history, st.y, len(st.evaluated), i,
+                         reference_fronts.get(sc.workload), verbose=verbose,
+                         wall_s=now - t_round, device=dev, tag="fleet",
+                         label=sc.label)
+        t_round = now
+
+    log_round(0)
+    any_weights = any(st.weights is not None for st in states)
+    weights = (np.asarray([st.weights or (1.0, 1.0, 1.0) for st in states],
+                          np.float32) if any_weights else None)
+
+    # Lines 5-10: the BO loop, batched across scenarios on one engine (it
+    # negates the targets and owns the masks and the argmax)
+    engine = BatchedBOEngine(torch.stack([st.pool_icd for st in states]),
+                             incremental=incremental, warm_start=warm_start,
+                             gp_steps=gp_steps, warm_steps=warm_steps,
+                             drift_tol=drift_tol, s_frontiers=s_frontiers,
+                             weights=weights, pool_chunk=pool_chunk,
+                             device=dev)
+    engine.observe([st.evaluated for st in states], [st.y for st in states])
+    for it in range(T):
+        subs, eps = zip(*(st.draws.round(N, frontier_subset, engine.m,
+                                         s_frontiers) for st in states))
+        picks = [int(p) for p in engine.select(
+            list(eps), sub_rows=None if subs[0] is None else np.stack(subs))]
+        # Line 8: every scenario's pick in one flush
+        pick_ys = cache.evaluate_many(
+            [(sc.workload, np.asarray([p]))
+             for sc, p in zip(scenarios, picks)])
+        engine.observe([[p] for p in picks], pick_ys)
+        for st, p, y_new in zip(states, picks, pick_ys):
+            st.evaluated.append(p)
+            st.y = np.concatenate([st.y, y_new], axis=0)
+        log_round(it + 1)
+
+    wall = time.monotonic() - t0
+    results = []
+    for st in states:
+        rows = np.asarray(st.evaluated)
+        front = _front(st.y, dev)
+        results.append(TunerResult(
+            space=st.pruned, v=np.asarray(st.v), evaluated_rows=rows, y=st.y,
+            pareto_rows=rows[front], pareto_y=st.y[front],
+            history=st.history, wall_s=wall,
+            engine_stats=engine.stats.as_dict()))
+    return FleetResult(scenarios=scenarios, results=results, cache=cache,
+                       wall_s=wall)

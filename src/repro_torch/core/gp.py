@@ -8,6 +8,10 @@ schedule and clamps, with Adam written out so it rounds like the reference.
 
 Only inference kernel matrices go through the ``pairdist`` kernel; the NLL
 gradient path stays on differentiable PyTorch ops.
+
+:func:`fit_gp_batch` fits S scenarios at once by folding the scenario axis
+into the objective axis that ``_nll`` already batches: one Adam step for S
+scenarios launches what one step for one scenario launches.
 """
 from __future__ import annotations
 
@@ -19,8 +23,9 @@ import torch
 
 from repro_torch.kernels import pairdist as _pairdist
 
-__all__ = ["GPParams", "GPState", "fit_gp", "pad_training", "gp_predict",
-           "gp_joint_samples", "default_params", "JITTER", "PAD_BUCKET"]
+__all__ = ["GPParams", "GPState", "fit_gp", "fit_gp_batch", "pad_training",
+           "gp_predict", "gp_joint_samples", "default_params", "JITTER",
+           "PAD_BUCKET"]
 
 JITTER = 1e-5
 #: padding granularity of the growing training set
@@ -73,20 +78,25 @@ def _kernels(params: GPParams, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 
 def _nll(log_ls, log_var, log_noise, x, y, mask) -> torch.Tensor:
-    """Summed exact negative log marginal likelihood of the m objectives
-    (``repro.core.gp._nll_one`` batched over objectives), with the weak
-    log-normal hyperpriors. Differentiable."""
-    n = x.shape[0]
-    a = x[None, :, :] / torch.exp(log_ls)[:, None, :]          # [m, n, d]
+    """Summed exact negative log marginal likelihood of B independent GPs
+    (``repro.core.gp._nll_one`` batched), with the weak log-normal
+    hyperpriors. Differentiable. ``y`` is [n, B]; ``x`` [n, d] and ``mask``
+    [n] are shared by the B GPs (the m objectives of one scenario) or given
+    per GP as [B, n, d] and [B, n] (the folded scenarios of
+    :func:`fit_gp_batch`)."""
+    n = x.shape[-2]
+    xb = x if x.dim() == 3 else x[None, :, :]
+    a = xb / torch.exp(log_ls)[:, None, :]                      # [B, n, d]
     aa = torch.sum(a * a, dim=-1)
     d2 = torch.maximum(aa[:, :, None] + aa[:, None, :]
                        - 2.0 * (a @ a.transpose(1, 2)), x.new_zeros(()))
     K = torch.exp(log_var)[:, None, None] * torch.exp(-0.5 * d2)
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
     K = K + (torch.exp(log_noise) + JITTER)[:, None, None] * eye
-    K = K + torch.diag(1e6 * mask)
+    K = K + (torch.diag(1e6 * mask) if mask.dim() == 1
+             else torch.diag_embed(1e6 * mask))
     L = _cholesky(K)
-    yt = y.T                                                    # [m, n]
+    yt = y.T                                                    # [B, n]
     alpha = torch.cholesky_solve(yt[:, :, None], L)[:, :, 0]
     nll = (torch.sum(0.5 * yt * alpha, dim=-1)
            + torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
@@ -125,6 +135,29 @@ def _fit(params: GPParams, x, y, mask, steps: int = 200,
                 p[i] = torch.clamp(p[i].detach() - lr * mh / (torch.sqrt(vh) + eps),
                                    lo[i], hi[i])
     return GPParams(*p)
+
+
+def fold(params: GPParams) -> GPParams:
+    """Scenario-major hyperparameters [S, m, ...] -> [S·m, ...] (a view)."""
+    return GPParams(*(t.reshape(-1, *t.shape[2:]) for t in params))
+
+
+def unfold(params: GPParams, S: int) -> GPParams:
+    """[S·m, ...] -> [S, m, ...] (a view): the inverse of :func:`fold`."""
+    return GPParams(*(t.reshape(S, -1, *t.shape[1:]) for t in params))
+
+
+def _fit_batch(params: GPParams, x, yn, mask, steps: int) -> GPParams:
+    """:func:`_fit` of S scenarios in one Adam loop: ``params`` [S, m, ...],
+    ``x`` [S, P, d], standardized ``yn`` [S, P, m], ``mask`` [S, P]. Each
+    scenario's m objectives become m of the S·m GPs that ``_nll`` batches,
+    each with its scenario's rows; for S = 1 every operation sees the
+    values ``_fit`` sees."""
+    S, P, m = yn.shape
+    x_f = x.repeat_interleave(m, dim=0)                         # [S·m, P, d]
+    y_f = yn.permute(1, 0, 2).reshape(P, S * m)
+    mask_f = mask.repeat_interleave(m, dim=0)                   # [S·m, P]
+    return unfold(_fit(fold(params), x_f, y_f, mask_f, steps=steps), S)
 
 
 def _posterior_cache(params: GPParams, x, y, mask):
@@ -186,6 +219,40 @@ def fit_gp(x: torch.Tensor, y: torch.Tensor, steps: int = 200,
     params = _fit(params, x, yn, mask, steps=steps)
     chol, alpha = _posterior_cache(params, x, yn, mask)
     return GPState(params, x, yn, y_mean, y_std, chol, alpha)
+
+
+def take(tree, i):
+    """Scenario ``i`` (an index or an index tensor) of every leaf of a
+    batched ``GPParams`` / ``GPState``."""
+    return type(tree)(*(take(t, i) if isinstance(t, tuple) else t[i]
+                        for t in tree))
+
+
+def fit_gp_batch(x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                 steps: int = 200, params: GPParams | None = None) -> GPState:
+    """Fit S independent multi-objective GPs in one Adam loop.
+
+    ``x`` [S, P, d], ``y`` [S, P, m], ``mask`` [S, P] (1.0 on inert padded
+    rows: build each scenario's slice with :func:`pad_training`). Returns a
+    ``GPState`` whose every field carries a leading scenario axis (index one
+    out with :func:`take`). Each scenario is what :func:`fit_gp` fits on its
+    rows; the Adam loop runs once for all (see :func:`_fit_batch`), the
+    standardization and the posterior caches once a scenario."""
+    x = x.to(torch.float32)
+    y = y.to(torch.float32)
+    mask = mask.to(torch.float32)
+    S, _, m = y.shape
+    stats = [_standardize(y[i], mask[i]) for i in range(S)]
+    yn, y_mean, y_std = (torch.stack([s[k] for s in stats]) for k in range(3))
+    if params is None:
+        p0 = default_params(m, x.shape[-1], x.device)
+        params = GPParams(*(t.expand(S, *t.shape) for t in p0))
+    params = _fit_batch(params, x, yn, mask, steps)
+    caches = [_posterior_cache(take(params, i), x[i], yn[i], mask[i])
+              for i in range(S)]
+    return GPState(params, x, yn, y_mean, y_std,
+                   torch.stack([c[0] for c in caches]),
+                   torch.stack([c[1] for c in caches]))
 
 
 def _cross_terms(state: GPState, xq: torch.Tensor):

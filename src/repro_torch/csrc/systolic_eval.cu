@@ -33,6 +33,16 @@
 // decode and the per-design epilogue (powf, log2f, area) run once per
 // design. The plan (G, KR, designs per block, shared bytes) comes from
 // kernels/systolic_eval.py::launch_plan.
+//
+// The multi-workload entry (systolic_eval_multi_launch; the reference's
+// soc_metrics_multi, repro/soc/model.py:170) evaluates W workloads, each on
+// its own n designs, in one launch: vals [W, n, 26], layers [W, Lmax, 5]
+// padded to a common depth and a prefix mask [W, Lmax]; the grid spans
+// (design tile, workload). A block counts its workload's layers L_w from the
+// mask and runs exactly the single-workload kernel on layers 0..L_w-1: each
+// sum is still one chain over the workload's own layers, so a workload's
+// slice is bitwise a single launch on its own table. The plan comes from
+// Lmax.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -237,16 +247,42 @@ __device__ __forceinline__ float ordered_sum(const float* a, int n) {
   return acc;
 }
 
+// The number of real layers of a prefix mask row [n_layers] (1.0 on real
+// layers), counted by warp 0 of the block: -1 if the ones are not a prefix.
+__device__ __forceinline__ int prefix_count(const float* __restrict__ mask,
+                                            int n_layers) {
+  int ones = 0, last = -1;
+  for (int l = threadIdx.x; l < n_layers; l += 32)
+    if (mask[l] != 0.0f) {
+      ++ones;
+      last = l;
+    }
+  ones = __reduce_add_sync(kFull, ones);
+  last = __reduce_max_sync(kFull, last);
+  return last + 1 == ones ? ones : -1;
+}
+
 // KR > 0: a lane keeps its (at most KR) layers' pass-1 values in
-// registers; KR == 0: in the group's shared arrays (any L).
+// registers; KR == 0: in the group's shared arrays (any L). Workload
+// blockIdx.y of the batch: with a mask, its first L_w of n_layers layers
+// (a mask that is not a prefix gives NaN outputs); without, all n_layers.
 template <int KR>
 __global__ void __launch_bounds__(kMaxThreads)
 systolic_eval_kernel(const float* __restrict__ vals,
                      const float* __restrict__ layers,
+                     const float* __restrict__ mask,
                      float* __restrict__ out, int n, int n_layers,
                      int g_log2, int stride) {
   extern __shared__ float smem[];
-  const int L = n_layers;
+  __shared__ int s_count;
+  const size_t w = blockIdx.y;
+  vals += w * n * kNumFeat;
+  layers += w * n_layers * 5;
+  out += w * n * 3;
+  if (mask != nullptr && threadIdx.x < 32) {
+    const int c = prefix_count(mask + w * n_layers, n_layers);
+    if (threadIdx.x == 0) s_count = c;
+  }
   const int G = 1 << g_log2;
   const int lane = threadIdx.x & (G - 1);
   const int groups = blockDim.x >> g_log2;
@@ -255,11 +291,12 @@ systolic_eval_kernel(const float* __restrict__ vals,
   // every lane of a warp runs the same loops (shuffles and __syncwarp)
   const int i = slot < n ? slot : n - 1;
   constexpr int kArrays = KR > 0 ? 3 : 5;
-  float* lay = smem;  // [L, 5]
+  float* lay = smem;  // [n_layers, 5]
   // the group's arrays, `stride` floats each (odd: lanes 0..2 of a sum
   // read three banks): DRAM bytes, MACs then cycles, stream bytes then
   // host cycles, and with KR == 0 compute cycles and tiles
-  float* s_dram = smem + 5 * L + (threadIdx.x >> g_log2) * kArrays * stride;
+  float* s_dram =
+      smem + 5 * n_layers + (threadIdx.x >> g_log2) * kArrays * stride;
   float* s_a = s_dram + stride;
   float* s_b = s_a + stride;
   float* s_comp = s_b + stride;
@@ -268,8 +305,16 @@ systolic_eval_kernel(const float* __restrict__ vals,
   float v[kNumFeat];
 #pragma unroll
   for (int f = 0; f < kNumFeat; ++f) v[f] = vals[(size_t)i * kNumFeat + f];
-  stage_table(lay, layers, 5 * L);
+  stage_table(lay, layers, 5 * n_layers);
   __syncthreads();
+  const int counted = mask != nullptr ? s_count : n_layers;
+  if (counted < 0) {  // not a prefix mask
+    const float nan = __int_as_float(0x7fc00000);
+    if (lane == 0 && slot < n)
+      for (int k = 0; k < 3; ++k) out[(size_t)i * 3 + k] = nan;
+    return;
+  }
+  const int L = counted;
   const Design d = decode(v);
   // the epilogue's per-design terms, early: their powf/log2f latency
   // overlaps pass 1
@@ -310,7 +355,7 @@ systolic_eval_kernel(const float* __restrict__ vals,
   const float sum1 = lane < 3 ? ordered_sum(s_dram + lane * stride, L) : 0.0f;
   __syncwarp();
   const float working = __shfl_sync(kFull, sum1, 0, G);
-  const Pass2 p = pass2_constants(d, working, L);
+  const Pass2 p = pass2_constants(d, working, L > 0 ? L : 1);
 
   // pass 2: the per-layer cycles and host cycles, into the arrays of the
   // MACs and stream bytes (summed above)
@@ -344,9 +389,9 @@ systolic_eval_kernel(const float* __restrict__ vals,
 }
 
 template <int KR>
-cudaError_t launch(const float* vals, const float* layers, float* out, int n,
-                   int n_layers, int g_log2, int threads, int stride,
-                   int smem_bytes, cudaStream_t st) {
+cudaError_t launch(const float* vals, const float* layers, const float* mask,
+                   float* out, int W, int n, int n_layers, int g_log2,
+                   int threads, int stride, int smem_bytes, cudaStream_t st) {
   static int opted_in = 0;  // bytes this instance may use (opt in once)
   if (smem_bytes > opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -356,10 +401,44 @@ cudaError_t launch(const float* vals, const float* layers, float* out, int n,
     opted_in = smem_bytes;
   }
   const int groups = threads >> g_log2;
-  const int blocks = (n + groups - 1) / groups;
-  systolic_eval_kernel<KR><<<blocks, threads, smem_bytes, st>>>(
-      vals, layers, out, n, n_layers, g_log2, stride);
+  const dim3 grid((n + groups - 1) / groups, W);
+  systolic_eval_kernel<KR><<<grid, threads, smem_bytes, st>>>(
+      vals, layers, mask, out, n, n_layers, g_log2, stride);
   return cudaGetLastError();
+}
+
+// Checks a plan and launches W workloads (mask == nullptr: W = 1, no mask).
+int launch_checked(const void* vals, const void* layers, const void* mask,
+                   void* out, int W, int n, int n_layers, int g_log2, int kr,
+                   int threads, int stride, int smem_bytes, void* stream) {
+  const int G = 1 << g_log2;
+  const int arrays = kr > 0 ? 3 : 5;
+  const bool ok =
+      W >= 1 && W <= 65535 && n > 0 && n_layers > 0 && g_log2 >= 2 &&
+      g_log2 <= 5 && (kr == 0 || kr == 1 || kr == 2 || kr == 4) &&
+      (kr == 0 || n_layers <= kr * G) && threads >= 32 &&
+      threads <= kMaxThreads && threads % 32 == 0 && stride >= n_layers &&
+      (size_t)4 * (5 * (size_t)n_layers +
+                   (size_t)(threads / G) * arrays * stride) <=
+          (size_t)smem_bytes;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const float* v = (const float*)vals;
+  const float* l = (const float*)layers;
+  const float* mk = (const float*)mask;
+  float* o = (float*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err;
+  switch (kr) {
+    case 1: err = launch<1>(v, l, mk, o, W, n, n_layers, g_log2, threads,
+                            stride, smem_bytes, st); break;
+    case 2: err = launch<2>(v, l, mk, o, W, n, n_layers, g_log2, threads,
+                            stride, smem_bytes, st); break;
+    case 4: err = launch<4>(v, l, mk, o, W, n, n_layers, g_log2, threads,
+                            stride, smem_bytes, st); break;
+    default: err = launch<0>(v, l, mk, o, W, n, n_layers, g_log2, threads,
+                             stride, smem_bytes, st); break;
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -374,31 +453,20 @@ extern "C" int systolic_eval_launch(const void* vals, const void* layers,
                                     int g_log2, int kr, int threads,
                                     int stride, int smem_bytes,
                                     void* stream) {
-  const int G = 1 << g_log2;
-  const int arrays = kr > 0 ? 3 : 5;
-  const bool ok =
-      n > 0 && n_layers > 0 && g_log2 >= 2 && g_log2 <= 5 &&
-      (kr == 0 || kr == 1 || kr == 2 || kr == 4) &&
-      (kr == 0 || n_layers <= kr * G) && threads >= 32 &&
-      threads <= kMaxThreads && threads % 32 == 0 && stride >= n_layers &&
-      (size_t)4 * (5 * (size_t)n_layers +
-                   (size_t)(threads / G) * arrays * stride) <=
-          (size_t)smem_bytes;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  const float* v = (const float*)vals;
-  const float* l = (const float*)layers;
-  float* o = (float*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err;
-  switch (kr) {
-    case 1: err = launch<1>(v, l, o, n, n_layers, g_log2, threads, stride,
-                            smem_bytes, st); break;
-    case 2: err = launch<2>(v, l, o, n, n_layers, g_log2, threads, stride,
-                            smem_bytes, st); break;
-    case 4: err = launch<4>(v, l, o, n, n_layers, g_log2, threads, stride,
-                            smem_bytes, st); break;
-    default: err = launch<0>(v, l, o, n, n_layers, g_log2, threads, stride,
-                             smem_bytes, st); break;
-  }
-  return (int)err;
+  return launch_checked(vals, layers, nullptr, out, 1, n, n_layers, g_log2,
+                        kr, threads, stride, smem_bytes, stream);
+}
+
+// W workloads in one launch: vals [W, n, 26], layers [W, lmax, 5], mask
+// [W, lmax] (a prefix of 1.0 on each workload's real layers), out
+// [W, n, 3]; the plan is launch_plan's at lmax.
+extern "C" int systolic_eval_multi_launch(const void* vals,
+                                          const void* layers,
+                                          const void* mask, void* out, int W,
+                                          int n, int lmax, int g_log2,
+                                          int kr, int threads, int stride,
+                                          int smem_bytes, void* stream) {
+  if (mask == nullptr) return (int)cudaErrorInvalidValue;
+  return launch_checked(vals, layers, mask, out, W, n, lmax, g_log2, kr,
+                        threads, stride, smem_bytes, stream);
 }

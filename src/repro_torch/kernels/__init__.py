@@ -30,4 +30,5 @@ def reset_launches() -> None:
             counts = getattr(k, by, {})
             for key in counts:
                 counts[key] = 0
-        getattr(k, "shape_launches", {}).clear()
+        for by in ("shape_launches", "multi_shape_launches"):
+            getattr(k, by, {}).clear()

@@ -37,6 +37,7 @@ EXTRA_FLAGS = {"systolic_eval.cu": ["-fmad=false"],
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "systolic_eval_launch": [_P, _P, _P] + [_I] * 7 + [_P],
+    "systolic_eval_multi_launch": [_P] * 4 + [_I] * 8 + [_P],
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pareto_count_launch": [_P, _P] + [_I] * 8 + [_P],
     "round_fused_launch": [_P] * 14 + [_I] * 14 + [_P],

@@ -1,7 +1,9 @@
 """SoC evaluation substrate — the VLSI-flow stand-in."""
 from .flow import VLSIFlow
-from .model import CONST, FEATI, decode_design, metrics_tile
-from .workloads import WORKLOADS, get_workload
+from .model import (CONST, FEATI, decode_design, metrics_multi, metrics_tile,
+                    soc_metrics_multi)
+from .workloads import WORKLOADS, get_workload, pad_workloads
 
 __all__ = ["VLSIFlow", "CONST", "FEATI", "decode_design", "metrics_tile",
-           "WORKLOADS", "get_workload"]
+           "metrics_multi", "soc_metrics_multi", "WORKLOADS", "get_workload",
+           "pad_workloads"]

@@ -5,7 +5,10 @@ The plain PyTorch version of the ``systolic_eval`` kernel
 scratchpad/accumulator SRAMs, a RoCC-attached host core, shared L2 and a DMA
 engine, evaluated per (design, layer) pair and reduced over the layers of a
 workload. Op for op the float32 math of ``repro.soc.model``; see that
-module's docstring for what each term models.
+module's docstring for what each term models. :func:`metrics_multi` is the
+plain version of the kernel's multi-workload entry (:func:`soc_metrics_multi`
+dispatches between the two): W workloads padded to a common depth, each
+against its own designs.
 """
 from __future__ import annotations
 
@@ -13,7 +16,8 @@ import torch
 
 from repro_torch.core.space import TABLE_I
 
-__all__ = ["metrics_tile", "decode_design", "FEATI", "CONST"]
+__all__ = ["metrics_tile", "metrics_multi", "soc_metrics_multi",
+           "decode_design", "FEATI", "CONST"]
 
 # Feature name -> column index in the design-value matrix.
 FEATI = {f.name: i for i, f in enumerate(TABLE_I)}
@@ -126,18 +130,28 @@ def _layer_cost(d: dict[str, torch.Tensor], M, K, N, reps, kind):
                 n_tiles=n_tiles, macs=macs)
 
 
-def metrics_tile(vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
+def metrics_tile(vals: torch.Tensor, layers: torch.Tensor,
+                 layer_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Evaluate designs ``vals`` [n, 26] on ``layers`` [L, 5] (float32).
 
     Returns [n, 3]: latency_ms, power_mw, area_mm2. The plain version of the
     ``systolic_eval`` kernel: every (design, layer) intermediate is an
-    [n, L] tensor."""
+    [n, L] tensor. ``layer_mask`` [L] (1.0 on real layers) silences padded
+    layer rows as the reference's masked ``_metrics_tile`` does; None keeps
+    the single-workload computation."""
     d = decode_design(vals)
     M, K, N, reps, kind = (layers[:, i] for i in range(5))
     dd = {k: v[:, None] for k, v in d.items()}
     c = _layer_cost(dd, M[None, :], K[None, :], N[None, :],
                     reps[None, :], kind[None, :])
-    n_layers = layers.shape[0]
+    if layer_mask is None:
+        n_layers = layers.shape[0]
+    else:
+        # pad rows carry reps = 0, so their traffic and MAC terms are 0
+        # already; the mask silences the per-layer launch constants and
+        # keeps the mean working set's denominator the real layer count
+        c = {k: v * layer_mask[None, :] for k, v in c.items()}
+        n_layers = torch.clamp_min(torch.sum(layer_mask), 1.0)
 
     # ----- memory bandwidth (bytes / cycle), per design -----
     working = torch.sum(c["dram"], dim=1)  # total DRAM traffic per design
@@ -159,6 +173,8 @@ def metrics_tile(vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
                           torch.minimum(d["exq"], d["exr"]))[:, None]
     cmds = 4.0 * c["n_tiles"] + CONST["layer_launch_cmds"]
     host_cycles = cmds * issue * (1.0 + 2.0 / q_eff)
+    if layer_mask is not None:  # no launch commands for padded layers
+        host_cycles = host_cycles * layer_mask[None, :]
 
     # ----- overlap: double-buffered spad/acc overlaps DMA with compute -----
     three = torch.stack([c["compute"], dma_cycles, host_cycles], dim=-1)
@@ -167,6 +183,8 @@ def metrics_tile(vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
     buf = torch.clamp((d["spad_banks"][:, None] - 4.0) / 12.0, 0.0, 1.0) * 0.8 \
         + torch.clamp((d["acc_banks"][:, None] - 1.0) / 7.0, 0.0, 1.0) * 0.2
     layer_cycles = hi + (1.0 - buf) * 0.5 * rest + 400.0 * issue
+    if layer_mask is not None:
+        layer_cycles = layer_cycles * layer_mask[None, :]
 
     cycles = torch.sum(layer_cycles, dim=1)
     latency_ms = cycles / CONST["freq_hz"] * 1e3
@@ -182,6 +200,27 @@ def metrics_tile(vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
     power_mw = (nj * 1e-9) / (cycles / CONST["freq_hz"]) * 1e3 \
         + CONST["base_mw"] + CONST["leak_mw_per_mm2"] * area
     return torch.stack([latency_ms, power_mw, area], dim=1)
+
+
+def metrics_multi(vals: torch.Tensor, layers: torch.Tensor,
+                  layer_mask: torch.Tensor) -> torch.Tensor:
+    """W workloads at once: ``vals`` [W, n, 26] against ``layers``
+    [W, Lmax, 5] (padded with ``soc.workloads.pad_workloads``) under
+    ``layer_mask`` [W, Lmax] -> [W, n, 3]; workload w is
+    ``metrics_tile(vals[w], layers[w], layer_mask[w])``."""
+    return torch.stack([metrics_tile(v, l, mk)
+                        for v, l, mk in zip(vals, layers, layer_mask)])
+
+
+def soc_metrics_multi(vals: torch.Tensor, layers: torch.Tensor,
+                      layer_mask: torch.Tensor) -> torch.Tensor:
+    """The reference's ``soc_metrics_multi``: :func:`metrics_multi` on CPU
+    tensors, one launch of the ``systolic_eval`` kernel's multi-workload
+    entry on CUDA tensors (``kernels.systolic_eval.soc_metrics_multi``,
+    imported here at call time: that module imports this one)."""
+    from repro_torch.kernels import systolic_eval
+
+    return systolic_eval.soc_metrics_multi(vals, layers, layer_mask)
 
 
 def _area(d: dict[str, torch.Tensor]) -> torch.Tensor:

@@ -17,7 +17,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["WORKLOADS", "get_workload", "resnet50", "mobilenet", "transformer",
-           "from_arch_config"]
+           "from_arch_config", "pad_workloads"]
 
 
 def _l(M, K, N, reps=1, kind=0):
@@ -180,6 +180,26 @@ def from_arch_config(cfg, mode: str = "decode", seq: int = 256,
     return np.asarray(L, np.float64)
 
 
+# ---------------------------------------------------------- fleet batching
+def pad_workloads(layer_lists: "list[np.ndarray]"
+                  ) -> tuple[np.ndarray, np.ndarray]:
+    """Stack workloads [L_w, 5] onto a common layer axis: ``(layers
+    [W, Lmax, 5], mask [W, Lmax])`` for ``soc_metrics_multi``. Pad rows are
+    the benign GEMM (M, K, N, reps, kind) = (1, 1, 1, 0, 0): ``reps = 0``
+    zeroes every traffic and MAC term without 0/0, and the mask (a prefix
+    of ones) removes the per-layer launch constants."""
+    lmax = max(int(np.asarray(l).shape[0]) for l in layer_lists)
+    layers = np.tile(np.asarray([1.0, 1.0, 1.0, 0.0, 0.0]),
+                     (len(layer_lists), lmax, 1))
+    mask = np.zeros((len(layer_lists), lmax))
+    for w, l in enumerate(layer_lists):
+        l = np.asarray(l, np.float64)
+        layers[w, : l.shape[0]] = l
+        mask[w, : l.shape[0]] = 1.0
+    return layers, mask
+
+
+# ------------------------------------------------------------------- registry
 WORKLOADS = {
     "resnet50": resnet50,
     "mobilenet": mobilenet,

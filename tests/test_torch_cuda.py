@@ -117,6 +117,55 @@ def test_systolic_eval_output_does_not_depend_on_the_group_width(dev, L):
     assert torch.equal(outs[0], K1.soc_metrics(vals, layers))
 
 
+FLEET_WORKLOADS = ("resnet50", "mobilenet", "transformer")
+
+
+def _multi_inputs(dev, workloads, n, seed):
+    """W workloads' own n designs each, their tables padded to Lmax."""
+    from repro_torch.soc.workloads import pad_workloads
+
+    space = make_space()
+    W = len(workloads)
+    idx = space.sample(torch.Generator().manual_seed(seed), W * n).numpy()
+    vals = torch.as_tensor(space.values(idx).reshape(W, n, -1),
+                           dtype=torch.float32, device=dev).contiguous()
+    layers, mask = pad_workloads([get_workload(w) for w in workloads])
+    return (vals, torch.as_tensor(layers, dtype=torch.float32, device=dev),
+            torch.as_tensor(mask, dtype=torch.float32, device=dev))
+
+
+@pytest.mark.parametrize("n", [2, 40, 60, 2500])
+@pytest.mark.parametrize("workloads", [FLEET_WORKLOADS,
+                                       ("resnet50", "minicpm3-4b")])
+def test_systolic_eval_multi_matches_plain_and_single_launches(dev, n,
+                                                               workloads):
+    """K1's multi entry at the fleet's flush shapes against its plain
+    version (K1's tolerance), and each workload's slice bitwise a single
+    launch on that workload's own table; with minicpm3-4b (559 rows, kr 0)
+    a 54-row workload is padded by 505 rows."""
+    vals, layers, mask = _multi_inputs(dev, workloads, n, seed=n)
+    W, lmax = len(workloads), layers.shape[1]
+    before = K1.launches
+    got = K1.soc_metrics_multi(vals, layers, mask)
+    assert K1.launches == before + 1
+    assert K1.multi_shape_launches[(W, n, lmax)] >= 1
+    torch.testing.assert_close(
+        got, K1.soc_metrics_multi_plain(vals, layers, mask), rtol=2e-5, atol=0)
+    for w, wl in enumerate(workloads):
+        own = torch.as_tensor(get_workload(wl), dtype=torch.float32,
+                              device=dev)
+        assert torch.equal(got[w], K1.soc_metrics(vals[w], own)), wl
+
+
+def test_systolic_eval_multi_refuses_a_mask_that_is_not_a_prefix(dev):
+    vals, layers, mask = _multi_inputs(dev, FLEET_WORKLOADS, 5, seed=1)
+    mask[1, 3] = 0.0  # a hole in mobilenet's real layers
+    got = K1.soc_metrics_multi(vals, layers, mask)
+    assert torch.isnan(got[1]).all()
+    assert torch.equal(got[0], K1.soc_metrics_multi(
+        *_multi_inputs(dev, FLEET_WORKLOADS, 5, seed=1))[0])
+
+
 def _k3_rows(n, m, seed):
     """Many ties, duplicated rows, two +inf rows, a row with a NaN and an
     all-NaN row."""

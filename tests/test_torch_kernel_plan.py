@@ -174,6 +174,47 @@ def test_systolic_eval_every_group_width_has_a_plan(g, L):
         K1.launch_plan(2500, L, 64)
 
 
+@pytest.mark.parametrize("W,n,L", [(3, 2, 54), (3, 40, 54), (3, 60, 54),
+                                   (3, 2500, 54), (3, 2500, 559),
+                                   (2, 1, 559), (6, 2500, 54)])
+def test_systolic_eval_multi_plans_fit_a_hopper_block(W, n, L):
+    """K1's multi-workload plan: its grid is (a workload's design tiles,
+    W); the shared bytes hold the Lmax-row table and each design's arrays."""
+    plan = K1.launch_plan(n, L, workloads=W)
+    assert plan["grid"] == (plan["blocks"], W)
+    assert plan["blocks"] * plan["designs_per_block"] >= n
+    assert (plan["blocks"] - 1) * plan["designs_per_block"] < n
+    arrays = 3 if plan["kr"] else 5
+    assert plan["smem_bytes"] == 4 * (
+        5 * L + plan["designs_per_block"] * arrays * plan["stride"])
+    assert plan["smem_bytes"] <= HOPPER_BLOCK_SMEM
+    assert plan["kr"] == 0 or -(-L // plan["g"]) <= plan["kr"]
+    # the W·n designs decide the lanes: W workloads of n designs get the
+    # plan of W·n designs, with a workload's tiles a grid row
+    flat = K1.launch_plan(W * n, L)
+    assert (plan["g"], plan["kr"]) == (flat["g"], flat["kr"])
+
+
+def test_systolic_eval_multi_plans_at_the_fleets_flushes():
+    """The fleet's fused flushes over resnet50, mobilenet and transformer
+    (Lmax 54): a round's picks (3 x 2) and the TED init (3 x 40) take a
+    warp a design, a warp a block; the 3 x 2500 timing shape 16 lanes a
+    design, 4 warps a block. At Lmax 559 (kr 0) the arrays sit in shared
+    memory: 55,900 bytes."""
+    for n, g, kr, threads, grid, smem in (
+            (2, 32, 2, 32, (2, 3), 4 * (270 + 3 * 55)),
+            (40, 32, 2, 32, (40, 3), 4 * (270 + 3 * 55)),
+            (2500, 16, 4, 128, (313, 3), 4 * (270 + 8 * 3 * 55))):
+        plan = K1.launch_plan(n, 54, workloads=3)
+        assert (plan["g"], plan["kr"], plan["threads"]) == (g, kr, threads)
+        assert (plan["grid"], plan["smem_bytes"]) == (grid, smem)
+    plan = K1.launch_plan(2500, 559, workloads=3)
+    assert (plan["kr"], plan["threads"], plan["grid"]) == (0, 128, (625, 3))
+    assert plan["smem_bytes"] == 4 * (5 * 559 + 4 * 5 * 559) == 55_900
+    # one workload: the single-workload plan, grid (blocks, 1)
+    assert K1.launch_plan(30, 54, workloads=1) == K1.launch_plan(30, 54)
+
+
 @pytest.mark.parametrize("n", [1, 64, 70, 2500, 20_000])
 @pytest.mark.parametrize("m", range(1, 9))
 def test_pareto_count_plans_fit_a_hopper_block(n, m):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Device times of K1 ``systolic_eval``, K2 ``pairdist``, K3
-``pareto_count`` and K4 ``round_fused`` at ``chip_smoke.py``'s shapes, for
-one source tree of the port.
+"""Device times of K1 ``systolic_eval`` (and its multi-workload entry, in
+a tree that has it), K2 ``pairdist``, K3 ``pareto_count`` and K4
+``round_fused`` at ``chip_smoke.py``'s shapes, for one source tree of the
+port.
 
     python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--out results.json]
 
@@ -11,8 +12,9 @@ script's shapes, inputs and timing (``chip_smoke.time_ms``: calls replayed
 from a CUDA graph, warm L2, median of CUDA-event windows). To compare two
 trees on one card, run them in turns in one command (A, B, B, A). Prints
 the card's name and power limit and one line per shape; ``--out`` also
-keeps a sha1 of K1's output at each shape, so two trees' JSON files show
-whether their K1 agrees bitwise. Needs a CUDA device.
+keeps a sha1 of K1's output at each shape (the multi entry's too), so two
+trees' JSON files show whether their K1 agrees bitwise. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -97,6 +99,25 @@ def main() -> int:
         print(line)
         if (workload, n) == ("resnet50", 2500):
             y_pool = K1.soc_metrics_plain(vals, layers)
+
+    # K1's multi-workload entry (the fleet's fused flush): a round's picks
+    # (3 x 2) and 3 x 2500, with one single launch a workload beside it
+    if hasattr(K1, "soc_metrics_multi"):
+        out["systolic_eval_multi"] = {}
+        for n in (2, 2500):
+            vals, layers, mask = cs.k1_multi_inputs(dev, n)
+            key = f"{vals.shape[0]}x{n}x26x{layers.shape[1]}"
+            y = K1.soc_metrics_multi(vals, layers, mask)
+            out["systolic_eval_sha1"][f"multi {key}"] = cs.tensor_sha1(y)
+            ms = cs.time_ms(lambda: K1.soc_metrics_multi(vals, layers, mask))[0]
+            singles = [(vals[w].contiguous(), layers[w, :int(mask[w].sum())]
+                        .contiguous()) for w in range(vals.shape[0])]
+            ms_s = cs.time_ms(lambda: [K1.soc_metrics(v, l)
+                                       for v, l in singles])[0]
+            out["systolic_eval_multi"][key] = dict(ms=ms, singles_ms=ms_s)
+            print(f"  systolic_eval_multi [{key}]: {ms:.4f} ms (one single "
+                  f"launch a workload: {ms_s:.4f} ms), output sha1 "
+                  f"{out['systolic_eval_sha1'][f'multi {key}']}")
 
     for n in cs.K3_SHAPES + cs.K3_ROUND_FRONTS:
         yd = cs.k3_inputs(y_pool, n)
