@@ -43,6 +43,20 @@ the same prefill again with K5's plain version passed in, its logits, its
 teacher-forced decode logits and its greedy tokens held against the kernel
 run's; and the smoke config's prefill on the card against the CPU's.
 
+The mutable pool and the between-round proposer: K4's two pool uses
+against their plain versions (the refresh of 1 and 3 dirty chunks of a
+5 x 512 pool and of the main path's one chunk, each bitwise the same chunks
+of a full s0 = 0 launch; the scores at the main path's shape and at
+16 x 16,384, the argmax of the scores the launch's pick); the paper-protocol
+``soc_tuner`` with ``proposer={"enabled": True}`` (K4 by class: 20 rounds,
+20 ``scores``, a ``refresh`` a step that replaced something; K3 20 more
+launches than without it; s/round beside the proposer-less run; the seconds
+of one proposal step); the proposer off, bit for bit the main incremental
+run; a run cut at round 10 and resumed from its checkpoint, bit for bit the
+uninterrupted one, for ``soc_tuner`` and the six-scenario fleet with the
+proposer on (6 ``scores`` launches a step); and at n_pool=64 the card's
+picks, victims and live pool equal the CPU's, for both drivers.
+
 ``round_fused`` (K4) is held against its plain version at six shapes
 (``K4_SHAPES``: the main path's refactor, block update and score-only
 rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
@@ -91,7 +105,7 @@ K1_OPS_PER_PAIR = 129
 K3_OPS_PER_PAIR = lambda m: 3 * m + 2  # noqa: E731
 
 
-def k4_ops(nc, C, d, m, P, S, s0) -> int:
+def k4_ops(nc, C, d, m, P, S, s0, scoring=True) -> int:
     """float32 operations that one round_fused call needs at least (each +,
     -, *, / and each exp/erf/log one operation), whatever the kernel itself
     recomputes. With w = 1/ls² per objective: per column, d squares shared
@@ -99,22 +113,32 @@ def k4_ops(nc, C, d, m, P, S, s0) -> int:
     per recomputed train row and objective, 3d to weight it and take its
     norm (once for all columns); per recomputed (row, column, objective),
     2d for the cross term, 6 for d² = a + b − 2c, its clamp, −½, exp and
-    × var, and 2r + 1 for row r's substitution; per column and objective,
-    4P for the moments, ~20 per frontier sample and ~8 more."""
+    × var, and 2r + 1 for row r's substitution; when it scores (not a
+    chunk refresh, whose pick is discarded), per column and objective, 4P
+    for the moments, ~20 per frontier sample and ~8 more."""
     if s0 >= P:
         rbf = 0
     else:
         rbf = (nc * C * (d + 2 * d * m) + 3 * d * m * (P - s0)
                + nc * C * m * sum(2 * d + 6 + 2 * r + 1 for r in range(s0, P)))
-    return rbf + nc * C * m * (4 * P + 20 * S + 8)
+    return rbf + (nc * C * m * (4 * P + 20 * S + 8) if scoring else 0)
 
 
-def k4_bytes(nc, C, d, m, P, S) -> int:
-    """Bytes round_fused must move: V rows [0, s0) read and rows [s0, P)
-    written (P rows in all, whatever s0), the pool chunks, L, x, beta, y*,
-    the mask and the small vectors, each once."""
-    return 4 * (nc * m * P * C + nc * C * d + m * P * P + P * d + m * P
-                + S * m + m * d + 4 * m) + nc * C + 4
+def k4_bytes(nc, C, d, m, P, S, s0, use="round") -> int:
+    """Bytes round_fused must move, each once. V: rows [0, s0) read and
+    rows [s0, P) written (P rows in all, whatever s0). A call that
+    recomputes rows (s0 < P) reads the pool chunks, L, x and ls. A
+    ``refresh`` (s0 = 0 on gathered chunks, the pick discarded) needs
+    nothing else but var; every other use scores, so reads beta, y*, the
+    mask, var, y_mean, y_std and the weights and writes the pick, and
+    ``scores`` also writes the [nc, C] scores."""
+    n = nc * m * P * C
+    if s0 < P:
+        n += nc * C * d + m * P * P + P * d + m * d
+    if use == "refresh":
+        return 4 * (n + m)
+    n += m * P + S * m + 4 * m + (nc * C if use == "scores" else 0)
+    return 4 * n + nc * C + 4
 
 MAIN = dict(n_pool=2500, workload="resnet50", T=20, n=30, b=20, gp_steps=150,
             s_frontiers=10, frontier_subset=512, seed=0)
@@ -130,6 +154,19 @@ K4_SHAPES = [(1, 2500, 72, 64), (1, 2500, 72, 0), (1, 2500, 72, 72),
              (5, 512, 256, 248), (16, 16384, 72, 0), (16, 16384, 72, 64)]
 #: K4 shapes whose plain version is timed once (reps=1, repeats=1)
 K4_LARGE = 100_000
+#: K4's pool-edit refresh (nc, C, P, dirty chunks): the one chunk of the
+#: main path's pool (a proposal step's refresh there), and 1 and 3 dirty
+#: chunks of a 5 x 512 chunked pool
+K4_REFRESH_SHAPES = [(1, 2500, 72, (0,)), (5, 512, 72, (2,)),
+                     (5, 512, 72, (0, 2, 4))]
+#: K4's pool scores (nc, C, P): the main path's pool (a proposal step's
+#: scores) and 16 x 16,384 columns
+K4_SCORES_SHAPES = [(1, 2500, 72), (16, 16384, 72)]
+#: the between-round proposer on the main path: the reference's knobs
+#: (every round, 4 candidates, scale 0.15), switched on
+PROPOSER = {"enabled": True}
+#: the round at which the resume checks cut a run
+RESUME_CUT = 10
 #: K2 shapes (n, m), D = 26: TED's 2500 x 2500 and a 64 x 2500 block (both
 #: also in RBF mode), then the GP's calls at the main path's final P = 72:
 #: the train block, the posterior over the pool, the joint samples over the
@@ -483,7 +520,7 @@ def check_round_fused(dev, d: int, results: dict) -> None:
         print(f"  round_fused picks: kernel {int(ia)}, plain {int(ib)}")
         del b, vb
         args = [a[k] for k in K4_ARGS]
-        bnd = bound_ms(k4_bytes(nc, C, d, m, P, S),
+        bnd = bound_ms(k4_bytes(nc, C, d, m, P, S, s0),
                        k4_ops(nc, C, d, m, P, S, s0))
         plan = K4.launch_plan(nc, C, d, m, P, s0)
         large = nc * C >= K4_LARGE
@@ -700,12 +737,13 @@ def incremental_breakdown(res, pool, cfg: dict, dev) -> dict:
 
 
 class RoundProbe:
-    """A scenario's draws that note K4's launch count each time a fleet
-    round starts (``fleet_tuner`` calls ``round`` once a scenario at the top
-    of every round): the differences are K4's launches a round."""
+    """A scenario's draws that note K4's launch count (in all and by class)
+    each time a round starts (``soc_tuner`` and ``fleet_tuner`` call
+    ``round`` once a scenario at the top of every round): the differences
+    are K4's launches a round, the proposal step after it included."""
 
     def __init__(self, draws):
-        self.draws, self.k4_at_round = draws, []
+        self.draws, self.k4_at_round, self.k4_class_at_round = draws, [], []
 
     def prologue(self, n_pool, n):
         return self.draws.prologue(n_pool, n)
@@ -714,7 +752,24 @@ class RoundProbe:
         from repro_torch.kernels import round_fused as K4
 
         self.k4_at_round.append(K4.launches)
+        self.k4_class_at_round.append(dict(K4.class_launches))
         return self.draws.round(n_pool, frontier_subset, m, s)
+
+    def propose(self, it, t, draw, p, d):
+        return self.draws.propose(it, t, draw, p, d)
+
+    def state_dict(self):
+        return self.draws.state_dict()
+
+    def load_state_dict(self, d):
+        self.draws.load_state_dict(d)
+
+    def class_per_round(self) -> list[dict]:
+        """K4's launches by class in each round (with its proposal step)."""
+        from repro_torch.kernels import round_fused as K4
+
+        marks = self.k4_class_at_round + [dict(K4.class_launches)]
+        return [{k: b[k] - a[k] for k in b} for a, b in zip(marks, marks[1:])]
 
 
 def fleet_inputs(cfg: dict, device, pool_device=None):
@@ -962,6 +1017,398 @@ def fleet_card_vs_cpu() -> None:
                          f"{w}:s{s}): cuda rows", a, b)
             np.testing.assert_allclose(a.history[-1]["adrs"],
                                        b.history[-1]["adrs"], rtol=1e-5)
+
+
+# --------------------------------------------------------------------------
+# The mutable pool and the between-round proposer
+def check_k4_pool_uses(dev, d: int, results: dict) -> None:
+    """K4's two uses on a mutable pool against their plain versions on the
+    card, timed as the rounds are: the refresh of dirty chunks
+    (``K4_REFRESH_SHAPES``; the gathered chunks' V set to NaN first, so
+    every row is recomputed) bitwise the same chunks of one full s0 = 0
+    launch and within rtol = atol = 2e-5 of ``v_update_plain``; the scores
+    (``K4_SCORES_SHAPES``) within rtol = atol = 2e-5 of the plain version's
+    where finite, ``-inf`` at the same columns, the first-index argmax of
+    the scores the launch's own pick, V bitwise unchanged."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import round_fused as K4
+
+    m, S = 3, MAIN["s_frontiers"]
+    for nc, C, P, dirty in K4_REFRESH_SHAPES:
+        t = k4_problem(dev, nc, C, d, P, m, S, seed=nc * C + len(dirty))
+        full = {k: v.clone() for k, v in t.items()}
+        V_full, _ = K4.round_select(*(full[k] for k in K4_ARGS), s0=0)
+        didx = torch.as_tensor(dirty, device=dev)
+        g = dict(t, V=torch.full_like(t["V"][didx], float("nan")),
+                 pool_c=t["pool_c"][didx], evalm_c=t["evalm_c"][didx])
+        K4.refresh_chunks(*(g[k] for k in K4_ARGS), nc_full=nc)
+        V_plain = K4.v_update_plain(g["ls"], g["var"], g["L"],
+                                    torch.zeros_like(g["V"]), g["x"],
+                                    g["pool_c"], 0)
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(g["V"], V_full[didx]))
+        err = float((g["V"] - V_plain).abs().max())
+        ok = bitwise and bool(torch.allclose(g["V"], V_plain, rtol=2e-5,
+                                             atol=2e-5))
+        print(f"  round_fused refresh of chunks {list(dirty)} of {nc} x {C} "
+              f"(P={P}): bitwise the same chunks of one full s0 = 0 launch: "
+              f"{bitwise}")
+        k = len(dirty)
+        args = [g[key] for key in K4_ARGS]
+        _record(results, "round_fused_refresh", [k, C, d, m, P, S, 0], err,
+                ok, time_ms(lambda: K4.refresh_chunks(*args, nc_full=nc)),
+                time_ms(lambda: K4.v_update_plain(*args[:5], args[7], 0),
+                        reps=2, repeats=3),
+                None,
+                bound_ms(k4_bytes(k, C, d, m, P, S, 0, use="refresh"),
+                         k4_ops(k, C, d, m, P, S, 0, scoring=False)),
+                chunks=list(dirty), of_chunks=nc, bitwise_full_launch=bitwise)
+        del t, full, V_full, g, args
+    for nc, C, P in K4_SCORES_SHAPES:
+        t = k4_problem(dev, nc, C, d, P, m, S, seed=nc * C + P + 1)
+        V0 = t["V"].clone()
+        args = [t[key] for key in K4_ARGS]
+        sk = torch.empty((nc, C), device=dev)
+        sp = torch.empty((nc, C), device=dev)
+        _, ik = K4.round_select(*args, s0=P, scores=sk)
+        _, ip = K4.round_select_plain(*args, s0=P, scores=sp)
+        torch.cuda.synchronize()
+        a, b = sk.cpu().numpy(), sp.cpu().numpy()
+        same_inf = bool(np.array_equal(np.isneginf(a), np.isneginf(b)))
+        live = np.isfinite(b)
+        err = float(np.abs(a[live] - b[live]).max())
+        first = int(np.argmax(a.reshape(-1)))
+        ok = (same_inf and bool(np.isfinite(a[live]).all())
+              and bool(np.allclose(a[live], b[live], rtol=2e-5, atol=2e-5))
+              and first == int(ik) and bool(torch.equal(t["V"], V0)))
+        print(f"  round_fused scores at {nc} x {C} (P={P}): -inf at the same "
+              f"{int((~live).sum())} columns: {same_inf}; first-index argmax "
+              f"of the scores {first}, the launch's pick {int(ik)}, the "
+              f"plain pick {int(ip)}")
+        large = nc * C >= K4_LARGE
+        _record(results, "round_fused_scores", [nc, C, d, m, P, S, P], err,
+                ok, time_ms(lambda: K4.round_select(*args, s0=P, scores=sk),
+                            reps=5 if large else 20,
+                            repeats=5 if large else 7),
+                time_ms(lambda: K4.round_select_plain(*args, s0=P, scores=sp),
+                        reps=1 if large else 2, repeats=1 if large else 3),
+                None, bound_ms(k4_bytes(nc, C, d, m, P, S, P, use="scores"),
+                               k4_ops(nc, C, d, m, P, S, P)),
+                argmax_equal=first == int(ik))
+        del t, args, sk, sp
+        torch.cuda.empty_cache()
+
+
+def _same_trajectory(what: str, a, b) -> None:
+    """Two results' rows, metrics and history (without wall times) equal
+    bit for bit, and their live pools where they have one."""
+    import numpy as np
+
+    compare_rows(what, a, b)
+    strip = [[{k: v for k, v in h.items() if k != "wall_s"} for h in r.history]
+             for r in (a, b)]
+    if not (np.array_equal(a.y, b.y) and strip[0] == strip[1]):
+        raise AssertionError(f"{what}: metrics or history differ")
+    if (a.pool_live is None) != (b.pool_live is None) or (
+            a.pool_live is not None
+            and not np.array_equal(a.pool_live, b.pool_live)):
+        raise AssertionError(f"{what}: the live pools differ")
+
+
+def _check_proposal_launches(what: str, per_round: list, S: int) -> int:
+    """Each round of a proposer run launched K4 S times for the round, S
+    times for the scores and 0 or S times for a refresh (one chunk: the
+    main path's pool is one); returns the steps that refreshed."""
+    for i, c in enumerate(per_round):
+        if (c["refactor"] + c["block_update"] != S or c["scores"] != S
+                or c["refresh"] not in (0, S) or c["score_only"]):
+            raise AssertionError(f"{what}: round {i + 1} launched round_fused"
+                                 f" by class {c}")
+    return sum(c["refresh"] > 0 for c in per_round)
+
+
+def proposal_step_seconds(res, dev, cfg: dict) -> dict:
+    """One proposal step (``propose_and_replace``) at a proposer run's final
+    state, part by part, each ending in a synchronize: the engine's
+    ``pool_scores`` (one K4 launch) and ``pool_replace`` (the chunk
+    refresh), timed by wrapping them on the engine, and the host's
+    candidate search and victim ranking (the rest of the step)."""
+    import torch
+
+    from repro_torch.core import BOEngine, make_space
+    from repro_torch.core.propose import ProposerConfig, propose_and_replace
+    from repro_torch.core.tuner import _encode_cols
+    from repro_torch.random import GeneratorDraws
+
+    space, live = make_space(), res.pool_live
+    rows, y = res.evaluated_rows, res.y
+    eng = BOEngine(_pool_icd(res, live, dev), incremental=True,
+                   gp_steps=cfg["gp_steps"], s_frontiers=cfg["s_frontiers"],
+                   device=dev)
+    eng.observe(rows, y)
+    draws = GeneratorDraws(5, dev)
+    sub, eps = draws.round(len(live), cfg["frontier_subset"], 3,
+                           cfg["s_frontiers"])
+    eng.select(eps, sub)
+    secs = {}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            secs[key] = time.perf_counter() - t
+            return out
+        return run
+
+    eng.pool_scores = timed("pool_scores_s", eng.pool_scores)
+    eng.pool_replace = timed("pool_replace_s", eng.pool_replace)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = propose_and_replace(
+        eng, space, functools.partial(draws.propose, 0), live,
+        cfg=ProposerConfig(**PROPOSER),
+        encode_cols=_encode_cols(space, res.space, res.v, dev),
+        evaluated=[rows], ys=[y])
+    torch.cuda.synchronize()
+    step = time.perf_counter() - t0
+    if out is None:
+        raise AssertionError("the timed proposal step replaced nothing")
+    out = dict(secs, search_s=step - secs["pool_scores_s"]
+               - secs["pool_replace_s"], step_s=step,
+               replaced=int(len(out.victims)))
+    print(f"  one proposal step: pool_scores {out['pool_scores_s']:.4f} s, "
+          f"candidate search {out['search_s']:.4f} s, pool_replace "
+          f"{out['pool_replace_s']:.4f} s ({out['replaced']} columns), in all "
+          f"{out['step_s']:.4f} s")
+    return out
+
+
+def proposer_phase(dev, res_i, launches_i: dict, card: str) -> dict:
+    """The paper-protocol soc_tuner with the proposer on (every count set to
+    0 just before it): final ADRS beside the proposer-less run's, replaced
+    columns, chunk refreshes, K4 by class (the rounds, one ``scores`` a
+    step, one ``refresh`` a step that replaced something), K3 (one more a
+    step), s/round with and without it, one proposal step's seconds; then
+    the proposer off (the main incremental run, bit for bit) and a run cut
+    at ``RESUME_CUT`` and resumed (the uninterrupted run, bit for bit)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import pareto_count as K3
+    from repro_torch.kernels import round_fused as K4
+    from repro_torch.random import GeneratorDraws
+
+    T = MAIN["T"]
+    probe = RoundProbe(GeneratorDraws(MAIN["seed"], dev))
+    print("proposer: soc_tuner", json.dumps(
+        {**MAIN, "incremental": True, "proposer": PROPOSER}))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res_p, pool, ref, flow = run_tuner(MAIN, dev, draws=probe,
+                                       incremental=True, proposer=PROPOSER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                for k in kernels.KERNELS}
+    by_class = dict(K4.class_launches)
+    k3_class = dict(K3.shape_launches)
+    per_round = probe.class_per_round()
+    check_result(res_p, res_p.pool_live, ref, MAIN)
+    st, ps = res_p.engine_stats, res_p.engine_stats["proposer"]
+    refreshed = _check_proposal_launches("proposer", per_round, 1)
+    s_round = [np.mean([h["wall_s"] for h in r.history[1:]])
+               for r in (res_p, res_i)]
+    a_p, a_i = res_p.history[-1]["adrs"], res_i.history[-1]["adrs"]
+    print(f"  proposer [{card}]: {wall:.1f} s, final ADRS {a_p:.5f} (without "
+          f"the proposer {a_i:.5f}), {s_round[0]:.4f} s a round against "
+          f"{s_round[1]:.4f} s without it")
+    print(f"  proposer: {ps['rounds']} proposal steps, {ps['proposed']} "
+          f"candidates, replaced {ps['replaced']}, pool_replacements "
+          f"{st['pool_replacements']}, v_chunk_refreshes "
+          f"{st['v_chunk_refreshes']}; launches {launches}; round_fused by "
+          f"class {by_class} ({refreshed} steps refreshed a chunk); "
+          f"pareto_count {launches['pareto_count']} (without the proposer "
+          f"{launches_i['pareto_count']}; by class {k3_class})")
+    if (by_class["refactor"] + by_class["block_update"] != T
+            or by_class["scores"] != T or by_class["refresh"] != refreshed
+            or st["v_chunk_refreshes"] != refreshed or refreshed < 1):
+        raise AssertionError(f"proposer: round_fused by class {by_class}, "
+                             f"{st['v_chunk_refreshes']} chunk refreshes")
+    if ps["replaced"] != st["pool_replacements"] or ps["replaced"] < 1:
+        raise AssertionError(f"proposer: replaced {ps['replaced']}, "
+                             f"pool_replacements {st['pool_replacements']}")
+    if launches["pareto_count"] != launches_i["pareto_count"] + T:
+        raise AssertionError(
+            f"proposer: pareto_count launched {launches['pareto_count']} "
+            f"times, not {launches_i['pareto_count']} + {T}")
+    step = proposal_step_seconds(res_p, dev, MAIN)
+
+    off = run_tuner(MAIN, dev, incremental=True,
+                    proposer={"enabled": False})[0]
+    _same_trajectory("proposer off, incremental rows", off, res_i)
+    print(f"  proposer off: final ADRS {off.history[-1]['adrs']!r}, the main "
+          f"incremental run's {a_i!r}: rows, metrics and history bit for bit")
+
+    with tempfile.TemporaryDirectory() as d:
+        run_tuner({**MAIN, "T": RESUME_CUT}, dev, incremental=True,
+                  proposer=PROPOSER, checkpoint_dir=d)
+        resumed = run_tuner(MAIN, dev, incremental=True, proposer=PROPOSER,
+                            checkpoint_dir=d, resume=True)[0]
+    _same_trajectory(f"proposer, cut at round {RESUME_CUT} and resumed", resumed,
+                     res_p)
+    print(f"  resume: cut at round {RESUME_CUT}, resumed to {T}: rows, metrics, "
+          f"ADRS history and live pool equal the uninterrupted run's bit for "
+          f"bit (final ADRS {resumed.history[-1]['adrs']!r})")
+    return dict(wall_s=wall, final_adrs=a_p, final_adrs_without=a_i,
+                s_per_round=s_round[0], s_per_round_without=s_round[1],
+                proposer_stats=ps, engine_stats=st, launches=launches,
+                round_fused_by_class=by_class, round_fused_per_round=per_round,
+                pareto_count_without=launches_i["pareto_count"],
+                steps_refreshed=refreshed, proposal_step=step,
+                history=res_p.history)
+
+
+def fleet_proposer_phase(dev, fleet: dict, card: str) -> dict:
+    """The six-scenario incremental fleet with the proposer on (counts set
+    to 0 just before it): each scenario's final ADRS beside the
+    proposer-less fleet's, K4 by class a round (6 ``scores`` a step, 6
+    ``refresh`` a step that replaced something), replaced columns and the
+    cache's invalidations; then the run cut at ``RESUME_CUT`` and resumed,
+    bit for bit the uninterrupted one."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import round_fused as K4
+    from repro_torch.random import GeneratorDraws
+
+    scen = [(w, s) for w in FLEET_WORKLOADS for s in FLEET_SEEDS]
+    S = len(scen)
+    pool, fronts = fleet_inputs(MAIN, dev)
+    probe = RoundProbe(GeneratorDraws(scen[0][1], dev))
+    draws = [probe] + [GeneratorDraws(s, dev) for _, s in scen[1:]]
+    print(f"fleet (proposer): fleet_tuner, {S} scenarios", json.dumps(
+        {**MAIN, "workload": list(FLEET_WORKLOADS), "seeds": list(FLEET_SEEDS),
+         "incremental": True, "proposer": PROPOSER}))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fr = run_fleet(MAIN, dev, scen, pool, fronts, draws=draws,
+                   incremental=True, proposer=PROPOSER)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_class = dict(K4.class_launches)
+    per_round = probe.class_per_round()
+    refreshed = _check_proposal_launches("fleet (proposer)", per_round, S)
+    without = fleet["incremental"]["final_adrs"]
+    for sc, res in zip(fr.scenarios, fr.results):
+        check_result(res, res.pool_live, fronts[sc.workload],
+                     {**MAIN, "workload": sc.workload})
+        print(f"  {sc.label}: final ADRS {res.history[-1]['adrs']:.5f} "
+              f"(without the proposer {without[sc.label]:.5f})")
+    ps, st = fr.results[0].engine_stats["proposer"], fr.results[0].engine_stats
+    round_s = np.mean([h["wall_s"] for h in fr.results[0].history[1:]])
+    print(f"  fleet (proposer) [{card}]: {wall:.1f} s, {round_s:.4f} s a fleet "
+          f"round (without the proposer "
+          f"{np.mean(fleet['incremental']['round_wall_s']):.4f}); replaced "
+          f"{ps['replaced']} (pool_replacements {st['pool_replacements']}), "
+          f"cache invalidated {fr.cache.invalidated}, {fr.cache.summary()}")
+    print(f"  fleet (proposer): round_fused by class {by_class}; scores "
+          f"launches a step {[c['scores'] for c in per_round]}; refresh "
+          f"launches a step {[c['refresh'] for c in per_round]}")
+    if (by_class["scores"] != S * MAIN["T"] or ps["replaced"] < 1
+            or ps["replaced"] != st["pool_replacements"]):
+        raise AssertionError(f"fleet (proposer): round_fused by class "
+                             f"{by_class}, replaced {ps['replaced']}")
+    with tempfile.TemporaryDirectory() as d:
+        run_fleet({**MAIN, "T": RESUME_CUT}, dev, scen, pool, fronts,
+                  incremental=True, proposer=PROPOSER, checkpoint_dir=d)
+        resumed = run_fleet(MAIN, dev, scen, pool, fronts, incremental=True,
+                            proposer=PROPOSER, checkpoint_dir=d, resume=True)
+    for sc, a, b in zip(fr.scenarios, resumed.results, fr.results):
+        _same_trajectory(f"fleet (proposer) {sc.label}, cut at round "
+                         f"{RESUME_CUT} and resumed", a, b)
+    print(f"  fleet resume: cut at round {RESUME_CUT}, resumed to {MAIN['T']}: "
+          f"every scenario's rows, metrics, ADRS history and the live pool "
+          f"equal the uninterrupted run's bit for bit")
+    return dict(wall_s=wall, round_s=round_s, final_adrs=fr.final_adrs(),
+                round_fused_by_class=by_class, round_fused_per_round=per_round,
+                steps_refreshed=refreshed, proposer_stats=ps,
+                pool_replacements=st["pool_replacements"],
+                v_chunk_refreshes=st["v_chunk_refreshes"],
+                cache_invalidated=fr.cache.invalidated)
+
+
+def _stepped_live_pools(run, pool, T: int) -> tuple:
+    """``run(t, checkpoint_dir)`` for t = 1..T in one temporary directory,
+    each call resuming the last one's snapshot and adding a round (a
+    resumed run is bit for bit the uninterrupted one): returns the last
+    results and each step's live pool and victims (the rows whose design
+    changed)."""
+    import tempfile
+
+    import numpy as np
+
+    lives, victims, prev = [], [], np.asarray(pool)
+    with tempfile.TemporaryDirectory() as d:
+        for t in range(1, T + 1):
+            results = run(t, d)
+            live = results[0].pool_live
+            lives.append(live)
+            victims.append(np.flatnonzero((live != prev).any(axis=1)).tolist())
+            prev = live
+    return results, lives, victims
+
+
+def proposer_card_vs_cpu() -> None:
+    """At n_pool=64 (``SMALL``), draws made on the CPU and handed to both
+    runs, incremental with the proposer on, one round a call (each resuming
+    the last): the card's picks, each step's victims and live pool, and the
+    final live pool equal the CPU's (plain K4), for soc_tuner and for the
+    fleet (resnet50/0, transformer/1)."""
+    import numpy as np
+
+    from repro_torch.random import GeneratorDraws
+
+    scen = [("resnet50", 0), ("transformer", 1)]
+    pool, fronts = fleet_inputs(SMALL, "cpu")
+    for driver in ("soc_tuner", "fleet_tuner"):
+        runs, lives, victims = {}, {}, {}
+        for dev in ("cuda", "cpu"):
+            def run(t, ckpt, dev=dev):
+                kw = dict(incremental=True, proposer=PROPOSER,
+                          checkpoint_dir=ckpt, resume=True)
+                if driver == "soc_tuner":
+                    return [run_tuner({**SMALL, "T": t}, dev,
+                                      GeneratorDraws(SMALL["seed"], "cpu"),
+                                      pool_device="cpu", **kw)[0]]
+                return run_fleet({**SMALL, "T": t}, dev, scen, pool, fronts,
+                                 draws=[GeneratorDraws(s, "cpu")
+                                        for _, s in scen], **kw).results
+            runs[dev], lives[dev], victims[dev] = _stepped_live_pools(
+                run, pool, SMALL["T"])
+        for a, b in zip(runs["cuda"], runs["cpu"]):
+            compare_rows(f"proposer small check (n_pool=64, {driver}): cuda "
+                         f"rows", a, b)
+            np.testing.assert_allclose(a.history[-1]["adrs"],
+                                       b.history[-1]["adrs"], rtol=1e-5)
+        print(f"  victims a step (cuda): {victims['cuda']}")
+        if victims["cuda"] != victims["cpu"] or not any(victims["cuda"]):
+            raise AssertionError(f"{driver}: victims differ: cpu "
+                                 f"{victims['cpu']}")
+        if not all(np.array_equal(a, b)
+                   for a, b in zip(lives["cuda"], lives["cpu"])):
+            raise AssertionError(f"{driver}: the live pools differ")
+        print(f"  {driver}: the card's victims and live pool after every "
+              f"step equal the CPU's")
 
 
 #: K5 shapes (B, S, H, KV heads, hd): the serve phase's prefill, the S at
@@ -1613,6 +2060,15 @@ def main() -> int:
     fleet_of_one(dev, {"exact": res, "incremental": res_i})
     fleet_card_vs_cpu()
 
+    # The mutable pool: K4's refresh and scores against their plain
+    # versions, the proposer at full width (soc_tuner and the fleet), the
+    # proposer off, resumed runs, and the card against the CPU.
+    print("round_fused on a mutable pool (chunk refresh, pool scores):")
+    check_k4_pool_uses(dev, _pool_icd(res_i, pool_i, dev).shape[1], checks)
+    proposer = proposer_phase(dev, res_i, launches_i, card)
+    fleet_proposer = fleet_proposer_phase(dev, fleet, card)
+    proposer_card_vs_cpu()
+
     print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
     check_flash_attn(dev, checks)
     serve = serve_phase(dev)
@@ -1636,6 +2092,15 @@ def main() -> int:
         "round_fused": ("round_fused.cu",
                         "src/repro/kernels/round_fused/kernel.py:142",
                         launches_i),
+        # K4's pool uses: their launches in the proposer run
+        "round_fused_refresh": (
+            "round_fused.cu", "src/repro/kernels/round_fused/kernel.py:142",
+            {"round_fused_refresh":
+             proposer["round_fused_by_class"]["refresh"]}),
+        "round_fused_scores": (
+            "round_fused.cu", "src/repro/kernels/round_fused/kernel.py:142",
+            {"round_fused_scores":
+             proposer["round_fused_by_class"]["scores"]}),
         "flash_attn": ("flash_attn_tc.cu",
                        "src/repro/kernels/flash_attn/kernel.py:61",
                        serve["launches"]),
@@ -1673,7 +2138,8 @@ def main() -> int:
                              flow_calls=flow_i.calls, launches=launches_i,
                              launches_by_class=by_class["incremental"],
                              round_breakdown=breakdown_i),
-            fleet=fleet, serve=serve),
+            fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
+            serve=serve),
             indent=1))
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -5,7 +5,9 @@ A port of :mod:`repro` (the JAX reference package), slice by slice:
 - the exploration path: the TABLE I design space, the VLSI-flow surrogate,
   ICD importance, TED initialization, the GP surrogates, the IMOO
   acquisition, the exact and incremental ``BOEngine`` and ``soc_tuner``
-  (Algorithm 3);
+  (Algorithm 3), the fleet (``BatchedBOEngine``, ``fleet_tuner``), mutable
+  pools and the between-round proposer, and checkpoints with resumed runs
+  (``service.checkpoint``);
 - the LM serving path for the dense GQA family (``configs``, ``models``,
   ``serve``, ``launch.serve``).
 

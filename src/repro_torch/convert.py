@@ -50,7 +50,7 @@ def engine_state_from_numpy(d: dict) -> dict:
         raise ValueError(f"not an engine snapshot of format "
                          f"{ENGINE_STATE_FORMAT}: format={d.get('format')!r}, "
                          f"kind={d.get('kind')!r}")
-    dtypes = {"rows": np.int64, "rows_pad": np.int32}
+    dtypes = {"rows": np.int64, "rows_pad": np.int32, "ids": np.int64}
 
     def copy(key, v):
         if isinstance(v, dict):  # the batched engine's per-scenario rows/ys

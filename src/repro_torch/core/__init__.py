@@ -8,6 +8,7 @@
 - ``engine``      ``BOEngine`` (one scenario) and ``BatchedBOEngine`` (a fleet)
 - ``tuner``       Algorithm 3 — the full exploration loop
 - ``fleet``       Algorithm 3 over a fleet of scenarios, one batched engine
+- ``propose``     the between-round proposer (new designs near the front)
 - ``pareto``      dominance / Pareto front / ADRS (Eq. 12)
 
 Explore one scenario::
@@ -33,6 +34,7 @@ from .acquisition import (frontier_maxima, imoo_scores, imoo_scores_batch,
                           mes_information_gain)
 from .engine import BatchedBOEngine, BOEngine, EngineStats
 from .tuner import TunerResult, explore_prologue, soc_tuner
+from .propose import ProposerConfig, ProposerStats
 from .fleet import (FleetResult, FleetScenario, FlowEvalCache, fleet_prologue,
                     fleet_tuner)
 
@@ -47,6 +49,7 @@ __all__ = [
     "mes_information_gain",
     "BOEngine", "BatchedBOEngine", "EngineStats",
     "TunerResult", "explore_prologue", "soc_tuner",
+    "ProposerConfig", "ProposerStats",
     "FleetResult", "FleetScenario", "FlowEvalCache", "fleet_prologue",
     "fleet_tuner",
 ]

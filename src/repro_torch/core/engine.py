@@ -35,6 +35,14 @@ staged and then a score-only launch; the pick is the same). Fantasy rows
 live only in the trailing ``[s0, P)`` rows that the next real round
 recomputes.
 
+The pool is mutable (``_EngineBase``): ``pool_append`` and ``pool_replace``
+edit unevaluated columns (evaluated rows are observation keys and never
+change), stamp fresh ``candidate_ids`` and, with a live factorization,
+refresh only the dirty V chunks by one K4 call at s0 = 0 a scenario;
+``pool_scores`` is one score-only K4 call a scenario that writes every
+column's masked score (the proposer's victims). A snapshot of an edited
+engine carries the reference's ``pool_edit`` block.
+
 The factor and frontier helpers below batch G scenarios' m objectives as
 one batch of G·m factors; :class:`BOEngine` calls them with G = 1.
 """
@@ -92,8 +100,7 @@ def auto_chunk(n: int, *, bytes_per_col: int = 4 * 3 * 256,
 
 @dataclasses.dataclass
 class EngineStats:
-    """Host-side counters for one engine run: the reference's fields for
-    the code ported so far (the pool edits' counters come with that code)."""
+    """Host-side counters for one engine run (the reference's fields)."""
 
     rounds: int = 0
     refactors: int = 0       # full O(P³) factorizations
@@ -107,6 +114,11 @@ class EngineStats:
     scenario_refactors: int = 0
     scenario_block_updates: int = 0
     mixed_rounds: int = 0    # rounds where the fleet split ref/update
+    # mutable-pool bookkeeping: columns appended/replaced and the V chunks
+    # recomputed for them (never a full refactor)
+    pool_appends: int = 0
+    pool_replacements: int = 0
+    v_chunk_refreshes: int = 0
     #: cumulative wall seconds per stage of profiled rounds
     #: (``profile_stages=True``): the ``PROFILE_STAGES`` keys plus
     #: ``"round_total"`` around the whole round
@@ -125,6 +137,28 @@ class EngineStats:
             kept["stage_wall_s"] = {str(k): float(v)
                                     for k, v in kept["stage_wall_s"].items()}
         return cls(**kept)
+
+    def fold_into(self, registry, *, prefix: str = "engine") -> None:
+        """Add this run's counters to a metrics registry (duck-typed:
+        anything with ``counter(name, help).inc(v, **labels)``, such as the
+        reference's ``repro.obs.MetricsRegistry``). Call once per finished
+        engine (the stats are cumulative); ``stage_wall_s`` lands as
+        ``engine_stage_seconds_total{stage=...}``."""
+        for k in ("rounds", "refactors", "block_updates", "dispatches",
+                  "fantasy_steps", "frontier_resamples",
+                  "scenario_refactors", "scenario_block_updates",
+                  "mixed_rounds", "pool_appends", "pool_replacements",
+                  "v_chunk_refreshes"):
+            v = float(getattr(self, k))
+            if v:
+                registry.counter(f"{prefix}_{k}_total",
+                                 f"engine {k.replace('_', ' ')}").inc(v)
+        for stage, sec in (self.stage_wall_s or {}).items():
+            registry.counter(
+                f"{prefix}_stage_seconds_total",
+                "profiled per-stage wall seconds"
+                " (profile_stages=True rounds only)",
+            ).inc(float(sec), stage=str(stage))
 
 
 class EngineState(NamedTuple):
@@ -309,6 +343,11 @@ def _round_fused(params_ref: GPParams, L, V, x, beta, ystar, pool_c,
                             s0=s0)
 
 
+#: :func:`repro_torch.kernels.round_fused.round_select`'s arguments, in order
+_K4_ARGS = ("ls", "var", "L", "V", "x", "beta", "ystar", "pool_c", "evalm_c",
+            "y_mean", "y_std", "weights")
+
+
 def _untimed(name: str, fn, *args, **kwargs):
     """The default stage hook of :func:`_round_seq`: just ``fn(...)``."""
     return fn(*args, **kwargs)
@@ -405,6 +444,7 @@ class _EngineBase:
         self.stats = EngineStats()
         self._C = self._resolve_chunk(pool_chunk, self.N)
         self._regrid()
+        self._init_pool_ids()
         self._state: EngineState | None = None
         self._last_params: GPParams | None = None   # exact-path warm start
         self._P = 0                              # current padded train size
@@ -494,6 +534,200 @@ class _EngineBase:
                else self._state.params_ref)
         return EngineState(params0, ref, L, V)
 
+    # ------------------------------------------------------ pool mutation
+    # The mutable-pool contract: evaluated rows are the engine's observation
+    # keys, so `pool_replace` refuses them and a row, once evaluated, names
+    # the same design forever. Unevaluated columns may be replaced and new
+    # ones appended; every edit stamps fresh stable ids (`candidate_ids`).
+    # With a live factorization, only the V chunks whose columns changed are
+    # recomputed, by one K4 call at s0 = 0 on those chunks a scenario.
+
+    def _init_pool_ids(self) -> None:
+        self._ids = np.arange(self.N, dtype=np.int64)
+        self._next_id = int(self.N)
+        self._pool_edited = False
+
+    @property
+    def candidate_ids(self) -> np.ndarray:
+        """Stable per-column ids [N]: assigned at construction, fresh ones on
+        every appended or replaced column, kept by ``state_dict``."""
+        return self._ids.copy()
+
+    def _check_cols(self, cols, what: str) -> torch.Tensor:
+        cols = torch.as_tensor(cols, dtype=torch.float32, device=self.device)
+        want = self.pool.dim()
+        ok = cols.dim() == want and cols.shape[-1] == self.d and (
+            want == 2 or cols.shape[0] == self.S)
+        if not ok:
+            lead = "[k, d]" if want == 2 else "[S, k, d]"
+            raise ValueError(
+                f"{what}: expected columns shaped {lead} with d={self.d}"
+                + ("" if want == 2 else f", S={self.S}")
+                + f", got {tuple(cols.shape)}")
+        return cols.contiguous()
+
+    def pool_append(self, cols) -> np.ndarray:
+        """Append candidate columns ([k, d]; batched [S, k, d]) to the pool
+        and return their row indices [k]. Existing rows are untouched; the
+        chunk width C stays (the pool may gain chunks); with a live
+        factorization the old tail chunk and the new chunks are refreshed."""
+        self._check_live()
+        cols = self._check_cols(cols, "pool_append")
+        k = int(cols.shape[-2])
+        if k == 0:
+            return np.empty((0,), np.int64)
+        n_old = self.N
+        self.pool = torch.cat([self.pool, cols], dim=-2).contiguous()
+        self.N = int(self.pool.shape[-2])
+        self._ids = np.concatenate([
+            self._ids,
+            np.arange(self._next_id, self._next_id + k, dtype=np.int64)])
+        self._next_id += k
+        self._pool_edited = True
+        grow = torch.zeros((*self._eval_mask.shape[:-1], k), dtype=torch.bool,
+                           device=self.device)
+        self._eval_mask = torch.cat([self._eval_mask, grow], dim=-1)
+        self._regrid()
+        self._refresh_v(list(range(n_old // self._C, self._nc)))
+        self.stats.pool_appends += k
+        return np.arange(n_old, self.N, dtype=np.int64)
+
+    def pool_replace(self, rows, cols) -> None:
+        """Replace the unevaluated pool columns ``rows`` [k] with ``cols``
+        ([k, d]; batched [S, k, d]: each scenario's encoding of the same k
+        designs). Raises if a row has been evaluated in any scenario, is out
+        of range or repeats. Replaced columns get fresh ids; with a live
+        factorization only the chunks holding them are refreshed (and the
+        pad chunk when row 0 changes: pad columns copy row 0)."""
+        self._check_live()
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        cols = self._check_cols(cols, "pool_replace")
+        if int(cols.shape[-2]) != len(rows):
+            raise ValueError(f"pool_replace: {len(rows)} rows but "
+                             f"{int(cols.shape[-2])} replacement columns")
+        if len(rows) == 0:
+            return
+        if rows.min() < 0 or rows.max() >= self.N:
+            raise ValueError(f"pool_replace: row indices must be in "
+                             f"[0, {self.N}), got {rows.tolist()}")
+        if len(np.unique(rows)) != len(rows):
+            raise ValueError("pool_replace: duplicate target rows")
+        ev_any = self._eval_mask.reshape(-1, self.N).any(0).cpu().numpy()
+        bad = rows[ev_any[rows]]
+        if bad.size:
+            raise ValueError(
+                f"pool_replace: rows {bad.tolist()} have been evaluated — "
+                "evaluated rows are observation keys and can never be "
+                "replaced (append instead)")
+        pool = self.pool.clone()  # never write into a caller's tensor
+        pool[..., torch.as_tensor(rows, device=self.device), :] = cols
+        self.pool = pool
+        self._ids[rows] = np.arange(self._next_id,
+                                    self._next_id + len(rows),
+                                    dtype=np.int64)
+        self._next_id += len(rows)
+        self._pool_edited = True
+        dirty = {int(r) // self._C for r in rows}
+        if 0 in rows and self._N_pad > self.N:
+            dirty.add(self._nc - 1)  # pad columns are copies of row 0
+        self._regrid()
+        self._refresh_v(sorted(dirty))
+        self.stats.pool_replacements += len(rows)
+
+    def _frozen_args(self, si: int | None, scored: bool = True) -> dict:
+        """K4's arguments under the last round's frozen state, for scenario
+        ``si`` (None: the sequential engine): the factorization's
+        hyperparameters, L and V, the last padded batch's rows (+10 on pad
+        rows) and whitened targets, the round's y*, the chunked pool, the
+        evaluated mask and the weights. Unless ``scored``, the targets are
+        neutral (beta 0, y_mean 0, y_std 1): only the scores read them, and
+        a chunk refresh discards its scores."""
+        def pick(t):
+            return t if si is None else t[si]
+
+        st, dev = self._state, self.device
+        rows_np, y_pad, mask_np = self._last_batch
+        pr = st.params_ref if si is None else take(st.params_ref, si)
+        mask = torch.as_tensor(pick(mask_np), device=dev)
+        pool_c = pick(self._pool_c)
+        x = (pool_c.reshape(-1, self.d)[torch.as_tensor(
+            pick(rows_np), dtype=torch.int64, device=dev)]
+             + 10.0 * mask[:, None])
+        L = pick(st.L)
+        if scored:
+            yn, y_mean, y_std = _standardize(
+                torch.as_tensor(pick(y_pad), device=dev), mask)
+            beta = _train_beta(L, yn)
+        else:
+            beta = torch.zeros(L.shape[:2], device=dev)
+            y_mean = torch.zeros(self.m, device=dev)
+            y_std = torch.ones(self.m, device=dev)
+        return dict(ls=torch.exp(pr.log_ls), var=torch.exp(pr.log_var), L=L,
+                    V=pick(st.V), x=x, beta=beta,
+                    ystar=pick(self._last_ystar), pool_c=pool_c,
+                    evalm_c=pick(self._evalm_chunks()), y_mean=y_mean,
+                    y_std=y_std, weights=pick(self._weights()))
+
+    def _scenarios(self) -> list:
+        return [None] if self.pool.dim() == 2 else list(range(self.S))
+
+    def _refresh_v(self, dirty: list) -> None:
+        """Recompute the V chunks ``dirty`` under the current factorization
+        (params_ref, L): one K4 call at s0 = 0 a scenario on copies of those
+        chunks, scattered back. Rows [0, s0) of a refreshed chunk are
+        bitwise what a full refactor under the same params_ref gives (K4's
+        arithmetic for a column does not depend on the chunks beside it);
+        the trailing rows are recomputed by the next round either way."""
+        if self._state is None or not dirty:
+            return
+        V = self._state.V
+        nc_have = V.shape[-4]
+        if nc_have != self._nc:  # appends added chunks
+            grow = torch.zeros((*V.shape[:-4], self._nc - nc_have,
+                                *V.shape[-3:]), device=self.device)
+            V = torch.cat([V, grow], dim=-4)
+            self._state = self._state._replace(V=V)
+        if self._last_batch is None:
+            return
+        didx = torch.as_tensor(np.asarray(dirty, np.int64), device=self.device)
+        for si in self._scenarios():
+            a = self._frozen_args(si, scored=False)
+            cache = a["V"]  # this scenario's [nc, m, P, C] cache
+            # gathered copies of the dirty chunks, never a view of the cache
+            a.update(V=cache[didx], pool_c=a["pool_c"][didx],
+                     evalm_c=a["evalm_c"][didx])
+            _rf.refresh_chunks(*(a[k] for k in _K4_ARGS), nc_full=self._nc)
+            cache[didx] = a["V"]
+        self.stats.v_chunk_refreshes += len(dirty)
+
+    def pool_scores(self) -> np.ndarray:
+        """Acquisition scores of every pool column, [N] (sequential) or
+        [S, N] (batched), under the last round's frozen state: cached V,
+        whitened targets of the last padded batch and the round's y*.
+        Evaluated columns score -inf. One score-only K4 call a scenario
+        (s0 >= P, V untouched) that writes the masked scores its argmax
+        reads; the between-round proposer ranks its victims with them."""
+        self._check_live()
+        if not self.incremental:
+            raise RuntimeError(
+                "pool_scores() requires incremental=True: the exact "
+                "historical path keeps no V cache to score from")
+        if (self._state is None or self._last_ystar is None
+                or self._last_batch is None):
+            raise RuntimeError(
+                "pool_scores() requires a completed round (no frozen "
+                "state yet — call select/select_q first)")
+        out = []
+        for si in self._scenarios():
+            a = self._frozen_args(si)
+            sc = torch.empty((self._nc, self._C), device=self.device)
+            _rf.round_select(*(a[k] for k in _K4_ARGS), s0=self._P,
+                             scores=sc)
+            out.append(sc.reshape(-1)[: self.N])
+        if self.pool.dim() == 2:
+            return out[0].cpu().numpy()
+        return torch.stack(out).cpu().numpy()
+
     # --------------------------------------------------- lifecycle hooks
     def _check_live(self) -> None:
         if getattr(self, "_released", False):
@@ -552,6 +786,13 @@ class _EngineBase:
                                "mask": mk.copy()}
         if self._last_ystar is not None:
             d["last_ystar"] = _np(self._last_ystar)
+        if self._pool_edited:
+            # only edited engines carry this block (the reference's layout):
+            # resume rebuilds the engine on the live pool, and C is pinned
+            # because the grid can no longer be derived from that pool
+            d["pool_edit"] = {"pool": _np(self.pool), "ids": self._ids.copy(),
+                              "next_id": int(self._next_id),
+                              "C": int(self._C)}
         return d
 
     def _load_base_state_dict(self, d: dict) -> None:
@@ -575,10 +816,22 @@ class _EngineBase:
                 f"snapshot pool shape {d.get('pool_shape')} does not match "
                 f"this engine's pool {list(self.pool.shape)}: resume must "
                 "use the identical candidate pool")
-        if "pool_edit" in d:
-            raise NotImplementedError(
-                "repro_torch: snapshots of edited pools need pool_append / "
-                "pool_replace, not ported yet (ROADMAP queue 1, item 11)")
+        pe = d.get("pool_edit")
+        if pe is not None:
+            if not np.array_equal(np.asarray(pe["pool"], np.float32),
+                                  self.pool.cpu().numpy()):
+                raise ValueError(
+                    "snapshot was taken after pool edits and its pool "
+                    "content does not match this engine's pool — rebuild "
+                    "the engine on the live (edited) pool the driver "
+                    "checkpointed alongside this snapshot")
+            self._ids = np.asarray(pe["ids"], np.int64).copy()
+            self._next_id = int(pe["next_id"])
+            self._pool_edited = True
+            if int(pe["C"]) != self._C:
+                # the snapshot's C was resolved against the original pool
+                self._C = int(pe["C"])
+                self._regrid()
         self._P = int(d["P"])
         self._n_at_last_select = int(d["n_at_last_select"])
         self.stats = EngineStats.from_dict(d["stats"])

@@ -33,6 +33,7 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Sequence
 
@@ -43,13 +44,16 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import systolic_eval as _systolic_eval
 from repro_torch.obs.progress import log_progress
 from repro_torch.random import GeneratorDraws, TunerDraws
+from repro_torch.service import checkpoint as ckpt
 from repro_torch.soc.workloads import get_workload, pad_workloads
 
 from .engine import BatchedBOEngine
 from .icd import icd_from_data
+from .propose import ProposerConfig, ProposerStats, propose_and_replace
 from .sampling import soc_init
 from .space import DesignSpace
-from .tuner import TunerResult, _front, merge_trial_evals
+from .tuner import (TunerResult, _encode_cols, _front, _pool_fingerprint,
+                    merge_trial_evals)
 
 __all__ = ["FleetScenario", "FleetResult", "FlowEvalCache", "fleet_tuner",
            "fleet_prologue"]
@@ -251,13 +255,33 @@ class _ScenarioState:
 def fleet_prologue(space: DesignSpace, pool_idx: np.ndarray,
                    scenarios: Sequence[FleetScenario], cache: FlowEvalCache,
                    draws: Sequence[TunerDraws], *, n: int, mu: float, b: int,
-                   v_th: float, reuse_icd_trials: bool,
-                   device=None) -> list[_ScenarioState]:
+                   v_th: float, reuse_icd_trials: bool, device=None,
+                   snap: dict | None = None) -> list[_ScenarioState]:
     """Algorithm 3 lines 1-4 for every scenario: the ICD trials of all
     scenarios in one flush, then each scenario's importance, pruning and
     TED init, then the init evaluations in one flush. Scenario i's
-    ``draws[i].prologue`` is called once, as ``soc_tuner`` calls it."""
+    ``draws[i].prologue`` is called once, as ``soc_tuner`` calls it.
+
+    With ``snap`` (a ``fleet_tuner`` checkpoint) nothing is evaluated: each
+    scenario's pruning and pool features are rebuilt from its stored
+    importance vector, its rows, metrics and history are the stored ones,
+    and its draws continue from their stored state."""
     dev = resolve_device(device)
+    if snap is not None:
+        states = []
+        for si, (sc, dr) in enumerate(zip(scenarios, draws)):
+            v = np.asarray(snap["vs"][str(si)])
+            _, pruned, pool_icd = soc_init(space, pool_idx, v, v_th=v_th,
+                                           b=b, mu=mu, device=dev)
+            dr.load_state_dict(snap["draws"][si])
+            states.append(_ScenarioState(
+                draws=dr, v=v, pruned=pruned, pool_icd=pool_icd,
+                evaluated=[int(r) for r in snap["evaluated"][str(si)]],
+                y=np.asarray(snap["ys"][str(si)]),
+                weights=(None if tuple(sc.weights) == (1.0, 1.0, 1.0)
+                         else tuple(float(w) for w in sc.weights)),
+                history=list(snap["histories"][str(si)])))
+        return states
     N = pool_idx.shape[0]
     trial_sets = [np.asarray(dr.prologue(N, n)) for dr in draws]
     states = [_ScenarioState(
@@ -311,6 +335,7 @@ def fleet_tuner(
     disk_cache=None,
     flow_factory=None,
     checkpoint_dir: str | None = None,
+    checkpoint_every: int = 1,
     resume: bool = False,
     proposer=None,
     draws: Sequence[TunerDraws] | None = None,
@@ -332,40 +357,88 @@ def fleet_tuner(
     in ``soc_tuner``'s layout (each round's ``wall_s`` is the fleet round's),
     and the cache.
 
-    ``mesh``/``mesh_axis`` (ROADMAP queue 1, item 14b.8), ``disk_cache``,
-    ``checkpoint_dir``/``resume`` (item 12) and ``proposer`` (item 11)
-    belong to parts of the reference not ported yet and raise.
+    ``checkpoint_dir`` / ``checkpoint_every`` / ``resume`` snapshot the
+    whole fleet (batched engine, each scenario's draws state, rows and
+    history) and continue a cut run bit-exactly, as ``soc_tuner``'s do.
+    ``proposer`` (incremental only) runs the between-round proposer
+    fleet-wide: parents are the union of every scenario's front, victims the
+    columns no scenario still values (the max over scenarios of
+    ``pool_scores``), its draws scenario 0's; the live pool (a private copy
+    that the cache aliases) is edited in place and the replaced rows' cache
+    entries are dropped.
+
+    ``mesh``/``mesh_axis`` (ROADMAP queue 1, item 14b.8) and ``disk_cache``
+    (item 12) belong to parts of the reference not ported yet and raise.
     """
     for name, unported, item in (
             ("mesh", mesh is not None or mesh_axis is not None, "14b.8"),
-            ("disk_cache", disk_cache is not None, "12"),
-            ("checkpoint_dir", checkpoint_dir is not None, "12"),
-            ("resume", bool(resume), "12"),
-            ("proposer", bool(proposer), "11")):
+            ("disk_cache", disk_cache is not None, "12")):
         if unported:
             raise NotImplementedError(
                 f"repro_torch.fleet_tuner: {name} is not ported yet (ROADMAP "
                 f"queue 1, item {item})")
     t0 = time.monotonic()
+    scenarios = list(scenarios)
+    pool_idx = np.asarray(pool_idx)
+    pcfg = ProposerConfig.from_arg(proposer)
+    pstats = ProposerStats()
+    if pcfg.enabled:
+        if not incremental:
+            raise ValueError(
+                "proposer requires incremental=True: victim scoring runs on "
+                "the incremental engine's cached round state (pool_scores)")
+        # a private copy: the proposer edits it, and the cache below
+        # aliases the same array, so its flushes see the live designs
+        pool_idx = np.array(pool_idx)
     dev = resolve_device(device)
     # IEEE float32 products everywhere, never TF32 (as soc_tuner)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    scenarios = list(scenarios)
     draws = ([GeneratorDraws(sc.seed, dev) for sc in scenarios]
              if draws is None else list(draws))
     if len(draws) != len(scenarios):
         raise ValueError(f"fleet_tuner: {len(scenarios)} scenarios but "
                          f"{len(draws)} draws")
-    pool_idx = np.asarray(pool_idx)
     N = pool_idx.shape[0]
     reference_fronts = reference_fronts or {}
     cache = FlowEvalCache(space, pool_idx, [sc.workload for sc in scenarios],
                           flow_factory=flow_factory, device=dev)
 
+    config = {"n": int(n), "b": int(b), "mu": float(mu),
+              "v_th": float(v_th), "gp_steps": int(gp_steps),
+              "s_frontiers": int(s_frontiers),
+              "frontier_subset": int(frontier_subset),
+              "incremental": bool(incremental), "pool_chunk": pool_chunk,
+              "warm_start": warm_start, "warm_steps": warm_steps,
+              "drift_tol": float(drift_tol),
+              "reuse_icd_trials": bool(reuse_icd_trials),
+              # the exact per-scenario parameters (a label rounds weights)
+              "scenario_params": [
+                  [sc.workload, int(sc.seed), [float(w) for w in sc.weights]]
+                  for sc in scenarios]}
+    if pcfg.enabled:
+        config["proposer"] = pcfg.as_dict()
+    # the pool as passed: the proposer edits its copy, and a resuming
+    # caller passes the original
+    pool_fp = _pool_fingerprint(pool_idx)
+    snap = None
+    if resume and checkpoint_dir:
+        snap = ckpt.load_latest_validated(
+            checkpoint_dir, driver="fleet_tuner", pool=pool_fp, config=config)
+        if snap is not None and \
+                snap["scenarios"] != [sc.label for sc in scenarios]:
+            raise ValueError(f"checkpoint in {checkpoint_dir} was taken for "
+                             f"scenarios {snap['scenarios']} — resume "
+                             "requires the identical fleet")
+        if snap is not None and pcfg.enabled and "pool_live" in snap:
+            # in place: the cache aliases this array
+            np.copyto(pool_idx, np.asarray(snap["pool_live"]))
+            pstats = ProposerStats.from_dict(snap["proposer_stats"])
+
     states = fleet_prologue(space, pool_idx, scenarios, cache, draws, n=n,
                             mu=mu, b=b, v_th=v_th,
-                            reuse_icd_trials=reuse_icd_trials, device=dev)
+                            reuse_icd_trials=reuse_icd_trials, device=dev,
+                            snap=snap)
     t_round = time.monotonic()
 
     def log_round(i: int) -> None:
@@ -378,7 +451,9 @@ def fleet_tuner(
                          label=sc.label)
         t_round = now
 
-    log_round(0)
+    start_round = 0 if snap is None else int(snap["round"])
+    if snap is None:
+        log_round(0)
     any_weights = any(st.weights is not None for st in states)
     weights = (np.asarray([st.weights or (1.0, 1.0, 1.0) for st in states],
                           np.float32) if any_weights else None)
@@ -391,8 +466,35 @@ def fleet_tuner(
                              drift_tol=drift_tol, s_frontiers=s_frontiers,
                              weights=weights, pool_chunk=pool_chunk,
                              device=dev)
-    engine.observe([st.evaluated for st in states], [st.y for st in states])
-    for it in range(T):
+    if snap is None:
+        engine.observe([st.evaluated for st in states],
+                       [st.y for st in states])
+    else:
+        engine.load_state_dict(snap["engine"])
+
+    def encode_cols(cols: np.ndarray) -> torch.Tensor:
+        return torch.stack([_encode_cols(space, st.pruned, st.v, dev)(cols)
+                            for st in states])
+
+    def save_checkpoint(round_i: int) -> None:
+        d = {"driver": "fleet_tuner", "round": round_i, "pool": pool_fp,
+             "config": config, "scenarios": [sc.label for sc in scenarios],
+             "draws": [st.draws.state_dict() for st in states],
+             "vs": {str(si): np.asarray(st.v)
+                    for si, st in enumerate(states)},
+             "evaluated": {str(si): np.asarray(st.evaluated, np.int64)
+                           for si, st in enumerate(states)},
+             "ys": {str(si): st.y for si, st in enumerate(states)},
+             "histories": {str(si): st.history
+                           for si, st in enumerate(states)},
+             "engine": engine.state_dict()}
+        if pcfg.enabled:
+            d["pool_live"] = np.array(pool_idx)
+            d["proposer_stats"] = pstats.as_dict()
+        ckpt.save_snapshot(ckpt.snapshot_path(checkpoint_dir, round_i), d)
+        ckpt.prune_snapshots(checkpoint_dir)
+
+    for it in range(start_round, T):
         subs, eps = zip(*(st.draws.round(N, frontier_subset, engine.m,
                                          s_frontiers) for st in states))
         picks = [int(p) for p in engine.select(
@@ -406,16 +508,33 @@ def fleet_tuner(
             st.evaluated.append(p)
             st.y = np.concatenate([st.y, y_new], axis=0)
         log_round(it + 1)
+        # Between-round proposal, fleet-wide, from scenario 0's draws
+        # (no scenario's round stream advances); before the checkpoint, so
+        # a resumed run sees the pool the next round would have seen.
+        if pcfg.enabled and (it + 1) % pcfg.every == 0:
+            out = propose_and_replace(
+                engine, space, functools.partial(states[0].draws.propose, it),
+                pool_idx, cfg=pcfg, encode_cols=encode_cols,
+                evaluated=[st.evaluated for st in states],
+                ys=[st.y for st in states], stats=pstats)
+            if out is not None:
+                pool_idx[out.victims] = out.new_idx   # the cache aliases it
+                cache.invalidate_rows(out.victims)
+        if checkpoint_dir and (it + 1) % checkpoint_every == 0:
+            save_checkpoint(it + 1)
 
     wall = time.monotonic() - t0
     results = []
     for st in states:
         rows = np.asarray(st.evaluated)
         front = _front(st.y, dev)
+        stats_d = engine.stats.as_dict()
+        if pcfg.enabled:
+            stats_d["proposer"] = pstats.as_dict()
         results.append(TunerResult(
             space=st.pruned, v=np.asarray(st.v), evaluated_rows=rows, y=st.y,
             pareto_rows=rows[front], pareto_y=st.y[front],
-            history=st.history, wall_s=wall,
-            engine_stats=engine.stats.as_dict()))
+            history=st.history, wall_s=wall, engine_stats=stats_d,
+            pool_live=np.array(pool_idx) if pcfg.enabled else None))
     return FleetResult(scenarios=scenarios, results=results, cache=cache,
                        wall_s=wall)

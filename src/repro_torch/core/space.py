@@ -125,6 +125,20 @@ class DesignSpace:
         cols = torch.arange(self.d, device=idx.device)
         return table[cols, idx]
 
+    def snap(self, xn) -> torch.Tensor:
+        """Normalized coordinates [..., d] -> the nearest lattice index
+        vectors [..., d] (int64, on ``xn``'s device): the inverse of
+        :meth:`encode` up to rounding. Each feature takes the candidate whose
+        normalized value is nearest in float32 (a tie keeps the lower index);
+        out-of-range coordinates clamp to the nearer end of the ladder."""
+        xn = torch.as_tensor(xn, dtype=torch.float32)
+        table = self.norm_table.to(xn.device)                    # [d, tmax]
+        t = torch.as_tensor(self.t, device=xn.device)
+        valid = torch.arange(table.shape[1], device=xn.device)[None, :] < t[:, None]
+        dist = torch.abs(xn[..., None] - table)                  # [..., d, tmax]
+        dist = torch.where(valid, dist, torch.full_like(dist, float("inf")))
+        return torch.argmin(dist, dim=-1)  # the first of equal minima
+
     def values(self, idx: np.ndarray) -> np.ndarray:
         """Index vectors -> raw candidate values (float64), for the SoC model."""
         idx = np.asarray(idx)

@@ -11,6 +11,8 @@
 // engine's fixed order (beta[0]*V[0], then rows 1..P-1), de-standardizes,
 // scores the MES gain over the S frozen frontier samples, weights it, masks
 // evaluated columns to -inf, and the global first-index argmax follows.
+// Given a `scores` buffer [nc, C], it also writes each column's masked score
+// there (the engine's pool scores: one call at s0 >= P).
 //
 // What bounds it here: at the main path's shapes (one chunk of C = 2500, m =
 // 3, P = 72, d = 26) V is 2.2 MB, under a microsecond of memory traffic, and
@@ -193,6 +195,7 @@ struct Args {
   int* nanflag;              // [nc], zero on entry, zero on exit
   unsigned int* ticket;      // one, zero on entry, zero on exit
   int* out;
+  float* scores;  // [nc, C] masked scores, or null
   int nc, C, d, m, P, S, s0;
   int lvec;  // L rows in device memory may be read 16 bytes at a time
 };
@@ -670,6 +673,7 @@ round_kernel(const Args a, const Plan p) {
       const bool lv = tid < p.ct && gc < C;
       float sc = score;
       if (lv && a.evalm[(size_t)j * C + gc]) sc = -INFINITY;
+      if (lv && a.scores) a.scores[(size_t)j * C + gc] = sc;
       const bool nan = lv && isnan(sc);
       unsigned long long key = (lv && !nan) ? pack(sc, gc) : 0ull;
       for (int off = 16; off > 0; off >>= 1) {
@@ -745,16 +749,17 @@ cudaError_t launch(const Args& a, const Plan& p, int smem_bytes,
 // x [P, d], beta [m, P], ystar [S, m], pool_c [nc, C, d] float32; evalm
 // [nc, C] bool; y_mean, y_std, weights [m] float32; scratch: nc uint64 then
 // nc int32 then one uint32, all zero (the kernel leaves them zero); out: one
-// int32. All contiguous on the current device. The plan (ct, w, R, lmode,
+// int32; scores: [nc, C] float32 or null. All contiguous on the current
+// device. The plan (ct, w, R, lmode,
 // xs, pv, smem_bytes) comes from kernels/round_fused.py::launch_plan;
 // a plan whose shared memory does not add up is refused.
 extern "C" int round_fused_launch(
     const void* ls, const void* var, const void* L, void* V, const void* x,
     const void* beta, const void* ystar, const void* pool_c,
     const void* evalm, const void* y_mean, const void* y_std,
-    const void* weights, void* scratch, void* out, int nc, int C, int d,
-    int m, int P, int S, int s0, int ct, int w, int R, int lmode, int xs,
-    int pv, int smem_bytes, void* stream) {
+    const void* weights, void* scratch, void* out, void* scores, int nc,
+    int C, int d, int m, int P, int S, int s0, int ct, int w, int R,
+    int lmode, int xs, int pv, int smem_bytes, void* stream) {
   Args a;
   a.ls = (const float*)ls;
   a.var = (const float*)var;
@@ -772,6 +777,7 @@ extern "C" int round_fused_launch(
   a.nanflag = (int*)(a.best + nc);
   a.ticket = (unsigned int*)(a.nanflag + nc);
   a.out = (int*)out;
+  a.scores = (float*)scores;
   a.nc = nc;
   a.C = C;
   a.d = d;

@@ -40,7 +40,7 @@ SIGNATURES = {
     "systolic_eval_multi_launch": [_P] * 4 + [_I] * 8 + [_P],
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pareto_count_launch": [_P, _P] + [_I] * 8 + [_P],
-    "round_fused_launch": [_P] * 14 + [_I] * 14 + [_P],
+    "round_fused_launch": [_P] * 15 + [_I] * 14 + [_P],
     "flash_attn_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "flash_attn_tc_launch": [_P] * 4 + [_I] * 5 + [_F, _P],
     "flash_attn_tc_smem_bytes": [_I],

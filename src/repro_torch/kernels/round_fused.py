@@ -14,10 +14,18 @@
    chunk whose scores hold a NaN contributes nothing; all ``-inf`` gives 0).
 
 It returns ``(V, best_idx)`` with ``V`` the updated input tensor and
-``best_idx`` a 0-dim int32 tensor on V's device. On a CPU tensor it runs
-:func:`round_select_plain`; on a CUDA tensor it launches
+``best_idx`` a 0-dim int32 tensor on V's device; given ``scores`` [nc, C],
+it also writes there the masked score that the argmax reads. On a CPU
+tensor it runs :func:`round_select_plain`; on a CUDA tensor it launches
 ``csrc/round_fused.cu`` once, with the plan of :func:`launch_plan`, or
 raises.
+
+Two more uses serve a mutable pool (``core/engine.py``): the engine's pool
+scores are one score-only call (``s0 >= P``) with ``scores`` set, and
+:func:`refresh_chunks` recomputes whole V chunks (``s0 = 0``) on a gathered
+subset of the chunks after a pool edit. A column's arithmetic does not depend
+on the chunk grid or on which chunks a call holds, so a refreshed chunk is
+bitwise the same chunk of a full ``s0 = 0`` call.
 
 The plain version is written so that every column is computed by the same
 element-wise operations whatever the chunk width: sums run in a fixed order
@@ -36,14 +44,17 @@ import torch
 from . import build
 from ._common import check_tensor, on_cpu
 
-__all__ = ["round_select", "round_select_plain", "v_update_plain",
-           "col_moments_plain", "mes_plain", "select_plain", "launch_plan",
-           "launch_class", "launches", "class_launches"]
+__all__ = ["round_select", "round_select_plain", "refresh_chunks",
+           "v_update_plain", "col_moments_plain", "mes_plain", "select_plain",
+           "launch_plan", "launch_class", "launches", "class_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
-#: the same launches by class (:func:`launch_class`)
-class_launches = {"refactor": 0, "block_update": 0, "score_only": 0}
+#: the same launches by class: a round's (:func:`launch_class`), a pool
+#: edit's chunk refresh (:func:`refresh_chunks`) and a pool-scores call
+#: (``scores`` given)
+class_launches = {"refactor": 0, "block_update": 0, "score_only": 0,
+                  "refresh": 0, "scores": 0}
 
 _LOG_2PI = math.log(2.0 * math.pi)
 _HALF_SQRT2 = 0.5 * math.sqrt(2.0)
@@ -150,18 +161,21 @@ def select_plain(scores: torch.Tensor) -> torch.Tensor:
 
 
 def round_select_plain(ls, var, L, V, x, beta, ystar, pool_c, evalm_c,
-                       y_mean, y_std, weights, *, s0: int):
-    """The plain PyTorch version of the round (same arguments and in-place
-    V update as :func:`round_select`)."""
+                       y_mean, y_std, weights, *, s0: int, scores=None):
+    """The plain PyTorch version of the round (same arguments, in-place V
+    update and ``scores`` output as :func:`round_select`)."""
     v_update_plain(ls, var, L, V, x, pool_c, s0)
-    scores = []
+    per_chunk = []
     for j in range(pool_c.shape[0]):
         mu, sd = col_moments_plain(var, beta, V[j])
         mean_d = mu * y_std[:, None] + y_mean[:, None]
         std_d = sd * y_std[:, None]
         sc = mes_plain(mean_d, std_d, ystar, weights)
-        scores.append(torch.where(evalm_c[j], -math.inf, sc))
-    return V, select_plain(torch.stack(scores))
+        per_chunk.append(torch.where(evalm_c[j], -math.inf, sc))
+    masked = torch.stack(per_chunk)
+    if scores is not None:
+        scores.copy_(masked)
+    return V, select_plain(masked)
 
 
 def _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
@@ -192,7 +206,7 @@ def _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
 
 
 def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
-                 y_std, weights, *, s0: int):
+                 y_std, weights, *, s0: int, scores=None):
     """One fused round: ``(V, best_idx)``, V updated in place.
 
     ``ls`` [m, d] and ``var`` [m] are the exp'd hyperparameters of the
@@ -202,27 +216,66 @@ def round_select(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
     frontier maxima, ``pool_c`` [nc, C, d] the chunked pool, ``evalm_c``
     [nc, C] the evaluated mask, ``y_mean``/``y_std``/``weights`` [m]. ``s0``
     rows of V are reused (0: all recomputed; ``>= P``: score only).
+    ``scores`` (optional, [nc, C] float32) receives every column's masked
+    score, ``-inf`` on evaluated columns; such a call counts as a
+    ``scores`` launch.
     """
     _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
            weights, s0)
+    nc, C, _ = pool_c.shape
+    if scores is not None:
+        check_tensor("scores", scores, 2)
+        if tuple(scores.shape) != (nc, C):
+            raise ValueError(f"round_select: scores has shape "
+                             f"{tuple(scores.shape)}, expected {(nc, C)}")
+    args = (ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
+            weights)
+    if on_cpu(*args, *(() if scores is None else (scores,))):
+        return round_select_plain(*args, s0=int(s0), scores=scores)
+    P = beta.shape[1]
+    cls = "scores" if scores is not None else launch_class(int(s0), P)
+    return V, _launch(args, int(s0), scores, nc, cls)
+
+
+def refresh_chunks(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean,
+                   y_std, weights, *, nc_full: int):
+    """Recompute every row of the chunks ``V`` [k, m, P, C] (in place) from
+    their pool columns ``pool_c`` [k, C, d]: the dirty chunks of a pool
+    edit, gathered from an engine's [nc_full, m, P, C] cache. The arguments
+    are :func:`round_select`'s at ``s0 = 0``; the pick is not returned.
+
+    On a CPU tensor it runs :func:`v_update_plain`; on a CUDA tensor one K4
+    launch with the plan of the full ``nc_full``-chunk call (a ``refresh``
+    launch), or it raises. Either way each refreshed chunk is bitwise that
+    chunk of a full ``s0 = 0`` call."""
+    _check(ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
+           weights, 0)
     args = (ls, var, L, V, x, beta, ystar, pool_c, evalm_c, y_mean, y_std,
             weights)
     if on_cpu(*args):
-        return round_select_plain(*args, s0=int(s0))
+        return v_update_plain(ls, var, L, V, x, pool_c, 0)
+    _launch(args, 0, None, int(nc_full), "refresh")
+    return V
+
+
+def _launch(args, s0: int, scores, plan_nc: int, cls: str) -> torch.Tensor:
+    """One K4 launch on CUDA tensors ``args`` (:func:`round_select`'s
+    order) with the plan of a ``plan_nc``-chunk call; returns the pick."""
     global launches
+    V, beta, ystar, pool_c = args[3], args[5], args[6], args[7]
     nc, C, d = pool_c.shape
     m, P = beta.shape
-    s0 = int(s0)
-    plan = launch_plan(nc, C, d, m, P, s0)
+    plan = launch_plan(plan_nc, C, d, m, P, s0)
     out = torch.empty((), dtype=torch.int32, device=V.device)
     err = build.library().round_fused_launch(
         *(t.data_ptr() for t in args), _scratch(V.device, nc).data_ptr(),
-        out.data_ptr(), nc, C, d, m, P, ystar.shape[0], min(s0, P),
+        out.data_ptr(), None if scores is None else scores.data_ptr(), nc, C,
+        d, m, P, ystar.shape[0], min(s0, P),
         *(plan[k] for k in PLAN_KEYS), build.stream_ptr(V))
     build.check(err, "round_fused")
     launches += 1
-    class_launches[launch_class(s0, P)] += 1
-    return V, out
+    class_launches[cls] += 1
+    return out
 
 
 def launch_class(s0: int, P: int) -> str:

@@ -346,6 +346,62 @@ def test_small_tuner_on_the_card_picks_what_the_cpu_picks(dev):
 
 
 
+# K4's two uses on a mutable pool: a pool edit's chunk refresh (s0 = 0 on
+# gathered dirty chunks) and the pool scores (s0 >= P with ``scores`` out).
+@pytest.mark.parametrize("nc,C,P,dirty", [
+    (5, 512, 72, [3]), (5, 512, 72, [0, 2, 4]), (1, 2500, 72, [0]),
+    (4, 50, 24, [1, 3])])
+def test_round_fused_refresh_is_bitwise_a_full_launch(dev, nc, C, P, dirty):
+    """Refreshed chunks (their V set to NaN first: every row is recomputed)
+    equal the same chunks of one full s0 = 0 launch bit for bit, and the
+    plain version within K4's tolerance; one ``refresh`` launch."""
+    t = _k4_problem(dev, nc, C, 26, P, seed=nc * C + len(dirty))
+    full = {k: v.clone() for k, v in t.items()}
+    V_full, _ = K4.round_select(*(full[k] for k in K4_NAMES), s0=0)
+    didx = torch.as_tensor(dirty, device=dev)
+    g = dict(t, V=torch.full_like(t["V"][didx], float("nan")),
+             pool_c=t["pool_c"][didx], evalm_c=t["evalm_c"][didx])
+    before = dict(K4.class_launches)
+    K4.refresh_chunks(*(g[k] for k in K4_NAMES), nc_full=nc)
+    torch.cuda.synchronize()
+    assert K4.class_launches["refresh"] == before["refresh"] + 1
+    assert K4.class_launches["refactor"] == before["refactor"]
+    assert torch.equal(g["V"], V_full[didx])
+    plain = {k: (v.cpu() if k != "V" else torch.zeros_like(v, device="cpu"))
+             for k, v in g.items()}
+    K4.refresh_chunks(*(plain[k] for k in K4_NAMES), nc_full=nc)
+    # expf against a correctly rounded exp through the substitution
+    torch.testing.assert_close(g["V"].cpu(), plain["V"], rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("nc,C,P", [(1, 2500, 72), (16, 16384, 72),
+                                    (3, 37, 8), (5, 512, 256)])
+def test_round_fused_scores_match_plain(dev, nc, C, P):
+    """The scores a score-only launch writes: the plain version's within
+    rtol = atol = 2e-5, ``-inf`` on the same (evaluated, pad) columns, the
+    first-index argmax of the scores is the pick of the same launch, V is
+    untouched; one ``scores`` launch."""
+    t = _k4_problem(dev, nc, C, 26, P, seed=C + P)
+    V0 = t["V"].clone()
+    sk = torch.empty((nc, C), device=dev)
+    sp = torch.empty((nc, C), device=dev)
+    before = dict(K4.class_launches)
+    _, ik = K4.round_select(*(t[k] for k in K4_NAMES), s0=P, scores=sk)
+    _, ip = K4.round_select_plain(*(t[k] for k in K4_NAMES), s0=P, scores=sp)
+    torch.cuda.synchronize()
+    assert K4.class_launches["scores"] == before["scores"] + 1
+    assert K4.class_launches["score_only"] == before["score_only"]
+    assert torch.equal(t["V"], V0)
+    a, b = sk.cpu().numpy(), sp.cpu().numpy()
+    np.testing.assert_array_equal(np.isneginf(a), np.isneginf(b))
+    assert np.isneginf(a).sum() == 3 + 5  # evaluated + pad columns
+    live = np.isfinite(b)
+    assert np.isfinite(a[live]).all()
+    np.testing.assert_allclose(a[live], b[live], rtol=2e-5, atol=2e-5)
+    assert int(np.argmax(a.reshape(-1))) == int(ik) == int(ip)
+
+
 # The redesigned K4 at the edges of its launch plan (kernels/round_fused.py::
 # launch_plan): L in panels through the ring (P = 512 at s0 = 0), wide
 # features, one and five objectives, one column a chunk, a ragged last chunk.

@@ -328,12 +328,26 @@ def test_flow_factory_calls_each_pending_workload(golden):
     (dict(disk_cache="cache"), "12"), (dict(checkpoint_dir="ckpt"), "12"),
     (dict(resume=True), "12"), (dict(proposer=True), "11"),
     (dict(mesh=object()), "14b.8")])
-def test_unported_fleet_options_raise(kw, item):
+def test_unported_fleet_options_raise(kw, item, tmp_path):
+    """``disk_cache`` (item 12) and ``mesh`` (14b.8) still raise, naming
+    their ROADMAP item. ``checkpoint_dir``/``resume`` (item 12's checkpoint
+    part) and ``proposer`` (item 11) are ported: a fleet takes them (the
+    proposer on the incremental engine)."""
     space = make_space()
     pool = space.sample(torch.Generator().manual_seed(0), 16).numpy()
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        fleet_tuner(space, pool, [FleetScenario("resnet50")], T=1, n=4, b=2,
-                    device="cpu", **kw)
+    run = dict(T=1, n=4, b=2, device="cpu")
+    if "disk_cache" in kw or "mesh" in kw:
+        with pytest.raises(NotImplementedError, match=f"item {item}"):
+            fleet_tuner(space, pool, [FleetScenario("resnet50")], **run, **kw)
+        return
+    if "checkpoint_dir" in kw:
+        kw = dict(checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
+    fr = fleet_tuner(space, pool, [FleetScenario("resnet50")],
+                     incremental=True, **run, **kw)
+    assert fr.results[0].engine_stats["rounds"] == 1
+    if "checkpoint_dir" in kw:
+        assert os.listdir(kw["checkpoint_dir"]) == ["ckpt_000001.npz"]
+    assert ("proposer" in fr.results[0].engine_stats) == ("proposer" in kw)
 
 
 def test_fleet_needs_cuda_unless_asked_for_the_cpu(monkeypatch):

@@ -155,13 +155,24 @@ def test_merge_trial_evals_equal():
 
 @pytest.mark.parametrize("kw", [dict(checkpoint_dir="ckpt"),
                                 dict(proposer=True)])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(kw, tmp_path):
+    """Both knobs are ported (ROADMAP item 11 and item 12's checkpoint
+    part): ``checkpoint_dir`` writes a snapshot a round, and the proposer
+    on the exact engine raises ValueError, as the reference does, before
+    any flow budget is spent."""
     space = make_space()
     pool = space.sample(torch.Generator().manual_seed(0), 16).numpy()
     flow = VLSIFlow(space, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        soc_tuner(space, pool, flow, T=1, n=4, b=2, device="cpu", **kw)
-    assert flow.calls == 0  # checked before any flow budget is spent
+    if "proposer" in kw:
+        with pytest.raises(ValueError, match="requires incremental=True"):
+            soc_tuner(space, pool, flow, T=1, n=4, b=2, device="cpu", **kw)
+        assert flow.calls == 0  # checked before any flow budget is spent
+        return
+    d = str(tmp_path / kw["checkpoint_dir"])
+    res = soc_tuner(space, pool, flow, T=1, n=4, b=2, device="cpu",
+                    checkpoint_dir=d)
+    assert res.engine_stats["rounds"] == 1
+    assert os.listdir(d) == ["ckpt_000001.npz"]
 
 
 def test_q_batches_need_the_incremental_engine():

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device times of K1 ``systolic_eval`` (and its multi-workload entry, in
 a tree that has it), K2 ``pairdist``, K3 ``pareto_count`` and K4
-``round_fused`` at ``chip_smoke.py``'s shapes, for one source tree of the
-port.
+``round_fused`` (and its chunk refresh and pool scores, in a tree that has
+them) at ``chip_smoke.py``'s shapes, for one source tree of the port.
 
     python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--out results.json]
 
@@ -180,6 +180,34 @@ def main() -> int:
         print(f"  round_fused [{nc}, {C}, 26, 3, {P}, 10, {s0}]: {ms:.4f} ms")
         del t, kargs
         torch.cuda.empty_cache()
+    # K4's pool uses (a tree that has them): the chunk refresh and the
+    # pool scores at chip_smoke.py's shapes
+    if hasattr(K4, "refresh_chunks"):
+        for nc, C, P, dirty in cs.K4_REFRESH_SHAPES:
+            t = cs.k4_problem(dev, nc, C, 26, P, 3, 10,
+                              seed=nc * C + len(dirty))
+            didx = torch.as_tensor(dirty, device=dev)
+            t.update(V=t["V"][didx], pool_c=t["pool_c"][didx],
+                     evalm_c=t["evalm_c"][didx])
+            kargs = [t[k] for k in cs.K4_ARGS]
+            ms = cs.time_ms(lambda: K4.refresh_chunks(*kargs, nc_full=nc))[0]
+            key = f"refresh {len(dirty)} of {nc}x{C}x26x3x{P}x10"
+            out["round_fused"][key] = ms
+            print(f"  round_fused refresh [{len(dirty)} of {nc}, {C}, 26, 3, "
+                  f"{P}, 10, 0]: {ms:.4f} ms")
+        for nc, C, P in cs.K4_SCORES_SHAPES:
+            t = cs.k4_problem(dev, nc, C, 26, P, 3, 10, seed=nc * C + P + 1)
+            kargs = [t[k] for k in cs.K4_ARGS]
+            sc = torch.empty((nc, C), device=dev)
+            large = nc * C >= cs.K4_LARGE
+            ms = cs.time_ms(lambda: K4.round_select(*kargs, s0=P, scores=sc),
+                            reps=5 if large else 20,
+                            repeats=5 if large else 7)[0]
+            out["round_fused"][f"scores {nc}x{C}x26x3x{P}x10"] = ms
+            print(f"  round_fused scores [{nc}, {C}, 26, 3, {P}, 10, {P}]: "
+                  f"{ms:.4f} ms")
+            del t, kargs
+            torch.cuda.empty_cache()
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
