@@ -57,6 +57,24 @@ uninterrupted one, for ``soc_tuner`` and the six-scenario fleet with the
 proposer on (6 ``scores`` launches a step); and at n_pool=64 the card's
 picks, victims and live pool equal the CPU's, for both drivers.
 
+The exploration service (the paper protocol, nothing cut): ``service_tuner``
+with q = 1 and the inline executor, bit for bit the main incremental run
+with the same launches by shape and class; q = 1 and q = 4 (min_done 1,
+ordered) over ``DelayedFlow(VLSIFlow(cuda), 1.0 s)``, q = 4 over four
+worker threads and over four spawn processes (their rows equal; wall time
+against q = 1; K4's launches split into refills and fantasy steps; K1's
+launches here, one a dispatch in the thread run, the workers' own in the
+process run); ``fleet_service`` over resnet50 and transformer at seed 0,
+T 24 each, one 4-thread pool (ADRS and the cross-scenario dedup counts), and
+at q = 1 inline against ``fleet_tuner(incremental=True)``'s picks; a
+``TunerServer`` served on localhost with the ``server_two_jobs`` mix at
+T 20, driven through ``request`` (submit, status, a ``metrics`` scrape
+mid-run with ``engine_device_bytes`` > 0, shutdown), each job bit for bit
+the job alone, and its cycle time; and the port's CLI in subprocesses,
+SIGKILLed after 8 evaluations and resumed (bit for bit the uninterrupted
+CLI run), a re-run on the filled flow cache that dispatches nothing, and
+its event log rendered by ``build_chrome_trace``.
+
 ``round_fused`` (K4) is held against its plain version at six shapes
 (``K4_SHAPES``: the main path's refactor, block update and score-only
 rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
@@ -70,8 +88,9 @@ K1's and K3's against the protocol's; the build report gives the K1-K4
 kernels' registers, spills and shared memory, and their plans.
 
 It prints the card (``nvidia-smi``), the build time, one line per kernel
-check, the rounds, the serve phase, a ``{"kernels": [...]}`` JSON line and,
-last, ``{"ok": true, "device": {...}}``. Any failure raises; no phase is
+check, the rounds, the service and serve phases, its wall time in all, a
+``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
+{...}}``. Any failure raises; no phase is
 caught. It needs a CUDA device and exits non-zero without one.
 """
 from __future__ import annotations
@@ -1431,6 +1450,380 @@ SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=32,
 SERVE_ATOL, SERVE_MEAN_TOL = 0.125, 0.02
 
 
+#: the service phase (ROADMAP queue 1 item 12), at the paper protocol of
+#: ``MAIN``: the mock flow latency of the q = 4 async runs (``DelayedFlow``,
+#: one sleep a call) and their concurrency; the fleet service's scenarios,
+#: budget a scenario and shared workers (``benchmarks/service_bench.py
+#: --fleet``'s defaults: resnet50 and transformer at seed 0, T 24, 4
+#: workers, so q = 2 a scenario); the server's mix
+#: (``tools/regen_golden.py``'s ``server_two_jobs``) at T 20 a job; and the
+#: evaluation after which the CLI run is SIGKILLed.
+SERVICE_DELAY_S = 1.0
+SERVICE_Q = 4
+SERVICE_FLEET = dict(scenarios=(("resnet50", 0), ("transformer", 0)), T=24,
+                     workers=4)
+SERVER_JOBS = (dict(workload="resnet50", seed=0, q=2, min_done=1),
+               dict(workload="transformer", seed=1, q=1))
+CLI_KILL_AFTER = 8
+#: where the CLI runs keep their checkpoints, flow cache and event log
+#: (under the git-ignored build directory)
+SERVICE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_service"
+
+
+def _protocol() -> dict:
+    """``MAIN``'s knobs that every service entry point takes."""
+    return {k: MAIN[k] for k in ("n", "b", "gp_steps", "s_frontiers",
+                                 "frontier_subset")}
+
+
+def _main_inputs(dev):
+    """The main path's space, pool and reference front, as ``run_tuner``
+    builds them (the same launches)."""
+    import torch
+
+    from repro_torch.core import make_space, pareto_front
+    from repro_torch.soc import VLSIFlow
+
+    space = make_space()
+    gen = torch.Generator(device=dev).manual_seed(MAIN["seed"])
+    pool = space.sample(gen, MAIN["n_pool"]).cpu().numpy()
+    ref = pareto_front(VLSIFlow(space, MAIN["workload"], device=dev)(pool),
+                       device=dev)
+    return space, pool, ref
+
+
+def _k4_split(stats: dict, launches: dict, what: str) -> dict:
+    """K4's launches of a service run: one a refill (its round) and one a
+    fantasy step; fails unless they add up."""
+    rounds, fant = stats["rounds"], stats["fantasy_steps"]
+    if launches["round_fused"] != rounds + fant:
+        raise AssertionError(f"{what}: round_fused launched "
+                             f"{launches['round_fused']} times, the engine "
+                             f"counts {rounds} rounds + {fant} fantasy steps")
+    return dict(rounds=rounds, fantasy_steps=fant)
+
+
+def _k1_check(what: str, launches: dict, want: int) -> None:
+    if launches["systolic_eval"] != want:
+        raise AssertionError(f"{what}: systolic_eval launched "
+                             f"{launches['systolic_eval']} times here, "
+                             f"expected {want}")
+
+
+def service_async(dev, space, pool, ref, r_q1, card: str) -> dict:
+    """q = 1 inline and q = 4 over threads and spawn processes, all over
+    ``DelayedFlow(VLSIFlow(cuda), SERVICE_DELAY_S)``; the q = 1 run is
+    ``r_q1`` (the same run without the delay) bit for bit."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.service import service_tuner
+    from repro_torch.soc import DelayedFlow, VLSIFlow
+
+    out, res = {}, {}
+    for label, q, ex in (("q=1 inline", 1, "inline"),
+                         (f"q={SERVICE_Q} thread", SERVICE_Q, "thread"),
+                         (f"q={SERVICE_Q} process", SERVICE_Q, "process")):
+        flow = DelayedFlow(VLSIFlow(space, MAIN["workload"], device=dev),
+                           SERVICE_DELAY_S)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        r = service_tuner(space, pool, flow, workload=MAIN["workload"],
+                          T=MAIN["T"], q=q, min_done=1, ordered=True,
+                          executor=ex, max_workers=q, reference_front=ref,
+                          seed=MAIN["seed"], device=dev, **_protocol())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by = launch_counts()
+        st, svc = r.engine_stats, r.engine_stats["service"]
+        k4 = _k4_split(st, launches, label)
+        # K1 in this process: the prologue's two flow calls (ICD trials,
+        # TED init) and, unless the workers are processes, one a dispatch
+        _k1_check(label, launches,
+                  2 + (0 if ex == "process" else svc["pool_dispatched"]))
+        res[label] = r
+        out[label] = dict(wall_s=wall, adrs=r.history[-1]["adrs"],
+                          dispatched=svc["pool_dispatched"],
+                          launches=launches, by_class=by, k4=k4)
+        print(f"  {label}, DelayedFlow {SERVICE_DELAY_S} s a call: "
+              f"{wall:.2f} s, final ADRS {r.history[-1]['adrs']:.5f}, "
+              f"{svc['pool_dispatched']} dispatches; K4 "
+              f"{launches['round_fused']} = {k4['rounds']} refills + "
+              f"{k4['fantasy_steps']} fantasy steps, by class "
+              f"{by['round_fused']}; K1 here {launches['systolic_eval']}"
+              + (" (the workers' launches stay in the workers)"
+                 if ex == "process" else ""))
+    q1, qt, qp = res.values()
+    _same_trajectory(f"  q={SERVICE_Q} process vs thread: rows", qp, qt)
+    _same_trajectory("  q=1 under the delay vs without: rows", q1, r_q1)
+    walls = [v["wall_s"] for v in out.values()]
+    out["speedup_thread"] = walls[0] / walls[1]
+    out["speedup_process"] = walls[0] / walls[2]
+    print(f"  q={SERVICE_Q} against q=1 under the same delay: "
+          f"{out['speedup_thread']:.2f}x (threads), "
+          f"{out['speedup_process']:.2f}x (processes) [{card}]")
+    return out
+
+
+def service_fleet(dev, space, pool) -> dict:
+    """``fleet_service`` over one 4-worker thread pool, then at q = 1 inline
+    against ``fleet_tuner(incremental=True)``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import FleetScenario, fleet_tuner, pareto_front
+    from repro_torch.service import fleet_service
+    from repro_torch.soc import VLSIFlow
+
+    scen = [FleetScenario(w, seed=s) for w, s in SERVICE_FLEET["scenarios"]]
+    fronts = {sc.workload: pareto_front(
+        VLSIFlow(space, sc.workload, device=dev)(pool), device=dev)
+        for sc in scen}
+    T, workers = SERVICE_FLEET["T"], SERVICE_FLEET["workers"]
+    kw = dict(T=T, reference_fronts=fronts, device=dev, **_protocol())
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fs = fleet_service(space, pool, scen, q=workers // len(scen), min_done=1,
+                       executor="thread", max_workers=workers, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, by = launch_counts()
+    st = fs.results[0].engine_stats
+    k4 = dict(launches=launches["round_fused"], rounds=st["rounds"],
+              fantasy_steps=st["fantasy_steps"], by_class=by["round_fused"])
+    svc = st["service"]
+    adrs = {sc.label: r.history[-1]["adrs"]
+            for sc, r in zip(fs.scenarios, fs.results)}
+    for sc, r in zip(fs.scenarios, fs.results):
+        if len(r.evaluated_rows) != len(set(r.evaluated_rows.tolist())) or \
+                len(r.history) != T + 1 or not np.isfinite(r.y).all():
+            raise AssertionError(f"fleet service {sc.label}: a bad result")
+    print(f"  fleet_service, {len(scen)} scenarios x T {T}, q "
+          f"{workers // len(scen)} each over {workers} threads: {wall:.2f} s,"
+          f" final ADRS {adrs}; {svc['pool_dispatched']} dispatches, "
+          f"{svc['pool_inflight_hits']} in-flight hits, memo hits "
+          f"{svc['fleet_cache']['memo_hits']}, prologue cache hits "
+          f"{svc['fleet_cache']['hits']} of "
+          f"{svc['fleet_cache']['hits'] + svc['fleet_cache']['misses']}; "
+          f"K4 {k4['launches']} ({k4['rounds']} rounds x {len(scen)} "
+          f"scenarios + fantasy steps), K1 {launches['systolic_eval']}")
+    f1 = fleet_service(space, pool, scen, q=1, executor="inline", **kw)
+    ft = fleet_tuner(space, pool, scen, incremental=True, **kw)
+    y_bitwise = True
+    for sc, a, b in zip(scen, f1.results, ft.results):
+        compare_rows(f"  fleet_service q=1 inline vs fleet_tuner, "
+                     f"{sc.label}", a, b)
+        y_bitwise = y_bitwise and np.array_equal(a.y, b.y)
+    print(f"  fleet_service q=1 = fleet_tuner: rows equal; metrics "
+          f"{'bitwise equal' if y_bitwise else 'not bitwise equal'}")
+    return dict(wall_s=wall, adrs=adrs, service=svc, launches=launches,
+                k4=k4, q1_metrics_bitwise=y_bitwise)
+
+
+def service_server(dev, space, pool) -> dict:
+    """``TunerServer`` served on localhost: the mix submitted, its status
+    and metrics read through ``request`` mid-run, shut down at the end;
+    each job against the job alone through ``fleet_service``."""
+    import threading
+
+    import numpy as np
+
+    from repro_torch.core import adrs, pareto_front
+    from repro_torch.obs import MetricsRegistry
+    from repro_torch.service import (JobSpec, TunerServer, fleet_service,
+                                     request, serve)
+    from repro_torch.soc import VLSIFlow
+
+    specs = [dict(job, T=MAIN["T"], **_protocol()) for job in SERVER_JOBS]
+    reg = MetricsRegistry()
+    srv = TunerServer(space, pool, executor="thread", max_workers=4,
+                      metrics=reg, device=dev)
+    got, ready = {}, threading.Event()
+    th = threading.Thread(target=serve, args=(srv,), daemon=True, kwargs=dict(
+        ready_cb=lambda p: (got.update(port=p), ready.set())))
+    t0 = time.perf_counter()
+    th.start()
+    try:
+        if not ready.wait(60):
+            raise AssertionError("the server never listened")
+        port = got["port"]
+        jids = [request(port, {"verb": "submit", "spec": sp})["job"]
+                for sp in specs]
+        scraped, deadline = None, time.time() + 600
+        while time.time() < deadline:
+            st = request(port, {"verb": "status"})["status"]
+            jobs = st["jobs"]
+            if scraped is None and any(j["status"] == "RUNNING"
+                                       and j["done"] >= 1
+                                       for j in jobs.values()):
+                scraped = request(port, {"verb": "metrics"})["metrics"]
+            if all(jobs[j]["status"] in ("DONE", "FAILED") for j in jids):
+                break
+            time.sleep(0.05)
+        if scraped is None:
+            raise AssertionError("no metrics scrape while a job ran")
+        mid_bytes = scraped["gauges"]["engine_device_bytes"]["series"][""]
+        if not mid_bytes > 0:
+            raise AssertionError(f"engine_device_bytes {mid_bytes} mid-run")
+        if not request(port, {"verb": "shutdown"})["ok"]:
+            raise AssertionError("shutdown refused")
+        th.join(120)
+        if th.is_alive():
+            raise AssertionError("the serve loop did not stop")
+    finally:
+        srv.close()
+    wall = time.perf_counter() - t0
+    hist = reg.snapshot()["histograms"]["scheduler_cycle_seconds"][
+        "series"][""]
+    cycle_s = hist["sum"] / hist["count"]
+    out = dict(wall_s=wall, cycles=hist["count"], cycle_s=cycle_s,
+               engine_device_bytes_mid_run=mid_bytes, jobs={})
+    for jid, sp in zip(jids, specs):
+        job = srv.job(jid)
+        if job.status != "DONE":
+            raise AssertionError(f"job {jid}: {job.status} {job.error}")
+        spec = JobSpec(**sp)
+        knobs = {k: v for k, v in sp.items() if k not in ("workload", "seed")}
+        want = fleet_service(space, pool, [spec.scenario], executor="inline",
+                             device=dev, **knobs).results[0]
+        _same_trajectory(f"  server job {job.label} vs the job alone",
+                         job.result(), want)
+        front = pareto_front(VLSIFlow(space, spec.workload, device=dev)(pool),
+                             device=dev)
+        a = adrs(front, job.result().pareto_y)
+        out["jobs"][job.label] = dict(adrs=a, stats={
+            k: job.result().engine_stats[k]
+            for k in ("rounds", "fantasy_steps", "refactors")})
+        print(f"  server job {job.label}: final ADRS {a:.5f}, "
+              f"{out['jobs'][job.label]['stats']}")
+    print(f"  server: {wall:.2f} s, {hist['count']} scheduler cycles, "
+          f"{cycle_s:.4f} s a cycle; engine_device_bytes mid-run "
+          f"{mid_bytes:.0f}")
+    assert np.isfinite(cycle_s)
+    return out
+
+
+def service_cli(dev, space, pool) -> dict:
+    """The port's CLI in subprocesses: SIGKILLed after an early checkpoint,
+    resumed, and an uninterrupted run; then a re-run on the filled cache
+    (here) and the event log through ``build_chrome_trace``."""
+    import signal
+
+    import numpy as np
+
+    from repro_torch.obs import build_chrome_trace, read_events
+    from repro_torch.service import service_tuner
+    from repro_torch.soc import VLSIFlow
+
+    shutil.rmtree(SERVICE_DIR, ignore_errors=True)
+    SERVICE_DIR.mkdir(parents=True)
+    ck, cache, ev = (str(SERVICE_DIR / p) for p in ("ckpt", "cache",
+                                                    "events.jsonl"))
+    base = [sys.executable, "-m", "repro_torch.service.cli", "--n-pool",
+            str(MAIN["n_pool"]), "--T", str(MAIN["T"]), "--q", "2",
+            "--executor", "thread", "--device", str(dev), "--quiet"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+
+    def cli(*args, check=True):
+        t0 = time.perf_counter()
+        p = subprocess.run(base + list(args), env=env, capture_output=True,
+                           text=True, timeout=600)
+        if check and p.returncode != 0:
+            raise AssertionError(f"CLI {args} failed: {p.stderr[-2000:]}")
+        return p, time.perf_counter() - t0
+
+    dead, t_dead = cli("--checkpoint-dir", ck, "--cache-dir", cache,
+                       "--events", ev, "--kill-after", str(CLI_KILL_AFTER),
+                       "--out", str(SERVICE_DIR / "dead.json"), check=False)
+    if dead.returncode != -signal.SIGKILL:
+        raise AssertionError(f"the CLI was not SIGKILLed: {dead.returncode}"
+                             f" {dead.stderr[-2000:]}")
+    _, t_res = cli("--checkpoint-dir", ck, "--cache-dir", cache, "--events",
+                   ev, "--resume", "--out", str(SERVICE_DIR / "resumed.json"))
+    _, t_full = cli("--out", str(SERVICE_DIR / "full.json"))
+    resumed, full = (json.loads((SERVICE_DIR / f).read_text())
+                     for f in ("resumed.json", "full.json"))
+    strip = [[{k: v for k, v in h.items() if k != "wall_s"}
+              for h in r["history"]] for r in (resumed, full)]
+    if resumed["evaluated_rows"] != full["evaluated_rows"] or \
+            resumed["y"] != full["y"] or strip[0] != strip[1]:
+        raise AssertionError("the SIGKILLed and resumed CLI run is not the "
+                             "uninterrupted one")
+    rerun = service_tuner(space, pool, VLSIFlow(space, MAIN["workload"],
+                                                device=dev),
+                          T=MAIN["T"], q=2, executor="thread",
+                          cache_dir=cache, seed=0, device=dev)
+    svc = rerun.engine_stats["service"]
+    if svc["pool_dispatched"] or svc["disk"]["misses"] or \
+            rerun.evaluated_rows.tolist() != full["evaluated_rows"]:
+        raise AssertionError(f"cache re-run: {svc}")
+    recs = read_events(ev)
+    trace = build_chrome_trace(recs)
+    gens = sorted({r["gen"] for r in recs})
+    if gens != [0, 1] or not trace["traceEvents"]:
+        raise AssertionError(f"event log generations {gens}")
+    out = dict(killed_s=t_dead, resumed_s=t_res, uninterrupted_s=t_full,
+               rows=full["evaluated_rows"],
+               rerun_dispatched=svc["pool_dispatched"],
+               rerun_disk_hits=svc["disk"]["hits"], events=len(recs),
+               trace_events=len(trace["traceEvents"]))
+    print(f"  CLI: SIGKILLed after {CLI_KILL_AFTER} evaluations ({t_dead:.1f}"
+          f" s), resumed ({t_res:.1f} s) = uninterrupted ({t_full:.1f} s) "
+          f"bit for bit over {len(full['evaluated_rows'])} rows; cache "
+          f"re-run: 0 dispatches, {svc['disk']['hits']} disk hits; event "
+          f"log: {len(recs)} records in 2 generations, "
+          f"{len(trace['traceEvents'])} trace events")
+    assert np.isfinite(rerun.y).all()
+    return out
+
+
+def service_phase(dev, res_i, launches_i: dict, by_class_i: dict,
+                  card: str) -> dict:
+    """The exploration service on the card (ROADMAP queue 1 item 12)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.service import service_tuner
+    from repro_torch.soc import VLSIFlow
+
+    t_phase = time.perf_counter()
+    print("the exploration service (paper protocol, n_pool 2500, resnet50, "
+          "T 20):")
+    # q = 1, inline: the main incremental soc_tuner run bit for bit, with
+    # the same launches (the counting window as drive()'s)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    space, pool, ref = _main_inputs(dev)
+    r1 = service_tuner(space, pool, VLSIFlow(space, MAIN["workload"],
+                                             device=dev),
+                       workload=MAIN["workload"], T=MAIN["T"], q=1,
+                       executor="inline", reference_front=ref,
+                       seed=MAIN["seed"], device=dev, **_protocol())
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    launches, by = launch_counts()
+    _same_trajectory("  service_tuner q=1 inline vs the main incremental "
+                     "soc_tuner: rows", r1, res_i)
+    if launches != launches_i or by != by_class_i:
+        raise AssertionError(f"service q=1 launches {launches} {by}; the "
+                             f"main incremental run's {launches_i} "
+                             f"{by_class_i}")
+    print(f"  q=1 inline: {wall1:.1f} s, final ADRS "
+          f"{r1.history[-1]['adrs']:.5f} (the main run's, bit for bit); "
+          f"launches equal the main run's by shape and class: {launches}")
+    out = dict(q1=dict(wall_s=wall1, adrs=r1.history[-1]["adrs"],
+                       launches=launches, by_class=by))
+    out["async"] = service_async(dev, space, pool, ref, r1, card)
+    out["fleet"] = service_fleet(dev, space, pool)
+    out["server"] = service_server(dev, space, pool)
+    out["cli"] = service_cli(dev, space, pool)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  service phase: {out['wall_s']:.1f} s")
+    return out
+
+
 def k5_bytes_ops(B, S, H, K, hd) -> tuple[int, int]:
     """Bytes K5 must move (q and o at H heads, k and v at K, bf16, each
     once) and its causal operations 2·B·H·S²·hd (the QKᵀ and PV products
@@ -1900,6 +2293,26 @@ def serve_small_card_vs_cpu(dev) -> None:
         assert dmax <= 0.0625 and dmean <= 0.01
 
 
+def launch_counts() -> tuple[dict, dict]:
+    """Every kernel's launches since the counts were set to 0, and K1's and
+    K2's by shape, K3's and K4's by class."""
+    from repro_torch import kernels
+    from repro_torch.kernels import pairdist as K2
+    from repro_torch.kernels import pareto_count as K3
+    from repro_torch.kernels import round_fused as K4
+    from repro_torch.kernels import systolic_eval as K1
+
+    launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                for k in kernels.KERNELS}
+    return launches, dict(
+        systolic_eval={f"{n}x26x{L}": c for (n, L), c in
+                       sorted(K1.shape_launches.items())},
+        pairdist={f"{n}x{m}x{d} {mode}": c for (n, m, d, mode), c in
+                  sorted(K2.shape_launches.items())},
+        pareto_count=dict(K3.shape_launches),
+        round_fused=dict(K4.class_launches))
+
+
 def compare_rows(what: str, a, b) -> None:
     """Assert that two soc_tuner results evaluated the same rows."""
     import numpy as np
@@ -1910,6 +2323,7 @@ def compare_rows(what: str, a, b) -> None:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON here")
     args = ap.parse_args()
@@ -1958,9 +2372,7 @@ def main() -> int:
         """One main-path run with every launch count set to 0 just before
         it; returns (result, pool, ref, flow, launches, wall seconds) and
         keeps K2's launches by shape and K4's by class in ``by_class``."""
-        from repro_torch.kernels import pairdist as K2
         from repro_torch.kernels import pareto_count as K3
-        from repro_torch.kernels import round_fused as K4
         from repro_torch.kernels import systolic_eval as K1
 
         print(f"main path ({label}): soc_tuner", json.dumps({**MAIN, **extra}))
@@ -1969,15 +2381,7 @@ def main() -> int:
         res, pool, ref, flow = run_tuner(MAIN, dev, **extra)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k.__name__.rsplit(".", 1)[1]: k.launches
-                    for k in kernels.KERNELS}
-        by_class[label] = dict(
-            systolic_eval={f"{n}x26x{L}": c for (n, L), c in
-                           sorted(K1.shape_launches.items())},
-            pairdist={f"{n}x{m}x{d} {mode}": c for (n, m, d, mode), c in
-                      sorted(K2.shape_launches.items())},
-            pareto_count=dict(K3.shape_launches),
-            round_fused=dict(K4.class_launches))
+        launches, by_class[label] = launch_counts()
         for h in res.history:
             print(f"  round {h['round']:2d} wall_s={h['wall_s']:.3f} "
                   f"evals={h['evaluations']} front={h['pareto_size']} "
@@ -2069,6 +2473,12 @@ def main() -> int:
     fleet_proposer = fleet_proposer_phase(dev, fleet, card)
     proposer_card_vs_cpu()
 
+    # The exploration service: service_tuner (q = 1 against the main
+    # incremental run; q = 4 over threads and spawn processes), the fleet
+    # service, the server over the wire, and the CLI killed and resumed.
+    service = service_phase(dev, res_i, launches_i, by_class["incremental"],
+                            card)
+
     print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
     check_flash_attn(dev, checks)
     serve = serve_phase(dev)
@@ -2139,8 +2549,9 @@ def main() -> int:
                              launches_by_class=by_class["incremental"],
                              round_breakdown=breakdown_i),
             fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
-            serve=serve),
+            service=service, serve=serve, wall_s=time.perf_counter() - t_start),
             indent=1))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -91,16 +91,22 @@ class FlowEvalCache:
     rows, ``evaluated`` the designs evaluated (the stored entries),
     ``flow_calls`` the flushes' calls; ``peek_hits``/``peek_misses`` the
     lookups of :meth:`peek`, ``invalidated`` the entries
-    :meth:`invalidate_rows` dropped. The reference's on-disk cache
-    (``disk``) is not ported yet and raises."""
+    :meth:`invalidate_rows` dropped.
+
+    ``disk`` (a :class:`repro_torch.service.flowcache.FlowDiskCache` or its
+    root path) backs the memo with the content-addressed on-disk cache: a
+    flush first resolves its misses from the disk (``disk_hits`` counts
+    them) and writes every result it computes back, so fleets, service runs
+    and restarts of either package share one corpus of evaluations."""
 
     def __init__(self, space: DesignSpace, pool_idx: np.ndarray,
                  workloads: Sequence[str], disk=None, flow_factory=None,
                  device=None):
-        if disk is not None:
-            raise NotImplementedError(
-                "repro_torch.FlowEvalCache: the on-disk flow cache is not "
-                "ported yet (ROADMAP queue 1, item 12)")
+        if disk is not None and not hasattr(disk, "get"):
+            from repro_torch.service.flowcache import FlowDiskCache
+
+            disk = FlowDiskCache(disk)
+        self.disk = disk
         self.space = space
         self.pool_idx = np.asarray(pool_idx)
         self.device = resolve_device(device)
@@ -115,6 +121,7 @@ class FlowEvalCache:
                        else {w: flow_factory(w) for w in self.layers})
         self.hits = 0
         self.misses = 0
+        self.disk_hits = 0
         self.flow_calls = 0
         self.evaluated = 0
         self.peek_hits = 0
@@ -123,7 +130,8 @@ class FlowEvalCache:
 
     def invalidate_rows(self, rows) -> None:
         """Drop the entries of pool rows whose design changed (the memo is
-        keyed by row index)."""
+        keyed by row index; the disk cache is keyed by the design itself and
+        needs nothing)."""
         for r in np.asarray(rows).reshape(-1):
             for store in self._store.values():
                 if store.pop(int(r), None) is not None:
@@ -154,8 +162,10 @@ class FlowEvalCache:
         return self.hits / max(self.requests, 1)
 
     def summary(self) -> str:
+        disk = (f", {self.disk_hits} disk hits" if self.disk is not None
+                else "")
         return (f"cache: {self.requests} requests, {self.hits} hits "
-                f"({100.0 * self.hit_rate:.1f}%), {self.evaluated} "
+                f"({100.0 * self.hit_rate:.1f}%){disk}, {self.evaluated} "
                 f"designs evaluated in {self.flow_calls} flow dispatches")
 
     def evaluate_many(self, reqs: list[tuple[str, np.ndarray]]
@@ -186,7 +196,28 @@ class FlowEvalCache:
         return torch.as_tensor(self.space.values(self.pool_idx[np.asarray(rows)]),
                                dtype=torch.float32, device=self.device)
 
+    def _keep(self, wl: str, r: int, y) -> None:
+        """Store one computed result, and write it back to the disk."""
+        self._store[wl][r] = y
+        if self.disk is not None:
+            self.disk.put(wl, self.pool_idx[r], y)
+
     def _flush(self, pending: dict[str, list[int]]) -> None:
+        if self.disk is not None:
+            # what the shared corpus already holds costs no dispatch
+            for wl in list(pending):
+                left = []
+                for r in pending[wl]:
+                    y = self.disk.get(wl, self.pool_idx[r])
+                    if y is None:
+                        left.append(r)
+                    else:
+                        self._store[wl][r] = np.asarray(y)
+                        self.disk_hits += 1
+                if left:
+                    pending[wl] = left
+                else:
+                    del pending[wl]
         if not pending:
             return
         if self._flows is not None:
@@ -196,7 +227,7 @@ class FlowEvalCache:
                 y = np.atleast_2d(np.asarray(
                     self._flows[wl](self.pool_idx[np.asarray(rows)])))
                 for r, yr in zip(rows, y):
-                    self._store[wl][r] = yr
+                    self._keep(wl, r, yr)
             return
         self.flow_calls += 1
         self.evaluated += sum(len(r) for r in pending.values())
@@ -206,7 +237,7 @@ class FlowEvalCache:
                 self._values(rows).contiguous(),
                 self._layers_t[wl]).cpu().numpy()
             for r, yr in zip(rows, y):
-                self._store[wl][r] = yr
+                self._keep(wl, r, yr)
             return
         names = list(pending)
         rmax = max(len(pending[w]) for w in names)
@@ -221,7 +252,7 @@ class FlowEvalCache:
                             device=self.device).contiguous()).cpu().numpy()
         for wi, w in enumerate(names):
             for ri, r in enumerate(pending[w]):
-                self._store[w][r] = y[wi, ri]
+                self._keep(w, r, y[wi, ri])
 
 
 @dataclasses.dataclass
@@ -250,6 +281,17 @@ class _ScenarioState:
     y: np.ndarray                    # [k, 3]
     weights: tuple[float, ...] | None
     history: list[dict]
+
+
+def _log_round(st: _ScenarioState, i: int, label: str,
+               reference_front: np.ndarray | None, verbose: bool,
+               tag: str = "fleet", wall_s: float | None = None,
+               events=None, device=None) -> None:
+    """One scenario's progress record for round (or evaluation) ``i``: the
+    helper ``fleet_tuner``, ``fleet_service`` and the server's jobs share."""
+    log_progress(st.history, st.y, len(st.evaluated), i, reference_front,
+                 verbose=verbose, tag=tag, label=label, wall_s=wall_s,
+                 events=events, device=device)
 
 
 def fleet_prologue(space: DesignSpace, pool_idx: np.ndarray,
@@ -367,16 +409,16 @@ def fleet_tuner(
     that the cache aliases) is edited in place and the replaced rows' cache
     entries are dropped.
 
-    ``mesh``/``mesh_axis`` (ROADMAP queue 1, item 14b.8) and ``disk_cache``
-    (item 12) belong to parts of the reference not ported yet and raise.
+    ``disk_cache`` (a path or a
+    :class:`repro_torch.service.flowcache.FlowDiskCache`) backs the memo
+    with the on-disk cache that service runs, other fleets and the
+    reference share (see :class:`FlowEvalCache`). ``mesh``/``mesh_axis``
+    (ROADMAP queue 1, item 14b.8) are not ported yet and raise.
     """
-    for name, unported, item in (
-            ("mesh", mesh is not None or mesh_axis is not None, "14b.8"),
-            ("disk_cache", disk_cache is not None, "12")):
-        if unported:
-            raise NotImplementedError(
-                f"repro_torch.fleet_tuner: {name} is not ported yet (ROADMAP "
-                f"queue 1, item {item})")
+    if mesh is not None or mesh_axis is not None:
+        raise NotImplementedError(
+            "repro_torch.fleet_tuner: mesh is not ported yet (ROADMAP queue "
+            "1, item 14b.8)")
     t0 = time.monotonic()
     scenarios = list(scenarios)
     pool_idx = np.asarray(pool_idx)
@@ -402,7 +444,8 @@ def fleet_tuner(
     N = pool_idx.shape[0]
     reference_fronts = reference_fronts or {}
     cache = FlowEvalCache(space, pool_idx, [sc.workload for sc in scenarios],
-                          flow_factory=flow_factory, device=dev)
+                          disk=disk_cache, flow_factory=flow_factory,
+                          device=dev)
 
     config = {"n": int(n), "b": int(b), "mu": float(mu),
               "v_th": float(v_th), "gp_steps": int(gp_steps),
@@ -445,10 +488,8 @@ def fleet_tuner(
         nonlocal t_round
         now = time.monotonic()
         for sc, st in zip(scenarios, states):
-            log_progress(st.history, st.y, len(st.evaluated), i,
-                         reference_fronts.get(sc.workload), verbose=verbose,
-                         wall_s=now - t_round, device=dev, tag="fleet",
-                         label=sc.label)
+            _log_round(st, i, sc.label, reference_fronts.get(sc.workload),
+                       verbose, wall_s=now - t_round, device=dev)
         t_round = now
 
     start_round = 0 if snap is None else int(snap["round"])

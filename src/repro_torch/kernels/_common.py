@@ -1,7 +1,14 @@
-"""Argument checks shared by the kernel wrappers."""
+"""Argument checks and the launch-count lock shared by the kernel wrappers."""
 from __future__ import annotations
 
+import threading
+
 import torch
+
+#: held while a wrapper adds a launch to its counts (or while they are set
+#: to 0): a flow pool's worker threads launch K1 concurrently, and a
+#: read-modify-write of a module global is not atomic across threads
+COUNT_LOCK = threading.Lock()
 
 
 def check_tensor(name: str, t: torch.Tensor, ndim: int,

@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -48,6 +49,9 @@ SIGNATURES = {
 
 _LIB: ctypes.CDLL | None = None
 _BUILD_SECONDS: float | None = None
+#: held while the library is built and loaded: concurrent first callers
+#: (a flow pool's worker threads) wait for one build instead of racing
+_LIB_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -123,20 +127,24 @@ def library_path() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use: once a process, also
+    when several threads call it first at the same time."""
     global _LIB, _BUILD_SECONDS
-    if _LIB is None:
-        t0 = time.perf_counter()
-        target = library_path()
-        if not target.exists():
-            _build(target)
-        lib = ctypes.CDLL(str(target))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _LIB = lib
-        _BUILD_SECONDS = time.perf_counter() - t0
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            t0 = time.perf_counter()
+            target = library_path()
+            if not target.exists():
+                _build(target)
+            lib = ctypes.CDLL(str(target))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _BUILD_SECONDS = time.perf_counter() - t0
+            _LIB = lib
     return _LIB
 
 

@@ -27,7 +27,7 @@ import math
 import torch
 
 from . import build
-from ._common import on_cpu
+from ._common import COUNT_LOCK, on_cpu
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
            "NEG_INF", "ROUTES", "launches", "route_launches"]
@@ -108,6 +108,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
         k.shape[2], hd, 1.0 / math.sqrt(hd), build.stream_ptr(q))
     build.check(err, f"flash_attn ({route})")
-    launches += 1
-    route_launches[route] += 1
+    with COUNT_LOCK:
+        launches += 1
+        route_launches[route] += 1
     return out

@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._common import check_tensor, on_cpu
+from ._common import COUNT_LOCK, check_tensor, on_cpu
 
 __all__ = ["pairdist", "pairdist_plain", "launch_plan", "launches",
            "shape_launches"]
@@ -86,7 +86,8 @@ def pairdist(x: torch.Tensor, y: torch.Tensor, *,
         int(bandwidth is not None), inv2s2, launch_plan(n, m, d)["tm"],
         build.stream_ptr(x))
     build.check(err, "pairdist")
-    launches += 1
     key = (n, m, d, "d2" if bandwidth is None else "rbf")
-    shape_launches[key] = shape_launches.get(key, 0) + 1
+    with COUNT_LOCK:
+        launches += 1
+        shape_launches[key] = shape_launches.get(key, 0) + 1
     return out

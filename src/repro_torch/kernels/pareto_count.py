@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from . import build
-from ._common import check_tensor, on_cpu
+from ._common import COUNT_LOCK, check_tensor, on_cpu
 
 __all__ = ["dominance_counts", "dominance_counts_plain", "launch_plan",
            "launches", "shape_launches"]
@@ -98,7 +98,8 @@ def dominance_counts(y: torch.Tensor) -> torch.Tensor:
         p["rows_per_block"], p["s_log2"], p["threads"], p["tile_rows"],
         p["smem_bytes"], build.stream_ptr(y))
     build.check(err, "pareto_count")
-    launches += 1
     key = "small" if n <= FRONT_ROWS else "large"
-    shape_launches[key] = shape_launches.get(key, 0) + 1
+    with COUNT_LOCK:
+        launches += 1
+        shape_launches[key] = shape_launches.get(key, 0) + 1
     return out

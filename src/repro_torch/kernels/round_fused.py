@@ -42,7 +42,7 @@ import math
 import torch
 
 from . import build
-from ._common import check_tensor, on_cpu
+from ._common import COUNT_LOCK, check_tensor, on_cpu
 
 __all__ = ["round_select", "round_select_plain", "refresh_chunks",
            "v_update_plain", "col_moments_plain", "mes_plain", "select_plain",
@@ -273,8 +273,9 @@ def _launch(args, s0: int, scores, plan_nc: int, cls: str) -> torch.Tensor:
         d, m, P, ystar.shape[0], min(s0, P),
         *(plan[k] for k in PLAN_KEYS), build.stream_ptr(V))
     build.check(err, "round_fused")
-    launches += 1
-    class_launches[cls] += 1
+    with COUNT_LOCK:
+        launches += 1
+        class_launches[cls] += 1
     return out
 
 

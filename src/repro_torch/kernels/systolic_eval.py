@@ -21,7 +21,7 @@ from repro_torch.soc.model import metrics_multi as soc_metrics_multi_plain
 from repro_torch.soc.model import metrics_tile as soc_metrics_plain
 
 from . import build
-from ._common import check_tensor, on_cpu
+from ._common import COUNT_LOCK, check_tensor, on_cpu
 
 __all__ = ["soc_metrics", "soc_metrics_plain", "soc_metrics_multi",
            "soc_metrics_multi_plain", "launch_plan", "launches",
@@ -119,8 +119,10 @@ def soc_metrics(vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
         p["g_log2"], p["kr"], p["threads"], p["stride"], p["smem_bytes"],
         build.stream_ptr(vals))
     build.check(err, "systolic_eval")
-    launches += 1
-    shape_launches[(n, n_layers)] = shape_launches.get((n, n_layers), 0) + 1
+    with COUNT_LOCK:
+        launches += 1
+        shape_launches[(n, n_layers)] = \
+            shape_launches.get((n, n_layers), 0) + 1
     return out
 
 
@@ -158,7 +160,8 @@ def soc_metrics_multi(vals: torch.Tensor, layers: torch.Tensor,
         out.data_ptr(), W, n, lmax, p["g_log2"], p["kr"], p["threads"],
         p["stride"], p["smem_bytes"], build.stream_ptr(vals))
     build.check(err, "systolic_eval (multi)")
-    launches += 1
     key = (W, n, lmax)
-    multi_shape_launches[key] = multi_shape_launches.get(key, 0) + 1
+    with COUNT_LOCK:
+        launches += 1
+        multi_shape_launches[key] = multi_shape_launches.get(key, 0) + 1
     return out

@@ -1,11 +1,20 @@
-"""The flow runner: the callable ``idx -> metrics`` interface the tuner expects.
+"""Flow runners: the callable ``idx -> metrics`` interface the tuner expects.
 
 :class:`VLSIFlow` evaluates designs with the SoC model (``systolic_eval``
 kernel on CUDA, its plain version on the CPU) and counts its invocations: the
-tuner's budget accounting reads ``calls`` and ``evaluated``. It pickles
-without its device buffer, so a worker process rebuilds it on unpickle.
+tuner's budget accounting reads ``calls`` and ``evaluated`` (exact under
+concurrent worker threads). :class:`DelayedFlow` wraps any flow with a fixed
+sleep a call, the stand-in for an hours-long real VLSI flow in the service's
+concurrency runs.
+
+Both pickle for ``spawn`` worker processes: :class:`VLSIFlow` drops its device
+buffer and its lock, and a worker rebuilds them on unpickle (opening its own
+CUDA context for a ``cuda`` flow; a worker without a card raises there).
 """
 from __future__ import annotations
+
+import threading
+import time
 
 import numpy as np
 import torch
@@ -16,7 +25,7 @@ from repro_torch.kernels import systolic_eval as _systolic_eval
 
 from .workloads import get_workload
 
-__all__ = ["VLSIFlow"]
+__all__ = ["VLSIFlow", "DelayedFlow"]
 
 
 class VLSIFlow:
@@ -26,6 +35,7 @@ class VLSIFlow:
         self.layers = get_workload(workload)
         self.device = resolve_device(device)
         self._layers_t = self._upload()
+        self._lock = threading.Lock()
         self.calls = 0
         self.evaluated = 0
 
@@ -37,7 +47,7 @@ class VLSIFlow:
     # its own CUDA context) — rebuild it from the host copy on unpickle.
     def __getstate__(self) -> dict:
         d = self.__dict__.copy()
-        del d["_layers_t"]
+        del d["_layers_t"], d["_lock"]
         d["device"] = str(self.device)
         return d
 
@@ -45,11 +55,29 @@ class VLSIFlow:
         self.__dict__.update(d)
         self.device = resolve_device(self.device)
         self._layers_t = self._upload()
+        self._lock = threading.Lock()
 
     def __call__(self, idx: np.ndarray) -> np.ndarray:
         idx = np.atleast_2d(np.asarray(idx))
-        self.calls += 1
-        self.evaluated += idx.shape[0]
+        with self._lock:
+            self.calls += 1
+            self.evaluated += idx.shape[0]
         vals = torch.as_tensor(self.space.values(idx), dtype=torch.float32,
                                device=self.device).contiguous()
         return _systolic_eval.soc_metrics(vals, self._layers_t).cpu().numpy()
+
+
+class DelayedFlow:
+    """Any flow plus a fixed sleep a call: a mock of the real VLSI flow's
+    hours per point. One call sleeps once however many rows it evaluates
+    (a batch sent to a farm in parallel), so the service's one-design
+    dispatches pay one delay each while q concurrent workers overlap theirs.
+    A copy of ``repro.soc.flow.DelayedFlow``."""
+
+    def __init__(self, flow, delay_s: float):
+        self.flow = flow
+        self.delay_s = float(delay_s)
+
+    def __call__(self, idx: np.ndarray) -> np.ndarray:
+        time.sleep(self.delay_s)
+        return self.flow(idx)

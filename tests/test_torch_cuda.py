@@ -693,3 +693,48 @@ def test_pareto_count_is_one_device_operation_per_call(dev):
         yt = torch.as_tensor(_k3_rows(n, 3, n), device=dev)
         _one_device_operation(lambda: K3.dominance_counts(yt),
                               "pareto_count_kernel")
+
+
+def test_spawn_worker_k1_equals_the_parents_bitwise(dev):
+    """A ``cuda`` flow sent to spawn workers: each worker opens its own
+    context and loads the library the parent built; its K1 outputs are the
+    parent's bit for bit, and its launches stay out of the parent's count."""
+    from repro_torch.service import FlowPool
+    from repro_torch.soc import VLSIFlow
+
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(11), 6).numpy()
+    flow = VLSIFlow(space, "resnet50", device="cuda")
+    want = np.stack([flow(row[None])[0] for row in idx])
+    before = K1.launches
+    pool = FlowPool(flow, executor="process", max_workers=2)
+    try:
+        for r, row in enumerate(idx):
+            pool.submit(r, row)
+        got = pool.drain(min_done=len(idx))
+    finally:
+        pool.close()
+    assert [r for _, r, _ in got] == list(range(len(idx)))
+    np.testing.assert_array_equal(np.stack([y for _, _, y in got]), want)
+    assert K1.launches == before
+
+
+def test_thread_workers_count_every_k1_launch(dev):
+    """Worker threads launch K1 concurrently; the count stays exact."""
+    from repro_torch.service import FlowPool
+    from repro_torch.soc import VLSIFlow
+
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(12), 64).numpy()
+    flow = VLSIFlow(space, "resnet50", device="cuda")
+    want = np.stack([flow(row[None])[0] for row in idx])
+    before, calls = K1.launches, flow.calls
+    pool = FlowPool(flow, executor="thread", max_workers=8)
+    try:
+        for r, row in enumerate(idx):
+            pool.submit(r, row)
+        got = pool.drain(min_done=len(idx))
+    finally:
+        pool.close()
+    assert K1.launches - before == flow.calls - calls == len(idx)
+    np.testing.assert_array_equal(np.stack([y for _, _, y in got]), want)

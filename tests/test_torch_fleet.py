@@ -36,6 +36,7 @@ from repro_torch.core import (FleetScenario, FlowEvalCache, fit_gp,
                               fit_gp_batch, fleet_tuner, imoo_scores_batch,
                               make_space, soc_tuner)
 from repro_torch.core.gp import pad_training
+from repro_torch.service import FlowDiskCache
 from repro_torch.soc import (VLSIFlow, get_workload, metrics_tile,
                              pad_workloads, soc_metrics_multi)
 
@@ -329,24 +330,30 @@ def test_flow_factory_calls_each_pending_workload(golden):
     (dict(resume=True), "12"), (dict(proposer=True), "11"),
     (dict(mesh=object()), "14b.8")])
 def test_unported_fleet_options_raise(kw, item, tmp_path):
-    """``disk_cache`` (item 12) and ``mesh`` (14b.8) still raise, naming
-    their ROADMAP item. ``checkpoint_dir``/``resume`` (item 12's checkpoint
-    part) and ``proposer`` (item 11) are ported: a fleet takes them (the
-    proposer on the incremental engine)."""
+    """``mesh`` (14b.8) still raises, naming its ROADMAP item.
+    ``disk_cache``, ``checkpoint_dir``/``resume`` (item 12) and
+    ``proposer`` (item 11) are ported: a fleet takes them (the proposer on
+    the incremental engine), and ``disk_cache`` writes every evaluated
+    design to the disk."""
     space = make_space()
     pool = space.sample(torch.Generator().manual_seed(0), 16).numpy()
     run = dict(T=1, n=4, b=2, device="cpu")
-    if "disk_cache" in kw or "mesh" in kw:
+    if "mesh" in kw:
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             fleet_tuner(space, pool, [FleetScenario("resnet50")], **run, **kw)
         return
-    if "checkpoint_dir" in kw:
-        kw = dict(checkpoint_dir=str(tmp_path / kw["checkpoint_dir"]))
+    for name in ("checkpoint_dir", "disk_cache"):
+        if name in kw:
+            kw = {name: str(tmp_path / kw[name])}
     fr = fleet_tuner(space, pool, [FleetScenario("resnet50")],
                      incremental=True, **run, **kw)
     assert fr.results[0].engine_stats["rounds"] == 1
     if "checkpoint_dir" in kw:
         assert os.listdir(kw["checkpoint_dir"]) == ["ckpt_000001.npz"]
+    if "disk_cache" in kw:
+        assert fr.cache.evaluated > 0
+        assert len(FlowDiskCache(kw["disk_cache"]).entries()) == \
+            fr.cache.evaluated
     assert ("proposer" in fr.results[0].engine_stats) == ("proposer" in kw)
 
 
