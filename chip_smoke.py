@@ -75,6 +75,23 @@ SIGKILLed after 8 evaluations and resumed (bit for bit the uninterrupted
 CLI run), a re-run on the filled flow cache that dispatches nothing, and
 its event log rendered by ``build_chrome_trace``.
 
+The paper's §IV comparison (the paper protocol, nothing cut): K3 at the
+EHVI hypervolumes' fronts, K2 at microal's GP shapes and K2's 4096-column
+blocks of a 4500-row matrix (bitwise the monolithic launch) against their
+plain versions; each of the six baselines once (``run_baseline``: final
+ADRS beside the main runs', wall seconds, evaluations, launches by shape;
+the five non-GP baselines must make K1 = T + 1 = 21 and K3 = T + 2 = 22
+launches and 40 evaluations; microal's K3 launches must equal its
+``pareto_mask`` calls, 2T + 2 fronts plus the masks inside its
+``hypervolume`` calls, printed a round with the seconds spent in
+``hypervolume``); at n_pool = 64 each baseline's card rows equal to its CPU
+rows; ``ted_select(max_pool=None)`` at 4500 rows (one K2 launch a block,
+card rows = CPU rows); Fig. 4(c): an exact ``soc_tuner`` over
+``SimplifiedFlow`` (no K1 launch) with its front re-evaluated on the full
+flow; Fig. 7(b): the main exact run's balanced optimum's
+``area_breakdown``, whose parts times the NoC overhead must equal K1's
+area.
+
 ``round_fused`` (K4) is held against its plain version at six shapes
 (``K4_SHAPES``: the main path's refactor, block update and score-only
 rounds, a 5 x 512 chunked pool at P = 256, and a 262,144-column pool
@@ -88,7 +105,8 @@ K1's and K3's against the protocol's; the build report gives the K1-K4
 kernels' registers, spills and shared memory, and their plans.
 
 It prints the card (``nvidia-smi``), the build time, one line per kernel
-check, the rounds, the service and serve phases, its wall time in all, a
+check, the rounds, the service, baselines and serve phases, its wall time
+in all, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
 {...}}``. Any failure raises; no phase is
 caught. It needs a CUDA device and exits non-zero without one.
@@ -1824,6 +1842,356 @@ def service_phase(dev, res_i, launches_i: dict, by_class_i: dict,
     return out
 
 
+# --------------------------------------------------------------------------
+# The paper's §IV comparison (ROADMAP queue 1 item 13): six baselines at the
+# paper protocol (Fig. 7(a)), the simplified model's gap (Fig. 4(c)) and the
+# balanced optimum's area breakdown (Fig. 7(b)).
+#: K3 at microal's EHVI hypervolumes: a 10-row front plus one sample (m = 3)
+#: and a 2-D slab of 6 rows; K2 at microal's GP at its last round (P = 40
+#: padded training rows): the posterior cache and ``gp_predict`` over 64
+#: candidates; K2's column blocks of the uncapped TED at 4500 rows
+K3_EHVI_SHAPES = [(11, 3), (6, 2)]
+K2_MICROAL_SHAPES = [(40, 40), (40, 64)]
+K2_CHUNKED = (4500, 4096)
+#: the uncapped TED (``ted_select(max_pool=None)``) above ``TED_MAX_POOL``
+TED_UNCAPPED_ROWS = 4500
+
+
+def check_baseline_kernels(dev, results: dict) -> None:
+    """K3 and K2 against their plain versions at the baselines phase's new
+    launch shapes; K2's chunked blocks bitwise the monolithic launch."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import pairdist as K2
+    from repro_torch.kernels import pareto_count as K3
+
+    rng = np.random.default_rng(20)
+    for n, m in K3_EHVI_SHAPES:
+        # a front (rows on a curved trade-off) and one dominated sample
+        y = rng.dirichlet(np.ones(m), size=n) ** 0.5
+        y[-1] = y[0] + 0.01
+        yd = torch.as_tensor(y, dtype=torch.float32, device=dev)
+        c_k, c_p = K3.dominance_counts(yd), K3.dominance_counts_plain(yd)
+        torch.cuda.synchronize()
+        _record(results, "pareto_count_ehvi", [n, m],
+                float((c_k - c_p).abs().max()), bool(torch.equal(c_k, c_p)),
+                time_ms(lambda: K3.dominance_counts(yd)),
+                time_ms(lambda: K3.dominance_counts_plain(yd)), None,
+                bound_ms(4 * (n * m + n), n * n * K3_OPS_PER_PAIR(m)))
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for n, m in K2_MICROAL_SHAPES:
+        x = torch.rand((n, 26), generator=gen, device=dev)
+        y = torch.rand((m, 26), generator=gen, device=dev)
+        out_k, out_p = K2.pairdist(x, y), K2.pairdist_plain(x, y)
+        torch.cuda.synchronize()
+        scale = float((x * x).sum(1).max() + (y * y).sum(1).max())
+        atol = 2 * 26 * 2.0 ** -24 * scale  # as check_kernels' K2 lines
+        _record(results, "pairdist_microal", [n, m, 26],
+                float((out_k - out_p).abs().max()),
+                bool(torch.allclose(out_k, out_p, rtol=1e-5, atol=atol)),
+                time_ms(lambda: K2.pairdist(x, y)),
+                time_ms(lambda: K2.pairdist_plain(x, y)),
+                time_ms(lambda: torch.cdist(x, y)),
+                bound_ms(4 * ((n + m) * 26 + n * m),
+                         2 * n * m * 26 + 3 * n * m + 2 * (n + m) * 26))
+    n, chunk = K2_CHUNKED
+    x = torch.rand((n, 26), generator=gen, device=dev)
+    full = K2.pairdist(x, x)
+    out_k = K2.pairdist_chunked(x, x, chunk=chunk)
+    out_p = K2.pairdist_plain(x, x)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(out_k, full))
+    scale = 2 * float((x * x).sum(1).max())
+    err = float((out_k - out_p).abs().max())
+    ok = bitwise and bool(torch.allclose(out_k, out_p, rtol=1e-5,
+                                         atol=2 * 26 * 2.0 ** -24 * scale))
+    print(f"  pairdist_chunked [{n}, {n}, 26] in {chunk}-column blocks: "
+          f"bitwise the monolithic launch: {bitwise}")
+    _record(results, "pairdist_chunked", [n, n, 26, chunk], err, ok,
+            time_ms(lambda: K2.pairdist_chunked(x, x, chunk=chunk), reps=5),
+            time_ms(lambda: K2.pairdist_plain(x, x), reps=2, repeats=3),
+            time_ms(lambda: torch.cdist(x, x), reps=5),
+            bound_ms(4 * (2 * n * 26 + n * n),
+                     2 * n * n * 26 + 3 * n * n + 4 * n * 26))
+    del full, out_k, out_p
+    torch.cuda.empty_cache()
+
+
+def _microal_probes():
+    """Counters patched into ``core.pareto.pareto_mask`` and
+    ``core.baselines.hypervolume`` for one run: the mask calls, the
+    hypervolume calls, the masks made inside them and their seconds.
+    Returns (counts, restore)."""
+    import repro_torch.core.baselines as B
+    import repro_torch.core.pareto as P
+
+    counts = dict(masks=0, hv_calls=0, hv_masks=0, hv_s=0.0)
+    mask_fn, hv_fn = P.pareto_mask, B.hypervolume
+
+    def mask(y):
+        counts["masks"] += 1
+        return mask_fn(y)
+
+    def hv(*a, **k):
+        m0, t0 = counts["masks"], time.perf_counter()
+        try:
+            return hv_fn(*a, **k)
+        finally:
+            counts["hv_calls"] += 1
+            counts["hv_masks"] += counts["masks"] - m0
+            counts["hv_s"] += time.perf_counter() - t0
+
+    P.pareto_mask, B.hypervolume = mask, hv
+
+    def restore():
+        P.pareto_mask, B.hypervolume = mask_fn, hv_fn
+    return counts, restore
+
+
+class _RoundProbe:
+    """A flow that notes K3's launch count at each call (a round's K3
+    launches are the difference between two calls)."""
+
+    def __init__(self, flow):
+        self.flow, self.k3 = flow, []
+
+    def __call__(self, idx):
+        from repro_torch.kernels import pareto_count as K3
+
+        self.k3.append(K3.launches)
+        return self.flow(idx)
+
+
+def fig7a(dev, space, pool, ref, main_adrs: dict) -> dict:
+    """Each baseline once at the paper protocol, every count set to 0 just
+    before it: final ADRS, wall seconds, flow evaluations and launches. The
+    five non-GP baselines must make K1 = T + 1 and K3 = T + 2 launches and
+    evaluate b + T designs; microal's K3 launches are held against its
+    mask and hypervolume calls."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import BASELINES, run_baseline
+    from repro_torch.random import GeneratorDraws
+    from repro_torch.soc import VLSIFlow
+
+    T, b = MAIN["T"], MAIN["b"]
+    out = {}
+    for name in BASELINES:
+        flow = _RoundProbe(VLSIFlow(space, MAIN["workload"], device=dev))
+        counts, restore = _microal_probes()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            r = run_baseline(name, space, pool, flow, T=T, b=b,
+                             reference_front=ref,
+                             draws=GeneratorDraws(MAIN["seed"], dev),
+                             device=dev)
+        finally:
+            restore()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by = launch_counts()
+        ev = flow.flow.evaluated
+        final = r.history[-1]["adrs"]
+        if len(r.history) != T + 1 or ev != b + T or \
+                len(set(r.evaluated_rows.tolist())) != b + T or \
+                not np.isfinite(r.y).all() or not np.isfinite(final):
+            raise AssertionError(f"{name}: a bad result ({ev} evaluations, "
+                                 f"{len(r.history)} records)")
+        if launches["systolic_eval"] != T + 1:
+            raise AssertionError(f"{name}: K1 launched "
+                                 f"{launches['systolic_eval']} times, the "
+                                 f"protocol makes {T + 1}")
+        rec = dict(adrs=final, wall_s=wall, evaluated=ev, launches=launches,
+                   by_shape=by, history=[h["adrs"] for h in r.history])
+        if name == "microal":
+            # between two flow calls: a round's logged front and the next
+            # pick's proposal (its front and the EHVI hypervolumes)
+            per_round = np.diff(flow.k3)
+            fronts = 2 * T + 2  # the logged, the per-round and final fronts
+            if launches["pareto_count"] != counts["masks"] or \
+                    counts["masks"] - counts["hv_masks"] != fronts:
+                raise AssertionError(f"microal: K3 {launches['pareto_count']}"
+                                     f", mask calls {counts}")
+            rec.update(counts, k3_per_round=per_round.tolist(),
+                       hv_share=counts["hv_s"] / wall)
+            print(f"  microal: K3 {launches['pareto_count']} = "
+                  f"{counts['masks']} mask calls = {fronts} fronts + "
+                  f"{counts['hv_masks']} inside {counts['hv_calls']} "
+                  f"hypervolumes ({counts['hv_s']:.2f} s, "
+                  f"{100 * rec['hv_share']:.1f} % of the run); K3 a round "
+                  f"{per_round.tolist()}")
+        elif launches["pareto_count"] != T + 2:
+            raise AssertionError(f"{name}: K3 launched "
+                                 f"{launches['pareto_count']} times, the "
+                                 f"protocol makes {T + 2}")
+        out[name] = rec
+        print(f"  {name:<10s} final ADRS {final:.5f}, {wall:.2f} s, "
+              f"{ev} evaluations; K1 {by['systolic_eval']}, K2 "
+              f"{by['pairdist']}, K3 {by['pareto_count']}")
+    print(f"  SoC-Tuner at the same budget: final ADRS "
+          f"{main_adrs['exact']:.5f} (exact), "
+          f"{main_adrs['incremental']:.5f} (incremental)")
+    return out
+
+
+def baselines_card_vs_cpu() -> None:
+    """At ``SMALL``'s n_pool = 64, each baseline on the card and on the CPU
+    with the same draws (made on the CPU): the evaluated rows equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import BASELINES, make_space, pareto_front, \
+        run_baseline
+    from repro_torch.random import GeneratorDraws
+    from repro_torch.soc import VLSIFlow
+
+    space = make_space()
+    gen = torch.Generator().manual_seed(SMALL["seed"])
+    pool = space.sample(gen, SMALL["n_pool"]).numpy()
+    for name in BASELINES:
+        runs = {}
+        for d in ("cuda", "cpu"):
+            ref = pareto_front(VLSIFlow(space, SMALL["workload"],
+                                        device=d)(pool), device=d)
+            runs[d] = run_baseline(
+                name, space, pool, VLSIFlow(space, SMALL["workload"],
+                                            device=d),
+                T=SMALL["T"], b=SMALL["b"], reference_front=ref,
+                draws=GeneratorDraws(SMALL["seed"], "cpu"), device=d)
+        compare_rows(f"  baseline small check (n_pool=64, T=6, {name}): "
+                     f"cuda rows", runs["cuda"], runs["cpu"])
+        np.testing.assert_allclose(runs["cuda"].history[-1]["adrs"],
+                                   runs["cpu"].history[-1]["adrs"], rtol=1e-5)
+
+
+def uncapped_ted(dev) -> dict:
+    """``ted_select(max_pool=None)`` at ``TED_UNCAPPED_ROWS`` designs: the
+    kernel matrix from ``pairdist_chunked`` blocks (one K2 launch a block),
+    the card's rows equal to the CPU's."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import make_space
+    from repro_torch.core.sampling import TED_MAX_POOL, ted_select
+
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(4500), TED_UNCAPPED_ROWS)
+    x = space.encode(idx)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = ted_select(x.to(dev), b=MAIN["b"], max_pool=None)
+    wall = time.perf_counter() - t0
+    launches, by = launch_counts()
+    want = -(-TED_UNCAPPED_ROWS // TED_MAX_POOL)
+    if launches["pairdist"] != want:
+        raise AssertionError(f"uncapped TED: K2 {by['pairdist']}, expected "
+                             f"{want} blocks")
+    cpu = ted_select(x, b=MAIN["b"], max_pool=None)
+    print(f"  uncapped TED, {TED_UNCAPPED_ROWS} rows, b {MAIN['b']}: "
+          f"{wall:.2f} s, K2 {by['pairdist']}; rows {rows.tolist()}")
+    if not np.array_equal(rows, cpu):
+        raise AssertionError(f"uncapped TED: the CPU's rows {cpu.tolist()}")
+    return dict(wall_s=wall, launches=launches["pairdist"],
+                by_shape=by["pairdist"])
+
+
+def fig4c(dev, space, pool, ref, adrs_full: float) -> dict:
+    """``soc_tuner`` (exact) over ``SimplifiedFlow``, its front re-evaluated
+    with ``VLSIFlow``: the believed-against-actual gap. The simplified
+    flow launches no K1."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import adrs, pareto_front, soc_tuner
+    from repro_torch.soc import SimplifiedFlow, VLSIFlow
+
+    simp = SimplifiedFlow(space, MAIN["workload"], device=dev)
+    simp_ref = pareto_front(SimplifiedFlow(space, MAIN["workload"],
+                                           device=dev)(pool), device=dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = soc_tuner(space, pool, simp, T=MAIN["T"], reference_front=simp_ref,
+                    seed=MAIN["seed"], device=dev, **_protocol())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, _ = launch_counts()
+    if launches["systolic_eval"]:
+        raise AssertionError(f"SimplifiedFlow: K1 launched "
+                             f"{launches['systolic_eval']} times")
+    believed = res.pareto_y
+    actual = VLSIFlow(space, MAIN["workload"], device=dev)(
+        res.pareto_idx(pool))
+    gap = float(np.mean(np.abs(actual - believed)
+                        / np.maximum(np.abs(actual), 1e-9)))
+    a_simp = adrs(ref, actual)
+    if not (np.isfinite(actual).all() and np.isfinite(gap)):
+        raise AssertionError("Fig. 4(c): non-finite metrics")
+    print(f"  Fig. 4(c): soc_tuner over SimplifiedFlow {wall:.1f} s, "
+          f"{simp.evaluated} evaluations, K1 0, launches {launches}; front "
+          f"of {len(believed)}: mean relative error of the simplified "
+          f"model {100 * gap:.1f} %; ADRS of its picks (full metrics) "
+          f"{a_simp:.5f} against {adrs_full:.5f} for SoC-Tuner on the full "
+          f"flow")
+    return dict(wall_s=wall, front=len(believed), rel_error=gap,
+                adrs_simplified=a_simp, adrs_full=adrs_full,
+                launches=launches)
+
+
+def fig7b(dev, space, pool, res) -> dict:
+    """``area_breakdown`` of the main exact run's balanced optimum (the
+    smallest normalized distance to the front's ideal point); the parts
+    times the NoC overhead equal the design's area from K1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.soc import CONST, area_breakdown
+
+    front = res.pareto_y
+    z = (front - front.min(0)) / np.maximum(np.ptp(front, 0), 1e-12)
+    pick = int(np.argmin(np.linalg.norm(z, axis=1)))
+    idx = res.pareto_idx(pool)[pick]
+    parts = area_breakdown(torch.as_tensor(space.values(idx[None, :]),
+                                           dtype=torch.float32, device=dev))
+    total = float(sum(v[0] for v in parts.values()))
+    area = float(front[pick, 2])
+    ok = bool(np.isclose(total * CONST["noc_overhead"], area, rtol=1e-4,
+                         atol=0))
+    print(f"  Fig. 7(b): balanced optimum (lat={front[pick, 0]:.3f} ms, "
+          f"p={front[pick, 1]:.1f} mW, a={area:.4f} mm2); parts x "
+          f"{CONST['noc_overhead']} = {total * CONST['noc_overhead']:.4f} "
+          f"mm2: {ok}")
+    rows = sorted(((k, float(v[0])) for k, v in parts.items()),
+                  key=lambda kv: -kv[1])
+    for k, v in rows:
+        print(f"    {k:<14s} {v:8.4f} mm2 {100 * v / total:5.1f} %")
+    if not ok:
+        raise AssertionError("Fig. 7(b): the parts do not sum to K1's area")
+    return dict(design=front[pick].tolist(), parts=dict(rows), total=total)
+
+
+def baselines_phase(dev, res, main_adrs: dict, card: str) -> dict:
+    """The §IV comparison on the card at the paper protocol."""
+    t_phase = time.perf_counter()
+    print(f"the paper's §IV comparison (n_pool {MAIN['n_pool']}, "
+          f"{MAIN['workload']}, T {MAIN['T']}, b {MAIN['b']}, seed "
+          f"{MAIN['seed']}) [{card}]:")
+    space, pool, ref = _main_inputs(dev)
+    out = dict(fig7a=fig7a(dev, space, pool, ref, main_adrs))
+    baselines_card_vs_cpu()
+    out["uncapped_ted"] = uncapped_ted(dev)
+    out["fig4c"] = fig4c(dev, space, pool, ref, main_adrs["exact"])
+    out["fig7b"] = fig7b(dev, space, pool, res)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  baselines phase: {out['wall_s']:.1f} s")
+    return out
+
+
 def k5_bytes_ops(B, S, H, K, hd) -> tuple[int, int]:
     """Bytes K5 must move (q and o at H heads, k and v at K, bf16, each
     once) and its causal operations 2·B·H·S²·hd (the QKᵀ and PV products
@@ -2479,6 +2847,16 @@ def main() -> int:
     service = service_phase(dev, res_i, launches_i, by_class["incremental"],
                             card)
 
+    # The paper's §IV comparison: K3 and K2 at the baselines' new shapes,
+    # then the six baselines (Fig. 7(a)), card against CPU, the uncapped
+    # TED, the simplified flow's gap (Fig. 4(c)) and the area breakdown of
+    # the main exact run's balanced optimum (Fig. 7(b)).
+    print("pareto_count and pairdist at the baselines' shapes:")
+    check_baseline_kernels(dev, checks)
+    baselines = baselines_phase(
+        dev, res, {"exact": res.history[-1]["adrs"],
+                   "incremental": res_i.history[-1]["adrs"]}, card)
+
     print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
     check_flash_attn(dev, checks)
     serve = serve_phase(dev)
@@ -2511,6 +2889,20 @@ def main() -> int:
             "round_fused.cu", "src/repro/kernels/round_fused/kernel.py:142",
             {"round_fused_scores":
              proposer["round_fused_by_class"]["scores"]}),
+        # the baselines phase: K3 in microal's run (its fronts and EHVI
+        # hypervolumes), K2 in microal's run (TED and the GP), K2's blocks
+        # in the uncapped TED
+        "pareto_count_ehvi": (
+            "pareto_count.cu", "src/repro/kernels/pareto_count/kernel.py:34",
+            {"pareto_count_ehvi": baselines["fig7a"]["microal"]["launches"][
+                "pareto_count"]}),
+        "pairdist_microal": (
+            "pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36",
+            {"pairdist_microal": baselines["fig7a"]["microal"]["launches"][
+                "pairdist"]}),
+        "pairdist_chunked": (
+            "pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36",
+            {"pairdist_chunked": baselines["uncapped_ted"]["launches"]}),
         "flash_attn": ("flash_attn_tc.cu",
                        "src/repro/kernels/flash_attn/kernel.py:61",
                        serve["launches"]),
@@ -2549,7 +2941,8 @@ def main() -> int:
                              launches_by_class=by_class["incremental"],
                              round_breakdown=breakdown_i),
             fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
-            service=service, serve=serve, wall_s=time.perf_counter() - t_start),
+            service=service, baselines=baselines, serve=serve,
+            wall_s=time.perf_counter() - t_start),
             indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(smi)

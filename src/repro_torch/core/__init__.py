@@ -9,7 +9,9 @@
 - ``tuner``       Algorithm 3 — the full exploration loop
 - ``fleet``       Algorithm 3 over a fleet of scenarios, one batched engine
 - ``propose``     the between-round proposer (new designs near the front)
-- ``pareto``      dominance / Pareto front / ADRS (Eq. 12)
+- ``pareto``      dominance / Pareto front / ADRS (Eq. 12) / hypervolume /
+                  nondominated sort
+- ``baselines``   the six comparison methods of §IV (``run_baseline``)
 
 Explore one scenario::
 
@@ -25,8 +27,9 @@ Explore one scenario::
     print(res.pareto_y)
 """
 from .space import DesignSpace, Feature, TABLE_I, make_space
-from .icd import icd_from_data
-from .pareto import adrs, dominance_counts, pareto_front, pareto_mask
+from .icd import icd, icd_from_data
+from .pareto import (adrs, dominance_counts, hypervolume, nondominated_sort,
+                     pareto_front, pareto_mask)
 from .sampling import soc_init, ted_select, transform_to_icd
 from .gp import (GPParams, GPState, fit_gp, fit_gp_batch, gp_joint_samples,
                  gp_predict, pad_training)
@@ -37,11 +40,13 @@ from .tuner import TunerResult, explore_prologue, soc_tuner
 from .propose import ProposerConfig, ProposerStats
 from .fleet import (FleetResult, FleetScenario, FlowEvalCache, fleet_prologue,
                     fleet_tuner)
+from .baselines import BASELINES, run_baseline
 
 __all__ = [
     "DesignSpace", "Feature", "TABLE_I", "make_space",
-    "icd_from_data",
-    "adrs", "dominance_counts", "pareto_front", "pareto_mask",
+    "icd", "icd_from_data",
+    "adrs", "dominance_counts", "hypervolume", "nondominated_sort",
+    "pareto_front", "pareto_mask",
     "soc_init", "ted_select", "transform_to_icd",
     "GPParams", "GPState", "fit_gp", "fit_gp_batch", "gp_joint_samples",
     "gp_predict", "pad_training",
@@ -52,4 +57,5 @@ __all__ = [
     "ProposerConfig", "ProposerStats",
     "FleetResult", "FleetScenario", "FlowEvalCache", "fleet_prologue",
     "fleet_tuner",
+    "BASELINES", "run_baseline",
 ]

@@ -7,11 +7,13 @@ importance is the mean pairwise L2 distance between cluster centroids
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import numpy as np
 
 from .space import DesignSpace
 
-__all__ = ["icd_from_data"]
+__all__ = ["icd", "icd_from_data"]
 
 
 def icd_from_data(space: DesignSpace, idx: np.ndarray, y: np.ndarray) -> np.ndarray:
@@ -42,3 +44,14 @@ def icd_from_data(space: DesignSpace, idx: np.ndarray, y: np.ndarray) -> np.ndar
     # line 12, normalize(v): L2 (see repro.core.icd for why not the sum)
     s = np.linalg.norm(v)
     return (v / s if s > 0 else np.full_like(v, 1.0 / np.sqrt(space.d)))
+
+
+def icd(space: DesignSpace, flow: Callable[[np.ndarray], np.ndarray], n: int,
+        draws) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Full Algorithm 1: draw ``n`` designs (``draws.designs``, a
+    :class:`repro_torch.random.TunerDraws`), evaluate them, return
+    ``(v, idx, y)``; the trial evaluations come back so a caller can reuse
+    them."""
+    idx = np.asarray(draws.designs(space, n))  # line 1: Sample(X, n)
+    y = np.asarray(flow(idx))  # line 1: VLSIFlow(...)
+    return icd_from_data(space, idx, y), idx, y

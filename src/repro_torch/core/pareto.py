@@ -3,7 +3,8 @@
 Convention: **all objectives are minimized** (latency, power, area).
 Dominance is compared in float32 on the tensor's device, like the reference
 (``repro.core.tuner._front`` hands float64 to JAX with x64 off, so its
-fronts are float32 fronts); ADRS is float64 numpy.
+fronts are float32 fronts); ADRS, the hypervolume sweeps and the
+nondominated sort's bookkeeping are float64 numpy on the host.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels import pareto_count as _pareto_count
 
-__all__ = ["dominance_counts", "pareto_mask", "pareto_front", "adrs"]
+__all__ = ["dominance_counts", "pareto_mask", "pareto_front", "adrs",
+           "hypervolume", "nondominated_sort"]
 
 
 def dominance_counts(y: torch.Tensor) -> torch.Tensor:
@@ -27,15 +29,38 @@ def pareto_mask(y: torch.Tensor) -> torch.Tensor:
     return dominance_counts(y) == 0
 
 
+def front_mask(y: np.ndarray, dev: torch.device) -> np.ndarray:
+    """:func:`pareto_mask` of host rows ``y``, decided in float32 on
+    ``dev``, as a numpy bool array."""
+    yt = torch.as_tensor(y, dtype=torch.float32, device=dev).contiguous()
+    return pareto_mask(yt).cpu().numpy()
+
+
 def pareto_front(y: np.ndarray, device=None) -> np.ndarray:
     """Rows of ``y`` forming the Pareto front, sorted by the first objective.
     Dominance is decided in float32 on ``device`` (default ``cuda``)."""
     y = np.asarray(y)
-    yt = torch.as_tensor(y, dtype=torch.float32,
-                         device=resolve_device(device)).contiguous()
-    mask = pareto_mask(yt).cpu().numpy()
-    front = y[mask]
+    front = y[front_mask(y, resolve_device(device))]
     return front[np.argsort(front[:, 0])]
+
+
+def nondominated_sort(y: np.ndarray, max_fronts: int = 32,
+                      device=None) -> np.ndarray:
+    """NSGA-style front index per row of ``y`` (0 = the Pareto front); rows
+    beyond ``max_fronts`` fronts get ``max_fronts``. One dominance count a
+    front, in float32 on ``device`` (default ``cuda``)."""
+    dev = resolve_device(device)
+    y = np.asarray(y)
+    rank = np.full(y.shape[0], -1, dtype=np.int32)
+    remaining = np.arange(y.shape[0])
+    for r in range(max_fronts):
+        if remaining.size == 0:
+            break
+        mask = front_mask(y[remaining], dev)
+        rank[remaining[mask]] = r
+        remaining = remaining[~mask]
+    rank[rank < 0] = max_fronts
+    return rank
 
 
 def adrs(reference: np.ndarray, learned: np.ndarray,
@@ -55,3 +80,46 @@ def adrs(reference: np.ndarray, learned: np.ndarray,
     lrn = lrn / normalizer
     d = np.linalg.norm(ref[:, None, :] - lrn[None, :, :], axis=-1)
     return float(d.min(axis=1).mean())
+
+
+def hypervolume(front: np.ndarray, ref_point: np.ndarray,
+                device=None) -> float:
+    """Dominated hypervolume for minimization, exact for m <= 3 (sweeps in
+    float64 on the host); points beyond ``ref_point`` are clipped out. Each
+    sweep's front is one dominance count in float32 on ``device`` (default
+    ``cuda``); m = 3 sweeps z-levels over m = 2 slabs."""
+    return _hypervolume(front, ref_point, resolve_device(device))
+
+
+def _hypervolume(front, ref_point, dev: torch.device) -> float:
+    f = np.asarray(front, dtype=np.float64)
+    r = np.asarray(ref_point, dtype=np.float64)
+    f = f[np.all(f <= r, axis=1)]
+    if f.size == 0:
+        return 0.0
+    m = f.shape[1]
+    if m == 1:
+        return float(r[0] - f[:, 0].min())
+    if m == 2:
+        p = f[front_mask(f, dev)]
+        p = p[np.argsort(p[:, 0])]
+        hv, prev_y = 0.0, r[1]
+        for x, y in p:
+            hv += (r[0] - x) * (prev_y - y)
+            prev_y = y
+        return float(hv)
+    if m == 3:
+        # sweep over sorted z; the 2D hypervolume of the slab between levels
+        p = f[front_mask(f, dev)]
+        p = p[np.argsort(p[:, 2])]
+        hv = 0.0
+        zs = list(p[:, 2]) + [r[2]]
+        active: list[np.ndarray] = []
+        for i in range(len(p)):
+            active.append(p[i, :2])
+            dz = zs[i + 1] - zs[i]
+            if dz <= 0:
+                continue
+            hv += _hypervolume(np.asarray(active), r[:2], dev) * dz
+        return float(hv)
+    raise NotImplementedError("hypervolume only implemented for m<=3")

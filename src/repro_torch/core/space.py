@@ -96,6 +96,11 @@ class DesignSpace:
         return sum(math.log10(f.t) for i, f in enumerate(self.features)
                    if i not in self.pinned)
 
+    def pruned_fraction(self, base: "DesignSpace | None" = None) -> float:
+        """Fraction of design points removed relative to ``base`` (Alg. 2)."""
+        base = base or DesignSpace(self.features)
+        return 1.0 - 10.0 ** (self.log10_size - base.log10_size)
+
     def sample(self, generator: torch.Generator, n: int) -> torch.Tensor:
         """Uniformly sample ``n`` index vectors [n, d] (int64) on the
         generator's device, honoring pins."""
@@ -150,6 +155,9 @@ class DesignSpace:
     def names(self) -> list[str]:
         return [f.name for f in self.features]
 
+    def feature_index(self, name: str) -> int:
+        return self.names().index(name)
+
     def prune(self, v: np.ndarray, v_th: float) -> "DesignSpace":
         """Alg. 2 line 1: pin features with importance below ``v_th`` to the
         median candidate."""
@@ -159,6 +167,13 @@ class DesignSpace:
             if i not in pinned and v[i] < v_th:
                 pinned[i] = (f.t - 1) // 2  # medium(.) of the ordered candidates
         return DesignSpace(self.features, pinned)
+
+    def describe(self) -> str:
+        rows = []
+        for i, f in enumerate(self.features):
+            pin = (f" PINNED={f.values[self.pinned[i]]}" if i in self.pinned else "")
+            rows.append(f"{f.name:<10s} {f.group:<10s} {f.values}{pin}")
+        return "\n".join(rows)
 
 
 def make_space() -> DesignSpace:

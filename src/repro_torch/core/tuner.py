@@ -24,7 +24,8 @@ from repro_torch.service import checkpoint as ckpt
 
 from .engine import BOEngine
 from .icd import icd_from_data
-from .pareto import adrs, pareto_mask
+from .pareto import adrs
+from .pareto import front_mask as _front
 from .propose import ProposerConfig, ProposerStats, propose_and_replace
 from .sampling import soc_init, transform_to_icd
 from .space import DesignSpace
@@ -54,13 +55,6 @@ def merge_trial_evals(evaluated: "list[int]", y_init: np.ndarray,
         evaluated = evaluated + fresh
         y_list.append(np.asarray(trial_y)[keep])
     return evaluated, np.concatenate(y_list, axis=0)
-
-
-def _front(y: np.ndarray, device) -> np.ndarray:
-    """Pareto mask of ``y`` decided in float32 on ``device``."""
-    yt = torch.as_tensor(np.asarray(y), dtype=torch.float32,
-                         device=device).contiguous()
-    return pareto_mask(yt).cpu().numpy()
 
 
 def round_record(y: np.ndarray, n_evaluated: int, round_i: int,

@@ -3,7 +3,9 @@
 ``soc_tuner`` draws at three sites: the prologue's ICD trial rows; each BO
 round, the frontier subset plus the standard normals of the joint posterior
 samples; and, with the between-round proposer on, each proposal try's parent
-picks and perturbations. A :class:`TunerDraws` object supplies all of them,
+picks and perturbations. ``icd`` draws its trial designs from the space, and
+a baseline (``core.baselines``) draws the seed of its numpy generator. A
+:class:`TunerDraws` object supplies all of them,
 so a caller can replay any stream (the parity tests replay ``jax.random``'s
 key schedule through it). :class:`GeneratorDraws` is the default, backed by
 seeded ``torch.Generator`` objects.
@@ -44,6 +46,13 @@ class TunerDraws(Protocol):
         ``picks`` [draw] int64 parent indices in ``[0, p)`` and ``eps``
         [draw, d] float32 standard normals. These draws never advance the
         ``round`` stream."""
+
+    def designs(self, space, n: int):
+        """``n`` index vectors [n, d] (int64 numpy) drawn uniformly from
+        ``space``, its pins honored: Algorithm 1's trial designs."""
+
+    def baseline_seed(self) -> int:
+        """The seed in ``[0, 2**31 - 1)`` of a baseline's numpy generator."""
 
     def state_dict(self) -> dict:
         """The draws' position as a dict of numpy arrays (a checkpoint's
@@ -89,6 +98,13 @@ class GeneratorDraws:
         eps = torch.randn((draw, d), generator=self.prop_gen,
                           device=self.device, dtype=torch.float32)
         return picks.cpu().numpy().astype(np.int64), eps.cpu().numpy()
+
+    def designs(self, space, n: int) -> np.ndarray:
+        return space.sample(self.gen, n).cpu().numpy()
+
+    def baseline_seed(self) -> int:
+        return int(torch.randint(0, 2**31 - 1, (), generator=self.gen,
+                                 device=self.device))
 
     def state_dict(self) -> dict:
         """Both generators' ``get_state()`` as uint8 arrays (a CUDA

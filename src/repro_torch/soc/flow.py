@@ -3,11 +3,13 @@
 :class:`VLSIFlow` evaluates designs with the SoC model (``systolic_eval``
 kernel on CUDA, its plain version on the CPU) and counts its invocations: the
 tuner's budget accounting reads ``calls`` and ``evaluated`` (exact under
-concurrent worker threads). :class:`DelayedFlow` wraps any flow with a fixed
-sleep a call, the stand-in for an hours-long real VLSI flow in the service's
-concurrency runs.
+concurrent worker threads). :class:`SimplifiedFlow` counts the same way but
+evaluates the SCALE-Sim-like model that the paper shows misleading (Fig.
+4(c)); it launches no kernel. :class:`DelayedFlow` wraps any flow with a
+fixed sleep a call, the stand-in for an hours-long real VLSI flow in the
+service's concurrency runs.
 
-Both pickle for ``spawn`` worker processes: :class:`VLSIFlow` drops its device
+All pickle for ``spawn`` worker processes: :class:`VLSIFlow` drops its device
 buffer and its lock, and a worker rebuilds them on unpickle (opening its own
 CUDA context for a ``cuda`` flow; a worker without a card raises there).
 """
@@ -23,16 +25,21 @@ from repro_torch.core.space import DesignSpace
 from repro_torch.device import resolve_device
 from repro_torch.kernels import systolic_eval as _systolic_eval
 
+from .simplified import simplified_metrics
 from .workloads import get_workload
 
-__all__ = ["VLSIFlow", "DelayedFlow"]
+__all__ = ["VLSIFlow", "SimplifiedFlow", "DelayedFlow"]
 
 
 class VLSIFlow:
-    def __init__(self, space: DesignSpace, workload: str = "resnet50",
-                 device=None):
+    """``workload`` is a name (``soc.workloads.get_workload``) or a layer
+    table [L, 5]."""
+
+    def __init__(self, space: DesignSpace,
+                 workload: str | np.ndarray = "resnet50", device=None):
         self.space = space
-        self.layers = get_workload(workload)
+        self.layers = (get_workload(workload) if isinstance(workload, str)
+                       else np.asarray(workload))
         self.device = resolve_device(device)
         self._layers_t = self._upload()
         self._lock = threading.Lock()
@@ -64,7 +71,21 @@ class VLSIFlow:
             self.evaluated += idx.shape[0]
         vals = torch.as_tensor(self.space.values(idx), dtype=torch.float32,
                                device=self.device).contiguous()
-        return _systolic_eval.soc_metrics(vals, self._layers_t).cpu().numpy()
+        return self._model(vals, self._layers_t).cpu().numpy()
+
+    def _model(self, vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
+        """Designs [n, 26] on ``layers`` [L, 5] -> [n, 3], on the flow's
+        device."""
+        return _systolic_eval.soc_metrics(vals, layers)
+
+
+class SimplifiedFlow(VLSIFlow):
+    """:class:`VLSIFlow`'s interface and counts over the simplified model
+    (``soc.simplified.simplified_metrics``, plain PyTorch on the flow's
+    device)."""
+
+    def _model(self, vals: torch.Tensor, layers: torch.Tensor) -> torch.Tensor:
+        return simplified_metrics(vals, layers)
 
 
 class DelayedFlow:

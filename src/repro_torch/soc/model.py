@@ -12,12 +12,13 @@ against its own designs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.space import TABLE_I
 
 __all__ = ["metrics_tile", "metrics_multi", "soc_metrics_multi",
-           "decode_design", "FEATI", "CONST"]
+           "decode_design", "area_breakdown", "FEATI", "CONST"]
 
 # Feature name -> column index in the design-value matrix.
 FEATI = {f.name: i for i, f in enumerate(TABLE_I)}
@@ -223,19 +224,38 @@ def soc_metrics_multi(vals: torch.Tensor, layers: torch.Tensor,
     return systolic_eval.soc_metrics_multi(vals, layers, layer_mask)
 
 
-def _area(d: dict[str, torch.Tensor]) -> torch.Tensor:
+def _area_parts(d: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """Component areas (mm², each [n]) before the NoC overhead."""
     pe = CONST["a_pe8"] * d["ib"] ** 1.25 * (1.0 + 0.25 * d["ab"] / 4.0)
     arr = d["R"] * d["C"] * pe
     arr = arr * torch.where(d["dataflow"] == 2.0, 1.12,
                             torch.where(d["dataflow"] == 1.0, 1.05, 1.0))
     mb = 1.0 / (1024.0 * 1024.0)
-    sram = (d["spad_bytes"] * mb * CONST["a_sram_mb"]
-            + d["acc_bytes"] * mb * CONST["a_acc_sram_mb"]
-            + d["l2_bytes"] * mb * CONST["a_l2_mb"]
-            * (1.0 + 0.02 * torch.log2(d["l2_way"] / 4.0)))
-    queues = (d["ldq"] + d["stq"] + d["exq"] + d["ldr"] + d["str_"] + d["exr"]) \
-        * CONST["a_queue_entry"]
-    dma = d["dmabus"] / 8.0 * CONST["a_dma_per_byte_lane"] \
-        + d["tlb"] * CONST["a_tlb_entry"]
-    core = _select(d["core"], CONST["core_area"])
-    return (arr + sram + queues + dma + core) * CONST["noc_overhead"]
+    return {
+        "systolic_array": arr,
+        "scratchpad": d["spad_bytes"] * mb * CONST["a_sram_mb"],
+        "accumulator": d["acc_bytes"] * mb * CONST["a_acc_sram_mb"],
+        "l2_cache": d["l2_bytes"] * mb * CONST["a_l2_mb"]
+        * (1.0 + 0.02 * torch.log2(d["l2_way"] / 4.0)),
+        "host_core": _select(d["core"], CONST["core_area"]),
+        "ctrl_queues": (d["ldq"] + d["stq"] + d["exq"] + d["ldr"] + d["str_"]
+                        + d["exr"]) * CONST["a_queue_entry"],
+        "dma_tlb": d["dmabus"] / 8.0 * CONST["a_dma_per_byte_lane"]
+        + d["tlb"] * CONST["a_tlb_entry"],
+    }
+
+
+def _area(d: dict[str, torch.Tensor]) -> torch.Tensor:
+    p = _area_parts(d)
+    sram = p["scratchpad"] + p["accumulator"] + p["l2_cache"]
+    return (p["systolic_array"] + sram + p["ctrl_queues"] + p["dma_tlb"]
+            + p["host_core"]) * CONST["noc_overhead"]
+
+
+def area_breakdown(vals) -> dict[str, np.ndarray]:
+    """Component-wise area (mm², float32 [n] each) of designs ``vals``
+    [n, 26] for Fig. 7(b), computed on ``vals``' device; the components
+    times ``CONST["noc_overhead"]`` sum to the model's area."""
+    vals = torch.as_tensor(vals, dtype=torch.float32)
+    return {k: v.cpu().numpy()
+            for k, v in _area_parts(decode_design(vals)).items()}

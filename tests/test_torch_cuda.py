@@ -738,3 +738,76 @@ def test_thread_workers_count_every_k1_launch(dev):
         pool.close()
     assert K1.launches - before == flow.calls - calls == len(idx)
     np.testing.assert_array_equal(np.stack([y for _, _, y in got]), want)
+
+
+# -------------------------------------------- the §IV comparison (baselines)
+@pytest.mark.parametrize("n,m,chunk", [(4500, 4500, 4096), (2500, 2500, 1000),
+                                       (300, 301, 1), (64, 2500, 7),
+                                       (2500, 64, 512)])
+def test_pairdist_chunked_blocks_are_the_monolithic_launchs_columns(
+        dev, n, m, chunk):
+    """Each block is one K2 launch whose columns are bitwise the monolithic
+    launch's: every element sums over the features only, in one order,
+    whatever the tile plan."""
+    g = torch.Generator(device=dev).manual_seed(n + m + chunk)
+    x = torch.rand((n, 26), generator=g, device=dev)
+    y = torch.rand((m, 26), generator=g, device=dev)
+    for bw in (None, 1.1):
+        full = K2.pairdist(x, y, bandwidth=bw)
+        before = K2.launches
+        got = K2.pairdist_chunked(x, y, chunk=chunk, bandwidth=bw)
+        assert K2.launches - before == -(-m // chunk)
+        assert torch.equal(got, full)
+
+
+def _hv_front(seed, n, m):
+    rng = np.random.default_rng(seed)
+    u = rng.dirichlet(np.ones(m), size=n) ** 0.5
+    return np.vstack([u, u[: n // 4], np.full((2, m), 1.5)]), np.full(m, 1.2)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3])
+@pytest.mark.parametrize("n", [10, 40])
+def test_hypervolume_on_the_card_equals_the_cpu(dev, m, n):
+    """Equal to the CPU's float64 sweeps; K3 launches: none for m = 1, one
+    front for m = 2, and for m = 3 the front plus one 2-D slab a z-level."""
+    from repro_torch.core import hypervolume
+    from repro_torch.core.pareto import front_mask
+
+    f, ref = _hv_front(n + m, n, m)
+    before = K3.launches
+    got = hypervolume(f, ref, device=dev)
+    launches = K3.launches - before
+    assert got == hypervolume(f, ref, device="cpu") and got > 0
+    inside = f[np.all(f <= ref, axis=1)]
+    zs = np.sort(inside[front_mask(inside, torch.device("cpu"))][:, -1])
+    levels = int(np.sum(np.diff(np.append(zs, ref[-1])) > 0))
+    assert launches == {1: 0, 2: 1, 3: 1 + levels}[m]
+
+
+def test_nondominated_sort_on_the_card_equals_the_cpu(dev):
+    from repro_torch.core import nondominated_sort
+
+    rng = np.random.default_rng(2500)
+    y = np.round(rng.random((2500, 3)), 3)  # duplicates and ties
+    before = K3.launches
+    got = nondominated_sort(y, device=dev)
+    want = nondominated_sort(y, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert K3.launches - before == min(32, int(want.max()) + 1)
+
+
+def test_simplified_flow_on_the_card_launches_no_kernel(dev):
+    from repro_torch.soc import SimplifiedFlow, area_breakdown
+
+    space = make_space()
+    idx = space.sample(torch.Generator().manual_seed(4), 500).numpy()
+    before = K1.launches
+    got = SimplifiedFlow(space, "resnet50", device=dev)(idx)
+    assert K1.launches == before
+    np.testing.assert_allclose(
+        got, SimplifiedFlow(space, "resnet50", device="cpu")(idx), rtol=1e-5)
+    vals = torch.as_tensor(space.values(idx), dtype=torch.float32)
+    on_card, on_cpu = area_breakdown(vals.to(dev)), area_breakdown(vals)
+    for k in on_cpu:
+        np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-6)
