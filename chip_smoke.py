@@ -76,17 +76,17 @@ CLI run), a re-run on the filled flow cache that dispatches nothing, and
 its event log rendered by ``build_chrome_trace``.
 
 The paper's §IV comparison (the paper protocol, nothing cut): K3 at the
-EHVI hypervolumes' fronts, K2 at microal's GP shapes and K2's 4096-column
-blocks of a 4500-row matrix (bitwise the monolithic launch) against their
-plain versions; each of the six baselines once (``run_baseline``: final
+EHVI hypervolumes' fronts, K2 at microal's GP shapes and at the uncapped
+TED's 4500 x 4500 against their plain versions (``pairdist_chunked``'s
+4096-column blocks bitwise that launch); each of the six baselines once (``run_baseline``: final
 ADRS beside the main runs', wall seconds, evaluations, launches by shape;
 the five non-GP baselines must make K1 = T + 1 = 21 and K3 = T + 2 = 22
 launches and 40 evaluations; microal's K3 launches must equal its
 ``pareto_mask`` calls, 2T + 2 fronts plus the masks inside its
 ``hypervolume`` calls, printed a round with the seconds spent in
 ``hypervolume``); at n_pool = 64 each baseline's card rows equal to its CPU
-rows; ``ted_select(max_pool=None)`` at 4500 rows (one K2 launch a block,
-card rows = CPU rows); Fig. 4(c): an exact ``soc_tuner`` over
+rows; ``ted_select(max_pool=None)`` at 4500 rows (one K2 launch, card
+rows = CPU rows); Fig. 4(c): an exact ``soc_tuner`` over
 ``SimplifiedFlow`` (no K1 launch) with its front re-evaluated on the full
 flow; Fig. 7(b): the main exact run's balanced optimum's
 ``area_breakdown``, whose parts times the NoC overhead must equal K1's
@@ -1849,7 +1849,8 @@ def service_phase(dev, res_i, launches_i: dict, by_class_i: dict,
 #: K3 at microal's EHVI hypervolumes: a 10-row front plus one sample (m = 3)
 #: and a 2-D slab of 6 rows; K2 at microal's GP at its last round (P = 40
 #: padded training rows): the posterior cache and ``gp_predict`` over 64
-#: candidates; K2's column blocks of the uncapped TED at 4500 rows
+#: candidates; K2 at the uncapped TED's 4500 rows, and ``pairdist_chunked``
+#: in 4096-column blocks there
 K3_EHVI_SHAPES = [(11, 3), (6, 2)]
 K2_MICROAL_SHAPES = [(40, 40), (40, 64)]
 K2_CHUNKED = (4500, 4096)
@@ -1859,7 +1860,8 @@ TED_UNCAPPED_ROWS = 4500
 
 def check_baseline_kernels(dev, results: dict) -> None:
     """K3 and K2 against their plain versions at the baselines phase's new
-    launch shapes; K2's chunked blocks bitwise the monolithic launch."""
+    launch shapes; ``pairdist_chunked``'s blocks bitwise the monolithic
+    launch."""
     import numpy as np
     import torch
 
@@ -1897,23 +1899,25 @@ def check_baseline_kernels(dev, results: dict) -> None:
                          2 * n * m * 26 + 3 * n * m + 2 * (n + m) * 26))
     n, chunk = K2_CHUNKED
     x = torch.rand((n, 26), generator=gen, device=dev)
-    full = K2.pairdist(x, x)
+    full, out_p = K2.pairdist(x, x), K2.pairdist_plain(x, x)
     out_k = K2.pairdist_chunked(x, x, chunk=chunk)
-    out_p = K2.pairdist_plain(x, x)
     torch.cuda.synchronize()
+    atol = 2 * 26 * 2.0 ** -24 * 2 * float((x * x).sum(1).max())
+    bound = bound_ms(4 * (2 * n * 26 + n * n),
+                     2 * n * n * 26 + 3 * n * n + 4 * n * 26)
+    t_plain = time_ms(lambda: K2.pairdist_plain(x, x), reps=5)
+    t_lib = time_ms(lambda: torch.cdist(x, x), reps=5)
+    _record(results, "pairdist_uncapped", [n, n, 26],
+            float((full - out_p).abs().max()),
+            bool(torch.allclose(full, out_p, rtol=1e-5, atol=atol)),
+            time_ms(lambda: K2.pairdist(x, x), reps=5), t_plain, t_lib, bound)
     bitwise = bool(torch.equal(out_k, full))
-    scale = 2 * float((x * x).sum(1).max())
-    err = float((out_k - out_p).abs().max())
-    ok = bitwise and bool(torch.allclose(out_k, out_p, rtol=1e-5,
-                                         atol=2 * 26 * 2.0 ** -24 * scale))
     print(f"  pairdist_chunked [{n}, {n}, 26] in {chunk}-column blocks: "
           f"bitwise the monolithic launch: {bitwise}")
-    _record(results, "pairdist_chunked", [n, n, 26, chunk], err, ok,
+    _record(results, "pairdist_uncapped_chunked", [n, n, 26, chunk],
+            float((out_k - out_p).abs().max()), bitwise,
             time_ms(lambda: K2.pairdist_chunked(x, x, chunk=chunk), reps=5),
-            time_ms(lambda: K2.pairdist_plain(x, x), reps=2, repeats=3),
-            time_ms(lambda: torch.cdist(x, x), reps=5),
-            bound_ms(4 * (2 * n * 26 + n * n),
-                     2 * n * n * 26 + 3 * n * n + 4 * n * 26))
+            t_plain, t_lib, bound)
     del full, out_k, out_p
     torch.cuda.empty_cache()
 
@@ -2070,14 +2074,13 @@ def baselines_card_vs_cpu() -> None:
 
 def uncapped_ted(dev) -> dict:
     """``ted_select(max_pool=None)`` at ``TED_UNCAPPED_ROWS`` designs: the
-    kernel matrix from ``pairdist_chunked`` blocks (one K2 launch a block),
-    the card's rows equal to the CPU's."""
+    kernel matrix from one K2 launch, the card's rows equal to the CPU's."""
     import numpy as np
     import torch
 
     from repro_torch import kernels
     from repro_torch.core import make_space
-    from repro_torch.core.sampling import TED_MAX_POOL, ted_select
+    from repro_torch.core.sampling import ted_select
 
     space = make_space()
     idx = space.sample(torch.Generator().manual_seed(4500), TED_UNCAPPED_ROWS)
@@ -2087,10 +2090,10 @@ def uncapped_ted(dev) -> dict:
     rows = ted_select(x.to(dev), b=MAIN["b"], max_pool=None)
     wall = time.perf_counter() - t0
     launches, by = launch_counts()
-    want = -(-TED_UNCAPPED_ROWS // TED_MAX_POOL)
-    if launches["pairdist"] != want:
+    n = TED_UNCAPPED_ROWS
+    if by["pairdist"] != {f"{n}x{n}x26 d2": 1}:
         raise AssertionError(f"uncapped TED: K2 {by['pairdist']}, expected "
-                             f"{want} blocks")
+                             f"one {n} x {n} launch")
     cpu = ted_select(x, b=MAIN["b"], max_pool=None)
     print(f"  uncapped TED, {TED_UNCAPPED_ROWS} rows, b {MAIN['b']}: "
           f"{wall:.2f} s, K2 {by['pairdist']}; rows {rows.tolist()}")
@@ -2890,8 +2893,8 @@ def main() -> int:
             {"round_fused_scores":
              proposer["round_fused_by_class"]["scores"]}),
         # the baselines phase: K3 in microal's run (its fronts and EHVI
-        # hypervolumes), K2 in microal's run (TED and the GP), K2's blocks
-        # in the uncapped TED
+        # hypervolumes), K2 in microal's run (TED and the GP), K2 in the
+        # uncapped TED
         "pareto_count_ehvi": (
             "pareto_count.cu", "src/repro/kernels/pareto_count/kernel.py:34",
             {"pareto_count_ehvi": baselines["fig7a"]["microal"]["launches"][
@@ -2900,9 +2903,9 @@ def main() -> int:
             "pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36",
             {"pairdist_microal": baselines["fig7a"]["microal"]["launches"][
                 "pairdist"]}),
-        "pairdist_chunked": (
+        "pairdist_uncapped": (
             "pairdist.cu", "src/repro/kernels/pairdist/kernel.py:36",
-            {"pairdist_chunked": baselines["uncapped_ted"]["launches"]}),
+            {"pairdist_uncapped": baselines["uncapped_ted"]["launches"]}),
         "flash_attn": ("flash_attn_tc.cu",
                        "src/repro/kernels/flash_attn/kernel.py:61",
                        serve["launches"]),

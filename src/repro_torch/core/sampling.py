@@ -23,8 +23,7 @@ __all__ = ["soc_init", "ted_select", "transform_to_icd", "median_bandwidth",
 
 #: Default TED candidate cap: the greedy loop is O(b·N²) time and O(N²)
 #: memory. Above the cap, ``ted_select`` runs on an even-stride subsample and
-#: maps the selection back; pools at or below it take the full path. It is
-#: also the column block of the uncapped path's kernel build.
+#: maps the selection back; pools at or below it take the full path.
 TED_MAX_POOL = 4096
 
 #: Host-side cap accounting: every capped ``ted_select`` call bumps
@@ -111,8 +110,8 @@ def ted_select(x: torch.Tensor, b: int, mu: float = 0.1,
     ``bandwidth`` defaults to the median heuristic. ``max_pool`` caps the
     O(N²) greedy loop: above it, selection runs on an even-stride subsample
     of ``max_pool`` rows and the chosen indices are mapped back to the full
-    pool. ``max_pool=None`` opts out; above ``TED_MAX_POOL`` rows the
-    kernel matrix is then built from ``pairdist_chunked`` column blocks.
+    pool. ``max_pool=None`` opts out; the [N, N] kernel matrix is then one
+    ``pairdist`` call at any N, as on the reference's kernel path.
     """
     N = x.shape[0]
     if max_pool is not None and N > max_pool:
@@ -129,10 +128,7 @@ def ted_select(x: torch.Tensor, b: int, mu: float = 0.1,
         rows = ted_select(x[torch.as_tensor(sel, device=x.device)].contiguous(),
                           b, mu, bandwidth=bandwidth, max_pool=None)
         return np.asarray(sel[rows])
-    if N > TED_MAX_POOL:
-        d2 = _pairdist.pairdist_chunked(x, x, chunk=TED_MAX_POOL)
-    else:
-        d2 = pairwise_sqdist(x, x)
+    d2 = pairwise_sqdist(x, x)
     if bandwidth is None:
         bandwidth = _median_bandwidth_from_sqdist(d2)  # median heuristic
     K = torch.exp(-d2 / (2.0 * bandwidth**2 + 1e-12))

@@ -50,26 +50,14 @@ def launch_plan(n: int, m: int, d: int) -> dict:
                 chunk=min(d, 32), smem_bytes=smem)
 
 
-def _cross(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """x·yᵀ [N, M] summed feature by feature (k = 0..D-1), as the kernel
-    sums it: each element depends on its row and column only, so column
-    blocks are bitwise the whole product's (a BLAS product rounds by the
-    shape of the whole call)."""
-    out = x.new_zeros((x.shape[0], y.shape[0]))
-    for k in range(x.shape[1]):
-        out += x[:, k, None] * y[None, :, k]
-    return out
-
-
 def pairdist_plain(x: torch.Tensor, y: torch.Tensor,
                    bandwidth: float | None = None) -> torch.Tensor:
     """The ‖a‖²+‖b‖²−2abᵀ form (``repro.kernels.backend.sqdist_xla`` /
-    ``rbf_xla``), the cross term summed in feature order (:func:`_cross`).
-    ``torch.maximum`` splits the gradient at a tie like ``jnp.maximum``, so
-    autograd through it matches JAX's."""
+    ``rbf_xla``). ``torch.maximum`` splits the gradient at a tie like
+    ``jnp.maximum``, so autograd through it matches JAX's."""
     aa = torch.sum(x * x, dim=-1)
     bb = torch.sum(y * y, dim=-1)
-    d2 = torch.maximum(aa[:, None] + bb[None, :] - 2.0 * _cross(x, y),
+    d2 = torch.maximum(aa[:, None] + bb[None, :] - 2.0 * (x @ y.T),
                        x.new_zeros(()))
     if bandwidth is None:
         return d2
@@ -106,17 +94,16 @@ def pairdist(x: torch.Tensor, y: torch.Tensor, *,
 
 
 def pairdist_chunked(x: torch.Tensor, y: torch.Tensor, *, chunk: int,
-                     bandwidth: float | None = None,
-                     differentiable: bool = False) -> torch.Tensor:
-    """:func:`pairdist` assembled from ``[N, chunk]`` column blocks (one
-    launch a block on CUDA tensors). Each block's columns are the monolithic
-    call's, bit for bit: every element sums over the features only."""
+                     bandwidth: float | None = None) -> torch.Tensor:
+    """:func:`pairdist` assembled from ``[N, chunk]`` column blocks: one
+    launch a block on CUDA tensors, each block's columns bitwise the
+    monolithic launch's (every element sums over the features only). On CPU
+    tensors it is the one plain call: a BLAS product rounds by the shape of
+    the whole call, so plain blocks would not be the monolithic result."""
     if chunk < 1:
         raise ValueError(f"pairdist_chunked: chunk must be >= 1, got {chunk}")
     m = y.shape[0]
-    if chunk >= m:
-        return pairdist(x, y, bandwidth=bandwidth,
-                        differentiable=differentiable)
-    return torch.cat([pairdist(x, y[j:j + chunk], bandwidth=bandwidth,
-                               differentiable=differentiable)
+    if chunk >= m or on_cpu(x, y):
+        return pairdist(x, y, bandwidth=bandwidth)
+    return torch.cat([pairdist(x, y[j:j + chunk], bandwidth=bandwidth)
                       for j in range(0, m, chunk)], dim=1)

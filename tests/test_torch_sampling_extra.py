@@ -56,8 +56,9 @@ def test_pairdist_chunked_is_bitwise_the_monolithic_call(n, m):
 
 
 def test_uncapped_ted_above_the_cap_matches_reference():
-    """``max_pool=None`` at N = 4500 > ``TED_MAX_POOL``: the kernel matrix
-    from 4096-column blocks on both sides; rows equal."""
+    """``max_pool=None`` at N = 4500 > ``TED_MAX_POOL``: the reference builds
+    the kernel matrix from 4096-column XLA blocks, the port from one call;
+    rows equal."""
     x = _pool_x(4500, 11)
     before = dict(st.TED_CAP_STATS)
     want = sj.ted_select(jnp.asarray(x), b=6, mu=0.1, max_pool=None)
@@ -66,15 +67,48 @@ def test_uncapped_ted_above_the_cap_matches_reference():
     assert st.TED_CAP_STATS == before  # the uncapped path counts nothing
 
 
+def _ted_float64(x, b, mu, bandwidth):
+    """Greedy TED (Algorithm 2, lines 4-8) in float64 from the exact d²:
+    the picks and each step's scores."""
+    x = x.astype(np.float64)
+    K = np.exp(-((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+               / (2.0 * bandwidth**2 + 1e-12))
+    taken, rows, scores = np.zeros(len(x), bool), [], []
+    for _ in range(b):
+        s = (K * K).sum(0) / (np.diag(K) + mu)
+        s[taken] = -np.inf
+        z = int(np.argmax(s))
+        K = K - np.outer(K[:, z], K[:, z]) / (K[z, z] + mu)
+        taken[z] = True
+        rows.append(z)
+        scores.append(s)
+    return np.asarray(rows), scores
+
+
+#: a float64 TED score gap below which float32 d² decides the pick
+RTOL_TED_TIE = 1e-5
+
+
 def test_ted_select_with_a_bandwidth_matches_reference():
-    """Fixed bandwidths below the median heuristic's 2.82 on this pool. At
-    0.5 the kernel is near the identity and TED's float32 scores tie within
-    2e-6 (ROADMAP queue 3), so the picks there are float32 noise."""
+    """Fixed bandwidths below the median heuristic's 2.82 on this pool. The
+    port picks the float64 TED's rows at each. The reference picks the same
+    rows at 1.3 and 2.0; at 0.5 its third pick is a near-tie (float64 scores
+    2.3e-6 apart, ROADMAP queue 3) that its float32 d² sends the other way,
+    so there the two agree up to that step and the step is checked to be a
+    tie."""
     x = _pool_x(400, 12)
-    for bw in (1.3, 2.0):
+    for bw in (0.5, 1.3, 2.0):
         want = sj.ted_select(jnp.asarray(x), b=8, bandwidth=bw)
         got = st.ted_select(torch.from_numpy(x), b=8, bandwidth=bw)
-        np.testing.assert_array_equal(got, want)
+        exact, scores = _ted_float64(x, 8, 0.1, bw)
+        np.testing.assert_array_equal(got, exact)
+        if bw != 0.5:
+            np.testing.assert_array_equal(got, want)
+            continue
+        step = int(np.argmax(got != want))
+        assert step == 2 and np.array_equal(got[:step], want[:step])
+        s = scores[step]
+        assert abs(s[got[step]] - s[want[step]]) < RTOL_TED_TIE * s[got[step]]
 
 
 def test_soc_init_ted_pool_caps_like_the_reference():
