@@ -9,6 +9,9 @@ engines are driven side by side with the same normals (the reference's
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers that share the
+# cores, and torch's per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp

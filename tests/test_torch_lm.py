@@ -23,6 +23,9 @@ import math
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers that share the
+# cores, and torch's per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp

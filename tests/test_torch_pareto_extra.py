@@ -5,6 +5,9 @@ float64, in the same order, so hypervolumes agree to float64 rounding
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the suite runs in parallel workers that share the
+# cores, and torch's per-process thread pools oversubscribe them
+torch.set_num_threads(1)
 
 import numpy as np
 
