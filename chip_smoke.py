@@ -33,7 +33,8 @@ The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
 route, ``csrc/flash_attn_tc.cu``, whose ptxas registers and spills and whose
 ``wgmma`` and TMA instructions in the built SASS are printed first) against
 its plain version at the main path's shape, at S = 4096 and at a ragged
-S = 2000, timed beside ``scaled_dot_product_attention``; then
+S = 2000 and at minicpm3-4b's MLA prefill (q·k head dim 96, v head dim
+64, 40 heads), timed beside ``scaled_dot_product_attention``; then
 ``mistral-nemo-12b`` at full width
 (40 layers, d_model 5120, 32 heads / 8 KV heads, vocab 131072; random bf16
 weights from a seed) serving ``Engine.generate`` at batch 4, a 2048-token
@@ -41,7 +42,15 @@ prompt and 32 greedy tokens, with exactly 40 K5 launches in the prefill,
 all on the tensor-core route;
 the same prefill again with K5's plain version passed in, its logits, its
 teacher-forced decode logits and its greedy tokens held against the kernel
-run's; and the smoke config's prefill on the card against the CPU's.
+run's, and two planted attention faults that those checks must reject;
+then the same for ``minicpm3-4b`` (MLA) at its published width and depth
+(62 layers, d_model 2560, 40 heads, kv_lora 256, q_lora 768, q·k 64 + 32
+rope dims, v 64; 4.26 B parameters): 62 K5 launches in the prefill, the
+absorbed decode over the latent cache, and two planted MLA faults (the
+rope key dropped from k, v sliced at offset 0); and each smoke config's
+(mistral-nemo-12b@smoke, minicpm3-4b@smoke, the latter through K5 at the
+zero-padded dims (32, 16)) prefill and decode step on the card against
+the CPU's.
 
 The mutable pool and the between-round proposer: K4's two pool uses
 against their plain versions (the refresh of 1 and 3 dirty chunks of a
@@ -1448,16 +1457,20 @@ def proposer_card_vs_cpu() -> None:
               f"step equal the CPU's")
 
 
-#: K5 shapes (B, S, H, KV heads, hd): the serve phase's prefill, the S at
-#: which the reference's ``_sdpa`` chunks its keys, and a ragged S.
-K5_SHAPES = [(4, 2048, 32, 8, 128), (1, 4096, 32, 8, 128),
-             (2, 2000, 32, 8, 128)]
+#: K5 shapes (B, S, H, KV heads, q·k head dim, v head dim): the serve
+#: phase's prefill, the S at which the reference's ``_sdpa`` chunks its
+#: keys, a ragged S, and the MLA serve phase's prefill (minicpm3-4b's
+#: un-absorbed attention: 96 = 64 nope + 32 rope dims, v 64, 40 heads).
+K5_SHAPES = [(4, 2048, 32, 8, 128, 128), (1, 4096, 32, 8, 128, 128),
+             (2, 2000, 32, 8, 128, 128), (4, 2048, 40, 40, 96, 64)]
 #: bf16 outputs rounded from float32 results summed in another order may
 #: flip by one bf16 ulp (<= 2^-7 relative); atol for outputs near 0.
 K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
-#: the serve phase: mistral-nemo-12b at full width, Engine.generate
+#: the serve phases: mistral-nemo-12b (GQA) and minicpm3-4b (MLA) at full
+#: width, Engine.generate
 SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=32,
              max_len=2080, seed=0)
+SERVE_MLA = dict(SERVE, arch="minicpm3-4b")
 #: kernel run vs K5's plain version, bf16 end to end through 40 layers:
 #: attention outputs differ by bf16 ulp flips, which the residual stream
 #: carries. Logits are O(1) (|max| ~4, one ulp 2^-6 there): max |diff| <=
@@ -2195,11 +2208,13 @@ def baselines_phase(dev, res, main_adrs: dict, card: str) -> dict:
     return out
 
 
-def k5_bytes_ops(B, S, H, K, hd) -> tuple[int, int]:
-    """Bytes K5 must move (q and o at H heads, k and v at K, bf16, each
-    once) and its causal operations 2·B·H·S²·hd (the QKᵀ and PV products
-    over the S(S+1)/2 unmasked pairs, rounded to S²/2)."""
-    return 2 * B * S * hd * (2 * H + 2 * K), 2 * B * H * S * S * hd
+def k5_bytes_ops(B, S, H, K, dqk, dv) -> tuple[int, int]:
+    """Bytes K5 must move (q [.., H, dqk], k [.., K, dqk], v [.., K, dv]
+    and o [.., H, dv], bf16, each once) and its causal operations
+    B·H·S²·(dqk + dv) (the QKᵀ and PV products, 2 operations a
+    multiply-add, over the S(S+1)/2 unmasked pairs, rounded to S²/2)."""
+    return (2 * B * S * (H * dqk + K * dqk + K * dv + H * dv),
+            B * H * S * S * (dqk + dv))
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -2266,10 +2281,10 @@ def sass_counts(lib: Path, opcodes=("HGMMA", "UTMALDG")) -> dict:
 
 
 def k5_build_report() -> dict:
-    """The bf16 K5 kernel as built, at each head dim: ptxas's registers,
-    stack and spills, its dynamic shared memory, and its ``wgmma`` (HGMMA)
-    and TMA load (UTMALDG) instructions in the SASS. Raises if a head dim's
-    kernel holds no HGMMA or no UTMALDG."""
+    """The bf16 K5 kernel as built, at each (q·k, v) head-dim pair: ptxas's
+    registers, stack and spills, its dynamic shared memory, and its
+    ``wgmma`` (HGMMA) and TMA load (UTMALDG) instructions in the SASS.
+    Raises if a pair's kernel holds no HGMMA or no UTMALDG."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attn as K5
 
@@ -2277,11 +2292,12 @@ def k5_build_report() -> dict:
     sass = sass_counts(build.library_path())
     lib = build.library()
     report = {}
-    for hd in K5.HEAD_DIMS:
-        name = f"flash_attn_tc_kernel<{hd}>"
+    for dqk, dv in K5.HEAD_DIMS:
+        name = f"flash_attn_tc_kernel<{dqk}, {dv}>"
         regs, ops = ptxas.get(name, {}), sass.get(name, {})
-        report[hd] = dict(regs, smem_bytes=lib.flash_attn_tc_smem_bytes(hd),
-                          **ops)
+        hd = f"{dqk}x{dv}"
+        report[hd] = dict(regs, smem_bytes=lib.flash_attn_tc_smem_bytes(
+            dqk, dv), **ops)
         print(f"  {name}: {regs.get('registers')} registers, "
               f"{regs.get('stack')} bytes stack, {regs.get('spill_stores')}/"
               f"{regs.get('spill_loads')} bytes spill stores/loads, "
@@ -2376,7 +2392,8 @@ def k1k3_build_report() -> dict:
 def check_flash_attn(dev, results: dict) -> None:
     """K5 against its plain version at ``K5_SHAPES`` (bf16), timed beside
     the plain version and ``scaled_dot_product_attention`` (the library
-    call, timed only: the port never calls it)."""
+    call, timed only: the port never calls it; its scale is 1/√Dqk too, and
+    it takes Dv ≠ Dqk). The MLA shape is kept as ``flash_attn_mla``."""
     import torch
     import torch.nn.functional as F
 
@@ -2388,11 +2405,11 @@ def check_flash_attn(dev, results: dict) -> None:
             is_causal=True, enable_gqa=True)
 
     route, _, source = K5.ROUTES[torch.bfloat16]
-    for B, S, H, K, hd in K5_SHAPES:
+    for B, S, H, K, dqk, dv in K5_SHAPES:
         g = torch.Generator(device=dev).manual_seed(B * S + H)
-        q = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
-        k = torch.randn((B, S, K, hd), generator=g, device=dev).bfloat16()
-        v = torch.randn((B, S, K, hd), generator=g, device=dev).bfloat16()
+        q = torch.randn((B, S, H, dqk), generator=g, device=dev).bfloat16()
+        k = torch.randn((B, S, K, dqk), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, S, K, dv), generator=g, device=dev).bfloat16()
         before = K5.route_launches[route]
         out_k = K5.flash_attention(q, k, v)
         if K5.route_launches[route] != before + 1:
@@ -2405,8 +2422,9 @@ def check_flash_attn(dev, results: dict) -> None:
         ok = bool(torch.allclose(out_k.float(), out_p.float(), rtol=K5_RTOL,
                                  atol=K5_ATOL))
         lib_err = float((out_l.float() - out_p.float()).abs().max())
-        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, hd)
-        _record(results, "flash_attn", [B, S, H, K, hd], err, ok,
+        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv)
+        name = "flash_attn" if dqk == dv else "flash_attn_mla"
+        _record(results, name, [B, S, H, K, dqk, dv], err, ok,
                 time_ms(lambda: K5.flash_attention(q, k, v), reps=5,
                         repeats=5),
                 time_ms(lambda: K5.flash_attention_plain(q, k, v), reps=2,
@@ -2418,33 +2436,51 @@ def check_flash_attn(dev, results: dict) -> None:
                 source="src/repro_torch/csrc/" + source)
         print(f"    ({route} route, src/repro_torch/csrc/{source}; float32 "
               f"CUDA-core bound "
-              f"{results['flash_attn'][-1]['bound_f32_ms']:.3f} ms; the "
+              f"{results[name][-1]['bound_f32_ms']:.3f} ms; the "
               f"library's max abs err against the plain version {lib_err:.3e})")
         del q, k, v, out_k, out_p, out_l
         torch.cuda.empty_cache()
 
 
-def planted_faults() -> dict:
+def planted_faults(cfg) -> dict:
     """Attention functions with K5's signature that are wrong on purpose,
-    for the serve phase to show that its checks would catch a wrong K5:
-    query head h reading KV head h % K in place of h // (H/K), and the
-    causal mask shifted by one key (query i also sees key i + 1)."""
+    for a serve phase to show that its checks would catch a wrong K5 or a
+    wrong layer around it. GQA: query head h reading KV head h % K in place
+    of h // (H/K), and the causal mask shifted by one key (query i also
+    sees key i + 1). MLA (``cfg``'s dims): the rope key dropped from k
+    (its columns of k_cat zeroed, so q·k is the nope part alone), and v
+    sliced out of the joint [k_nope | v] up-projection at offset 0 in
+    place of nope (v read as k_nope's first Dv columns)."""
     import torch
 
     from repro_torch.kernels import flash_attn as K5
 
-    def kv_head(q, k, v):
-        idx = torch.arange(q.shape[2], device=q.device) % k.shape[2]
-        return K5.flash_attention_plain(q, k[:, :, idx], v[:, :, idx])
+    if cfg.attn_kind == "mla":
+        nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
 
-    def next_key(q, k, v):
+        def no_rope_key(q, k, v, scale=None):
+            k = k.clone()
+            k[..., nope:nope + rdim] = 0
+            return K5.flash_attention_plain(q, k, v, scale)
+
+        def v_offset_0(q, k, v, scale=None):
+            return K5.flash_attention_plain(q, k, k[..., :v.shape[3]], scale)
+
+        return {"rope key dropped from k": no_rope_key,
+                "v sliced at offset 0": v_offset_0}
+
+    def kv_head(q, k, v, scale=None):
+        idx = torch.arange(q.shape[2], device=q.device) % k.shape[2]
+        return K5.flash_attention_plain(q, k[:, :, idx], v[:, :, idx], scale)
+
+    def next_key(q, k, v, scale=None):
         S, H = q.shape[1], q.shape[2]
         group = H // k.shape[2]
         qf = q.float().transpose(1, 2)
         kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
         vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
-        logits = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(
-            q.shape[3])
+        logits = torch.matmul(qf, kf.transpose(-1, -2)) * (
+            scale or 1.0 / math.sqrt(q.shape[3]))
         mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril(1)
         logits = torch.where(mask, logits, K5.NEG_INF)
         out = torch.matmul(torch.softmax(logits, dim=-1), vf)
@@ -2458,11 +2494,12 @@ def _logit_diff(a, b) -> tuple[float, float]:
     return float(d.max()), float(d.mean())
 
 
-def serve_phase(dev) -> dict:
-    """The LM serving path at full width (``SERVE``): build, generate with
-    K5 (every launch count set to 0 just before, read just after), then the
-    same prefill with K5's plain version and a teacher-forced decode fed the
-    kernel run's tokens. Raises on any failed check."""
+def serve_phase(dev, conf: dict) -> dict:
+    """The LM serving path at full width (``conf``: ``SERVE`` or
+    ``SERVE_MLA``): build, generate with K5 (every launch count set to 0
+    just before, read just after), then the same prefill with K5's plain
+    version and a teacher-forced decode fed the kernel run's tokens, and
+    the config's planted faults. Raises on any failed check."""
     import torch
 
     from repro_torch import kernels
@@ -2471,21 +2508,21 @@ def serve_phase(dev) -> dict:
     from repro_torch.models import decode_step, init, init_cache, prefill
     from repro_torch.serve import Engine, ServeConfig
 
-    cfg = get_config(SERVE["arch"])
-    gen = torch.Generator(device=dev).manual_seed(SERVE["seed"])
+    cfg = get_config(conf["arch"])
+    gen = torch.Generator(device=dev).manual_seed(conf["seed"])
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t_phase = t0 = time.perf_counter()
     model = init(cfg, gen, dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    B, S0, steps = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    B, S0, steps = conf["batch"], conf["prompt"], conf["gen"]
     tokens = torch.randint(0, cfg.vocab, (B, S0), generator=gen, device=dev)
-    eng = Engine(cfg, model, ServeConfig(max_len=SERVE["max_len"]))
+    eng = Engine(cfg, model, ServeConfig(max_len=conf["max_len"]))
     print(f"serve: {cfg.arch_id} at full width, {n_params / 1e9:.3f} B "
           f"parameters in bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
           f"allocated), built in {init_s:.1f} s; generate batch {B}, prompt "
-          f"{S0}, {steps} greedy tokens, max_len {SERVE['max_len']}")
+          f"{S0}, {steps} greedy tokens, max_len {conf['max_len']}")
 
     logits, marks = [], {}
 
@@ -2512,7 +2549,7 @@ def serve_phase(dev) -> dict:
     prefill_s = marks["t1"] - marks["t0"]
     decode_s = t_end - marks["t1"]
     k5_prefill = marks["k5_1"] - marks["k5_0"]
-    res = dict(config=SERVE, n_params=n_params, init_s=init_s,
+    res = dict(config=conf, n_params=n_params, init_s=init_s,
                prefill_s=prefill_s, decode_s=decode_s,
                decode_tok_s=B * steps / decode_s,
                decode_ms_per_step=decode_s / steps * 1e3,
@@ -2546,7 +2583,7 @@ def serve_phase(dev) -> dict:
     plain_prefill_s = time.perf_counter() - t0
     if K5.launches != k5_before:
         raise AssertionError("the plain prefill launched flash_attn")
-    dec = eng._merge_caches(init_cache(cfg, B, SERVE["max_len"], device=dev),
+    dec = eng._merge_caches(init_cache(cfg, B, conf["max_len"], device=dev),
                             cache_p, S0)
     del cache_p
     diffs, gaps_checked = [], 0
@@ -2577,10 +2614,10 @@ def serve_phase(dev) -> dict:
     # the same prefill and first teacher-forced decode step with each
     # planted fault: the logits checks above must reject every one
     faults = {}
-    for name, fault in planted_faults().items():
+    for name, fault in planted_faults(cfg).items():
         cache_f, logit_f = prefill(model, tokens, attention=fault)
         dec_f = eng._merge_caches(
-            init_cache(cfg, B, SERVE["max_len"], device=dev), cache_f, S0)
+            init_cache(cfg, B, conf["max_len"], device=dev), cache_f, S0)
         del cache_f
         _, logit_f1 = decode_step(model, dec_f, out[:, 0], S0)
         del dec_f
@@ -2630,38 +2667,44 @@ def serve_phase(dev) -> dict:
     print(f"  tokens[0]: {toks[0].tolist()}")
     del model, eng, dec, logits
     torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"  serve phase ({cfg.arch_id}): {res['phase_s']:.1f} s")
     return res
 
 
 def serve_small_card_vs_cpu(dev) -> None:
-    """The smoke config's weights on the card and on the CPU: the card's
-    prefill (K5) and a decode step match the CPU's plain run (bf16 ulp
-    flips over 2 layers: 0.0625, as the CPU tests against JAX)."""
+    """Each smoke config's weights on the card and on the CPU: the card's
+    prefill (K5 on the tensor-core route; minicpm3-4b@smoke's q·k dims 24
+    zero-padded to 32) and a decode step match the CPU's plain run (bf16
+    ulp flips over 2 layers: 0.0625, as the CPU tests against JAX)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as K5
     from repro_torch.models import decode_step, init, init_cache, prefill
 
-    cfg = get_config("mistral-nemo-12b@smoke")
-    cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
-    card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
-    toks = torch.randint(0, cfg.vocab, (3, 75),
-                         generator=torch.Generator().manual_seed(5))
-    before = K5.launches
-    runs = {}
-    for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
-        cache, lg = prefill(model, toks.to(d))
-        dec = init_cache(cfg, 3, 80, device=d)
-        dec.k[:, :, :75], dec.v[:, :, :75] = cache.k, cache.v
-        _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 75)
-        runs[name] = (lg.float().cpu(), lg2.float().cpu())
-    assert K5.launches == before + cfg.n_layers
-    for a, b in zip(runs["cuda"], runs["cpu"]):
-        dmax, dmean = _logit_diff(a, b)
-        print(f"  smoke config, card vs CPU logits: max {dmax:.4f} mean "
-              f"{dmean:.5f}")
-        assert dmax <= 0.0625 and dmean <= 0.01
+    for arch in ("mistral-nemo-12b@smoke", "minicpm3-4b@smoke"):
+        cfg = get_config(arch)
+        cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
+        card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
+        toks = torch.randint(0, cfg.vocab, (3, 75),
+                             generator=torch.Generator().manual_seed(5))
+        before = K5.route_launches["tensor_core"]
+        runs = {}
+        for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+            cache, lg = prefill(model, toks.to(d))
+            dec = init_cache(cfg, 3, 80, device=d)
+            for field, c in zip(dec, cache):
+                field[:, :, :75] = c
+            _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 75)
+            runs[name] = (lg.float().cpu(), lg2.float().cpu())
+        assert K5.route_launches["tensor_core"] == before + cfg.n_layers
+        for what, a, b in zip(("prefill", "decode"), runs["cuda"],
+                              runs["cpu"]):
+            dmax, dmean = _logit_diff(a, b)
+            print(f"  {arch}, card vs CPU {what} logits: max {dmax:.4f} "
+                  f"mean {dmean:.5f}")
+            assert dmax <= 0.0625 and dmean <= 0.01
 
 
 def launch_counts() -> tuple[dict, dict]:
@@ -2862,7 +2905,8 @@ def main() -> int:
 
     print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
     check_flash_attn(dev, checks)
-    serve = serve_phase(dev)
+    serve = serve_phase(dev, SERVE)
+    serve_mla = serve_phase(dev, SERVE_MLA)
     serve_small_card_vs_cpu(dev)
 
     src = "src/repro_torch/csrc/"
@@ -2909,6 +2953,11 @@ def main() -> int:
         "flash_attn": ("flash_attn_tc.cu",
                        "src/repro/kernels/flash_attn/kernel.py:61",
                        serve["launches"]),
+        # K5 at MLA's head dims (96, 64): its launches in minicpm3-4b's run
+        "flash_attn_mla": ("flash_attn_tc.cu",
+                           "src/repro/kernels/flash_attn/kernel.py:61",
+                           {"flash_attn_mla":
+                            serve_mla["launches"]["flash_attn"]}),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():
@@ -2945,6 +2994,7 @@ def main() -> int:
                              round_breakdown=breakdown_i),
             fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
             service=service, baselines=baselines, serve=serve,
+            serve_mla=serve_mla,
             wall_s=time.perf_counter() - t_start),
             indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -8,11 +8,14 @@
 // tensor-core kernel of flash_attn_tc.cu instead; this kernel is the only
 // one that computes float32 inputs in IEEE float32 (never TF32).
 //
-// Computes, for q [B, S, H, hd] and k, v [B, S, KH, hd] (KH divides H),
+// Computes, for q [B, S, H, DQK], k [B, S, KH, DQK] and v [B, S, KH, DV]
+// (KH divides H; DV may differ from DQK, as MLA's un-absorbed prefill has
+// it), o [B, S, H, DV] with
 //   o[b, i, h] = sum_{j <= i} softmax_j((q[b, i, h] * scale) . k[b, j, g])
 //                * v[b, j, g],      g = h / (H / KH),
 // with the logits of masked keys set to -2e38 (not -inf), a running max,
-// sum and accumulator in float32, and o = acc / max(l, 1e-30).
+// sum and accumulator in float32, and o = acc / max(l, 1e-30). The caller
+// gives the scale (1/sqrt(DQK) by default in the wrapper).
 //
 // What bounds it here: at the prefill's shape (B 4, S 2048, H 32, KH 8,
 // hd 128) 2*B*H*S^2*hd = 1.37e11 causal operations, 2.05 ms at the
@@ -23,11 +26,11 @@
 // of 64 positions at or below the tile's last row (tiles past the diagonal
 // are fully masked and skipped: they would add exp(-2e38 - m) = 0 with
 // alpha = 1), the K and V rows of KV head g are staged in shared memory,
-// read in place from the [B, S, KH, hd] layout (no repeat to H
-// heads: 4x fewer K/V bytes at H/KH = 4). Each thread owns 4 query rows and
-// computes a 4 x 4 block of the 64 x 64 logits, then 4 rows x hd/16 columns
-// of the output; a row's max and sum are reduced over the 16 lanes that
-// share it with warp shuffles. Keys at or past S are masked and read as 0,
+// read in place from the [B, S, KH, DQK] and [B, S, KH, DV] layouts (no
+// repeat to H heads: 4x fewer K/V bytes at H/KH = 4). Each thread owns 4
+// query rows and computes a 4 x 4 block of the 64 x 64 logits, then 4 rows
+// x DV/16 columns of the output; a row's max and sum are reduced over the
+// 16 lanes that share it with warp shuffles. Keys at or past S are masked and read as 0,
 // and rows at or past S are not written, so no input is padded. Rows of the
 // query tiles nearest the end of the sequence are launched first (they have
 // the most key tiles). Shared-memory rows are padded by one float against
@@ -41,25 +44,26 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 row groups x 16 lanes
 constexpr float kNegInf = -2.0e38f;
 
-template <int HD>
+template <int DQK, int DV>
 constexpr int smem_floats() {
-  return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
+  return kBQ * (DQK + 1) + kBK * (DQK + 1) + kBK * DV + kBQ * (kBK + 1);
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S,
                   int H, int KH, float scale) {
-  constexpr int kQS = HD + 1;   // row strides in shared memory
-  constexpr int kKS = HD + 1;
+  static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims");
+  constexpr int kQS = DQK + 1;  // row strides in shared memory
+  constexpr int kKS = DQK + 1;
   constexpr int kPS = kBK + 1;
-  constexpr int kCols = HD / 16;  // output columns per thread
+  constexpr int kCols = DV / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* qs = smem;                // [kBQ][kQS]   q * scale
   float* ks = qs + kBQ * kQS;      // [kBK][kKS]
-  float* vs = ks + kBK * kKS;      // [kBK][HD]
-  float* ps = vs + kBK * HD;       // [kBQ][kPS]   exp(logit - m)
+  float* vs = ks + kBK * kKS;      // [kBK][DV]
+  float* ps = vs + kBK * DV;       // [kBQ][kPS]   exp(logit - m)
 
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
@@ -70,15 +74,17 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = tid / 16, tx = tid % 16;
   const int r0 = ty * 4;  // this thread's first query row in the tile
 
-  const size_t q_step = (size_t)H * HD;   // elements between positions
-  const size_t kv_step = (size_t)KH * HD;
-  const float* qb = q + ((size_t)b * S * H + h) * HD;
-  const float* kb = k + ((size_t)b * S * KH + g) * HD;
-  const float* vb = v + ((size_t)b * S * KH + g) * HD;
-  float* ob = o + ((size_t)b * S * H + h) * HD;
+  const size_t q_step = (size_t)H * DQK;  // elements between positions
+  const size_t k_step = (size_t)KH * DQK;
+  const size_t v_step = (size_t)KH * DV;
+  const size_t o_step = (size_t)H * DV;
+  const float* qb = q + ((size_t)b * S * H + h) * DQK;
+  const float* kb = k + ((size_t)b * S * KH + g) * DQK;
+  const float* vb = v + ((size_t)b * S * KH + g) * DV;
+  float* ob = o + ((size_t)b * S * H + h) * DV;
 
-  for (int e = tid; e < kBQ * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD, s = q0 + r;
+  for (int e = tid; e < kBQ * DQK; e += kThreads) {
+    const int r = e / DQK, c = e % DQK, s = q0 + r;
     qs[r * kQS + c] = s < S ? qb[s * q_step + c] * scale : 0.0f;
   }
 
@@ -94,11 +100,13 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int last = min(q0 + kBQ, S) - 1;  // the tile's last valid row
   for (int k0 = 0; k0 <= last; k0 += kBK) {
     __syncthreads();  // the previous tile's ks/vs/ps are consumed
-    for (int e = tid; e < kBK * HD; e += kThreads) {
-      const int r = e / HD, c = e % HD, s = k0 + r;
-      const bool in = s < S;
-      ks[r * kKS + c] = in ? kb[s * kv_step + c] : 0.0f;
-      vs[r * HD + c] = in ? vb[s * kv_step + c] : 0.0f;
+    for (int e = tid; e < kBK * DQK; e += kThreads) {
+      const int r = e / DQK, c = e % DQK, s = k0 + r;
+      ks[r * kKS + c] = s < S ? kb[s * k_step + c] : 0.0f;
+    }
+    for (int e = tid; e < kBK * DV; e += kThreads) {
+      const int r = e / DV, c = e % DV, s = k0 + r;
+      vs[r * DV + c] = s < S ? vb[s * v_step + c] : 0.0f;
     }
     __syncthreads();
 
@@ -108,7 +116,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float a[4], bk[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = qs[(r0 + i) * kQS + d];
@@ -160,7 +168,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int i = 0; i < 4; ++i) p[i] = ps[(r0 + i) * kPS + kk];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float vv = vs[kk * HD + tx + 16 * c];
+        const float vv = vs[kk * DV + tx + 16 * c];
 #pragma unroll
         for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
       }
@@ -174,24 +182,25 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      ob[s * q_step + tx + 16 * c] = acc[i][c] / den;
+      ob[s * o_step + tx + 16 * c] = acc[i][c] / den;
   }
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, float scale, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<HD>() * (int)sizeof(float);
+  constexpr int bytes = smem_floats<DQK, DV>() * (int)sizeof(float);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_kernel<DQK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
-  flash_attn_kernel<HD><<<grid, kThreads, bytes, stream>>>(
+  flash_attn_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH,
       scale);
   return (int)cudaGetLastError();
@@ -199,19 +208,22 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 }  // namespace
 
-// q, o [B, S, H, hd] and k, v [B, S, KH, hd], contiguous float32; hd in
-// {16, 64, 128}; KH divides H. Anything else returns cudaErrorInvalidValue
-// without launching.
+// q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv],
+// contiguous float32; (dqk, dv) one of (16, 16), (64, 64), (128, 128),
+// (96, 64), (32, 16); KH divides H. Anything else returns
+// cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int S, int H, int KH, int hd,
-                                 float scale, void* stream) {
+                                 void* o, int B, int S, int H, int KH, int dqk,
+                                 int dv, float scale, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || S > 65535 * kBQ)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, KH, scale, st);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KH, scale, st);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KH, scale, st);
+  switch (dqk * 1000 + dv) {
+    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

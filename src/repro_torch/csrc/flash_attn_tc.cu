@@ -6,12 +6,14 @@
 // inputs. float32 inputs keep the CUDA-core kernel of flash_attn.cu. Plain
 // version: repro_torch/kernels/flash_attn.py::flash_attention_plain.
 //
-// Computes, for q [B, S, H, hd] and k, v [B, S, KH, hd] in bf16 (KH divides
-// H, hd in {16, 64, 128}),
+// Computes, for q [B, S, H, DQK], k [B, S, KH, DQK] and v [B, S, KH, DV] in
+// bf16 (KH divides H; (DQK, DV) one of (16, 16), (64, 64), (128, 128), and
+// MLA's un-absorbed prefill dims (96, 64) and (32, 16)), o [B, S, H, DV]
+// with
 //   o[b, i, h] = sum_{j <= i} softmax_j(scale * q[b, i, h] . k[b, j, g])
 //                * v[b, j, g],      g = h / (H / KH),
-// with masked logits at -2e38, the softmax in float32, and
-// o = bf16_rne(acc / max(l, 1e-30)).
+// masked logits at -2e38, the softmax in float32, and
+// o = bf16_rne(acc / max(l, 1e-30)). The caller gives the scale.
 //
 // What bounds it: at the prefill's shape (B 4, S 2048, H 32, KH 8, hd 128)
 // 2*B*H*S^2*hd = 1.37e11 causal operations, 0.139 ms at the bf16
@@ -23,16 +25,19 @@
 // no 65535 limit). Two consumer warpgroups own 64 query rows each; one
 // producer warp issues every load.
 // - Loads: TMA reads the model's [B, S, heads, hd] layout in place through
-//   4-D tensor maps {hd, heads, S, B} (no fold, no KV repeat, no padding).
+//   4-D tensor maps {dim, heads, S, B} (no fold, no KV repeat, no padding).
 //   Rows at or past S come back as zeros. The query tile is loaded once; K
 //   and V tiles of BK keys go through a ring of kStages stages, each with
 //   a "K full", a "V full" and an "empty" mbarrier, so the loads of the
-//   next tiles overlap the math on this one. A row of a tile is 128 bytes
-//   (64 columns, 128-byte swizzle; hd 128 is two such column blocks) or,
-//   at hd 16, 32 bytes (32-byte swizzle); the wgmma descriptors use the
-//   same swizzle.
+//   next tiles overlap the math on this one. A tile of D columns is D / c
+//   column blocks side by side, each a TMA box of c columns whose rows are
+//   c * 2 bytes with a swizzle of that width: c = 64 (128-byte swizzle)
+//   when 64 divides D, else 32 (64-byte), else 16 (32-byte). So dims 64
+//   and 128 take 128-byte rows, 96 three 64-byte blocks, 32 one, and 16
+//   one 32-byte block. Q and K follow DQK, V follows DV; each wgmma
+//   descriptor uses its operand's swizzle.
 // - S = Q.K^T: wgmma m64nBKk16, bf16 operands from shared memory, both
-//   K-major, float32 accumulators, hd/16 steps. Products of bf16 values
+//   K-major, float32 accumulators, DQK/16 steps. Products of bf16 values
 //   are exact in float32; only the order of the sums differs from the
 //   plain version.
 // - Online softmax in registers on the accumulator fragment: each thread
@@ -46,7 +51,7 @@
 // - O += P.V: P never goes to shared memory. The accumulator fragment of S
 //   is, element for element, the bf16 A-register fragment of the next
 //   product. P is split into hi = bf16(P) and lo = bf16(P - hi) and both
-//   are multiplied (two wgmma m64nHDk16 with A in registers, V the
+//   are multiplied (two wgmma m64nDVk16 with A in registers, V the
 //   MN-major shared-memory B operand, transpose bit set), which keeps
 //   about 16 bits of P: a single bf16 P would round each probability by up
 //   to 2^-9, close to the bf16 output tolerance on rows with few keys.
@@ -55,7 +60,7 @@
 //   the tensor cores take P(j).V(j), and O is rescaled once that is done.
 //   The two warpgroups overlap each other besides.
 // - Tiles: BK = 64 keys at every head dim. A block's 288 threads count as
-//   three warpgroups, so a thread may hold 168 registers; at hd 128 the
+//   three warpgroups, so a thread may hold 168 registers; at DV 128 the
 //   live accumulators are O (64 floats), S(j+1) (32) and P(j) (32 words).
 // - Epilogue: acc / max(l, 1e-30), round to nearest even, 4-byte stores;
 //   no row at or past S is written.
@@ -70,24 +75,41 @@ constexpr int kBQ = 128;                     // query rows per block
 constexpr int kConsumerThreads = 256;        // two warpgroups of 64 rows
 constexpr int kThreads = kConsumerThreads + 32;  // + the producer warp
 constexpr int kStages = 3;                   // K/V ring depth
+constexpr int kBK = 64;  // keys per tile (the width of wgmma_ss_n64)
 constexpr float kNegInf = -2.0e38f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
-struct Tiles {
-  static constexpr int BK = 64;  // keys per tile (the width of wgmma_ss_n64)
-  static constexpr int kCols = HD < 64 ? HD : 64;    // columns per TMA box
-  static constexpr int kRowBytes = kCols * 2;        // 128 or 32
-  static constexpr int kColBlocks = HD / kCols;      // 2 at hd 128, else 1
+// The column blocks of a tile with D columns (see the design notes).
+template <int D>
+struct Cols {
+  static_assert(D % 16 == 0, "head dim");
+  static constexpr int kCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
+  static constexpr int kRowBytes = kCols * 2;        // 128, 64 or 32
+  static constexpr int kBlocks = D / kCols;
   static constexpr int kAtomBytes = 8 * kRowBytes;   // 8-row swizzle atom
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 3 = 32-byte
-  static constexpr uint32_t kLayout = kRowBytes == 128 ? 1u : 3u;
-  static constexpr int kQBytes = kBQ * HD * 2;
-  static constexpr int kKVBytes = BK * HD * 2;       // one K (or V) tile
+  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
+  static constexpr uint32_t kLayout =
+      kRowBytes == 128 ? 1u : kRowBytes == 64 ? 2u : 3u;
+  static constexpr CUtensorMapSwizzle kSwizzle =
+      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                        : CU_TENSOR_MAP_SWIZZLE_32B;
+};
+
+template <int DQK, int DV>
+struct Tiles {
+  using QK = Cols<DQK>;
+  using V = Cols<DV>;
+  static constexpr int kQBytes = kBQ * DQK * 2;
+  static constexpr int kKBytes = kBK * DQK * 2;      // one K tile
+  static constexpr int kVBytes = kBK * DV * 2;       // one V tile
+  // every tile starts on a 1024-byte boundary (the 128-byte swizzle's)
+  static_assert(kQBytes % 1024 == 0 && kKBytes % 1024 == 0 &&
+                kVBytes % 1024 == 0, "tile alignment");
   static constexpr int kBarriers = 1 + 3 * kStages;
   // + 1024 so the tiles can start on a 1024-byte boundary
   static constexpr int kSmemBytes =
-      kQBytes + 2 * kStages * kKVBytes + 8 * kBarriers + 1024;
+      kQBytes + kStages * (kKBytes + kVBytes) + 8 * kBarriers + 1024;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -277,38 +299,38 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
-// Issue S = Q.K^T for one key tile (hd / 16 steps of 16 columns): qa is the
-// warpgroup's 64 query rows, ka the tile's first column block.
-template <int HD>
-__device__ __forceinline__ void issue_qk(float (&s)[Tiles<HD>::BK / 2],
-                                         uint32_t qa, uint32_t ka) {
-  using T = Tiles<HD>;
+// Issue S = Q.K^T for one key tile (DQK / 16 steps of 16 columns): qa is
+// the warpgroup's 64 query rows, ka the tile's first column block.
+template <int DQK>
+__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], uint32_t qa,
+                                         uint32_t ka) {
+  using C = Cols<DQK>;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const int cb = kk * 16 / T::kCols;
-    const uint32_t off = (kk * 16 % T::kCols) * 2;
-    const uint64_t da = desc(qa + cb * kBQ * T::kRowBytes + off, 16,
-                             T::kAtomBytes, T::kLayout);
-    const uint64_t db = desc(ka + cb * T::BK * T::kRowBytes + off, 16,
-                             T::kAtomBytes, T::kLayout);
+  for (int kk = 0; kk < DQK / 16; ++kk) {
+    const int cb = kk * 16 / C::kCols;
+    const uint32_t off = (kk * 16 % C::kCols) * 2;
+    const uint64_t da = desc(qa + cb * kBQ * C::kRowBytes + off, 16,
+                             C::kAtomBytes, C::kLayout);
+    const uint64_t db = desc(ka + cb * kBK * C::kRowBytes + off, 16,
+                             C::kAtomBytes, C::kLayout);
     wgmma_ss_n64(s, da, db, kk > 0);
   }
 }
 
-// Issue O += P_hi.V + P_lo.V for one key tile (BK / 16 steps of 16 keys);
+// Issue O += P_hi.V + P_lo.V for one key tile (kBK / 16 steps of 16 keys);
 // va is the V tile's first column block.
-template <int HD, int BK>
-__device__ __forceinline__ void issue_pv(float (&o)[HD / 2],
-                                         const uint32_t (&phi)[BK / 16][4],
-                                         const uint32_t (&plo)[BK / 16][4],
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
+                                         const uint32_t (&phi)[kBK / 16][4],
+                                         const uint32_t (&plo)[kBK / 16][4],
                                          uint32_t va) {
-  using T = Tiles<HD>;
+  using C = Cols<DV>;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = desc(va + kk * 16 * T::kRowBytes, BK * T::kRowBytes,
-                             T::kAtomBytes, T::kLayout);
-    wgmma_rs<HD>(o, phi[kk], db);
-    wgmma_rs<HD>(o, plo[kk], db);
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint64_t db = desc(va + kk * 16 * C::kRowBytes, kBK * C::kRowBytes,
+                             C::kAtomBytes, C::kLayout);
+    wgmma_rs<DV>(o, phi[kk], db);
+    wgmma_rs<DV>(o, plo[kk], db);
   }
 }
 
@@ -381,21 +403,23 @@ __device__ __forceinline__ void split_p(const float (&s)[BK / 2],
     }
 }
 
-template <int HD>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      __nv_bfloat16* __restrict__ o, int S, int H, int KH,
                      int BH, int nq, float scale_log2) {
-  using T = Tiles<HD>;
-  constexpr int BK = T::BK;
+  using T = Tiles<DQK, DV>;
+  using QK = typename T::QK;
+  using VC = typename T::V;
+  constexpr int BK = kBK;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t qs = base;                             // [col block][kBQ rows]
   const uint32_t ks = qs + T::kQBytes;                  // [stage][col block][BK]
-  const uint32_t vs = ks + kStages * T::kKVBytes;
-  const uint32_t bars = vs + kStages * T::kKVBytes;     // q, k full, v full, empty
+  const uint32_t vs = ks + kStages * T::kKBytes;
+  const uint32_t bars = vs + kStages * T::kVBytes;      // q, k full, v full, empty
   const uint32_t q_full = bars;
   auto k_full = [&](int st) { return bars + 8u * (1 + st); };
   auto v_full = [&](int st) { return bars + 8u * (1 + kStages + st); };
@@ -424,21 +448,21 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     // producer: one thread issues every TMA load of the block
     if (lane == 0) {
       mbar_expect_tx(q_full, T::kQBytes);
-      for (int cb = 0; cb < T::kColBlocks; ++cb)
-        tma_load(qs + cb * kBQ * T::kRowBytes, &map_q, q_full, cb * T::kCols,
-                 h, q0, b);
+      for (int cb = 0; cb < QK::kBlocks; ++cb)
+        tma_load(qs + cb * kBQ * QK::kRowBytes, &map_q, q_full,
+                 cb * QK::kCols, h, q0, b);
       for (int j = 0; j < nk; ++j) {
         const int st = j % kStages;
         if (j >= kStages) mbar_wait(empty(st), ((j / kStages) - 1) & 1);
-        const uint32_t kt = ks + st * T::kKVBytes, vt = vs + st * T::kKVBytes;
-        mbar_expect_tx(k_full(st), T::kKVBytes);
-        for (int cb = 0; cb < T::kColBlocks; ++cb)
-          tma_load(kt + cb * BK * T::kRowBytes, &map_k, k_full(st),
-                   cb * T::kCols, g, j * BK, b);
-        mbar_expect_tx(v_full(st), T::kKVBytes);
-        for (int cb = 0; cb < T::kColBlocks; ++cb)
-          tma_load(vt + cb * BK * T::kRowBytes, &map_v, v_full(st),
-                   cb * T::kCols, g, j * BK, b);
+        const uint32_t kt = ks + st * T::kKBytes, vt = vs + st * T::kVBytes;
+        mbar_expect_tx(k_full(st), T::kKBytes);
+        for (int cb = 0; cb < QK::kBlocks; ++cb)
+          tma_load(kt + cb * BK * QK::kRowBytes, &map_k, k_full(st),
+                   cb * QK::kCols, g, j * BK, b);
+        mbar_expect_tx(v_full(st), T::kVBytes);
+        for (int cb = 0; cb < VC::kBlocks; ++cb)
+          tma_load(vt + cb * BK * VC::kRowBytes, &map_v, v_full(st),
+                   cb * VC::kCols, g, j * BK, b);
       }
     }
     return;
@@ -454,10 +478,10 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int nkw = min(wg_first + 63, S - 1) / BK + 1;  // <= nk
   const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
 
-  const uint32_t qa = qs + wg * 64 * T::kRowBytes;  // this warpgroup's rows
-  float oacc[HD / 2];
+  const uint32_t qa = qs + wg * 64 * QK::kRowBytes;  // this warpgroup's rows
+  float oacc[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) oacc[i] = 0.0f;
+  for (int i = 0; i < DV / 2; ++i) oacc[i] = 0.0f;
   Rows st_rows{kNegInf, kNegInf, 0.0f, 0.0f};
   float sacc[BK / 2];
   uint32_t phi[BK / 16][4], plo[BK / 16][4];
@@ -472,7 +496,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   mbar_wait(q_full, 0);
   mbar_wait(k_full(0), 0);
   wgmma_fence();
-  issue_qk<HD>(sacc, qa, ks);
+  issue_qk<DQK>(sacc, qa, ks);
   wgmma_commit();
   wgmma_wait<0>();
   keep(sacc);
@@ -491,9 +515,9 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     mbar_wait(k_full(sn), ((j + 1) / kStages) & 1);
     mbar_wait(v_full(st), (j / kStages) & 1);
     wgmma_fence();
-    issue_qk<HD>(sacc, qa, ks + sn * T::kKVBytes);
+    issue_qk<DQK>(sacc, qa, ks + sn * T::kKBytes);
     wgmma_commit();
-    issue_pv<HD, BK>(oacc, phi, plo, vs + st * T::kKVBytes);
+    issue_pv<DV>(oacc, phi, plo, vs + st * T::kVBytes);
     wgmma_commit();
     wgmma_wait<1>();  // S(j + 1) is in; P(j).V(j) may still run
     keep(sacc);
@@ -505,7 +529,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     keep(plo);
     release(st);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
+    for (int c = 0; c < DV / 8; ++c) {
       oacc[4 * c] *= alpha0;
       oacc[4 * c + 1] *= alpha0;
       oacc[4 * c + 2] *= alpha1;
@@ -520,7 +544,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     keep(plo);
     mbar_wait(v_full(st), ((nkw - 1) / kStages) & 1);
     wgmma_fence();
-    issue_pv<HD, BK>(oacc, phi, plo, vs + st * T::kKVBytes);
+    issue_pv<DV>(oacc, phi, plo, vs + st * T::kVBytes);
     wgmma_commit();
     wgmma_wait<0>();
     keep(oacc);
@@ -536,18 +560,18 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  const size_t step = static_cast<size_t>(H) * HD;  // elements per position
-  __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * HD + col_of;
+  const size_t step = static_cast<size_t>(H) * DV;  // elements per position
+  __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * DV + col_of;
   if (row0 < S) {
     uint32_t* out = reinterpret_cast<uint32_t*>(ob + row0 * step);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
       out[4 * c] = pack_bf16(oacc[4 * c] / den0, oacc[4 * c + 1] / den0);
   }
   if (row1 < S) {
     uint32_t* out = reinterpret_cast<uint32_t*>(ob + row1 * step);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+    for (int c = 0; c < DV / 8; ++c)
       out[4 * c] = pack_bf16(oacc[4 * c + 2] / den1, oacc[4 * c + 3] / den1);
   }
 }
@@ -579,84 +603,90 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map {hd, heads, S, B} over a contiguous bf16 [B, S, heads, hd]
-// tensor, with boxes of {cols, 1, rows, 1}.
+// A 4-D map {D, heads, S, B} over a contiguous bf16 [B, S, heads, D]
+// tensor, with boxes of {Cols<D>::kCols, 1, rows, 1} in Cols<D>'s swizzle.
+template <int D>
 bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-            int hd, int cols, int rows, CUtensorMapSwizzle swizzle) {
+            int rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
                               (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
-                                 (cuuint64_t)heads * hd * 2,
-                                 (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)Cols<D>::kCols, 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            Cols<D>::kSwizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KH, float scale, cudaStream_t stream) {
-  using T = Tiles<HD>;
-  const CUtensorMapSwizzle swizzle = T::kRowBytes == 128
-                                         ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+  using T = Tiles<DQK, DV>;
   CUtensorMap mq, mk, mv;
-  if (!encode(&mq, q, B, S, H, HD, T::kCols, kBQ, swizzle) ||
-      !encode(&mk, k, B, S, KH, HD, T::kCols, T::BK, swizzle) ||
-      !encode(&mv, v, B, S, KH, HD, T::kCols, T::BK, swizzle))
+  if (!encode<DQK>(&mq, q, B, S, H, kBQ) ||
+      !encode<DQK>(&mk, k, B, S, KH, kBK) ||
+      !encode<DV>(&mv, v, B, S, KH, kBK))
     return (int)cudaErrorInvalidValue;
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attn_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        T::kSmemBytes);
+        flash_attn_tc_kernel<DQK, DV>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int nq = (S + kBQ - 1) / kBQ;
   const long long blocks = (long long)nq * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attn_tc_kernel<HD><<<(unsigned)blocks, kThreads, T::kSmemBytes,
-                             stream>>>(mq, mk, mv, (__nv_bfloat16*)o, S, H,
-                                       KH, B * H, nq, scale * kLog2e);
+  flash_attn_tc_kernel<DQK, DV><<<(unsigned)blocks, kThreads, T::kSmemBytes,
+                                  stream>>>(mq, mk, mv, (__nv_bfloat16*)o, S,
+                                            H, KH, B * H, nq,
+                                            scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o [B, S, H, hd] and k, v [B, S, KH, hd]: contiguous bfloat16, 16-byte
-// aligned; hd in {16, 64, 128}; KH divides H. Anything else returns
-// cudaErrorInvalidValue without launching.
+// q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv]:
+// contiguous bfloat16, 16-byte aligned; (dqk, dv) one of (16, 16),
+// (64, 64), (128, 128), (96, 64), (32, 16); KH divides H. Anything else
+// returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
-                                    int H, int KH, int hd, float scale,
-                                    void* stream) {
+                                    int H, int KH, int dqk, int dv,
+                                    float scale, void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (hd) {
-    case 16: return launch<16>(q, k, v, o, B, S, H, KH, scale, st);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KH, scale, st);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KH, scale, st);
+  switch (dqk * 1000 + dv) {
+    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// Dynamic shared memory one block of the kernel takes at head dim hd, in
-// bytes (0 for a head dim it does not take).
-extern "C" int flash_attn_tc_smem_bytes(int hd) {
-  switch (hd) {
-    case 16: return Tiles<16>::kSmemBytes;
-    case 64: return Tiles<64>::kSmemBytes;
-    case 128: return Tiles<128>::kSmemBytes;
+// Dynamic shared memory one block of the kernel takes at head dims
+// (dqk, dv), in bytes (0 for a pair it does not take).
+extern "C" int flash_attn_tc_smem_bytes(int dqk, int dv) {
+  switch (dqk * 1000 + dv) {
+    case 16016: return Tiles<16, 16>::kSmemBytes;
+    case 64064: return Tiles<64, 64>::kSmemBytes;
+    case 128128: return Tiles<128, 128>::kSmemBytes;
+    case 96064: return Tiles<96, 64>::kSmemBytes;
+    case 32016: return Tiles<32, 16>::kSmemBytes;
     default: return 0;
   }
 }

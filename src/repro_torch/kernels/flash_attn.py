@@ -1,10 +1,12 @@
 """``flash_attn``: causal attention for the LM prefill (kernel K5).
 
-:func:`flash_attention` computes, for ``q`` [B, S, H, hd] and ``k``, ``v``
-[B, S, K, hd] with K dividing H (query head h reads KV head h // (H/K), the
-function of the reference's ``_repeat_kv`` without the repeat), causal
-softmax attention with scale 1/√hd: masked logits are set to ``-2e38``, the
-softmax is taken in float32, and the output [B, S, H, hd] has ``q``'s dtype.
+:func:`flash_attention` computes, for ``q`` [B, S, H, Dqk], ``k`` [B, S,
+K, Dqk] and ``v`` [B, S, K, Dv] with K dividing H (query head h reads KV
+head h // (H/K), the function of the reference's ``_repeat_kv`` without the
+repeat), causal softmax attention with scale 1/√Dqk unless ``scale`` is
+given: masked logits are set to ``-2e38``, the softmax is taken in float32,
+and the output [B, S, H, Dv] has ``q``'s dtype. Dqk ≠ Dv is MLA's
+un-absorbed prefill (q·k over the nope + rope dims, v at its own width).
 On a CPU tensor it runs :func:`flash_attention_plain`; on a CUDA tensor it
 launches the kernel of the inputs' dtype or raises. Each dtype has one
 route (``ROUTES``), and neither gives way to the other:
@@ -17,8 +19,10 @@ route (``ROUTES``), and neither gives way to the other:
 The kernels take the [B, S, H, hd] layout the model produces as it is (no
 fold to [BH, S, hd], no padding of S or hd): the inputs must be contiguous
 (and 16-byte aligned), and any other tensor is refused, never copied. They
-support the head dims of the dense configs (128; 16 and 64 for the smoke
-configs and tests), and the wrapper raises for anything else.
+are built for the ``(Dqk, Dv)`` pairs of ``HEAD_DIMS``: the dense configs'
+(128, 128) and the smoke/test dims (16, 16) and (64, 64); MLA's (96, 64)
+(minicpm3-4b) and (32, 16) (its smoke dims 24/16 with q and k zero-padded
+to 32 by the caller). The wrapper raises for anything else.
 """
 from __future__ import annotations
 
@@ -37,8 +41,8 @@ launches = 0
 #: the same launches by route (keys of ``ROUTES``)
 route_launches = {"tensor_core": 0, "cuda_core": 0}
 
-#: head dims the kernel is built for
-HEAD_DIMS = (16, 64, 128)
+#: the (q·k head dim, v head dim) pairs the kernels are built for
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (96, 64), (32, 16))
 #: the mask value of the reference (``flash_attn/kernel.py``, ``ref.py``)
 NEG_INF = -2.0e38
 #: dtype -> (route, C launch function, source under ``repro_torch/csrc``)
@@ -48,16 +52,20 @@ ROUTES = {torch.bfloat16: ("tensor_core", "flash_attn_tc_launch",
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor) -> torch.Tensor:
+                          v: torch.Tensor,
+                          scale: float | None = None) -> torch.Tensor:
     """The materialized softmax of ``repro/kernels/flash_attn/ref.py``: the
-    float32 logits ``(q·kᵀ)·scale`` [B, H, S, S], causal mask to ``-2e38``,
-    softmax, ``·v``, cast to ``q``'s dtype. K/V heads are repeated to H."""
-    B, S, H, hd = q.shape
+    float32 logits ``(q·kᵀ)·scale`` [B, H, S, S] (scale 1/√Dqk by default),
+    causal mask to ``-2e38``, softmax, ``·v`` [B, S, K, Dv], cast to ``q``'s
+    dtype. K/V heads are repeated to H."""
+    B, S, H, dqk = q.shape
+    if scale is None:
+        scale = 1.0 / math.sqrt(dqk)
     group = H // k.shape[2]
-    qf = q.float().transpose(1, 2)                     # [B, H, S, hd]
+    qf = q.float().transpose(1, 2)                     # [B, H, S, Dqk]
     kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
     vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(hd))
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     logits = torch.where(mask, logits, NEG_INF)
     out = torch.matmul(torch.softmax(logits, dim=-1), vf)
@@ -77,27 +85,31 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"flash_attention: dtypes differ ({q.dtype}, "
                         f"{k.dtype}, {v.dtype})")
-    B, S, H, hd = q.shape
-    if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != hd:
+    B, S, H, dqk = q.shape
+    if k.shape[:3] != v.shape[:3] or k.shape[:2] != (B, S) or \
+            k.shape[3] != dqk:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)}/{tuple(v.shape)} disagree")
     if k.shape[2] == 0 or H % k.shape[2]:
         raise ValueError(f"flash_attention: {k.shape[2]} KV heads do not "
                          f"divide {H} query heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {hd} is not one of "
-                         f"{HEAD_DIMS}")
+    if (dqk, v.shape[3]) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (q·k {dqk}, v "
+                         f"{v.shape[3]}) are not one of {HEAD_DIMS}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
-    """Causal attention, ``[B, S, H, hd]`` out; see the module docstring."""
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None) -> torch.Tensor:
+    """Causal attention, ``[B, S, H, Dv]`` out; see the module docstring."""
     global launches
     _check(q, k, v)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v)
-    B, S, H, hd = q.shape
-    out = torch.empty_like(q)
+        return flash_attention_plain(q, k, v, scale)
+    B, S, H, dqk = q.shape
+    dv = v.shape[3]
+    out = q.new_empty((B, S, H, dv))
     if B == 0 or S == 0:
         return out
     if any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -106,7 +118,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
     route, fn, _ = ROUTES[q.dtype]
     err = getattr(build.library(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], hd, 1.0 / math.sqrt(hd), build.stream_ptr(q))
+        k.shape[2], dqk, dv, scale, build.stream_ptr(q))
     build.check(err, f"flash_attn ({route})")
     with COUNT_LOCK:
         launches += 1

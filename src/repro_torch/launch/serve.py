@@ -2,6 +2,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mistral-nemo-12b \
       --full --batch 4 --prompt-len 2048 --gen 32 --max-len 2080
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm3-4b \
+      --full --batch 4 --prompt-len 2048 --gen 32 --max-len 2080
+
+The dense family runs: GQA (mistral-nemo-12b, qwen3-14b, starcoder2-3b)
+and MLA (minicpm3-4b).
 
 Without ``--full`` the arch's smoke twin runs. The weights are drawn from a
 generator seeded with ``--seed`` straight into bf16 on the device, one

@@ -1,4 +1,4 @@
-"""The LM serving substrate on PyTorch: the dense GQA family.
+"""The LM serving substrate on PyTorch: the dense family, GQA and MLA.
 
 ``init`` builds an :class:`LM` from a generator; ``prefill`` /
 ``decode_step`` / ``init_cache`` drive it (see :mod:`.model`). Causal

@@ -1,5 +1,6 @@
-"""Grouped-query attention (GQA, with qk-norm and rotary embeddings): the
-GQA half of ``repro.models.attention``.
+"""Attention for the dense family, ``repro.models.attention`` on PyTorch:
+grouped-query attention (GQA, with qk-norm and rotary embeddings) and
+multi-head latent attention (MLA, DeepSeek's, as minicpm3-4b runs it).
 
 Dispatch follows the port's device rule:
 
@@ -11,12 +12,22 @@ Dispatch follows the port's device rule:
   flash_attention`), reading KV head h // (H/K) in place of the repeat.
 - Single-query decode (``Sq == 1`` with the ``valid_to`` mask) runs as plain
   torch ops on both devices: the reference computes it outside any kernel.
+  MLA's decode is the reference's absorbed form over the latent cache
+  (q_nope folded through W_uk, W_uv applied after the weighted latent sum),
+  also plain torch on both devices.
+- MLA's prefill is un-absorbed, as in the reference: q·k over the nope +
+  rope dims (the rope key broadcast to every head), v at its own width,
+  scale 1/√(nope + rope). On CUDA it runs K5 with those unequal head dims;
+  when nope + rope is not a multiple of 16 (the smoke dims, 24) q and k are
+  zero-padded to the next one (also for an ``attention=`` function on the
+  CPU), which leaves every q·k unchanged.
 - A sliding window, bidirectional attention or other positions on CUDA
   raise ``NotImplementedError``; they never drop to the plain version.
 
 Only ``attention=`` changes what causal prefill runs: a function with K5's
-signature (``q`` [B,S,H,hd], ``k``/``v`` [B,S,K,hd]) used in its place, as
-the tests and ``chip_smoke.py`` pass K5's plain version to compare.
+signature (``q`` [B,S,H,Dqk], ``k`` [B,S,K,Dqk], ``v`` [B,S,K,Dv],
+``scale=``) used in its place, as the tests and ``chip_smoke.py`` pass K5's
+plain version to compare.
 
 The decode cache is written in place (the reference's ``_scatter_time``
 returns a new array with the same values).
@@ -31,16 +42,24 @@ import torch
 from repro_torch.kernels import flash_attn
 from .layers import dense_init_, param, rms_norm, rms_norm_init_, rope
 
-__all__ = ["GQAttention", "gqa_apply", "KVCache", "init_kv_cache", "NEG_INF"]
+__all__ = ["GQAttention", "gqa_apply", "KVCache", "init_kv_cache",
+           "MLAttention", "mla_apply", "MLACache", "init_mla_cache",
+           "NEG_INF"]
 
 NEG_INF = -2.0e38
 
-Attention = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+#: K5's signature: (q, k, v, scale=...) -> out
+Attention = Callable[..., torch.Tensor]
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor   # [B, S_cache, K, hd] (a model's cache: [L, B, S_cache, K, hd])
     v: torch.Tensor
+
+
+class MLACache(NamedTuple):
+    latent: torch.Tensor  # [B, S_cache, kv_lora] (a model's: [L, B, ...])
+    k_rope: torch.Tensor  # [B, S_cache, qk_rope]
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -178,7 +197,7 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
     if not from_zero and not torch.equal(positions, torch.arange(
             S, dtype=positions.dtype, device=positions.device).expand(B, S)):
         raise _not_ported("prefill at positions other than arange(S)")
-    return (attention or flash_attn.flash_attention)(q, k, v)
+    return (attention or flash_attn.flash_attention)(q, k, v, scale=scale)
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
@@ -245,3 +264,132 @@ def init_kv_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
         shape = (n_layers,) + shape
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ------------------------------------------------------------------ MLA
+class MLAttention(torch.nn.Module):
+    """The parameters of ``mla_init``: ``wq_a`` [d, q_lora] and ``wq_b``
+    [q_lora, H, nope + rope] (``wq`` [d, H, nope + rope] when ``q_lora`` is
+    0), ``wkv_a`` [d, kv_lora + rope], ``wkv_b`` [kv_lora, H, nope + v],
+    ``wo`` [H, v, d] in bf16 and ``kv_norm`` [kv_lora] in float32."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        self.cfg = cfg
+        if cfg.q_lora:
+            self.wq_a = param((d, cfg.q_lora), device)
+            self.wq_b = param((cfg.q_lora, H, qd), device)
+            self.wq = None
+        else:
+            self.wq_a = self.wq_b = None
+            self.wq = param((d, H, qd), device)
+        self.wkv_a = param((d, cfg.kv_lora + cfg.qk_rope_dim), device)
+        self.wkv_b = param((cfg.kv_lora, H, cfg.qk_nope_dim + cfg.v_head_dim),
+                           device)
+        self.wo = param((H, cfg.v_head_dim, d), device)
+        self.kv_norm = param((cfg.kv_lora,), device, torch.float32)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for w in (self.wq_a, self.wq_b, self.wq, self.wkv_a, self.wkv_b,
+                  self.wo):
+            if w is not None:
+                dense_init_(w, generator)
+        rms_norm_init_(self.kv_norm)
+
+    def forward(self, x, positions, cache=None, cache_pos=None, *,
+                attention: Optional[Attention] = None):
+        return mla_apply(self, self.cfg, x, positions, cache, cache_pos,
+                         attention=attention)
+
+
+def _mla_q(p, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated)."""
+    if cfg.q_lora:
+        B, S, d = x.shape
+        q = _heads((x.reshape(B * S, d) @ p.wq_a.to(x.dtype)).view(B, S, -1),
+                   p.wq_b)
+    else:
+        q = _heads(x, p.wq)
+    q_nope = q[..., : cfg.qk_nope_dim]
+    q_rope = rope(q[..., cfg.qk_nope_dim:], positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
+              cache: Optional[MLACache] = None,
+              cache_pos: Optional[int] = None, *,
+              attention: Optional[Attention] = None,
+              ) -> tuple[torch.Tensor, Optional[MLACache]]:
+    """``repro.models.attention.mla_apply``: x [B, S, d] at ``positions``
+    [B, S] (None: a prefill at arange(S)). Prefill when ``cache`` is None
+    (causal, un-absorbed; returns the layer's MLACache when ``cache_pos`` is
+    given), else one absorbed decode step (S == 1) over the latent cache,
+    written in place at slot ``cache_pos``."""
+    B, S, d = x.shape
+    H, nope, rdim = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    dt = x.dtype
+    from_zero = positions is None
+    if from_zero:
+        if cache is not None:
+            raise ValueError("mla_apply: a decode step needs its positions")
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    scale = 1.0 / math.sqrt(nope + rdim)
+    kv_a = (x.reshape(B * S, d) @ p.wkv_a.to(dt)).view(B, S, -1)
+    latent = rms_norm(kv_a[..., : cfg.kv_lora], p.kv_norm, cfg.norm_eps)
+    k_rope = rope(kv_a[..., None, cfg.kv_lora:], positions,
+                  cfg.rope_theta)[:, :, 0]
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+
+    if cache is None:  # prefill: un-absorbed, causal
+        kv = _heads(latent, p.wkv_b)                     # [B,S,H,nope+v]
+        # K5 takes contiguous tensors: the concatenations are; v is copied
+        # out of kv. Where K5 (or a function in its place) runs, zero
+        # features pad q·k to a multiple of 16, the kernel's dims.
+        pad = []
+        if (attention is not None or x.device.type != "cpu") and \
+                (nope + rdim) % 16:
+            pad = [q_nope.new_zeros((B, S, H, -(nope + rdim) % 16))]
+        q_cat = torch.cat([q_nope, q_rope] + pad, dim=-1)
+        k_cat = torch.cat([kv[..., :nope],
+                           k_rope[:, :, None, :].expand(B, S, H, rdim)] + pad,
+                          dim=-1)
+        v = kv[..., nope:].contiguous()
+        out = _prefill_attention(q_cat, k_cat, v, positions, cfg, True,
+                                 scale, attention, from_zero)
+        new_cache = MLACache(latent, k_rope) if cache_pos is not None \
+            else None
+    else:  # decode: absorbed attention over the latent cache
+        if S != 1:
+            raise ValueError(f"mla_apply: decode takes one token, got S={S}")
+        pos = int(cache_pos)
+        cache.latent[:, pos] = latent[:, 0]
+        cache.k_rope[:, pos] = k_rope[:, 0]
+        lat = cache.latent.float()                       # [B, Sc, r]
+        w_uk = p.wkv_b.to(dt)[..., :nope]                # [r, H, nope]
+        q_eff = torch.einsum("bqhk,rhk->bqhr", q_nope, w_uk)
+        logits = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(), lat)
+                  + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
+                                 cache.k_rope.float())) * scale
+        valid = torch.arange(lat.shape[1], device=x.device) <= pos
+        logits = torch.where(valid, logits, NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        lat_sum = torch.einsum("bhqs,bsr->bqhr", w, lat)
+        w_uv = p.wkv_b.to(dt)[..., nope:]                # [r, H, v]
+        out = torch.einsum("bqhr,rhv->bqhv", lat_sum.to(dt), w_uv)
+        new_cache = cache
+    hv = H * cfg.v_head_dim
+    y = out.reshape(B * S, hv) @ p.wo.to(dt).reshape(hv, d)
+    return y.view(B, S, d), new_cache
+
+
+def init_mla_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
+                   device=None, n_layers: Optional[int] = None) -> MLACache:
+    """A zeroed latent cache ([B, S, kv_lora], [B, S, rope]), or the layers
+    stacked [n_layers, B, S, ...]."""
+    lead = (batch, length) if n_layers is None else (n_layers, batch, length)
+    return MLACache(
+        torch.zeros(lead + (cfg.kv_lora,), dtype=dtype, device=device),
+        torch.zeros(lead + (cfg.qk_rope_dim,), dtype=dtype, device=device))

@@ -1,20 +1,23 @@
 """Model assembly for the dense plan: ``ArchConfig`` -> an ``LM`` module and
 its ``prefill`` / ``decode_step`` / ``init_cache``.
 
-A port of ``repro.models.model`` for the dense family (pre-norm GQA
-attention and a gated MLP per block, ``attn_mlp``). The reference scans a
-stack of layers; here ``_forward`` loops over an ``nn.ModuleList`` of
-blocks. The parameter layout is the reference's ``init`` tree with the
+A port of ``repro.models.model`` for the dense family (pre-norm dense GQA
+or MLA attention and a gated MLP per block, ``attn_mlp``). The reference
+scans a stack of layers; here ``_forward`` loops over an ``nn.ModuleList``
+of blocks. The parameter layout is the reference's ``init`` tree with the
 stacked ``layers.b0`` split into one block per layer: ``embed`` [V, d],
 ``head`` [d, V] (untied), ``final_ln`` [d] and, per block, ``ln1``,
-``attn.{wq,wk,wv,wo,q_norm,k_norm}``, ``ln2``, ``mlp.{wg,wu,wd}``.
+``attn.{wq,wk,wv,wo,q_norm,k_norm}`` (GQA) or ``attn.{wq_a,wq_b,wq,wkv_a,
+wkv_b,wo,kv_norm}`` (MLA), ``ln2``, ``mlp.{wg,wu,wd}``.
 
 The compute dtype is bf16, as in the reference's ``_forward``. The decode
-cache is one :class:`~repro_torch.models.attention.KVCache` of the layers
-stacked, [L, B, S, K, hd], the layout of the reference's
-``caches["layers"]["b0"]["attn"]``; ``decode_step`` writes it in place.
-MoE, SSM, hybrid, audio, vision and MLA configs raise ``NotImplementedError``
-when built, on any device; a sliding window raises when built for CUDA.
+cache is the layers' caches stacked, the layout of the reference's
+``caches["layers"]["b0"]["attn"]``: a
+:class:`~repro_torch.models.attention.KVCache` [L, B, S, K, hd] for GQA, an
+:class:`~repro_torch.models.attention.MLACache` ([L, B, S, kv_lora],
+[L, B, S, rope]) for MLA; ``decode_step`` writes it in place. MoE, SSM,
+hybrid, audio and vision configs raise ``NotImplementedError`` when built,
+on any device; a sliding window raises when built for CUDA.
 """
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ def check_ported(cfg, device: torch.device | str | None = None) -> None:
     why = None
     if cfg.family != "dense":
         why = f"the {cfg.family} family"
-    elif cfg.attn_kind != "gqa":
+    elif cfg.attn_kind not in ("gqa", "mla"):
         why = f"{cfg.attn_kind} attention"
     elif cfg.n_experts or cfg.frontend or cfg.is_encdec or cfg.max_pos:
         why = "MoE, frontends and encoder-decoders"
@@ -50,13 +53,15 @@ def check_ported(cfg, device: torch.device | str | None = None) -> None:
 
 
 class Block(torch.nn.Module):
-    """One ``attn_mlp`` block: ``ln1``, ``attn``, ``ln2``, ``mlp``."""
+    """One ``attn_mlp`` block: ``ln1``, ``attn`` (GQA or MLA), ``ln2``,
+    ``mlp``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
         self.cfg = cfg
         self.ln1 = param((cfg.d_model,), device, torch.float32)
-        self.attn = attn.GQAttention(cfg, device)
+        self.attn = attn.MLAttention(cfg, device) if cfg.attn_kind == "mla" \
+            else attn.GQAttention(cfg, device)
         self.ln2 = param((cfg.d_model,), device, torch.float32)
         self.mlp = GatedMLP(cfg.d_model, cfg.d_ff, device)
 
@@ -75,7 +80,7 @@ class Block(torch.nn.Module):
 def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
                  attention=None):
     """``repro.models.model._block_apply`` for ``attn_mlp``: returns
-    (x, the layer's new KVCache or None)."""
+    (x, the layer's new cache or None)."""
     h, new_cache = p.attn(rms_norm(x, p.ln1, cfg.norm_eps), positions,
                           cache, cache_pos, attention=attention)
     x = x + h
@@ -84,8 +89,9 @@ def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
 
 
 class LM(torch.nn.Module):
-    """A dense decoder LM with uninitialized bf16 weights on ``device``
-    (default: CUDA); :func:`init` fills them from a generator."""
+    """A dense decoder LM (GQA or MLA attention) with uninitialized bf16
+    weights on ``device`` (default: CUDA); :func:`init` fills them from a
+    generator."""
 
     def __init__(self, cfg, device=None):
         check_ported(cfg, device)
@@ -118,24 +124,28 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
     return model
 
 
+Cache = attn.KVCache | attn.MLACache
+
+
 def _forward(model: LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor],
-             cache_pos: int, cache: Optional[attn.KVCache] = None,
-             attention=None) -> tuple[torch.Tensor, attn.KVCache]:
+             cache_pos: int, cache: Optional[Cache] = None,
+             attention=None) -> tuple[torch.Tensor, Cache]:
     """The prefill/decode trunk -> (hidden [B, S, d], cache): a prefill
     (``cache`` and ``positions`` None: positions arange(S)) returns the
-    layers' new K/V stacked, a decode step the ``cache`` it wrote into."""
+    layers' new caches stacked field by field (K/V, or latent/k_rope), a
+    decode step the ``cache`` it wrote into."""
     cfg = model.cfg
+    kind = attn.MLACache if cfg.attn_kind == "mla" else attn.KVCache
     x = embed(model.embed, tokens, torch.bfloat16)
     layer_caches = []
     for i, block in enumerate(model.layers):
-        c = None if cache is None else attn.KVCache(cache.k[i], cache.v[i])
+        c = None if cache is None else kind(*(f[i] for f in cache))
         x, nc = block(x, positions, c, cache_pos, attention=attention)
         layer_caches.append(nc)
     x = rms_norm(x, model.final_ln, cfg.norm_eps)
     if cache is None:
-        cache = attn.KVCache(torch.stack([c.k for c in layer_caches]),
-                             torch.stack([c.v for c in layer_caches]))
+        cache = kind(*(torch.stack(f) for f in zip(*layer_caches)))
     return x, cache
 
 
@@ -145,10 +155,11 @@ def _head(model: LM) -> torch.Tensor:
 
 @torch.no_grad()
 def prefill(model: LM, tokens: torch.Tensor, *, attention=None
-            ) -> tuple[attn.KVCache, torch.Tensor]:
-    """Process the prompt ``tokens`` [B, S]; returns (cache [L, B, S, K,
-    hd], last-position logits [B, V]). ``attention`` replaces the causal
-    prefill attention (see :mod:`repro_torch.models.attention`)."""
+            ) -> tuple[Cache, torch.Tensor]:
+    """Process the prompt ``tokens`` [B, S]; returns (cache, the layers
+    stacked: [L, B, S, K, hd] K/V, or the MLA latent and rope key;
+    last-position logits [B, V]). ``attention`` replaces the causal prefill
+    attention (see :mod:`repro_torch.models.attention`)."""
     x, cache = _forward(model, tokens, None, tokens.shape[1],
                         attention=attention)
     logits = lm_head(_head(model), x[:, -1:], model.cfg.tie_embeddings)[:, 0]
@@ -156,8 +167,8 @@ def prefill(model: LM, tokens: torch.Tensor, *, attention=None
 
 
 @torch.no_grad()
-def decode_step(model: LM, cache: attn.KVCache, token: torch.Tensor,
-                pos: int) -> tuple[attn.KVCache, torch.Tensor]:
+def decode_step(model: LM, cache: Cache, token: torch.Tensor,
+                pos: int) -> tuple[Cache, torch.Tensor]:
     """One decode step. ``token`` [B], ``pos`` the write position (the
     number of tokens already in the cache). The cache is updated in place
     and returned with the logits [B, V]."""
@@ -170,9 +181,12 @@ def decode_step(model: LM, cache: attn.KVCache, token: torch.Tensor,
 
 
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
-               device=None) -> attn.KVCache:
+               device=None) -> Cache:
     """Zeroed decode caches for ``batch`` sequences of at most ``length``
-    tokens, the layers stacked: [L, B, length, K, hd]."""
+    tokens, the layers stacked: [L, B, length, K, hd] K/V for GQA, or
+    [L, B, length, kv_lora] and [L, B, length, rope] for MLA."""
     check_ported(cfg, device)
-    return attn.init_kv_cache(cfg, batch, length, dtype,
-                              resolve_device(device), n_layers=cfg.n_layers)
+    init = attn.init_mla_cache if cfg.attn_kind == "mla" \
+        else attn.init_kv_cache
+    return init(cfg, batch, length, dtype, resolve_device(device),
+                n_layers=cfg.n_layers)

@@ -1,9 +1,11 @@
 """Batched serving engine: prefill -> greedy decode over a preallocated
-KV cache. A port of ``repro.serve.engine`` for the dense GQA family.
+KV cache. A port of ``repro.serve.engine`` for the dense GQA and MLA
+families.
 
-The prompt's prefill cache [L, B, S0, K, hd] is copied into the first S0
-slots of a zeroed decode cache of ``max_len`` slots, which every decode step
-then updates in place. Sliding-window configs (the reference's ring
+The prompt's prefill cache (GQA's K/V [L, B, S0, K, hd], or MLA's latent
+[L, B, S0, kv_lora] and rope key [L, B, S0, rope]) is copied into the first
+S0 slots of a zeroed decode cache of ``max_len`` slots, which every decode
+step then updates in place. Sliding-window configs (the reference's ring
 placement, ``_ring_place``) are not ported and raise.
 """
 from __future__ import annotations
@@ -14,7 +16,6 @@ from typing import Optional
 import torch
 
 from repro_torch.models import decode_step, init_cache, prefill
-from repro_torch.models.attention import KVCache
 
 __all__ = ["ServeConfig", "Engine"]
 
@@ -44,10 +45,12 @@ class Engine:
         self.model = model
 
     # ------------------------------------------------------------ handoff
-    def _merge_caches(self, dec: KVCache, pre: KVCache, s0: int) -> KVCache:
-        """Copy the prefill cache into the first ``s0`` slots of ``dec``."""
-        dec.k[:, :, :s0] = pre.k
-        dec.v[:, :, :s0] = pre.v
+    def _merge_caches(self, dec, pre, s0: int):
+        """Copy every field of the prefill cache (a ``KVCache`` or an
+        ``MLACache``, [L, B, s0, ...]) into the first ``s0`` slots of
+        ``dec``."""
+        for d, p in zip(dec, pre):
+            d[:, :, :s0] = p
         return dec
 
     # ------------------------------------------------------------ generate

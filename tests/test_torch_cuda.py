@@ -556,6 +556,63 @@ def test_flash_attn_matches_plain(dev, dtype, B, S, H, K, hd):
     torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,S,H,K,dqk,dv,scale_dim", [
+    # MLA's un-absorbed prefill: minicpm3-4b's (96, 64) at 40 heads, a
+    # single query, ragged tiles and a KV group; the smoke dims 24/16
+    # zero-padded to (32, 16), scaled by 1/sqrt(24)
+    (1, 1, 4, 4, 96, 64, 96), (1, 129, 8, 8, 96, 64, 96),
+    (2, 300, 40, 40, 96, 64, 96), (1, 1000, 4, 2, 96, 64, 96),
+    (2, 77, 4, 4, 32, 16, 24), (3, 129, 4, 4, 32, 16, 24)])
+def test_flash_attn_unequal_head_dims_match_plain(dev, dtype, B, S, H, K,
+                                                  dqk, dv, scale_dim):
+    from repro_torch.kernels import flash_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(B * S + H + dqk)
+    q = torch.randn((B, S, H, dqk), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, K, dqk), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, K, dv), generator=g, device=dev).to(dtype)
+    scale = 1.0 / scale_dim ** 0.5
+    before = K5.launches
+    got = K5.flash_attention(q, k, v, scale=scale)
+    assert K5.launches == before + 1
+    want = K5.flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, S, H, dv)
+    torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+
+
+def test_mla_smoke_prefill_on_the_card_matches_the_cpu(dev):
+    """minicpm3-4b@smoke on the card: one K5 launch a layer at the padded
+    dims (32, 16) on the tensor-core route, none in decode; prefill and
+    decode logits within the CPU tests' 0.0625 of the CPU's plain run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import decode_step, init, init_cache, prefill
+
+    cfg = get_config("minicpm3-4b@smoke")
+    cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab, (2, 90),
+                         generator=torch.Generator().manual_seed(5))
+    logits = {}
+    for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+        before = dict(K5.route_launches)
+        cache, lg = prefill(model, toks.to(d))
+        dec = init_cache(cfg, 2, 91, device=d)
+        for field, c in zip(dec, cache):
+            field[:, :, :90] = c
+        _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 90)
+        moved = {r: n - before[r] for r, n in K5.route_launches.items()}
+        assert moved == ({"tensor_core": cfg.n_layers, "cuda_core": 0}
+                         if name == "cuda" else
+                         {"tensor_core": 0, "cuda_core": 0})
+        logits[name] = (lg.float().cpu(), lg2.float().cpu())
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
+
+
 def test_flash_attn_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(dev):
     from repro_torch.kernels import flash_attn as K5
 

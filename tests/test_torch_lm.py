@@ -215,14 +215,16 @@ def test_init_draws_the_reference_distributions():
                 .all())
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
                                   "phi3.5-moe-42b-a6.6b", "mamba2-370m",
                                   "recurrentgemma-9b", "whisper-tiny",
                                   "pixtral-12b"])
 def test_unported_families_raise_when_built(arch, monkeypatch):
-    """MLA, MoE, SSM, hybrid (sliding window), audio and vision configs are
-    refused when built, on the CPU as on the card (the check comes before
-    the device's, so it holds on a host without CUDA too)."""
+    """MoE (deepseek-v2-lite's MLA included: its family is MoE), SSM, hybrid
+    (sliding window), audio and vision configs are refused when built, on
+    the CPU as on the card (the check comes before the device's, so it
+    holds on a host without CUDA too). Dense MLA (minicpm3-4b) builds:
+    ``tests/test_torch_mla.py``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config(arch, smoke=True)
     for device in ("cpu", None):
