@@ -33,8 +33,9 @@ The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
 route, ``csrc/flash_attn_tc.cu``, whose ptxas registers and spills and whose
 ``wgmma`` and TMA instructions in the built SASS are printed first) against
 its plain version at the main path's shape, at S = 4096 and at a ragged
-S = 2000 and at minicpm3-4b's MLA prefill (q·k head dim 96, v head dim
-64, 40 heads), timed beside ``scaled_dot_product_attention``; then
+S = 2000 and at the MLA prefills of minicpm3-4b (q·k head dim 96, v head
+dim 64, 40 heads) and deepseek-v2-lite-16b (192, 128, 16 heads), timed
+beside ``scaled_dot_product_attention``; then
 ``mistral-nemo-12b`` at full width
 (40 layers, d_model 5120, 32 heads / 8 KV heads, vocab 131072; random bf16
 weights from a seed) serving ``Engine.generate`` at batch 4, a 2048-token
@@ -47,10 +48,30 @@ then the same for ``minicpm3-4b`` (MLA) at its published width and depth
 (62 layers, d_model 2560, 40 heads, kv_lora 256, q_lora 768, q·k 64 + 32
 rope dims, v 64; 4.26 B parameters): 62 K5 launches in the prefill, the
 absorbed decode over the latent cache, and two planted MLA faults (the
-rope key dropped from k, v sliced at offset 0); and each smoke config's
-(mistral-nemo-12b@smoke, minicpm3-4b@smoke, the latter through K5 at the
-zero-padded dims (32, 16)) prefill and decode step on the card against
-the CPU's.
+rope key dropped from k, v sliced at offset 0); then the MoE family the
+same way: ``deepseek-v2-lite-16b`` at its published width and depth (27
+layers, a dense layer 0, then 64 routed experts top-6 and 2 shared; MLA
+at q·k 192 / v 128; 15.7 B parameters): 27 K5 launches at (192, 128) in
+the prefill, the two MLA faults; and ``phi3.5-moe-42b-a6.6b`` at its
+published width cut to 24 of its 32 layers (16 experts top-2, GQA 32/8;
+31.5 B parameters: all 32 layers would not fit the 80 GB card): 24 K5
+launches, the two GQA faults. An MoE phase records every layer's expert
+choices and prints the assignments dropped past capacity in the prefill,
+the share of choices that differ between the kernel and the plain run and
+the end-to-end differences (again with the kernel run's choices replayed
+where its own took the plain run outside the tolerances); it is checked
+layer by layer (``moe_forced_check``): each block on the kernel run's
+input to it with K5's plain version (and with each fault), through the
+final norm and the head at every position, at the serve tolerances. One
+MoE layer of deepseek-v2-lite-16b at
+full width on a float32 input of 2048 tokens (capacity 240: experts
+overflow), card against CPU: equal expert choices, slots and drops,
+outputs within ``MOE_F32_RTOL``, two planted MoE faults rejected (slots
+in reverse arrival order, gates not renormalized), and two bf16 runs on
+the card bitwise equal. Last, each smoke config's (mistral-nemo-12b@smoke,
+minicpm3-4b@smoke, phi3.5-moe-42b-a6.6b@smoke, deepseek-v2-lite-16b@smoke;
+the MLA ones through K5 at the zero-padded dims (32, 16)) prefill and
+decode step on the card against the CPU's.
 
 The mutable pool and the between-round proposer: K4's two pool uses
 against their plain versions (the refresh of 1 and 3 dirty chunks of a
@@ -1459,10 +1480,14 @@ def proposer_card_vs_cpu() -> None:
 
 #: K5 shapes (B, S, H, KV heads, q·k head dim, v head dim): the serve
 #: phase's prefill, the S at which the reference's ``_sdpa`` chunks its
-#: keys, a ragged S, and the MLA serve phase's prefill (minicpm3-4b's
-#: un-absorbed attention: 96 = 64 nope + 32 rope dims, v 64, 40 heads).
+#: keys, a ragged S, the MLA serve phase's prefill (minicpm3-4b's
+#: un-absorbed attention: 96 = 64 nope + 32 rope dims, v 64, 40 heads) and
+#: deepseek-v2-lite's (192 = 128 nope + 64 rope, v 128, 16 heads).
 K5_SHAPES = [(4, 2048, 32, 8, 128, 128), (1, 4096, 32, 8, 128, 128),
-             (2, 2000, 32, 8, 128, 128), (4, 2048, 40, 40, 96, 64)]
+             (2, 2000, 32, 8, 128, 128), (4, 2048, 40, 40, 96, 64),
+             (4, 2048, 16, 16, 192, 128)]
+#: the kernel-line names of K5's unequal head dims
+K5_NAMES = {(96, 64): "flash_attn_mla", (192, 128): "flash_attn_mla_192"}
 #: bf16 outputs rounded from float32 results summed in another order may
 #: flip by one bf16 ulp (<= 2^-7 relative); atol for outputs near 0.
 K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
@@ -1471,6 +1496,24 @@ K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
 SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=32,
              max_len=2080, seed=0)
 SERVE_MLA = dict(SERVE, arch="minicpm3-4b")
+#: the MoE serve phases: deepseek-v2-lite-16b (MLA, 64 routed experts,
+#: top-6, 2 shared; 15.7 B parameters) at its published width and depth,
+#: and phi3.5-moe-42b-a6.6b (GQA, 16 experts, top-2) at its published width
+#: with 24 of its 32 layers: all 32 are 41.9 B parameters, 83.7 GB in bf16,
+#: more than the 80 GB card; 24 are 31.5 B, ~63 GB
+SERVE_MOE_MLA = dict(SERVE, arch="deepseek-v2-lite-16b")
+SERVE_MOE = dict(SERVE, arch="phi3.5-moe-42b-a6.6b", n_layers=24)
+#: the MoE layer checked card against CPU: deepseek-v2-lite-16b's at full
+#: width, a float32 hidden input of B 1, S 2048 (T 2048, capacity 240).
+#: The hidden states share a direction, as a residual stream's do, so the
+#: router favours some experts and they overflow (i.i.d. unit inputs
+#: spread the tokens evenly: busiest 227 of 240 on the card). Tolerance:
+#: the two devices' float32 sums over d 2048 and ff 1408 in other orders
+#: differ by ~1e-6 of the outputs (float32 against float64 on the CPU:
+#: 7.6e-7), which are ~100 (fan-in init over E = 64): max |diff| <=
+#: MOE_F32_RTOL · max |y|.
+MOE_CHECK = dict(arch="deepseek-v2-lite-16b", batch=1, seq=2048, seed=7)
+MOE_F32_RTOL = 1e-5
 #: kernel run vs K5's plain version, bf16 end to end through 40 layers:
 #: attention outputs differ by bf16 ulp flips, which the residual stream
 #: carries. Logits are O(1) (|max| ~4, one ulp 2^-6 there): max |diff| <=
@@ -2284,7 +2327,7 @@ def k5_build_report() -> dict:
     """The bf16 K5 kernel as built, at each (q·k, v) head-dim pair: ptxas's
     registers, stack and spills, its dynamic shared memory, and its
     ``wgmma`` (HGMMA) and TMA load (UTMALDG) instructions in the SASS.
-    Raises if a pair's kernel holds no HGMMA or no UTMALDG."""
+    Raises if a pair's kernel holds no HGMMA or no UTMALDG, or spills."""
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attn as K5
 
@@ -2308,6 +2351,8 @@ def k5_build_report() -> dict:
         if not (ops.get("HGMMA") and ops.get("UTMALDG")):
             raise AssertionError(f"{name}: no wgmma (HGMMA) or no TMA load "
                                  f"(UTMALDG) in its SASS: {ops}")
+        if regs.get("spill_stores") or regs.get("spill_loads"):
+            raise AssertionError(f"{name} spills registers: {regs}")
     return report
 
 
@@ -2393,7 +2438,7 @@ def check_flash_attn(dev, results: dict) -> None:
     """K5 against its plain version at ``K5_SHAPES`` (bf16), timed beside
     the plain version and ``scaled_dot_product_attention`` (the library
     call, timed only: the port never calls it; its scale is 1/√Dqk too, and
-    it takes Dv ≠ Dqk). The MLA shape is kept as ``flash_attn_mla``."""
+    it takes Dv ≠ Dqk). The MLA shapes are kept by ``K5_NAMES``."""
     import torch
     import torch.nn.functional as F
 
@@ -2423,7 +2468,7 @@ def check_flash_attn(dev, results: dict) -> None:
                                  atol=K5_ATOL))
         lib_err = float((out_l.float() - out_p.float()).abs().max())
         n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv)
-        name = "flash_attn" if dqk == dv else "flash_attn_mla"
+        name = K5_NAMES.get((dqk, dv), "flash_attn")
         _record(results, name, [B, S, H, K, dqk, dv], err, ok,
                 time_ms(lambda: K5.flash_attention(q, k, v), reps=5,
                         repeats=5),
@@ -2494,12 +2539,65 @@ def _logit_diff(a, b) -> tuple[float, float]:
     return float(d.max()), float(d.mean())
 
 
+def _recorder(store: list):
+    """A ``routing=`` hook that routes as the model does and keeps each MoE
+    layer's expert choices in ``store``."""
+    from repro_torch.models import moe
+
+    def routing(probs, k):
+        store.append(moe.route(probs, k))
+        return store[-1]
+    return routing
+
+
+def _replayer(choices: list):
+    """A ``routing=`` hook that hands out ``choices`` (one [T, k] tensor a
+    MoE layer, in call order) in place of the model's own top-k."""
+    it = iter(choices)
+    return lambda probs, k: next(it)
+
+
+def _flip_share(a: list, b: list) -> tuple[int, int]:
+    """(rows, total rows) of two runs' expert choices (lists of calls, each
+    a list of [T, k] tensors a layer) whose ranked experts differ."""
+    flips = total = 0
+    for call_a, call_b in zip(a, b):
+        for ea, eb in zip(call_a, call_b):
+            flips += int((ea != eb).any(dim=1).sum())
+            total += ea.shape[0]
+    return flips, total
+
+
+def _dropped(cfg, choices: list) -> list[int]:
+    """Assignments past capacity in each MoE layer of one call."""
+    from repro_torch.models import moe
+
+    out = []
+    for e in choices:
+        C = moe.capacity(e.shape[0], cfg.top_k, cfg.n_experts,
+                         cfg.capacity_factor)
+        out.append(int((moe.arrival_slots(e.reshape(-1), cfg.n_experts)
+                        >= C).sum()))
+    return out
+
+
 def serve_phase(dev, conf: dict) -> dict:
-    """The LM serving path at full width (``conf``: ``SERVE`` or
-    ``SERVE_MLA``): build, generate with K5 (every launch count set to 0
-    just before, read just after), then the same prefill with K5's plain
-    version and a teacher-forced decode fed the kernel run's tokens, and
-    the config's planted faults. Raises on any failed check."""
+    """The LM serving path at full width (``conf``: ``SERVE``, ``SERVE_MLA``,
+    ``SERVE_MOE_MLA`` or ``SERVE_MOE``; ``n_layers`` in it cuts the depth):
+    build, generate with K5 (every launch count set to 0 just before, read
+    just after), then the same prefill with K5's plain version and a
+    teacher-forced decode fed the kernel run's tokens, and the config's
+    planted faults. A dense config's checks are those end-to-end logits
+    and greedy tokens. An MoE config records every layer's expert choices,
+    prints the share that differ between the kernel and the plain run and
+    the end-to-end differences (with the kernel run's choices replayed
+    where its own took the plain run outside the tolerances), and is
+    checked layer by layer (``moe_forced_check``): its random experts'
+    bf16 outputs, ~30 times the attention's in the residual stream, add
+    noise in every MoE layer that 26 layers carry past the end-to-end
+    tolerances, whatever K5 does. Raises on any failed check."""
+    import dataclasses
+
     import torch
 
     from repro_torch import kernels
@@ -2509,6 +2607,11 @@ def serve_phase(dev, conf: dict) -> dict:
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_config(conf["arch"])
+    label = f"{cfg.arch_id} at full width"
+    if conf.get("n_layers"):
+        label += f", cut to {conf['n_layers']} of {cfg.n_layers} layers"
+        cfg = dataclasses.replace(cfg, n_layers=conf["n_layers"])
+    is_moe = bool(cfg.n_experts)
     gen = torch.Generator(device=dev).manual_seed(conf["seed"])
     torch.cuda.synchronize()
     t_phase = t0 = time.perf_counter()
@@ -2519,14 +2622,18 @@ def serve_phase(dev, conf: dict) -> dict:
     B, S0, steps = conf["batch"], conf["prompt"], conf["gen"]
     tokens = torch.randint(0, cfg.vocab, (B, S0), generator=gen, device=dev)
     eng = Engine(cfg, model, ServeConfig(max_len=conf["max_len"]))
-    print(f"serve: {cfg.arch_id} at full width, {n_params / 1e9:.3f} B "
-          f"parameters in bf16 ({torch.cuda.memory_allocated() / 1e9:.2f} GB "
-          f"allocated), built in {init_s:.1f} s; generate batch {B}, prompt "
-          f"{S0}, {steps} greedy tokens, max_len {conf['max_len']}")
+    print(f"serve: {label}, {n_params / 1e9:.3f} B parameters in bf16 "
+          f"({torch.cuda.memory_allocated() / 1e9:.2f} GB allocated), built "
+          f"in {init_s:.1f} s; generate batch {B}, prompt {S0}, {steps} "
+          f"greedy tokens, max_len {conf['max_len']}")
 
-    logits, marks = [], {}
+    # an MoE run keeps each call's expert choices (prefill, then each step)
+    logits, marks, routes = [], {}, []
 
     def timed(name, fn, *args, **kw):
+        if is_moe:
+            routes.append([])
+            kw = dict(kw, routing=_recorder(routes[-1]))
         if name == "prefill":
             torch.cuda.synchronize()
             marks["t0"], marks["k5_0"] = time.perf_counter(), K5.launches
@@ -2534,6 +2641,8 @@ def serve_phase(dev, conf: dict) -> dict:
         if name == "prefill":
             torch.cuda.synchronize()
             marks["t1"], marks["k5_1"] = time.perf_counter(), K5.launches
+            if is_moe:
+                marks["cache"] = out[0]
         logits.append(out[1])
         return out
 
@@ -2549,7 +2658,7 @@ def serve_phase(dev, conf: dict) -> dict:
     prefill_s = marks["t1"] - marks["t0"]
     decode_s = t_end - marks["t1"]
     k5_prefill = marks["k5_1"] - marks["k5_0"]
-    res = dict(config=conf, n_params=n_params, init_s=init_s,
+    res = dict(config=conf, label=label, n_params=n_params, init_s=init_s,
                prefill_s=prefill_s, decode_s=decode_s,
                decode_tok_s=B * steps / decode_s,
                decode_ms_per_step=decode_s / steps * 1e3,
@@ -2572,69 +2681,152 @@ def serve_phase(dev, conf: dict) -> dict:
         int(toks.max()) < cfg.vocab
     assert len(logits) == steps + 1 and all(
         bool(torch.isfinite(lg.float()).all()) for lg in logits)
+    if is_moe:
+        n_moe = cfg.n_layers - cfg.first_dense_layers
+        assert len(routes) == steps + 1 and all(len(r) == n_moe
+                                                for r in routes)
+        res["prefill_dropped_per_layer"] = _dropped(cfg, routes[0])
+        print(f"  assignments dropped past capacity in the prefill, per MoE "
+              f"layer (of {B * S0 * cfg.top_k}): "
+              f"{res['prefill_dropped_per_layer']}; in decode: "
+              f"{sum(sum(_dropped(cfg, r)) for r in routes[1:])} of "
+              f"{steps * n_moe * B * cfg.top_k}")
 
-    # the same prefill with K5's plain version, then teacher forcing
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    k5_before = K5.launches
-    cache_p, logit_p = prefill(model, tokens,
-                               attention=K5.flash_attention_plain)
-    torch.cuda.synchronize()
-    plain_prefill_s = time.perf_counter() - t0
-    if K5.launches != k5_before:
-        raise AssertionError("the plain prefill launched flash_attn")
-    dec = eng._merge_caches(init_cache(cfg, B, conf["max_len"], device=dev),
-                            cache_p, S0)
-    del cache_p
-    diffs, gaps_checked = [], 0
-    for i in range(steps + 1):
-        dmax, dmean = _logit_diff(logits[i], logit_p)
-        diffs.append((dmax, dmean))
-        if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL:
-            raise AssertionError(f"logits of step {i}: kernel vs plain max "
-                                 f"{dmax:.4f}, mean {dmean:.5f} (tolerance "
-                                 f"{SERVE_ATOL}, {SERVE_MEAN_TOL})")
-        if i == steps:
-            break
-        top2 = torch.topk(logit_p.float(), 2, dim=-1).values
-        clear = (top2[:, 0] - top2[:, 1] > SERVE_ATOL).cpu()
-        pick_p = torch.argmax(logit_p, dim=-1).cpu()
-        if not torch.equal(pick_p[clear], toks[clear, i].long()):
-            raise AssertionError(f"step {i}: greedy tokens differ where the "
-                                 "plain run's top-2 gap is clear")
-        gaps_checked += int(clear.sum())
-        dec, logit_p = decode_step(model, dec, out[:, i], S0 + i)
-    if gaps_checked == 0:
-        raise AssertionError("no step had a clear top-2 gap to check")
+    def routing_for(seen: list, replay: bool, call: int) -> dict:
+        """``routing=`` for call ``call`` of a plain or faulty run: record
+        its choices in ``seen``, or replay the kernel run's."""
+        if not is_moe:
+            return {}
+        seen.append([])
+        if replay:
+            seen[-1] = routes[call]
+            return {"routing": _replayer(routes[call])}
+        return {"routing": _recorder(seen[-1])}
+
+    def plain_run(replay: bool) -> dict:
+        """The prefill with K5's plain version, then teacher forcing along
+        the kernel run's tokens: the logits' differences (and an MoE run's
+        prefill caches'), the steps whose greedy tokens differ where the
+        plain run's top-2 gap is clear, and its expert choices."""
+        seen = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k5_before = K5.launches
+        cache_p, logit_p = prefill(model, tokens,
+                                   attention=K5.flash_attention_plain,
+                                   **routing_for(seen, replay, 0))
+        torch.cuda.synchronize()
+        run = dict(prefill_s=time.perf_counter() - t0, diffs=[], checked=0,
+                   token_steps=[], seen=seen)
+        if K5.launches != k5_before:
+            raise AssertionError("the plain prefill launched flash_attn")
+        if is_moe:
+            d = [_logit_diff(a, b) for a, b in zip(marks["cache"], cache_p)]
+            run["cache_diff"] = (max(x[0] for x in d), max(x[1] for x in d))
+        dec = eng._merge_caches(init_cache(cfg, B, conf["max_len"],
+                                           device=dev), cache_p, S0)
+        del cache_p
+        for i in range(steps + 1):
+            run["diffs"].append(_logit_diff(logits[i], logit_p))
+            if i == steps:
+                break
+            top2 = torch.topk(logit_p.float(), 2, dim=-1).values
+            clear = (top2[:, 0] - top2[:, 1] > SERVE_ATOL).cpu()
+            pick_p = torch.argmax(logit_p, dim=-1).cpu()
+            if not torch.equal(pick_p[clear], toks[clear, i].long()):
+                run["token_steps"].append(i)
+            run["checked"] += int(clear.sum())
+            dec, logit_p = decode_step(model, dec, out[:, i], S0 + i,
+                                       **routing_for(seen, replay, i + 1))
+        run["dec"] = dec
+        run["ok"] = not run["token_steps"] and all(
+            dmax <= SERVE_ATOL and dmean <= SERVE_MEAN_TOL
+            for dmax, dmean in run["diffs"] + [run.get("cache_diff",
+                                                       (0.0, 0.0))])
+        return run
+
+    def e2e_text(run) -> str:
+        d = run["diffs"]
+        return (f"prefill max {d[0][0]:.4f} mean {d[0][1]:.5f}, decode "
+                f"(teacher-forced) max {max(x[0] for x in d[1:]):.4f} mean "
+                f"{max(x[1] for x in d[1:]):.5f}"
+                + (f", prefill caches max {run['cache_diff'][0]:.4f} mean "
+                   f"{run['cache_diff'][1]:.5f}" if is_moe else "")
+                + f"; greedy tokens equal at {run['checked']} of "
+                f"{B * steps} (sequence, step) pairs with a clear top-2 gap"
+                + (f" but for steps {run['token_steps']}"
+                   if run["token_steps"] else ""))
+
+    run = plain_run(replay=False)
+    plain_prefill_s = run["prefill_s"]
+    print(f"  plain prefill {plain_prefill_s:.3f} s; kernel vs plain logits "
+          f"end to end: {e2e_text(run)}")
+    res.update(plain_prefill_s=plain_prefill_s, logit_diffs=run["diffs"],
+               tokens_checked=run["checked"], tokens=toks[0].tolist())
+    faults = {}
+    if is_moe:
+        flips, total = _flip_share(routes, run["seen"])
+        pf, pt = _flip_share(routes[:1], run["seen"][:1])
+        res.update(routing_flips=dict(prefill=[pf, pt], all=[flips, total]),
+                   cache_diff=run["cache_diff"],
+                   token_steps=run["token_steps"])
+        print(f"  expert choices that differ between the kernel and the plain"
+              f" run: {pf} of {pt} (token, layer) rows in the prefill "
+              f"({pf / pt:.4%}), {flips} of {total} with decode "
+              f"({flips / total:.4%})")
+        if not run["ok"] and flips:
+            del run
+            run = plain_run(replay=True)
+            print(f"  end to end again, replaying the kernel run's expert "
+                  f"choices: {e2e_text(run)}")
+            res["replayed"] = dict(logit_diffs=run["diffs"],
+                                   cache_diff=run["cache_diff"],
+                                   token_steps=run["token_steps"])
+        forced = moe_forced_check(model, cfg, tokens, logits[0], routes[0])
+        res["forced"] = forced
+        faults = forced.pop("faults")
+    else:
+        diffs, gaps_checked = run["diffs"], run["checked"]
+        for i, (dmax, dmean) in enumerate(diffs):
+            if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL:
+                raise AssertionError(
+                    f"logits of step {i}: kernel vs plain max {dmax:.4f}, "
+                    f"mean {dmean:.5f} (tolerance {SERVE_ATOL}, "
+                    f"{SERVE_MEAN_TOL})")
+        if run["token_steps"]:
+            raise AssertionError(f"steps {run['token_steps']}: greedy tokens "
+                                 "differ where the plain run's top-2 gap is "
+                                 "clear")
+        if gaps_checked == 0:
+            raise AssertionError("no step had a clear top-2 gap to check")
+        # the same prefill and first teacher-forced decode step with each
+        # planted fault: the logits checks above must reject every one
+        for name, fault in planted_faults(cfg).items():
+            cache_f, logit_f = prefill(model, tokens, attention=fault)
+            dec_f = eng._merge_caches(
+                init_cache(cfg, B, conf["max_len"], device=dev), cache_f, S0)
+            del cache_f
+            _, logit_f1 = decode_step(model, dec_f, out[:, 0], S0)
+            del dec_f
+            faults[name] = dict(prefill=_logit_diff(logits[0], logit_f),
+                                decode=_logit_diff(logits[1], logit_f1))
+            rejected = [k for k, (dmax, dmean) in faults[name].items()
+                        if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL]
+            print(f"  planted fault, {name}: kernel vs fault logits, prefill "
+                  f"max {faults[name]['prefill'][0]:.4f} mean "
+                  f"{faults[name]['prefill'][1]:.5f}, decode max "
+                  f"{faults[name]['decode'][0]:.4f} mean "
+                  f"{faults[name]['decode'][1]:.5f}; rejected by "
+                  f"{', '.join(rejected) or 'nothing'}")
+            if not rejected:
+                raise AssertionError(f"the planted fault '{name}' passes the "
+                                     "serve phase's logits checks")
+            torch.cuda.empty_cache()
+    dec = run.pop("dec")
     # a random-weight model may repeat one token; then the token check
     # shows little, and the logits checks must catch a wrong K5 alone
     distinct = [len(set(row)) for row in toks.tolist()]
     print(f"  distinct greedy tokens per sequence: {distinct} of {steps}")
-
-    # the same prefill and first teacher-forced decode step with each
-    # planted fault: the logits checks above must reject every one
-    faults = {}
-    for name, fault in planted_faults(cfg).items():
-        cache_f, logit_f = prefill(model, tokens, attention=fault)
-        dec_f = eng._merge_caches(
-            init_cache(cfg, B, conf["max_len"], device=dev), cache_f, S0)
-        del cache_f
-        _, logit_f1 = decode_step(model, dec_f, out[:, 0], S0)
-        del dec_f
-        faults[name] = dict(prefill=_logit_diff(logits[0], logit_f),
-                            decode=_logit_diff(logits[1], logit_f1))
-        rejected = [k for k, (dmax, dmean) in faults[name].items()
-                    if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL]
-        print(f"  planted fault, {name}: kernel vs fault logits, prefill max "
-              f"{faults[name]['prefill'][0]:.4f} mean "
-              f"{faults[name]['prefill'][1]:.5f}, decode max "
-              f"{faults[name]['decode'][0]:.4f} mean "
-              f"{faults[name]['decode'][1]:.5f}; rejected by "
-              f"{', '.join(rejected) or 'nothing'}")
-        if not rejected:
-            raise AssertionError(f"the planted fault '{name}' passes the "
-                                 "serve phase's logits checks")
-        torch.cuda.empty_cache()
 
     # where the time goes: one prefill (K5) and one decode step (the last
     # position again, the cache full) under torch.profiler
@@ -2655,27 +2847,223 @@ def serve_phase(dev, conf: dict) -> dict:
         res[f"{name.replace(' ', '_')}_profile"] = prof
         print(f"  one {name}: {wall:.4f} s; {prof['busy_text']}")
         _print_top(prof)
-    res.update(plain_prefill_s=plain_prefill_s, logit_diffs=diffs,
-               tokens_checked=gaps_checked, tokens=toks[0].tolist(),
-               distinct_tokens=distinct, planted_faults=faults)
-    print(f"  plain prefill {plain_prefill_s:.3f} s; kernel vs plain logits: "
-          f"prefill max {diffs[0][0]:.4f} mean {diffs[0][1]:.5f}, decode "
-          f"(teacher-forced) max {max(d[0] for d in diffs[1:]):.4f} mean "
-          f"{max(d[1] for d in diffs[1:]):.5f}; greedy tokens equal at "
-          f"{gaps_checked} of {B * steps} (sequence, step) pairs with a clear "
-          f"top-2 gap")
+    res.update(distinct_tokens=distinct, planted_faults=faults)
     print(f"  tokens[0]: {toks[0].tolist()}")
-    del model, eng, dec, logits
+    del model, eng, dec, logits, run, routes, marks
     torch.cuda.empty_cache()
     res["phase_s"] = time.perf_counter() - t_phase
-    print(f"  serve phase ({cfg.arch_id}): {res['phase_s']:.1f} s")
+    print(f"  serve phase ({label}): {res['phase_s']:.1f} s")
     return res
+
+
+def moe_forced_check(model, cfg, tokens, logits0, choices: list) -> dict:
+    """K5 isolated layer by layer in an MoE model: the prefill again with K5
+    (each block's input recorded; its logits and expert choices must equal
+    the served prefill's bit for bit), then each block alone on the kernel
+    run's input to it with K5's plain version, its output against the
+    kernel run's through the final norm and the head at every position
+    (the logit lens; at the last block, the prefill's own logits) at
+    ``SERVE_ATOL`` / ``SERVE_MEAN_TOL``. An MoE block routes by itself
+    first; where that flips choices and takes a block outside the
+    tolerances, every block replays the kernel run's choices, and so do
+    the faults. Each planted fault runs the same way and must take some
+    block outside the tolerances. Raises on any failed check."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import prefill
+    from repro_torch.models.layers import lm_head, rms_norm
+
+    inputs = []
+    hooks = [b.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0])) for b in model.layers]
+    hooks.append(model.layers[-1].register_forward_hook(
+        lambda mod, args, out: inputs.append(out[0])))
+    seen = []
+    try:
+        _, lg = prefill(model, tokens, routing=_recorder(seen))
+    finally:
+        for h in hooks:
+            h.remove()
+    if not torch.equal(lg, logits0) or not all(
+            torch.equal(a, b) for a, b in zip(seen, choices)):
+        raise AssertionError("a second K5 prefill differs from the served "
+                             "one (logits or expert choices)")
+    head = model.embed if cfg.tie_embeddings else model.head
+
+    def lens_diff(a, b) -> tuple[float, float]:
+        dmax = dsum = 0.0
+        for r in range(a.shape[0]):  # one sequence at a time: [S, V]
+            la, lb = (lm_head(head, rms_norm(x[r], model.final_ln,
+                                             cfg.norm_eps),
+                              cfg.tie_embeddings) for x in (a, b))
+            d = (la.float() - lb.float()).abs()
+            dmax, dsum = max(dmax, float(d.max())), dsum + float(d.sum())
+            del la, lb, d
+        return dmax, dsum / (a.shape[0] * a.shape[1] * head.numel()
+                             / cfg.d_model)
+
+    def forced(attention, replay: bool) -> dict:
+        diffs, flips = [], 0
+        for i, block in enumerate(model.layers):
+            kw, got = {}, []
+            if block.moe is not None:
+                mine = choices[i - cfg.first_dense_layers]
+                kw["routing"] = _replayer([mine]) if replay \
+                    else _recorder(got)
+            o, _ = block(inputs[i], None, None, None, attention=attention,
+                         **kw)
+            if got:
+                flips += int((got[0] != mine).any(dim=1).sum())
+            diffs.append(lens_diff(inputs[i + 1], o))
+            del o
+        worst = (max(d[0] for d in diffs), max(d[1] for d in diffs))
+        return dict(layers=diffs, worst=worst, flips=flips,
+                    ok=worst[0] <= SERVE_ATOL and worst[1] <= SERVE_MEAN_TOL)
+
+    rows = tokens.numel() * (cfg.n_layers - cfg.first_dense_layers)
+    plain = forced(K5.flash_attention_plain, replay=False)
+    replay = False
+    print(f"  layer by layer, each block on the kernel run's input with K5's "
+          f"plain version, routing by itself: expert choices differ in "
+          f"{plain['flips']} of {rows} (token, layer) rows; logit lens at "
+          f"every position, worst block max {plain['worst'][0]:.4f} mean "
+          f"{plain['worst'][1]:.5f}, last block (the prefill's logits) max "
+          f"{plain['layers'][-1][0]:.4f} mean {plain['layers'][-1][1]:.5f}")
+    if not plain["ok"] and plain["flips"]:
+        replay = True
+        plain = forced(K5.flash_attention_plain, replay=True)
+        print(f"  the same, replaying the kernel run's expert choices: worst "
+              f"block max {plain['worst'][0]:.4f} mean "
+              f"{plain['worst'][1]:.5f}, last block max "
+              f"{plain['layers'][-1][0]:.4f} mean "
+              f"{plain['layers'][-1][1]:.5f}")
+    if not plain["ok"]:
+        raise AssertionError(f"layer by layer, kernel vs plain logit lens: "
+                             f"{plain['layers']} (tolerance {SERVE_ATOL}, "
+                             f"{SERVE_MEAN_TOL})")
+    faults = {}
+    for name, fault in planted_faults(cfg).items():
+        f = forced(fault, replay)
+        bad = [i for i, (dmax, dmean) in enumerate(f["layers"])
+               if dmax > SERVE_ATOL or dmean > SERVE_MEAN_TOL]
+        faults[name] = dict(worst=f["worst"], blocks_rejecting=bad)
+        print(f"  planted fault, {name}, layer by layer: worst block max "
+              f"{f['worst'][0]:.4f} mean {f['worst'][1]:.5f}; rejected by "
+              f"{len(bad)} of {cfg.n_layers} blocks")
+        if not bad:
+            raise AssertionError(f"the planted fault '{name}' passes the "
+                                 "layer-by-layer checks")
+    del inputs
+    torch.cuda.empty_cache()
+    return dict(routing_replayed=replay, layers=plain["layers"],
+                worst=plain["worst"], flips=plain["flips"], faults=faults)
+
+
+def moe_card_vs_cpu(dev) -> dict:
+    """One MoE layer of ``MOE_CHECK``'s config at full width (weights drawn
+    on the card from a seed, copied to the CPU) on a float32 hidden input
+    (a shared direction plus noise, unit variance), on the card and on the
+    CPU: equal expert choices, capacity slots and
+    drops, outputs within ``MOE_F32_RTOL`` of their scale, and two planted
+    faults (slots in reverse arrival order; gates not renormalized) that
+    these checks must reject. Then the card's bf16 ``moe_apply`` twice,
+    bitwise equal. Raises on any failed check."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(MOE_CHECK["arch"])
+    E, k = cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(MOE_CHECK["seed"])
+    layer = moe.MoE(cfg, dev)
+    layer.reset_parameters(gen)
+    layer_cpu = moe.MoE(cfg, "cpu")
+    layer_cpu.load_state_dict(layer.state_dict())
+    B, S = MOE_CHECK["batch"], MOE_CHECK["seq"]
+    x = (0.5 * torch.randn((B, 1, cfg.d_model), generator=gen, device=dev)
+         + torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+         ) / math.sqrt(1.25)
+    C = moe.capacity(B * S, k, E, cfg.capacity_factor)
+
+    def run(lay, xx):
+        seen = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y, aux = moe.moe_apply(lay, cfg, xx, routing=_recorder(seen))
+        slot = moe.arrival_slots(seen[0].reshape(-1), E)
+        torch.cuda.synchronize()
+        return dict(y=y.cpu(), aux=float(aux), e=seen[0].cpu(),
+                    slot=slot.cpu(), s=time.perf_counter() - t0)
+
+    card, cpu = run(layer, x), run(layer_cpu, x.cpu())
+    scale = float(cpu["y"].abs().max())
+
+    def failed(r) -> list[str]:
+        out = []
+        if not torch.equal(r["e"], cpu["e"]):
+            out.append("expert choices")
+        if not torch.equal(r["slot"], cpu["slot"]):
+            out.append("capacity slots")
+        if not torch.equal(r["slot"] >= C, cpu["slot"] >= C):
+            out.append("drops")
+        if float((r["y"] - cpu["y"]).abs().max()) > MOE_F32_RTOL * scale:
+            out.append("outputs")
+        return out
+
+    err = float((card["y"] - cpu["y"]).abs().max())
+    drops = int((cpu["slot"] >= C).sum())
+    per_expert = torch.bincount(cpu["e"].reshape(-1), minlength=E)
+    print(f"moe card vs CPU: {cfg.arch_id} MoE layer at full width (d "
+          f"{cfg.d_model}, {E} experts of {cfg.moe_d_ff}, top-{k}, "
+          f"{cfg.n_shared} shared), float32 x [{B}, {S}, {cfg.d_model}], "
+          f"capacity {C}: {drops} of {B * S * k} assignments dropped, "
+          f"{int((per_expert > C).sum())} experts over capacity (busiest "
+          f"{int(per_expert.max())}); card {card['s'] * 1e3:.1f} ms, CPU "
+          f"{cpu['s']:.2f} s; max |card - CPU| {err:.3e} (|y| up to "
+          f"{scale:.1f}, tolerance {MOE_F32_RTOL} of it), aux "
+          f"{card['aux']:.6f} / {cpu['aux']:.6f}")
+    if drops == 0:
+        raise AssertionError("the MoE check's input overflows no expert")
+    bad = failed(card)
+    if bad:
+        raise AssertionError(f"MoE layer, card vs CPU: {', '.join(bad)} "
+                             "differ")
+
+    def reverse_slots(e_flat, n_experts, _slots=moe.arrival_slots):
+        return _slots(e_flat.flip(0), n_experts).flip(0)
+
+    faults = {}
+    for name, attr, fn in (
+            ("capacity slots in reverse arrival order", "arrival_slots",
+             reverse_slots),
+            ("gates not renormalized", "normalize_gates", lambda g: g)):
+        with mock.patch.object(moe, attr, fn):
+            faults[name] = failed(run(layer, x))
+        print(f"  planted MoE fault, {name}: rejected by "
+              f"{', '.join(faults[name]) or 'nothing'}")
+        if not faults[name]:
+            raise AssertionError(f"the planted MoE fault '{name}' passes "
+                                 "the card-vs-CPU checks")
+
+    xb = x.to(torch.bfloat16)
+    y1, y2 = (moe.moe_apply(layer, cfg, xb)[0] for _ in range(2))
+    if not torch.equal(y1, y2):
+        raise AssertionError("two bf16 moe_apply runs on the card differ")
+    print("  bf16 moe_apply on the card, twice: bitwise equal")
+    del layer, layer_cpu, x, xb, y1, y2
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, scale=scale, dropped=drops, capacity=C,
+                card_s=card["s"], cpu_s=cpu["s"], faults=faults)
 
 
 def serve_small_card_vs_cpu(dev) -> None:
     """Each smoke config's weights on the card and on the CPU: the card's
-    prefill (K5 on the tensor-core route; minicpm3-4b@smoke's q·k dims 24
-    zero-padded to 32) and a decode step match the CPU's plain run (bf16
+    prefill (K5 on the tensor-core route; the MLA smoke configs' q·k dims
+    24 zero-padded to 32) and a decode step match the CPU's plain run (bf16
     ulp flips over 2 layers: 0.0625, as the CPU tests against JAX)."""
     import torch
 
@@ -2683,7 +3071,8 @@ def serve_small_card_vs_cpu(dev) -> None:
     from repro_torch.kernels import flash_attn as K5
     from repro_torch.models import decode_step, init, init_cache, prefill
 
-    for arch in ("mistral-nemo-12b@smoke", "minicpm3-4b@smoke"):
+    for arch in ("mistral-nemo-12b@smoke", "minicpm3-4b@smoke",
+                 "phi3.5-moe-42b-a6.6b@smoke", "deepseek-v2-lite-16b@smoke"):
         cfg = get_config(arch)
         cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
         card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
@@ -2907,6 +3296,9 @@ def main() -> int:
     check_flash_attn(dev, checks)
     serve = serve_phase(dev, SERVE)
     serve_mla = serve_phase(dev, SERVE_MLA)
+    serve_moe_mla = serve_phase(dev, SERVE_MOE_MLA)
+    serve_moe = serve_phase(dev, SERVE_MOE)
+    moe_check = moe_card_vs_cpu(dev)
     serve_small_card_vs_cpu(dev)
 
     src = "src/repro_torch/csrc/"
@@ -2958,6 +3350,10 @@ def main() -> int:
                            "src/repro/kernels/flash_attn/kernel.py:61",
                            {"flash_attn_mla":
                             serve_mla["launches"]["flash_attn"]}),
+        # K5 at (192, 128): its launches in deepseek-v2-lite-16b's run
+        "flash_attn_mla_192": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_mla_192": serve_moe_mla["launches"]["flash_attn"]}),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():
@@ -2994,7 +3390,8 @@ def main() -> int:
                              round_breakdown=breakdown_i),
             fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
             service=service, baselines=baselines, serve=serve,
-            serve_mla=serve_mla,
+            serve_mla=serve_mla, serve_moe_mla=serve_moe_mla,
+            serve_moe=serve_moe, moe_check=moe_check,
             wall_s=time.perf_counter() - t_start),
             indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -64,31 +64,37 @@ def engine_state_from_numpy(d: dict) -> dict:
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None):
-    """The reference's ``repro.models.init`` tree (numpy, the layers stacked
-    ``[L, ...]`` under ``layers.b0``) as the port's
-    :class:`~repro_torch.models.LM` on ``device``: matrices rounded to bf16
-    (as the reference casts them at use), norm scales kept in float32."""
+    """The reference's ``repro.models.init`` tree (numpy: the leading dense
+    layers under ``lead_{i}``, the rest stacked ``[L, ...]`` under
+    ``layers.b0``) as the port's :class:`~repro_torch.models.LM` on
+    ``device``: matrices rounded to bf16 (as the reference casts them at
+    use), norm scales kept in float32."""
     from repro_torch.models import LM
 
     model = LM(cfg, device)
     stacked = tree["layers"]["b0"]
-    with torch.no_grad():
-        def load(dst: torch.Tensor, src) -> None:
-            src = np.asarray(src)
-            if tuple(src.shape) != tuple(dst.shape):
-                raise ValueError(f"shape {src.shape} does not fit "
-                                 f"{tuple(dst.shape)}")
-            dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
+    def load(dst: torch.Tensor, src) -> None:
+        src = np.asarray(src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"shape {src.shape} does not fit "
+                             f"{tuple(dst.shape)}")
+        dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+
+    def leaf(sub: dict, dotted: str, i):
+        for key in dotted.split("."):
+            sub = sub[key]
+        return sub if i is None else sub[i]
+
+    with torch.no_grad():
         load(model.embed, tree["embed"])
         if model.head is not None:
             load(model.head, tree["head"])
         load(model.final_ln, tree["final_ln"])
+        n_lead = cfg.first_dense_layers
         for i, block in enumerate(model.layers):
-            load(block.ln1, stacked["ln1"][i])
-            load(block.ln2, stacked["ln2"][i])
-            for name, w in block.attn.named_parameters():
-                load(w, stacked["attn"][name][i])
-            for name, w in block.mlp.named_parameters():
-                load(w, stacked["mlp"][name][i])
+            sub, j = (tree[f"lead_{i}"], None) if i < n_lead \
+                else (stacked, i - n_lead)
+            for name, w in block.named_parameters():
+                load(w, leaf(sub, name, j))
     return model

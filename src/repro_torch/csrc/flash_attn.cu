@@ -210,7 +210,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv],
 // contiguous float32; (dqk, dv) one of (16, 16), (64, 64), (128, 128),
-// (96, 64), (32, 16); KH divides H. Anything else returns
+// (96, 64), (192, 128), (32, 16); KH divides H. Anything else returns
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int dqk,
@@ -223,6 +223,7 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
     case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, scale, st);
     case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, scale, st);
     case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, scale, st);
     case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

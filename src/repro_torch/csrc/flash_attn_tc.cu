@@ -8,8 +8,8 @@
 //
 // Computes, for q [B, S, H, DQK], k [B, S, KH, DQK] and v [B, S, KH, DV] in
 // bf16 (KH divides H; (DQK, DV) one of (16, 16), (64, 64), (128, 128), and
-// MLA's un-absorbed prefill dims (96, 64) and (32, 16)), o [B, S, H, DV]
-// with
+// MLA's un-absorbed prefill dims (96, 64), (192, 128) and (32, 16)),
+// o [B, S, H, DV] with
 //   o[b, i, h] = sum_{j <= i} softmax_j(scale * q[b, i, h] . k[b, j, g])
 //                * v[b, j, g],      g = h / (H / KH),
 // masked logits at -2e38, the softmax in float32, and
@@ -32,9 +32,9 @@
 //   next tiles overlap the math on this one. A tile of D columns is D / c
 //   column blocks side by side, each a TMA box of c columns whose rows are
 //   c * 2 bytes with a swizzle of that width: c = 64 (128-byte swizzle)
-//   when 64 divides D, else 32 (64-byte), else 16 (32-byte). So dims 64
-//   and 128 take 128-byte rows, 96 three 64-byte blocks, 32 one, and 16
-//   one 32-byte block. Q and K follow DQK, V follows DV; each wgmma
+//   when 64 divides D, else 32 (64-byte), else 16 (32-byte). So dims 64,
+//   128 and 192 take 128-byte rows (192: three blocks), 96 three 64-byte
+//   blocks, 32 one, and 16 one 32-byte block. Q and K follow DQK, V follows DV; each wgmma
 //   descriptor uses its operand's swizzle.
 // - S = Q.K^T: wgmma m64nBKk16, bf16 operands from shared memory, both
 //   K-major, float32 accumulators, DQK/16 steps. Products of bf16 values
@@ -61,7 +61,10 @@
 //   The two warpgroups overlap each other besides.
 // - Tiles: BK = 64 keys at every head dim. A block's 288 threads count as
 //   three warpgroups, so a thread may hold 168 registers; at DV 128 the
-//   live accumulators are O (64 floats), S(j+1) (32) and P(j) (32 words).
+//   live accumulators are O (64 floats), S(j+1) (32) and P(j) (32 words),
+//   at DQK 192 as at 128 (Q.K^T takes 12 k16 steps in place of 8). Shared
+//   memory at (192, 128): Q 48 KB + 3 stages x (K 24 KB + V 16 KB) + the
+//   barriers + 1 KB of alignment = 173,136 bytes of the 227 KB.
 // - Epilogue: acc / max(l, 1e-30), round to nearest even, 4-byte stores;
 //   no row at or past S is written.
 #include <cuda.h>
@@ -656,8 +659,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv]:
 // contiguous bfloat16, 16-byte aligned; (dqk, dv) one of (16, 16),
-// (64, 64), (128, 128), (96, 64), (32, 16); KH divides H. Anything else
-// returns cudaErrorInvalidValue without launching.
+// (64, 64), (128, 128), (96, 64), (192, 128), (32, 16); KH divides H.
+// Anything else returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int KH, int dqk, int dv,
@@ -673,6 +676,7 @@ extern "C" int flash_attn_tc_launch(const void* q, const void* k,
     case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, scale, st);
     case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, scale, st);
     case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, scale, st);
     case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
@@ -686,6 +690,7 @@ extern "C" int flash_attn_tc_smem_bytes(int dqk, int dv) {
     case 64064: return Tiles<64, 64>::kSmemBytes;
     case 128128: return Tiles<128, 128>::kSmemBytes;
     case 96064: return Tiles<96, 64>::kSmemBytes;
+    case 192128: return Tiles<192, 128>::kSmemBytes;
     case 32016: return Tiles<32, 16>::kSmemBytes;
     default: return 0;
   }

@@ -21,8 +21,9 @@ fold to [BH, S, hd], no padding of S or hd): the inputs must be contiguous
 (and 16-byte aligned), and any other tensor is refused, never copied. They
 are built for the ``(Dqk, Dv)`` pairs of ``HEAD_DIMS``: the dense configs'
 (128, 128) and the smoke/test dims (16, 16) and (64, 64); MLA's (96, 64)
-(minicpm3-4b) and (32, 16) (its smoke dims 24/16 with q and k zero-padded
-to 32 by the caller). The wrapper raises for anything else.
+(minicpm3-4b), (192, 128) (deepseek-v2-lite: 128 nope + 64 rope, v 128)
+and (32, 16) (the MLA smoke dims 24/16 with q and k zero-padded to 32 by
+the caller). The wrapper raises for anything else.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ launches = 0
 route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 #: the (q·k head dim, v head dim) pairs the kernels are built for
-HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (96, 64), (32, 16))
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (96, 64), (192, 128),
+             (32, 16))
 #: the mask value of the reference (``flash_attn/kernel.py``, ``ref.py``)
 NEG_INF = -2.0e38
 #: dtype -> (route, C launch function, source under ``repro_torch/csrc``)

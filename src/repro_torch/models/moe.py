@@ -1,0 +1,191 @@
+"""Top-k Mixture-of-Experts with capacity-based gather/scatter dispatch, a
+port of ``repro.models.moe``.
+
+Dispatch is index-based, as in the reference: the tokens routed to each
+expert are gathered into [E, C, d] slabs (a zero row stands for an empty
+slot), the experts' gated MLPs run as three batched products over the slabs
+(``torch.bmm``; the reference leaves its einsums to XLA, outside any
+kernel), and the weighted outputs go back to their tokens. The one-hot
+[T, E, C] dispatch matrix is never built. The reference's ``constraint``
+calls are sharding hints for its expert-parallel mesh; one device has no
+counterpart, so they are left out.
+
+The semantics are the reference's, to the tie and the rounding:
+
+- ``route``: the top k probabilities of a token, ties to the lower expert
+  index (``jax.lax.top_k``'s order); the gates renormalized in float32 over
+  ``max(sum, 1e-9)``. The router product is taken in ``x``'s dtype, then in
+  float32, and its softmax in float32.
+- ``capacity``: ``C = min(max(k, round(T·k/E·cf)), T)`` with Python's
+  ``round`` (halves to even) on the call's own token count T, so a prefill
+  and a decode step have different capacities and a decode step may drop.
+- ``arrival_slots``: the slot of an assignment is the number of earlier
+  assignments to the same expert in flat (token, rank) order over all
+  B·S·k; assignments at or past C are dropped (no routed output; the
+  shared experts still apply).
+- The experts' SiLU (routed and shared) is ``jax.nn.silu``'s arithmetic,
+  ``x · 1/(1 + exp(-x))`` with each step rounded to ``x``'s dtype
+  (``silu``). ``F.silu`` rounds once, which moves about a third of bf16
+  values by an ulp; the random experts' outputs (fan-in init over E)
+  dominate the residual stream, so those flips would show in the logits.
+  With it, a bf16 ``moe_apply`` equals the reference's run op by op
+  (``jax.disable_jit``) bit for bit.
+- The combine: each expert's output [E, C, d] times its gate cast to
+  ``x``'s dtype, that product in float32, summed per token over its kept
+  experts in ascending expert order (the reference's e-major update order)
+  from a float32 zero, cast to ``x``'s dtype, then ``+`` the shared
+  experts. The sum is a fixed sequence of gathers and adds, never an
+  atomic scatter, so two runs on the card are bitwise equal.
+
+``routing=`` is a test hook with ``route``'s signature, ``(probs, k) ->
+expert indices [T, k]``: it may record a run's choices or replay another
+run's (the gates are then this run's probabilities at those experts, and
+the slots follow from the choices). None routes as above.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .layers import GatedMLP, dense_init_, param
+
+__all__ = ["MoE", "moe_apply", "route", "capacity", "arrival_slots",
+           "normalize_gates", "silu"]
+
+#: ``route``'s signature: (probs [T, E] float32, k) -> expert indices [T, k]
+Routing = Callable[[torch.Tensor, int], torch.Tensor]
+
+
+class MoE(torch.nn.Module):
+    """The parameters of ``moe_init``: ``router`` [d, E], ``wg``/``wu``
+    [E, d, ff], ``wd`` [E, ff, d] in bf16 and, when the config has shared
+    experts, ``shared``, a gated MLP of width ``n_shared · moe_d_ff``."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+        self.cfg = cfg
+        self.router = param((d, E), device)
+        self.wg = param((E, d, ff), device)
+        self.wu = param((E, d, ff), device)
+        self.wd = param((E, ff, d), device)
+        self.shared = GatedMLP(d, cfg.n_shared * ff, device) \
+            if cfg.n_shared else None
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """``moe_init``'s distributions (``dense_init``: fan-in is the first
+        dim, E for the expert stacks)."""
+        for w in (self.router, self.wg, self.wu, self.wd):
+            dense_init_(w, generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
+
+    def forward(self, x, *, routing: Optional[Routing] = None):
+        return moe_apply(self, self.cfg, x, routing=routing)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` step by step: ``x * (1 / (1 + exp(-x)))``, each
+    operation in ``x``'s dtype."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """``layers.gated_mlp`` with :func:`silu`."""
+    dt = x.dtype
+    return (silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))) @ p.wd.to(dt)
+
+
+def route(probs: torch.Tensor, k: int) -> torch.Tensor:
+    """The experts of the k largest probabilities of each row, largest
+    first, ties to the lower index (a stable descending sort)."""
+    return torch.sort(probs, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def normalize_gates(gate: torch.Tensor) -> torch.Tensor:
+    """float32 gates [T, k] over their sum (at least 1e-9)."""
+    return gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+
+def capacity(T: int, k: int, E: int, capacity_factor: float) -> int:
+    """Slots an expert has for a call of T tokens (the reference's
+    expression, on Python numbers)."""
+    return int(min(max(k, round(T * k / E * capacity_factor)), T))
+
+
+def arrival_slots(e_flat: torch.Tensor, E: int) -> torch.Tensor:
+    """For the flat assignments ``e_flat`` [T·k] (in (token, rank) order),
+    how many earlier assignments went to the same expert: a stable sort by
+    expert, each position less its expert's first (no host sync)."""
+    order = torch.argsort(e_flat, stable=True)
+    e_sorted = e_flat[order]
+    first = torch.searchsorted(e_sorted, e_sorted)
+    slot = torch.empty_like(e_flat)
+    slot[order] = torch.arange(e_flat.numel(), device=e_flat.device) - first
+    return slot
+
+
+def _scatter_slots(e_flat, slot, keep, tok_id, E: int, C: int,
+                   sentinel: int) -> torch.Tensor:
+    """slots[e, s] = the token routed to expert e at capacity slot s, or
+    ``sentinel`` for an empty slot. Kept (e, s) pairs are unique; dropped
+    assignments all write one spare entry past the table, which is cut off
+    (no boolean mask, so no host sync)."""
+    slots = torch.full((E * C + 1,), sentinel, dtype=torch.long,
+                       device=e_flat.device)
+    slots[torch.where(keep, e_flat * C + slot, E * C)] = tok_id
+    return slots[:E * C].view(E, C)
+
+
+def moe_apply(p, cfg, x: torch.Tensor, *,
+              routing: Optional[Routing] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], the Switch load-balancing aux loss, a
+    float32 scalar). ``p`` holds ``moe_init``'s parameters (a :class:`MoE`);
+    they are cast to ``x``'s dtype at use."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    dt = x.dtype
+    dev = x.device
+    xt = x.reshape(T, d)
+
+    probs = torch.softmax((xt @ p.router.to(dt)).float(), dim=-1)  # [T, E]
+    eidx = (routing or route)(probs, k)                             # [T, k]
+    gate = normalize_gates(torch.gather(probs, 1, eidx))
+
+    # Switch aux loss: E * sum_e(frac_tokens_e * mean_prob_e)
+    frac = (eidx[:, :1] == torch.arange(E, device=dev)).float().mean(0)
+    aux = E * torch.sum(frac * probs.mean(0))
+
+    C = capacity(T, k, E, getattr(cfg, "capacity_factor", 1.25))
+    e_flat = eidx.reshape(-1)                                       # [T*k]
+    slot = arrival_slots(e_flat, E)
+    keep = slot < C
+    tok_id = torch.arange(T, device=dev).repeat_interleave(k)
+    slots = _scatter_slots(e_flat, slot, keep, tok_id, E, C, T)     # [E, C]
+
+    xpad = torch.cat([xt, xt.new_zeros((1, d))])
+    xs = xpad[slots]                                                # [E, C, d]
+    h = silu(torch.bmm(xs, p.wg.to(dt))) * torch.bmm(xs, p.wu.to(dt))
+    ys = torch.bmm(h, p.wd.to(dt))                                  # [E, C, d]
+
+    # each kept assignment's row of ys times its gate, in float32; a zero
+    # row at E*C stands for a dropped one (whose gates land in the spare
+    # entry E*C of gslot and are cut off)
+    row = torch.where(keep, e_flat * C + slot, E * C)
+    gslot = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
+    gslot[row] = gate.reshape(-1)
+    contrib = (ys.reshape(E * C, d) * gslot[:E * C, None].to(dt)).float()
+    contrib = torch.cat([contrib, contrib.new_zeros((1, d))])
+    row = row.view(T, k)
+    # a token's kept contributions in ascending expert order
+    row = torch.gather(row, 1, torch.argsort(eidx, dim=1))
+    y = torch.zeros((T, d), dtype=torch.float32, device=dev)
+    for j in range(k):
+        y = y + contrib[row[:, j]]
+    y = y.to(dt)
+    if p.shared is not None:
+        y = y + _gated_mlp(p.shared, xt)
+    return y.view(B, S, d), aux

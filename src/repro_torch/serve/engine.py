@@ -1,11 +1,13 @@
 """Batched serving engine: prefill -> greedy decode over a preallocated
-KV cache. A port of ``repro.serve.engine`` for the dense GQA and MLA
-families.
+KV cache. A port of ``repro.serve.engine`` for the dense and MoE families,
+GQA and MLA.
 
 The prompt's prefill cache (GQA's K/V [L, B, S0, K, hd], or MLA's latent
 [L, B, S0, kv_lora] and rope key [L, B, S0, rope]) is copied into the first
 S0 slots of a zeroed decode cache of ``max_len`` slots, which every decode
-step then updates in place. Sliding-window configs (the reference's ring
+step then updates in place. An MoE model's cache is the same: its blocks
+differ from the dense ones only after the attention, and the leading dense
+layers' caches sit in the one stack with the rest. Sliding-window configs (the reference's ring
 placement, ``_ring_place``) are not ported and raise.
 """
 from __future__ import annotations

@@ -564,7 +564,11 @@ def test_flash_attn_matches_plain(dev, dtype, B, S, H, K, hd):
     # zero-padded to (32, 16), scaled by 1/sqrt(24)
     (1, 1, 4, 4, 96, 64, 96), (1, 129, 8, 8, 96, 64, 96),
     (2, 300, 40, 40, 96, 64, 96), (1, 1000, 4, 2, 96, 64, 96),
-    (2, 77, 4, 4, 32, 16, 24), (3, 129, 4, 4, 32, 16, 24)])
+    (2, 77, 4, 4, 32, 16, 24), (3, 129, 4, 4, 32, 16, 24),
+    # deepseek-v2-lite's (192, 128) at 16 heads: one query, ragged tiles, a
+    # KV group, and its prefill's S
+    (1, 1, 4, 4, 192, 128, 192), (1, 129, 16, 16, 192, 128, 192),
+    (2, 300, 16, 4, 192, 128, 192), (1, 2048, 16, 16, 192, 128, 192)])
 def test_flash_attn_unequal_head_dims_match_plain(dev, dtype, B, S, H, K,
                                                   dqk, dv, scale_dim):
     from repro_torch.kernels import flash_attn as K5
@@ -592,6 +596,96 @@ def test_mla_smoke_prefill_on_the_card_matches_the_cpu(dev):
     from repro_torch.models import decode_step, init, init_cache, prefill
 
     cfg = get_config("minicpm3-4b@smoke")
+    cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab, (2, 90),
+                         generator=torch.Generator().manual_seed(5))
+    logits = {}
+    for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+        before = dict(K5.route_launches)
+        cache, lg = prefill(model, toks.to(d))
+        dec = init_cache(cfg, 2, 91, device=d)
+        for field, c in zip(dec, cache):
+            field[:, :, :90] = c
+        _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 90)
+        moved = {r: n - before[r] for r, n in K5.route_launches.items()}
+        assert moved == ({"tensor_core": cfg.n_layers, "cuda_core": 0}
+                         if name == "cuda" else
+                         {"tensor_core": 0, "cuda_core": 0})
+        logits[name] = (lg.float().cpu(), lg2.float().cpu())
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
+
+
+def _moe_layer(dev, arch="deepseek-v2-lite-16b@smoke", seed=6):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+
+    cfg = get_config(arch)
+    layer = moe.MoE(cfg, "cpu")
+    layer.reset_parameters(torch.Generator().manual_seed(seed))
+    return cfg, layer.to(dev)
+
+
+def test_moe_apply_on_the_card_is_bitwise_repeatable(dev):
+    """Two bf16 runs of the card's ``moe_apply`` (capacity factor 0.5, so
+    experts overflow and drop) give the same bits: the combine sums each
+    token's experts in a fixed order, with no atomics."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg, layer = _moe_layer(dev)
+    cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    x = torch.randn((3, 200, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    x = x.to(torch.bfloat16)
+    y1, aux1 = moe.moe_apply(layer, cfg, x)
+    y2, aux2 = moe.moe_apply(layer, cfg, x)
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+
+
+def test_moe_apply_float32_on_the_card_matches_the_cpu(dev):
+    """float32 (TF32 off): the card's routing, slots and drops equal the
+    CPU's, and the outputs agree to float32 sums in another order."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    cfg, layer = _moe_layer(dev)
+    cfg = dataclasses.replace(cfg, capacity_factor=0.5)
+    # scaled so that the outputs are O(1), as in tests/test_torch_moe.py
+    x = 0.2 * torch.randn((3, 200, cfg.d_model),
+                          generator=torch.Generator().manual_seed(2))
+    out = {}
+    for name, d in (("cuda", dev), ("cpu", "cpu")):
+        seen = []
+
+        def record(probs, k):
+            seen.append(moe.route(probs, k))
+            return seen[-1]
+
+        y, _ = moe.moe_apply(layer.to(d), cfg, x.to(d), routing=record)
+        out[name] = (y.cpu(), seen[0].cpu())
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+    slots = moe.arrival_slots(out["cpu"][1].reshape(-1), cfg.n_experts)
+    assert bool((slots >= moe.capacity(600, cfg.top_k, cfg.n_experts,
+                                       0.5)).any())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b@smoke",
+                                  "deepseek-v2-lite-16b@smoke"])
+def test_moe_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
+    """The MoE smoke configs on the card: one tensor-core K5 launch a layer
+    in the prefill (deepseek's MLA at the padded (32, 16)), none in decode;
+    prefill and decode logits within the CPU tests' 0.0625 of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import decode_step, init, init_cache, prefill
+
+    cfg = get_config(arch)
     cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
     card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
     toks = torch.randint(0, cfg.vocab, (2, 90),

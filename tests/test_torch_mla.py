@@ -214,10 +214,11 @@ def _mla_qkv(dqk, dv, S=40, H=3, seed=0):
             rng.normal(size=(1, S, H, dv)).astype(np.float32))
 
 
-@pytest.mark.parametrize("dqk,dv", [(24, 16), (96, 64)])
+@pytest.mark.parametrize("dqk,dv", [(24, 16), (96, 64), (192, 128)])
 def test_k5_plain_matches_reference_sdpa_with_unequal_head_dims(dqk, dv):
     """MLA's un-absorbed prefill attention: K5's plain version at scale
-    1/√Dqk against the reference's ``_sdpa`` on the same q_cat/k_cat/v."""
+    1/√Dqk against the reference's ``_sdpa`` on the same q_cat/k_cat/v
+    (minicpm3-4b's smoke and full dims, deepseek-v2-lite's 128 + 64 / 128)."""
     q, k, v = _mla_qkv(dqk, dv, seed=dqk)
     scale = 1.0 / math.sqrt(dqk)
     S = q.shape[1]
