@@ -33,9 +33,12 @@ The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
 route, ``csrc/flash_attn_tc.cu``, whose ptxas registers and spills and whose
 ``wgmma`` and TMA instructions in the built SASS are printed first) against
 its plain version at the main path's shape, at S = 4096 and at a ragged
-S = 2000 and at the MLA prefills of minicpm3-4b (q·k head dim 96, v head
-dim 64, 40 heads) and deepseek-v2-lite-16b (192, 128, 16 heads), timed
-beside ``scaled_dot_product_attention``; then
+S = 2000, at the MLA prefills of minicpm3-4b (q·k head dim 96, v head
+dim 64, 40 heads) and deepseek-v2-lite-16b (192, 128, 16 heads), and at
+recurrentgemma-9b's (256, 256; 16 heads on one KV head) with its window
+of 2048, without it and at a window of 100, timed beside
+``scaled_dot_product_attention`` (a window as its explicit boolean
+``attn_mask``); then
 ``mistral-nemo-12b`` at full width
 (40 layers, d_model 5120, 32 heads / 8 KV heads, vocab 131072; random bf16
 weights from a seed) serving ``Engine.generate`` at batch 4, a 2048-token
@@ -55,7 +58,17 @@ at q·k 192 / v 128; 15.7 B parameters): 27 K5 launches at (192, 128) in
 the prefill, the two MLA faults; and ``phi3.5-moe-42b-a6.6b`` at its
 published width cut to 24 of its 32 layers (16 experts top-2, GQA 32/8;
 31.5 B parameters: all 32 layers would not fit the 80 GB card): 24 K5
-launches, the two GQA faults. An MoE phase records every layer's expert
+launches, the two GQA faults; then the SSM and hybrid families:
+``mamba2-370m`` at its published width and depth (48 Mamba-2 layers,
+d_model 1024; 0.37 B parameters): no K5 launch, and its chunked SSD
+prefill against its recurrent decode (96 tokens; end to end printed,
+checked block by block); and ``recurrentgemma-9b`` (38 layers: 12 groups
+of two RG-LRU layers and a windowed attention layer, a tail of two RG-LRU
+layers; d_model 4096, 16 heads on one KV head of 256, window 2048; 9.57 B
+parameters) at a 4096-token prompt, past its window: 12 K5 launches at
+(256, 256) with the window, the prefill's K/V handed to the 2048-slot ring,
+decode wrapping it, and two planted window faults (no window; the window
+halved to 1024). An MoE phase records every layer's expert
 choices and prints the assignments dropped past capacity in the prefill,
 the share of choices that differ between the kernel and the plain run and
 the end-to-end differences (again with the kernel run's choices replayed
@@ -69,9 +82,11 @@ overflow), card against CPU: equal expert choices, slots and drops,
 outputs within ``MOE_F32_RTOL``, two planted MoE faults rejected (slots
 in reverse arrival order, gates not renormalized), and two bf16 runs on
 the card bitwise equal. Last, each smoke config's (mistral-nemo-12b@smoke,
-minicpm3-4b@smoke, phi3.5-moe-42b-a6.6b@smoke, deepseek-v2-lite-16b@smoke;
-the MLA ones through K5 at the zero-padded dims (32, 16)) prefill and
-decode step on the card against the CPU's.
+minicpm3-4b@smoke, phi3.5-moe-42b-a6.6b@smoke, deepseek-v2-lite-16b@smoke,
+mamba2-370m@smoke, recurrentgemma-9b@smoke; the MLA ones through K5 at the
+zero-padded dims (32, 16), recurrentgemma's at a window of 32 that the
+75-token prompt passes) prefill and decode step on the card against the
+CPU's.
 
 The mutable pool and the between-round proposer: K4's two pool uses
 against their plain versions (the refresh of 1 and 3 dirty chunks of a
@@ -1478,16 +1493,24 @@ def proposer_card_vs_cpu() -> None:
               f"step equal the CPU's")
 
 
-#: K5 shapes (B, S, H, KV heads, q·k head dim, v head dim): the serve
-#: phase's prefill, the S at which the reference's ``_sdpa`` chunks its
-#: keys, a ragged S, the MLA serve phase's prefill (minicpm3-4b's
-#: un-absorbed attention: 96 = 64 nope + 32 rope dims, v 64, 40 heads) and
-#: deepseek-v2-lite's (192 = 128 nope + 64 rope, v 128, 16 heads).
-K5_SHAPES = [(4, 2048, 32, 8, 128, 128), (1, 4096, 32, 8, 128, 128),
-             (2, 2000, 32, 8, 128, 128), (4, 2048, 40, 40, 96, 64),
-             (4, 2048, 16, 16, 192, 128)]
-#: the kernel-line names of K5's unequal head dims
-K5_NAMES = {(96, 64): "flash_attn_mla", (192, 128): "flash_attn_mla_192"}
+#: K5 shapes (B, S, H, KV heads, q·k head dim, v head dim, window): the
+#: serve phase's prefill, the S at which the reference's ``_sdpa`` chunks
+#: its keys, a ragged S, the MLA serve phase's prefill (minicpm3-4b's
+#: un-absorbed attention: 96 = 64 nope + 32 rope dims, v 64, 40 heads),
+#: deepseek-v2-lite's (192 = 128 nope + 64 rope, v 128, 16 heads) and
+#: recurrentgemma-9b's (256, 16 heads on 1 KV head) at its window of 2048,
+#: without a window, and at a ragged S with a window of 100.
+K5_SHAPES = [(4, 2048, 32, 8, 128, 128, None),
+             (1, 4096, 32, 8, 128, 128, None),
+             (2, 2000, 32, 8, 128, 128, None),
+             (4, 2048, 40, 40, 96, 64, None),
+             (4, 2048, 16, 16, 192, 128, None),
+             (4, 4096, 16, 1, 256, 256, 2048),
+             (4, 4096, 16, 1, 256, 256, None),
+             (2, 1000, 16, 1, 256, 256, 100)]
+#: the kernel-line names of K5's other head dims
+K5_NAMES = {(96, 64): "flash_attn_mla", (192, 128): "flash_attn_mla_192",
+            (256, 256): "flash_attn_window"}
 #: bf16 outputs rounded from float32 results summed in another order may
 #: flip by one bf16 ulp (<= 2^-7 relative); atol for outputs near 0.
 K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
@@ -1503,6 +1526,30 @@ SERVE_MLA = dict(SERVE, arch="minicpm3-4b")
 #: more than the 80 GB card; 24 are 31.5 B, ~63 GB
 SERVE_MOE_MLA = dict(SERVE, arch="deepseek-v2-lite-16b")
 SERVE_MOE = dict(SERVE, arch="phi3.5-moe-42b-a6.6b", n_layers=24)
+#: the SSM and hybrid serve phases at their published widths and depths:
+#: mamba2-370m (48 Mamba-2 layers, 0.37 B parameters) at a 2048-token
+#: prompt, and recurrentgemma-9b (12 groups of rglru, rglru, windowed
+#: attention and a tail of 2 rglru; 9.57 B parameters) at a 4096-token
+#: prompt, past its 2048 window: the window cuts K5's mask, the cache goes
+#: to the ring through ``_ring_place``, and decode wraps the ring (its
+#: 4128-slot ``max_len`` leaves a ring of 2048)
+SERVE_SSM = dict(SERVE, arch="mamba2-370m")
+SERVE_HYBRID = dict(SERVE, arch="recurrentgemma-9b", prompt=4096,
+                    max_len=4128)
+#: the SSM phase's chunked prefill against its recurrent form: the first
+#: 96 tokens of one prompt (one chunk of 256, padded) prefilled, and 96
+#: decode steps from a zeroed cache. With random weights the 48 layers
+#: carry bf16 rounding noise up the stack (on the CPU at full width, the
+#: two forms' last-position logits differ by max 0.045 / mean 0.0078 at 4
+#: layers, 0.18 / 0.030 at 12 and 0.36 / 0.064 at 24), so the end-to-end
+#: difference is printed and the check is made layer by layer: each block
+#: on the prefill's input to it, prefilled and stepped 96 times, its output
+#: through the final norm and the head at every position within the serve
+#: tolerances, and its final state within ``SSD_STATE_RTOL`` of the
+#: largest |state| (the CPU, 24 layers: at most 2.3e-4; conv windows
+#: 3.5e-5).
+SSD_CHECK_TOKENS = 96
+SSD_STATE_RTOL = 2e-3
 #: the MoE layer checked card against CPU: deepseek-v2-lite-16b's at full
 #: width, a float32 hidden input of B 1, S 2048 (T 2048, capacity 240).
 #: The hidden states share a direction, as a residual stream's do, so the
@@ -2251,13 +2298,21 @@ def baselines_phase(dev, res, main_adrs: dict, card: str) -> dict:
     return out
 
 
-def k5_bytes_ops(B, S, H, K, dqk, dv) -> tuple[int, int]:
+def k5_pairs(S: int, window=None) -> int:
+    """The (query, key) pairs K5's mask leaves a (b, h): key j of query i
+    when j <= i and, with a window W, j > i - W; S(S+1)/2 without one,
+    W(W+1)/2 + (S - W)·W with one shorter than S."""
+    W = min(window or S, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def k5_bytes_ops(B, S, H, K, dqk, dv, window=None) -> tuple[int, int]:
     """Bytes K5 must move (q [.., H, dqk], k [.., K, dqk], v [.., K, dv]
-    and o [.., H, dv], bf16, each once) and its causal operations
-    B·H·S²·(dqk + dv) (the QKᵀ and PV products, 2 operations a
-    multiply-add, over the S(S+1)/2 unmasked pairs, rounded to S²/2)."""
+    and o [.., H, dv], bf16, each once) and its operations
+    2·B·H·pairs·(dqk + dv) (the QKᵀ and PV products, 2 operations a
+    multiply-add, over the unmasked pairs of ``k5_pairs``)."""
     return (2 * B * S * (H * dqk + K * dqk + K * dv + H * dv),
-            B * H * S * S * (dqk + dv))
+            2 * B * H * k5_pairs(S, window) * (dqk + dv))
 
 
 def _demangle(names: list[str]) -> list[str]:
@@ -2438,52 +2493,62 @@ def check_flash_attn(dev, results: dict) -> None:
     """K5 against its plain version at ``K5_SHAPES`` (bf16), timed beside
     the plain version and ``scaled_dot_product_attention`` (the library
     call, timed only: the port never calls it; its scale is 1/√Dqk too, and
-    it takes Dv ≠ Dqk). The MLA shapes are kept by ``K5_NAMES``."""
+    it takes Dv ≠ Dqk). A causal shape gives SDPA ``is_causal=True``; a
+    window shape gives it the window as an explicit boolean ``attn_mask``
+    [S, S] (``is_causal`` cannot express a window), and the record says
+    which (``library``). The other head dims are kept by ``K5_NAMES``."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as K5
 
-    def library(q, k, v):
+    def library(q, k, v, mask):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
+            attn_mask=mask, is_causal=mask is None, enable_gqa=True)
 
     route, _, source = K5.ROUTES[torch.bfloat16]
-    for B, S, H, K, dqk, dv in K5_SHAPES:
+    for B, S, H, K, dqk, dv, window in K5_SHAPES:
         g = torch.Generator(device=dev).manual_seed(B * S + H)
         q = torch.randn((B, S, H, dqk), generator=g, device=dev).bfloat16()
         k = torch.randn((B, S, K, dqk), generator=g, device=dev).bfloat16()
         v = torch.randn((B, S, K, dv), generator=g, device=dev).bfloat16()
+        mask = None
+        if window:  # key j of query i: j <= i and j > i - window
+            ones = torch.ones((S, S), dtype=torch.bool, device=dev)
+            mask = ones.tril() & ~ones.tril(-window)
         before = K5.route_launches[route]
-        out_k = K5.flash_attention(q, k, v)
+        out_k = K5.flash_attention(q, k, v, window=window)
         if K5.route_launches[route] != before + 1:
             raise AssertionError(f"a bf16 flash_attn call did not take the "
                                  f"{route} route")
-        out_p = K5.flash_attention_plain(q, k, v)
-        out_l = library(q, k, v).transpose(1, 2)
+        out_p = K5.flash_attention_plain(q, k, v, window=window)
+        out_l = library(q, k, v, mask).transpose(1, 2)
         torch.cuda.synchronize()
         err = float((out_k.float() - out_p.float()).abs().max())
         ok = bool(torch.allclose(out_k.float(), out_p.float(), rtol=K5_RTOL,
                                  atol=K5_ATOL))
         lib_err = float((out_l.float() - out_p.float()).abs().max())
-        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv)
+        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv, window)
         name = K5_NAMES.get((dqk, dv), "flash_attn")
-        _record(results, name, [B, S, H, K, dqk, dv], err, ok,
-                time_ms(lambda: K5.flash_attention(q, k, v), reps=5,
-                        repeats=5),
-                time_ms(lambda: K5.flash_attention_plain(q, k, v), reps=2,
-                        repeats=3),
-                time_ms(lambda: library(q, k, v), reps=5, repeats=5),
+        lib_call = "sdpa(attn_mask)" if window else "sdpa(is_causal)"
+        _record(results, name, [B, S, H, K, dqk, dv, window], err, ok,
+                time_ms(lambda: K5.flash_attention(q, k, v, window=window),
+                        reps=5, repeats=5),
+                time_ms(lambda: K5.flash_attention_plain(q, k, v,
+                                                         window=window),
+                        reps=2, repeats=3),
+                time_ms(lambda: library(q, k, v, mask), reps=5, repeats=5),
                 bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
                 bound_f32_ms=bound_ms(n_bytes, n_ops)[0],
-                library_max_abs_err=lib_err, k5_route=route,
-                source="src/repro_torch/csrc/" + source)
+                library_max_abs_err=lib_err, library=lib_call,
+                k5_route=route, source="src/repro_torch/csrc/" + source)
         print(f"    ({route} route, src/repro_torch/csrc/{source}; float32 "
               f"CUDA-core bound "
-              f"{results[name][-1]['bound_f32_ms']:.3f} ms; the "
-              f"library's max abs err against the plain version {lib_err:.3e})")
-        del q, k, v, out_k, out_p, out_l
+              f"{results[name][-1]['bound_f32_ms']:.3f} ms; library "
+              f"{lib_call}, its max abs err against the plain version "
+              f"{lib_err:.3e})")
+        del q, k, v, out_k, out_p, out_l, mask
         torch.cuda.empty_cache()
 
 
@@ -2495,11 +2560,24 @@ def planted_faults(cfg) -> dict:
     sees key i + 1). MLA (``cfg``'s dims): the rope key dropped from k
     (its columns of k_cat zeroed, so q·k is the nope part alone), and v
     sliced out of the joint [k_nope | v] up-projection at offset 0 in
-    place of nope (v read as k_nope's first Dv columns)."""
+    place of nope (v read as k_nope's first Dv columns). A sliding window
+    (recurrentgemma-9b's 2048): no window at all, and the window halved.
+    An SSM has no attention to fault: none."""
     import torch
 
     from repro_torch.kernels import flash_attn as K5
 
+    if cfg.family == "ssm":
+        return {}
+    if cfg.window:
+        def no_window(q, k, v, scale=None, window=None):
+            return K5.flash_attention_plain(q, k, v, scale)
+
+        def half_window(q, k, v, scale=None, window=None):
+            return K5.flash_attention_plain(q, k, v, scale, window // 2)
+
+        return {"no window": no_window,
+                f"window halved to {cfg.window // 2}": half_window}
     if cfg.attn_kind == "mla":
         nope, rdim = cfg.qk_nope_dim, cfg.qk_rope_dim
 
@@ -2583,12 +2661,15 @@ def _dropped(cfg, choices: list) -> list[int]:
 
 def serve_phase(dev, conf: dict) -> dict:
     """The LM serving path at full width (``conf``: ``SERVE``, ``SERVE_MLA``,
-    ``SERVE_MOE_MLA`` or ``SERVE_MOE``; ``n_layers`` in it cuts the depth):
-    build, generate with K5 (every launch count set to 0 just before, read
-    just after), then the same prefill with K5's plain version and a
-    teacher-forced decode fed the kernel run's tokens, and the config's
-    planted faults. A dense config's checks are those end-to-end logits
-    and greedy tokens. An MoE config records every layer's expert choices,
+    ``SERVE_MOE_MLA``, ``SERVE_MOE``, ``SERVE_SSM`` or ``SERVE_HYBRID``;
+    ``n_layers`` in it cuts the depth): build, generate with K5 (every
+    launch count set to 0 just before, read just after: one launch an
+    attention layer in the prefill, none in decode, none for an SSM), then
+    the same prefill with K5's plain version and a teacher-forced decode
+    fed the kernel run's tokens, and the config's planted faults; an SSM
+    config also checks its chunked prefill against its recurrent form
+    (``ssd_recurrent_check``). A dense or hybrid config's checks are those
+    end-to-end logits and greedy tokens. An MoE config records every layer's expert choices,
     prints the share that differ between the kernel and the plain run and
     the end-to-end differences (with the kernel run's choices replayed
     where its own took the plain run outside the tolerances), and is
@@ -2603,7 +2684,8 @@ def serve_phase(dev, conf: dict) -> dict:
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as K5
-    from repro_torch.models import decode_step, init, init_cache, prefill
+    from repro_torch.models import (decode_step, init, init_cache,
+                                    layer_kinds, prefill)
     from repro_torch.serve import Engine, ServeConfig
 
     cfg = get_config(conf["arch"])
@@ -2612,6 +2694,7 @@ def serve_phase(dev, conf: dict) -> dict:
         label += f", cut to {conf['n_layers']} of {cfg.n_layers} layers"
         cfg = dataclasses.replace(cfg, n_layers=conf["n_layers"])
     is_moe = bool(cfg.n_experts)
+    n_attn = sum(k.startswith("attn") for k in layer_kinds(cfg))
     gen = torch.Generator(device=dev).manual_seed(conf["seed"])
     torch.cuda.synchronize()
     t_phase = t0 = time.perf_counter()
@@ -2669,11 +2752,11 @@ def serve_phase(dev, conf: dict) -> dict:
           f"{res['decode_tok_s']:.1f} tokens/s), peak memory {peak_gb:.2f} GB, "
           f"launches {launches} (flash_attn in the prefill: {k5_prefill}; "
           f"by route: {k5_routes})")
-    if k5_prefill != cfg.n_layers or launches["flash_attn"] != cfg.n_layers:
+    if k5_prefill != n_attn or launches["flash_attn"] != n_attn:
         raise AssertionError(f"flash_attn launched {k5_prefill} times in the "
                              f"prefill and {launches['flash_attn']} in all, "
-                             f"not {cfg.n_layers} and {cfg.n_layers}")
-    if k5_routes != {"tensor_core": cfg.n_layers, "cuda_core": 0}:
+                             f"not {n_attn} and {n_attn}")
+    if k5_routes != {"tensor_core": n_attn, "cuda_core": 0}:
         raise AssertionError(f"the bf16 prefill's flash_attn launches went "
                              f"by {k5_routes}, not all by the tensor cores")
     toks = out.cpu()
@@ -2822,6 +2905,8 @@ def serve_phase(dev, conf: dict) -> dict:
                 raise AssertionError(f"the planted fault '{name}' passes the "
                                      "serve phase's logits checks")
             torch.cuda.empty_cache()
+    if cfg.family == "ssm":
+        res["ssd_check"] = ssd_recurrent_check(model, cfg, tokens)
     dec = run.pop("dec")
     # a random-weight model may repeat one token; then the token check
     # shows little, and the logits checks must catch a wrong K5 alone
@@ -2854,6 +2939,83 @@ def serve_phase(dev, conf: dict) -> dict:
     res["phase_s"] = time.perf_counter() - t_phase
     print(f"  serve phase ({label}): {res['phase_s']:.1f} s")
     return res
+
+
+def ssd_recurrent_check(model, cfg, tokens) -> dict:
+    """An SSM model's chunked prefill against its recurrent form on the
+    first ``SSD_CHECK_TOKENS`` tokens of the first prompt: end to end (the
+    prefill's last-position logits and final states against as many decode
+    steps from a zeroed cache; printed, see ``SSD_CHECK_TOKENS``), then
+    block by block on the prefill's input to each block: its chunked
+    outputs against its recurrent ones through the final norm and the head
+    at every position (within ``SERVE_ATOL`` / ``SERVE_MEAN_TOL``), and its
+    final state and conv window against the recurrent ones (within
+    ``SSD_STATE_RTOL`` of the largest magnitude). Raises on a failed
+    check."""
+    import torch
+
+    from repro_torch.models import decode_step, init_cache, prefill, ssm
+    from repro_torch.models.layers import lm_head, rms_norm
+
+    n = SSD_CHECK_TOKENS
+    t = tokens[:1, :n].contiguous()
+    dev = t.device
+    inputs = []
+    hooks = [b.register_forward_pre_hook(
+        lambda mod, args: inputs.append(args[0])) for b in model.layers]
+    try:
+        pre, logit_p = prefill(model, t)
+    finally:
+        for h in hooks:
+            h.remove()
+    rec = init_cache(cfg, 1, n, device=dev)
+    for i in range(n):
+        rec, logit_r = decode_step(model, rec, t[:, i], i)
+    e2e = _logit_diff(logit_p, logit_r)
+
+    def rel(a, b) -> float:
+        return float((a.float() - b.float()).abs().max()
+                     / a.float().abs().max().clamp_min(1e-30))
+
+    e2e_state = max(rel(pre.state[i], rec.state[i])
+                    for i in range(cfg.n_layers))
+    head = model.embed if cfg.tie_embeddings else model.head
+
+    def lens(x):
+        return lm_head(head, rms_norm(x, model.final_ln, cfg.norm_eps),
+                       cfg.tie_embeddings)
+
+    layers = []
+    for i, block in enumerate(model.layers):
+        x = inputs[i]
+        y_p, c_p = block(x, None, None, n)
+        c_r = ssm.init_ssm_cache(cfg, 1, x.dtype, dev)
+        y_r = torch.cat([block(x[:, j: j + 1], None, c_r, j)[0]
+                         for j in range(n)], dim=1)
+        layers.append(dict(lens=_logit_diff(lens(y_p), lens(y_r)),
+                           state=rel(c_p.state, c_r.state),
+                           conv=rel(c_p.conv, c_r.conv)))
+    worst = dict(lens=(max(x["lens"][0] for x in layers),
+                       max(x["lens"][1] for x in layers)),
+                 state=max(x["state"] for x in layers),
+                 conv=max(x["conv"] for x in layers))
+    print(f"  chunked prefill vs recurrent decode ({n} tokens of one "
+          f"prompt): end to end, last-position logits max {e2e[0]:.4f} mean "
+          f"{e2e[1]:.5f}, final states {e2e_state:.3e} of their largest "
+          f"|state|; block by block on the prefill's inputs, logit lens at "
+          f"every position max {worst['lens'][0]:.4f} mean "
+          f"{worst['lens'][1]:.5f}, final state {worst['state']:.3e} and "
+          f"conv window {worst['conv']:.3e} of their largest (tolerances "
+          f"{SERVE_ATOL} / {SERVE_MEAN_TOL}, {SSD_STATE_RTOL})")
+    if worst["lens"][0] > SERVE_ATOL or worst["lens"][1] > SERVE_MEAN_TOL \
+            or worst["state"] > SSD_STATE_RTOL \
+            or worst["conv"] > SSD_STATE_RTOL:
+        raise AssertionError(f"chunked prefill vs recurrent decode, block "
+                             f"by block: {layers}")
+    del inputs, pre, rec
+    torch.cuda.empty_cache()
+    return dict(tokens=n, e2e_logits=e2e, e2e_state_rel=e2e_state,
+                layers=layers, worst=worst)
 
 
 def moe_forced_check(model, cfg, tokens, logits0, choices: list) -> dict:
@@ -3062,17 +3224,23 @@ def moe_card_vs_cpu(dev) -> dict:
 
 def serve_small_card_vs_cpu(dev) -> None:
     """Each smoke config's weights on the card and on the CPU: the card's
-    prefill (K5 on the tensor-core route; the MLA smoke configs' q·k dims
-    24 zero-padded to 32) and a decode step match the CPU's plain run (bf16
-    ulp flips over 2 layers: 0.0625, as the CPU tests against JAX)."""
+    prefill (K5 on the tensor-core route for each attention layer; the MLA
+    smoke configs' q·k dims 24 zero-padded to 32; recurrentgemma's window of
+    32, which the 75-token prompt passes, so the hand-off goes through the
+    ring and the decode step wraps it; mamba2's SSD and no K5) and a decode
+    step match the CPU's plain run (bf16 ulp flips over 2-3 layers: 0.0625,
+    as the CPU tests against JAX)."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as K5
-    from repro_torch.models import decode_step, init, init_cache, prefill
+    from repro_torch.models import (decode_step, init, init_cache,
+                                    layer_kinds, prefill)
+    from repro_torch.serve import Engine, ServeConfig
 
     for arch in ("mistral-nemo-12b@smoke", "minicpm3-4b@smoke",
-                 "phi3.5-moe-42b-a6.6b@smoke", "deepseek-v2-lite-16b@smoke"):
+                 "phi3.5-moe-42b-a6.6b@smoke", "deepseek-v2-lite-16b@smoke",
+                 "mamba2-370m@smoke", "recurrentgemma-9b@smoke"):
         cfg = get_config(arch)
         cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
         card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
@@ -3082,12 +3250,12 @@ def serve_small_card_vs_cpu(dev) -> None:
         runs = {}
         for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
             cache, lg = prefill(model, toks.to(d))
-            dec = init_cache(cfg, 3, 80, device=d)
-            for field, c in zip(dec, cache):
-                field[:, :, :75] = c
+            dec = Engine(cfg, model, ServeConfig(max_len=80))._merge_caches(
+                init_cache(cfg, 3, 80, device=d), cache, 75)
             _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 75)
             runs[name] = (lg.float().cpu(), lg2.float().cpu())
-        assert K5.route_launches["tensor_core"] == before + cfg.n_layers
+        n_attn = sum(k.startswith("attn") for k in layer_kinds(cfg))
+        assert K5.route_launches["tensor_core"] == before + n_attn
         for what, a, b in zip(("prefill", "decode"), runs["cuda"],
                               runs["cpu"]):
             dmax, dmean = _logit_diff(a, b)
@@ -3298,6 +3466,8 @@ def main() -> int:
     serve_mla = serve_phase(dev, SERVE_MLA)
     serve_moe_mla = serve_phase(dev, SERVE_MOE_MLA)
     serve_moe = serve_phase(dev, SERVE_MOE)
+    serve_ssm = serve_phase(dev, SERVE_SSM)
+    serve_hybrid = serve_phase(dev, SERVE_HYBRID)
     moe_check = moe_card_vs_cpu(dev)
     serve_small_card_vs_cpu(dev)
 
@@ -3354,6 +3524,11 @@ def main() -> int:
         "flash_attn_mla_192": (
             "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
             {"flash_attn_mla_192": serve_moe_mla["launches"]["flash_attn"]}),
+        # K5 at (256, 256) with a window of 2048: its launches in
+        # recurrentgemma-9b's run
+        "flash_attn_window": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_window": serve_hybrid["launches"]["flash_attn"]}),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():
@@ -3367,7 +3542,7 @@ def main() -> int:
             plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
             bound_by=head["bound_by"], library_ms=head["library_ms"],
             shape=head["shape"]))
-        for key in ("bound_f32_ms", "k5_route"):
+        for key in ("bound_f32_ms", "k5_route", "library"):
             if key in head:
                 entries[-1][key] = head[key]
     if args.out:
@@ -3391,7 +3566,8 @@ def main() -> int:
             fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
             service=service, baselines=baselines, serve=serve,
             serve_mla=serve_mla, serve_moe_mla=serve_moe_mla,
-            serve_moe=serve_moe, moe_check=moe_check,
+            serve_moe=serve_moe, serve_ssm=serve_ssm,
+            serve_hybrid=serve_hybrid, moe_check=moe_check,
             wall_s=time.perf_counter() - t_start),
             indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

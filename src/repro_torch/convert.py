@@ -64,15 +64,18 @@ def engine_state_from_numpy(d: dict) -> dict:
 
 
 def lm_params_from_numpy(cfg, tree: dict, device=None):
-    """The reference's ``repro.models.init`` tree (numpy: the leading dense
-    layers under ``lead_{i}``, the rest stacked ``[L, ...]`` under
-    ``layers.b0``) as the port's :class:`~repro_torch.models.LM` on
-    ``device``: matrices rounded to bf16 (as the reference casts them at
-    use), norm scales kept in float32."""
+    """The reference's ``repro.models.init`` tree (numpy) as the port's
+    :class:`~repro_torch.models.LM` on ``device``: the scanned blocks
+    stacked ``[n, ...]`` under ``layers.b{j}`` (block j of group g is layer
+    ``g * period + j``, after the leading dense layers ``lead_{i}``), the
+    hybrid's remainder under ``tail_{i}``, the ``attn``/``mlp``/``moe``/
+    ``ssm``/``lru`` leaves of each block; matrices rounded to bf16 (as the
+    reference's launcher casts every parameter of more than one dim), the
+    rest kept in float32."""
     from repro_torch.models import LM
+    from repro_torch.models.model import reference_slot
 
     model = LM(cfg, device)
-    stacked = tree["layers"]["b0"]
 
     def load(dst: torch.Tensor, src) -> None:
         src = np.asarray(src)
@@ -91,10 +94,9 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
         if model.head is not None:
             load(model.head, tree["head"])
         load(model.final_ln, tree["final_ln"])
-        n_lead = cfg.first_dense_layers
         for i, block in enumerate(model.layers):
-            sub, j = (tree[f"lead_{i}"], None) if i < n_lead \
-                else (stacked, i - n_lead)
+            path, j = reference_slot(cfg, i)
+            sub = leaf(tree, path, None)
             for name, w in block.named_parameters():
                 load(w, leaf(sub, name, j))
     return model

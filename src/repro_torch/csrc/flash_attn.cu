@@ -1,5 +1,6 @@
 // flash_attn: the float32 route of kernel K5 (causal online-softmax
-// attention for the LM prefill), on the CUDA cores.
+// attention for the LM prefill, optionally over a sliding window), on the
+// CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/kernel.py::
 // flash_attention (body _body; wrapper ops.py::flash_attention). Plain
@@ -11,9 +12,10 @@
 // Computes, for q [B, S, H, DQK], k [B, S, KH, DQK] and v [B, S, KH, DV]
 // (KH divides H; DV may differ from DQK, as MLA's un-absorbed prefill has
 // it), o [B, S, H, DV] with
-//   o[b, i, h] = sum_{j <= i} softmax_j((q[b, i, h] * scale) . k[b, j, g])
-//                * v[b, j, g],      g = h / (H / KH),
-// with the logits of masked keys set to -2e38 (not -inf), a running max,
+//   o[b, i, h] = sum_{i - W < j <= i} softmax_j((q[b, i, h] * scale) .
+//                k[b, j, g]) * v[b, j, g],      g = h / (H / KH),
+// W the sliding window (none when the caller passes W <= 0), with the
+// logits of masked keys set to -2e38 (not -inf), a running max,
 // sum and accumulator in float32, and o = acc / max(l, 1e-30). The caller
 // gives the scale (1/sqrt(DQK) by default in the wrapper).
 //
@@ -25,7 +27,9 @@
 // The scaled query tile stays in shared memory; for each key tile
 // of 64 positions at or below the tile's last row (tiles past the diagonal
 // are fully masked and skipped: they would add exp(-2e38 - m) = 0 with
-// alpha = 1), the K and V rows of KV head g are staged in shared memory,
+// alpha = 1) and from the tile that holds the first row's first key in the
+// window (masked keys before a row's first real one add exp(0) = 1 each
+// until its alpha = exp(-2e38 - m) = 0 wipes them), the K and V rows of KV head g are staged in shared memory,
 // read in place from the [B, S, KH, DQK] and [B, S, KH, DV] layouts (no
 // repeat to H heads: 4x fewer K/V bytes at H/KH = 4). Each thread owns 4
 // query rows and computes a 4 x 4 block of the 64 x 64 logits, then 4 rows
@@ -34,7 +38,7 @@
 // and rows at or past S are not written, so no input is padded. Rows of the
 // query tiles nearest the end of the sequence are launched first (they have
 // the most key tiles). Shared-memory rows are padded by one float against
-// bank conflicts.
+// bank conflicts. At (256, 256) the tiles take 213,760 bytes of the 227 KB.
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,7 +57,7 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S,
-                  int H, int KH, float scale) {
+                  int H, int KH, int window, float scale) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims");
   constexpr int kQS = DQK + 1;  // row strides in shared memory
   constexpr int kKS = DQK + 1;
@@ -98,7 +102,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const int last = min(q0 + kBQ, S) - 1;  // the tile's last valid row
-  for (int k0 = 0; k0 <= last; k0 += kBK) {
+  const int first = max(0, q0 - window + 1) / kBK * kBK;  // its first key tile
+  for (int k0 = first; k0 <= last; k0 += kBK) {
     __syncthreads();  // the previous tile's ks/vs/ps are consumed
     for (int e = tid; e < kBK * DQK; e += kThreads) {
       const int r = e / DQK, c = e % DQK, s = k0 + r;
@@ -135,7 +140,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        if (kp > qp || kp >= S) sc[i][j] = kNegInf;
+        if (kp > qp || kp >= S || kp <= qp - window) sc[i][j] = kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
       // the 16 lanes of a row group hold the row's 64 logits
@@ -188,7 +193,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, float scale, cudaStream_t stream) {
+           int H, int KH, int window, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DQK, DV>() * (int)sizeof(float);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
@@ -202,7 +207,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_attn_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH,
-      scale);
+      window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -210,21 +215,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv],
 // contiguous float32; (dqk, dv) one of (16, 16), (64, 64), (128, 128),
-// (96, 64), (192, 128), (32, 16); KH divides H. Anything else returns
+// (256, 256), (96, 64), (192, 128), (32, 16); KH divides H; window the
+// sliding window in positions, or <= 0 for none. Anything else returns
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int dqk,
-                                 int dv, float scale, void* stream) {
+                                 int dv, int window, float scale,
+                                 void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || S > 65535 * kBQ)
     return (int)cudaErrorInvalidValue;
+  if (window <= 0 || window >= S) window = 1 << 30;  // no key outside it
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -4,8 +4,10 @@
 K, Dqk] and ``v`` [B, S, K, Dv] with K dividing H (query head h reads KV
 head h // (H/K), the function of the reference's ``_repeat_kv`` without the
 repeat), causal softmax attention with scale 1/√Dqk unless ``scale`` is
-given: masked logits are set to ``-2e38``, the softmax is taken in float32,
-and the output [B, S, H, Dv] has ``q``'s dtype. Dqk ≠ Dv is MLA's
+given, over the last ``window`` keys of each query when a window is given
+(the reference's ``_sdpa`` mask: key j is seen by query i when j <= i and
+j > i - window): masked logits are set to ``-2e38``, the softmax is taken
+in float32, and the output [B, S, H, Dv] has ``q``'s dtype. Dqk ≠ Dv is MLA's
 un-absorbed prefill (q·k over the nope + rope dims, v at its own width).
 On a CPU tensor it runs :func:`flash_attention_plain`; on a CUDA tensor it
 launches the kernel of the inputs' dtype or raises. Each dtype has one
@@ -20,7 +22,8 @@ The kernels take the [B, S, H, hd] layout the model produces as it is (no
 fold to [BH, S, hd], no padding of S or hd): the inputs must be contiguous
 (and 16-byte aligned), and any other tensor is refused, never copied. They
 are built for the ``(Dqk, Dv)`` pairs of ``HEAD_DIMS``: the dense configs'
-(128, 128) and the smoke/test dims (16, 16) and (64, 64); MLA's (96, 64)
+(128, 128), recurrentgemma-9b's (256, 256) (16 query heads on one KV head,
+a window of 2048) and the smoke/test dims (16, 16) and (64, 64); MLA's (96, 64)
 (minicpm3-4b), (192, 128) (deepseek-v2-lite: 128 nope + 64 rope, v 128)
 and (32, 16) (the MLA smoke dims 24/16 with q and k zero-padded to 32 by
 the caller). The wrapper raises for anything else.
@@ -43,8 +46,8 @@ launches = 0
 route_launches = {"tensor_core": 0, "cuda_core": 0}
 
 #: the (q·k head dim, v head dim) pairs the kernels are built for
-HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (96, 64), (192, 128),
-             (32, 16))
+HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (96, 64),
+             (192, 128), (32, 16))
 #: the mask value of the reference (``flash_attn/kernel.py``, ``ref.py``)
 NEG_INF = -2.0e38
 #: dtype -> (route, C launch function, source under ``repro_torch/csrc``)
@@ -54,12 +57,14 @@ ROUTES = {torch.bfloat16: ("tensor_core", "flash_attn_tc_launch",
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor,
-                          scale: float | None = None) -> torch.Tensor:
+                          v: torch.Tensor, scale: float | None = None,
+                          window: int | None = None) -> torch.Tensor:
     """The materialized softmax of ``repro/kernels/flash_attn/ref.py``: the
     float32 logits ``(q·kᵀ)·scale`` [B, H, S, S] (scale 1/√Dqk by default),
-    causal mask to ``-2e38``, softmax, ``·v`` [B, S, K, Dv], cast to ``q``'s
-    dtype. K/V heads are repeated to H."""
+    causal mask to ``-2e38`` (keys j <= i, and j > i - ``window`` when a
+    window is given, as the reference's ``_sdpa`` masks them), softmax,
+    ``·v`` [B, S, K, Dv], cast to ``q``'s dtype. K/V heads are repeated to
+    H."""
     B, S, H, dqk = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
@@ -68,13 +73,17 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
     vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    mask = ones.tril()
+    if window:
+        mask &= ~ones.tril(-window)
     logits = torch.where(mask, logits, NEG_INF)
     out = torch.matmul(torch.softmax(logits, dim=-1), vf)
     return out.transpose(1, 2).to(q.dtype)
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           window: int | None) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"flash_attention: {name} must be a torch.Tensor")
@@ -98,17 +107,22 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if (dqk, v.shape[3]) not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dims (q·k {dqk}, v "
                          f"{v.shape[3]}) are not one of {HEAD_DIMS}")
+    if window is not None and (not isinstance(window, int) or window < 1):
+        raise ValueError(f"flash_attention: window must be a positive int "
+                         f"or None, got {window!r}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None) -> torch.Tensor:
-    """Causal attention, ``[B, S, H, Dv]`` out; see the module docstring."""
+                    scale: float | None = None,
+                    window: int | None = None) -> torch.Tensor:
+    """Causal attention (over the last ``window`` keys when given),
+    ``[B, S, H, Dv]`` out; see the module docstring."""
     global launches
-    _check(q, k, v)
+    _check(q, k, v, window)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, scale)
+        return flash_attention_plain(q, k, v, scale, window)
     B, S, H, dqk = q.shape
     dv = v.shape[3]
     out = q.new_empty((B, S, H, dv))
@@ -120,7 +134,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route, fn, _ = ROUTES[q.dtype]
     err = getattr(build.library(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], dqk, dv, scale, build.stream_ptr(q))
+        k.shape[2], dqk, dv, window or 0, scale, build.stream_ptr(q))
     build.check(err, f"flash_attn ({route})")
     with COUNT_LOCK:
         launches += 1

@@ -8,13 +8,19 @@
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch deepseek-v2-lite-16b --full --batch 4 --prompt-len 2048 \
       --gen 32 --max-len 2080
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch recurrentgemma-9b --full --batch 4 --prompt-len 4096 \
+      --gen 32 --max-len 4128
 
 The dense family runs: GQA (mistral-nemo-12b, qwen3-14b, starcoder2-3b)
 and MLA (minicpm3-4b); so does the MoE family: phi3.5-moe-42b-a6.6b (GQA,
 16 experts, top-2) and deepseek-v2-lite-16b (MLA, 64 routed experts,
 top-6, 2 shared, a dense layer 0). phi3.5-moe at its full 32 layers (41.9 B
 parameters, 83.7 GB in bf16) does not fit one 80 GB card; its smoke twin
-and a depth cut (``chip_smoke.py`` serves 24 layers) do.
+and a depth cut (``chip_smoke.py`` serves 24 layers) do. So do the SSM
+family (mamba2-370m) and the hybrid one (recurrentgemma-9b: RG-LRU layers
+and attention over a 2048-token window; ``--max-len`` at or past the
+window makes the cache a ring that a longer prompt and decode wrap).
 
 Without ``--full`` the arch's smoke twin runs. The weights are drawn from a
 generator seeded with ``--seed`` straight into bf16 on the device, one

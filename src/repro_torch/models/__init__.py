@@ -1,15 +1,23 @@
-"""The LM serving substrate on PyTorch: the dense and MoE families, GQA and
-MLA.
+"""The LM serving substrate on PyTorch: the dense and MoE families (GQA and
+MLA), Mamba-2 (the ssm family) and the RG-LRU hybrid with sliding-window
+attention.
 
 ``init`` builds an :class:`LM` from a generator; ``prefill`` /
 ``decode_step`` / ``init_cache`` drive it (see :mod:`.model`). Causal
-prefill attention runs kernel K5 on CUDA (see :mod:`.attention`).
+prefill attention runs kernel K5 on CUDA, with the config's window when it
+has one (see :mod:`.attention`); SSD and the RG-LRU scan are plain torch on
+both devices, as the reference computes them outside any kernel.
 """
-from .model import LM, check_ported, decode_step, init, init_cache, prefill
+from .model import (LM, HybridCache, check_ported, decode_step, init,
+                    init_cache, layer_kinds, prefill)
 from .layers import rms_norm, rope
 from .moe import MoE, moe_apply
-from . import attention, moe
+from .rglru import RGLRU, LRUCache, init_lru_cache, rglru_apply
+from .ssm import Mamba2, SSMCache, init_ssm_cache, mamba2_apply
+from . import attention, moe, rglru, ssm
 
-__all__ = ["LM", "check_ported", "init", "prefill", "decode_step",
-           "init_cache", "rms_norm", "rope", "attention", "moe", "MoE",
-           "moe_apply"]
+__all__ = ["LM", "HybridCache", "check_ported", "init", "prefill",
+           "decode_step", "init_cache", "layer_kinds", "rms_norm", "rope",
+           "attention", "moe", "MoE", "moe_apply", "ssm", "Mamba2",
+           "mamba2_apply", "SSMCache", "init_ssm_cache", "rglru", "RGLRU",
+           "rglru_apply", "LRUCache", "init_lru_cache"]

@@ -1,5 +1,6 @@
-"""Attention for the dense family, ``repro.models.attention`` on PyTorch:
-grouped-query attention (GQA, with qk-norm and rotary embeddings) and
+"""Attention for the dense and hybrid families, ``repro.models.attention``
+on PyTorch: grouped-query attention (GQA, with qk-norm, rotary embeddings
+and, in recurrentgemma-9b, a sliding window over a ring cache) and
 multi-head latent attention (MLA, DeepSeek's, as minicpm3-4b runs it).
 
 Dispatch follows the port's device rule:
@@ -7,27 +8,32 @@ Dispatch follows the port's device rule:
 - On a CPU tensor everything runs the plain ``_sdpa`` (the reference's
   flash-style attention, including its online-softmax chunk path at
   Sk >= 4096), whatever the mask.
-- On a CUDA tensor, causal prefill with positions ``arange(S)`` and no
-  window runs kernel K5 (:func:`repro_torch.kernels.flash_attn.
-  flash_attention`), reading KV head h // (H/K) in place of the repeat.
+- On a CUDA tensor, causal prefill with positions ``arange(S)`` runs kernel
+  K5 (:func:`repro_torch.kernels.flash_attn.flash_attention`), reading KV
+  head h // (H/K) in place of the repeat, with the config's sliding window
+  when it has one (the mask of ``_sdpa``: key j is seen by query i when
+  j <= i and j > i - window).
 - Single-query decode (``Sq == 1`` with the ``valid_to`` mask) runs as plain
   torch ops on both devices: the reference computes it outside any kernel.
-  MLA's decode is the reference's absorbed form over the latent cache
-  (q_nope folded through W_uk, W_uv applied after the weighted latent sum),
-  also plain torch on both devices.
+  With a window the decode cache is a ring of ``window`` slots (position p
+  at slot p % window, every slot below min(p + 1, window) valid), as the
+  reference's ``gqa_apply`` keeps it. MLA's decode is the reference's
+  absorbed form over the latent cache (q_nope folded through W_uk, W_uv
+  applied after the weighted latent sum), also plain torch on both devices.
 - MLA's prefill is un-absorbed, as in the reference: q·k over the nope +
   rope dims (the rope key broadcast to every head), v at its own width,
   scale 1/√(nope + rope). On CUDA it runs K5 with those unequal head dims;
   when nope + rope is not a multiple of 16 (the smoke dims, 24) q and k are
   zero-padded to the next one (also for an ``attention=`` function on the
   CPU), which leaves every q·k unchanged.
-- A sliding window, bidirectional attention or other positions on CUDA
-  raise ``NotImplementedError``; they never drop to the plain version.
+- Bidirectional attention or other positions on CUDA raise
+  ``NotImplementedError``; they never drop to the plain version.
 
 Only ``attention=`` changes what causal prefill runs: a function with K5's
 signature (``q`` [B,S,H,Dqk], ``k`` [B,S,K,Dqk], ``v`` [B,S,K,Dv],
-``scale=``) used in its place, as the tests and ``chip_smoke.py`` pass K5's
-plain version to compare.
+``scale=``, and ``window=`` when the config has a window) used in its
+place, as the tests and ``chip_smoke.py`` pass K5's plain version to
+compare.
 
 The decode cache is written in place (the reference's ``_scatter_time``
 returns a new array with the same values).
@@ -186,8 +192,6 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
         return _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), scale,
                      qpos=positions, kpos=positions, causal=causal,
                      window=cfg.window)
-    if cfg.window:
-        raise _not_ported("sliding-window attention")
     if not causal:
         raise _not_ported("bidirectional attention")
     B, S = q.shape[:2]
@@ -197,7 +201,9 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
     if not from_zero and not torch.equal(positions, torch.arange(
             S, dtype=positions.dtype, device=positions.device).expand(B, S)):
         raise _not_ported("prefill at positions other than arange(S)")
-    return (attention or flash_attn.flash_attention)(q, k, v, scale=scale)
+    window = {"window": cfg.window} if cfg.window else {}
+    return (attention or flash_attn.flash_attention)(q, k, v, scale=scale,
+                                                     **window)
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
@@ -210,8 +216,8 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
     arange(S), as the model's prefill runs it); prefill when ``cache`` is
     None (causal; returns the layer's KVCache when ``cache_pos`` is given),
     else one-step decode (S == 1) writing k/v into ``cache`` in place at
-    slot ``cache_pos`` (a ring slot when the config has a sliding window, on
-    the CPU)."""
+    slot ``cache_pos`` (slot ``cache_pos % window`` of a ring when the
+    config has a sliding window)."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     from_zero = positions is None
@@ -220,8 +226,6 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
             raise ValueError("gqa_apply: a decode step needs its positions")
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    if cfg.window and x.device.type == "cuda":
-        raise _not_ported("sliding-window attention")
     q = _heads(x, p.wq)
     k = _heads(x, p.wk)
     v = _heads(x, p.wv)
@@ -233,7 +237,7 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
         k = rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(hd)
 
-    if cache is None:  # prefill: causal mask
+    if cache is None:  # prefill: causal (+ window) mask
         out = _prefill_attention(q, k, v, positions, cfg, causal, scale,
                                  attention, from_zero)
         new_cache = KVCache(k, v) if cache_pos is not None else None

@@ -14,7 +14,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["dense_init_", "embedding_init_", "rms_norm_init_", "rms_norm",
-           "rope", "gated_mlp", "embed", "lm_head", "GatedMLP", "param"]
+           "rope", "gated_mlp", "embed", "lm_head", "GatedMLP", "param",
+           "silu", "gelu", "softplus"]
 
 #: float32 elements drawn at a time when a bf16 tensor is initialized, so a
 #: full-width embedding (131072 x 5120) never has a float32 copy
@@ -46,15 +47,18 @@ def _fill_(w: torch.Tensor, draw, scale: float) -> torch.Tensor:
 
 
 @torch.no_grad()
-def dense_init_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def dense_init_(w: torch.Tensor, generator: torch.Generator,
+                scale: float | None = None) -> torch.Tensor:
     """``repro.models.layers.dense_init``: a standard normal truncated to
-    [-2, 2] (by its inverse CDF), times ``1/sqrt(shape[0])``."""
+    [-2, 2] (by its inverse CDF), times ``scale`` (``1/sqrt(shape[0])``
+    unless given)."""
     def draw(buf):
         buf.uniform_(2.0 * _PHI_M2 - 1.0, 2.0 * _PHI_P2 - 1.0,
                      generator=generator)
         buf.erfinv_().mul_(_SQRT2).clamp_(-2.0, 2.0)
 
-    return _fill_(w, draw, 1.0 / math.sqrt(w.shape[0]))
+    return _fill_(w, draw, 1.0 / math.sqrt(w.shape[0]) if scale is None
+                  else scale)
 
 
 @torch.no_grad()
@@ -72,6 +76,30 @@ def rms_norm_init_(w: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ compute
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` step by step: ``x * (1 / (1 + exp(-x)))``, each
+    operation in ``x``'s dtype."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` at its default, the tanh approximation
+    ``x · 0.5 · (1 + tanh(√(2/π) · (x + 0.044715 · x³)))`` (``F.gelu``'s
+    default is the erf form, another function), each operation in ``x``'s
+    dtype with the constants rounded to it first, as JAX rounds them."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x))))
+    return x * cdf
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` = ``max(x, 0) +
+    log1p(exp(-|x|))``, with no threshold (``F.softplus`` switches to
+    ``x`` past 20)."""
+    return torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
@@ -98,9 +126,10 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """``silu(x·wg) * (x·wu) · wd`` for ``p`` with ``wg``/``wu`` [d, ff] and
-    ``wd`` [ff, d]."""
+    ``wd`` [ff, d], with :func:`silu` (``jax.nn.silu``'s steps; ``F.silu``
+    rounds once and moves about a third of bf16 values by an ulp)."""
     dt = x.dtype
-    h = F.silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
+    h = silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
     return h @ p.wd.to(dt)
 
 

@@ -1,59 +1,80 @@
-"""Model assembly for the dense and MoE plans: ``ArchConfig`` -> an ``LM``
-module and its ``prefill`` / ``decode_step`` / ``init_cache``.
+"""Model assembly for the dense, MoE, SSM and hybrid plans: ``ArchConfig``
+-> an ``LM`` module and its ``prefill`` / ``decode_step`` / ``init_cache``.
 
-A port of ``repro.models.model`` for the dense and ``moe`` families: pre-norm
-GQA or MLA attention, then a gated MLP (``attn_mlp``) or a Mixture-of-Experts
-(``attn_moe``, :mod:`.moe`) per block. A block is ``attn_moe`` when the
-config has experts and its layer is at or past ``first_dense_layers``; the
-leading dense layers (deepseek's layer 0) are ``attn_mlp`` with an MLP of
-``dense_d_ff`` (``d_ff`` when 0). The reference keeps those lead layers
-outside its scan (``lead_{i}``) and scans the rest; here ``_forward`` loops
-over one ``nn.ModuleList`` of all blocks in layer order. The parameter
-layout is the reference's ``init`` tree with the stacked ``layers.b0``
-split into one block per layer: ``embed`` [V, d], ``head`` [d, V] (untied),
-``final_ln`` [d] and, per block, ``ln1``, ``attn.{wq,wk,wv,wo,q_norm,
+A port of ``repro.models.model``. Each block is one of four kinds
+(``layer_kinds``), the reference's ``_plan``:
+
+- ``attn_mlp``: pre-norm GQA or MLA attention, then a gated MLP (of
+  ``dense_d_ff`` in the leading dense layers of an MoE config, deepseek's
+  layer 0);
+- ``attn_moe``: the same with a Mixture-of-Experts (:mod:`.moe`) in place
+  of the MLP, at and past ``first_dense_layers`` of a config with experts;
+- ``ssm``: pre-norm Mamba-2 (:mod:`.ssm`), every layer of the ``ssm``
+  family (mamba2-370m);
+- ``rglru``: pre-norm RG-LRU (:mod:`.rglru`), then a pre-norm gated MLP.
+  The ``hybrid`` family (recurrentgemma-9b) runs groups of (``rglru``,
+  ``rglru``, ``attn_mlp``) with ``attn_period`` 3, the remainder as the
+  reference's ``tail_{i}`` blocks; its attention has a sliding window.
+
+The reference scans stacked layers (``layers.b{j}``) and keeps the others
+outside its scan (``lead_{i}``, ``tail_{i}``); here ``_forward`` loops over
+one ``nn.ModuleList`` of all blocks in layer order. The parameter layout is
+the reference's ``init`` tree with the stacks split into one block per
+layer (``reference_slot``): ``embed`` [V, d], ``head`` [d, V] (untied),
+``final_ln`` [d] and, per block, ``ln1``, then ``attn.{wq,wk,wv,wo,q_norm,
 k_norm}`` (GQA) or ``attn.{wq_a,wq_b,wq,wkv_a,wkv_b,wo,kv_norm}`` (MLA),
-``ln2``, and ``mlp.{wg,wu,wd}`` or ``moe.{router,wg,wu,wd,shared}``.
+``ln2`` and ``mlp.{wg,wu,wd}`` or ``moe.{router,wg,wu,wd,shared}``; or
+``ssm.{wz,wx,wbc,wdt,conv_w,A_log,D,dt_bias,norm,wo}``; or ``lru.{wx,wg,
+conv_w,wa,wi,lam,wo}``, ``ln2`` and ``mlp``. A tied head (mamba2) reads the
+embedding.
 
 The compute dtype is bf16, as in the reference's ``_forward``. The decode
-cache is the caches of all layers stacked (the reference's ``lead_{i}``
-caches, then its ``caches["layers"]["b0"]["attn"]``): a
-:class:`~repro_torch.models.attention.KVCache` [L, B, S, K, hd] for GQA, an
-:class:`~repro_torch.models.attention.MLACache` ([L, B, S, kv_lora],
-[L, B, S, rope]) for MLA; ``decode_step`` writes it in place. The MoE
-layers' load-balancing loss is computed and dropped, as the reference's
-serving drops it. SSM, hybrid, audio and vision configs raise
-``NotImplementedError`` when built, on any device; a sliding window raises
-when built for CUDA.
+cache holds one stack for each kind of layer cache, its layers in layer
+order, and each block reads its own index of its kind's stack:
+
+- GQA: a :class:`~repro_torch.models.attention.KVCache` [L, B, S, K, hd];
+  MLA: an :class:`~repro_torch.models.attention.MLACache` ([L, B, S,
+  kv_lora], [L, B, S, rope]);
+- SSM: an :class:`~repro_torch.models.ssm.SSMCache` ([L, B, W-1,
+  conv_dim], [L, B, H, hd, N] float32);
+- hybrid: a :class:`HybridCache` of the attention layers' ``KVCache``, a
+  ring of min(length, window) slots, and the recurrent layers'
+  :class:`~repro_torch.models.rglru.LRUCache` ([n, B, W-1, width], [n, B,
+  width] float32).
+
+``decode_step`` writes the cache in place. The MoE layers' load-balancing
+loss is computed and dropped, as the reference's serving drops it. Audio
+(encoder-decoder) and vision configs raise ``NotImplementedError`` when
+built, on any device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.device import resolve_device
 from . import attention as attn
 from .moe import MoE, Routing
+from .rglru import RGLRU, LRUCache, init_lru_cache
+from .ssm import Mamba2, SSMCache, init_ssm_cache
 from .layers import (GatedMLP, embed, embedding_init_, dense_init_, lm_head,
                      param, rms_norm, rms_norm_init_)
 
-__all__ = ["LM", "Block", "init", "prefill", "decode_step", "init_cache",
-           "check_ported"]
+__all__ = ["LM", "Block", "HybridCache", "init", "prefill", "decode_step",
+           "init_cache", "check_ported", "layer_kinds", "reference_slot"]
 
 
 def check_ported(cfg, device: torch.device | str | None = None) -> None:
-    """Raise ``NotImplementedError`` for a config the port cannot run (on
-    ``device``; None means CUDA, the default)."""
+    """Raise ``NotImplementedError`` for a config the port cannot run; the
+    same on every ``device`` (None means CUDA, the default)."""
     why = None
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         why = f"the {cfg.family} family"
-    elif cfg.attn_kind not in ("gqa", "mla"):
+    elif cfg.family != "ssm" and cfg.attn_kind not in ("gqa", "mla"):
         why = f"{cfg.attn_kind} attention"
     elif cfg.frontend or cfg.is_encdec or cfg.max_pos:
         why = "frontends and encoder-decoders"
-    elif cfg.window and torch.device(device or "cuda").type == "cuda":
-        why = "sliding-window attention on CUDA"
     if why is not None:
         raise NotImplementedError(
             f"repro_torch: {why} ({cfg.arch_id}) is not yet ported "
@@ -64,20 +85,77 @@ def _moe_layer(cfg, layer: int) -> bool:
     return bool(cfg.n_experts) and layer >= cfg.first_dense_layers
 
 
-class Block(torch.nn.Module):
-    """Block ``layer`` of the config: ``ln1``, ``attn`` (GQA or MLA),
-    ``ln2``, then ``moe`` (an ``attn_moe`` block) or ``mlp`` (``attn_mlp``:
-    of ``dense_d_ff`` in a leading dense layer of an MoE config)."""
+def layer_kinds(cfg) -> list[str]:
+    """The kind of each block, in layer order (the reference's ``_plan``):
+    ``ssm`` for every layer of the ssm family; for the hybrid family
+    ``rglru`` except at every ``attn_period``-th layer, ``attn_mlp`` (the
+    groups, then the tail by the same rule); else ``attn_moe`` or
+    ``attn_mlp``."""
+    if cfg.family == "ssm":
+        return ["ssm"] * cfg.n_layers
+    if cfg.family == "hybrid":
+        period = cfg.attn_period
+        return ["rglru" if (i % period + 1) % period else "attn_mlp"
+                for i in range(cfg.n_layers)]
+    return ["attn_moe" if _moe_layer(cfg, i) else "attn_mlp"
+            for i in range(cfg.n_layers)]
 
-    def __init__(self, cfg, layer: int = 0, device=None):
+
+def reference_slot(cfg, layer: int) -> tuple[str, Optional[int]]:
+    """Where block ``layer``'s parameters sit in the reference's ``init``
+    tree: (``lead_{i}``, None) for a leading dense layer, (``layers.b{j}``,
+    g) for block j of scanned group g, (``tail_{i}``, None) for a layer
+    past the last whole group."""
+    n_lead = cfg.first_dense_layers if cfg.family in ("dense", "moe") else 0
+    if layer < n_lead:
+        return f"lead_{layer}", None
+    period = cfg.attn_period if cfg.family == "hybrid" else 1
+    n_scan = (cfg.n_layers - n_lead) // period
+    g, j = divmod(layer - n_lead, period)
+    if g < n_scan:
+        return f"layers.b{j}", g
+    return f"tail_{layer - n_lead - n_scan * period}", None
+
+
+#: the stack of the model's cache that each kind of block indexes
+_CACHE_OF = {"attn_mlp": "attn", "attn_moe": "attn", "ssm": "ssm",
+             "rglru": "lru"}
+
+
+class HybridCache(NamedTuple):
+    """A hybrid model's decode cache: its attention layers' ring and its
+    recurrent layers' states, each stacked in layer order."""
+    attn: attn.KVCache   # [n_attn, B, min(length, window), K, hd]
+    lru: LRUCache        # [n_lru, B, W-1, width], [n_lru, B, width]
+
+
+class Block(torch.nn.Module):
+    """Block ``layer`` of the config, by its kind (``layer_kinds``):
+    ``ln1``, ``attn`` (GQA or MLA), ``ln2``, then ``moe`` (``attn_moe``) or
+    ``mlp`` (``attn_mlp``: of ``dense_d_ff`` in a leading dense layer of an
+    MoE config); ``ln1``, ``ssm`` (``ssm``); or ``ln1``, ``lru``, ``ln2``,
+    ``mlp`` (``rglru``). ``slot`` is (the cache stack it reads, its index
+    there)."""
+
+    def __init__(self, cfg, layer: int = 0, device=None,
+                 slot: tuple[str, int] = ("attn", 0)):
         super().__init__()
         self.cfg = cfg
+        self.kind = layer_kinds(cfg)[layer]
+        self.slot = slot
         self.ln1 = param((cfg.d_model,), device, torch.float32)
-        self.attn = attn.MLAttention(cfg, device) if cfg.attn_kind == "mla" \
-            else attn.GQAttention(cfg, device)
+        self.attn = self.moe = self.mlp = self.ssm = self.lru = None
+        self.ln2 = None
+        if self.kind == "ssm":
+            self.ssm = Mamba2(cfg, device)
+            return
+        if self.kind == "rglru":
+            self.lru = RGLRU(cfg, device)
+        else:
+            self.attn = attn.MLAttention(cfg, device) \
+                if cfg.attn_kind == "mla" else attn.GQAttention(cfg, device)
         self.ln2 = param((cfg.d_model,), device, torch.float32)
-        self.moe = self.mlp = None
-        if _moe_layer(cfg, layer):
+        if self.kind == "attn_moe":
             self.moe = MoE(cfg, device)
         else:
             lead = layer < cfg.first_dense_layers
@@ -86,9 +164,12 @@ class Block(torch.nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         rms_norm_init_(self.ln1)
-        self.attn.reset_parameters(generator)
-        rms_norm_init_(self.ln2)
-        (self.moe or self.mlp).reset_parameters(generator)
+        for sub in (self.attn, self.ssm, self.lru):
+            if sub is not None:
+                sub.reset_parameters(generator)
+        if self.ln2 is not None:
+            rms_norm_init_(self.ln2)
+            (self.moe or self.mlp).reset_parameters(generator)
 
     def forward(self, x, positions, cache=None, cache_pos=None, *,
                 attention=None, routing: Optional[Routing] = None):
@@ -98,10 +179,17 @@ class Block(torch.nn.Module):
 
 def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
                  attention=None, routing: Optional[Routing] = None):
-    """``repro.models.model._block_apply`` for ``attn_mlp`` and
-    ``attn_moe``: returns (x, the layer's new cache or None)."""
-    h, new_cache = p.attn(rms_norm(x, p.ln1, cfg.norm_eps), positions,
-                          cache, cache_pos, attention=attention)
+    """``repro.models.model._block_apply``: returns (x, the layer's new
+    cache or None)."""
+    h = rms_norm(x, p.ln1, cfg.norm_eps)
+    if p.kind == "ssm":
+        h, new_cache = p.ssm(h, cache, cache_pos)
+        return x + h, new_cache
+    if p.kind == "rglru":
+        h, new_cache = p.lru(h, cache, cache_pos)
+        x = x + h
+        return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), new_cache
+    h, new_cache = p.attn(h, positions, cache, cache_pos, attention=attention)
     x = x + h
     h = rms_norm(x, p.ln2, cfg.norm_eps)
     if p.moe is not None:
@@ -111,10 +199,21 @@ def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
     return x + h, new_cache
 
 
+def _slots(cfg) -> list[tuple[str, int]]:
+    """Each block's (cache stack, index in it), in layer order."""
+    seen: dict[str, int] = {}
+    out = []
+    for kind in layer_kinds(cfg):
+        stack = _CACHE_OF[kind]
+        out.append((stack, seen.get(stack, 0)))
+        seen[stack] = out[-1][1] + 1
+    return out
+
+
 class LM(torch.nn.Module):
-    """A decoder LM (GQA or MLA attention; MLP or MoE blocks) with
-    uninitialized bf16 weights on ``device`` (default: CUDA); :func:`init`
-    fills them from a generator."""
+    """A decoder LM (dense or MoE with GQA or MLA attention, Mamba-2, or the
+    RG-LRU hybrid) with uninitialized bf16 weights on ``device`` (default:
+    CUDA); :func:`init` fills them from a generator."""
 
     def __init__(self, cfg, device=None):
         check_ported(cfg, device)
@@ -126,7 +225,8 @@ class LM(torch.nn.Module):
             param((cfg.d_model, cfg.vocab), dev)
         self.final_ln = param((cfg.d_model,), dev, torch.float32)
         self.layers = torch.nn.ModuleList(
-            Block(cfg, i, dev) for i in range(cfg.n_layers))
+            Block(cfg, i, dev, slot)
+            for i, slot in enumerate(_slots(cfg)))
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         embedding_init_(self.embed, generator)
@@ -138,16 +238,28 @@ class LM(torch.nn.Module):
 
 
 def init(cfg, generator: torch.Generator, device=None) -> LM:
-    """``repro.models.model.init`` for the dense and MoE plans: every weight
-    drawn from ``generator`` straight into bf16 on ``device``, one tensor at
-    a time (no float32 master copies). The draws are not JAX's; the tests
-    load the reference's weights with ``convert.lm_params_from_numpy``."""
+    """``repro.models.model.init``: every weight drawn from ``generator``
+    straight into bf16 on ``device``, one tensor at a time (no float32
+    master copies). The draws are not JAX's; the tests load the reference's
+    weights with ``convert.lm_params_from_numpy``."""
     model = LM(cfg, device)
     model.reset_parameters(generator)
     return model
 
 
-Cache = attn.KVCache | attn.MLACache
+Cache = attn.KVCache | attn.MLACache | SSMCache | HybridCache
+
+
+def _stacks(cfg, cache: Cache) -> dict:
+    """The cache's stacks by the name blocks index them with."""
+    if isinstance(cache, HybridCache):
+        return cache._asdict()
+    return {"ssm" if cfg.family == "ssm" else "attn": cache}
+
+
+def _from_stacks(stacks: dict) -> Cache:
+    return HybridCache(**stacks) if len(stacks) > 1 \
+        else next(iter(stacks.values()))
 
 
 def _forward(model: LM, tokens: torch.Tensor,
@@ -157,20 +269,24 @@ def _forward(model: LM, tokens: torch.Tensor,
              ) -> tuple[torch.Tensor, Cache]:
     """The prefill/decode trunk -> (hidden [B, S, d], cache): a prefill
     (``cache`` and ``positions`` None: positions arange(S)) returns the
-    layers' new caches stacked field by field (K/V, or latent/k_rope), a
-    decode step the ``cache`` it wrote into."""
+    layers' new caches stacked by kind, field by field, a decode step the
+    ``cache`` it wrote into."""
     cfg = model.cfg
-    kind = attn.MLACache if cfg.attn_kind == "mla" else attn.KVCache
     x = embed(model.embed, tokens, torch.bfloat16)
-    layer_caches = []
-    for i, block in enumerate(model.layers):
-        c = None if cache is None else kind(*(f[i] for f in cache))
+    stacks = None if cache is None else _stacks(cfg, cache)
+    new: dict[str, list] = {}
+    for block in model.layers:
+        name, j = block.slot
+        c = None if stacks is None else \
+            type(stacks[name])(*(f[j] for f in stacks[name]))
         x, nc = block(x, positions, c, cache_pos, attention=attention,
                       routing=routing)
-        layer_caches.append(nc)
+        new.setdefault(name, []).append(nc)
     x = rms_norm(x, model.final_ln, cfg.norm_eps)
     if cache is None:
-        cache = kind(*(torch.stack(f) for f in zip(*layer_caches)))
+        cache = _from_stacks({
+            name: type(cs[0])(*(torch.stack(f) for f in zip(*cs)))
+            for name, cs in new.items()})
     return x, cache
 
 
@@ -181,12 +297,13 @@ def _head(model: LM) -> torch.Tensor:
 @torch.no_grad()
 def prefill(model: LM, tokens: torch.Tensor, *, attention=None,
             routing: Optional[Routing] = None) -> tuple[Cache, torch.Tensor]:
-    """Process the prompt ``tokens`` [B, S]; returns (cache, the layers
-    stacked: [L, B, S, K, hd] K/V, or the MLA latent and rope key;
-    last-position logits [B, V]). ``attention`` replaces the causal prefill
-    attention (see :mod:`repro_torch.models.attention`); ``routing`` is
-    called for the expert choice of each MoE layer in turn (see
-    :mod:`repro_torch.models.moe`)."""
+    """Process the prompt ``tokens`` [B, S]; returns (the cache, its layers
+    stacked by kind: [L, B, S, K, hd] K/V, the MLA latent and rope key, the
+    SSM states, or a ``HybridCache`` of the attention layers' K/V and the
+    recurrent states; last-position logits [B, V]). ``attention`` replaces
+    the causal prefill attention (see :mod:`repro_torch.models.attention`);
+    ``routing`` is called for the expert choice of each MoE layer in turn
+    (see :mod:`repro_torch.models.moe`)."""
     x, cache = _forward(model, tokens, None, tokens.shape[1],
                         attention=attention, routing=routing)
     logits = lm_head(_head(model), x[:, -1:], model.cfg.tie_embeddings)[:, 0]
@@ -213,10 +330,23 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int, *,
 def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
                device=None) -> Cache:
     """Zeroed decode caches for ``batch`` sequences of at most ``length``
-    tokens, the layers stacked: [L, B, length, K, hd] K/V for GQA, or
-    [L, B, length, kv_lora] and [L, B, length, rope] for MLA."""
+    tokens, each kind's layers stacked: [L, B, length, K, hd] K/V for GQA
+    (a ring of min(length, window) slots with a window), [L, B, length,
+    kv_lora] and [L, B, length, rope] for MLA, an ``SSMCache`` for SSM, a
+    ``HybridCache`` for the hybrid."""
     check_ported(cfg, device)
-    init = attn.init_mla_cache if cfg.attn_kind == "mla" \
-        else attn.init_kv_cache
-    return init(cfg, batch, length, dtype, resolve_device(device),
-                n_layers=cfg.n_layers)
+    dev = resolve_device(device)
+    counts: dict[str, int] = {}
+    for name, _ in _slots(cfg):
+        counts[name] = counts.get(name, 0) + 1
+    stacks = {}
+    for name, n in counts.items():
+        if name == "ssm":
+            stacks[name] = init_ssm_cache(cfg, batch, dtype, dev, n_layers=n)
+        elif name == "lru":
+            stacks[name] = init_lru_cache(cfg, batch, dtype, dev, n_layers=n)
+        else:
+            init = attn.init_mla_cache if cfg.attn_kind == "mla" \
+                else attn.init_kv_cache
+            stacks[name] = init(cfg, batch, length, dtype, dev, n_layers=n)
+    return _from_stacks(stacks)

@@ -48,7 +48,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .layers import GatedMLP, dense_init_, param
+from .layers import GatedMLP, dense_init_, gated_mlp, param, silu
 
 __all__ = ["MoE", "moe_apply", "route", "capacity", "arrival_slots",
            "normalize_gates", "silu"]
@@ -83,18 +83,6 @@ class MoE(torch.nn.Module):
 
     def forward(self, x, *, routing: Optional[Routing] = None):
         return moe_apply(self, self.cfg, x, routing=routing)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` step by step: ``x * (1 / (1 + exp(-x)))``, each
-    operation in ``x``'s dtype."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
-def _gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
-    """``layers.gated_mlp`` with :func:`silu`."""
-    dt = x.dtype
-    return (silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))) @ p.wd.to(dt)
 
 
 def route(probs: torch.Tensor, k: int) -> torch.Tensor:
@@ -187,5 +175,5 @@ def moe_apply(p, cfg, x: torch.Tensor, *,
         y = y + contrib[row[:, j]]
     y = y.to(dt)
     if p.shared is not None:
-        y = y + _gated_mlp(p.shared, xt)
+        y = y + gated_mlp(p.shared, xt)
     return y.view(B, S, d), aux

@@ -587,6 +587,62 @@ def test_flash_attn_unequal_head_dims_match_plain(dev, dtype, B, S, H, K,
     torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("window", [None, 2048, 100, 40])
+@pytest.mark.parametrize("B,S", [(1, 1), (2, 300), (1, 2100)])
+def test_flash_attn_head_dim_256_with_windows_matches_plain(dev, dtype,
+                                                            window, B, S):
+    """recurrentgemma-9b's K5: (256, 256), 16 query heads on one KV head
+    (h // 16), the window of its config (2048) and windows that are not a
+    multiple of the 64-key tile (100) or smaller than one (40), at S not a
+    multiple of 64; the bf16 route's two-stage ring without the overlap."""
+    from repro_torch.kernels import flash_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(B * S + (window or 0))
+    q = torch.randn((B, S, 16, 256), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, 1, 256), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, 1, 256), generator=g, device=dev).to(dtype)
+    before = K5.launches
+    got = K5.flash_attention(q, k, v, window=window)
+    assert K5.launches == before + 1
+    want = K5.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+    if window is not None and window <= S // 2:  # the window matters
+        full = K5.flash_attention_plain(q, k, v)
+        assert float((full.float() - want.float()).abs().max()) > 0.05
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("window", [1, 40, 64, 100, 129])
+@pytest.mark.parametrize("dqk,dv,H,K", [(16, 16, 4, 1), (64, 64, 4, 2),
+                                        (128, 128, 8, 2), (96, 64, 8, 8),
+                                        (192, 128, 4, 4), (32, 16, 4, 4)])
+def test_flash_attn_windows_at_every_head_dim_match_plain(dev, dtype, window,
+                                                          dqk, dv, H, K):
+    """A window at each of the other head-dim pairs (the overlapped bf16
+    loop, three ring stages): one key (1), under a tile (40), one tile
+    (64), ragged (100, 129), at a ragged S; and ``window=None`` or a window
+    that covers S gives the causal kernel's result bit for bit."""
+    from repro_torch.kernels import flash_attn as K5
+
+    S = 333
+    g = torch.Generator(device=dev).manual_seed(S + dqk + window)
+    q = torch.randn((2, S, H, dqk), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, S, K, dqk), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, S, K, dv), generator=g, device=dev).to(dtype)
+    got = K5.flash_attention(q, k, v, window=window)
+    want = K5.flash_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+    causal = K5.flash_attention(q, k, v)
+    assert torch.equal(causal, K5.flash_attention(q, k, v, window=S))
+    assert torch.equal(causal, K5.flash_attention(q, k, v, window=10 * S))
+
+
 def test_mla_smoke_prefill_on_the_card_matches_the_cpu(dev):
     """minicpm3-4b@smoke on the card: one K5 launch a layer at the padded
     dims (32, 16) on the tensor-core route, none in decode; prefill and
@@ -707,6 +763,39 @@ def test_moe_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
         torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m@smoke",
+                                  "recurrentgemma-9b@smoke"])
+def test_ssm_and_hybrid_smoke_prefill_on_the_card_matches_the_cpu(dev, arch):
+    """The SSM and hybrid smoke configs on the card: no K5 launch for
+    mamba2, one tensor-core launch with the window of 32 for recurrentgemma
+    (a 75-token prompt, so the hand-off goes through the ring and the decode
+    step wraps it); prefill and decode logits within the CPU tests' 0.0625
+    of the CPU's."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import decode_step, init, init_cache, prefill
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(arch)
+    cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
+    toks = torch.randint(0, cfg.vocab, (2, 75),
+                         generator=torch.Generator().manual_seed(5))
+    logits = {}
+    for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+        before = dict(K5.route_launches)
+        cache, lg = prefill(model, toks.to(d))
+        dec = Engine(cfg, model, ServeConfig(max_len=76))._merge_caches(
+            init_cache(cfg, 2, 76, device=d), cache, 75)
+        _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 75)
+        moved = {r: n - before[r] for r, n in K5.route_launches.items()}
+        launches = int(cfg.family == "hybrid" and name == "cuda")
+        assert moved == {"tensor_core": launches, "cuda_core": 0}
+        logits[name] = (lg.float().cpu(), lg2.float().cpu())
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
+
+
 def test_flash_attn_routes_bf16_to_tensor_cores_and_f32_to_cuda_cores(dev):
     from repro_torch.kernels import flash_attn as K5
 
@@ -778,8 +867,8 @@ def test_prefill_launches_k5_once_per_layer_and_decode_never(dev):
 
 
 def test_cuda_prefill_refuses_what_k5_does_not_compute(dev):
-    """A sliding window or other positions on the card raise; they never
-    drop to the plain version."""
+    """Other positions or bidirectional attention on the card raise; they
+    never drop to the plain version. A sliding window launches K5."""
     import dataclasses
 
     from repro_torch.models import LM
@@ -795,10 +884,13 @@ def test_cuda_prefill_refuses_what_k5_does_not_compute(dev):
         tattn.gqa_apply(attn, cfg, x, pos + 3)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tattn.gqa_apply(attn, cfg, x, pos, causal=False)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tattn.gqa_apply(attn, dataclasses.replace(cfg, window=8), x, pos)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        LM(dataclasses.replace(cfg, window=8), dev)
+    # a window is K5's own now: it launches, and it never drops to _sdpa
+    from repro_torch.kernels import flash_attn as K5
+
+    before = K5.launches
+    tattn.gqa_apply(attn, dataclasses.replace(cfg, window=8), x, None)
+    assert K5.launches == before + 1
+    LM(dataclasses.replace(cfg, window=8), dev)
 
 
 # K1's and K3's one-operation checks run last in this file: run before

@@ -218,13 +218,22 @@ def test_init_draws_the_reference_distributions():
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
                                   "whisper-tiny", "pixtral-12b"])
 def test_unported_families_raise_when_built(arch, monkeypatch):
-    """SSM, hybrid (sliding window), audio and vision configs are refused
-    when built, on the CPU as on the card (the check comes before the
-    device's, so it holds on a host without CUDA too). Dense MLA
+    """Audio and vision configs are refused when built, on the CPU as on
+    the card (the check comes before the device's, so it holds on a host
+    without CUDA too). SSM (mamba2-370m) and hybrid (recurrentgemma-9b)
+    configs are ported now: they build on the CPU, and for the default
+    device without a card they ask for one instead of falling back
+    (``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``). Dense MLA
     (minicpm3-4b) builds: ``tests/test_torch_mla.py``; MoE (phi3.5-moe,
     deepseek-v2-lite): ``tests/test_torch_moe.py``."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config(arch, smoke=True)
+    if cfg.family in ("ssm", "hybrid"):
+        LM(cfg, "cpu")
+        init_cache(cfg, 1, 8, device="cpu")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            LM(cfg)
+        return
     for device in ("cpu", None):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             LM(cfg, device)
@@ -233,14 +242,17 @@ def test_unported_families_raise_when_built(arch, monkeypatch):
 
 
 def test_sliding_window_raises_for_cuda_and_runs_on_the_cpu(monkeypatch):
-    """A dense config with a window: CUDA prefill is refused before any
-    device is touched; the CPU runs the reference's windowed ``_sdpa`` and
-    matches the JAX package; the engine refuses the ring cache."""
+    """A dense config with a window: it builds for CUDA now (K5 takes the
+    window; without a card the build asks for one and does not fall back);
+    the CPU runs the reference's windowed ``_sdpa`` and matches the JAX
+    package; the engine serves it past the window from the ring cache, as
+    the reference's engine does (the hybrid's tests hold the ring's logits
+    and tokens to the reference)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     jcfg = dataclasses.replace(jget_config("mistral-nemo-12b@smoke"),
                                window=8)
     cfg = dataclasses.replace(get_config("mistral-nemo-12b@smoke"), window=8)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
         LM(cfg)
     params, _ = jinit(jcfg, jax.random.PRNGKey(2))
     model = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params),
@@ -249,5 +261,9 @@ def test_sliding_window_raises_for_cuda_and_runs_on_the_cpu(monkeypatch):
     _, jl = jprefill(params, jcfg, {"tokens": jnp.asarray(toks, jnp.int32)})
     _, tl = prefill(model, torch.as_tensor(toks))
     _close(tl, jl)
-    with pytest.raises(NotImplementedError, match="ring cache"):
-        Engine(cfg, model)
+    want = np.asarray(JEngine(jcfg, params, JServeConfig(max_len=24))
+                      .generate({"tokens": jnp.asarray(toks, jnp.int32)}, 4))
+    got = Engine(cfg, model, ServeConfig(max_len=24)).generate(
+        torch.as_tensor(toks), 4).numpy()
+    assert got.shape == want.shape == (1, 4)
+    assert ((0 <= got) & (got < cfg.vocab)).all()
