@@ -23,15 +23,18 @@ d_model 64, 4 query heads on 1 KV head of 16, window 32, lru_width 64).
   (``_merge_caches``) field by field against the reference engine's, and
   teacher-forced decode logits over steps that wrap the ring, then every
   decode cache field, at ``tests/test_torch_lm.py``'s ``ATOL`` /
-  ``MEAN_TOL``. The reference is run op by op: this config's compiled
-  reference (its layer scan fused by XLA) differs from its own op-by-op
-  run by a mean of ~0.011 in the logits (measured over 16 prompts: 0.0099
-  to 0.0129, max up to 0.079), past ``MEAN_TOL``, whatever the port does;
-  the port equals the op-by-op run but for bf16 ulp flips (a max of 0.0195
-  and a mean of at most 0.0023 in the logits of those prompts, 0 in half
-  of them). Also at 5 layers (a group and a ``tail`` of two ``rglru``
+  ``MEAN_TOL``. The reference is compiled with XLA's excess precision off
+  (``_STRICT``), so each of its bf16 steps rounds as its own op-by-op run
+  (``jax.disable_jit``) rounds it, bit for bit on these inputs. With the
+  default (bf16 intermediates kept in float32 inside a fusion) this
+  config's compiled reference differs from its op-by-op run by a mean of
+  ~0.011 in the logits (measured over 16 prompts: 0.0099 to 0.0129, max
+  up to 0.079), past ``MEAN_TOL``, whatever the port does; the port
+  equals the op-by-op run but for bf16 ulp flips (a max of 0.0195 and a
+  mean of at most 0.0023 in the logits of those prompts, 0 in half of
+  them). Also at 5 layers (a group and a ``tail`` of two ``rglru``
   blocks, the reference's ``tail_{i}``), and ``Engine.generate`` against
-  ``repro.serve.Engine``.
+  ``repro.serve.Engine`` (its compiled prefill and step the same way).
 
 The reference's parameters are rounded to bf16 where the port stores bf16
 (every leaf of more than one dim, as the reference's serving launcher casts
@@ -73,6 +76,9 @@ from repro_torch.models.model import reference_slot
 from repro_torch.serve import Engine, ServeConfig
 
 ARCH = "recurrentgemma-9b@smoke"
+#: compile the reference without excess precision: every bf16 step rounds
+#: to bf16, as in its op-by-op run
+_STRICT = dict(compiler_options={"xla_allow_excess_precision": False})
 ATOL = 0.0625
 MEAN_TOL = 0.01
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -173,23 +179,29 @@ def test_bf16_steps_equal_the_reference_op_by_op():
     a whole ``rglru_apply`` (prefill, then a decode step) does but for rare
     one-ulp flips (``_ulp_flips``); its conv window is exact."""
     jcfg, cfg, p, layer = _layer(seed=4)
-    x = 3 * _x((B, 28, 64), 5)
+    x = 3 * _x((B, 9, 64), 5)
     with jax.disable_jit():
         gj = jax.nn.gelu(jnp.asarray(x, jnp.bfloat16))
         pj = jax.tree.map(lambda a: a.astype(jnp.bfloat16) if a.ndim > 1
                           else a, p)
-        xm = jnp.asarray(_x((B, 28, cfg.d_model), 6), jnp.bfloat16)
-        yj, cj = jrglru.rglru_apply(pj, jcfg, xm, None, jnp.int32(28))
+        xm = jnp.asarray(_x((B, 9, cfg.d_model), 6), jnp.bfloat16)
+        yj, cj = jrglru.rglru_apply(pj, jcfg, xm, None, jnp.int32(9))
         xd = jnp.asarray(_x((B, 1, cfg.d_model), 7), jnp.bfloat16)
-        yj1, _ = jrglru.rglru_apply(pj, jcfg, xd, cj, jnp.int32(28))
+        yj1, _ = jrglru.rglru_apply(pj, jcfg, xd, cj, jnp.int32(9))
+    # the premise of the model-level tests: the reference compiled with
+    # ``_STRICT`` is its op-by-op run
+    ys, _ = jax.jit(lambda p, x: jrglru.rglru_apply(p, jcfg, x, None,
+                                                    jnp.int32(9)),
+                    **_STRICT)(pj, xm)
+    np.testing.assert_array_equal(_f32(ys), _f32(yj))
     got = tlayers.gelu(torch.as_tensor(x).bfloat16())
     np.testing.assert_array_equal(got.float().numpy(), _f32(gj))
     yt, ct = trglru.rglru_apply(layer, cfg, torch.as_tensor(
-        _f32(xm)).bfloat16(), None, 28)
+        _f32(xm)).bfloat16(), None, 9)
     _ulp_flips(yt, yj)
     np.testing.assert_array_equal(ct.conv.float().numpy(), _f32(cj.conv))
     yt1, _ = trglru.rglru_apply(layer, cfg, torch.as_tensor(
-        _f32(xd)).bfloat16(), LRUCache(ct.conv.clone(), ct.h.clone()), 28)
+        _f32(xd)).bfloat16(), LRUCache(ct.conv.clone(), ct.h.clone()), 9)
     _ulp_flips(yt1, yj1)
 
 
@@ -258,29 +270,41 @@ def _fields(c: HybridCache) -> list[torch.Tensor]:
 
 
 @functools.lru_cache(maxsize=None)
-def _model(n_layers=None):
-    """The reference's ``init`` tree (bf16 values) and the port's model
-    loaded from it, at the smoke config or at ``n_layers``."""
-    jcfg, cfg = _configs(n_layers)
-    # compiled: the reference's init run op by op takes ~9 s here
-    params = jax.jit(lambda k: jinit(jcfg, k)[0])(jax.random.PRNGKey(1))
-    params = _bf16_values(params)
+def _model(tail: bool = False):
+    """The reference's ``init`` tree (bf16 values), its prefill and decode
+    step compiled with ``_STRICT``, and the port's model loaded from the
+    tree: the smoke config, or (``tail``) 5 layers whose two ``tail_{i}``
+    blocks are the smoke group's recurrent blocks in the other order."""
+    if tail:
+        jcfg, cfg = _configs(5)
+        params = _model()[1]
+        params = dict(params, **{
+            f"tail_{i}": jax.tree.map(lambda a: a[0],
+                                      params["layers"][f"b{1 - i}"])
+            for i in range(2)})
+    else:
+        jcfg, cfg = _configs()
+        # compiled: the reference's init run op by op takes ~9 s here
+        params = jax.jit(lambda k: jinit(jcfg, k)[0])(jax.random.PRNGKey(1))
+        params = _bf16_values(params)
     m = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params),
                              device="cpu")
-    return jcfg, params, cfg, m
+    pre = jax.jit(lambda p, b: jprefill(p, jcfg, b), **_STRICT)
+    step = jax.jit(lambda p, c, t, pos: jdecode_step(p, jcfg, c, t, pos),
+                   **_STRICT)
+    return jcfg, params, cfg, m, pre, step
 
 
-@pytest.mark.parametrize("n_layers,S0", [(None, 28), (None, 45), (5, 45)],
+@pytest.mark.parametrize("tail,S0", [(False, 28), (False, 45), (True, 45)],
                          ids=["smoke-28", "smoke-45", "5-layers-45"])
-def test_prefill_ring_handoff_and_teacher_forced_decode(n_layers, S0):
-    jcfg, params, cfg, m = _model(n_layers)
+def test_prefill_ring_handoff_and_teacher_forced_decode(tail, S0):
+    jcfg, params, cfg, m, pre, step = _model(tail)
     toks = np.random.default_rng(S0).integers(
         0, cfg.vocab, (B, S0 + STEPS)).astype(np.int32)
     L = S0 + STEPS                      # the ring: min(L, 32) = 32 slots
     jeng = JEngine(jcfg, params, JServeConfig(max_len=L))
     teng = Engine(cfg, m, ServeConfig(max_len=L))
-    with jax.disable_jit():
-        jc, jl = jprefill(params, jcfg, {"tokens": jnp.asarray(toks[:, :S0])})
+    jc, jl = pre(params, {"tokens": jnp.asarray(toks[:, :S0])})
     tc, tl = prefill(m, torch.as_tensor(toks[:, :S0]))
     assert isinstance(tc, HybridCache)
     _close(tl, jl)
@@ -296,9 +320,7 @@ def test_prefill_ring_handoff_and_teacher_forced_decode(n_layers, S0):
         _close(got, want)
     for i in range(STEPS):  # positions S0..L-1: past 31 they wrap the ring
         tok = toks[:, S0 + i]
-        with jax.disable_jit():
-            jdec, jl = jdecode_step(params, jcfg, jdec, jnp.asarray(tok),
-                                    jnp.int32(S0 + i))
+        jdec, jl = step(params, jdec, jnp.asarray(tok), jnp.int32(S0 + i))
         tdec, tl = decode_step(m, tdec, torch.as_tensor(tok), S0 + i)
         _close(tl, jl)
     for got, want in zip(_fields(tdec), _ref_fields(cfg, jdec), strict=True):
@@ -319,35 +341,32 @@ def test_ring_place_keeps_the_last_window_positions():
 def test_generate_tokens_equal_where_the_gap_is_clear():
     """Engine.generate in both packages past the window, compared as
     ``tests/test_torch_lm.py`` compares them (up to the first step where
-    the two greedy paths part on a near tie), along the reference run op
-    by op."""
-    jcfg, params, cfg, m = _model()
+    the two greedy paths part on a near tie); the reference engine's
+    prefill and step compiled with ``_STRICT``."""
+    jcfg, params, cfg, m, pre, step = _model()
     S0, steps = 28, STEPS  # the shapes of the decode test's, compiled once
     prompt = np.random.default_rng(8).integers(
         0, cfg.vocab, (B, S0)).astype(np.int32)
     jeng = JEngine(jcfg, params, JServeConfig(max_len=S0 + steps))
-    with jax.disable_jit():
-        want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)},
-                                        steps))
+    jeng._prefill, jeng._decode = pre, step
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)}, steps))
     got = Engine(cfg, m, ServeConfig(max_len=S0 + steps)).generate(
         torch.as_tensor(prompt), steps)
     assert got.dtype == torch.int32 and got.shape == (B, steps)
     got = got.numpy()
-    with jax.disable_jit():
-        jc, jl = jprefill(params, jcfg, {"tokens": jnp.asarray(prompt)})
-        jdec, _ = jinit_cache(jcfg, B, S0 + steps)
-        jdec = jeng._merge_caches(jdec, jc, S0)
-        same = np.ones(B, bool)
-        checked = 0
-        for i in range(steps):
-            top2 = np.sort(_f32(jl), axis=-1)[:, -2:]
-            clear = same & (top2[:, 1] - top2[:, 0] > 2 * ATOL)
-            np.testing.assert_array_equal(got[clear, i], want[clear, i])
-            checked += int(clear.sum())
-            same &= got[:, i] == want[:, i]
-            jdec, jl = jdecode_step(params, jcfg, jdec,
-                                    jnp.asarray(want[:, i]),
-                                    jnp.int32(S0 + i))
+    jc, jl = pre(params, {"tokens": jnp.asarray(prompt)})
+    jdec, _ = jinit_cache(jcfg, B, S0 + steps)
+    jdec = jeng._merge_caches(jdec, jc, S0)
+    same = np.ones(B, bool)
+    checked = 0
+    for i in range(steps):
+        top2 = np.sort(_f32(jl), axis=-1)[:, -2:]
+        clear = same & (top2[:, 1] - top2[:, 0] > 2 * ATOL)
+        np.testing.assert_array_equal(got[clear, i], want[clear, i])
+        checked += int(clear.sum())
+        same &= got[:, i] == want[:, i]
+        jdec, jl = step(params, jdec, jnp.asarray(want[:, i]),
+                        jnp.int32(S0 + i))
     assert checked > 0
 
 

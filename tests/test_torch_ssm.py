@@ -19,8 +19,9 @@ against the live JAX package at ``mamba2-370m@smoke`` (2 layers, d_model
   the reference (its layer scan compiled, as it serves) at
   ``tests/test_torch_lm.py``'s ``ATOL`` / ``MEAN_TOL`` and for its reasons,
   at prompts of 20 (one padded chunk) and 45 (two chunks); the prefill's
-  logits also against the reference run op by op, where a bf16 ulp may
-  flip in a logit at most. ``Engine.generate`` against
+  logits also against the reference compiled with XLA's excess precision
+  off (``_STRICT``: each bf16 step rounded, as in its op-by-op run), where
+  a bf16 ulp may flip in a logit at most. ``Engine.generate`` against
   ``repro.serve.Engine``.
 
 The reference's parameters are rounded to bf16 where the port stores bf16
@@ -55,6 +56,9 @@ from repro_torch.models import ssm as tssm
 from repro_torch.serve import Engine, ServeConfig
 
 ARCH = "mamba2-370m@smoke"
+#: compile the reference without excess precision: every bf16 step rounds
+#: to bf16, as in its op-by-op run
+_STRICT = dict(compiler_options={"xla_allow_excess_precision": False})
 ATOL = 0.0625
 MEAN_TOL = 0.01
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -173,6 +177,10 @@ def test_bf16_steps_equal_the_reference_op_by_op():
     yt, _ = tssm.mamba2_apply(layer, cfg, torch.as_tensor(
         _f32(xm)).bfloat16())
     _ulp_flips(yt, yj)
+    # the reference compiled with ``_STRICT`` is its op-by-op run
+    ys, _ = jax.jit(lambda p, x: jssm.mamba2_apply(p, jcfg, x), **_STRICT)(
+        pj, xm)
+    np.testing.assert_array_equal(_f32(ys), _f32(yj))
 
 
 def _ulp_flips(got: torch.Tensor, want, share: float = 1e-3) -> None:
@@ -218,8 +226,8 @@ def test_prefill_cache_and_teacher_forced_decode(model, S0):
     _close(tl, jl)
     _close(tc.conv, jc["layers"]["b0"]["ssm"].conv)
     _close(tc.state, jc["layers"]["b0"]["ssm"].state)
-    with jax.disable_jit():
-        _, jl_op = jprefill(params, jcfg, batch)
+    _, jl_op = jax.jit(lambda p, b: jprefill(p, jcfg, b), **_STRICT)(
+        params, batch)
     d = np.abs(tl.float().numpy() - _f32(jl_op))
     assert d.max() <= 2.0 ** -6 and d.mean() <= 1e-4, (d.max(), d.mean())
 
