@@ -69,9 +69,11 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
     stacked ``[n, ...]`` under ``layers.b{j}`` (block j of group g is layer
     ``g * period + j``, after the leading dense layers ``lead_{i}``), the
     hybrid's remainder under ``tail_{i}``, the ``attn``/``mlp``/``moe``/
-    ``ssm``/``lru`` leaves of each block; matrices rounded to bf16 (as the
-    reference's launcher casts every parameter of more than one dim), the
-    rest kept in float32."""
+    ``ssm``/``lru`` leaves of each block and a ``dec`` block's ``lnx`` and
+    ``xattn``; ``pos_embed``; an encoder's blocks stacked ``[enc_layers,
+    ...]`` under ``enc_layers`` (not under ``b{j}``) and ``enc_ln``;
+    matrices rounded to bf16 (as the reference's launcher casts every
+    parameter of more than one dim), the rest kept in float32."""
     from repro_torch.models import LM
     from repro_torch.models.model import reference_slot
 
@@ -94,8 +96,15 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
         if model.head is not None:
             load(model.head, tree["head"])
         load(model.final_ln, tree["final_ln"])
-        for i, block in enumerate(model.layers):
-            path, j = reference_slot(cfg, i)
+        if model.pos_embed is not None:
+            load(model.pos_embed, tree["pos_embed"])
+        blocks = [(b, *reference_slot(cfg, i))
+                  for i, b in enumerate(model.layers)]
+        if model.enc_layers is not None:
+            load(model.enc_ln, tree["enc_ln"])
+            blocks += [(b, "enc_layers", g)
+                       for g, b in enumerate(model.enc_layers)]
+        for block, path, j in blocks:
             sub = leaf(tree, path, None)
             for name, w in block.named_parameters():
                 load(w, leaf(sub, name, j))

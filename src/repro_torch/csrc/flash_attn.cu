@@ -1,6 +1,6 @@
-// flash_attn: the float32 route of kernel K5 (causal online-softmax
-// attention for the LM prefill, optionally over a sliding window), on the
-// CUDA cores.
+// flash_attn: the float32 route of kernel K5 (online-softmax attention for
+// the LM prefill: causal, optionally over a sliding window, or
+// bidirectional), on the CUDA cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/kernel.py::
 // flash_attention (body _body; wrapper ops.py::flash_attention). Plain
@@ -14,8 +14,10 @@
 // it), o [B, S, H, DV] with
 //   o[b, i, h] = sum_{i - W < j <= i} softmax_j((q[b, i, h] * scale) .
 //                k[b, j, g]) * v[b, j, g],      g = h / (H / KH),
-// W the sliding window (none when the caller passes W <= 0), with the
-// logits of masked keys set to -2e38 (not -inf), a running max,
+// W the sliding window (none when the caller passes W <= 0); without
+// causality (causal = 0, the whisper encoder's attention) the sum runs
+// over every key j < S and there is no window. The logits of masked keys
+// are set to -2e38 (not -inf), with a running max,
 // sum and accumulator in float32, and o = acc / max(l, 1e-30). The caller
 // gives the scale (1/sqrt(DQK) by default in the wrapper).
 //
@@ -24,17 +26,19 @@
 // float32 CUDA-core peak; its arithmetic is float32 on the CUDA cores.
 //
 // Design: one block of 256 threads per (query tile of 64 rows, batch*head).
-// The scaled query tile stays in shared memory; for each key tile
-// of 64 positions at or below the tile's last row (tiles past the diagonal
-// are fully masked and skipped: they would add exp(-2e38 - m) = 0 with
-// alpha = 1) and from the tile that holds the first row's first key in the
-// window (masked keys before a row's first real one add exp(0) = 1 each
-// until its alpha = exp(-2e38 - m) = 0 wipes them), the K and V rows of KV head g are staged in shared memory,
-// read in place from the [B, S, KH, DQK] and [B, S, KH, DV] layouts (no
-// repeat to H heads: 4x fewer K/V bytes at H/KH = 4). Each thread owns 4
-// query rows and computes a 4 x 4 block of the 64 x 64 logits, then 4 rows
-// x DV/16 columns of the output; a row's max and sum are reduced over the
-// 16 lanes that share it with warp shuffles. Keys at or past S are masked and read as 0,
+// The scaled query tile stays in shared memory; for each key tile of 64
+// positions at or below the tile's last row (tiles past the diagonal are
+// fully masked and skipped: they would add exp(-2e38 - m) = 0 with
+// alpha = 1; without causality every key tile is read) and from the tile
+// that holds the first row's first key in the window (masked keys before a
+// row's first real one add exp(0) = 1 each until its alpha =
+// exp(-2e38 - m) = 0 wipes them), the K and V rows of KV head g are staged
+// in shared memory, read in place from the [B, S, KH, DQK] and
+// [B, S, KH, DV] layouts (no repeat to H heads: 4x fewer K/V bytes at
+// H/KH = 4). Each thread owns 4 query rows and computes a 4 x 4 block of
+// the 64 x 64 logits, then 4 rows x DV/16 columns of the output; a row's
+// max and sum are reduced over the 16 lanes that share it with warp
+// shuffles. Keys at or past S are masked (causal or not) and read as 0,
 // and rows at or past S are not written, so no input is padded. Rows of the
 // query tiles nearest the end of the sequence are launched first (they have
 // the most key tiles). Shared-memory rows are padded by one float against
@@ -57,7 +61,7 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o, int S,
-                  int H, int KH, int window, float scale) {
+                  int H, int KH, int window, int causal, float scale) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims");
   constexpr int kQS = DQK + 1;  // row strides in shared memory
   constexpr int kKS = DQK + 1;
@@ -101,8 +105,10 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
 
-  const int last = min(q0 + kBQ, S) - 1;  // the tile's last valid row
-  const int first = max(0, q0 - window + 1) / kBK * kBK;  // its first key tile
+  // the last key the tile's rows see (its last valid row, or S - 1 without
+  // causality), and the first key tile of its first row's window
+  const int last = causal ? min(q0 + kBQ, S) - 1 : S - 1;
+  const int first = max(0, q0 - window + 1) / kBK * kBK;
   for (int k0 = first; k0 <= last; k0 += kBK) {
     __syncthreads();  // the previous tile's ks/vs/ps are consumed
     for (int e = tid; e < kBK * DQK; e += kThreads) {
@@ -140,7 +146,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        if (kp > qp || kp >= S || kp <= qp - window) sc[i][j] = kNegInf;
+        if ((causal && kp > qp) || kp >= S || kp <= qp - window)
+          sc[i][j] = kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
       // the 16 lanes of a row group hold the row's 64 logits
@@ -193,7 +200,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int window, float scale, cudaStream_t stream) {
+           int H, int KH, int window, int causal, float scale,
+           cudaStream_t stream) {
   constexpr int bytes = smem_floats<DQK, DV>() * (int)sizeof(float);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
@@ -207,7 +215,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
   flash_attn_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH,
-      window, scale);
+      window, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -216,24 +224,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv],
 // contiguous float32; (dqk, dv) one of (16, 16), (64, 64), (128, 128),
 // (256, 256), (96, 64), (192, 128), (32, 16); KH divides H; window the
-// sliding window in positions, or <= 0 for none. Anything else returns
+// sliding window in positions, or <= 0 for none; causal 1 for the causal
+// mask, 0 for none (then the window is ignored). Anything else returns
 // cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
                                  void* o, int B, int S, int H, int KH, int dqk,
-                                 int dv, int window, float scale,
+                                 int dv, int window, int causal, float scale,
                                  void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || S > 65535 * kBQ)
     return (int)cudaErrorInvalidValue;
-  if (window <= 0 || window >= S) window = 1 << 30;  // no key outside it
+  causal = causal != 0;
+  // no window (or one without causality): no key outside it
+  if (!causal || window <= 0 || window >= S) window = 1 << 30;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

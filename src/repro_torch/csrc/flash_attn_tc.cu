@@ -1,6 +1,6 @@
-// flash_attn_tc: the bf16 route of kernel K5 (causal online-softmax
-// attention for the LM prefill, optionally over a sliding window) on Hopper
-// tensor cores.
+// flash_attn_tc: the bf16 route of kernel K5 (online-softmax attention for
+// the LM prefill: causal, optionally over a sliding window, or
+// bidirectional) on Hopper tensor cores.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attn/kernel.py::
 // flash_attention (body _body; wrapper ops.py::flash_attention) for bf16
@@ -16,7 +16,9 @@
 // W the sliding window (the mask of the reference's _sdpa: kpos <= qpos and
 // kpos > qpos - W; no window when the caller passes W <= 0), masked logits
 // at -2e38, the softmax in float32, and o = bf16_rne(acc / max(l, 1e-30)).
-// The caller gives the scale.
+// Without causality (causal = 0: the whisper encoder's self-attention) the
+// sum runs over every key j < S and there is no window. The caller gives
+// the scale.
 //
 // What bounds it: at the prefill's shape (B 4, S 2048, H 32, KH 8, hd 128)
 // 2*B*H*S^2*hd = 1.37e11 causal operations, 0.139 ms at the bf16
@@ -50,16 +52,21 @@
 //   holds 2 rows x BK/4 keys; the row max is reduced over the 4 lanes of a
 //   quad with shuffles, the row sum is kept per thread and reduced once at
 //   the end. The scale is applied to the float32 logits inside
-//   exp2(s * scale*log2(e) - m * scale*log2(e)). Keys past the diagonal,
-//   at or past S, or at or before a row's position minus W are set to
-//   -2e38 in the tiles that reach them; key tiles wholly past a
-//   warpgroup's last row are skipped (they would add exp(-2e38 - m) = 0
-//   with alpha = 1), and so are key tiles wholly before its first row's
-//   window: the producer starts at the block's first needed tile, and a
-//   warpgroup whose window starts a tile later waits for and releases the
-//   tiles it skips (the ring's stages and phases count from the block's
-//   first tile). While a row has seen masked keys only, its max is -2e38
-//   and they add exp2(-2e38 c) = 0, as the plain softmax weighs them.
+//   exp2(s * scale*log2(e) - m * scale*log2(e)). Keys past the diagonal
+//   (when causal), at or past S, or at or before a row's position minus W
+//   are set to -2e38 in the tiles that reach them: TMA fills the keys past
+//   S of the last tile with zeros, which would otherwise take softmax mass
+//   (at S = 1500, 36 zero keys). Without causality every warpgroup reads
+//   every key tile, rows at or past S too (so every warp releases every
+//   stage it is given), and only a last tile that reaches past S is
+//   masked. Causal: key tiles wholly past a warpgroup's last row are
+//   skipped (they would add exp(-2e38 - m) = 0 with alpha = 1), and so
+//   are key tiles wholly before its first row's window: the producer
+//   starts at the block's first needed tile, and a warpgroup whose window
+//   starts a tile later waits for and releases the tiles it skips (the
+//   ring's stages and phases count from the block's first tile). While a
+//   row has seen masked keys only, its max is -2e38 and they add
+//   exp2(-2e38 c) = 0, as the plain softmax weighs them.
 // - O += P.V: P never goes to shared memory. The accumulator fragment of S
 //   is, element for element, the bf16 A-register fragment of the next
 //   product. P is split into hi = bf16(P) and lo = bf16(P - hi) and both
@@ -379,10 +386,12 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
 // new row max over the quad, p = exp2(s * c - m * c) with c = scale *
 // log2(e), and this thread's share of the row sum. Returns the factors
 // alpha that rescale the earlier sums and outputs.
+// Rows r0 and r1 of the thread see keys in (lo, last]: last the row
+// itself (causal) or S - 1, at most S - 1; lo the row minus the window.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0,
-                                             bool masked, int row0, int row1,
-                                             int S, int window, int col_of,
+                                             bool masked, int last0, int last1,
+                                             int lo0, int lo1, int col_of,
                                              float scale_log2, Rows& st,
                                              float& alpha0, float& alpha1) {
   if (masked) {
@@ -391,10 +400,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0,
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int col = k0 + 8 * i + col_of + e;
-        if (col > row0 || col >= S || col <= row0 - window)
-          s[4 * i + e] = kNegInf;
-        if (col > row1 || col >= S || col <= row1 - window)
-          s[4 * i + 2 + e] = kNegInf;
+        if (col > last0 || col <= lo0) s[4 * i + e] = kNegInf;
+        if (col > last1 || col <= lo1) s[4 * i + 2 + e] = kNegInf;
       }
   }
   float mx0 = st.m0, mx1 = st.m1;
@@ -456,7 +463,8 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      __nv_bfloat16* __restrict__ o, int S, int H, int KH,
-                     int BH, int nq, int window, float scale_log2) {
+                     int BH, int nq, int window, int causal,
+                     float scale_log2) {
   using T = Tiles<DQK, DV>;
   using QK = typename T::QK;
   using VC = typename T::V;
@@ -480,8 +488,9 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int g = h / (H / KH);
   const int q0 = tile * kBQ;
   // key tiles of the block: from the first row's window to the last row
+  // (to the last key without causality)
   const int jb = max(0, q0 - window + 1) / BK;
-  const int nk = (min(q0 + kBQ, S) - 1) / BK + 1;
+  const int nk = ((causal ? min(q0 + kBQ, S) : S) - 1) / BK + 1;
   // tile j sits in stage (j - jb) % kS, in that stage's phase (j - jb) / kS
   auto stage = [&](int j) { return (j - jb) % kS; };
   auto phase = [&](int j) { return static_cast<uint32_t>((j - jb) / kS) & 1u; };
@@ -529,11 +538,16 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int r = (t / 32) * 16 + lane / 4;
   const int row0 = q0 + wg * 64 + r, row1 = row0 + 8;
   const int wg_first = q0 + wg * 64;
-  const int nkw = min(wg_first + 63, S - 1) / BK + 1;  // <= nk
+  const int nkw =  // <= nk; nk itself without causality
+      (causal ? min(wg_first + 63, S - 1) : S - 1) / BK + 1;
   // the first tile that holds a key of the warpgroup's first row's window
-  // (a warpgroup wholly at or past S takes its last tile alone)
+  // (a causal warpgroup wholly at or past S takes its last tile alone)
   const int jw = min(max(0, wg_first - window + 1) / BK, nkw - 1);  // >= jb
   const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
+  // the keys rows row0 and row1 see: (lo, last]
+  const int last0 = causal ? min(row0, S - 1) : S - 1;
+  const int last1 = causal ? min(row1, S - 1) : S - 1;
+  const int lo0 = row0 - window, lo1 = row1 - window;
 
   const uint32_t qa = qs + wg * 64 * QK::kRowBytes;  // this warpgroup's rows
   float oacc[DV / 2];
@@ -543,10 +557,10 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   float sacc[BK / 2];
   uint32_t phi[BK / 16][4], plo[BK / 16][4];
   float alpha0, alpha1;
-  // a tile reaches past the first row's diagonal or S, or holds a key at
-  // or before the last row's position minus the window
+  // a tile reaches past the first row's diagonal (when causal) or S, or
+  // holds a key at or before the last row's position minus the window
   auto masked = [&](int k0) {
-    return k0 + BK - 1 > wg_first || k0 + BK > S ||
+    return (causal && k0 + BK - 1 > wg_first) || k0 + BK > S ||
            k0 <= wg_first + 63 - window;
   };
   auto release = [&](int st) {  // this warp is done with stage st
@@ -580,8 +594,8 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     wgmma_commit();
     wgmma_wait<0>();
     keep(sacc);
-    softmax_tile<BK>(sacc, jw * BK, masked(jw * BK), row0, row1, S, window,
-                     col_of, scale_log2, st_rows, alpha0, alpha1);
+    softmax_tile<BK>(sacc, jw * BK, masked(jw * BK), last0, last1, lo0,
+                     lo1, col_of, scale_log2, st_rows, alpha0, alpha1);
     split_p<BK>(sacc, phi, plo);
 
     // tile j < last: issue S(j + 1) = Q.K(j + 1)^T, then O += P(j).V(j);
@@ -601,8 +615,8 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
       wgmma_wait<1>();  // S(j + 1) is in; P(j).V(j) may still run
       keep(sacc);
-      softmax_tile<BK>(sacc, (j + 1) * BK, masked((j + 1) * BK), row0, row1,
-                       S, window, col_of, scale_log2, st_rows, alpha0,
+      softmax_tile<BK>(sacc, (j + 1) * BK, masked((j + 1) * BK), last0,
+                       last1, lo0, lo1, col_of, scale_log2, st_rows, alpha0,
                        alpha1);
       wgmma_wait<0>();
       keep(oacc);
@@ -638,7 +652,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
       wgmma_wait<0>();
       keep(sacc);
-      softmax_tile<BK>(sacc, j * BK, masked(j * BK), row0, row1, S, window,
+      softmax_tile<BK>(sacc, j * BK, masked(j * BK), last0, last1, lo0, lo1,
                        col_of, scale_log2, st_rows, alpha0, alpha1);
       rescale();
       split_p<BK>(sacc, phi, plo);
@@ -731,7 +745,8 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int window, float scale, cudaStream_t stream) {
+           int H, int KH, int window, int causal, float scale,
+           cudaStream_t stream) {
   using T = Tiles<DQK, DV>;
   CUtensorMap mq, mk, mv;
   if (!encode<DQK>(&mq, q, B, S, H, T::kBQ) ||
@@ -752,7 +767,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   flash_attn_tc_kernel<DQK, DV><<<(unsigned)blocks, T::kThreads,
                                   T::kSmemBytes, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, S,
                                             H, KH, B * H, nq, window,
-                                            scale * kLog2e);
+                                            causal, scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -761,29 +776,32 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv]:
 // contiguous bfloat16, 16-byte aligned; (dqk, dv) one of (16, 16),
 // (64, 64), (128, 128), (256, 256), (96, 64), (192, 128), (32, 16); KH
-// divides H; window the sliding window in positions, or <= 0 for none.
+// divides H; window the sliding window in positions, or <= 0 for none;
+// causal 1 for the causal mask, 0 for none (then the window is ignored).
 // Anything else returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                                     const void* v, void* o, int B, int S,
                                     int H, int KH, int dqk, int dv,
-                                    int window, float scale, void* stream) {
+                                    int window, int causal, float scale,
+                                    void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorInvalidValue;
-  // no window, or one that covers the sequence: no key is outside it, and
-  // no tile is masked for it
-  if (window <= 0 || window >= S) window = 1 << 30;
+  // no window, one that covers the sequence, or no causality: no key is
+  // outside it, and no tile is masked for it
+  causal = causal != 0;
+  if (!causal || window <= 0 || window >= S) window = 1 << 30;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,8 +6,9 @@
 - ``pareto_count``   strict-dominance counts (Pallas ``pareto_count``)
 - ``round_fused``    one incremental acquisition round over the chunked pool
                      (Pallas ``round_fused``)
-- ``flash_attn``     causal attention of the LM prefill (Pallas ``flash_attn``):
-                     bf16 on the tensor cores, float32 on the CUDA cores
+- ``flash_attn``     attention of the LM prefill, causal or bidirectional
+                     (Pallas ``flash_attn``): bf16 on the tensor cores,
+                     float32 on the CUDA cores
 - ``build``          ``nvcc`` build of ``csrc/`` into one ctypes-loaded library
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it

@@ -42,8 +42,8 @@ SIGNATURES = {
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pareto_count_launch": [_P, _P] + [_I] * 8 + [_P],
     "round_fused_launch": [_P] * 15 + [_I] * 14 + [_P],
-    "flash_attn_launch": [_P] * 4 + [_I] * 7 + [_F, _P],
-    "flash_attn_tc_launch": [_P] * 4 + [_I] * 7 + [_F, _P],
+    "flash_attn_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
+    "flash_attn_tc_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
     "flash_attn_tc_smem_bytes": [_I, _I],
 }
 

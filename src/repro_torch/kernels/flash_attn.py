@@ -1,13 +1,16 @@
-"""``flash_attn``: causal attention for the LM prefill (kernel K5).
+"""``flash_attn``: attention for the LM prefill (kernel K5).
 
 :func:`flash_attention` computes, for ``q`` [B, S, H, Dqk], ``k`` [B, S,
 K, Dqk] and ``v`` [B, S, K, Dv] with K dividing H (query head h reads KV
 head h // (H/K), the function of the reference's ``_repeat_kv`` without the
-repeat), causal softmax attention with scale 1/√Dqk unless ``scale`` is
-given, over the last ``window`` keys of each query when a window is given
-(the reference's ``_sdpa`` mask: key j is seen by query i when j <= i and
-j > i - window): masked logits are set to ``-2e38``, the softmax is taken
-in float32, and the output [B, S, H, Dv] has ``q``'s dtype. Dqk ≠ Dv is MLA's
+repeat), softmax attention with scale 1/√Dqk unless ``scale`` is given:
+causal by default, over the last ``window`` keys of each query when a
+window is given (the reference's ``_sdpa`` mask: key j is seen by query i
+when j <= i and j > i - window), or over all S keys with ``causal=False``
+(the whisper encoder's self-attention, as ``ref.py`` and ``_sdpa`` compute
+it; a window is refused there, since ``_sdpa`` applies one only under its
+causal mask). Masked logits are set to ``-2e38``, the softmax is taken in
+float32, and the output [B, S, H, Dv] has ``q``'s dtype. Dqk ≠ Dv is MLA's
 un-absorbed prefill (q·k over the nope + rope dims, v at its own width).
 On a CPU tensor it runs :func:`flash_attention_plain`; on a CUDA tensor it
 launches the kernel of the inputs' dtype or raises. Each dtype has one
@@ -38,12 +41,15 @@ from . import build
 from ._common import COUNT_LOCK, on_cpu
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
-           "NEG_INF", "ROUTES", "launches", "route_launches"]
+           "NEG_INF", "ROUTES", "launches", "route_launches",
+           "class_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
 #: the same launches by route (keys of ``ROUTES``)
 route_launches = {"tensor_core": 0, "cuda_core": 0}
+#: the same launches by mask: causal (with or without a window) or not
+class_launches = {"causal": 0, "noncausal": 0}
 
 #: the (q·k head dim, v head dim) pairs the kernels are built for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (96, 64),
@@ -58,13 +64,14 @@ ROUTES = {torch.bfloat16: ("tensor_core", "flash_attn_tc_launch",
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, scale: float | None = None,
-                          window: int | None = None) -> torch.Tensor:
+                          window: int | None = None,
+                          causal: bool = True) -> torch.Tensor:
     """The materialized softmax of ``repro/kernels/flash_attn/ref.py``: the
     float32 logits ``(q·kᵀ)·scale`` [B, H, S, S] (scale 1/√Dqk by default),
     causal mask to ``-2e38`` (keys j <= i, and j > i - ``window`` when a
-    window is given, as the reference's ``_sdpa`` masks them), softmax,
-    ``·v`` [B, S, K, Dv], cast to ``q``'s dtype. K/V heads are repeated to
-    H."""
+    window is given, as the reference's ``_sdpa`` masks them; no mask with
+    ``causal=False``), softmax, ``·v`` [B, S, K, Dv], cast to ``q``'s dtype.
+    K/V heads are repeated to H."""
     B, S, H, dqk = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
@@ -73,17 +80,18 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
     vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    mask = ones.tril()
-    if window:
-        mask &= ~ones.tril(-window)
-    logits = torch.where(mask, logits, NEG_INF)
+    if causal:
+        ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        mask = ones.tril()
+        if window:
+            mask &= ~ones.tril(-window)
+        logits = torch.where(mask, logits, NEG_INF)
     out = torch.matmul(torch.softmax(logits, dim=-1), vf)
     return out.transpose(1, 2).to(q.dtype)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           window: int | None) -> None:
+           window: int | None, causal: bool) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"flash_attention: {name} must be a torch.Tensor")
@@ -110,19 +118,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None and (not isinstance(window, int) or window < 1):
         raise ValueError(f"flash_attention: window must be a positive int "
                          f"or None, got {window!r}")
+    if window is not None and not causal:
+        raise ValueError("flash_attention: a window needs the causal mask "
+                         "(the reference's _sdpa applies one only with it)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None,
-                    window: int | None = None) -> torch.Tensor:
-    """Causal attention (over the last ``window`` keys when given),
-    ``[B, S, H, Dv]`` out; see the module docstring."""
+                    scale: float | None = None, window: int | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal attention (over the last ``window`` keys when given), or
+    bidirectional with ``causal=False``; ``[B, S, H, Dv]`` out; see the
+    module docstring."""
     global launches
-    _check(q, k, v, window)
+    causal = bool(causal)
+    _check(q, k, v, window, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, scale, window)
+        return flash_attention_plain(q, k, v, scale, window, causal)
     B, S, H, dqk = q.shape
     dv = v.shape[3]
     out = q.new_empty((B, S, H, dv))
@@ -134,9 +147,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     route, fn, _ = ROUTES[q.dtype]
     err = getattr(build.library(), fn)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], dqk, dv, window or 0, scale, build.stream_ptr(q))
+        k.shape[2], dqk, dv, window or 0, int(causal), scale,
+        build.stream_ptr(q))
     build.check(err, f"flash_attn ({route})")
     with COUNT_LOCK:
         launches += 1
         route_launches[route] += 1
+        class_launches["causal" if causal else "noncausal"] += 1
     return out

@@ -1,7 +1,8 @@
-"""Attention for the dense and hybrid families, ``repro.models.attention``
-on PyTorch: grouped-query attention (GQA, with qk-norm, rotary embeddings
-and, in recurrentgemma-9b, a sliding window over a ring cache) and
-multi-head latent attention (MLA, DeepSeek's, as minicpm3-4b runs it).
+"""Attention for every family, ``repro.models.attention`` on PyTorch:
+grouped-query attention (GQA, with qk-norm, rotary embeddings, in
+recurrentgemma-9b a sliding window over a ring cache, and in whisper-tiny
+bidirectional without rope) and multi-head latent attention (MLA,
+DeepSeek's, as minicpm3-4b runs it).
 
 Dispatch follows the port's device rule:
 
@@ -12,7 +13,9 @@ Dispatch follows the port's device rule:
   K5 (:func:`repro_torch.kernels.flash_attn.flash_attention`), reading KV
   head h // (H/K) in place of the repeat, with the config's sliding window
   when it has one (the mask of ``_sdpa``: key j is seen by query i when
-  j <= i and j > i - window).
+  j <= i and j > i - window). Bidirectional prefill (``causal=False``, the
+  whisper encoder) runs K5 with ``causal=False`` and no window, whatever
+  the positions: without the causal mask they do not enter it.
 - Single-query decode (``Sq == 1`` with the ``valid_to`` mask) runs as plain
   torch ops on both devices: the reference computes it outside any kernel.
   With a window the decode cache is a ring of ``window`` slots (position p
@@ -26,14 +29,17 @@ Dispatch follows the port's device rule:
   when nope + rope is not a multiple of 16 (the smoke dims, 24) q and k are
   zero-padded to the next one (also for an ``attention=`` function on the
   CPU), which leaves every q·k unchanged.
-- Bidirectional attention or other positions on CUDA raise
-  ``NotImplementedError``; they never drop to the plain version.
+- Causal prefill at other positions on CUDA raises
+  ``NotImplementedError``; it never drops to the plain version.
+- Cross-attention (the whisper decoder's queries over the encoder's K/V,
+  Sq ≠ Sk) is not here: :mod:`.model` runs it as plain ``_sdpa`` on both
+  devices, as the reference computes it outside any kernel.
 
-Only ``attention=`` changes what causal prefill runs: a function with K5's
+Only ``attention=`` changes what prefill runs: a function with K5's
 signature (``q`` [B,S,H,Dqk], ``k`` [B,S,K,Dqk], ``v`` [B,S,K,Dv],
-``scale=``, and ``window=`` when the config has a window) used in its
-place, as the tests and ``chip_smoke.py`` pass K5's plain version to
-compare.
+``scale=``, ``window=`` when the config has a window and ``causal=False``
+for a bidirectional layer) used in its place, encoder and decoder alike,
+as the tests and ``chip_smoke.py`` pass K5's plain version to compare.
 
 The decode cache is written in place (the reference's ``_scatter_time``
 returns a new array with the same values).
@@ -99,9 +105,10 @@ class GQAttention(torch.nn.Module):
                 rms_norm_init_(w)
 
     def forward(self, x, positions, cache=None, cache_pos=None, *,
+                causal: bool = True, use_rope: bool = True,
                 attention: Optional[Attention] = None):
         return gqa_apply(self, self.cfg, x, positions, cache, cache_pos,
-                         attention=attention)
+                         causal, use_rope, attention=attention)
 
 
 def _pick_chunk(sk: int, target: int = 1024, threshold: int = 4096) -> int:
@@ -192,18 +199,20 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
         return _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), scale,
                      qpos=positions, kpos=positions, causal=causal,
                      window=cfg.window)
-    if not causal:
-        raise _not_ported("bidirectional attention")
     B, S = q.shape[:2]
-    # the kernel's mask is the causal one over positions arange(S): given
-    # positions are checked on the device (a synchronize); the model's
-    # prefill passes None, so its layers check nothing
-    if not from_zero and not torch.equal(positions, torch.arange(
+    # the kernel's causal mask is over positions arange(S): given positions
+    # are checked on the device (a synchronize); the model's prefill passes
+    # None, so its layers check nothing. A bidirectional call's mask does
+    # not depend on them (and _sdpa applies a window only under causal).
+    if causal and not from_zero and not torch.equal(positions, torch.arange(
             S, dtype=positions.dtype, device=positions.device).expand(B, S)):
         raise _not_ported("prefill at positions other than arange(S)")
-    window = {"window": cfg.window} if cfg.window else {}
+    if not causal:
+        kw = {"causal": False}
+    else:
+        kw = {"window": cfg.window} if cfg.window else {}
     return (attention or flash_attn.flash_attention)(q, k, v, scale=scale,
-                                                     **window)
+                                                     **kw)
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
@@ -214,10 +223,12 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
               ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """x [B, S, d] at ``positions`` [B, S] (None: a prefill at positions
     arange(S), as the model's prefill runs it); prefill when ``cache`` is
-    None (causal; returns the layer's KVCache when ``cache_pos`` is given),
-    else one-step decode (S == 1) writing k/v into ``cache`` in place at
-    slot ``cache_pos`` (slot ``cache_pos % window`` of a ring when the
-    config has a sliding window)."""
+    None (causal, or bidirectional with ``causal=False``; returns the
+    layer's KVCache when ``cache_pos`` is given), else one-step decode
+    (S == 1) writing k/v into ``cache`` in place at slot ``cache_pos`` (slot
+    ``cache_pos % window`` of a ring when the config has a sliding window).
+    ``causal=False`` and ``use_rope=False`` serve the whisper encoder
+    (bidirectional, absolute positions); its decoder runs without rope."""
     B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     from_zero = positions is None
@@ -237,7 +248,7 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
         k = rope(k, positions, cfg.rope_theta)
     scale = 1.0 / math.sqrt(hd)
 
-    if cache is None:  # prefill: causal (+ window) mask
+    if cache is None:  # prefill: causal (+ window) mask, or none
         out = _prefill_attention(q, k, v, positions, cfg, causal, scale,
                                  attention, from_zero)
         new_cache = KVCache(k, v) if cache_pos is not None else None

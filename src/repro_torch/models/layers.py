@@ -13,7 +13,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dense_init_", "embedding_init_", "rms_norm_init_", "rms_norm",
+__all__ = ["dense_init_", "embedding_init_", "normal_init_",
+           "rms_norm_init_", "rms_norm",
            "rope", "gated_mlp", "embed", "lm_head", "GatedMLP", "param",
            "silu", "gelu", "softplus"]
 
@@ -62,11 +63,16 @@ def dense_init_(w: torch.Tensor, generator: torch.Generator,
 
 
 @torch.no_grad()
+def normal_init_(w: torch.Tensor, generator: torch.Generator,
+                 scale: float) -> torch.Tensor:
+    """A standard normal times ``scale``."""
+    return _fill_(w, lambda buf: buf.normal_(generator=generator), scale)
+
+
 def embedding_init_(w: torch.Tensor, generator: torch.Generator
                     ) -> torch.Tensor:
     """``embedding_init``: a standard normal times ``1/sqrt(d)``."""
-    return _fill_(w, lambda buf: buf.normal_(generator=generator),
-                  1.0 / math.sqrt(w.shape[1]))
+    return normal_init_(w, generator, 1.0 / math.sqrt(w.shape[1]))
 
 
 @torch.no_grad()

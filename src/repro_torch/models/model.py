@@ -1,7 +1,7 @@
-"""Model assembly for the dense, MoE, SSM and hybrid plans: ``ArchConfig``
--> an ``LM`` module and its ``prefill`` / ``decode_step`` / ``init_cache``.
+"""Model assembly for every family of the registry: ``ArchConfig`` -> an
+``LM`` module and its ``prefill`` / ``decode_step`` / ``init_cache``.
 
-A port of ``repro.models.model``. Each block is one of four kinds
+A port of ``repro.models.model``. Each decoder block is one of five kinds
 (``layer_kinds``), the reference's ``_plan``:
 
 - ``attn_mlp``: pre-norm GQA or MLA attention, then a gated MLP (of
@@ -14,19 +14,37 @@ A port of ``repro.models.model``. Each block is one of four kinds
 - ``rglru``: pre-norm RG-LRU (:mod:`.rglru`), then a pre-norm gated MLP.
   The ``hybrid`` family (recurrentgemma-9b) runs groups of (``rglru``,
   ``rglru``, ``attn_mlp``) with ``attn_period`` 3, the remainder as the
-  reference's ``tail_{i}`` blocks; its attention has a sliding window.
+  reference's ``tail_{i}`` blocks; its attention has a sliding window;
+- ``dec``: the ``attn_mlp`` layout with a cross-attention sub-block
+  (``lnx``, ``xattn``) between the attention and the MLP: every layer of
+  the ``audio`` family (whisper-tiny), whose decoder runs without rope.
+
+The ``audio`` family also has an encoder: ``enc_layers`` blocks of kind
+``enc`` (the ``attn_mlp`` layout, bidirectional, no rope) over the
+precomputed frame embeddings plus a float32 sinusoid (``_sinusoid``), then
+``enc_ln``. The prefill computes each decoder layer's cross K/V from the
+encoder's output once (``_enc_kv``); cross-attention is the reference's
+``_sdpa`` without a mask, in plain torch on both devices (Sq ≠ Sk, outside
+any kernel in the reference too). A config with ``max_pos`` adds learned
+absolute positions (``pos_embed``) to the token embeddings. The ``vlm``
+family (pixtral-12b) is the dense plan whose prompt's first
+min(``n_patches``, S) slots take the given patch embeddings in place of
+the tokens' (``images``).
 
 The reference scans stacked layers (``layers.b{j}``) and keeps the others
 outside its scan (``lead_{i}``, ``tail_{i}``); here ``_forward`` loops over
 one ``nn.ModuleList`` of all blocks in layer order. The parameter layout is
 the reference's ``init`` tree with the stacks split into one block per
 layer (``reference_slot``): ``embed`` [V, d], ``head`` [d, V] (untied),
-``final_ln`` [d] and, per block, ``ln1``, then ``attn.{wq,wk,wv,wo,q_norm,
-k_norm}`` (GQA) or ``attn.{wq_a,wq_b,wq,wkv_a,wkv_b,wo,kv_norm}`` (MLA),
-``ln2`` and ``mlp.{wg,wu,wd}`` or ``moe.{router,wg,wu,wd,shared}``; or
+``final_ln`` [d], ``pos_embed`` [max_pos, d] (with ``max_pos``) and, per
+block, ``ln1``, then ``attn.{wq,wk,wv,wo,q_norm,k_norm}`` (GQA) or
+``attn.{wq_a,wq_b,wq,wkv_a,wkv_b,wo,kv_norm}`` (MLA), ``ln2``, ``lnx`` and
+``xattn.{wq,wk,wv,wo}`` (``dec``) and ``mlp.{wg,wu,wd}`` or
+``moe.{router,wg,wu,wd,shared}``; or
 ``ssm.{wz,wx,wbc,wdt,conv_w,A_log,D,dt_bias,norm,wo}``; or ``lru.{wx,wg,
-conv_w,wa,wi,lam,wo}``, ``ln2`` and ``mlp``. A tied head (mamba2) reads the
-embedding.
+conv_w,wa,wi,lam,wo}``, ``ln2`` and ``mlp``. The encoder's blocks are
+``enc_layers`` (block g reads ``enc_layers.<leaf>[g]``) and ``enc_ln``
+[d]. A tied head (mamba2) reads the embedding.
 
 The compute dtype is bf16, as in the reference's ``_forward``. The decode
 cache holds one stack for each kind of layer cache, its layers in layer
@@ -40,15 +58,18 @@ order, and each block reads its own index of its kind's stack:
 - hybrid: a :class:`HybridCache` of the attention layers' ``KVCache``, a
   ring of min(length, window) slots, and the recurrent layers'
   :class:`~repro_torch.models.rglru.LRUCache` ([n, B, W-1, width], [n, B,
-  width] float32).
+  width] float32);
+- encoder-decoder: an :class:`EncDecCache` of the decoder's self-attention
+  ``KVCache`` [L, B, S, K, hd] and the cross ``KVCache`` [L, B, enc_len,
+  K, hd] the prefill computed (decode reads it and never writes it).
 
 ``decode_step`` writes the cache in place. The MoE layers' load-balancing
-loss is computed and dropped, as the reference's serving drops it. Audio
-(encoder-decoder) and vision configs raise ``NotImplementedError`` when
-built, on any device.
+loss is computed and dropped, as the reference's serving drops it.
+``check_ported`` refuses a family outside the registry's.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -59,22 +80,26 @@ from .moe import MoE, Routing
 from .rglru import RGLRU, LRUCache, init_lru_cache
 from .ssm import Mamba2, SSMCache, init_ssm_cache
 from .layers import (GatedMLP, embed, embedding_init_, dense_init_, lm_head,
-                     param, rms_norm, rms_norm_init_)
+                     normal_init_, param, rms_norm, rms_norm_init_)
 
-__all__ = ["LM", "Block", "HybridCache", "init", "prefill", "decode_step",
-           "init_cache", "check_ported", "layer_kinds", "reference_slot"]
+__all__ = ["LM", "Block", "HybridCache", "EncDecCache", "init", "prefill",
+           "decode_step", "init_cache", "check_ported", "layer_kinds",
+           "reference_slot"]
+
+#: the families the port runs: every family of the registry
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 def check_ported(cfg, device: torch.device | str | None = None) -> None:
     """Raise ``NotImplementedError`` for a config the port cannot run; the
     same on every ``device`` (None means CUDA, the default)."""
     why = None
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in FAMILIES:
         why = f"the {cfg.family} family"
     elif cfg.family != "ssm" and cfg.attn_kind not in ("gqa", "mla"):
         why = f"{cfg.attn_kind} attention"
-    elif cfg.frontend or cfg.is_encdec or cfg.max_pos:
-        why = "frontends and encoder-decoders"
+    elif cfg.is_encdec and cfg.attn_kind != "gqa":
+        why = f"an encoder-decoder with {cfg.attn_kind} attention"
     if why is not None:
         raise NotImplementedError(
             f"repro_torch: {why} ({cfg.arch_id}) is not yet ported "
@@ -86,13 +111,15 @@ def _moe_layer(cfg, layer: int) -> bool:
 
 
 def layer_kinds(cfg) -> list[str]:
-    """The kind of each block, in layer order (the reference's ``_plan``):
-    ``ssm`` for every layer of the ssm family; for the hybrid family
-    ``rglru`` except at every ``attn_period``-th layer, ``attn_mlp`` (the
-    groups, then the tail by the same rule); else ``attn_moe`` or
-    ``attn_mlp``."""
+    """The kind of each decoder block, in layer order (the reference's
+    ``_plan``): ``ssm`` for every layer of the ssm family; for the hybrid
+    family ``rglru`` except at every ``attn_period``-th layer, ``attn_mlp``
+    (the groups, then the tail by the same rule); ``dec`` for every layer
+    of the audio family; else ``attn_moe`` or ``attn_mlp``."""
     if cfg.family == "ssm":
         return ["ssm"] * cfg.n_layers
+    if cfg.family == "audio":
+        return ["dec"] * cfg.n_layers
     if cfg.family == "hybrid":
         period = cfg.attn_period
         return ["rglru" if (i % period + 1) % period else "attn_mlp"
@@ -105,7 +132,7 @@ def reference_slot(cfg, layer: int) -> tuple[str, Optional[int]]:
     """Where block ``layer``'s parameters sit in the reference's ``init``
     tree: (``lead_{i}``, None) for a leading dense layer, (``layers.b{j}``,
     g) for block j of scanned group g, (``tail_{i}``, None) for a layer
-    past the last whole group."""
+    past the last whole group. (Encoder block g: (``enc_layers``, g).)"""
     n_lead = cfg.first_dense_layers if cfg.family in ("dense", "moe") else 0
     if layer < n_lead:
         return f"lead_{layer}", None
@@ -119,7 +146,7 @@ def reference_slot(cfg, layer: int) -> tuple[str, Optional[int]]:
 
 #: the stack of the model's cache that each kind of block indexes
 _CACHE_OF = {"attn_mlp": "attn", "attn_moe": "attn", "ssm": "ssm",
-             "rglru": "lru"}
+             "rglru": "lru", "dec": "attn"}
 
 
 class HybridCache(NamedTuple):
@@ -129,23 +156,33 @@ class HybridCache(NamedTuple):
     lru: LRUCache        # [n_lru, B, W-1, width], [n_lru, B, width]
 
 
+class EncDecCache(NamedTuple):
+    """An encoder-decoder's decode cache: the decoder's self-attention K/V
+    and the cross K/V of the encoder's output, each stacked in layer
+    order."""
+    attn: attn.KVCache   # [L, B, S, K, hd]
+    cross: attn.KVCache  # [L, B, enc_len, K, hd]
+
+
 class Block(torch.nn.Module):
-    """Block ``layer`` of the config, by its kind (``layer_kinds``):
-    ``ln1``, ``attn`` (GQA or MLA), ``ln2``, then ``moe`` (``attn_moe``) or
-    ``mlp`` (``attn_mlp``: of ``dense_d_ff`` in a leading dense layer of an
-    MoE config); ``ln1``, ``ssm`` (``ssm``); or ``ln1``, ``lru``, ``ln2``,
-    ``mlp`` (``rglru``). ``slot`` is (the cache stack it reads, its index
-    there)."""
+    """Block ``layer`` of the config, by its kind (``layer_kinds``, or
+    ``kind`` given: ``enc`` for an encoder block): ``ln1``, ``attn`` (GQA
+    or MLA), ``ln2``, then ``moe`` (``attn_moe``) or ``mlp`` (``attn_mlp``
+    and ``enc``: of ``dense_d_ff`` in a leading dense layer of an MoE
+    config), with ``lnx`` and ``xattn`` (GQA) besides (``dec``); ``ln1``,
+    ``ssm`` (``ssm``); or ``ln1``, ``lru``, ``ln2``, ``mlp`` (``rglru``).
+    ``slot`` is (the cache stack it reads, its index there)."""
 
     def __init__(self, cfg, layer: int = 0, device=None,
-                 slot: tuple[str, int] = ("attn", 0)):
+                 slot: Optional[tuple[str, int]] = ("attn", 0),
+                 kind: Optional[str] = None):
         super().__init__()
         self.cfg = cfg
-        self.kind = layer_kinds(cfg)[layer]
+        self.kind = kind or layer_kinds(cfg)[layer]
         self.slot = slot
         self.ln1 = param((cfg.d_model,), device, torch.float32)
         self.attn = self.moe = self.mlp = self.ssm = self.lru = None
-        self.ln2 = None
+        self.ln2 = self.lnx = self.xattn = None
         if self.kind == "ssm":
             self.ssm = Mamba2(cfg, device)
             return
@@ -155,6 +192,9 @@ class Block(torch.nn.Module):
             self.attn = attn.MLAttention(cfg, device) \
                 if cfg.attn_kind == "mla" else attn.GQAttention(cfg, device)
         self.ln2 = param((cfg.d_model,), device, torch.float32)
+        if self.kind == "dec":
+            self.lnx = param((cfg.d_model,), device, torch.float32)
+            self.xattn = attn.GQAttention(cfg, device)
         if self.kind == "attn_moe":
             self.moe = MoE(cfg, device)
         else:
@@ -170,17 +210,45 @@ class Block(torch.nn.Module):
         if self.ln2 is not None:
             rms_norm_init_(self.ln2)
             (self.moe or self.mlp).reset_parameters(generator)
+        if self.xattn is not None:
+            rms_norm_init_(self.lnx)
+            self.xattn.reset_parameters(generator)
 
     def forward(self, x, positions, cache=None, cache_pos=None, *,
-                attention=None, routing: Optional[Routing] = None):
+                attention=None, routing: Optional[Routing] = None,
+                enc_kv: Optional[attn.KVCache] = None):
         return _block_apply(self, self.cfg, x, positions, cache, cache_pos,
-                            attention=attention, routing=routing)
+                            attention=attention, routing=routing,
+                            enc_kv=enc_kv)
+
+
+def _cross_attn(p: attn.GQAttention, cfg, x: torch.Tensor,
+                enc_kv: attn.KVCache) -> torch.Tensor:
+    """``repro.models.model._cross_attn``: q from x, then ``_sdpa`` without
+    a mask over the encoder's K/V (repeated to H heads), then ``wo``."""
+    B, S, d = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = attn._heads(x, p.wq)
+    out = attn._sdpa(q, attn._repeat_kv(enc_kv.k, H),
+                     attn._repeat_kv(enc_kv.v, H), 1.0 / math.sqrt(hd),
+                     causal=False)
+    y = out.reshape(B * S, H * hd) @ p.wo.to(x.dtype).reshape(H * hd, d)
+    return y.view(B, S, d)
+
+
+def _enc_kv(p: attn.GQAttention, enc_out: torch.Tensor) -> attn.KVCache:
+    """``repro.models.model._enc_kv``: one decoder layer's cross K/V of the
+    encoder's output [B, T, d]."""
+    return attn.KVCache(attn._heads(enc_out, p.wk), attn._heads(enc_out, p.wv))
 
 
 def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
-                 attention=None, routing: Optional[Routing] = None):
+                 attention=None, routing: Optional[Routing] = None,
+                 enc_kv: Optional[attn.KVCache] = None):
     """``repro.models.model._block_apply``: returns (x, the layer's new
-    cache or None)."""
+    cache or None). A ``dec`` block cross-attends to ``enc_kv``; an ``enc``
+    block's attention is bidirectional. Neither uses rope (the reference's
+    ``use_rope = not cfg.is_encdec``)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if p.kind == "ssm":
         h, new_cache = p.ssm(h, cache, cache_pos)
@@ -189,8 +257,15 @@ def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
         h, new_cache = p.lru(h, cache, cache_pos)
         x = x + h
         return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), new_cache
-    h, new_cache = p.attn(h, positions, cache, cache_pos, attention=attention)
+    kw = {}
+    if p.kind in ("enc", "dec"):
+        kw = dict(causal=p.kind == "dec", use_rope=False)
+    h, new_cache = p.attn(h, positions, cache, cache_pos, attention=attention,
+                          **kw)
     x = x + h
+    if p.kind == "dec":
+        x = x + _cross_attn(p.xattn, cfg, rms_norm(x, p.lnx, cfg.norm_eps),
+                            enc_kv)
     h = rms_norm(x, p.ln2, cfg.norm_eps)
     if p.moe is not None:
         h, _ = p.moe(h, routing=routing)
@@ -211,9 +286,10 @@ def _slots(cfg) -> list[tuple[str, int]]:
 
 
 class LM(torch.nn.Module):
-    """A decoder LM (dense or MoE with GQA or MLA attention, Mamba-2, or the
-    RG-LRU hybrid) with uninitialized bf16 weights on ``device`` (default:
-    CUDA); :func:`init` fills them from a generator."""
+    """An LM (dense, vision or MoE with GQA or MLA attention, Mamba-2, the
+    RG-LRU hybrid, or an encoder-decoder) with uninitialized bf16 weights on
+    ``device`` (default: CUDA); :func:`init` fills them from a
+    generator."""
 
     def __init__(self, cfg, device=None):
         check_ported(cfg, device)
@@ -224,17 +300,31 @@ class LM(torch.nn.Module):
         self.head = None if cfg.tie_embeddings else \
             param((cfg.d_model, cfg.vocab), dev)
         self.final_ln = param((cfg.d_model,), dev, torch.float32)
+        self.pos_embed = param((cfg.max_pos, cfg.d_model), dev) \
+            if cfg.max_pos else None
         self.layers = torch.nn.ModuleList(
             Block(cfg, i, dev, slot)
             for i, slot in enumerate(_slots(cfg)))
+        self.enc_layers = self.enc_ln = None
+        if cfg.is_encdec:
+            self.enc_layers = torch.nn.ModuleList(
+                Block(cfg, g, dev, None, kind="enc")
+                for g in range(cfg.enc_layers))
+            self.enc_ln = param((cfg.d_model,), dev, torch.float32)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         embedding_init_(self.embed, generator)
         if self.head is not None:
             dense_init_(self.head, generator)
         rms_norm_init_(self.final_ln)
+        if self.pos_embed is not None:  # 0.02 x a standard normal
+            normal_init_(self.pos_embed, generator, 0.02)
         for block in self.layers:
             block.reset_parameters(generator)
+        if self.enc_layers is not None:
+            for block in self.enc_layers:
+                block.reset_parameters(generator)
+            rms_norm_init_(self.enc_ln)
 
 
 def init(cfg, generator: torch.Generator, device=None) -> LM:
@@ -247,40 +337,98 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
     return model
 
 
-Cache = attn.KVCache | attn.MLACache | SSMCache | HybridCache
+Cache = attn.KVCache | attn.MLACache | SSMCache | HybridCache | EncDecCache
 
 
 def _stacks(cfg, cache: Cache) -> dict:
-    """The cache's stacks by the name blocks index them with."""
-    if isinstance(cache, HybridCache):
+    """The cache's stacks by the name blocks index them with (and
+    ``cross``, which ``dec`` blocks read)."""
+    if isinstance(cache, (HybridCache, EncDecCache)):
         return cache._asdict()
     return {"ssm" if cfg.family == "ssm" else "attn": cache}
 
 
 def _from_stacks(stacks: dict) -> Cache:
+    if "cross" in stacks:
+        return EncDecCache(**stacks)
     return HybridCache(**stacks) if len(stacks) > 1 \
         else next(iter(stacks.values()))
+
+
+def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
+    """``repro.models.model._sinusoid``: [n, d] float32, ``[sin | cos]`` of
+    position / 10000^(2·i/d) for i < d/2."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device),
+                          2.0 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed_inputs(model: LM, tokens: torch.Tensor,
+                  positions: Optional[torch.Tensor],
+                  images: Optional[torch.Tensor]) -> torch.Tensor:
+    """``repro.models.model._embed_inputs``: the token embeddings in bf16,
+    plus the learned positions at ``positions`` (None: arange(S)) with
+    ``max_pos``; with ``images`` [B, >= P, d], the first P = min(n_patches,
+    S) slots are the patch embeddings cast to bf16."""
+    cfg = model.cfg
+    x = embed(model.embed, tokens, torch.bfloat16)
+    if cfg.max_pos:
+        if positions is None:
+            positions = torch.arange(tokens.shape[1], device=tokens.device)
+        x = x + model.pos_embed.to(x.dtype)[positions]
+    if images is not None:
+        P = min(cfg.n_patches, x.shape[1])
+        x = torch.cat([images[:, :P].to(x.dtype), x[:, P:]], dim=1)
+    return x
+
+
+def _encode(model: LM, frames: torch.Tensor, attention=None) -> torch.Tensor:
+    """``repro.models.model._encode``: the encoder over the frame embeddings
+    [B, T, d]: bf16 frames plus the sinusoid in bf16, the ``enc`` blocks
+    (bidirectional, no rope: K5 with ``causal=False`` on CUDA), ``enc_ln``."""
+    cfg = model.cfg
+    x = frames.to(torch.bfloat16) + _sinusoid(
+        frames.shape[1], cfg.d_model, frames.device).to(torch.bfloat16)[None]
+    for block in model.enc_layers:
+        x, _ = block(x, None, attention=attention)
+    return rms_norm(x, model.enc_ln, cfg.norm_eps)
 
 
 def _forward(model: LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor],
              cache_pos: int, cache: Optional[Cache] = None,
-             attention=None, routing: Optional[Routing] = None
+             attention=None, routing: Optional[Routing] = None,
+             frames: Optional[torch.Tensor] = None,
+             images: Optional[torch.Tensor] = None
              ) -> tuple[torch.Tensor, Cache]:
     """The prefill/decode trunk -> (hidden [B, S, d], cache): a prefill
     (``cache`` and ``positions`` None: positions arange(S)) returns the
-    layers' new caches stacked by kind, field by field, a decode step the
-    ``cache`` it wrote into."""
+    layers' new caches stacked by kind, field by field (and, for an
+    encoder-decoder, the cross K/V of ``frames``' encoding), a decode step
+    the ``cache`` it wrote into."""
     cfg = model.cfg
-    x = embed(model.embed, tokens, torch.bfloat16)
+    x = _embed_inputs(model, tokens, positions, images)
     stacks = None if cache is None else _stacks(cfg, cache)
+    enc_kv = None
+    if cfg.is_encdec and cache is None:
+        enc_out = _encode(model, frames, attention)
+        enc_kv = [_enc_kv(block.xattn, enc_out) for block in model.layers]
+        del enc_out
     new: dict[str, list] = {}
     for block in model.layers:
         name, j = block.slot
         c = None if stacks is None else \
             type(stacks[name])(*(f[j] for f in stacks[name]))
+        kv = None
+        if block.kind == "dec":
+            kv = enc_kv[j] if stacks is None else \
+                attn.KVCache(*(f[j] for f in stacks["cross"]))
+            if stacks is None:
+                new.setdefault("cross", []).append(kv)
         x, nc = block(x, positions, c, cache_pos, attention=attention,
-                      routing=routing)
+                      routing=routing, enc_kv=kv)
         new.setdefault(name, []).append(nc)
     x = rms_norm(x, model.final_ln, cfg.norm_eps)
     if cache is None:
@@ -294,18 +442,51 @@ def _head(model: LM) -> torch.Tensor:
     return model.embed if model.cfg.tie_embeddings else model.head
 
 
+def _check_inputs(cfg, tokens: torch.Tensor, frames, images) -> None:
+    B, S = tokens.shape
+    if cfg.is_encdec:
+        if frames is None:
+            raise ValueError(f"prefill: {cfg.arch_id} needs frames [B, "
+                             f"{cfg.enc_len}, {cfg.d_model}]")
+        if tuple(frames.shape) != (B, cfg.enc_len, cfg.d_model):
+            raise ValueError(f"prefill: frames must be [{B}, {cfg.enc_len}, "
+                             f"{cfg.d_model}] (the decode cache holds "
+                             f"enc_len cross positions), got "
+                             f"{tuple(frames.shape)}")
+    elif frames is not None:
+        raise ValueError(f"prefill: {cfg.arch_id} has no encoder for frames")
+    if images is not None:
+        if cfg.frontend != "vision":
+            raise ValueError(f"prefill: {cfg.arch_id} has no vision "
+                             "frontend for images")
+        P = min(cfg.n_patches, S)
+        if images.dim() != 3 or images.shape[0] != B or \
+                images.shape[1] < P or images.shape[2] != cfg.d_model:
+            raise ValueError(f"prefill: images must be [{B}, >= {P}, "
+                             f"{cfg.d_model}], got {tuple(images.shape)}")
+
+
 @torch.no_grad()
-def prefill(model: LM, tokens: torch.Tensor, *, attention=None,
+def prefill(model: LM, tokens: torch.Tensor, *,
+            frames: Optional[torch.Tensor] = None,
+            images: Optional[torch.Tensor] = None, attention=None,
             routing: Optional[Routing] = None) -> tuple[Cache, torch.Tensor]:
     """Process the prompt ``tokens`` [B, S]; returns (the cache, its layers
     stacked by kind: [L, B, S, K, hd] K/V, the MLA latent and rope key, the
-    SSM states, or a ``HybridCache`` of the attention layers' K/V and the
-    recurrent states; last-position logits [B, V]). ``attention`` replaces
-    the causal prefill attention (see :mod:`repro_torch.models.attention`);
+    SSM states, a ``HybridCache`` of the attention layers' K/V and the
+    recurrent states, or an ``EncDecCache``; last-position logits [B, V]).
+    An encoder-decoder needs ``frames`` [B, enc_len, d], the precomputed
+    frame embeddings its encoder reads (another length is refused: the
+    decode cache holds ``enc_len`` cross positions); a vision config takes
+    ``images`` [B, >= min(n_patches, S), d], the patch embeddings of its
+    prompt's first slots. ``attention`` replaces the prefill attention, the
+    encoder's included (see :mod:`repro_torch.models.attention`);
     ``routing`` is called for the expert choice of each MoE layer in turn
     (see :mod:`repro_torch.models.moe`)."""
+    _check_inputs(model.cfg, tokens, frames, images)
     x, cache = _forward(model, tokens, None, tokens.shape[1],
-                        attention=attention, routing=routing)
+                        attention=attention, routing=routing, frames=frames,
+                        images=images)
     logits = lm_head(_head(model), x[:, -1:], model.cfg.tie_embeddings)[:, 0]
     return cache, logits
 
@@ -316,8 +497,8 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int, *,
                 ) -> tuple[Cache, torch.Tensor]:
     """One decode step. ``token`` [B], ``pos`` the write position (the
     number of tokens already in the cache). The cache is updated in place
-    and returned with the logits [B, V]. ``routing`` as for
-    :func:`prefill`."""
+    (an encoder-decoder's cross K/V only read) and returned with the logits
+    [B, V]. ``routing`` as for :func:`prefill`."""
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=token.device)
@@ -333,7 +514,9 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
     tokens, each kind's layers stacked: [L, B, length, K, hd] K/V for GQA
     (a ring of min(length, window) slots with a window), [L, B, length,
     kv_lora] and [L, B, length, rope] for MLA, an ``SSMCache`` for SSM, a
-    ``HybridCache`` for the hybrid."""
+    ``HybridCache`` for the hybrid, an ``EncDecCache`` (its cross K/V
+    zeroed at ``enc_len`` positions, as the reference's) for an
+    encoder-decoder."""
     check_ported(cfg, device)
     dev = resolve_device(device)
     counts: dict[str, int] = {}
@@ -349,4 +532,10 @@ def init_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
             init = attn.init_mla_cache if cfg.attn_kind == "mla" \
                 else attn.init_kv_cache
             stacks[name] = init(cfg, batch, length, dtype, dev, n_layers=n)
+    if cfg.is_encdec:
+        shape = (cfg.n_layers, batch, cfg.enc_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        stacks["cross"] = attn.KVCache(
+            torch.zeros(shape, dtype=dtype, device=dev),
+            torch.zeros(shape, dtype=dtype, device=dev))
     return _from_stacks(stacks)

@@ -1,6 +1,5 @@
 """Batched serving engine: prefill -> greedy decode over a preallocated
-decode cache. A port of ``repro.serve.engine`` for the dense, MoE, SSM and
-hybrid families.
+decode cache. A port of ``repro.serve.engine`` for every family.
 
 The prefill's cache is handed to a zeroed decode cache of ``max_len``
 positions (``init_cache``), field by field, as the reference's
@@ -8,7 +7,9 @@ positions (``init_cache``), field by field, as the reference's
 
 - a field of the decode cache's own shape is copied whole: the SSM and
   RG-LRU states (conv windows and recurrent states), which the prefill
-  leaves final-shaped, and a K/V field whose prompt filled it exactly;
+  leaves final-shaped, an encoder-decoder's cross K/V (``enc_len``
+  positions on both sides: ``prefill`` refuses frames of another length),
+  and a K/V field whose prompt filled it exactly;
 - a K/V field longer than a sliding-window ring (a prompt past the window)
   keeps its last ``window`` positions, position p at slot p % window
   (``_ring_place``);
@@ -88,11 +89,15 @@ class Engine:
     # ------------------------------------------------------------ generate
     def generate(self, tokens: torch.Tensor, steps: int,
                  generator: Optional[torch.Generator] = None, *,
+                 frames: Optional[torch.Tensor] = None,
+                 images: Optional[torch.Tensor] = None,
                  timed=_untimed) -> torch.Tensor:
-        """``tokens`` [B, S0] prompt on the model's device. Returns the
-        [B, steps] generations (int32). ``timed(name, fn, *args, **kw)``
-        runs the stages "prefill" (once) and "decode" (each step) and returns
-        what ``fn`` returns; the default just calls ``fn``."""
+        """``tokens`` [B, S0] prompt on the model's device, with ``frames``
+        (an encoder-decoder's) or ``images`` (a vision config's) handed to
+        ``prefill``. Returns the [B, steps] generations (int32).
+        ``timed(name, fn, *args, **kw)`` runs the stages "prefill" (once)
+        and "decode" (each step) and returns what ``fn`` returns; the
+        default just calls ``fn``."""
         B, S0 = tokens.shape
         window, max_len = self.cfg.window, self.scfg.max_len
         # a ring of the whole window never runs out; any other cache does
@@ -100,7 +105,8 @@ class Engine:
         if S0 + steps > max_len and not (window and max_len >= window):
             raise ValueError(f"generate: {S0} prompt + {steps} new tokens "
                              f"exceed max_len={max_len}")
-        pre, logits = timed("prefill", prefill, self.model, tokens)
+        pre, logits = timed("prefill", prefill, self.model, tokens,
+                            frames=frames, images=images)
         dec = init_cache(self.cfg, B, self.scfg.max_len, device=tokens.device)
         cache = self._merge_caches(dec, pre, S0)
         del pre

@@ -867,8 +867,10 @@ def test_prefill_launches_k5_once_per_layer_and_decode_never(dev):
 
 
 def test_cuda_prefill_refuses_what_k5_does_not_compute(dev):
-    """Other positions or bidirectional attention on the card raise; they
-    never drop to the plain version. A sliding window launches K5."""
+    """Causal prefill at other positions on the card raises; it never drops
+    to the plain version. A sliding window launches K5, and so does
+    bidirectional attention (``causal=False``, whatever the positions)."""
+    import copy
     import dataclasses
 
     from repro_torch.models import LM
@@ -882,15 +884,102 @@ def test_cuda_prefill_refuses_what_k5_does_not_compute(dev):
     pos = torch.arange(16, device=dev).expand(1, 16)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tattn.gqa_apply(attn, cfg, x, pos + 3)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tattn.gqa_apply(attn, cfg, x, pos, causal=False)
-    # a window is K5's own now: it launches, and it never drops to _sdpa
     from repro_torch.kernels import flash_attn as K5
 
+    before = dict(K5.route_launches)
+    y, _ = tattn.gqa_apply(attn, cfg, x, pos + 3, causal=False,
+                           use_rope=False)
+    assert K5.route_launches["tensor_core"] == before["tensor_core"] + 1
+    y_cpu, _ = tattn.gqa_apply(copy.deepcopy(attn).cpu(), cfg, x.cpu(),
+                               None, causal=False, use_rope=False)
+    torch.testing.assert_close(y.float().cpu(), y_cpu.float(), rtol=0,
+                               atol=0.0625)
+    # a window is K5's own now: it launches, and it never drops to _sdpa
     before = K5.launches
     tattn.gqa_apply(attn, dataclasses.replace(cfg, window=8), x, None)
     assert K5.launches == before + 1
     LM(dataclasses.replace(cfg, window=8), dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("S", [64, 65, 100, 1500, 2048])
+@pytest.mark.parametrize("hd,H,K", [(16, 4, 2), (64, 6, 6), (128, 8, 2)])
+def test_flash_attn_noncausal_matches_plain(dev, dtype, S, hd, H, K):
+    """``causal=False`` (the whisper encoder's attention) on both routes:
+    a tile multiple (64, 2048), ragged S where the zero keys TMA fills past
+    S must stay masked (65: one real key in the last tile; 100; whisper's
+    1500 = 23 x 64 + 28), KV groups among them; the result differs from
+    the causal one."""
+    from repro_torch.kernels import flash_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(S + hd + H)
+    q = torch.randn((2, S, H, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((2, S, K, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((2, S, K, hd), generator=g, device=dev).to(dtype)
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    before = K5.route_launches[route]
+    got = K5.flash_attention(q, k, v, causal=False)
+    assert K5.route_launches[route] == before + 1
+    want = K5.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+    causal = K5.flash_attention_plain(q, k, v)
+    assert float((causal.float() - want.float()).abs().max()) > 0.05
+
+
+def test_flash_attn_refuses_a_window_without_the_causal_mask(dev):
+    from repro_torch.kernels import flash_attn as K5
+
+    q = torch.zeros((1, 64, 4, 64), device=dev, dtype=torch.bfloat16)
+    before = K5.launches
+    with pytest.raises(ValueError, match="window needs the causal mask"):
+        K5.flash_attention(q, q, q, window=16, causal=False)
+    assert K5.launches == before
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny@smoke", "pixtral-12b@smoke"])
+def test_encdec_and_vision_smoke_prefill_on_the_card_matches_the_cpu(dev,
+                                                                     arch):
+    """whisper-tiny@smoke on the card: its 2 encoder layers launch K5 with
+    ``causal=False`` and its 2 decoder layers the causal K5, all on the
+    tensor-core route, cross-attention in plain torch, none in decode;
+    pixtral-12b@smoke one causal launch a layer with its 16 patch
+    embeddings in the first slots. Prefill and decode logits within the CPU
+    tests' 0.0625 of the CPU's plain run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import decode_step, init, init_cache, prefill
+    from repro_torch.serve import Engine, ServeConfig
+
+    cfg = get_config(arch)
+    cpu = init(cfg, torch.Generator().manual_seed(4), "cpu")
+    card = init(cfg, torch.Generator().manual_seed(4), "cpu").to(dev)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen)
+    extra = {}
+    if cfg.is_encdec:
+        extra["frames"] = torch.randn((2, cfg.enc_len, cfg.d_model),
+                                      generator=gen)
+    else:
+        extra["images"] = torch.randn((2, cfg.n_patches, cfg.d_model),
+                                      generator=gen) / cfg.d_model ** 0.5
+    logits = {}
+    for name, model, d in (("cuda", card, dev), ("cpu", cpu, "cpu")):
+        before = dict(K5.route_launches)
+        cache, lg = prefill(model, toks.to(d),
+                            **{k: t.to(d) for k, t in extra.items()})
+        dec = Engine(cfg, model, ServeConfig(max_len=41))._merge_caches(
+            init_cache(cfg, 2, 41, device=d), cache, 40)
+        _, lg2 = decode_step(model, dec, toks[:, 0].to(d), 40)
+        moved = {r: n - before[r] for r, n in K5.route_launches.items()}
+        n_k5 = cfg.n_layers + (cfg.enc_layers if cfg.is_encdec else 0)
+        assert moved == {"tensor_core": n_k5 if name == "cuda" else 0,
+                         "cuda_core": 0}
+        logits[name] = (lg.float().cpu(), lg2.float().cpu())
+    for a, b in zip(logits["cuda"], logits["cpu"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0.0625)
 
 
 # K1's and K3's one-operation checks run last in this file: run before

@@ -15,6 +15,13 @@ versions against the live JAX package.
 - The port's ``_sdpa`` against the reference's, unchunked and on its
   Sk = 4096 online-softmax chunk path, with causal, sliding-window and
   decode (``valid_to``) masks.
+- ``causal=False`` (the whisper encoder's bidirectional attention): the
+  plain version against ``ref.py::attention(causal=False)`` and the
+  reference's ``_sdpa(causal=False)`` at ragged and tile-multiple S, the
+  Pallas kernel in interpret mode at tile multiples of S only (its wrapper
+  pads S with zero keys and masks nothing without ``causal``, so at a
+  ragged S the padded keys take softmax mass: one test records that
+  difference at S 100), and the tensor-core emulation without the mask.
 
 Inputs are made with numpy from a seed. Tolerances: float32 work in two
 frameworks sums in another order (rtol = atol = 2e-5, the reference's own
@@ -54,9 +61,9 @@ def _qkv(B, S, H, K, hd, seed):
     return q, k, v
 
 
-def _port(q, k, v, dtype):
+def _port(q, k, v, dtype, causal=True):
     t = [torch.as_tensor(a).to(TORCH_DT[dtype]) for a in (q, k, v)]
-    return K5.flash_attention(*t).float().numpy()
+    return K5.flash_attention(*t, causal=causal).float().numpy()
 
 
 def _jax_repeat(a, H, dtype):
@@ -124,13 +131,15 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
 TC_BLOCK_K = 64
 
 
-def _tc_emulation(q, k, v, split=True):
+def _tc_emulation(q, k, v, split=True, causal=True):
     """The bf16 tensor-core kernel's arithmetic in plain torch: q, k, v bf16
     [B, S, heads, hd]; exact float32 products of bf16 values; logits scaled
     inside exp2 by scale·log2(e); a running max and sum over key tiles of
     ``TC_BLOCK_K``; P multiplied as bf16(P) + bf16(P − bf16(P)) (as bf16(P)
     alone with ``split=False``, which the kernel does not do); the output
-    acc / max(l, 1e-30) rounded to bf16."""
+    acc / max(l, 1e-30) rounded to bf16. ``causal=False`` masks no key
+    (the last tile of a ragged S holds only the keys below S here; the
+    kernel's zero-filled keys past S are masked)."""
     B, S, H, hd = q.shape
     group = H // k.shape[2]
     bk = TC_BLOCK_K
@@ -147,7 +156,8 @@ def _tc_emulation(q, k, v, split=True):
         kt, vt = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
         s = torch.matmul(qf, kt.transpose(-1, -2))
         cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
-        s = torch.where(cols <= rows, s, K5.NEG_INF)
+        if causal:
+            s = torch.where(cols <= rows, s, K5.NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp2((m - m_new) * c)
         p = torch.exp2(s * c - m_new * c)
@@ -202,7 +212,8 @@ def test_a_single_bf16_p_would_not_fit_the_tolerance():
 
 def test_routes_and_their_counts():
     """One route per dtype, each naming a source that exists; the CPU path
-    moves no count, and ``reset_launches`` sets the per-route counts to 0."""
+    moves no count, and ``reset_launches`` sets the per-route and the
+    per-mask counts to 0."""
     from repro_torch import kernels
     from repro_torch.kernels import build
 
@@ -214,14 +225,17 @@ def test_routes_and_their_counts():
     before = dict(K5.route_launches)
     K5.flash_attention(q, q, q)
     assert K5.route_launches == before
-    saved = dict(K5.route_launches), K5.launches
+    saved = dict(K5.route_launches), K5.launches, dict(K5.class_launches)
     try:
         K5.route_launches.update(tensor_core=3, cuda_core=2)
+        K5.class_launches.update(causal=4, noncausal=1)
         kernels.reset_launches()
         assert K5.route_launches == {"tensor_core": 0, "cuda_core": 0}
+        assert K5.class_launches == {"causal": 0, "noncausal": 0}
     finally:
         K5.route_launches.update(saved[0])
         K5.launches = saved[1]
+        K5.class_launches.update(saved[2])
 
 
 def _sdpa_pair(q, k, v, **kw):
@@ -276,3 +290,93 @@ def test_k5_plain_is_the_models_causal_attention():
                        1.0 / math.sqrt(hd), qpos=pos, kpos=pos)
     torch.testing.assert_close(K5.flash_attention_plain(q, k, v), want,
                                rtol=2e-5, atol=2e-5)
+
+
+# ---------------------------------------------------------- causal=False
+NONCAUSAL_SHAPES = [  # (B, S, H, K, hd): ragged and tile-multiple S
+    (2, 65, 4, 2, 16), (1, 100, 4, 4, 64), (1, 128, 4, 1, 64),
+    (1, 200, 2, 2, 128), (2, 256, 4, 2, 16)]
+
+
+def _fold(t, B, H, S, hd):
+    return jnp.moveaxis(t, 2, 1).reshape(B * H, S, hd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", NONCAUSAL_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_noncausal_plain_matches_jax_ref_and_sdpa(shape, dtype):
+    """The plain version with ``causal=False`` against ``ref.py`` (K/V
+    repeated to H) and against the reference's ``_sdpa(causal=False)``,
+    which the whisper encoder runs."""
+    B, S, H, K, hd = shape
+    q, k, v = _qkv(*shape, seed=3 * S + hd)
+    got = _port(q, k, v, dtype, causal=False)
+    kr, vr = _jax_repeat(k, H, dtype), _jax_repeat(v, H, dtype)
+    qj = jnp.asarray(q, JAX_DT[dtype])
+    want = fa_ref.attention(_fold(qj, B, H, S, hd), _fold(kr, B, H, S, hd),
+                            _fold(vr, B, H, S, hd),
+                            scale=1.0 / math.sqrt(hd), causal=False)
+    want = np.moveaxis(np.asarray(want.astype(jnp.float32)).reshape(
+        B, H, S, hd), 1, 2)
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+    sdpa = jattn._sdpa(qj, kr, vr, 1.0 / math.sqrt(hd), causal=False)
+    np.testing.assert_allclose(got, np.asarray(sdpa.astype(jnp.float32)),
+                               **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1, 128, 4, 2, 16), (1, 256, 2, 1, 64)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_noncausal_plain_matches_pallas_kernel_at_tile_multiples(shape,
+                                                                  dtype):
+    B, S, H, K, hd = shape
+    q, k, v = _qkv(*shape, seed=11 * S + hd)
+    got = _port(q, k, v, dtype, causal=False)
+    want = fa_ops.flash_attention(jnp.asarray(q, JAX_DT[dtype]),
+                                  _jax_repeat(k, H, dtype),
+                                  _jax_repeat(v, H, dtype), causal=False)
+    np.testing.assert_allclose(got, np.asarray(want.astype(jnp.float32)),
+                               **TOL[dtype])
+
+
+def test_pallas_wrapper_pads_ragged_noncausal_keys():
+    """A fault of the reference recorded: at a ragged S the Pallas wrapper
+    pads S with zero rows, and without ``causal`` its kernel masks nothing,
+    so the padded keys get logit 0 and take softmax mass. At B 1, H 2,
+    hd 64, S 100 (float32) its output is ~0.1 away from ``ref.py``'s; the
+    port's plain version (and both CUDA routes) mask keys at or past S and
+    equal ``ref.py``."""
+    B, S, H, hd = 1, 100, 2, 64
+    q, k, v = _qkv(B, S, H, H, hd, seed=100)
+    got = _port(q, k, v, "float32", causal=False)
+    wrapper = np.asarray(fa_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=False))
+    want = fa_ref.attention(_fold(jnp.asarray(q), B, H, S, hd),
+                            _fold(jnp.asarray(k), B, H, S, hd),
+                            _fold(jnp.asarray(v), B, H, S, hd),
+                            scale=1.0 / math.sqrt(hd), causal=False)
+    want = np.moveaxis(np.asarray(want).reshape(B, H, S, hd), 1, 2)
+    np.testing.assert_allclose(got, want, **TOL["float32"])
+    assert np.abs(wrapper - want).max() > 0.05
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("S", [1, 65, 100, 129])
+def test_tensor_core_rounding_without_the_mask_matches_plain(S, hd):
+    B, H, K = 2, 4, 2
+    q, k, v = (torch.as_tensor(a).bfloat16()
+               for a in _qkv(B, S, H, K, hd, seed=13 * S + hd))
+    got = _tc_emulation(q, k, v, causal=False).float()
+    plain = K5.flash_attention_plain(q, k, v, causal=False).float()
+    torch.testing.assert_close(got, plain, **TOL["bfloat16"])
+
+
+def test_wrapper_refuses_a_window_without_the_causal_mask():
+    q = torch.zeros((1, 8, 4, 16))
+    with pytest.raises(ValueError, match="window needs the causal mask"):
+        K5.flash_attention(q, q, q, window=4, causal=False)
+    # causal=False is the same call as the plain version's on the CPU
+    torch.testing.assert_close(K5.flash_attention(q, q, q, causal=False),
+                               K5.flash_attention_plain(q, q, q,
+                                                        causal=False))

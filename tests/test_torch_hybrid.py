@@ -392,7 +392,16 @@ def test_hybrid_configs_build_for_cuda_by_default(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["whisper-tiny", "pixtral-12b"])
-def test_audio_and_vision_are_still_refused(arch):
-    for device in ("cpu", None):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            check_ported(get_config(arch, smoke=True), device)
+def test_audio_and_vision_are_still_refused(arch, monkeypatch):
+    """Audio and vision configs were refused until they were ported; now
+    they pass ``check_ported`` at full width for the CPU and the default
+    device (CUDA), their smoke twins build on the CPU, and without a card
+    the default device asks for one (no fallback), as for the hybrid
+    above (``tests/test_torch_encdec.py``, ``tests/test_torch_vlm.py``)."""
+    for device in ("cpu", None, "cuda"):
+        check_ported(get_config(arch), device)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = get_config(arch, smoke=True)
+    assert LM(small, "cpu").cfg is small
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LM(small)

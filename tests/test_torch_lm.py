@@ -218,22 +218,34 @@ def test_init_draws_the_reference_distributions():
 @pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
                                   "whisper-tiny", "pixtral-12b"])
 def test_unported_families_raise_when_built(arch, monkeypatch):
-    """Audio and vision configs are refused when built, on the CPU as on
-    the card (the check comes before the device's, so it holds on a host
-    without CUDA too). SSM (mamba2-370m) and hybrid (recurrentgemma-9b)
-    configs are ported now: they build on the CPU, and for the default
-    device without a card they ask for one instead of falling back
-    (``tests/test_torch_ssm.py``, ``tests/test_torch_hybrid.py``). Dense MLA
-    (minicpm3-4b) builds: ``tests/test_torch_mla.py``; MoE (phi3.5-moe,
-    deepseek-v2-lite): ``tests/test_torch_moe.py``."""
+    """Every family of the registry is ported now: SSM (mamba2-370m),
+    hybrid (recurrentgemma-9b), audio (whisper-tiny, an encoder-decoder)
+    and vision (pixtral-12b). Each builds on the CPU, with its decode
+    cache, and for the default device without a card asks for one instead
+    of falling back (``tests/test_torch_ssm.py``, ``test_torch_hybrid.py``,
+    ``test_torch_encdec.py``, ``test_torch_vlm.py``). What is still refused
+    when built is a family outside the registry
+    (``test_check_ported_refuses_a_family_outside_the_registry``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config(arch, smoke=True)
-    if cfg.family in ("ssm", "hybrid"):
-        LM(cfg, "cpu")
-        init_cache(cfg, 1, 8, device="cpu")
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            LM(cfg)
-        return
+    LM(cfg, "cpu")
+    init_cache(cfg, 1, 8, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_cache(cfg, 1, 8)
+
+
+@pytest.mark.parametrize("change", [dict(family="diffusion"),
+                                    dict(attn_kind="mla")],
+                         ids=["unknown-family", "encdec-mla"])
+def test_check_ported_refuses_a_family_outside_the_registry(change):
+    """``check_ported`` still refuses what the registry does not hold, on
+    the CPU as on the card (the check comes before the device's): a family
+    of its own, and an encoder-decoder with MLA attention (the reference's
+    MLA takes no ``causal``, so its encoder would be causal)."""
+    cfg = dataclasses.replace(get_config("whisper-tiny", smoke=True),
+                              **change)
     for device in ("cpu", None):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             LM(cfg, device)
