@@ -165,8 +165,32 @@ K1's and K2's launches by shape and K3's and K4's by class, and check
 K1's and K3's against the protocol's; the build report gives the K1-K4
 kernels' registers, spills and shared memory, and their plans.
 
+Training, after the serve phases: K5's backward (``csrc/flash_attn_bwd.cu``:
+causal, no window, (64, 64) and (128, 128); GQA's dk/dv summed over each
+KV head's query heads in a fixed order) against its plain version, and
+the forward's row statistic (``lse``) against the plain logsumexp, at
+starcoder2-3b's [2, 2048, 24/2, 128], qwen3-100m's [16, 128, 8/4, 64],
+ragged [2, 100, 8/4, 64] and [2, 2000, 24/2, 128], and [1, 4096, 32/8,
+128], timed beside the backward of ``scaled_dot_product_attention``; two
+planted faults (D left out of dS, the mask shifted by a key) rejected at
+every shape. Then qwen3-100m (``examples/train_lm_torch.py``'s config) on
+the bigram stream for 100 steps with every count set to 0 just before
+(12 K5 forward and 12 backward launches a step): the loss must fall by
+>= 0.2 and stay above the bigram floor - 0.05; a run cut at step 40 and
+resumed from its checkpoint ends bit for bit equal to the uninterrupted
+one; its first 3 losses within 0.02 of the CPU's. starcoder2-3b at its
+published width: at 4 layers one step's gradients with K5 forward and
+backward against the same step with the plain attention, leaf by leaf,
+every leaf nonzero, and K5 on detached q/k/v (the autograd Function
+bypassed) as a planted fault that leaves wq/wk/wv without a gradient;
+then at all 30 layers (4.313 B parameters: float32 masters and moments,
+the bf16 compute copy and its gradients on the card; B 2 x S 2048,
+remat on): 3 timed steps (s a step, tokens/s, peak memory, the step's
+parts, K5's 60 forward and 30 backward launches a step, the device's
+busy share and time by kernel group).
+
 It prints the card (``nvidia-smi``), the build time, one line per kernel
-check, the rounds, the service, baselines and serve phases, its wall time
+check, the rounds, the service, baselines, serve and training phases, its wall time
 in all, a
 ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
 {...}}``. Any failure raises; no phase is
@@ -176,6 +200,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -690,10 +715,13 @@ def _pool_icd(res, pool, dev):
                             res.v).contiguous()
 
 
-def device_busy(fn, wall_s: float) -> dict:
+def device_busy(fn, wall_s: float, groups: dict | None = None) -> dict:
     """Run ``fn`` once under torch.profiler: the device's busy seconds, its
     share of ``wall_s`` (an unprofiled run of the same work: the profiler
-    slows the host, not the card), launches and the busiest kernels."""
+    slows the host, not the card), launches and the busiest kernels; with
+    ``groups`` (name -> regex), the device seconds and launches of the
+    kernels whose names match each, the first match winning, the rest
+    under ``other``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -709,6 +737,15 @@ def device_busy(fn, wall_s: float) -> dict:
                device_launches=launches,
                top_kernels=[(e.key[:60], e.count, e.self_device_time_total)
                             for e in top])
+    if groups:
+        by = {g: [0.0, 0] for g in list(groups) + ["other"]}
+        for e in dev_events:
+            g = next((g for g, rx in groups.items() if re.search(rx, e.key)),
+                     "other")
+            by[g][0] += e.self_device_time_total * 1e-6
+            by[g][1] += e.count
+        out["by_group"] = {g: dict(device_s=v[0], launches=v[1])
+                           for g, v in by.items()}
     out["busy_text"] = (
         "device busy: not measured (the profiler saw no device activity)"
         if not launches else
@@ -2690,6 +2727,563 @@ def check_flash_attn_noncausal(dev, results: dict) -> None:
             torch.cuda.empty_cache()
 
 
+#: K5's backward (B, S, H, KV heads, head dim): starcoder2-3b's training
+#: shape, qwen3-100m's (the example's: B 16, S 128, 8/4 heads of 64),
+#: ragged S 100 and 2000 (partial 64-row tiles), and S 4096 at the dense
+#: prefill's heads
+K5_BWD_SHAPES = [(2, 2048, 24, 2, 128), (16, 128, 8, 4, 64),
+                 (2, 100, 8, 4, 64), (2, 2000, 24, 2, 128),
+                 (1, 4096, 32, 8, 128)]
+#: the backward's bf16 gradients against the plain float32 ones rounded to
+#: bf16: P and dS enter products as bf16 (2^-9 relative) and each output
+#: rounds once more; |err| <= rtol |plain| + atol for each of dq, dk, dv,
+#: atol = max(atol_rel max|plain|, atol_min) (for entries that cancel to
+#: near 0; the forward's 1e-3 where the exact gradient is 0)
+K5_BWD_RTOL, K5_BWD_ATOL_REL, K5_BWD_ATOL_MIN = 2.0 ** -6, 2.0 ** -7, 1e-3
+#: the forward's row statistic (log2-sum-exp2) against the plain float32
+#: logsumexp·log2(e): float32 sums in another order, values up to ~15
+K5_LSE_RTOL, K5_LSE_ATOL = 1e-5, 1e-4
+
+
+def k5_bwd_bytes_ops(B, S, H, K, dqk, dv) -> tuple[int, int]:
+    """Bytes K5's backward must move (q, k, v, o, do read and dq, dk, dv
+    written once, bf16; the float32 lse read once) and its operations: five
+    products over the causal pairs, 2·pairs·(3·Dqk + 2·Dv) a (b, h) (Q·Kᵀ,
+    dS·K and dSᵀ·Q contract or span Dqk; dO·Vᵀ and Pᵀ·dO, Dv)."""
+    n_bytes = 2 * B * S * (2 * (H * dqk + K * dqk + K * dv) + 2 * H * dv) \
+        + 4 * B * H * S
+    return n_bytes, 2 * B * H * k5_pairs(S) * (3 * dqk + 2 * dv)
+
+
+def _bwd_close(got, want) -> tuple[float, bool]:
+    """(max abs err over dq, dk, dv; all within the backward tolerance)."""
+    import torch
+
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        err = max(err, float((g - w).abs().max()))
+        ok &= bool(torch.allclose(g, w, rtol=K5_BWD_RTOL, atol=max(
+            K5_BWD_ATOL_REL * float(w.abs().max()), K5_BWD_ATOL_MIN)))
+    return err, ok
+
+
+def bwd_faults_plain(q, k, v, out, dout, lse, scale):
+    """The backward with a planted fault, from the plain float32 math and
+    the kernel run's ``lse``: ``no_delta`` leaves D out of dS (dS = P∘dP);
+    ``mask_shift`` rebuilds P with the mask shifted by one key (query i
+    also gets key i + 1, weighted exp2(s·c − lse)). Each returns (dq, dk,
+    dv) in bf16."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import LOG2E
+
+    B, S, H, dqk = q.shape
+    K = k.shape[2]
+    G = H // K
+    qf = q.float().transpose(1, 2)
+    kf = k.repeat_interleave(G, dim=2).float().transpose(1, 2)
+    vf = v.repeat_interleave(G, dim=2).float().transpose(1, 2)
+    dof = dout.float().transpose(1, 2)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
+
+    def grads(p, ds):
+        def summed(t):
+            return t.view(B, K, G, S, t.shape[-1]).sum(2).transpose(1, 2)
+        return (torch.matmul(ds, kf).mul_(scale).transpose(1, 2).bfloat16(),
+                summed(torch.matmul(ds.transpose(-1, -2), qf) * scale
+                       ).bfloat16(),
+                summed(torch.matmul(p.transpose(-1, -2), dof)).bfloat16())
+
+    out_f = {}
+    p = torch.where(ones.tril(), torch.exp2(s - lse[..., None]), 0.0)
+    out_f["no_delta"] = grads(p, p * dp)
+    p = torch.where(ones.tril(1), torch.exp2(s - lse[..., None]), 0.0)
+    out_f["mask_shift"] = grads(p, p * (dp - delta))
+    return out_f
+
+
+def check_flash_attn_backward(dev, results: dict) -> None:
+    """K5's backward (``csrc/flash_attn_bwd.cu``) against its plain version
+    at ``K5_BWD_SHAPES``, and the forward's row statistic against the
+    plain logsumexp; two planted faults (D left out of dS, the mask shifted
+    by one key), each of which the tolerance must reject at every shape;
+    timed beside the plain version and the backward of
+    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` alone
+    (the library call, timed eagerly: its forward is run once outside the
+    window; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as K5
+
+    for B, S, H, K, hd in K5_BWD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                   .bfloat16() for n in (H, K, K))
+        dout = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+        scale = 1.0 / math.sqrt(hd)
+        before = (K5.launches, K5.bwd_launches)
+        out_k, lse_k = K5.flash_attention_lse(q, k, v)
+        got = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout)
+        if (K5.launches, K5.bwd_launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("flash_attention_lse/backward did not "
+                                 "launch once each")
+        out_p, lse_p = K5.flash_attention_lse_plain(q, k, v)
+        want = K5.flash_attention_backward_plain(q, k, v, dout)
+        torch.cuda.synchronize()
+        lse_err = float((lse_k - lse_p).abs().max())
+        lse_ok = bool(torch.allclose(lse_k, lse_p, rtol=K5_LSE_RTOL,
+                                     atol=K5_LSE_ATOL))
+        out_ok = bool(torch.allclose(out_k.float(), out_p.float(),
+                                     rtol=K5_RTOL, atol=K5_ATOL))
+        err, ok = _bwd_close(got, want)
+        errs = {n: float((a.float() - b.float()).abs().max())
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)}
+        print(f"  backward [{B}, {S}, {H}/{K}, {hd}]: max abs err {errs} "
+              f"(max |plain| "
+              f"{[round(float(w.float().abs().max()), 4) for w in want]}); "
+              f"lse max abs err {lse_err:.3e} ok={lse_ok}; forward out "
+              f"ok={out_ok}")
+        if not (lse_ok and out_ok):
+            raise AssertionError(f"K5 forward at {[B, S, H, K, hd]}: the lse "
+                                 f"({lse_err:.3e}) or the output disagrees "
+                                 "with the plain version")
+        faults = {}
+        for name, f_grads in bwd_faults_plain(q, k, v, out_k, dout, lse_k,
+                                              scale).items():
+            f_err, f_ok = _bwd_close(f_grads, want)
+            faults[name] = dict(max_abs_err=f_err, rejected=not f_ok)
+            print(f"    planted fault {name}: max abs err {f_err:.3e}, "
+                  f"rejected: {not f_ok}")
+            if f_ok:
+                raise AssertionError(f"the planted backward fault {name} "
+                                     f"passes the check at {[B, S, H, K, hd]}")
+        del f_grads
+
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        do_t = dout.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
+                                       retain_graph=True)
+
+        lib_err = _bwd_close([t.transpose(1, 2) for t in library()], want)[0]
+        t_lib = _event_ms(lambda: [library() for _ in range(5)], 5) / 5
+        n_bytes, n_ops = k5_bwd_bytes_ops(B, S, H, K, hd, hd)
+        name = "flash_attn_bwd" if hd == 128 else f"flash_attn_bwd_{hd}"
+        _record(results, name, [B, S, H, K, hd, hd], err, ok,
+                time_ms(lambda: K5.flash_attention_backward(
+                    q, k, v, out_k, lse_k, dout), reps=5, repeats=5),
+                time_ms(lambda: K5.flash_attention_backward_plain(
+                    q, k, v, dout), reps=1, repeats=3),
+                (t_lib, t_lib), bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
+                grad_max_abs_err=errs, lse_max_abs_err=lse_err,
+                faults=faults, library_max_abs_err=lib_err,
+                library="sdpa(is_causal, enable_gqa) backward, eager",
+                source="src/repro_torch/csrc/flash_attn_bwd.cu")
+        print(f"    (library: the backward of sdpa(is_causal=True, "
+              f"enable_gqa=True), eager; its max abs err against the plain "
+              f"version {lib_err:.3e})")
+        # the training forward: K5 with its row statistic
+        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, hd, hd)
+        _record(results, "flash_attn_train" + ("" if hd == 128 else
+                                               f"_{hd}"),
+                [B, S, H, K, hd, hd, "lse"],
+                float((out_k.float() - out_p.float()).abs().max()), out_ok,
+                time_ms(lambda: K5.flash_attention_lse(q, k, v), reps=5,
+                        repeats=5),
+                time_ms(lambda: K5.flash_attention_lse_plain(q, k, v),
+                        reps=1, repeats=3),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                    enable_gqa=True), reps=5, repeats=5),
+                bound_ms(n_bytes + 4 * B * H * S, n_ops, PEAK_BF16_OPS_S),
+                lse_max_abs_err=lse_err, library="sdpa(is_causal)",
+                source="src/repro_torch/csrc/flash_attn_tc.cu")
+        del q, k, v, dout, out_k, lse_k, got, want, out_p, lse_p, o_lib
+        del qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def k5_bwd_build_report() -> dict:
+    """ptxas's registers, stack and spills of the backward's kernels."""
+    from repro_torch.kernels import build
+
+    report = {}
+    for name, regs in ptxas_report(build.build_log()).items():
+        if name.startswith(("dkdv_kernel", "dq_kernel", "delta_kernel",
+                            "group_sum_kernel")):
+            report[name] = regs
+            print(f"  {name}: {regs}")
+    return report
+
+
+#: the training phase. qwen3-100m (examples/train_lm_torch.py's config:
+#: qwen3-14b narrowed to 12 layers, d 512, 8/4 heads of 64, d_ff 1408,
+#: vocab 32064, remat off) on the bigram stream for TRAIN_STEPS steps,
+#: cut at TRAIN_CUT and resumed; starcoder2-3b at its published width,
+#: first 4 layers (K5 gradients against the plain attention's), then all
+#: 30 (B 2 x S 2048, remat on as configured) for TRAIN_TIMED timed steps.
+TRAIN_DATA = dict(seq_len=128, global_batch=16, seed=0)
+TRAIN_STEPS, TRAIN_CUT, TRAIN_CPU_STEPS = 100, 40, 3
+TRAIN_LR = dict(base=1e-3, warmup=10, total=TRAIN_STEPS)
+TRAIN_FULL = dict(arch="starcoder2-3b", batch=2, seq=2048, grad_layers=4,
+                  timed=3)
+#: the loss of the same step on the card and on the CPU (same masters and
+#: tokens): bf16 rounds in other places (cuBLAS and the CPU's GEMMs, K5
+#: against _sdpa), and after each AdamW step the masters part by up to
+#: ~2·lr where a gradient near 0 takes the other sign; a loss near 10.4
+#: moves by 1e-3 to 1e-2 (the CPU parity tests: <= 1e-3 a step at smoke)
+TRAIN_CPU_LOSS_ATOL = 0.02
+#: starcoder2-3b's gradients with K5 against the plain attention, leaf by
+#: leaf: the kernel's bf16 P and dS (2^-9) and its forward's one-ulp output
+#: flips carry through 4 layers (the CPU parity tests, 2 layers: <= 0.013
+#: of a leaf's max and 0.009 of its mean): max |diff| <= 2^-4 max |plain|,
+#: mean |diff| <= 2^-5 mean |plain|
+TRAIN_GRAD_ATOL_REL, TRAIN_GRAD_MEAN_REL = 2.0 ** -4, 2.0 ** -5
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+#: kernel groups of the full-width step's profile
+TRAIN_KERNEL_GROUPS = {
+    "k5_forward": r"flash_attn_tc_kernel",
+    "k5_backward": r"dkdv_kernel|dq_kernel|delta_kernel|group_sum_kernel",
+    "gemm": r"nvjet|gemm|cutlass|sm90_|cublas",
+    "elementwise": r"elementwise|vectorized|reduce_kernel|Reduce"}
+
+
+def qwen3_100m():
+    """examples/train_lm_torch.py's (and examples/train_lm.py's) config."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(
+        get_config("qwen3-14b"), arch_id="qwen3-100m", n_layers=12,
+        d_model=512, n_heads=8, n_kv_heads=4, head_dim=64, d_ff=1408,
+        vocab=32064, remat=False)
+
+
+def _state_equal(a, b) -> bool:
+    import torch
+
+    return int(a.step) == int(b.step) and all(
+        torch.equal(getattr(a, part)[k], getattr(b, part)[k])
+        for part in ("params", "m", "v") for k in a.params)
+
+
+def train_small(dev) -> dict:
+    """qwen3-100m on the bigram stream: TRAIN_STEPS steps with every count
+    set to 0 just before (K5 forward and backward at (64, 64): 12 of each a
+    step); the loss must fall by >= 0.2 below its first record and stay
+    above the bigram floor - 0.05; a run cut at TRAIN_CUT (its checkpoint
+    written as the drill writes it) and resumed must end with masters and
+    moments equal to the uninterrupted run's bit for bit; and the first
+    TRAIN_CPU_STEPS losses on the CPU from the same masters within
+    TRAIN_CPU_LOSS_ATOL."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.train import (DataConfig, LRSchedule, TrainConfig,
+                                   bigram_entropy, init_params,
+                                   make_batch, make_train_step, train)
+    from repro_torch.train.optimizer import adamw_init
+
+    t_phase = time.perf_counter()
+    cfg = qwen3_100m()
+    dcfg = DataConfig(vocab=cfg.vocab, **TRAIN_DATA)
+    floor = bigram_entropy(dcfg)
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def init_fn():  # fresh copies: a run updates its masters in place
+        return {k: v.to(dev, copy=True) for k, v in masters.items()}
+
+    tcfg = TrainConfig(steps=TRAIN_STEPS, log_every=1,
+                       lr=LRSchedule(**TRAIN_LR))
+    print(f"  {cfg.arch_id}: {sum(v.numel() for v in masters.values()) / 1e6:.1f}"
+          f" M parameters, bigram floor {floor:.4f}, B {dcfg.global_batch} "
+          f"x S {dcfg.seq_len}, {TRAIN_STEPS} steps")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    state, hist = train(cfg, tcfg, dcfg, init_fn, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(forward=K5.launches, backward=K5.bwd_launches,
+                    backward_by_dims={f"{a}x{b}": n for (a, b), n in
+                                      K5.bwd_head_dim_launches.items()})
+    losses = [h["loss"] for h in hist]
+    print(f"  uninterrupted: {wall:.1f} s ({1e3 * wall / TRAIN_STEPS:.1f} ms a "
+          f"step), loss {losses[0]:.4f} -> {losses[-1]:.4f} (min "
+          f"{min(losses):.4f}), K5 launches {launches}")
+    print(f"  loss every 10 steps: {[round(x, 4) for x in losses[9::10]]}")
+    want = cfg.n_layers * TRAIN_STEPS
+    if (launches["forward"], launches["backward"]) != (want, want) or \
+            launches["backward_by_dims"] != {
+                f"{cfg.head_dim}x{cfg.head_dim}": want}:
+        raise AssertionError(f"K5 launched {launches} in {TRAIN_STEPS} steps "
+                             f"of {cfg.n_layers} layers; want {want} each")
+    if not losses[-1] < losses[0] - 0.2:
+        raise AssertionError(f"the loss fell from {losses[0]:.4f} to only "
+                             f"{losses[-1]:.4f}")
+    if min(losses) <= floor - 0.05:
+        raise AssertionError(f"the loss {min(losses):.4f} beat the bigram "
+                             f"floor {floor:.4f}")
+
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    drill = dataclasses.replace(tcfg, ckpt_dir=str(TRAIN_DIR),
+                                ckpt_every=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    train(cfg, drill, dcfg, init_fn, preempt_after=TRAIN_CUT, verbose=False,
+          device=dev)
+    resumed, _ = train(cfg, drill, dcfg, init_fn, verbose=False, device=dev)
+    drill_s = time.perf_counter() - t0
+    same = _state_equal(resumed, state)
+    print(f"  drill: cut at step {TRAIN_CUT}, resumed to {int(resumed.step)} "
+          f"({drill_s:.1f} s): masters and moments equal to the "
+          f"uninterrupted run's bit for bit: {same}")
+    if not same:
+        raise AssertionError("the resumed run's state differs from the "
+                             "uninterrupted run's")
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    step_cpu = make_train_step(cfg, tcfg, "cpu")
+    st_cpu = adamw_init({k: v.clone() for k, v in masters.items()})
+    cpu_losses = []
+    for k in range(TRAIN_CPU_STEPS):
+        st_cpu, _, m = step_cpu(st_cpu, make_batch(dcfg, k), None)
+        cpu_losses.append(float(m["loss"]))
+    diffs = [abs(a - b) for a, b in zip(cpu_losses, losses)]
+    print(f"  card vs CPU, first {TRAIN_CPU_STEPS} losses: "
+          f"{[round(x, 5) for x in losses[:TRAIN_CPU_STEPS]]} vs "
+          f"{[round(x, 5) for x in cpu_losses]} (max |diff| {max(diffs):.2e}, "
+          f"tolerance {TRAIN_CPU_LOSS_ATOL})")
+    if max(diffs) > TRAIN_CPU_LOSS_ATOL:
+        raise AssertionError("the card's losses part from the CPU's")
+    return dict(config=cfg.arch_id, steps=TRAIN_STEPS, wall_s=wall,
+                step_ms=1e3 * wall / TRAIN_STEPS, losses=losses, floor=floor,
+                launches=launches, drill_equal=same, drill_s=drill_s,
+                cpu_losses=cpu_losses, cpu_loss_max_diff=max(diffs),
+                phase_s=time.perf_counter() - t_phase)
+
+
+def _grad_check(g, want) -> tuple[float, float, bool]:
+    """(max |diff| / max |want|, mean |diff| / mean |want|, within the
+    TRAIN_GRAD tolerances) of one leaf."""
+    g, want = g.float(), want.float()
+    d = (g - want).abs()
+    mx = float(d.max() / want.abs().max().clamp_min(1e-30))
+    mn = float(d.mean() / want.abs().mean().clamp_min(1e-30))
+    return mx, mn, mx <= TRAIN_GRAD_ATOL_REL and mn <= TRAIN_GRAD_MEAN_REL
+
+
+def train_full_grads(dev) -> dict:
+    """starcoder2-3b at its published width, cut to TRAIN_FULL's
+    grad_layers layers: one step's gradients (B 2 x S 2048, remat on) with
+    K5 forward and backward against the same step with K5's plain version
+    as the attention, leaf by leaf; every leaf's gradient must be nonzero.
+    The planted fault, K5 called on detached q, k, v (the autograd
+    Function bypassed), must leave wq, wk and wv without a gradient, which
+    the nonzero check rejects."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import loss_fn
+    from repro_torch.models.model import LM
+    from repro_torch.train import DataConfig, init_params, make_batch
+
+    conf = TRAIN_FULL
+    cfg = dataclasses.replace(get_config(conf["arch"]),
+                              n_layers=conf["grad_layers"])
+    model = LM(cfg, dev)
+    masters = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                          dev)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(masters[n])
+            p.requires_grad_(True)
+    del masters
+    names = [n for n, _ in model.named_parameters()]
+    params = [p for _, p in model.named_parameters()]
+    batch = make_batch(DataConfig(cfg.vocab, conf["seq"], conf["batch"]), 0,
+                       device=dev)
+
+    def plain(q, k, v, scale=None, **kw):
+        return K5.flash_attention_plain(q, k, v, scale, **kw)
+
+    def detached(q, k, v, **kw):
+        return K5.flash_attention(q.detach(), k.detach(), v.detach(), **kw)
+
+    def grads(attention):
+        loss, _ = loss_fn(model, batch, attention=attention)
+        return float(loss.detach()), torch.autograd.grad(loss, params,
+                                                allow_unused=True)
+
+    before = (K5.launches, K5.bwd_launches)
+    loss_k, g_k = grads(None)
+    moved = (K5.launches - before[0], K5.bwd_launches - before[1])
+    loss_p, g_p = grads(plain)
+    torch.cuda.synchronize()
+    worst = (0.0, 0.0, "")
+    failed, zero = [], [n for n, g in zip(names, g_k)
+                        if g is None or not bool(g.abs().max() > 0)]
+    for n, a, b in zip(names, g_k, g_p):
+        mx, mn, ok = _grad_check(a, b)
+        worst = max(worst, (mx, mn, n))
+        if not ok:
+            failed.append((n, mx, mn))
+    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers, B "
+          f"{conf['batch']} x S {conf['seq']}: loss K5 {loss_k:.5f}, plain "
+          f"{loss_p:.5f}; K5 launches in the step: {moved[0]} forward (with "
+          f"remat), {moved[1]} backward; gradients of {len(names)} leaves, "
+          f"worst max/mean relative difference {worst[0]:.3e}/{worst[1]:.3e} "
+          f"({worst[2]}); leaves with no or zero gradient: {zero}")
+    if failed or zero:
+        raise AssertionError(f"K5's gradients part from the plain "
+                             f"attention's: {failed}; zero: {zero}")
+    if moved != (2 * cfg.n_layers, cfg.n_layers):
+        raise AssertionError(f"K5 launched {moved} in a step of "
+                             f"{cfg.n_layers} layers with remat")
+    del g_k, g_p
+    loss_f, g_f = grads(detached)
+    dead = [n for n, g in zip(names, g_f)
+            if g is None or not bool(g.abs().max() > 0)]
+    print(f"  planted fault, K5 on detached q/k/v (the autograd Function "
+          f"bypassed): leaves with no or zero gradient {dead}; rejected: "
+          f"{bool(dead)}")
+    if not {f"layers.{i}.attn.{w}" for i in range(cfg.n_layers)
+            for w in ("wq", "wk", "wv")} <= set(dead):
+        raise AssertionError("the detached-attention fault left a gradient "
+                             f"on wq/wk/wv: {dead}")
+    del g_f, model, params
+    torch.cuda.empty_cache()
+    return dict(layers=cfg.n_layers, loss_k5=loss_k, loss_plain=loss_p,
+                worst_max_rel=worst[0], worst_mean_rel=worst[1],
+                worst_leaf=worst[2], launches=moved, fault_dead=dead)
+
+
+def train_full(dev, n_layers=None) -> dict:
+    """starcoder2-3b at its published width and depth (or ``n_layers``),
+    B 2 x S 2048, remat on: the float32 masters and moments, the bf16
+    compute copy and its gradients on the card; one warm-up step, then
+    TRAIN_FULL's timed steps with every count set to 0 just before them
+    (s a step, tokens/s, K5 forward and backward launches a step: with
+    remat, 2 forward and 1 backward a layer), the peak memory of the whole
+    run, and one more step under torch.profiler (the busy share)."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import loss_fn
+    from repro_torch.train import (DataConfig, LRSchedule, TrainConfig,
+                                   init_params, make_batch, make_train_step)
+    from repro_torch.train.optimizer import adamw_init
+
+    conf = TRAIN_FULL
+    cfg = get_config(conf["arch"])
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = adamw_init(init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), dev))
+    n_params = sum(p.numel() for p in state.params.values())
+    step_fn = make_train_step(cfg, TrainConfig(lr=LRSchedule(
+        base=1e-4, warmup=10, total=1000)), dev)
+    dcfg = DataConfig(cfg.vocab, conf["seq"], conf["batch"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _, m = step_fn(state, make_batch(dcfg, 0, device=dev), None)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    kernels.reset_launches()
+    times, losses = [], [float(m["loss"])]
+    for k in range(1, 1 + conf["timed"]):
+        batch = make_batch(dcfg, k, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, m = step_fn(state, batch, None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    launches = dict(forward=K5.launches / conf["timed"],
+                    backward=K5.bwd_launches / conf["timed"],
+                    backward_total=K5.bwd_launches,
+                    forward_total=K5.launches)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # the step's parts: the masters copied into the compute copy, then its
+    # forward and backward (AdamW is the rest of a step)
+    model = step_fn.model
+    params = list(model.parameters())
+    batch = make_batch(dcfg, 99, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            p.copy_(state.params[n])
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = torch.autograd.grad(loss_fn(model, batch)[0], params)
+    torch.cuda.synchronize()
+    fwd_bwd_s = time.perf_counter() - t0
+    del grads
+    busy = device_busy(lambda: (step_fn(state, batch, None),
+                                torch.cuda.synchronize()), min(times),
+                       groups=TRAIN_KERNEL_GROUPS)
+    step_s = sorted(times)[len(times) // 2]
+    tokens = conf["batch"] * conf["seq"]
+    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers "
+          f"({n_params / 1e9:.3f} B parameters), B {conf['batch']} x S "
+          f"{conf['seq']}, remat {cfg.remat}: init {init_s:.1f} s, warm-up "
+          f"step {warm_s:.2f} s, steps {[round(t, 4) for t in times]} s "
+          f"(median {step_s:.4f} s, {tokens / step_s:.0f} tokens/s), losses "
+          f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GB, "
+          f"{busy['busy_text']}; K5 launches a step: {launches}")
+    print(f"    parts of a step: copy into the compute copy {copy_s:.4f} s, "
+          f"forward + backward {fwd_bwd_s:.4f} s, AdamW (the rest of the "
+          f"median step) {step_s - copy_s - fwd_bwd_s:.4f} s; device time "
+          f"by kernel group: " + ", ".join(
+              f"{g} {v['device_s']:.4f} s ({v['launches']})"
+              for g, v in busy.get("by_group", {}).items()))
+    _print_top(busy)
+    want = (2 * cfg.n_layers, cfg.n_layers) if cfg.remat else \
+        (cfg.n_layers, cfg.n_layers)
+    if (launches["forward"], launches["backward"]) != want:
+        raise AssertionError(f"K5 launched {launches} a step; want {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite losses {losses}")
+    out = dict(arch=cfg.arch_id, layers=cfg.n_layers, params=n_params,
+               batch=conf["batch"], seq=conf["seq"], remat=cfg.remat,
+               init_s=init_s, warm_s=warm_s, step_s=times,
+               step_median_s=step_s, tokens_per_s=tokens / step_s,
+               losses=losses, peak_gb=peak, launches=launches,
+               copy_s=copy_s, fwd_bwd_s=fwd_bwd_s,
+               adamw_s=step_s - copy_s - fwd_bwd_s,
+               **{k: v for k, v in busy.items() if k != "top_kernels"})
+    del state, step_fn, model, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(dev) -> dict:
+    """The training phase: qwen3-100m (loss, drill, card vs CPU), then
+    starcoder2-3b's full-width gradients and timed steps."""
+    t0 = time.perf_counter()
+    out = dict(small=train_small(dev), grads=train_full_grads(dev),
+               full=train_full(dev))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"  training phase: {out['phase_s']:.1f} s")
+    return out
+
+
 def planted_faults(cfg) -> dict:
     """Attention functions with K5's signature that are wrong on purpose,
     for a serve phase to show that its checks would catch a wrong K5 or a
@@ -3747,6 +4341,15 @@ def main() -> int:
     moe_check = moe_card_vs_cpu(dev)
     serve_small_card_vs_cpu(dev)
 
+    # Training: K5's backward and the forward's row statistic against their
+    # plain versions, then qwen3-100m and starcoder2-3b trained on the card.
+    print("flash_attn backward (csrc/flash_attn_bwd.cu) and the forward's "
+          "row statistic (bound_ms at the bf16 tensor-core peak):")
+    k5_bwd_build = k5_bwd_build_report()
+    check_flash_attn_backward(dev, checks)
+    print("training:")
+    training = train_phase(dev)
+
     src = "src/repro_torch/csrc/"
     meta = {
         "systolic_eval": ("systolic_eval.cu",
@@ -3815,6 +4418,24 @@ def main() -> int:
             "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
             {"flash_attn_whisper_dec":
              serve_audio["k5_class_launches"]["causal"]}),
+        # training: K5's forward with its row statistic and its backward
+        # (the TPU kernel has no backward: the reference differentiates
+        # _sdpa; "replaces" names the kernel whose gradient it is), in
+        # starcoder2-3b's timed steps (128) and qwen3-100m's run (64)
+        "flash_attn_train": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train":
+             training["full"]["launches"]["forward_total"]}),
+        "flash_attn_bwd": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd":
+             training["full"]["launches"]["backward_total"]}),
+        "flash_attn_train_64": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_64": training["small"]["launches"]["forward"]}),
+        "flash_attn_bwd_64": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_64": training["small"]["launches"]["backward"]}),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():
@@ -3854,7 +4475,8 @@ def main() -> int:
             serve_mla=serve_mla, serve_moe_mla=serve_moe_mla,
             serve_moe=serve_moe, serve_ssm=serve_ssm,
             serve_hybrid=serve_hybrid, serve_audio=serve_audio,
-            serve_vlm=serve_vlm, moe_check=moe_check,
+            serve_vlm=serve_vlm, moe_check=moe_check, training=training,
+            k5_bwd_build=k5_bwd_build,
             wall_s=time.perf_counter() - t_start),
             indent=1))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")

@@ -15,7 +15,8 @@ from repro_torch.core.gp import GPParams, GPState
 from repro_torch.device import resolve_device
 
 __all__ = ["gp_params_from_numpy", "gp_state_from_numpy",
-           "engine_state_from_numpy", "lm_params_from_numpy"]
+           "engine_state_from_numpy", "lm_params_from_numpy",
+           "train_state_from_numpy", "reference_checkpoint_tree"]
 
 
 def _t(a, device) -> torch.Tensor:
@@ -63,6 +64,33 @@ def engine_state_from_numpy(d: dict) -> dict:
     return {k: copy(k, v) for k, v in d.items()}
 
 
+def _reference_leaves(cfg, model) -> list[tuple[str, torch.Tensor, str,
+                                               "int | None"]]:
+    """(the port's parameter name, the tensor, its path in the reference's
+    ``init`` tree (dotted), the index into a stacked leaf or None), for
+    every parameter of ``model``."""
+    from repro_torch.models.model import reference_slot
+
+    out = [(name, getattr(model, name), name, None)
+           for name in ("embed", "head", "final_ln", "pos_embed", "enc_ln")
+           if getattr(model, name) is not None]
+    blocks = [(f"layers.{i}", b, *reference_slot(cfg, i))
+              for i, b in enumerate(model.layers)]
+    if model.enc_layers is not None:
+        blocks += [(f"enc_layers.{g}", b, "enc_layers", g)
+                   for g, b in enumerate(model.enc_layers)]
+    for prefix, block, path, j in blocks:
+        for name, w in block.named_parameters():
+            out.append((f"{prefix}.{name}", w, f"{path}.{name}", j))
+    return out
+
+
+def _leaf(tree: dict, dotted: str, i):
+    for key in dotted.split("."):
+        tree = tree[key]
+    return tree if i is None else tree[i]
+
+
 def lm_params_from_numpy(cfg, tree: dict, device=None):
     """The reference's ``repro.models.init`` tree (numpy) as the port's
     :class:`~repro_torch.models.LM` on ``device``: the scanned blocks
@@ -75,37 +103,59 @@ def lm_params_from_numpy(cfg, tree: dict, device=None):
     matrices rounded to bf16 (as the reference's launcher casts every
     parameter of more than one dim), the rest kept in float32."""
     from repro_torch.models import LM
-    from repro_torch.models.model import reference_slot
 
     model = LM(cfg, device)
-
-    def load(dst: torch.Tensor, src) -> None:
-        src = np.asarray(src)
-        if tuple(src.shape) != tuple(dst.shape):
-            raise ValueError(f"shape {src.shape} does not fit "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.array(src, np.float32)))
-
-    def leaf(sub: dict, dotted: str, i):
-        for key in dotted.split("."):
-            sub = sub[key]
-        return sub if i is None else sub[i]
-
     with torch.no_grad():
-        load(model.embed, tree["embed"])
-        if model.head is not None:
-            load(model.head, tree["head"])
-        load(model.final_ln, tree["final_ln"])
-        if model.pos_embed is not None:
-            load(model.pos_embed, tree["pos_embed"])
-        blocks = [(b, *reference_slot(cfg, i))
-                  for i, b in enumerate(model.layers)]
-        if model.enc_layers is not None:
-            load(model.enc_ln, tree["enc_ln"])
-            blocks += [(b, "enc_layers", g)
-                       for g, b in enumerate(model.enc_layers)]
-        for block, path, j in blocks:
-            sub = leaf(tree, path, None)
-            for name, w in block.named_parameters():
-                load(w, leaf(sub, name, j))
+        for _, dst, path, j in _reference_leaves(cfg, model):
+            src = np.asarray(_leaf(tree, path, j))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{path}: shape {src.shape} does not fit "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(src, np.float32)))
     return model
+
+
+def reference_checkpoint_tree(arrays) -> dict:
+    """A reference checkpoint's ``arrays.npz`` (or any mapping of its flat
+    names, ``.step``, ``.params/layers/b0/attn/wq``, ...) as the nested
+    tree :func:`train_state_from_numpy` takes."""
+    tree: dict = {}
+    for name in arrays:
+        keys = name.lstrip(".").split("/")
+        sub = tree
+        for key in keys[:-1]:
+            sub = sub.setdefault(key, {})
+        sub[keys[-1]] = np.asarray(arrays[name])
+    return tree
+
+
+def train_state_from_numpy(cfg, tree: dict, device=None):
+    """A reference ``TrainState`` (numpy: ``{"step", "params", "m", "v"}``,
+    each of the last three a tree of the reference's ``init``; e.g.
+    ``jax.tree.map(np.asarray, state)._asdict()``, or
+    :func:`reference_checkpoint_tree` of a checkpoint's arrays) as the
+    port's :class:`~repro_torch.train.TrainState` on ``device``: float32
+    masters and moments keyed by the ``LM``'s parameter names (the stacked
+    leaves split as :func:`lm_params_from_numpy` splits them), the step an
+    int32 scalar."""
+    from repro_torch.models import LM
+    from repro_torch.train.optimizer import TrainState
+
+    dev = resolve_device(device)
+    # the names and shapes only: empty CPU tensors, never filled
+    leaves = _reference_leaves(cfg, LM(cfg, "cpu"))
+
+    def part(sub: dict) -> dict:
+        out = {}
+        for name, like, path, j in leaves:
+            src = np.asarray(_leaf(sub, path, j))
+            if tuple(src.shape) != tuple(like.shape):
+                raise ValueError(f"{path}: shape {src.shape} does not fit "
+                                 f"{tuple(like.shape)}")
+            out[name] = torch.tensor(np.array(src, np.float32), device=dev)
+        return out
+
+    return TrainState(
+        torch.tensor(int(np.asarray(tree["step"])), dtype=torch.int32,
+                     device=dev),
+        part(tree["params"]), part(tree["m"]), part(tree["v"]))

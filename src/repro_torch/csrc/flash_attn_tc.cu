@@ -92,7 +92,9 @@
 //   (256, 256) Q (64 rows) 32 KB + 3 x (32 + 32) KB + the barriers + 1 KB
 //   = 230,480 bytes (with 128 query rows, 3 stages would take 263,248).
 // - Epilogue: acc / max(l, 1e-30), round to nearest even, 4-byte stores;
-//   no row at or past S is written.
+//   no row at or past S is written. When the caller asks for it (training),
+//   each row's lse = m c + log2(max(l, 1e-30)) in float32 [B, H, S] (m the
+//   raw max, c = scale log2(e)), one store by a quad's first lane.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -462,7 +464,8 @@ __global__ void __launch_bounds__(Tiles<DQK, DV>::kThreads, 1)
 flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
-                     __nv_bfloat16* __restrict__ o, int S, int H, int KH,
+                     __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int S, int H, int KH,
                      int BH, int nq, int window, int causal,
                      float scale_log2) {
   using T = Tiles<DQK, DV>;
@@ -678,6 +681,18 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  if (lse != nullptr && lane % 4 == 0) {
+    // the row statistic for the backward, in base 2 of the scaled logits:
+    // lse = m c + log2(l), so that P = exp2(s c - lse) (m the raw max; a
+    // row with no key yet has m = -2e38 and subtracts 0, as above)
+    float* lb = lse + static_cast<size_t>(bh) * S;
+    if (row0 < S)
+      lb[row0] = (st_rows.m0 == kNegInf ? 0.0f : st_rows.m0 * scale_log2) +
+                 log2f(den0);
+    if (row1 < S)
+      lb[row1] = (st_rows.m1 == kNegInf ? 0.0f : st_rows.m1 * scale_log2) +
+                 log2f(den1);
+  }
   const size_t step = static_cast<size_t>(H) * DV;  // elements per position
   __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * DV + col_of;
   if (row0 < S) {
@@ -744,8 +759,8 @@ bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
 }
 
 template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int window, int causal, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KH, int window, int causal, float scale,
            cudaStream_t stream) {
   using T = Tiles<DQK, DV>;
   CUtensorMap mq, mk, mv;
@@ -765,7 +780,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const long long blocks = (long long)nq * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attn_tc_kernel<DQK, DV><<<(unsigned)blocks, T::kThreads,
-                                  T::kSmemBytes, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, S,
+                                  T::kSmemBytes, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse, S,
                                             H, KH, B * H, nq, window,
                                             causal, scale * kLog2e);
   return (int)cudaGetLastError();
@@ -778,9 +793,13 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 // (64, 64), (128, 128), (256, 256), (96, 64), (192, 128), (32, 16); KH
 // divides H; window the sliding window in positions, or <= 0 for none;
 // causal 1 for the causal mask, 0 for none (then the window is ignored).
+// lse: null (serving), or float32 [B, H, S] that takes each row's
+// log2-sum-exp2 of its scaled logits, the statistic the backward
+// (flash_attn_bwd.cu) rebuilds P from; rows past S are not written.
 // Anything else returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
-                                    const void* v, void* o, int B, int S,
+                                    const void* v, void* o, void* lse,
+                                    int B, int S,
                                     int H, int KH, int dqk, int dv,
                                     int window, int causal, float scale,
                                     void* stream) {
@@ -794,14 +813,15 @@ extern "C" int flash_attn_tc_launch(const void* q, const void* k,
   causal = causal != 0;
   if (!causal || window <= 0 || window >= S) window = 1 << 30;
   const cudaStream_t st = (cudaStream_t)stream;
+  float* lf = static_cast<float*>(lse);
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -8,7 +8,8 @@
                      (Pallas ``round_fused``)
 - ``flash_attn``     attention of the LM prefill, causal or bidirectional
                      (Pallas ``flash_attn``): bf16 on the tensor cores,
-                     float32 on the CUDA cores
+                     float32 on the CUDA cores; the causal bf16 backward for
+                     training (no Pallas counterpart)
 - ``build``          ``nvcc`` build of ``csrc/`` into one ctypes-loaded library
 
 A wrapper runs its plain version for CPU tensors only; for CUDA tensors it
@@ -31,9 +32,12 @@ def reset_launches() -> None:
     with COUNT_LOCK:
         for k in KERNELS:
             k.launches = 0
+            if hasattr(k, "bwd_launches"):
+                k.bwd_launches = 0
             for by in ("route_launches", "class_launches"):
                 counts = getattr(k, by, {})
                 for key in counts:
                     counts[key] = 0
-            for by in ("shape_launches", "multi_shape_launches"):
+            for by in ("shape_launches", "multi_shape_launches",
+                       "bwd_head_dim_launches"):
                 getattr(k, by, {}).clear()

@@ -30,6 +30,18 @@ a window of 2048) and the smoke/test dims (16, 16) and (64, 64); MLA's (96, 64)
 (minicpm3-4b), (192, 128) (deepseek-v2-lite: 128 nope + 64 rope, v 128)
 and (32, 16) (the MLA smoke dims 24/16 with q and k zero-padded to 32 by
 the caller). The wrapper raises for anything else.
+
+Training: where a CUDA call needs a gradient (grad mode on and an input
+that requires one), :func:`flash_attention` runs through an
+``autograd.Function`` whose forward launches the bf16 kernel with its row
+statistic (:func:`flash_attention_lse`: each row's log2-sum-exp2 of the
+scaled logits, [B, H, S] float32) and whose backward launches
+``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_backward`). The backward
+takes causal attention without a window, bf16, at the head dims of
+``BWD_HEAD_DIMS``; a call that needs a gradient of any other variant
+raises ``NotImplementedError`` (nothing detaches the output and nothing
+falls back to the plain version). On the CPU the plain version runs and
+autograd differentiates it.
 """
 from __future__ import annotations
 
@@ -42,7 +54,9 @@ from ._common import COUNT_LOCK, on_cpu
 
 __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
            "NEG_INF", "ROUTES", "launches", "route_launches",
-           "class_launches"]
+           "class_launches", "flash_attention_lse", "flash_attention_lse_plain",
+           "flash_attention_backward", "flash_attention_backward_plain",
+           "BWD_HEAD_DIMS", "LOG2E", "bwd_launches", "bwd_head_dim_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -51,9 +65,20 @@ route_launches = {"tensor_core": 0, "cuda_core": 0}
 #: the same launches by mask: causal (with or without a window) or not
 class_launches = {"causal": 0, "noncausal": 0}
 
+#: backward launches (one a call of ``flash_attn_bwd_launch``, whose four
+#: kernels run as one) since the count was last set to 0
+bwd_launches = 0
+#: the same by (q·k head dim, v head dim)
+bwd_head_dim_launches: dict[tuple[int, int], int] = {}
+
 #: the (q·k head dim, v head dim) pairs the kernels are built for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (96, 64),
              (192, 128), (32, 16))
+#: the pairs the backward kernel is built for (the dense configs' 128/128
+#: and the 64/64 of ``examples/train_lm_torch.py``'s qwen3-100m)
+BWD_HEAD_DIMS = ((64, 64), (128, 128))
+#: log2(e): the row statistic is in base 2 of the scaled logits
+LOG2E = 1.4426950408889634
 #: the mask value of the reference (``flash_attn/kernel.py``, ``ref.py``)
 NEG_INF = -2.0e38
 #: dtype -> (route, C launch function, source under ``repro_torch/csrc``)
@@ -123,19 +148,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "(the reference's _sdpa applies one only with it)")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    scale: float | None = None, window: int | None = None,
-                    causal: bool = True) -> torch.Tensor:
-    """Causal attention (over the last ``window`` keys when given), or
-    bidirectional with ``causal=False``; ``[B, S, H, Dv]`` out; see the
-    module docstring."""
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+            window: int | None, causal: bool,
+            lse: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel of the inputs' dtype (``lse``: bf16 only)."""
     global launches
-    causal = bool(causal)
-    _check(q, k, v, window, causal)
-    if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[3])
-    if on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, scale, window, causal)
     B, S, H, dqk = q.shape
     dv = v.shape[3]
     out = q.new_empty((B, S, H, dv))
@@ -145,9 +162,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention: kernel inputs must be 16-byte "
                          "aligned")
     route, fn, _ = ROUTES[q.dtype]
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
+    if q.dtype == torch.bfloat16:  # the tensor-core entry takes the lse
+        ptrs.append(None if lse is None else lse.data_ptr())
     err = getattr(build.library(), fn)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-        k.shape[2], dqk, dv, window or 0, int(causal), scale,
+        *ptrs, B, S, H, k.shape[2], dqk, dv, window or 0, int(causal), scale,
         build.stream_ptr(q))
     build.check(err, f"flash_attn ({route})")
     with COUNT_LOCK:
@@ -155,3 +174,189 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         route_launches[route] += 1
         class_launches["causal" if causal else "noncausal"] += 1
     return out
+
+
+def _check_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: int | None, causal: bool) -> None:
+    """Raise ``NotImplementedError`` for a variant the backward kernel does
+    not take."""
+    why = None
+    if q.dtype != torch.bfloat16:
+        why = f"{q.dtype} inputs"
+    elif not causal:
+        why = "causal=False"
+    elif window is not None:
+        why = f"a window ({window})"
+    elif (q.shape[3], v.shape[3]) not in BWD_HEAD_DIMS:
+        why = f"head dims (q·k {q.shape[3]}, v {v.shape[3]})"
+    if why is not None:
+        raise NotImplementedError(
+            f"flash_attention: the backward kernel does not take {why} "
+            f"(it takes causal bf16 at {BWD_HEAD_DIMS}); ROADMAP queue 1, "
+            "item 14b.7 lists the variants training still needs")
+
+
+class _Attention(torch.autograd.Function):
+    """Causal bf16 K5 with its backward kernel (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse,
+                                              dout.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float | None = None, window: int | None = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Causal attention (over the last ``window`` keys when given), or
+    bidirectional with ``causal=False``; ``[B, S, H, Dv]`` out; see the
+    module docstring. A CUDA call that needs a gradient runs the backward
+    kernel or raises."""
+    causal = bool(causal)
+    _check(q, k, v, window, causal)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale, window, causal)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _check_backward(q, k, v, window, causal)
+        return _Attention.apply(q, k, v, scale)
+    return _launch(q, k, v, scale, window, causal)
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, scale: float | None = None
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal :func:`flash_attention_plain` and each row's statistic
+    ``logsumexp(q·kᵀ·scale)·log2(e)`` [B, H, S] float32 (the causal mask
+    applied)."""
+    S, dqk = q.shape[1], q.shape[3]
+    if scale is None:
+        scale = 1.0 / math.sqrt(dqk)
+    group = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    logits = torch.where(mask, logits, NEG_INF)
+    return (flash_attention_plain(q, k, v, scale),
+            torch.logsumexp(logits, dim=-1) * LOG2E)
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        scale: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Causal attention without a window and its row statistic
+    ``lse`` [B, H, S] float32, the log2-sum-exp2 of each row's scaled
+    logits (``P = exp2(q·k·scale·log2(e) - lse)``), which the backward
+    rebuilds the softmax from. CUDA: the bf16 kernel, one launch; CPU:
+    :func:`flash_attention_lse_plain`."""
+    _check(q, k, v, None, True)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if on_cpu(q, k, v):
+        return flash_attention_lse_plain(q, k, v, scale)
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError("flash_attention_lse: the row statistic "
+                                  "comes from the bf16 kernel only")
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, scale, None, True, lse), lse
+
+
+def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, dout: torch.Tensor,
+                                   scale: float | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """The gradient of causal :func:`flash_attention_plain` (``ref.py``'s
+    materialized float32 softmax) for the output gradient ``dout``: with K/V
+    repeated to H heads, P = softmax(mask(q·kᵀ·scale)), dP = dout·vᵀ,
+    dS = P ∘ (dP − rowsum(P ∘ dP)), dq = scale·dS·k, dk = scale·dSᵀ·q,
+    dv = Pᵀ·dout, in float32; dk and dv then summed over each KV head's
+    H/K query heads. Returns (dq, dk, dv) in the inputs' dtypes."""
+    B, S, H, dqk = q.shape
+    K = k.shape[2]
+    group = H // K
+    if scale is None:
+        scale = 1.0 / math.sqrt(dqk)
+    qf = q.float().transpose(1, 2)                     # [B, H, S, Dqk]
+    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    dof = dout.float().transpose(1, 2)                 # [B, H, S, Dv]
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+
+    def heads_summed(t):                               # [B, H, S, D] -> [B, S, K, D]
+        return t.view(B, K, group, S, t.shape[-1]).sum(2).transpose(1, 2)
+
+    return (dq.transpose(1, 2).to(q.dtype), heads_summed(dk).to(k.dtype),
+            heads_summed(dv).to(v.dtype))
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, out: torch.Tensor,
+                             lse: torch.Tensor, dout: torch.Tensor,
+                             scale: float | None = None
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(dq, dk, dv) of causal attention without a window, given the
+    forward's ``out`` and ``lse`` (:func:`flash_attention_lse`) and the
+    output's gradient ``dout`` [B, S, H, Dv]. CUDA: ``csrc/flash_attn_bwd.cu``
+    (bf16, ``BWD_HEAD_DIMS``; a deterministic sum over each KV head's query
+    heads, no atomics), one count in ``bwd_launches``; CPU:
+    :func:`flash_attention_backward_plain` (``out`` and ``lse`` unused)."""
+    global bwd_launches
+    _check(q, k, v, None, True)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[3])
+    if on_cpu(q, k, v, out, lse, dout):
+        return flash_attention_backward_plain(q, k, v, dout, scale)
+    _check_backward(q, k, v, None, True)
+    B, S, H, dqk = q.shape
+    K, dv = k.shape[2], v.shape[3]
+    if out.shape != (B, S, H, dv) or dout.shape != out.shape or \
+            out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError(f"flash_attention_backward: out {tuple(out.shape)} "
+                         f"{out.dtype} and dout {tuple(dout.shape)} "
+                         f"{dout.dtype} must be [{B}, {S}, {H}, {dv}] "
+                         f"{q.dtype}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_backward: lse must be float32 "
+                         f"[{B}, {H}, {S}], got {tuple(lse.shape)} "
+                         f"{lse.dtype}")
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if B == 0 or S == 0:
+        return dq, dk, dvv
+    f32 = dict(dtype=torch.float32, device=q.device)
+    delta = torch.empty((B, H, S), **f32)
+    dkp = torch.empty((B, S, H, dqk), **f32)  # per-query-head partials
+    dvp = torch.empty((B, S, H, dv), **f32)
+    tensors = (q, k, v, out, dout, lse, dq, dk, dvv, delta, dkp, dvp)
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention_backward: kernel tensors must be "
+                         "16-byte aligned")
+    err = build.library().flash_attn_bwd_launch(
+        *(t.data_ptr() for t in tensors), B, S, H, K, dqk, dv, scale,
+        build.stream_ptr(q))
+    build.check(err, "flash_attn backward")
+    with COUNT_LOCK:
+        bwd_launches += 1
+        bwd_head_dim_launches[(dqk, dv)] = \
+            bwd_head_dim_launches.get((dqk, dv), 0) + 1
+    return dq, dk, dvv

@@ -5,7 +5,9 @@ Compute is bf16 with float32 norm and rotary internals, cast back to the
 input dtype in the reference's order. Parameters are stored as the serving
 path uses them: matrices in bf16, norm scales in float32 (the reference's
 launcher casts every parameter with more than one dim to bf16 and keeps the
-rest). ``cross_entropy`` and ``stack_inits`` wait for training.
+rest). ``cross_entropy`` is the training loss's (its logits the bf16
+product cast to float32, as the reference makes them); the reference's
+``stack_inits`` has no counterpart: the port's blocks are one module each.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch.nn.functional as F
 __all__ = ["dense_init_", "embedding_init_", "normal_init_",
            "rms_norm_init_", "rms_norm",
            "rope", "gated_mlp", "embed", "lm_head", "GatedMLP", "param",
-           "silu", "gelu", "softplus"]
+           "silu", "gelu", "softplus", "cross_entropy"]
 
 #: float32 elements drawn at a time when a bf16 tensor is initialized, so a
 #: full-width embedding (131072 x 5120) never has a float32 copy
@@ -167,3 +169,46 @@ class GatedMLP(torch.nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return gated_mlp(self, x)
+
+
+def cross_entropy(head_w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor, tied: bool,
+                  n_chunks: int = 1) -> torch.Tensor:
+    """``repro.models.layers.cross_entropy``: the mean next-token cross
+    entropy over the positions where ``mask`` [B, S] holds, of the hidden
+    states ``x`` [B, S, d] against ``labels`` [B, S]. The logits are the
+    product ``x @ w`` in ``x``'s dtype (bf16) cast to float32, ``w`` the
+    head [d, V] (``tied``: the embedding [V, d] transposed). With
+    ``n_chunks > 1`` the vocab streams in ``n_chunks`` slices of V /
+    n_chunks columns with a running max, sum and label logit (exact, as the
+    reference's scan), so [B, S, V] is never materialized."""
+    w = head_w.T if tied else head_w                  # [d, V] either way
+    V = w.shape[-1]
+    maskf = mask.float()
+    denom = torch.clamp(maskf.sum(), min=1.0)
+    if n_chunks <= 1:
+        logits = (x @ w.to(x.dtype)).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        lab = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        return torch.sum((lse - lab) * maskf) / denom
+    if V % n_chunks:
+        raise ValueError(f"cross_entropy: {n_chunks} chunks do not divide "
+                         f"the vocab {V}")
+    C = V // n_chunks
+    B, S = labels.shape
+    m = torch.full((B, S), -math.inf, dtype=torch.float32, device=x.device)
+    s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    lab = torch.zeros((B, S), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        logits = (x @ w[:, i * C:(i + 1) * C].to(x.dtype)).float()
+        new_m = torch.maximum(m, logits.amax(dim=-1))
+        s = s * torch.exp(m - new_m) + torch.sum(
+            torch.exp(logits - new_m[..., None]), dim=-1)
+        local = labels - i * C
+        hit = (local >= 0) & (local < C)
+        lab_logit = torch.take_along_dim(
+            logits, local.clamp(0, C - 1)[..., None], dim=-1)[..., 0]
+        lab = torch.where(hit, lab_logit, lab)
+        m = new_m
+    lse = m + torch.log(s)
+    return torch.sum((lse - lab) * maskf) / denom

@@ -66,6 +66,17 @@ order, and each block reads its own index of its kind's stack:
 ``decode_step`` writes the cache in place. The MoE layers' load-balancing
 loss is computed and dropped, as the reference's serving drops it.
 ``check_ported`` refuses a family outside the registry's.
+
+Training: :func:`loss_fn` is the reference's ``loss_fn`` (inputs
+``tokens[:, :-1]``, labels ``tokens[:, 1:]``, positions ``arange(S)``,
+``ce + 0.01·aux``) over a trunk that builds no decode cache, with
+``remat`` as non-reentrant ``torch.utils.checkpoint`` per block (the
+reference's ``jax.checkpoint`` of each scanned layer). It differentiates
+with respect to whatever parameters of the ``LM`` require a gradient; the
+serving parameters do not (``prefill``/``decode_step`` run under
+``no_grad``), and ``repro_torch.train`` keeps a compute copy that does.
+:func:`check_trainable` refuses every family but the dense GQA one, on
+every device.
 """
 from __future__ import annotations
 
@@ -73,18 +84,20 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from . import attention as attn
 from .moe import MoE, Routing
 from .rglru import RGLRU, LRUCache, init_lru_cache
 from .ssm import Mamba2, SSMCache, init_ssm_cache
-from .layers import (GatedMLP, embed, embedding_init_, dense_init_, lm_head,
-                     normal_init_, param, rms_norm, rms_norm_init_)
+from .layers import (GatedMLP, cross_entropy, embed, embedding_init_,
+                     dense_init_, lm_head, normal_init_, param, rms_norm,
+                     rms_norm_init_)
 
 __all__ = ["LM", "Block", "HybridCache", "EncDecCache", "init", "prefill",
            "decode_step", "init_cache", "check_ported", "layer_kinds",
-           "reference_slot"]
+           "reference_slot", "loss_fn", "xent_chunks", "check_trainable"]
 
 #: the families the port runs: every family of the registry
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -104,6 +117,37 @@ def check_ported(cfg, device: torch.device | str | None = None) -> None:
         raise NotImplementedError(
             f"repro_torch: {why} ({cfg.arch_id}) is not yet ported "
             "(ROADMAP queue 1)")
+
+
+def check_trainable(cfg) -> None:
+    """Raise ``NotImplementedError`` for a config whose training is not yet
+    ported: every family but the dense one with GQA attention (MoE, MLA,
+    SSM, hybrid, audio and vlm wait, ROADMAP queue 1 item 14b.7); the same
+    on every device."""
+    check_ported(cfg)
+    why = None
+    if cfg.family != "dense":
+        why = f"the {cfg.family} family"
+    elif cfg.attn_kind != "gqa":
+        why = f"{cfg.attn_kind} attention"
+    elif cfg.window:
+        why = "a sliding window"
+    if why is not None:
+        raise NotImplementedError(
+            f"repro_torch: training {why} ({cfg.arch_id}) is not yet ported "
+            "(ROADMAP queue 1, item 14b.7)")
+
+
+def xent_chunks(cfg) -> int:
+    """``repro.models.model.xent_chunks``: 1 when the vocab is a multiple of
+    16, else the first of 8, 5, 4, 10, 7, 3, 2 that divides it (1 if
+    none), the number of vocab slices the loss streams."""
+    if cfg.vocab % 16 == 0:
+        return 1
+    for c in (8, 5, 4, 10, 7, 3, 2):
+        if cfg.vocab % c == 0:
+            return c
+    return 1
 
 
 def _moe_layer(cfg, layer: int) -> bool:
@@ -396,19 +440,40 @@ def _encode(model: LM, frames: torch.Tensor, attention=None) -> torch.Tensor:
     return rms_norm(x, model.enc_ln, cfg.norm_eps)
 
 
+def _block_hidden(block: Block, x: torch.Tensor, attention) -> torch.Tensor:
+    """One block of the loss's trunk (positions arange(S), no cache)."""
+    return block(x, None, attention=attention)[0]
+
+
 def _forward(model: LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor],
-             cache_pos: int, cache: Optional[Cache] = None,
+             cache_pos: Optional[int], cache: Optional[Cache] = None,
              attention=None, routing: Optional[Routing] = None,
              frames: Optional[torch.Tensor] = None,
-             images: Optional[torch.Tensor] = None
-             ) -> tuple[torch.Tensor, Cache]:
-    """The prefill/decode trunk -> (hidden [B, S, d], cache): a prefill
-    (``cache`` and ``positions`` None: positions arange(S)) returns the
-    layers' new caches stacked by kind, field by field (and, for an
+             images: Optional[torch.Tensor] = None,
+             remat: bool = False) -> tuple[torch.Tensor, Optional[Cache]]:
+    """The train/prefill/decode trunk -> (hidden [B, S, d], cache): a
+    prefill (``cache`` and ``positions`` None: positions arange(S)) returns
+    the layers' new caches stacked by kind, field by field (and, for an
     encoder-decoder, the cross K/V of ``frames``' encoding), a decode step
-    the ``cache`` it wrote into."""
+    the ``cache`` it wrote into. With ``cache_pos`` None (the loss: the
+    reference's ``want_cache=False``) no layer builds a cache and None is
+    returned in its place; ``remat`` then recomputes each block in the
+    backward (``torch.utils.checkpoint``, non-reentrant) in place of
+    keeping its activations."""
     cfg = model.cfg
+    if cache_pos is None:
+        if cache is not None or cfg.is_encdec:
+            raise ValueError("_forward: a trunk without caches runs a "
+                             "decoder-only prefill")
+        x = _embed_inputs(model, tokens, None, images)
+        for block in model.layers:
+            if remat:
+                x = checkpoint(_block_hidden, block, x, attention,
+                               use_reentrant=False)
+            else:
+                x = _block_hidden(block, x, attention)
+        return rms_norm(x, model.final_ln, cfg.norm_eps), None
     x = _embed_inputs(model, tokens, positions, images)
     stacks = None if cache is None else _stacks(cfg, cache)
     enc_kv = None
@@ -464,6 +529,31 @@ def _check_inputs(cfg, tokens: torch.Tensor, frames, images) -> None:
                 images.shape[1] < P or images.shape[2] != cfg.d_model:
             raise ValueError(f"prefill: images must be [{B}, >= {P}, "
                              f"{cfg.d_model}], got {tuple(images.shape)}")
+
+
+def loss_fn(model: LM, batch: dict, remat: Optional[bool] = None,
+            attention=None) -> tuple[torch.Tensor, dict]:
+    """``repro.models.model.loss_fn``: ``batch["tokens"]`` [B, S+1]
+    (inputs ``[:, :-1]``, labels ``[:, 1:]``, positions arange(S)) ->
+    (loss, {"ce", "aux"}), loss = ce + 0.01·aux (aux, the MoE balance loss,
+    is 0 for the dense family). ``remat`` (default ``cfg.remat``)
+    recomputes each block in the backward; ``attention`` replaces the
+    attention as in :func:`prefill`. Dense GQA configs only
+    (:func:`check_trainable`)."""
+    cfg = model.cfg
+    check_trainable(cfg)
+    remat = cfg.remat if remat is None else remat
+    tokens_full = batch["tokens"].to(torch.int64)
+    tokens, labels = tokens_full[:, :-1], tokens_full[:, 1:]
+    B, S = tokens.shape
+    x, _ = _forward(model, tokens, None, None, attention=attention,
+                    remat=remat)
+    mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    ce = cross_entropy(_head(model), x, labels, mask, cfg.tie_embeddings,
+                       n_chunks=xent_chunks(cfg))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss = ce + 0.01 * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 @torch.no_grad()

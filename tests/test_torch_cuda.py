@@ -1143,3 +1143,168 @@ def test_simplified_flow_on_the_card_launches_no_kernel(dev):
     on_card, on_cpu = area_breakdown(vals.to(dev)), area_breakdown(vals)
     for k in on_cpu:
         np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-6)
+
+
+# ------------------------------------------------ K5's backward (training)
+#: the backward's bf16 gradients against the plain float32 ones rounded to
+#: bf16 (chip_smoke.py's K5_BWD_RTOL / K5_BWD_ATOL_REL / K5_BWD_ATOL_MIN):
+#: P and dS enter products as bf16 (2^-9 relative), each output rounds once
+#: more; atol relative to the tensor's largest magnitude for entries that
+#: cancel, and at least the forward's 1e-3 where the exact gradient is 0
+#: (S 1: dS = dP - D cancels to float32 rounding)
+BWD_RTOL, BWD_ATOL_REL, BWD_ATOL_MIN = 2.0 ** -6, 2.0 ** -7, 1e-3
+
+
+def _bwd_inputs(dev, B, S, H, K, hd, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed + S + H)
+    q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev).bfloat16()
+               for n in (H, K, K))
+    dout = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+    return q, k, v, dout
+
+
+def _bwd_close(got, want) -> bool:
+    return all(torch.allclose(
+        a.float(), b.float(), rtol=BWD_RTOL,
+        atol=max(BWD_ATOL_REL * float(b.float().abs().max()), BWD_ATOL_MIN))
+        for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("B,S,H,K,hd", [
+    (2, 2048, 24, 2, 128), (16, 128, 8, 4, 64), (2, 100, 8, 4, 64),
+    (2, 2000, 24, 2, 128), (1, 4096, 32, 8, 128), (1, 1, 4, 2, 64),
+    (3, 65, 8, 8, 128)])
+def test_flash_attn_backward_matches_plain(dev, B, S, H, K, hd):
+    """The backward kernel and the forward's row statistic against their
+    plain versions (the lse within float32 sums in another order), at
+    starcoder2-3b's and qwen3-100m's training shapes, ragged S, S 4096, one
+    position and no grouping; two planted faults (D left out of dS, the
+    mask shifted by a key) fail the same tolerance."""
+    from repro_torch.kernels import flash_attn as K5
+
+    q, k, v, dout = _bwd_inputs(dev, B, S, H, K, hd)
+    before = (K5.launches, K5.bwd_launches,
+              K5.bwd_head_dim_launches.get((hd, hd), 0))
+    out, lse = K5.flash_attention_lse(q, k, v)
+    got = K5.flash_attention_backward(q, k, v, out, lse, dout)
+    assert (K5.launches, K5.bwd_launches,
+            K5.bwd_head_dim_launches[(hd, hd)]) == tuple(
+                n + 1 for n in before)
+    out_p, lse_p = K5.flash_attention_lse_plain(q, k, v)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out.float(), out_p.float(),
+                               **K5_TOL[torch.bfloat16])
+    want = K5.flash_attention_backward_plain(q, k, v, dout)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 3
+    assert _bwd_close(got, want)
+    # the same inputs twice: bitwise equal (no atomics anywhere)
+    again = K5.flash_attention_backward(q, k, v, out, lse, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if S > 1:
+        scale = 1.0 / hd ** 0.5
+        G = H // K
+        qf = q.float().transpose(1, 2)
+        kf = k.repeat_interleave(G, 2).float().transpose(1, 2)
+        vf = v.repeat_interleave(G, 2).float().transpose(1, 2)
+        dof = dout.float().transpose(1, 2)
+        s = (qf @ kf.transpose(-1, -2)) * (scale * 1.4426950408889634)
+        dp = dof @ vf.transpose(-1, -2)
+        ones = torch.ones((S, S), dtype=torch.bool, device=dev)
+
+        def grads(p, ds):
+            def summed(t):
+                return t.view(B, K, G, S, hd).sum(2).transpose(1, 2)
+            return ((ds @ kf * scale).transpose(1, 2),
+                    summed(ds.transpose(-1, -2) @ qf * scale),
+                    summed(p.transpose(-1, -2) @ dof))
+
+        p = torch.where(ones.tril(), torch.exp2(s - lse[..., None]), 0.0)
+        assert not _bwd_close(grads(p, p * dp), want)        # no D
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+        p = torch.where(ones.tril(1), torch.exp2(s - lse[..., None]), 0.0)
+        assert not _bwd_close(grads(p, p * (dp - delta[..., None])), want)
+
+
+def test_flash_attn_autograd_runs_the_backward_kernel(dev):
+    """A call that needs a gradient goes through the autograd Function:
+    one forward launch (with the row statistic), one backward launch, and
+    the gradients are the backward's on the forward's outputs."""
+    from repro_torch.kernels import flash_attn as K5
+
+    q, k, v, dout = _bwd_inputs(dev, 2, 300, 8, 2, 128, seed=1)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = (K5.launches, K5.bwd_launches)
+    out = K5.flash_attention(*leaves)
+    assert out.requires_grad and K5.launches == before[0] + 1
+    out.backward(dout)
+    assert K5.bwd_launches == before[1] + 1
+    o, lse = K5.flash_attention_lse(q, k, v)
+    assert torch.equal(out.detach(), o)
+    want = K5.flash_attention_backward(q, k, v, o, lse, dout)
+    assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+    with torch.no_grad():  # serving: no row statistic, no graph
+        assert not K5.flash_attention(*leaves).requires_grad
+
+
+@pytest.mark.parametrize("variant", ["window", "noncausal", "float32",
+                                     "head_dim_16", "mla_96_64"])
+def test_flash_attn_gradient_of_other_variants_raises(dev, variant):
+    """A CUDA call that needs a gradient the backward does not take raises
+    NotImplementedError naming ROADMAP; without a gradient it runs."""
+    from repro_torch.kernels import flash_attn as K5
+
+    hd, hv, dtype, kw = 128, 128, torch.bfloat16, {}
+    if variant == "window":
+        kw = dict(window=16)
+    elif variant == "noncausal":
+        kw = dict(causal=False)
+    elif variant == "float32":
+        dtype = torch.float32
+    elif variant == "head_dim_16":
+        hd = hv = 16
+    else:
+        hd, hv = 96, 64
+    g = torch.Generator(device=dev).manual_seed(3)
+    q = torch.randn((1, 64, 4, hd), generator=g, device=dev).to(dtype)
+    k = torch.randn((1, 64, 2, hd), generator=g, device=dev).to(dtype)
+    v = torch.randn((1, 64, 2, hv), generator=g, device=dev).to(dtype)
+    with torch.no_grad():
+        K5.flash_attention(q, k, v, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        K5.flash_attention(q.requires_grad_(True), k, v, **kw)
+
+
+def test_training_steps_on_the_card_are_repeatable_and_count_k5(dev):
+    """Two runs of 3 train steps (a 2-layer qwen3-style model at head dim
+    64, remat on) from the same masters end bit for bit equal, with 2
+    forward (remat) and 1 backward K5 launch a layer a step; the masters
+    moved."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.train import (DataConfig, TrainConfig, adamw_init,
+                                   init_params, make_batch, make_train_step)
+
+    cfg = dataclasses.replace(
+        get_config("qwen3-14b", smoke=True), d_model=128, n_heads=4,
+        n_kv_heads=2, head_dim=64, remat=True)
+    dcfg = DataConfig(cfg.vocab, 96, 4)
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    step = make_train_step(cfg, TrainConfig(), dev)
+    states = []
+    for _ in range(2):
+        kernels.reset_launches()
+        st = adamw_init({n: t.to(dev, copy=True) for n, t in masters.items()})
+        for i in range(3):
+            st, _, m = step(st, make_batch(dcfg, i, device=dev), None)
+        torch.cuda.synchronize()
+        assert (K5.launches, K5.bwd_launches) == (2 * 2 * 3, 2 * 3)
+        states.append(st)
+    a, b = states
+    assert all(torch.equal(a.params[n], b.params[n]) and
+               torch.equal(a.m[n], b.m[n]) and torch.equal(a.v[n], b.v[n])
+               for n in a.params)
+    assert not torch.equal(a.params["layers.0.attn.wq"].cpu(),
+                           masters["layers.0.attn.wq"])
