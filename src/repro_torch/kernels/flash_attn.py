@@ -233,21 +233,29 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch(q, k, v, scale, window, causal)
 
 
+def _causal_logits(q: torch.Tensor, k: torch.Tensor, scale: float
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(q [B, H, S, Dqk] float32, k repeated to H heads [B, H, S, Dqk]
+    float32, the logits ``q·kᵀ·scale`` [B, H, S, S] with the causal mask at
+    ``NEG_INF``): the plain row statistic's and backward's common part."""
+    S = q.shape[1]
+    group = q.shape[2] // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    return qf, kf, torch.where(mask, logits, NEG_INF)
+
+
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, scale: float | None = None
                               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Causal :func:`flash_attention_plain` and each row's statistic
     ``logsumexp(q·kᵀ·scale)·log2(e)`` [B, H, S] float32 (the causal mask
     applied)."""
-    S, dqk = q.shape[1], q.shape[3]
     if scale is None:
-        scale = 1.0 / math.sqrt(dqk)
-    group = q.shape[2] // k.shape[2]
-    qf = q.float().transpose(1, 2)
-    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    logits = torch.where(mask, logits, NEG_INF)
+        scale = 1.0 / math.sqrt(q.shape[3])
+    logits = _causal_logits(q, k, scale)[2]
     return (flash_attention_plain(q, k, v, scale),
             torch.logsumexp(logits, dim=-1) * LOG2E)
 
@@ -289,13 +297,10 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
     group = H // K
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
-    qf = q.float().transpose(1, 2)                     # [B, H, S, Dqk]
-    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+    qf, kf, logits = _causal_logits(q, k, scale)
     vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
     dof = dout.float().transpose(1, 2)                 # [B, H, S, Dv]
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
-    p = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    p = torch.softmax(logits, dim=-1)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
     dq = torch.matmul(ds, kf) * scale

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Device times of K1 ``systolic_eval`` (and its multi-workload entry, in
-a tree that has it), K2 ``pairdist``, K3 ``pareto_count`` and K4
+a tree that has it), K2 ``pairdist``, K3 ``pareto_count``, K4
 ``round_fused`` (and its chunk refresh and pool scores, in a tree that has
-them) at ``chip_smoke.py``'s shapes, for one source tree of the port.
+them) and K5 ``flash_attn`` (its bf16 serving forward; in a tree that has
+them, its training forward with the row statistic and its backward) at
+``chip_smoke.py``'s shapes, for one source tree of the port.
 
-    python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--out results.json]
+    python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--kernels k5]
+                                   [--out results.json]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so a
 ``git archive`` of another commit unpacked into ``DIR`` is timed with this
@@ -28,43 +31,58 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tree", default=str(ROOT),
-                    help="root of the source tree whose kernels are timed")
-    ap.add_argument("--out", help="also write the times as JSON here")
-    ap.add_argument("--sweep", action="store_true",
-                    help="also time K1 at every group width, K2 at every "
-                         "tile height tm and K3 at other plans and shapes (a "
-                         "tree whose kernels have launch plans)")
-    args = ap.parse_args()
-
-    import chip_smoke as cs  # puts this checkout's src first on sys.path
-
-    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
+def time_k5(cs, dev, out: dict) -> None:
+    """K5 (bf16, causal) at ``chip_smoke.K5_SHAPES``, with the inputs of
+    ``chip_smoke.check_flash_attn``; in a tree with a backward, the
+    training forward and the backward at ``chip_smoke.K5_BWD_SHAPES``, with
+    the inputs of ``chip_smoke.check_flash_attn_backward``."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("kernel_timing: no CUDA device", file=sys.stderr)
-        return 2
-    import repro_torch
+    from repro_torch.kernels import flash_attn as K5
+
+    out["flash_attn"] = {}
+    for B, S, H, K, dqk, dv, window in cs.K5_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B * S + H)
+        q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev)
+                   .bfloat16() for n, d in ((H, dqk), (K, dqk), (K, dv)))
+        with torch.no_grad():
+            ms = cs.time_ms(lambda: K5.flash_attention(q, k, v, window=window),
+                            reps=5, repeats=7)[0]
+        key = f"{B}x{S}x{H}/{K}x{dqk}/{dv}" + (f" window {window}"
+                                                if window else "")
+        out["flash_attn"][key] = ms
+        print(f"  flash_attn [{key}]: {ms:.4f} ms")
+    if not hasattr(K5, "flash_attention_backward"):
+        return
+    out["flash_attn_train"], out["flash_attn_bwd"] = {}, {}
+    for B, S, H, K, hd in cs.K5_BWD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
+        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                   .bfloat16() for n in (H, K, K))
+        dout = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
+        out_k, lse = K5.flash_attention_lse(q, k, v)
+        key = f"{B}x{S}x{H}/{K}x{hd}"
+        fwd = cs.time_ms(lambda: K5.flash_attention_lse(q, k, v), reps=5,
+                         repeats=7)[0]
+        bwd = cs.time_ms(lambda: K5.flash_attention_backward(
+            q, k, v, out_k, lse, dout), reps=5, repeats=7)[0]
+        out["flash_attn_train"][key], out["flash_attn_bwd"][key] = fwd, bwd
+        print(f"  flash_attn [{key}] with lse: {fwd:.4f} ms; backward "
+              f"{bwd:.4f} ms")
+
+
+def time_k1_k4(cs, args, dev, out: dict) -> None:
+    """K1-K4 at chip_smoke's shapes (``--sweep``: also at other plans)."""
+    import torch
+
     from repro_torch.kernels import build
     from repro_torch.kernels import pairdist as K2
     from repro_torch.kernels import pareto_count as K3
     from repro_torch.kernels import round_fused as K4
     from repro_torch.kernels import systolic_eval as K1
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(f"card: {card} | tree {args.tree} | repro_torch from "
-          f"{Path(repro_torch.__file__).parent}")
-    out = dict(card=card, tree=args.tree, systolic_eval={},
-               systolic_eval_sha1={}, pairdist={}, pareto_count={},
-               round_fused={})
-
+    out.update(systolic_eval={}, systolic_eval_sha1={}, pairdist={},
+               pareto_count={}, round_fused={})
     pool = cs.k1_pool(dev)
     for workload, n in cs.K1_SHAPES:
         vals, layers = cs.k1_inputs(dev, pool, workload, n)
@@ -208,6 +226,42 @@ def main() -> int:
                   f"{ms:.4f} ms")
             del t, kargs
             torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="root of the source tree whose kernels are timed")
+    ap.add_argument("--out", help="also write the times as JSON here")
+    ap.add_argument("--sweep", action="store_true",
+                    help="also time K1 at every group width, K2 at every "
+                         "tile height tm and K3 at other plans and shapes (a "
+                         "tree whose kernels have launch plans)")
+    ap.add_argument("--kernels", choices=("all", "k5"), default="all",
+                    help="k5: time K5 alone")
+    args = ap.parse_args()
+
+    import chip_smoke as cs  # puts this checkout's src first on sys.path
+
+    sys.path.insert(0, str(Path(args.tree).resolve() / "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_timing: no CUDA device", file=sys.stderr)
+        return 2
+    import repro_torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {card} | tree {args.tree} | repro_torch from "
+          f"{Path(repro_torch.__file__).parent}")
+    out = dict(card=card, tree=args.tree)
+    if args.kernels == "all":
+        time_k1_k4(cs, args, dev, out)
+    time_k5(cs, dev, out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
