@@ -166,17 +166,22 @@ K1's and K3's against the protocol's; the build report gives the K1-K4
 kernels' registers, spills and shared memory, and their plans.
 
 Training, after the serve phases: K5's backward (``csrc/flash_attn_bwd.cu``:
-causal, no window, (64, 64) and (128, 128); GQA's dk/dv summed over each
-KV head's query heads in a fixed order) against its plain version, and
+causal, no window, (64, 64) and (128, 128); two launches, dQ then dK/dV,
+``wgmma`` on TMA tiles; GQA's dk/dv summed over each KV head's query heads
+in a fixed order), its two kernels' registers, spills, shared memory and
+HGMMA/UTMALDG counts, then the backward against its plain version, and
 the forward's row statistic (``lse``) against the plain logsumexp, at
 starcoder2-3b's [2, 2048, 24/2, 128], qwen3-100m's [16, 128, 8/4, 64],
-ragged [2, 100, 8/4, 64] and [2, 2000, 24/2, 128], and [1, 4096, 32/8,
-128], timed beside the backward of ``scaled_dot_product_attention``, with
-a tolerance scaled by each 64-position tile's largest gradient and a mean
-bound; four planted faults (D left out of dS, the mask shifted by a key,
-the last key tile left out, lse off by 0.05 past S/2) rejected at every
-shape. Then qwen3-100m (``examples/train_lm_torch.py``'s config) on
-the bigram stream for 100 steps with every count set to 0 just before
+ragged [2, 100, 8/4, 64] and [2, 2000, 24/2, 128], [1, 4096, 32/8, 128],
+and the design's edges (16 query heads on one KV head, S 40, S 333, a
+grid of fewer blocks than SMs; ``K5_BWD_SHAPES``), timed beside the
+backward of ``scaled_dot_product_attention``, with a tolerance scaled by
+each 64-position tile's largest gradient and a mean bound, and a second
+call bitwise equal to the first; four planted faults (D left out of dS,
+the mask shifted by a key, the last key tile left out, lse off by 0.05
+past S/2) rejected at every shape. Then qwen3-100m
+(``examples/train_lm_torch.py``'s config) on the bigram stream for 100
+steps with every count set to 0 just before
 (12 K5 forward and 12 backward launches a step): the loss must fall by
 >= 0.2 and stay above the bigram floor - 0.05; a run cut at step 40 and
 resumed from its checkpoint ends bit for bit equal to the uninterrupted
@@ -2733,11 +2738,16 @@ def check_flash_attn_noncausal(dev, results: dict) -> None:
 
 #: K5's backward (B, S, H, KV heads, head dim): starcoder2-3b's training
 #: shape, qwen3-100m's (the example's: B 16, S 128, 8/4 heads of 64),
-#: ragged S 100 and 2000 (partial 64-row tiles), and S 4096 at the dense
-#: prefill's heads
+#: ragged S 100 and 2000 (partial 64-row tiles), S 4096 at the dense
+#: prefill's heads; then the design's edges: a group of 16 query heads on
+#: one KV head (8 splits of 2 heads), S 40 (shorter than a tile), S 333 (a
+#: part-filled last chunk, 6 chunks through a 4-stage ring), and a grid of
+#: fewer blocks than SMs (16 dK/dV blocks, 8 dQ blocks)
 K5_BWD_SHAPES = [(2, 2048, 24, 2, 128), (16, 128, 8, 4, 64),
                  (2, 100, 8, 4, 64), (2, 2000, 24, 2, 128),
-                 (1, 4096, 32, 8, 128)]
+                 (1, 4096, 32, 8, 128), (2, 300, 16, 1, 128),
+                 (2, 40, 8, 4, 64), (1, 333, 6, 2, 128),
+                 (1, 256, 4, 4, 128)]
 #: the backward's bf16 gradients against the plain float32 ones rounded to
 #: bf16: P and dS enter products as bf16 (2^-9 relative) and each output
 #: rounds once more. For each of dq, dk, dv: |err| <= rtol |plain| + atol
@@ -2841,7 +2851,8 @@ def bwd_faults_plain(q, k, v, out, dout, lse, scale):
 
 def check_flash_attn_backward(dev, results: dict) -> None:
     """K5's backward (``csrc/flash_attn_bwd.cu``) against its plain version
-    at ``K5_BWD_SHAPES``, and the forward's row statistic against the
+    at ``K5_BWD_SHAPES`` (and a second call bitwise equal to the first; its
+    ``bwd_plan`` printed), and the forward's row statistic against the
     plain logsumexp; the planted faults of :func:`bwd_faults_plain`, each
     of which the tolerance must reject at every shape;
     timed beside the plain version and the backward of
@@ -2874,13 +2885,21 @@ def check_flash_attn_backward(dev, results: dict) -> None:
         out_ok = bool(torch.allclose(out_k.float(), out_p.float(),
                                      rtol=K5_RTOL, atol=K5_ATOL))
         err, worst, ok = _bwd_close(got, want)
+        again = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout)
+        repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+        del again
+        plan = K5.bwd_plan(B, S, H, K, hd, hd)
         errs = {n: float((a.float() - b.float()).abs().max())
                 for n, a, b in zip(("dq", "dk", "dv"), got, want)}
-        print(f"  backward [{B}, {S}, {H}/{K}, {hd}]: max abs err {errs} "
+        print(f"  backward [{B}, {S}, {H}/{K}, {hd}] (plan {plan}; a second "
+              f"call bitwise equal: {repeats}): max abs err {errs} "
               f"(max |plain| "
               f"{[round(float(w.float().abs().max()), 4) for w in want]}), "
               f"largest error / tolerance {worst:.3f}; lse max abs err "
               f"{lse_err:.3e} ok={lse_ok}; forward out ok={out_ok}")
+        if not repeats:
+            raise AssertionError(f"K5's backward at {[B, S, H, K, hd]}: two "
+                                 "calls on the same inputs differ")
         if not (lse_ok and out_ok):
             raise AssertionError(f"K5 forward at {[B, S, H, K, hd]}: the lse "
                                  f"({lse_err:.3e}) or the output disagrees "
@@ -2920,7 +2939,7 @@ def check_flash_attn_backward(dev, results: dict) -> None:
                     q, k, v, dout), reps=1, repeats=3),
                 (t_lib, t_lib), bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
                 grad_max_abs_err=errs, err_over_tol=worst,
-                lse_max_abs_err=lse_err,
+                lse_max_abs_err=lse_err, plan=plan,
                 faults=faults, library_max_abs_err=lib_err,
                 library="sdpa(is_causal, enable_gqa) backward, eager",
                 source="src/repro_torch/csrc/flash_attn_bwd.cu")
@@ -2949,15 +2968,36 @@ def check_flash_attn_backward(dev, results: dict) -> None:
 
 
 def k5_bwd_build_report() -> dict:
-    """ptxas's registers, stack and spills of the backward's kernels."""
+    """The backward's two kernels (``bwd_dq_kernel``, ``bwd_dkdv_kernel``)
+    as built, at each pair of ``BWD_HEAD_DIMS``: ptxas's registers, stack
+    and spills, their dynamic shared memory, and their ``wgmma`` (HGMMA)
+    and TMA load (UTMALDG) instructions in the SASS. Raises if a kernel is
+    missing or holds no HGMMA or no UTMALDG."""
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attn as K5
 
+    ptxas = ptxas_report(build.build_log())
+    sass = sass_counts(build.library_path())
+    lib = build.library()
     report = {}
-    for name, regs in ptxas_report(build.build_log()).items():
-        if name.startswith(("dkdv_kernel", "dq_kernel", "delta_kernel",
-                            "group_sum_kernel")):
-            report[name] = regs
-            print(f"  {name}: {regs}")
+    for dqk, dv in K5.BWD_HEAD_DIMS:
+        for which, kernel in enumerate(("bwd_dq_kernel", "bwd_dkdv_kernel")):
+            name = f"{kernel}<{dqk}, {dv}>"
+            if name not in ptxas:
+                raise AssertionError(f"{name} is not in the build log")
+            regs, ops = ptxas[name], sass.get(name, {})
+            report[name] = dict(regs, smem_bytes=lib.flash_attn_bwd_smem_bytes(
+                dqk, dv, which), **ops)
+            print(f"  {name}: {regs.get('registers')} registers, "
+                  f"{regs.get('stack')} bytes stack, {regs.get('spill_stores')}"
+                  f"/{regs.get('spill_loads')} bytes spill stores/loads, "
+                  f"{report[name]['smem_bytes']} bytes dynamic shared memory; "
+                  f"SASS: {ops.get('HGMMA', 0)} HGMMA, {ops.get('UTMALDG', 0)} "
+                  f"UTMALDG" + (f"; ptxas: {regs['performance_loss']}"
+                                if "performance_loss" in regs else ""))
+            if not (ops.get("HGMMA") and ops.get("UTMALDG")):
+                raise AssertionError(f"{name}: no wgmma (HGMMA) or no TMA "
+                                     f"load (UTMALDG) in its SASS: {ops}")
     return report
 
 
@@ -2990,6 +3030,8 @@ TRAIN_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
 #: kernel groups of the full-width step's profile
 TRAIN_KERNEL_GROUPS = {
     "k5_forward": r"flash_attn_tc_kernel",
+    # (bwd_dq_kernel and bwd_dkdv_kernel; the rest are an older tree's, for
+    # tools/kernel_timing.py --train)
     "k5_backward": r"dkdv_kernel|dq_kernel|delta_kernel|group_sum_kernel",
     "gemm": r"nvjet|gemm|cutlass|sm90_|cublas",
     "elementwise": r"elementwise|vectorized|reduce_kernel|Reduce"}

@@ -1,5 +1,6 @@
 // flash_attn_bwd: the backward of kernel K5's bf16 route (causal attention
-// without a window, for training), on Hopper tensor cores with mma.sync.
+// without a window, for training), on Hopper: wgmma on tiles that TMA loads
+// into an mbarrier ring, a producer warp and consumer warpgroups.
 //
 // The TPU kernel repro/kernels/flash_attn/kernel.py::flash_attention has no
 // backward: the reference's models never call it and differentiate their
@@ -19,511 +20,688 @@
 //   dq_i  = scale sum_j dS_ij k_j,  dk_j = scale sum_i dS_ij q_i,
 //   dv_j  = sum_i P_ij do_i,
 // with g = h / (H / KH): dk and dv of KV head g sum the gradients of its
-// H / KH query heads. Products take bf16 operands (P and dS rounded to bf16)
-// and float32 accumulators; outputs are bf16 (round to nearest even).
+// G = H / KH query heads. Products take bf16 operands (P and dS rounded to
+// bf16 once, from float32) and float32 accumulators; outputs are bf16
+// (round to nearest even).
 //
-// What bounds it: five products of 2 hd operations a (query, key) pair:
-// at starcoder2-3b's training shape (B 2, S 2048, H 24, KH 2, hd 128)
+// What bounds it: five products of 2 hd operations a (query, key) pair: at
+// starcoder2-3b's training shape (B 2, S 2048, H 24, KH 2, hd 128)
 // 2,098,176 causal pairs a (b, h) x 48 x 10 x 128 = 1.29e11 operations,
 // 0.130 ms at the bf16 tensor-core peak, against 63 MB in 0.019 ms. The
-// operations bound it, so the products run on the tensor cores.
+// operations bound it, so every product runs on the tensor cores.
 //
-// Design (simple first; no TMA or wgmma yet). Four launches on the stream:
-// 1. delta: D [B, H, S] in float32, one warp a row.
-// 2. dk/dv: one block of 4 warps per (tile of 64 keys, b, query head h),
-//    the key tiles nearest the start first (they see the most queries).
-//    K and V rows of the tile stay in shared memory; query rows stream in
-//    chunks of 32 (q, do, lse, D) from the tile's first key on (earlier
-//    queries see none of its keys). Each warp owns 16 keys and computes
-//    S^T = K Q^T and dP^T = V dO^T with keys as rows, so P^T and dS^T sit
-//    in the accumulator fragment that, packed to bf16, is the A operand of
-//    dV += P^T dO and dK += dS^T Q (B by ldmatrix.trans from the row-major
-//    chunk). The block writes float32 partials of its query head:
-//    dkp, dvp [B, S, H, D].
-// 3. dq: one block of 4 warps per (tile of 64 queries, b, h), the last
-//    tiles first; key rows stream in chunks of 32 up to the tile's last
-//    row; S = Q K^T, dP = dO V^T, dS, dQ += dS K; bf16 out, no partials
-//    (each query head owns its rows).
-// 4. group sum: dk (dv) of KV head g = bf16 of the sum of the partials of
-//    query heads g (H/KH) .. g (H/KH) + H/KH - 1, in that order.
-// No float atomics anywhere: every sum has a fixed order, so the backward
-// is bitwise repeatable run to run. Per-query-head partials keep the dk/dv
-// grid at (S/64) B H blocks (1536 at starcoder2's shape; a grid over KV
-// heads alone would give 128 blocks for 132 SMs). Shared rows are padded by
-// 8 bf16 (16 bytes) so that the 8 rows a fragment load touches fall in 8
-// distinct bank groups. Rows at or past S load as zeros and are masked;
-// nothing is written for them.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <algorithm>
+// Design: two launches, each a block of consumer warpgroups (64 rows each)
+// and one producer warp whose first lane issues every TMA load.
+// 1. dQ (bwd_dq_kernel): one block per (tile of 128 queries, b, h), the
+//    last tiles (the most keys) first. It first takes D of its rows from o
+//    and do (each lane of a quad a quarter of the columns, then two xor
+//    shuffles: every lane holds the same sum) and writes it to `delta` for
+//    launch 2; it also sets launch 2's tickets to 0. The Q and dO tiles are
+//    loaded once; K and V tiles of 64 keys stream through a ring of 3
+//    stages up to the tile's last row. A tile: S = Q.K^T and dP = dO.V^T
+//    (wgmma, both operands K-major in shared memory), P and dS in registers
+//    on the accumulator fragment, then dQ += dS.K with dS packed to bf16 as
+//    the register A operand and the K tile read MN-major (transpose bit),
+//    as the forward reads V. Each query head owns its rows: no partials.
+// 2. dK/dV (bwd_dkdv_kernel): one block per (tile of 64 keys, b, KV head
+//    g, split), the key tiles nearest the start (the most queries) first.
+//    The block's K and V rows are loaded once; chunks of 64 queries (q, do
+//    and their lse and D) stream through a ring of 4 stages, for each of
+//    the split's G / splits query heads in turn, from the tile's first key
+//    on. The producer warp's lanes copy the chunk's lse and D into the
+//    stage and arrive on its barrier beside the TMA bytes (33 arrivals).
+//    Keys are the wgmma rows, and the two consumer warpgroups split the
+//    work on the same 64 keys: the P warpgroup takes S^T = K.Q^T, P^T and
+//    dV += P^T.dO; the dS warpgroup takes dP^T = V.dO^T, dS^T = P^T (dP^T -
+//    D) and dK += dS^T.Q. P^T goes from one to the other through shared
+//    memory, float32 in the accumulator layout (thread t's element x at x
+//    128 + t: no bank conflicts), in two buffers under named barriers
+//    ("written", "read"), so the P warpgroup runs up to a chunk ahead. S^T
+//    and dP^T use K and V as the K-major A operand; dV and dK take P^T and
+//    dS^T packed to bf16 as the register A operand and read dO and Q
+//    MN-major (transpose bit).
+// The five products run once in launch 2 (S^T, dP^T, dV, dK) and three in
+// launch 1 (S, dP, dQ): seven, against the five that bound it, so the
+// floor is 1.4x the bound (0.182 ms at starcoder2's shape). One kernel that
+// also produced dQ would need a sum over key tiles across blocks: float
+// atomics (whose order changes run to run) or per-key-tile dQ partials
+// (~0.8 GB at that shape). Two launches keep every sum in a fixed order.
+//
+// The group sum. A block sums G / splits query heads of its KV head in
+// registers; splits is the smallest divisor of G, at most 8, that gives at
+// least 132 blocks (a wave: a block takes an SM), from the shape alone (see
+// flash_attn.py::bwd_plan). With splits = 1 the block writes bf16 dk and dv
+// itself. Otherwise every block writes float32 partials [splits, B, S, KH,
+// D] of its keys, fences and takes a ticket (an atomicAdd on an int of its
+// (key tile, b, g)); the block that draws the last ticket adds the splits'
+// partials in split order 0, 1, ..., splits - 1 (its own from registers,
+// bitwise what it wrote) and writes bf16. The ticket picks only which block
+// adds, never the order of the adds, so the result is the same run to run.
+// At starcoder2's shape splits = 2 (32 key tiles x B 2 x KH 2 x 2 = 256
+// blocks; 6 heads a block): 16.8 MB of partials written, 8.4 MB read back
+// (float32 partials of every query head would take 201 MB, written and
+// read back). tools/kernel_timing.py --bwd-splits times every split count
+// at that shape and at [2, 300, 16/1, 128].
+//
+// Registers. A thread of a 288-thread block gets at most 168 from ptxas
+// (setmaxnreg with a producer warpgroup of 384 threads did not change what
+// ptxas allotted: the dK/dV kernel still compiled at 168, with spills).
+// Launch 1 at hd 128 holds dQ (64 floats a thread), S and dP (32 each) and
+// dS (16 words). In launch 2 each warpgroup holds one accumulator, dV or dK
+// (64 floats at hd 128), beside S^T or dP^T (32) and its packed operand
+// (16), and at the end the sum of the splits (64). Neither spills
+// (chip_smoke.py prints ptxas's registers, spills and shared memory). One
+// warpgroup holding both dK and dV (64 keys a 160-thread block) ran at 255
+// registers with spills, and slower.
+//
+// Rows at or past S come back from TMA as zeros and are masked (their P is
+// 0 where they would reach a valid row); nothing is written for them.
+#include "flash_attn_common.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kTile = 64;     // a block's own rows: 4 warps of 16
-constexpr int kChunk = 32;    // rows of the other side a step
-constexpr int kThreads = 128;
-constexpr int kPad = 8;       // bf16 elements past each shared row
+constexpr int kRows = 64;  // a warpgroup's rows, a ring stage's rows
 
 template <int DQK, int DV>
-constexpr int smem_bytes() {
-  return (kTile + kChunk) * (DQK + kPad + DV + kPad) * 2 + 2 * kChunk * 4;
+struct Bwd {
+  using QK = Cols<DQK>;
+  using VC = Cols<DV>;
+  static constexpr int kKBytes = kRows * DQK * 2;  // 64 rows of q or k
+  static constexpr int kVBytes = kRows * DV * 2;   // 64 rows of do or v
+  // launch 1 (dQ): two consumer warpgroups of 64 queries and the producer
+  static constexpr int kQWarpgroups = 2;
+  static constexpr int kBQ = kRows * kQWarpgroups;
+  static constexpr int kQThreads = 128 * kQWarpgroups + 32;
+  static constexpr int kQStages = 3;
+  // Q and dO tiles, the K/V ring, a "Q full" barrier and three a stage,
+  // + 1024 so the tiles can start on a 1024-byte boundary
+  static constexpr int kQSmem = kQWarpgroups * (kKBytes + kVBytes) +
+                                kQStages * (kKBytes + kVBytes) +
+                                8 * (1 + 3 * kQStages) + 1024;
+  // launch 2 (dK/dV): 64 keys a block, the P warpgroup (dV) and the dS
+  // warpgroup (dK), and the producer
+  static constexpr int kKVThreads = 2 * 128 + 32;
+  static constexpr int kKVStages = 4;
+  static constexpr int kPBytes = 128 * 32 * 4;  // a warpgroup's P fragment
+  // K and V rows, the q/do ring, each stage's lse and D (64 floats each),
+  // P's two buffers, a "K/V full" barrier, two a stage and the last-ticket
+  // flag, + 1024
+  static constexpr int kKVSmem = kKBytes + kVBytes +
+                                 kKVStages * (kKBytes + kVBytes) +
+                                 kKVStages * 2 * kRows * 4 + 2 * kPBytes +
+                                 8 * (1 + 2 * kKVStages) + 8 + 1024;
+  static_assert(kKBytes % 1024 == 0 && kVBytes % 1024 == 0,
+                "tile alignment");
+  static_assert(kQSmem <= kMaxSmem && kKVSmem <= kMaxSmem, "shared memory");
+};
+
+// A named barrier over the consumer warps (the producer warp has left).
+__device__ __forceinline__ void consumers_sync(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// d += A.B: m16n8k16, A [16 x 16] row-major bf16 (a0: row g, cols 2t..2t+1;
-// a1: row g+8; a2: row g, cols 8+2t..; a3: row g+8, cols 8+2t..), B
-// [16 x 8] (b0: k 2t..2t+1, col g; b1: k 8+2t..), d [16 x 8] float32 (d0,
-// d1: row g, cols 2t, 2t+1; d2, d3: row g+8); g = lane / 4, t = lane % 4.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8 x 8 matrices, transposed: lane i gives the address of row i % 8 of
-// matrix i / 8; register m holds (row 2t, col g) and (row 2t + 1, col g) of
-// matrix m.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// The A fragment of rows row..row+15, columns col..col+15 of a row-major
-// shared matrix with LD elements a row.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
-                                       int row, int col, int g, int t) {
-  a[0] = ld32(s + (row + g) * LD + col + 2 * t);
-  a[1] = ld32(s + (row + g + 8) * LD + col + 2 * t);
-  a[2] = ld32(s + (row + g) * LD + col + 8 + 2 * t);
-  a[3] = ld32(s + (row + g + 8) * LD + col + 8 + 2 * t);
-}
-
-// B fragments of X.Y^T for the n-tile of Y's rows n0..n0+7 at columns
-// col..col+15 (Y row-major, the contraction dim contiguous).
-template <int LD>
-__device__ __forceinline__ void mma_xyt(float (&d)[4], const uint32_t (&a)[4],
-                                        const bf16* y, int n0, int col, int g,
-                                        int t) {
-  const bf16* p = y + (n0 + g) * LD + col + 2 * t;
-  mma(d, a, ld32(p), ld32(p + 8));
-}
-
-// d[n] += A.Y[k0..k0+15, :] for every 8 columns n of a row-major shared Y
-// with N columns (B by ldmatrix.trans, two n-tiles a load).
-template <int N, int LD>
-__device__ __forceinline__ void mma_ay(float (&d)[N / 8][4],
-                                       const uint32_t (&a)[4], const bf16* y,
-                                       int k0, int lane) {
-  const int row = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-  const int col = (lane >> 4) * 8;
-#pragma unroll
-  for (int n = 0; n < N / 8; n += 2) {
-    uint32_t b[4];
-    ldsm_x4_t(b, smem_u32(y + row * LD + n * 8 + col));
-    mma(d[n], a, b[0], b[1]);
-    mma(d[n + 1], a, b[2], b[3]);
-  }
-}
-
-// The accumulator tiles c[2 kk], c[2 kk + 1] (16 rows x 16 columns) as the
-// bf16 A fragment of k step kk.
-template <int N>
-__device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c)[N][4],
-                                       int kk) {
-  a[0] = pack(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// Rows r0..r0+R-1 of head `head` of a [B, S, heads, D] bf16 tensor into
-// shared rows of D + kPad elements; rows at or past S are zeros.
-template <int D, int R>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int b,
-                                          int r0, int head, int S,
-                                          int heads) {
-  constexpr int kVec = D / 8;  // 16-byte pieces a row
-  for (int i = threadIdx.x; i < R * kVec; i += kThreads) {
-    const int r = i / kVec, c = (i % kVec) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S)
-      val = *reinterpret_cast<const uint4*>(
-          src + ((static_cast<size_t>(b) * S + r0 + r) * heads + head) * D +
-          c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// D[b, h, s] = sum_d do[b, s, h, d] o[b, s, h, d]: one warp a row.
+// D of row `row` of head h (0 at or past S): lane `quarter` of a quad sums
+// its quarter of the columns in order, then two xor shuffles give every
+// lane of the quad the same sum.
 template <int DV>
-__global__ void __launch_bounds__(256)
-delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
-             float* __restrict__ delta, int S, int H, long long rows) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  const bf16* op = o + row * DV;
-  const bf16* dp = dout + row * DV;
+__device__ __forceinline__ float row_delta(const bf16* __restrict__ o,
+                                           const bf16* __restrict__ dout,
+                                           int b, int row, int h, int S,
+                                           int H, int quarter) {
   float acc = 0.0f;
+  if (row < S) {
+    const size_t off = ((static_cast<size_t>(b) * S + row) * H + h) * DV +
+                       quarter * (DV / 4);
 #pragma unroll
-  for (int c = 2 * lane; c < DV; c += 64) {
-    const float2 a = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(op + c));
-    const float2 d = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(dp + c));
-    acc = fmaf(a.x, d.x, acc);
-    acc = fmaf(a.y, d.y, acc);
-  }
+    for (int c = 0; c < DV / 4; c += 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(o + off + c);
+      const uint4 d = *reinterpret_cast<const uint4*>(dout + off + c);
+      const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
+      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
 #pragma unroll
-  for (int off = 16; off >= 1; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  if (lane == 0) {
-    const int h = static_cast<int>(row % H);
-    const long long bs = row / H;
-    const long long b = bs / S, s = bs % S;
-    delta[(b * H + h) * S + s] = acc;
+      for (int x = 0; x < 4; ++x) {
+        const float2 af = __bfloat1622float2(ap[x]);
+        const float2 df = __bfloat1622float2(dp[x]);
+        acc = fmaf(af.x, df.x, acc);
+        acc = fmaf(af.y, df.y, acc);
+      }
+    }
   }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
+
+// The accumulator fragment c[32] (64 rows x 64 columns) as the bf16 A
+// operand of a product over its 64 columns: step kk takes c[8 kk, 8 kk + 8).
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4],
+                                       const float (&c)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      a[kk][x] = pack_bf16(c[8 * kk + 2 * x], c[8 * kk + 2 * x + 1]);
 }
 
 template <int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            float* __restrict__ dkp, float* __restrict__ dvp, int S, int H,
-            int KH, int BH, float scale, float scale_log2) {
-  constexpr int LQ = DQK + kPad, LV = DV + kPad;
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);   // [kTile][LQ]
-  bf16* vs = ks + kTile * LQ;                  // [kTile][LV]
-  bf16* qs = vs + kTile * LV;                  // [kChunk][LQ]
-  bf16* dos = qs + kChunk * LQ;                // [kChunk][LV]
-  float* lse_s = reinterpret_cast<float*>(dos + kChunk * LV);
-  float* del_s = lse_s + kChunk;
+__global__ void __launch_bounds__(Bwd<DQK, DV>::kQThreads, 1)
+bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
+              const __grid_constant__ CUtensorMap map_do,
+              const __grid_constant__ CUtensorMap map_k,
+              const __grid_constant__ CUtensorMap map_v,
+              const bf16* __restrict__ o, const bf16* __restrict__ dout,
+              const float* __restrict__ lse, float* __restrict__ delta,
+              bf16* __restrict__ dq, int* __restrict__ tickets,
+              int n_tickets, int S, int H, int KH, int BH, int nq,
+              float scale, float scale_log2) {
+  using T = Bwd<DQK, DV>;
+  using QK = typename T::QK;
+  using VC = typename T::VC;
+  constexpr int kS = T::kQStages, kBQ = T::kBQ;
+  constexpr int kConsumers = 128 * T::kQWarpgroups;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t qs = base;                             // [col block][kBQ]
+  const uint32_t dos = qs + T::kQWarpgroups * T::kKBytes;
+  const uint32_t ks = dos + T::kQWarpgroups * T::kVBytes;  // [stage][cb][64]
+  const uint32_t vs = ks + kS * T::kKBytes;
+  const uint32_t bars = vs + kS * T::kVBytes;
+  const uint32_t q_full = bars;
+  auto k_full = [&](int st) { return bars + 8u * (1 + st); };
+  auto v_full = [&](int st) { return bars + 8u * (1 + kS + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + 2 * kS + st); };
+  auto stage = [&](int j) { return j % kS; };
+  auto phase = [&](int j) { return static_cast<uint32_t>(j / kS) & 1u; };
 
-  const int tile = static_cast<int>(blockIdx.x) / BH;  // heaviest first
+  const int tile = nq - 1 - static_cast<int>(blockIdx.x) / BH;  // heaviest first
   const int bh = static_cast<int>(blockIdx.x) % BH;
-  const int b = bh / H, h = bh % H, gkv = h / (H / KH);
-  const int k0 = tile * kTile;
-  load_rows<DQK, kTile>(ks, k, b, k0, gkv, S, KH);
-  load_rows<DV, kTile>(vs, v, b, k0, gkv, S, KH);
+  const int b = bh / H, h = bh % H, g = h / (H / KH);
+  const int q0 = tile * kBQ;
+  const int nk = (min(q0 + kBQ, S) - 1) / kRows + 1;  // key tiles of the block
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int kw = k0 + warp * 16;          // the warp's first key
-  const int key0 = kw + g, key1 = key0 + 8;
-  const float* lse_b = lse + static_cast<size_t>(bh) * S;
-  const float* del_b = delta + static_cast<size_t>(bh) * S;
-
-  float dk[DQK / 8][4], dv[DV / 8][4];
-#pragma unroll
-  for (int n = 0; n < DQK / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = 0.0f;
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dv[n][e] = 0.0f;
-
-  for (int c0 = k0; c0 < S; c0 += kChunk) {
-    __syncthreads();  // the last chunk is consumed
-    load_rows<DQK, kChunk>(qs, q, b, c0, h, S, H);
-    load_rows<DV, kChunk>(dos, dout, b, c0, h, S, H);
-    if (threadIdx.x < kChunk) {
-      const int i = c0 + threadIdx.x;
-      lse_s[threadIdx.x] = i < S ? lse_b[i] : 0.0f;
-      del_s[threadIdx.x] = i < S ? del_b[i] : 0.0f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), kConsumers / 32);  // one arrival a warp
     }
-    __syncthreads();
-    if (c0 + kChunk - 1 < kw) continue;  // no query of the chunk sees a key
-
-    // S^T = K Q^T: 16 keys x kChunk queries
-    float st[kChunk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      uint32_t a[4];
-      frag_a<LQ>(a, ks, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n)
-        mma_xyt<LQ>(st[n], a, qs, n * 8, kk * 16, g, t);
-    }
-    // P^T, 0 where the key is past the query or the query past S
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = n * 8 + 2 * t + e, i = c0 + c;
-        const float l = lse_s[c];
-        st[n][e] = (i < S && key0 <= i)
-                       ? exp2f(fmaf(st[n][e], scale_log2, -l)) : 0.0f;
-        st[n][2 + e] = (i < S && key1 <= i)
-                           ? exp2f(fmaf(st[n][2 + e], scale_log2, -l)) : 0.0f;
-      }
-    // dV += P^T dO
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a<kChunk / 8>(a, st, kk);
-      mma_ay<DV, LV>(dv, a, dos, kk * 16, lane);
-    }
-    // dP^T = V dO^T
-    float dp[kChunk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t a[4];
-      frag_a<LV>(a, vs, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n)
-        mma_xyt<LV>(dp[n], a, dos, n * 8, kk * 16, g, t);
-    }
-    // dS^T = P^T (dP^T - D)
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float d = del_s[n * 8 + 2 * t + e];
-        dp[n][e] = st[n][e] * (dp[n][e] - d);
-        dp[n][2 + e] = st[n][2 + e] * (dp[n][2 + e] - d);
-      }
-    // dK += dS^T Q
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a<kChunk / 8>(a, dp, kk);
-      mma_ay<DQK, LQ>(dk, a, qs, kk * 16, lane);
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-
-  // float32 partials of query head h: dkp/dvp [B, S, H, D]
-  const size_t row_k = static_cast<size_t>(H) * DQK;
-  const size_t row_v = static_cast<size_t>(H) * DV;
-  float* dkb = dkp + (static_cast<size_t>(b) * S * H + h) * DQK + 2 * t;
-  float* dvb = dvp + (static_cast<size_t>(b) * S * H + h) * DV + 2 * t;
-#pragma unroll
-  for (int n = 0; n < DQK / 8; ++n) {
-    if (key0 < S)
-      *reinterpret_cast<float2*>(dkb + key0 * row_k + n * 8) =
-          make_float2(scale * dk[n][0], scale * dk[n][1]);
-    if (key1 < S)
-      *reinterpret_cast<float2*>(dkb + key1 * row_k + n * 8) =
-          make_float2(scale * dk[n][2], scale * dk[n][3]);
-  }
-#pragma unroll
-  for (int n = 0; n < DV / 8; ++n) {
-    if (key0 < S)
-      *reinterpret_cast<float2*>(dvb + key0 * row_v + n * 8) =
-          make_float2(dv[n][0], dv[n][1]);
-    if (key1 < S)
-      *reinterpret_cast<float2*>(dvb + key1 * row_v + n * 8) =
-          make_float2(dv[n][2], dv[n][3]);
-  }
-}
-
-template <int DQK, int DV>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, int S, int H, int KH, int BH, int nt,
-          float scale, float scale_log2) {
-  constexpr int LQ = DQK + kPad, LV = DV + kPad;
-  extern __shared__ __align__(16) uint8_t smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);   // [kTile][LQ]
-  bf16* dos = qs + kTile * LQ;                 // [kTile][LV]
-  bf16* ks = dos + kTile * LV;                 // [kChunk][LQ]
-  bf16* vs = ks + kChunk * LQ;                 // [kChunk][LV]
-
-  const int tile = nt - 1 - static_cast<int>(blockIdx.x) / BH;  // heaviest first
-  const int bh = static_cast<int>(blockIdx.x) % BH;
-  const int b = bh / H, h = bh % H, gkv = h / (H / KH);
-  const int q0 = tile * kTile;
-  load_rows<DQK, kTile>(qs, q, b, q0, h, S, H);
-  load_rows<DV, kTile>(dos, dout, b, q0, h, S, H);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int qw = q0 + warp * 16;          // the warp's first query
-  const int row0 = qw + g, row1 = row0 + 8;
-  const float* lse_b = lse + static_cast<size_t>(bh) * S;
-  const float* del_b = delta + static_cast<size_t>(bh) * S;
-  const float l0 = row0 < S ? lse_b[row0] : 0.0f;
-  const float l1 = row1 < S ? lse_b[row1] : 0.0f;
-  const float d0 = row0 < S ? del_b[row0] : 0.0f;
-  const float d1 = row1 < S ? del_b[row1] : 0.0f;
-
-  float acc[DQK / 8][4];
-#pragma unroll
-  for (int n = 0; n < DQK / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.0f;
-
-  const int last = min(q0 + kTile, S) - 1;  // the block's last query
-  for (int c0 = 0; c0 <= last; c0 += kChunk) {
-    __syncthreads();  // the last chunk is consumed (and the tile loaded)
-    load_rows<DQK, kChunk>(ks, k, b, c0, gkv, S, KH);
-    load_rows<DV, kChunk>(vs, v, b, c0, gkv, S, KH);
-    __syncthreads();
-    if (c0 > qw + 15) continue;  // every key of the chunk past the rows
-
-    // S = Q K^T: 16 queries x kChunk keys
-    float s[kChunk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DQK / 16; ++kk) {
-      uint32_t a[4];
-      frag_a<LQ>(a, qs, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n)
-        mma_xyt<LQ>(s[n], a, ks, n * 8, kk * 16, g, t);
-    }
-    // dP = dO V^T
-    float dp[kChunk / 8][4];
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dp[n][e] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < DV / 16; ++kk) {
-      uint32_t a[4];
-      frag_a<LV>(a, dos, warp * 16, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kChunk / 8; ++n)
-        mma_xyt<LV>(dp[n], a, vs, n * 8, kk * 16, g, t);
-    }
-    // dS = P (dP - D), P 0 where the key is past the query
-#pragma unroll
-    for (int n = 0; n < kChunk / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = c0 + n * 8 + 2 * t + e;
-        const float p0 =
-            j <= row0 ? exp2f(fmaf(s[n][e], scale_log2, -l0)) : 0.0f;
-        const float p1 =
-            j <= row1 ? exp2f(fmaf(s[n][2 + e], scale_log2, -l1)) : 0.0f;
-        dp[n][e] = p0 * (dp[n][e] - d0);
-        dp[n][2 + e] = p1 * (dp[n][2 + e] - d1);
-      }
-    // dQ += dS K
-#pragma unroll
-    for (int kk = 0; kk < kChunk / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a<kChunk / 8>(a, dp, kk);
-      mma_ay<DQK, LQ>(acc, a, ks, kk * 16, lane);
-    }
-  }
-
-  const size_t row_q = static_cast<size_t>(H) * DQK;
-  bf16* dqb = dq + (static_cast<size_t>(b) * S * H + h) * DQK + 2 * t;
-#pragma unroll
-  for (int n = 0; n < DQK / 8; ++n) {
-    if (row0 < S)
-      *reinterpret_cast<uint32_t*>(dqb + row0 * row_q + n * 8) =
-          pack(scale * acc[n][0], scale * acc[n][1]);
-    if (row1 < S)
-      *reinterpret_cast<uint32_t*>(dqb + row1 * row_q + n * 8) =
-          pack(scale * acc[n][2], scale * acc[n][3]);
-  }
-}
-
-// out[b, s, g, d] = bf16(sum_{r < G} part[b, s, g G + r, d]), r ascending.
-__global__ void __launch_bounds__(256)
-group_sum_kernel(const float* __restrict__ part, bf16* __restrict__ out,
-                 long long n, int KH, int G, int D) {
+  // launch 2's tickets start at 0
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
-       i < n; i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int d = static_cast<int>(i % D);
-    const long long pg = i / D;  // (b S + s) KH + g
-    const float* p = part + (pg * G) * D + d;
-    float acc = 0.0f;
-    for (int r = 0; r < G; ++r) acc += p[static_cast<long long>(r) * D];
-    out[i] = __float2bfloat16_rn(acc);
+       i < n_tickets; i += static_cast<long long>(gridDim.x) * blockDim.x)
+    tickets[i] = 0;
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == kConsumers / 32) {
+    if (lane == 0) {
+      mbar_expect_tx(q_full, T::kQWarpgroups * (T::kKBytes + T::kVBytes));
+      for (int cb = 0; cb < QK::kBlocks; ++cb)
+        tma_load(qs + cb * kBQ * QK::kRowBytes, &map_q, q_full,
+                 cb * QK::kCols, h, q0, b);
+      for (int cb = 0; cb < VC::kBlocks; ++cb)
+        tma_load(dos + cb * kBQ * VC::kRowBytes, &map_do, q_full,
+                 cb * VC::kCols, h, q0, b);
+      for (int j = 0; j < nk; ++j) {
+        const int st = stage(j);
+        if (j >= kS) mbar_wait(empty(st), phase(j) ^ 1u);
+        const uint32_t kt = ks + st * T::kKBytes, vt = vs + st * T::kVBytes;
+        mbar_expect_tx(k_full(st), T::kKBytes);
+        for (int cb = 0; cb < QK::kBlocks; ++cb)
+          tma_load(kt + cb * kRows * QK::kRowBytes, &map_k, k_full(st),
+                   cb * QK::kCols, g, j * kRows, b);
+        mbar_expect_tx(v_full(st), T::kVBytes);
+        for (int cb = 0; cb < VC::kBlocks; ++cb)
+          tma_load(vt + cb * kRows * VC::kRowBytes, &map_v, v_full(st),
+                   cb * VC::kCols, g, j * kRows, b);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64); this
+  // thread holds rows r and r + 8 of them
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + lane / 4;
+  const int row0 = q0 + wg * kRows + r, row1 = row0 + 8;
+  const int wg_first = q0 + wg * kRows;
+  // the warpgroup's key tiles (a warpgroup wholly past S takes them all)
+  const int nkw = min(wg_first + kRows - 1, S - 1) / kRows + 1;
+  const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
+
+  const float* lse_b = lse + static_cast<size_t>(bh) * S;
+  const float l0 = row0 < S ? lse_b[row0] : 0.0f;
+  const float l1 = row1 < S ? lse_b[row1] : 0.0f;
+  const float d0 = row_delta<DV>(o, dout, b, row0, h, S, H, lane % 4);
+  const float d1 = row_delta<DV>(o, dout, b, row1, h, S, H, lane % 4);
+  if (lane % 4 == 0) {
+    if (row0 < S) delta[static_cast<size_t>(bh) * S + row0] = d0;
+    if (row1 < S) delta[static_cast<size_t>(bh) * S + row1] = d1;
+  }
+
+  const uint32_t qa = qs + wg * kRows * QK::kRowBytes;   // this warpgroup's rows
+  const uint32_t da = dos + wg * kRows * VC::kRowBytes;
+  float acc[DQK / 2];
+#pragma unroll
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t ds[4][4];
+  auto release = [&](int st) {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
+
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < nkw; ++j) {
+    const int st = stage(j);
+    const uint32_t kt = ks + st * T::kKBytes, vt = vs + st * T::kVBytes;
+    keep(acc);
+    mbar_wait(k_full(st), phase(j));
+    mbar_wait(v_full(st), phase(j));
+    wgmma_fence();
+    issue_ss<DQK, kBQ>(s, qa, kt);
+    issue_ss<DV, kBQ>(dp, da, vt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(s);
+    keep(dp);
+    // dS = P (dP - D), P 0 where the key is past the row (in a tile that
+    // reaches past the warpgroup's first row)
+    const bool masked = j * kRows + kRows - 1 > wg_first;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = j * kRows + 8 * i + col_of + e;
+        float p0 = exp2f(fmaf(s[4 * i + e], scale_log2, -l0));
+        float p1 = exp2f(fmaf(s[4 * i + 2 + e], scale_log2, -l1));
+        if (masked) {
+          if (col > row0) p0 = 0.0f;
+          if (col > row1) p1 = 0.0f;
+        }
+        s[4 * i + e] = p0 * (dp[4 * i + e] - d0);
+        s[4 * i + 2 + e] = p1 * (dp[4 * i + 2 + e] - d1);
+      }
+    pack_a(ds, s);
+    keep(ds);
+    wgmma_fence();
+    issue_rs<DQK>(acc, ds, kt);
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(acc);
+    keep(ds);
+    release(st);
+  }
+
+  const size_t step = static_cast<size_t>(H) * DQK;  // elements per position
+  bf16* dqb = dq + (static_cast<size_t>(b) * S * H + h) * DQK + col_of;
+  if (row0 < S) {
+    uint32_t* out = reinterpret_cast<uint32_t*>(dqb + row0 * step);
+#pragma unroll
+    for (int c = 0; c < DQK / 8; ++c)
+      out[4 * c] = pack_bf16(scale * acc[4 * c], scale * acc[4 * c + 1]);
+  }
+  if (row1 < S) {
+    uint32_t* out = reinterpret_cast<uint32_t*>(dqb + row1 * step);
+#pragma unroll
+    for (int c = 0; c < DQK / 8; ++c)
+      out[4 * c] = pack_bf16(scale * acc[4 * c + 2], scale * acc[4 * c + 3]);
   }
 }
 
-int group_sum(const float* part, bf16* out, long long n, int KH, int G,
-              int D, cudaStream_t stream) {
-  const long long blocks = std::min<long long>((n + 255) / 256, 132 * 16);
-  group_sum_kernel<<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
-      part, out, n, KH, G, D);
-  return static_cast<int>(cudaGetLastError());
+// The rows key0 and key0 + 8 of this thread's fragment of a [., S, KH, D]
+// tensor: float32 partials out (part), or x scale, rounded to bf16 (out).
+template <int D>
+__device__ __forceinline__ void store_rows(float* part, bf16* out,
+                                           const float (&c)[D / 2], int key0,
+                                           int S, size_t stride, float scale) {
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int key = key0 + 8 * hf;
+      if (key >= S) continue;
+      const float x = c[4 * n + 2 * hf], y = c[4 * n + 2 * hf + 1];
+      if (part != nullptr)
+        *reinterpret_cast<float2*>(part + key * stride + 8 * n) =
+            make_float2(x, y);
+      else
+        *reinterpret_cast<uint32_t*>(out + key * stride + 8 * n) =
+            pack_bf16(scale * x, scale * y);
+    }
+}
+
+// c = the sum of the splits' partials at this thread's fragment, in split
+// order (split `own` from c itself, bitwise what it wrote): a split's loads
+// all go out together, then their adds.
+template <int D>
+__device__ __forceinline__ void sum_rows(float (&c)[D / 2],
+                                         const float* part, size_t split_size,
+                                         int splits, int own, int key0, int S,
+                                         size_t stride) {
+  float sum[D / 2];
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) sum[x] = 0.0f;
+  for (int sp = 0; sp < splits; ++sp) {
+    const float* ps = part + sp * split_size;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int key = key0 + 8 * hf, x = 4 * n + 2 * hf;
+        float2 p = make_float2(c[x], c[x + 1]);
+        if (sp != own && key < S)
+          p = __ldcg(reinterpret_cast<const float2*>(ps + key * stride +
+                                                     8 * n));
+        sum[x] += p.x;
+        sum[x + 1] += p.y;
+      }
+  }
+#pragma unroll
+  for (int x = 0; x < D / 2; ++x) c[x] = sum[x];
+}
+
+// A warpgroup's dV (or dK) of the block's keys to out: with splits > 1 its
+// float32 partial to split `split` of part (split_size floats a split),
+// then a ticket; the block that draws the last one adds the splits'
+// partials in split order. Both consumer warpgroups call it.
+template <int D>
+__device__ __forceinline__ void finish(float (&c)[D / 2], bf16* out,
+                                       float* part, size_t split_size,
+                                       int splits, int split, int* ticket,
+                                       int* last_flag, int key0, int S,
+                                       size_t stride, float scale) {
+  if (splits > 1) {
+    store_rows<D>(part + split * split_size, nullptr, c, key0, S, stride,
+                  1.0f);
+    __threadfence();
+    consumers_sync(256);
+    if (threadIdx.x == 0) *last_flag = atomicAdd(ticket, 1) == splits - 1;
+    consumers_sync(256);
+    if (!*last_flag) return;
+    __threadfence();
+    sum_rows<D>(c, part, split_size, splits, split, key0, S, stride);
+  }
+  store_rows<D>(nullptr, out, c, key0, S, stride, scale);
+}
+
+// Named barriers between the two consumer warpgroups of a dK/dV block
+// (0 is __syncthreads, 1 consumers_sync): "P of buffer x written" and "P of
+// buffer x read", x = item % 2.
+constexpr int kPFull = 2, kPEmpty = 4;
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+template <int DQK, int DV>
+__global__ void __launch_bounds__(Bwd<DQK, DV>::kKVThreads, 1)
+bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
+                const __grid_constant__ CUtensorMap map_do,
+                const __grid_constant__ CUtensorMap map_k,
+                const __grid_constant__ CUtensorMap map_v,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dk,
+                bf16* __restrict__ dv, float* __restrict__ part,
+                int* __restrict__ tickets, int B, int S, int H, int KH,
+                int splits, float scale, float scale_log2) {
+  using T = Bwd<DQK, DV>;
+  using QK = typename T::QK;
+  using VC = typename T::VC;
+  constexpr int kS = T::kKVStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const basep = smem_raw + (base - smem_addr(smem_raw));
+  const uint32_t ks = base;                         // [col block][64 keys]
+  const uint32_t vs = ks + T::kKBytes;
+  const uint32_t qs = vs + T::kVBytes;              // [stage][cb][64 queries]
+  const uint32_t dos = qs + kS * T::kKBytes;
+  const uint32_t rows_off = dos + kS * T::kVBytes - base;
+  float* const lse_s = reinterpret_cast<float*>(basep + rows_off);  // [stage][64]
+  float* const del_s = lse_s + kS * kRows;
+  float* const pbuf = del_s + kS * kRows;           // [2][32][128 threads]
+  const uint32_t bars = base + rows_off + kS * 2 * kRows * 4 + 2 * T::kPBytes;
+  const uint32_t kv_full = bars;
+  auto full = [&](int st) { return bars + 8u * (1 + st); };
+  auto empty = [&](int st) { return bars + 8u * (1 + kS + st); };
+  int* const last_flag = reinterpret_cast<int*>(basep + (bars - base) +
+                                                8 * (1 + 2 * kS));
+
+  // key tiles nearest the start (they see the most queries) first
+  const int per_tile = B * KH * splits;
+  const int tile = static_cast<int>(blockIdx.x) / per_tile;
+  int rest = static_cast<int>(blockIdx.x) % per_tile;
+  const int split = rest % splits;
+  rest /= splits;
+  const int g = rest % KH, b = rest / KH;
+  const int G = H / KH, Gs = G / splits;
+  const int h0 = g * G + split * Gs;  // the split's first query head
+  const int k0 = tile * kRows;
+  // chunks of 64 queries a head: from the tile's first key to S - 1
+  const int nc = (S - 1) / kRows - tile + 1;
+  const int items = Gs * nc;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(full(st), 1 + 32);  // the TMA bytes' arrival + 32 lanes
+      mbar_init(empty(st), 8);      // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {
+    // producer: lane 0 issues the TMA loads; every lane copies two rows'
+    // lse and D of a chunk into its stage and arrives
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, T::kKBytes + T::kVBytes);
+      for (int cb = 0; cb < QK::kBlocks; ++cb)
+        tma_load(ks + cb * kRows * QK::kRowBytes, &map_k, kv_full,
+                 cb * QK::kCols, g, k0, b);
+      for (int cb = 0; cb < VC::kBlocks; ++cb)
+        tma_load(vs + cb * kRows * VC::kRowBytes, &map_v, kv_full,
+                 cb * VC::kCols, g, k0, b);
+    }
+    for (int i = 0; i < items; ++i) {
+      const int st = i % kS;
+      if (i >= kS)
+        mbar_wait(empty(st), (static_cast<uint32_t>(i / kS) & 1u) ^ 1u);
+      const int h = h0 + i / nc, c0 = k0 + (i % nc) * kRows;
+      if (lane == 0) {
+        const uint32_t qt = qs + st * T::kKBytes, dt = dos + st * T::kVBytes;
+        mbar_expect_tx(full(st), T::kKBytes + T::kVBytes);
+        for (int cb = 0; cb < QK::kBlocks; ++cb)
+          tma_load(qt + cb * kRows * QK::kRowBytes, &map_q, full(st),
+                   cb * QK::kCols, h, c0, b);
+        for (int cb = 0; cb < VC::kBlocks; ++cb)
+          tma_load(dt + cb * kRows * VC::kRowBytes, &map_do, full(st),
+                   cb * VC::kCols, h, c0, b);
+      }
+      const size_t row = (static_cast<size_t>(b) * H + h) * S;
+      for (int x = lane; x < kRows; x += 32) {
+        const int qi = c0 + x;
+        lse_s[st * kRows + x] = qi < S ? lse[row + qi] : 0.0f;
+        del_s[st * kRows + x] = qi < S ? delta[row + qi] : 0.0f;
+      }
+      mbar_arrive(full(st));
+    }
+    return;
+  }
+
+  // consumers: both warpgroups take the block's 64 keys; this thread holds
+  // keys r and r + 8 of them
+  const int wg = warp / 4;
+  const int t = threadIdx.x % 128;
+  const int r = (t / 32) * 16 + lane / 4;
+  const int key0 = k0 + r, key1 = key0 + 8;
+  const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
+  const size_t sk = static_cast<size_t>(KH) * DQK, sv = static_cast<size_t>(KH) * DV;
+  const size_t off_b = static_cast<size_t>(b) * S;  // the batch's first row
+  int* const ticket = tickets + (tile * B + b) * KH + g;
+  float s[32];
+  uint32_t a[4][4];
+  auto release = [&](int st) {  // this warp is done with stage st
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(st));
+  };
+
+  mbar_wait(kv_full, 0);
+  if (wg == 0) {
+    // the P warpgroup: S^T = K.Q^T, P^T (to the dS warpgroup through
+    // pbuf), dV += P^T.dO
+    float acc[DV / 2];
+#pragma unroll
+    for (int x = 0; x < DV / 2; ++x) acc[x] = 0.0f;
+    for (int i = 0; i < items; ++i) {
+      const int st = i % kS, c = i % nc, c0 = k0 + c * kRows;
+      const uint32_t qt = qs + st * T::kKBytes, dt = dos + st * T::kVBytes;
+      const float* ls = lse_s + st * kRows;
+      float* const pb = pbuf + (i % 2) * 32 * 128 + t;
+      keep(acc);
+      mbar_wait(full(st), static_cast<uint32_t>(i / kS) & 1u);
+      wgmma_fence();
+      issue_ss<DQK, kRows>(s, ks, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(s);
+      // P^T, 0 where the key is past the query or the query at or past S
+      // (the chunk on the diagonal or reaching past S)
+      const bool masked = c == 0 || c0 + kRows > S;
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * i8 + col_of + e, qi = c0 + col;
+          const float l = ls[col];
+          float p0 = exp2f(fmaf(s[4 * i8 + e], scale_log2, -l));
+          float p1 = exp2f(fmaf(s[4 * i8 + 2 + e], scale_log2, -l));
+          if (masked) {
+            if (qi >= S || key0 > qi) p0 = 0.0f;
+            if (qi >= S || key1 > qi) p1 = 0.0f;
+          }
+          s[4 * i8 + e] = p0;
+          s[4 * i8 + 2 + e] = p1;
+        }
+      if (i >= 2) bar_sync(kPEmpty + i % 2);  // P(i - 2) has been read
+#pragma unroll
+      for (int x = 0; x < 32; ++x) pb[x * 128] = s[x];
+      bar_arrive(kPFull + i % 2);
+      pack_a(a, s);
+      keep(a);
+      wgmma_fence();
+      issue_rs<DV>(acc, a, dt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(a);
+      release(st);
+    }
+    float* const pv = part + static_cast<size_t>(splits) * B * S * sk +
+                      off_b * sv + g * DV + col_of;
+    finish<DV>(acc, dv + off_b * sv + g * DV + col_of, pv, B * S * sv,
+               splits, split, ticket, last_flag, key0, S, sv, 1.0f);
+  } else {
+    // the dS warpgroup: dP^T = V.dO^T, dS^T = P^T (dP^T - D), dK += dS^T.Q
+    float acc[DQK / 2];
+#pragma unroll
+    for (int x = 0; x < DQK / 2; ++x) acc[x] = 0.0f;
+    for (int i = 0; i < items; ++i) {
+      const int st = i % kS;
+      const uint32_t qt = qs + st * T::kKBytes, dt = dos + st * T::kVBytes;
+      const float* dl = del_s + st * kRows;
+      const float* const pb = pbuf + (i % 2) * 32 * 128 + t;
+      keep(acc);
+      mbar_wait(full(st), static_cast<uint32_t>(i / kS) & 1u);
+      wgmma_fence();
+      issue_ss<DV, kRows>(s, vs, dt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(s);
+      bar_sync(kPFull + i % 2);  // P(i) is written
+#pragma unroll
+      for (int i8 = 0; i8 < 8; ++i8)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float d = dl[8 * i8 + col_of + e];
+          const int x0 = 4 * i8 + e, x1 = x0 + 2;
+          s[x0] = pb[x0 * 128] * (s[x0] - d);
+          s[x1] = pb[x1 * 128] * (s[x1] - d);
+        }
+      if (i + 2 < items) bar_arrive(kPEmpty + i % 2);
+      pack_a(a, s);
+      keep(a);
+      wgmma_fence();
+      issue_rs<DQK>(acc, a, qt);
+      wgmma_commit();
+      wgmma_wait<0>();
+      keep(acc);
+      keep(a);
+      release(st);
+    }
+    float* const pk = part + off_b * sk + g * DQK + col_of;
+    finish<DQK>(acc, dk + off_b * sk + g * DQK + col_of, pk, B * S * sk,
+                splits, split, ticket, last_flag, key0, S, sk, scale);
+  }
 }
 
 template <int DQK, int DV>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* dout, const float* lse, bf16* dq, bf16* dk, bf16* dv,
-           float* delta, float* dkp, float* dvp, int B, int S, int H, int KH,
-           float scale, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<DQK, DV>();
+           float* delta, float* part, int* tickets, int B, int S, int H,
+           int KH, int splits, float scale, cudaStream_t stream) {
+  using T = Bwd<DQK, DV>;
+  // launch 1 reads 128-row Q and dO tiles, launch 2 64-row chunks; both
+  // read K and V in 64-row tiles
+  CUtensorMap mq, mdo, mk, mv, cq, cdo;
+  if (!encode<DQK>(&mq, q, B, S, H, T::kBQ) ||
+      !encode<DV>(&mdo, dout, B, S, H, T::kBQ) ||
+      !encode<DQK>(&mk, k, B, S, KH, kRows) ||
+      !encode<DV>(&mv, v, B, S, KH, kRows) ||
+      !encode<DQK>(&cq, q, B, S, H, kRows) ||
+      !encode<DV>(&cdo, dout, B, S, H, kRows))
+    return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
-        dkdv_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmem);
+        bwd_dq_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        T::kQSmem);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(dq_kernel<DQK, DV>,
+      err = cudaFuncSetAttribute(bwd_dkdv_kernel<DQK, DV>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 kSmem);
+                                 T::kKVSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const long long rows = static_cast<long long>(B) * S * H;
-  const int nt = (S + kTile - 1) / kTile;
-  const long long blocks = static_cast<long long>(nt) * B * H;
-  if ((rows + 7) / 8 > 0x7fffffffLL || blocks > 0x7fffffffLL)
+  const int nq = (S + T::kBQ - 1) / T::kBQ;
+  const int nk = (S + kRows - 1) / kRows;
+  const long long q_blocks = static_cast<long long>(nq) * B * H;
+  const long long kv_blocks = static_cast<long long>(nk) * B * KH * splits;
+  const int n_tickets = splits > 1 ? nk * B * KH : 0;
+  if (q_blocks > 0x7fffffffLL || kv_blocks > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const float scale_log2 = scale * 1.4426950408889634f;
-  delta_kernel<DV><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(
-      o, dout, delta, S, H, rows);
-  dkdv_kernel<DQK, DV><<<static_cast<unsigned>(blocks), kThreads, kSmem,
-                         stream>>>(q, k, v, dout, lse, delta, dkp, dvp, S, H,
-                                   KH, B * H, scale, scale_log2);
-  dq_kernel<DQK, DV><<<static_cast<unsigned>(blocks), kThreads, kSmem,
-                       stream>>>(q, k, v, dout, lse, delta, dq, S, H, KH,
-                                 B * H, nt, scale, scale_log2);
-  int err = static_cast<int>(cudaGetLastError());
+  const float scale_log2 = scale * kLog2e;
+  bwd_dq_kernel<DQK, DV><<<static_cast<unsigned>(q_blocks), T::kQThreads,
+                           T::kQSmem, stream>>>(
+      mq, mdo, mk, mv, o, dout, lse, delta, dq, tickets, n_tickets, S, H, KH,
+      B * H, nq, scale, scale_log2);
+  const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const int G = H / KH;
-  err = group_sum(dkp, dk, static_cast<long long>(B) * S * KH * DQK, KH, G,
-                  DQK, stream);
-  if (err != 0) return err;
-  return group_sum(dvp, dv, static_cast<long long>(B) * S * KH * DV, KH, G,
-                   DV, stream);
+  bwd_dkdv_kernel<DQK, DV><<<static_cast<unsigned>(kv_blocks), T::kKVThreads,
+                             T::kKVSmem, stream>>>(
+      cq, cdo, mk, mv, lse, delta, dk, dv, part, tickets, B, S, H, KH, splits,
+      scale, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -531,25 +709,30 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 // q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv], o and dout
 // [B, S, H, dv], dq [B, S, H, dqk], dk [B, S, KH, dqk], dv [B, S, KH, dv]:
 // contiguous bfloat16, 16-byte aligned; lse [B, H, S] (the forward's, base
-// 2) and the scratch delta [B, H, S], dkp [B, S, H, dqk], dvp [B, S, H, dv]:
-// float32. (dqk, dv) one of (64, 64), (128, 128); KH divides H; the causal
-// mask without a window. Anything else returns cudaErrorInvalidValue
+// 2) and the scratch delta [B, H, S]: float32. splits divides H / KH (see
+// the design note); with splits > 1, part is float32 scratch of splits x B
+// x S x KH x (dqk + dv) and tickets int32 scratch of ceil(S / keys a block)
+// x B x KH (either may be null with splits = 1). (dqk, dv) one of (64, 64),
+// (128, 128); KH divides H; the causal mask without a window. Two kernel
+// launches on the stream. Anything else returns cudaErrorInvalidValue
 // without launching.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* dout, const void* lse,
                                      void* dq, void* dk, void* dv,
-                                     void* delta, void* dkp, void* dvp,
+                                     void* delta, void* part, void* tickets,
                                      int B, int S, int H, int KH, int dqk,
-                                     int dv_, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0)
+                                     int dv_, int splits, float scale,
+                                     void* stream) {
+  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || splits <= 0 ||
+      (H / KH) % splits != 0 ||
+      (splits > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
        reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
        reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
-       reinterpret_cast<uintptr_t>(dkp) | reinterpret_cast<uintptr_t>(dvp)) %
-      16)
+       reinterpret_cast<uintptr_t>(part)) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_BWD_ARGS                                                        \
@@ -557,12 +740,24 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
       static_cast<const bf16*>(v), static_cast<const bf16*>(o),            \
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),      \
       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv), \
-      static_cast<float*>(delta), static_cast<float*>(dkp),                \
-      static_cast<float*>(dvp), B, S, H, KH, scale, st
+      static_cast<float*>(delta), static_cast<float*>(part),               \
+      static_cast<int*>(tickets), B, S, H, KH, splits, scale, st
   switch (dqk * 1000 + dv_) {
     case 64064: return launch<64, 64>(FA_BWD_ARGS);
     case 128128: return launch<128, 128>(FA_BWD_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_BWD_ARGS
+}
+
+// Dynamic shared memory one block of the dQ kernel (kernel 0) or of the
+// dK/dV kernel (kernel 1) takes at head dims (dqk, dv), in bytes (0 for a
+// pair it does not take).
+extern "C" int flash_attn_bwd_smem_bytes(int dqk, int dv, int kernel) {
+  switch (dqk * 1000 + dv) {
+    case 64064: return kernel ? Bwd<64, 64>::kKVSmem : Bwd<64, 64>::kQSmem;
+    case 128128:
+      return kernel ? Bwd<128, 128>::kKVSmem : Bwd<128, 128>::kQSmem;
+    default: return 0;
+  }
 }

@@ -95,34 +95,12 @@
 //   no row at or past S is written. When the caller asks for it (training),
 //   each row's lse = m c + log2(max(l, 1e-30)) in float32 [B, H, S] (m the
 //   raw max, c = scale log2(e)), one store by a quad's first lane.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_attn_common.cuh"
 
 namespace {
 
-constexpr int kMaxSmem = 232448;             // a block's shared memory
 constexpr int kBK = 64;  // keys per tile (the width of wgmma_ss_n64)
 constexpr float kNegInf = -2.0e38f;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// The column blocks of a tile with D columns (see the design notes).
-template <int D>
-struct Cols {
-  static_assert(D % 16 == 0, "head dim");
-  static constexpr int kCols = D % 64 == 0 ? 64 : D % 32 == 0 ? 32 : 16;
-  static constexpr int kRowBytes = kCols * 2;        // 128, 64 or 32
-  static constexpr int kBlocks = D / kCols;
-  static constexpr int kAtomBytes = 8 * kRowBytes;   // 8-row swizzle atom
-  // wgmma descriptor layout type: 1 = 128-byte swizzle, 2 = 64, 3 = 32
-  static constexpr uint32_t kLayout =
-      kRowBytes == 128 ? 1u : kRowBytes == 64 ? 2u : 3u;
-  static constexpr CUtensorMapSwizzle kSwizzle =
-      kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-      : kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                        : CU_TENSOR_MAP_SWIZZLE_32B;
-};
 
 template <int DQK, int DV>
 struct Tiles {
@@ -151,211 +129,11 @@ struct Tiles {
   static constexpr bool kOverlap = DV <= 128;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed. A
-// phase that never completes (a load that cannot arrive) traps after ~2^30
-// polls, so the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (polls == (1u << 30)) __trap();
-  }
-}
-
-// One TMA load of a box at (c0 column, c1 head, c2 position, c3 batch) into
-// shared memory; completion counts bytes on the barrier.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory matrix descriptor: start address, leading and stride
-// byte offsets (16-byte units) and the swizzle layout type.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
-                                         uint32_t sbo, uint32_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32) |
-         (static_cast<uint64_t>(layout) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// Keep the compiler from moving reads or writes of a register across an
-// asynchronous wgmma that uses it.
-__device__ __forceinline__ void keep(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-__device__ __forceinline__ void keep(uint32_t& r) {
-  asm volatile("" : "+r"(r)::"memory");
-}
-template <int N>
-__device__ __forceinline__ void keep(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) keep(r[i]);
-}
-
-// d[32] (+)= A·B: A [64 x 16] and B [16 x 64] both K-major in shared
-// memory (descriptors da, db); d is overwritten when accumulate is 0.
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
-                                             uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d[8] += A·B: A [64 x 16] bf16 in registers (a), B [16 x 16] MN-major
-// in shared memory (descriptor db, transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[32] += A·B: A [64 x 16] bf16 in registers (a), B [16 x 64] MN-major
-// in shared memory (descriptor db, transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// d[64] += A·B: A [64 x 16] bf16 in registers (a), B [16 x 128] MN-major
-// in shared memory (descriptor db, transpose bit set).
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 16 || N == 64 || N == 128, "head dim");
-  if constexpr (N == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo_col, float hi_col) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo_col, hi_col);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
 // The running max (raw logits) and this thread's share of the running sum
 // of rows r and r + 8 of a warpgroup.
 struct Rows {
   float m0, m1, l0, l1;
 };
-
-template <int N, int M>
-__device__ __forceinline__ void keep(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int x = 0; x < M; ++x) keep(r[i][x]);
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// Issue S = Q.K^T for one key tile (DQK / 16 steps of 16 columns): qa is
-// the warpgroup's 64 query rows of the block's BQ, ka the tile's first
-// column block.
-template <int DQK, int BQ>
-__device__ __forceinline__ void issue_qk(float (&s)[kBK / 2], uint32_t qa,
-                                         uint32_t ka) {
-  using C = Cols<DQK>;
-#pragma unroll
-  for (int kk = 0; kk < DQK / 16; ++kk) {
-    const int cb = kk * 16 / C::kCols;
-    const uint32_t off = (kk * 16 % C::kCols) * 2;
-    const uint64_t da = desc(qa + cb * BQ * C::kRowBytes + off, 16,
-                             C::kAtomBytes, C::kLayout);
-    const uint64_t db = desc(ka + cb * kBK * C::kRowBytes + off, 16,
-                             C::kAtomBytes, C::kLayout);
-    wgmma_ss_n64(s, da, db, kk > 0);
-  }
-}
 
 // Issue O += P_hi.V + P_lo.V for one key tile (kBK / 16 steps of 16 keys);
 // va is the V tile's first column block. DV 256 runs as two m64n128
@@ -593,7 +371,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     // tile jw: S, its softmax and P
     mbar_wait(k_full(stage(jw)), phase(jw));
     wgmma_fence();
-    issue_qk<DQK, T::kBQ>(sacc, qa, ks + stage(jw) * T::kKBytes);
+    issue_ss<DQK, T::kBQ>(sacc, qa, ks + stage(jw) * T::kKBytes);
     wgmma_commit();
     wgmma_wait<0>();
     keep(sacc);
@@ -612,7 +390,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       mbar_wait(k_full(sn), phase(j + 1));
       mbar_wait(v_full(st), phase(j));
       wgmma_fence();
-      issue_qk<DQK, T::kBQ>(sacc, qa, ks + sn * T::kKBytes);
+      issue_ss<DQK, T::kBQ>(sacc, qa, ks + sn * T::kKBytes);
       wgmma_commit();
       issue_pv<DV>(oacc, phi, plo, vs + st * T::kVBytes);
       wgmma_commit();
@@ -651,7 +429,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       keep(oacc);
       mbar_wait(k_full(st), phase(j));
       wgmma_fence();
-      issue_qk<DQK, T::kBQ>(sacc, qa, ks + st * T::kKBytes);
+      issue_ss<DQK, T::kBQ>(sacc, qa, ks + st * T::kKBytes);
       wgmma_commit();
       wgmma_wait<0>();
       keep(sacc);
@@ -707,55 +485,6 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int c = 0; c < DV / 8; ++c)
       out[4 * c] = pack_bf16(oacc[4 * c + 2] / den1, oacc[4 * c + 3] / den1);
   }
-}
-
-// cuTensorMapEncodeTiled, fetched from the driver the runtime has loaded
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 4-D map {D, heads, S, B} over a contiguous bf16 [B, S, heads, D]
-// tensor, with boxes of {Cols<D>::kCols, 1, rows, 1} in Cols<D>'s swizzle.
-template <int D>
-bool encode(CUtensorMap* map, const void* ptr, int B, int S, int heads,
-            int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
-                              (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2,
-                                 (cuuint64_t)heads * D * 2,
-                                 (cuuint64_t)S * heads * D * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)Cols<D>::kCols, 1, (cuuint32_t)rows,
-                             1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            Cols<D>::kSwizzle,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int DQK, int DV>

@@ -5,7 +5,8 @@ function that takes raw device pointers and a ``cudaStream_t`` and returns
 ``cudaGetLastError()``. :func:`library` compiles the sources for ``sm_90a``
 (one ``nvcc`` per source, all started together), links them into one shared
 library under ``build/repro_torch_kernels/`` at the repository root (named by
-a hash of the sources and flags, so an unchanged tree reuses it), and loads it
+a hash of the sources, the ``*.cuh`` headers they include and the flags, so an
+unchanged tree reuses it and an edited header rebuilds), and loads it
 once per process. Nothing is compiled when this module is imported.
 """
 from __future__ import annotations
@@ -44,8 +45,9 @@ SIGNATURES = {
     "round_fused_launch": [_P] * 15 + [_I] * 14 + [_P],
     "flash_attn_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
     "flash_attn_tc_launch": [_P] * 5 + [_I] * 8 + [_F, _P],
-    "flash_attn_bwd_launch": [_P] * 12 + [_I] * 6 + [_F, _P],
+    "flash_attn_bwd_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
     "flash_attn_tc_smem_bytes": [_I, _I],
+    "flash_attn_bwd_smem_bytes": [_I, _I, _I],
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -69,15 +71,25 @@ def _nvcc() -> str:
 
 
 def _sources() -> list[Path]:
+    """The compiled sources: every ``*.cu`` under ``CSRC``."""
     return sorted(CSRC.glob("*.cu"))
 
 
-def _tag(sources: list[Path]) -> str:
+def _headers() -> list[Path]:
+    """The headers the sources include (``*.cuh`` under ``CSRC``)."""
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def _tag(sources: list[Path], headers: list[Path] = ()) -> str:
+    """A hash of the sources, the headers and the flags."""
     h = hashlib.sha1()
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
         h.update(" ".join(EXTRA_FLAGS.get(src.name, [])).encode())
+    for hdr in headers:
+        h.update(hdr.name.encode())
+        h.update(hdr.read_bytes())
     h.update(" ".join(ARCH + COMMON_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -124,7 +136,8 @@ def build_log() -> str:
 
 def library_path() -> Path:
     """Where the library of the current sources is (or will be) built."""
-    return BUILD_DIR / f"librepro_torch_kernels_{_tag(_sources())}.so"
+    return BUILD_DIR / \
+        f"librepro_torch_kernels_{_tag(_sources(), _headers())}.so"
 
 
 def library() -> ctypes.CDLL:

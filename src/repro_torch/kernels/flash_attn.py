@@ -36,9 +36,15 @@ that requires one), :func:`flash_attention` runs through an
 ``autograd.Function`` whose forward launches the bf16 kernel with its row
 statistic (:func:`flash_attention_lse`: each row's log2-sum-exp2 of the
 scaled logits, [B, H, S] float32) and whose backward launches
-``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_backward`). The backward
-takes causal attention without a window, bf16, at the head dims of
-``BWD_HEAD_DIMS``; a call that needs a gradient of any other variant
+``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_backward`): on Hopper
+tensor cores (``wgmma`` on tiles that TMA loads into an ``mbarrier``
+ring), two kernel launches a call: dQ (which also writes each row's
+D = rowsum(dO∘O)), then dK/dV, whose blocks sum a split of each KV head's
+query heads and add the splits' float32 partials in a fixed order
+(:func:`bwd_plan`). No float atomics, so a call repeats bit for bit. Both
+kernels run on the H100 in ``chip_smoke.py``'s training phase. The
+backward takes causal attention without a window, bf16, at the head dims
+of ``BWD_HEAD_DIMS``; a call that needs a gradient of any other variant
 raises ``NotImplementedError`` (nothing detaches the output and nothing
 falls back to the plain version). On the CPU the plain version runs and
 autograd differentiates it.
@@ -56,7 +62,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
            "NEG_INF", "ROUTES", "launches", "route_launches",
            "class_launches", "flash_attention_lse", "flash_attention_lse_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
-           "BWD_HEAD_DIMS", "LOG2E", "bwd_launches", "bwd_head_dim_launches"]
+           "BWD_HEAD_DIMS", "LOG2E", "bwd_launches", "bwd_head_dim_launches",
+           "bwd_plan", "BWD_MIN_BLOCKS", "BWD_MAX_SPLITS"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -65,8 +72,8 @@ route_launches = {"tensor_core": 0, "cuda_core": 0}
 #: the same launches by mask: causal (with or without a window) or not
 class_launches = {"causal": 0, "noncausal": 0}
 
-#: backward launches (one a call of ``flash_attn_bwd_launch``, whose four
-#: kernels run as one) since the count was last set to 0
+#: backward launches (one a call of ``flash_attn_bwd_launch``, whose two
+#: kernels, dQ then dK/dV, run as one) since the count was last set to 0
 bwd_launches = 0
 #: the same by (q·k head dim, v head dim)
 bwd_head_dim_launches: dict[tuple[int, int], int] = {}
@@ -77,6 +84,13 @@ HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (96, 64),
 #: the pairs the backward kernel is built for (the dense configs' 128/128
 #: and the 64/64 of ``examples/train_lm_torch.py``'s qwen3-100m)
 BWD_HEAD_DIMS = ((64, 64), (128, 128))
+#: the dK/dV launch's grid aim: a wave of the H100's 132 SMs (a dK/dV block
+#: takes an SM's registers and most of its shared memory)
+BWD_MIN_BLOCKS = 132
+#: the most splits of a KV head's query heads: the block that adds their
+#: partials reads splits - 1 of them, and past 8 that costs more than the
+#: blocks gain (``tools/kernel_timing.py --bwd-splits``; ``PERF.md``)
+BWD_MAX_SPLITS = 8
 #: log2(e): the row statistic is in base 2 of the scaled logits
 LOG2E = 1.4426950408889634
 #: the mask value of the reference (``flash_attn/kernel.py``, ``ref.py``)
@@ -314,6 +328,38 @@ def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
             heads_summed(dv).to(v.dtype))
 
 
+def bwd_plan(B: int, S: int, H: int, K: int, dqk: int, dv: int,
+             splits: int | None = None) -> dict:
+    """The backward kernel's plan at a shape (``csrc/flash_attn_bwd.cu``
+    mirrors it): ``key_rows`` keys a dK/dV block, the ``key_tiles`` of S,
+    and ``splits``: the smallest divisor of the group G = H/K, at most
+    ``BWD_MAX_SPLITS``, that gives at least ``BWD_MIN_BLOCKS`` dK/dV blocks
+    (the largest such divisor when none does). A block sums its G/splits
+    query heads in registers; with ``splits`` > 1 each writes
+    float32 partials [splits, B, S, K, Dqk + Dv] (``partial_bytes``), and
+    the last of a (key tile, b, KV head)'s blocks, found by an int ticket
+    (``tickets``), adds them in split order. From the shape alone, so a
+    shape always sums in the same order. ``splits`` given (a divisor of G)
+    replaces that choice: ``tools/kernel_timing.py --bwd-splits`` times
+    each."""
+    key_rows = 64
+    key_tiles = -(-S // key_rows)
+    group = H // K
+    blocks = key_tiles * B * K
+    if splits is None:
+        divisors = [d for d in range(1, min(group, BWD_MAX_SPLITS) + 1)
+                    if group % d == 0]
+        splits = next((d for d in divisors if blocks * d >= BWD_MIN_BLOCKS),
+                      divisors[-1])
+    elif group % splits:
+        raise ValueError(f"bwd_plan: {splits} splits do not divide the "
+                         f"group of {group} query heads")
+    return dict(key_rows=key_rows, key_tiles=key_tiles, splits=splits,
+                blocks=blocks * splits, tickets=blocks if splits > 1 else 0,
+                partial_bytes=4 * splits * B * S * K * (dqk + dv)
+                if splits > 1 else 0)
+
+
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
@@ -323,9 +369,10 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     """(dq, dk, dv) of causal attention without a window, given the
     forward's ``out`` and ``lse`` (:func:`flash_attention_lse`) and the
     output's gradient ``dout`` [B, S, H, Dv]. CUDA: ``csrc/flash_attn_bwd.cu``
-    (bf16, ``BWD_HEAD_DIMS``; a deterministic sum over each KV head's query
-    heads, no atomics), one count in ``bwd_launches``; CPU:
-    :func:`flash_attention_backward_plain` (``out`` and ``lse`` unused)."""
+    (bf16, ``BWD_HEAD_DIMS``; two kernel launches; each KV head's query
+    heads summed in a fixed order, :func:`bwd_plan`; no float atomics), one
+    count in ``bwd_launches``; CPU: :func:`flash_attention_backward_plain`
+    (``out`` and ``lse`` unused)."""
     global bwd_launches
     _check(q, k, v, None, True)
     if scale is None:
@@ -348,17 +395,19 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0:
         return dq, dk, dvv
-    f32 = dict(dtype=torch.float32, device=q.device)
-    delta = torch.empty((B, H, S), **f32)
-    dkp = torch.empty((B, S, H, dqk), **f32)  # per-query-head partials
-    dvp = torch.empty((B, S, H, dv), **f32)
-    tensors = (q, k, v, out, dout, lse, dq, dk, dvv, delta, dkp, dvp)
+    plan = bwd_plan(B, S, H, K, dqk, dv)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    part = torch.empty((plan["partial_bytes"] // 4,), dtype=torch.float32,
+                       device=q.device)             # the splits' partials
+    tickets = torch.empty((plan["tickets"],), dtype=torch.int32,
+                          device=q.device)          # zeroed by the dQ kernel
+    tensors = (q, k, v, out, dout, lse, dq, dk, dvv, delta, part, tickets)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("flash_attention_backward: kernel tensors must be "
                          "16-byte aligned")
     err = build.library().flash_attn_bwd_launch(
-        *(t.data_ptr() for t in tensors), B, S, H, K, dqk, dv, scale,
-        build.stream_ptr(q))
+        *(t.data_ptr() or None for t in tensors), B, S, H, K, dqk, dv,
+        plan["splits"], scale, build.stream_ptr(q))
     build.check(err, "flash_attn backward")
     with COUNT_LOCK:
         bwd_launches += 1

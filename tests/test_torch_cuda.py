@@ -1187,14 +1187,17 @@ def _bwd_close(got, want) -> bool:
 @pytest.mark.parametrize("B,S,H,K,hd", [
     (2, 2048, 24, 2, 128), (16, 128, 8, 4, 64), (2, 100, 8, 4, 64),
     (2, 2000, 24, 2, 128), (1, 4096, 32, 8, 128), (1, 1, 4, 2, 64),
-    (3, 65, 8, 8, 128)])
+    (3, 65, 8, 8, 128), (2, 300, 16, 1, 128), (2, 40, 8, 4, 64),
+    (1, 333, 6, 2, 128), (1, 256, 4, 4, 128)])
 def test_flash_attn_backward_matches_plain(dev, B, S, H, K, hd):
     """The backward kernel and the forward's row statistic against their
     plain versions (the lse within float32 sums in another order), at
     starcoder2-3b's and qwen3-100m's training shapes, ragged S, S 4096, one
-    position and no grouping; four planted faults (D left out of dS, the
-    mask shifted by a key, the last 64 keys left out, the lse 0.05 high
-    from row S/2 on) fail the same tolerance."""
+    position, no grouping, 16 query heads on one KV head, S shorter than a
+    tile, a part-filled last chunk and a grid of fewer blocks than SMs;
+    four planted faults (D left out of dS, the mask shifted by a key, the
+    last 64 keys left out, the lse 0.05 high from row S/2 on) fail the same
+    tolerance."""
     from repro_torch.kernels import flash_attn as K5
 
     q, k, v, dout = _bwd_inputs(dev, B, S, H, K, hd)

@@ -7,6 +7,7 @@ them, its training forward with the row statistic and its backward) at
 ``chip_smoke.py``'s shapes, for one source tree of the port.
 
     python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--kernels k5]
+                                   [--bwd-splits] [--train]
                                    [--out results.json]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so a
@@ -16,12 +17,16 @@ from a CUDA graph, warm L2, median of CUDA-event windows). To compare two
 trees on one card, run them in turns in one command (A, B, B, A). Prints
 the card's name and power limit and one line per shape; ``--out`` also
 keeps a sha1 of K1's output at each shape (the multi entry's too), so two
-trees' JSON files show whether their K1 agrees bitwise. Needs a CUDA
+trees' JSON files show whether their K1 agrees bitwise. ``--bwd-splits``
+times K5's backward at every split count of its plan. ``--train`` also
+times training steps with the tree's port (qwen3-100m's, and starcoder2-3b's
+at full width and depth through ``chip_smoke.train_full``). Needs a CUDA
 device.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -35,7 +40,9 @@ def time_k5(cs, dev, out: dict) -> None:
     """K5 (bf16, causal) at ``chip_smoke.K5_SHAPES``, with the inputs of
     ``chip_smoke.check_flash_attn``; in a tree with a backward, the
     training forward and the backward at ``chip_smoke.K5_BWD_SHAPES``, with
-    the inputs of ``chip_smoke.check_flash_attn_backward``."""
+    the inputs of ``chip_smoke.check_flash_attn_backward``, beside the
+    backward of ``scaled_dot_product_attention`` (timed as chip_smoke times
+    it; the port never calls it)."""
     import torch
 
     from repro_torch.kernels import flash_attn as K5
@@ -66,9 +73,103 @@ def time_k5(cs, dev, out: dict) -> None:
                          repeats=7)[0]
         bwd = cs.time_ms(lambda: K5.flash_attention_backward(
             q, k, v, out_k, lse, dout), reps=5, repeats=7)[0]
+        # the library yardstick as chip_smoke times it: the backward of
+        # sdpa(is_causal, enable_gqa) alone, eager
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        o_lib = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        lib = cs._event_ms(lambda: [torch.autograd.grad(
+            o_lib, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True)
+            for _ in range(5)], 5) / 5
         out["flash_attn_train"][key], out["flash_attn_bwd"][key] = fwd, bwd
+        out.setdefault("sdpa_bwd", {})[key] = lib
         print(f"  flash_attn [{key}] with lse: {fwd:.4f} ms; backward "
-              f"{bwd:.4f} ms")
+              f"{bwd:.4f} ms; sdpa's backward {lib:.4f} ms")
+        del qt, kt, vt, o_lib, q, k, v, dout, out_k, lse
+        torch.cuda.empty_cache()
+
+
+def time_train(cs, dev, out: dict) -> None:
+    """Seconds a training step: qwen3-100m (``chip_smoke.qwen3_100m``, B 16
+    x S 128) over TRAIN_QWEN_STEPS steps after TRAIN_QWEN_WARM, median; then
+    ``chip_smoke.train_full`` (starcoder2-3b at full width and depth, B 2 x
+    S 2048, remat: its timed steps, the step's parts and device time by
+    kernel group under the profiler)."""
+    import statistics
+    import time
+
+    import torch
+
+    from repro_torch.train import (DataConfig, TrainConfig, init_params,
+                                   make_batch, make_train_step)
+    from repro_torch.train.optimizer import adamw_init
+
+    cfg = cs.qwen3_100m()
+    dcfg = DataConfig(vocab=cfg.vocab, **cs.TRAIN_DATA)
+    state = adamw_init({k: v.to(dev) for k, v in init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu").items()})
+    step = make_train_step(cfg, TrainConfig(), dev)
+    times = []
+    for i in range(TRAIN_QWEN_WARM + TRAIN_QWEN_STEPS):
+        batch = make_batch(dcfg, i, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _, _ = step(state, batch, None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    qwen = statistics.median(times[TRAIN_QWEN_WARM:])
+    print(f"  train {cfg.arch_id}: {1e3 * qwen:.2f} ms a step (median of "
+          f"{TRAIN_QWEN_STEPS})")
+    del state, step
+    torch.cuda.empty_cache()
+    full = cs.train_full(dev)
+    out["train"] = dict(
+        qwen3_100m_step_s=qwen,
+        starcoder2_3b={k: full.get(k) for k in (
+            "step_median_s", "step_s", "fwd_bwd_s", "adamw_s", "copy_s",
+            "device_busy_share", "by_group", "peak_gb")})
+
+
+def time_bwd_splits(cs, dev, out: dict) -> None:
+    """K5's backward at ``BWD_SPLIT_SHAPES`` with its plan's splits forced
+    to each divisor of H/K (``flash_attn.bwd_plan(..., splits=)``), beside the
+    plan's own choice: the measurement behind ``BWD_MIN_BLOCKS`` and
+    ``BWD_MAX_SPLITS``."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as K5
+
+    plan = K5.bwd_plan
+    out["bwd_splits"] = {}
+    try:
+        for B, S, H, K, hd in BWD_SPLIT_SHAPES:
+            g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
+            q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
+                       .bfloat16() for n in (H, K, K))
+            dout = torch.randn((B, S, H, hd), generator=g,
+                               device=dev).bfloat16()
+            o, lse = K5.flash_attention_lse(q, k, v)
+            key = f"{B}x{S}x{H}/{K}x{hd}"
+            times = {}
+            for d in (d for d in range(1, H // K + 1) if (H // K) % d == 0):
+                K5.bwd_plan = functools.partial(plan, splits=d)
+                times[d] = cs.time_ms(lambda: K5.flash_attention_backward(
+                    q, k, v, o, lse, dout), reps=5, repeats=7)[0]
+            K5.bwd_plan = plan
+            out["bwd_splits"][key] = times
+            print(f"  flash_attn backward [{key}] by splits (the plan takes "
+                  f"{plan(B, S, H, K, hd, hd)['splits']}): " + ", ".join(
+                      f"{d}: {ms:.4f} ms" for d, ms in times.items()))
+    finally:
+        K5.bwd_plan = plan
+
+
+#: tools/kernel_timing.py --bwd-splits: starcoder2-3b's shape and a group of
+#: 16 query heads on one KV head at a short S
+BWD_SPLIT_SHAPES = [(2, 2048, 24, 2, 128), (2, 300, 16, 1, 128)]
+#: tools/kernel_timing.py --train: qwen3-100m's warm-up and timed steps
+TRAIN_QWEN_WARM, TRAIN_QWEN_STEPS = 5, 20
 
 
 def time_k1_k4(cs, args, dev, out: dict) -> None:
@@ -239,6 +340,12 @@ def main() -> int:
                          "tree whose kernels have launch plans)")
     ap.add_argument("--kernels", choices=("all", "k5"), default="all",
                     help="k5: time K5 alone")
+    ap.add_argument("--bwd-splits", action="store_true",
+                    help="also time K5's backward at every split count of "
+                         "its plan (a tree whose backward has bwd_plan)")
+    ap.add_argument("--train", action="store_true",
+                    help="also time training steps: qwen3-100m and "
+                         "starcoder2-3b at full width and depth")
     args = ap.parse_args()
 
     import chip_smoke as cs  # puts this checkout's src first on sys.path
@@ -262,6 +369,10 @@ def main() -> int:
     if args.kernels == "all":
         time_k1_k4(cs, args, dev, out)
     time_k5(cs, dev, out)
+    if args.bwd_splits:
+        time_bwd_splits(cs, dev, out)
+    if args.train:
+        time_train(cs, dev, out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
