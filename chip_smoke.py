@@ -166,16 +166,22 @@ K1's and K3's against the protocol's; the build report gives the K1-K4
 kernels' registers, spills and shared memory, and their plans.
 
 Training, after the serve phases: K5's backward (``csrc/flash_attn_bwd.cu``:
-causal, no window, (64, 64) and (128, 128); two launches, dQ then dK/dV,
+causal, no window, (64, 64), (128, 128) and MLA's (96, 64), (192, 128)
+and (32, 16); two launches, dQ then dK/dV,
 ``wgmma`` on TMA tiles; GQA's dk/dv summed over each KV head's query heads
 in a fixed order), its two kernels' registers, spills, shared memory and
 HGMMA/UTMALDG counts, then the backward against its plain version, and
 the forward's row statistic (``lse``) against the plain logsumexp, at
 starcoder2-3b's [2, 2048, 24/2, 128], qwen3-100m's [16, 128, 8/4, 64],
 ragged [2, 100, 8/4, 64] and [2, 2000, 24/2, 128], [1, 4096, 32/8, 128],
-and the design's edges (16 query heads on one KV head, S 40, S 333, a
-grid of fewer blocks than SMs; ``K5_BWD_SHAPES``), timed beside the
-backward of ``scaled_dot_product_attention``, with a tolerance scaled by
+the design's edges (16 query heads on one KV head, S 40, S 333, a
+grid of fewer blocks than SMs) and pixtral-12b's and phi3.5-moe's [2,
+2048, 32/8, 128] (``K5_BWD_SHAPES``), and at MLA's minicpm3-4b [2, 2048,
+40/40, 96/64], deepseek-v2-lite-16b [2, 2048, 16/16, 192/128], ragged [1,
+333, 16/16, 192/128] and the smoke dims' [2, 40, 4/4, 32/16] and [4, 64,
+4/4, 32/16] (q·k 24 zero-padded, scale 1/√24; ``K5_BWD_MLA_SHAPES``),
+timed beside the backward of ``scaled_dot_product_attention`` (the
+backend PyTorch picks printed), with a tolerance scaled by
 each 64-position tile's largest gradient and a mean bound, and a second
 call bitwise equal to the first; four planted faults (D left out of dS,
 the mask shifted by a key, the last key tile left out, lse off by 0.05
@@ -196,7 +202,21 @@ then at all 30 layers (4.313 B parameters: float32 masters and moments,
 the bf16 compute copy and its gradients on the card; B 2 x S 2048,
 remat on): 3 timed steps (s a step, tokens/s, peak memory, the step's
 parts, K5's 60 forward and 30 backward launches a step, the device's
-busy share and time by kernel group).
+busy share and time by kernel group). The vision, MLA and MoE families
+at their published widths, cut in depth (``TRAIN_GRAD_FAMILIES``:
+pixtral-12b at 4 layers with random patch embeddings in its 1024 patch
+slots, minicpm3-4b at 4, phi3.5-moe-42b-a6.6b at 2, deepseek-v2-lite-16b
+at its dense layer and 3 MoE layers): the same gradient check and
+planted fault (every attention parameter but wo left without a
+gradient), the MoE configs' expert choices recorded layer by layer in
+the K5 run (the forward's and remat's rerun must be equal) and replayed
+layer by layer in the plain and faulty runs; then minicpm3-4b at its
+full depth (62 layers, 4.262 B parameters) and deepseek-v2-lite-16b cut
+to 7 of 27 layers (``TRAIN_FULL_MLA``, ``TRAIN_FULL_MOE_MLA``) timed as
+starcoder2-3b is (124 / 62 and 14 / 7 K5 launches a step; deepseek's
+assignments past capacity a layer); and minicpm3-4b@smoke and
+deepseek-v2-lite-16b@smoke trained through ``launch/train.py`` (K5 at
+(32, 16): 2 forward and 1 backward launch a layer a step).
 
 It prints the card (``nvidia-smi``), the build time, one line per kernel
 check, the rounds, the service, baselines, serve and training phases, its wall time
@@ -2424,8 +2444,8 @@ def ptxas_report(log: str) -> dict:
     serialized), keyed by short kernel name."""
     entries, cur = {}, None
     for line in log.splitlines():
-        m = re.search(r"Potential Performance Loss: (.*) in the function "
-                      r"'([^']+)'", line)
+        m = re.search(r"Potential Performance Loss: (.*) (?:in|for) the "
+                      r"function '([^']+)'", line)
         if m:
             entries.setdefault(m.group(2), {})["performance_loss"] = m.group(1)
             continue
@@ -2742,12 +2762,29 @@ def check_flash_attn_noncausal(dev, results: dict) -> None:
 #: prefill's heads; then the design's edges: a group of 16 query heads on
 #: one KV head (8 splits of 2 heads), S 40 (shorter than a tile), S 333 (a
 #: part-filled last chunk, 6 chunks through a 4-stage ring), and a grid of
-#: fewer blocks than SMs (16 dK/dV blocks, 8 dQ blocks)
+#: fewer blocks than SMs (16 dK/dV blocks, 8 dQ blocks); last, the shape
+#: of pixtral-12b's and phi3.5-moe's training steps (B 2, S 2048, 32/8)
 K5_BWD_SHAPES = [(2, 2048, 24, 2, 128), (16, 128, 8, 4, 64),
                  (2, 100, 8, 4, 64), (2, 2000, 24, 2, 128),
                  (1, 4096, 32, 8, 128), (2, 300, 16, 1, 128),
                  (2, 40, 8, 4, 64), (1, 333, 6, 2, 128),
-                 (1, 256, 4, 4, 128)]
+                 (1, 256, 4, 4, 128), (2, 2048, 32, 8, 128)]
+#: K5's backward at MLA's head dims (B, S, H, KV heads, Dqk, Dv, the q·k
+#: columns in use: past them q and k are 0, and the scale is 1/√ of
+#: them): minicpm3-4b's training shape (40 heads, 96 = 64 nope + 32 rope,
+#: v 64), deepseek-v2-lite-16b's (16 heads, 192 = 128 + 64, v 128; its
+#: dK/dV ring has 3 stages), a ragged S 333 at 192/128, and the MLA smoke
+#: dims (q·k 16 + 8 = 24 zero-padded to 32 as the model pads them, scale
+#: 1/√24, v 16) at TRAIN_SMOKE_MLA's B 4 x S 64 (one full tile; the
+#: kernel line's shape) and at S 40 (one partial tile)
+K5_BWD_MLA_SHAPES = [(2, 2048, 40, 40, 96, 64, 96),
+                     (2, 2048, 16, 16, 192, 128, 192),
+                     (1, 333, 16, 16, 192, 128, 192),
+                     (4, 64, 4, 4, 32, 16, 24), (2, 40, 4, 4, 32, 16, 24)]
+#: the kernel-line names of the backward (and of the training forward,
+#: ``flash_attn_train`` + the same suffix) by (Dqk, Dv)
+K5_BWD_NAMES = {(128, 128): "", (64, 64): "_64", (96, 64): "_mla",
+                (192, 128): "_mla_192", (32, 16): "_mla_32"}
 #: the backward's bf16 gradients against the plain float32 ones rounded to
 #: bf16: P and dS enter products as bf16 (2^-9 relative) and each output
 #: rounds once more. For each of dq, dk, dv: |err| <= rtol |plain| + atol
@@ -2849,35 +2886,54 @@ def bwd_faults_plain(q, k, v, out, dout, lse, scale):
     return out_f
 
 
+def _sdpa_backend(q, k, v, scale: float) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these
+    [B, H, S, D] inputs (causal, GQA), by PyTorch's own choice function."""
+    import torch
+
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True)).name
+    except Exception as e:  # a PyTorch without the private chooser
+        return f"unknown ({type(e).__name__})"
+
+
 def check_flash_attn_backward(dev, results: dict) -> None:
     """K5's backward (``csrc/flash_attn_bwd.cu``) against its plain version
-    at ``K5_BWD_SHAPES`` (and a second call bitwise equal to the first; its
-    ``bwd_plan`` printed), and the forward's row statistic against the
-    plain logsumexp; the planted faults of :func:`bwd_faults_plain`, each
-    of which the tolerance must reject at every shape;
-    timed beside the plain version and the backward of
+    at ``K5_BWD_SHAPES`` (Dqk = Dv) and ``K5_BWD_MLA_SHAPES`` (and a second
+    call bitwise equal to the first; its ``bwd_plan`` printed), and the
+    forward's row statistic against the plain logsumexp; the planted faults
+    of :func:`bwd_faults_plain`, each of which the tolerance must reject at
+    every shape; timed beside the plain version and the backward of
     ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` alone
     (the library call, timed eagerly: its forward is run once outside the
-    window; the port never calls it)."""
+    window; the port never calls it; the backend PyTorch picks is
+    printed)."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as K5
 
-    for B, S, H, K, hd in K5_BWD_SHAPES:
+    shapes = [(B, S, H, K, hd, hd, hd) for B, S, H, K, hd in K5_BWD_SHAPES]
+    for B, S, H, K, dqk, dv, used in shapes + K5_BWD_MLA_SHAPES:
+        at = [B, S, H, K, dqk, dv] + ([f"q·k {used}"] if used < dqk else [])
         g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
-        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
-                   .bfloat16() for n in (H, K, K))
-        dout = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
-        scale = 1.0 / math.sqrt(hd)
+        q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev)
+                   .bfloat16() for n, d in ((H, dqk), (K, dqk), (K, dv)))
+        q[..., used:] = 0
+        k[..., used:] = 0
+        dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
+        scale = 1.0 / math.sqrt(used)
         before = (K5.launches, K5.bwd_launches)
-        out_k, lse_k = K5.flash_attention_lse(q, k, v)
-        got = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout)
+        out_k, lse_k = K5.flash_attention_lse(q, k, v, scale)
+        got = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout, scale)
         if (K5.launches, K5.bwd_launches) != (before[0] + 1, before[1] + 1):
             raise AssertionError("flash_attention_lse/backward did not "
                                  "launch once each")
-        out_p, lse_p = K5.flash_attention_lse_plain(q, k, v)
-        want = K5.flash_attention_backward_plain(q, k, v, dout)
+        out_p, lse_p = K5.flash_attention_lse_plain(q, k, v, scale)
+        want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
         torch.cuda.synchronize()
         lse_err = float((lse_k - lse_p).abs().max())
         lse_ok = bool(torch.allclose(lse_k, lse_p, rtol=K5_LSE_RTOL,
@@ -2885,23 +2941,23 @@ def check_flash_attn_backward(dev, results: dict) -> None:
         out_ok = bool(torch.allclose(out_k.float(), out_p.float(),
                                      rtol=K5_RTOL, atol=K5_ATOL))
         err, worst, ok = _bwd_close(got, want)
-        again = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout)
+        again = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout,
+                                            scale)
         repeats = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
-        plan = K5.bwd_plan(B, S, H, K, hd, hd)
+        plan = K5.bwd_plan(B, S, H, K, dqk, dv)
         errs = {n: float((a.float() - b.float()).abs().max())
                 for n, a, b in zip(("dq", "dk", "dv"), got, want)}
-        print(f"  backward [{B}, {S}, {H}/{K}, {hd}] (plan {plan}; a second "
-              f"call bitwise equal: {repeats}): max abs err {errs} "
-              f"(max |plain| "
+        print(f"  backward {at} (plan {plan}; a second call bitwise equal: "
+              f"{repeats}): max abs err {errs} (max |plain| "
               f"{[round(float(w.float().abs().max()), 4) for w in want]}), "
               f"largest error / tolerance {worst:.3f}; lse max abs err "
               f"{lse_err:.3e} ok={lse_ok}; forward out ok={out_ok}")
         if not repeats:
-            raise AssertionError(f"K5's backward at {[B, S, H, K, hd]}: two "
-                                 "calls on the same inputs differ")
+            raise AssertionError(f"K5's backward at {at}: two calls on the "
+                                 "same inputs differ")
         if not (lse_ok and out_ok):
-            raise AssertionError(f"K5 forward at {[B, S, H, K, hd]}: the lse "
+            raise AssertionError(f"K5 forward at {at}: the lse "
                                  f"({lse_err:.3e}) or the output disagrees "
                                  "with the plain version")
         faults = {}
@@ -2915,13 +2971,14 @@ def check_flash_attn_backward(dev, results: dict) -> None:
                   f"{not f_ok}")
             if f_ok:
                 raise AssertionError(f"the planted backward fault {name} "
-                                     f"passes the check at {[B, S, H, K, hd]}")
+                                     f"passes the check at {at}")
         del f_grads
 
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
+        backend = _sdpa_backend(qt, kt, vt, scale)
         o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True)
+                                               scale=scale, enable_gqa=True)
         do_t = dout.transpose(1, 2)
 
         def library():
@@ -2930,35 +2987,34 @@ def check_flash_attn_backward(dev, results: dict) -> None:
 
         lib_err = _bwd_close([t.transpose(1, 2) for t in library()], want)[0]
         t_lib = _event_ms(lambda: [library() for _ in range(5)], 5) / 5
-        n_bytes, n_ops = k5_bwd_bytes_ops(B, S, H, K, hd, hd)
-        name = "flash_attn_bwd" if hd == 128 else f"flash_attn_bwd_{hd}"
-        _record(results, name, [B, S, H, K, hd, hd], err, ok,
+        n_bytes, n_ops = k5_bwd_bytes_ops(B, S, H, K, dqk, dv)
+        suffix = K5_BWD_NAMES[(dqk, dv)]
+        _record(results, "flash_attn_bwd" + suffix, at, err, ok,
                 time_ms(lambda: K5.flash_attention_backward(
-                    q, k, v, out_k, lse_k, dout), reps=5, repeats=5),
+                    q, k, v, out_k, lse_k, dout, scale), reps=5, repeats=5),
                 time_ms(lambda: K5.flash_attention_backward_plain(
-                    q, k, v, dout), reps=1, repeats=3),
+                    q, k, v, dout, scale), reps=1, repeats=3),
                 (t_lib, t_lib), bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
                 grad_max_abs_err=errs, err_over_tol=worst,
                 lse_max_abs_err=lse_err, plan=plan,
                 faults=faults, library_max_abs_err=lib_err,
-                library="sdpa(is_causal, enable_gqa) backward, eager",
+                library=f"sdpa(is_causal, enable_gqa) backward, eager; "
+                        f"backend {backend}",
                 source="src/repro_torch/csrc/flash_attn_bwd.cu")
         print(f"    (library: the backward of sdpa(is_causal=True, "
-              f"enable_gqa=True), eager; its max abs err against the plain "
-              f"version {lib_err:.3e})")
+              f"enable_gqa=True), eager, backend {backend}; its max abs err "
+              f"against the plain version {lib_err:.3e})")
         # the training forward: K5 with its row statistic
-        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, hd, hd)
-        _record(results, "flash_attn_train" + ("" if hd == 128 else
-                                               f"_{hd}"),
-                [B, S, H, K, hd, hd, "lse"],
+        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv)
+        _record(results, "flash_attn_train" + suffix, at + ["lse"],
                 float((out_k.float() - out_p.float()).abs().max()), out_ok,
-                time_ms(lambda: K5.flash_attention_lse(q, k, v), reps=5,
-                        repeats=5),
-                time_ms(lambda: K5.flash_attention_lse_plain(q, k, v),
+                time_ms(lambda: K5.flash_attention_lse(q, k, v, scale),
+                        reps=5, repeats=5),
+                time_ms(lambda: K5.flash_attention_lse_plain(q, k, v, scale),
                         reps=1, repeats=3),
                 time_ms(lambda: F.scaled_dot_product_attention(
                     qt.detach(), kt.detach(), vt.detach(), is_causal=True,
-                    enable_gqa=True), reps=5, repeats=5),
+                    scale=scale, enable_gqa=True), reps=5, repeats=5),
                 bound_ms(n_bytes + 4 * B * H * S, n_ops, PEAK_BF16_OPS_S),
                 lse_max_abs_err=lse_err, library="sdpa(is_causal)",
                 source="src/repro_torch/csrc/flash_attn_tc.cu")
@@ -3012,6 +3068,26 @@ TRAIN_STEPS, TRAIN_CUT, TRAIN_CPU_STEPS = 100, 40, 3
 TRAIN_LR = dict(base=1e-3, warmup=10, total=TRAIN_STEPS)
 TRAIN_FULL = dict(arch="starcoder2-3b", batch=2, seq=2048, grad_layers=4,
                   timed=3)
+#: the vision, MLA and MoE families at their published widths, cut in
+#: depth, at TRAIN_FULL's B 2 x S 2048 with remat: one step's gradients
+#: with K5 against the same step with K5's plain version (pixtral-12b with
+#: random patch embeddings in its 1024 patch slots of the 2048; the MoE
+#: configs' expert choices replayed layer by layer)
+TRAIN_GRAD_FAMILIES = [dict(arch="pixtral-12b", layers=4),
+                       dict(arch="minicpm3-4b", layers=4),
+                       dict(arch="phi3.5-moe-42b-a6.6b", layers=2),
+                       dict(arch="deepseek-v2-lite-16b", layers=4)]
+#: timed steps as TRAIN_FULL's: minicpm3-4b at its published width and
+#: depth (4.262 B parameters, ~68.2 GB of state); deepseek-v2-lite-16b at
+#: its published width, cut to its dense layer and 6 of its 26 MoE layers
+#: (a MoE layer holds ~9.4 GB of state, the embedding and head ~6.7 GB:
+#: ~64 GB of state, room for the step's activations in 80 GB)
+TRAIN_FULL_MLA = dict(TRAIN_FULL, arch="minicpm3-4b")
+TRAIN_FULL_MOE_MLA = dict(TRAIN_FULL, arch="deepseek-v2-lite-16b", layers=7)
+#: the MLA smoke configs trained through launch/train.py on the card
+#: (q·k 16 + 8 zero-padded to 32, v 16: K5 at (32, 16))
+TRAIN_SMOKE_MLA = dict(archs=("minicpm3-4b", "deepseek-v2-lite-16b"),
+                       steps=4, batch=4, seq=64)
 #: the loss of the same step on the card and on the CPU (same masters and
 #: tokens): bf16 rounds in other places (cuBLAS and the CPU's GEMMs, K5
 #: against _sdpa) and the masters part where a gradient near 0 takes the
@@ -3228,13 +3304,14 @@ def _grad_model(cfg, masters: dict, dev):
     return model
 
 
-def _leaf_grads(model, batch: dict, attention=None) -> tuple[float, tuple]:
+def _leaf_grads(model, batch: dict, attention=None,
+                routing=None) -> tuple[float, tuple]:
     """(the loss, its gradient of every parameter, None where unused)."""
     import torch
 
     from repro_torch.models import loss_fn
 
-    loss, _ = loss_fn(model, batch, attention=attention)
+    loss, _ = loss_fn(model, batch, attention=attention, routing=routing)
     return float(loss.detach()), torch.autograd.grad(
         loss, list(model.parameters()), allow_unused=True)
 
@@ -3254,13 +3331,18 @@ def _detached_attention(q, k, v, **kw):
     return K5.flash_attention(q.detach(), k.detach(), v.detach(), **kw)
 
 
-def train_full_grads(dev) -> dict:
-    """starcoder2-3b at its published width, cut to TRAIN_FULL's
-    grad_layers layers: one step's gradients (B 2 x S 2048, remat on) with
-    K5 forward and backward against the same step with K5's plain version
-    as the attention, leaf by leaf; every leaf's gradient must be nonzero.
-    The planted fault, K5 called on detached q, k, v (the autograd
-    Function bypassed), must leave wq, wk and wv without a gradient, which
+def train_full_grads(dev, arch: str, n_layers: int) -> dict:
+    """``arch`` at its published width, cut to ``n_layers`` layers: one
+    step's gradients (TRAIN_FULL's B 2 x S 2048, remat on; a vision
+    config's patch slots given random patch embeddings) with K5 forward
+    and backward against the same step with K5's plain version as the
+    attention, leaf by leaf; every leaf's gradient must be nonzero. A MoE
+    config's K5 run records each layer's expert choices, which must be the
+    same in the forward and in remat's rerun, and the plain run replays
+    them layer by layer (on the card the two attentions' bf16 outputs
+    part by an ulp and reorder near-tied experts). The planted fault, K5
+    called on detached q, k, v (the autograd Function bypassed), must
+    leave every attention parameter but ``wo`` without a gradient, which
     the nonzero check rejects."""
     import torch
 
@@ -3269,8 +3351,8 @@ def train_full_grads(dev) -> dict:
     from repro_torch.train import DataConfig, init_params, make_batch
 
     conf = TRAIN_FULL
-    cfg = dataclasses.replace(get_config(conf["arch"]),
-                              n_layers=conf["grad_layers"])
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
     masters = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                           dev)
     names = list(masters)
@@ -3278,50 +3360,86 @@ def train_full_grads(dev) -> dict:
     del masters
     batch = make_batch(DataConfig(cfg.vocab, conf["seq"], conf["batch"]), 0,
                        device=dev)
+    if cfg.frontend == "vision":
+        batch["images"] = torch.randn(
+            (conf["batch"], cfg.n_patches, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2))
+    moe = bool(cfg.n_experts)
+    k_calls, p_calls = {}, {}
+    routes = _recorder(k_calls) if moe else None
 
     before = (K5.launches, K5.bwd_launches)
-    loss_k, g_k = _leaf_grads(model, batch)
+    loss_k, g_k = _leaf_grads(model, batch, routing=routes)
     moved = (K5.launches - before[0], K5.bwd_launches - before[1])
-    loss_p, g_p = _leaf_grads(model, batch, _plain_attention)
+    replay = _recorder(p_calls, k_calls) if moe else None
+    loss_p, g_p = _leaf_grads(model, batch, _plain_attention, replay)
     torch.cuda.synchronize()
     worst, failed, zero = _compare_grads(names, g_k, g_p)
+    extra = {}
+    if moe:
+        rerun_differs = [i for i, c in k_calls.items()
+                         if len(c) != 2 or not torch.equal(c[0], c[1])]
+        flips = _flip_share([k_calls], [p_calls])
+        dropped = _dropped(cfg, k_calls)
+        extra = dict(moe_layers=sorted(k_calls), rerun_differs=rerun_differs,
+                     plain_own_choice_flips=flips, dropped=dropped)
+        print(f"    MoE layers {sorted(k_calls)}: each layer's choices in "
+              f"remat's rerun equal its forward's: {not rerun_differs}; the "
+              f"plain run's own choices differ from K5's in {flips[0]} of "
+              f"{flips[1]} (token, layer) rows (replayed); assignments past "
+              f"capacity a layer {dropped}")
+        if rerun_differs or sorted(k_calls) != sorted(p_calls):
+            raise AssertionError(f"{arch}: remat's rerun chose other "
+                                 f"experts in layers {rerun_differs}")
     print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers, B "
-          f"{conf['batch']} x S {conf['seq']}: loss K5 {loss_k:.5f}, plain "
-          f"{loss_p:.5f}; K5 launches in the step: {moved[0]} forward (with "
-          f"remat), {moved[1]} backward; gradients of {len(names)} leaves, "
-          f"worst max/mean relative difference {worst[0]:.3e}/{worst[1]:.3e} "
-          f"({worst[2]}); leaves with no or zero gradient: {zero}")
+          f"{conf['batch']} x S {conf['seq']}"
+          + (f" ({cfg.n_patches} patch slots)" if "images" in batch else "")
+          + f": loss K5 {loss_k:.5f}, plain {loss_p:.5f}; K5 launches in the "
+          f"step: {moved[0]} forward (with remat), {moved[1]} backward; "
+          f"gradients of {len(names)} leaves, worst max/mean relative "
+          f"difference {worst[0]:.3e}/{worst[1]:.3e} ({worst[2]}); leaves "
+          f"with no or zero gradient: {zero}")
     if failed or zero:
-        raise AssertionError(f"K5's gradients part from the plain "
+        raise AssertionError(f"{arch}: K5's gradients part from the plain "
                              f"attention's: {failed}; zero: {zero}")
     if moved != (2 * cfg.n_layers, cfg.n_layers):
         raise AssertionError(f"K5 launched {moved} in a step of "
                              f"{cfg.n_layers} layers with remat")
     del g_k, g_p
-    loss_f, g_f = _leaf_grads(model, batch, _detached_attention)
+    loss_f, g_f = _leaf_grads(model, batch, _detached_attention,
+                              _recorder({}, k_calls) if moe else None)
     dead = [n for n, g in zip(names, g_f)
             if g is None or not bool(g.abs().max() > 0)]
+    want_dead = {f"layers.{i}.attn.{n}" for i, block in
+                 enumerate(model.layers)
+                 for n, _ in block.attn.named_parameters() if n != "wo"}
     print(f"  planted fault, K5 on detached q/k/v (the autograd Function "
-          f"bypassed): leaves with no or zero gradient {dead}; rejected: "
-          f"{bool(dead)}")
-    if not {f"layers.{i}.attn.{w}" for i in range(cfg.n_layers)
-            for w in ("wq", "wk", "wv")} <= set(dead):
+          f"bypassed): {len(dead)} leaves with no or zero gradient "
+          f"({len(want_dead & set(dead))} of the {len(want_dead)} attention "
+          f"parameters but wo); rejected: {bool(dead)}")
+    if not want_dead <= set(dead):
         raise AssertionError("the detached-attention fault left a gradient "
-                             f"on wq/wk/wv: {dead}")
+                             f"on {sorted(want_dead - set(dead))}")
     del g_f, model
     torch.cuda.empty_cache()
-    return dict(layers=cfg.n_layers, loss_k5=loss_k, loss_plain=loss_p,
-                worst_max_rel=worst[0], worst_mean_rel=worst[1],
-                worst_leaf=worst[2], launches=moved, fault_dead=dead)
+    return dict(arch=arch, layers=cfg.n_layers, loss_k5=loss_k,
+                loss_plain=loss_p, worst_max_rel=worst[0],
+                worst_mean_rel=worst[1], worst_leaf=worst[2],
+                launches=moved, fault_dead=dead,
+                phase_s=time.perf_counter() - t0, **extra)
 
 
-def train_full(dev) -> dict:
-    """starcoder2-3b at its published width and depth, B 2 x S 2048, remat on: the float32 masters and moments, the bf16
-    compute copy and its gradients on the card; one warm-up step, then
-    TRAIN_FULL's timed steps with every count set to 0 just before them
-    (s a step, tokens/s, K5 forward and backward launches a step: with
-    remat, 2 forward and 1 backward a layer), the peak memory of the whole
-    run, and one more step under torch.profiler (the busy share)."""
+def train_full(dev, conf: dict) -> dict:
+    """``conf``'s arch (TRAIN_FULL: starcoder2-3b; TRAIN_FULL_MLA:
+    minicpm3-4b; TRAIN_FULL_MOE_MLA: deepseek-v2-lite-16b) at its
+    published width, at its depth or cut to ``conf["layers"]``, B 2 x S
+    2048, remat on: the float32 masters and moments, the bf16 compute copy
+    and its gradients on the card; one warm-up step, then the timed steps
+    with every count set to 0 just before them (s a step, tokens/s, K5
+    forward and backward launches a step: with remat, 2 forward and 1
+    backward a layer), the peak memory of the whole run, one more step
+    under torch.profiler (the busy share) and, for a MoE config, the
+    assignments past capacity in each MoE layer of one forward."""
     import torch
 
     from repro_torch import kernels
@@ -3332,8 +3450,9 @@ def train_full(dev) -> dict:
                                    init_params, make_batch, make_train_step)
     from repro_torch.train.optimizer import adamw_init
 
-    conf = TRAIN_FULL
     cfg = get_config(conf["arch"])
+    if conf.get("layers"):
+        cfg = dataclasses.replace(cfg, n_layers=conf["layers"])
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3381,18 +3500,29 @@ def train_full(dev) -> dict:
     torch.cuda.synchronize()
     fwd_bwd_s = time.perf_counter() - t0
     del grads
+    dropped = None
+    if cfg.n_experts:
+        calls = {}
+        with torch.no_grad():
+            loss_fn(model, batch, routing=_recorder(calls))
+        dropped = _dropped(cfg, calls)
     busy = device_busy(lambda: (step_fn(state, batch, None),
                                 torch.cuda.synchronize()), min(times),
                        groups=TRAIN_KERNEL_GROUPS)
     step_s = sorted(times)[len(times) // 2]
     tokens = conf["batch"] * conf["seq"]
-    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers "
+    cut = "" if cfg.n_layers == get_config(conf["arch"]).n_layers else \
+        f" (cut from {get_config(conf['arch']).n_layers})"
+    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers{cut} "
           f"({n_params / 1e9:.3f} B parameters), B {conf['batch']} x S "
           f"{conf['seq']}, remat {cfg.remat}: init {init_s:.1f} s, warm-up "
           f"step {warm_s:.2f} s, steps {[round(t, 4) for t in times]} s "
           f"(median {step_s:.4f} s, {tokens / step_s:.0f} tokens/s), losses "
           f"{[round(x, 4) for x in losses]}, peak {peak:.2f} GB, "
-          f"{busy['busy_text']}; K5 launches a step: {launches}")
+          f"{busy['busy_text']}; K5 launches a step: {launches}"
+          + ("" if dropped is None else
+             f"; assignments past capacity in each MoE layer of one "
+             f"forward: {dropped}"))
     print(f"    parts of a step: copy into the compute copy {copy_s:.4f} s, "
           f"forward + backward {fwd_bwd_s:.4f} s, AdamW (the rest of the "
           f"median step) {step_s - copy_s - fwd_bwd_s:.4f} s; device time "
@@ -3407,6 +3537,7 @@ def train_full(dev) -> dict:
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
     out = dict(arch=cfg.arch_id, layers=cfg.n_layers, params=n_params,
+               dropped=dropped,
                batch=conf["batch"], seq=conf["seq"], remat=cfg.remat,
                init_s=init_s, warm_s=warm_s, step_s=times,
                step_median_s=step_s, tokens_per_s=tokens / step_s,
@@ -3419,12 +3550,69 @@ def train_full(dev) -> dict:
     return out
 
 
+def train_smoke_mla(dev) -> dict:
+    """The MLA smoke configs (TRAIN_SMOKE_MLA) trained on the card through
+    ``launch/train.py``'s ``main``, as a user runs it, with every count set
+    to 0 just before each run: K5 forward and backward at (32, 16) (q·k 24
+    zero-padded), 2 forward (remat) and 1 backward launch a layer a step;
+    the losses finite."""
+    import contextlib
+    import io
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.launch.train import main as launch_train
+
+    conf = TRAIN_SMOKE_MLA
+    out = {}
+    for arch in conf["archs"]:
+        cfg = get_config(arch, smoke=True)
+        kernels.reset_launches()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = launch_train(["--arch", arch, "--steps", str(conf["steps"]),
+                               "--batch", str(conf["batch"]), "--seq",
+                               str(conf["seq"])])
+        losses = [float(line.split("loss=")[1].split()[0])
+                  for line in log.getvalue().splitlines() if "loss=" in line]
+        launches = dict(forward=K5.launches, backward=K5.bwd_launches,
+                        by_dims={f"{a}x{b}": n for (a, b), n in
+                                 K5.bwd_head_dim_launches.items()})
+        print(f"  {arch}@smoke through launch/train.py, {conf['steps']} "
+              f"steps of B {conf['batch']} x S {conf['seq']}: losses "
+              f"{losses}; K5 launches {launches}")
+        want = conf["steps"] * cfg.n_layers
+        if rc != 0 or not losses or \
+                not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{arch}@smoke: launch/train.py returned "
+                                 f"{rc} with losses {losses}")
+        if (launches["forward"], launches["backward"], launches["by_dims"]) \
+                != (2 * want, want, {"32x16": want}):
+            raise AssertionError(f"{arch}@smoke: K5 launched {launches}; "
+                                 f"want {2 * want} forward and {want} "
+                                 f"backward at 32x16")
+        out[arch] = dict(losses=losses, launches=launches)
+    return out
+
+
 def train_phase(dev) -> dict:
     """The training phase: qwen3-100m (loss, drill, card vs CPU), then
-    starcoder2-3b's full-width gradients and timed steps."""
+    starcoder2-3b's full-width gradients and timed steps; the vision, MLA
+    and MoE families' full-width gradients (TRAIN_GRAD_FAMILIES), then
+    minicpm3-4b's and deepseek-v2-lite-16b's timed steps and the MLA smoke
+    configs through the launcher."""
     t0 = time.perf_counter()
-    out = dict(small=train_small(dev), grads=train_full_grads(dev),
-               full=train_full(dev))
+    out = dict(small=train_small(dev),
+               grads=train_full_grads(dev, TRAIN_FULL["arch"],
+                                      TRAIN_FULL["grad_layers"]),
+               full=train_full(dev, TRAIN_FULL))
+    out["families"] = {f["arch"]: train_full_grads(dev, f["arch"],
+                                                   f["layers"])
+                       for f in TRAIN_GRAD_FAMILIES}
+    out["full_mla"] = train_full(dev, TRAIN_FULL_MLA)
+    out["full_moe_mla"] = train_full(dev, TRAIN_FULL_MOE_MLA)
+    out["smoke_mla"] = train_smoke_mla(dev)
     out["phase_s"] = time.perf_counter() - t0
     print(f"  training phase: {out['phase_s']:.1f} s")
     return out
@@ -3557,41 +3745,41 @@ def _logit_diff(a, b) -> tuple[float, float]:
     return float(d.max()), float(d.mean())
 
 
-def _recorder(store: list):
-    """A ``routing=`` hook that routes as the model does and keeps each MoE
-    layer's expert choices in ``store``."""
+def _recorder(store: dict, replay: dict | None = None):
+    """A model ``routing=`` hook, ``(layer, probs, k)``: it appends the
+    expert choices the model makes at each call of MoE layer ``layer`` to
+    ``store[layer]`` (under remat the backward's rerun is the layer's
+    second call, made in reverse layer order) and routes by them, or, with
+    ``replay`` (another run's store), by that run's first choices of the
+    layer."""
     from repro_torch.models import moe
 
-    def routing(probs, k):
-        store.append(moe.route(probs, k))
-        return store[-1]
+    def routing(layer, probs, k):
+        store.setdefault(layer, []).append(moe.route(probs, k))
+        return store[layer][-1] if replay is None else replay[layer][0]
     return routing
-
-
-def _replayer(choices: list):
-    """A ``routing=`` hook that hands out ``choices`` (one [T, k] tensor a
-    MoE layer, in call order) in place of the model's own top-k."""
-    it = iter(choices)
-    return lambda probs, k: next(it)
 
 
 def _flip_share(a: list, b: list) -> tuple[int, int]:
     """(rows, total rows) of two runs' expert choices (lists of calls, each
-    a list of [T, k] tensors a layer) whose ranked experts differ."""
+    a :func:`_recorder` store) whose ranked experts differ in the layers'
+    first calls."""
     flips = total = 0
     for call_a, call_b in zip(a, b):
-        for ea, eb in zip(call_a, call_b):
+        for layer, calls in call_a.items():
+            ea, eb = calls[0], call_b[layer][0]
             flips += int((ea != eb).any(dim=1).sum())
             total += ea.shape[0]
     return flips, total
 
 
-def _dropped(cfg, choices: list) -> list[int]:
-    """Assignments past capacity in each MoE layer of one call."""
+def _dropped(cfg, store: dict) -> list[int]:
+    """Assignments past capacity in each MoE layer of one call (a
+    :func:`_recorder` store; the layers' first calls)."""
     from repro_torch.models import moe
 
     out = []
-    for e in choices:
+    for e in (calls[0] for calls in store.values()):
         C = moe.capacity(e.shape[0], cfg.top_k, cfg.n_experts,
                          cfg.capacity_factor)
         out.append(int((moe.arrival_slots(e.reshape(-1), cfg.n_experts)
@@ -3673,7 +3861,7 @@ def serve_phase(dev, conf: dict) -> dict:
 
     def timed(name, fn, *args, **kw):
         if is_moe:
-            routes.append([])
+            routes.append({})
             kw = dict(kw, routing=_recorder(routes[-1]))
         if name == "prefill":
             torch.cuda.synchronize()
@@ -3741,14 +3929,13 @@ def serve_phase(dev, conf: dict) -> dict:
 
     def routing_for(seen: list, replay: bool, call: int) -> dict:
         """``routing=`` for call ``call`` of a plain or faulty run: record
-        its choices in ``seen``, or replay the kernel run's."""
+        its own choices in ``seen``, and route by them or replay the kernel
+        run's."""
         if not is_moe:
             return {}
-        seen.append([])
-        if replay:
-            seen[-1] = routes[call]
-            return {"routing": _replayer(routes[call])}
-        return {"routing": _recorder(seen[-1])}
+        seen.append({})
+        return {"routing": _recorder(seen[-1],
+                                     routes[call] if replay else None)}
 
     def plain_run(replay: bool) -> dict:
         """The prefill with K5's plain version, then teacher forcing along
@@ -4016,7 +4203,7 @@ def ssd_recurrent_check(model, cfg, tokens) -> dict:
                 layers=layers, worst=worst)
 
 
-def moe_forced_check(model, cfg, tokens, logits0, choices: list) -> dict:
+def moe_forced_check(model, cfg, tokens, logits0, choices: dict) -> dict:
     """K5 isolated layer by layer in an MoE model: the prefill again with K5
     (each block's input recorded; its logits and expert choices must equal
     the served prefill's bit for bit), then each block alone on the kernel
@@ -4039,14 +4226,14 @@ def moe_forced_check(model, cfg, tokens, logits0, choices: list) -> dict:
         lambda mod, args: inputs.append(args[0])) for b in model.layers]
     hooks.append(model.layers[-1].register_forward_hook(
         lambda mod, args, out: inputs.append(out[0])))
-    seen = []
+    seen = {}
     try:
         _, lg = prefill(model, tokens, routing=_recorder(seen))
     finally:
         for h in hooks:
             h.remove()
-    if not torch.equal(lg, logits0) or not all(
-            torch.equal(a, b) for a, b in zip(seen, choices)):
+    if not torch.equal(lg, logits0) or seen.keys() != choices.keys() or \
+            not all(torch.equal(seen[i][0], choices[i][0]) for i in seen):
         raise AssertionError("a second K5 prefill differs from the served "
                              "one (logits or expert choices)")
     head = model.embed if cfg.tie_embeddings else model.head
@@ -4066,15 +4253,14 @@ def moe_forced_check(model, cfg, tokens, logits0, choices: list) -> dict:
     def forced(attention, replay: bool) -> dict:
         diffs, flips = [], 0
         for i, block in enumerate(model.layers):
-            kw, got = {}, []
+            kw, got = {}, {}
             if block.moe is not None:
-                mine = choices[i - cfg.first_dense_layers]
-                kw["routing"] = _replayer([mine]) if replay \
-                    else _recorder(got)
+                kw["routing"] = functools.partial(
+                    _recorder(got, choices if replay else None), i)
             o, _ = block(inputs[i], None, None, None, attention=attention,
                          **kw)
-            if got:
-                flips += int((got[0] != mine).any(dim=1).sum())
+            if got and not replay:
+                flips += int((got[i][0] != choices[i][0]).any(dim=1).sum())
             diffs.append(lens_diff(inputs[i + 1], o))
             del o
         worst = (max(d[0] for d in diffs), max(d[1] for d in diffs))
@@ -4150,13 +4336,14 @@ def moe_card_vs_cpu(dev) -> dict:
     C = moe.capacity(B * S, k, E, cfg.capacity_factor)
 
     def run(lay, xx):
-        seen = []
+        seen = {}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        y, aux = moe.moe_apply(lay, cfg, xx, routing=_recorder(seen))
-        slot = moe.arrival_slots(seen[0].reshape(-1), E)
+        y, aux = moe.moe_apply(lay, cfg, xx, routing=functools.partial(
+            _recorder(seen), 0))
+        slot = moe.arrival_slots(seen[0][0].reshape(-1), E)
         torch.cuda.synchronize()
-        return dict(y=y.cpu(), aux=float(aux), e=seen[0].cpu(),
+        return dict(y=y.cpu(), aux=float(aux), e=seen[0][0].cpu(),
                     slot=slot.cpu(), s=time.perf_counter() - t0)
 
     card, cpu = run(layer, x), run(layer_cpu, x.cpu())
@@ -4582,6 +4769,35 @@ def main() -> int:
         "flash_attn_bwd_64": (
             "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
             {"flash_attn_bwd_64": training["small"]["launches"]["backward"]}),
+        # MLA's training: minicpm3-4b's timed steps at (96, 64),
+        # deepseek-v2-lite-16b's at (192, 128), the MLA smoke configs
+        # through launch/train.py at (32, 16)
+        "flash_attn_train_mla": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_mla":
+             training["full_mla"]["launches"]["forward_total"]}),
+        "flash_attn_bwd_mla": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_mla":
+             training["full_mla"]["launches"]["backward_total"]}),
+        "flash_attn_train_mla_192": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_mla_192":
+             training["full_moe_mla"]["launches"]["forward_total"]}),
+        "flash_attn_bwd_mla_192": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_mla_192":
+             training["full_moe_mla"]["launches"]["backward_total"]}),
+        "flash_attn_train_mla_32": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_mla_32": sum(
+                r["launches"]["forward"]
+                for r in training["smoke_mla"].values())}),
+        "flash_attn_bwd_mla_32": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_mla_32": sum(
+                r["launches"]["backward"]
+                for r in training["smoke_mla"].values())}),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():

@@ -46,7 +46,8 @@
 // 2. dK/dV (bwd_dkdv_kernel): one block per (tile of 64 keys, b, KV head
 //    g, split), the key tiles nearest the start (the most queries) first.
 //    The block's K and V rows are loaded once; chunks of 64 queries (q, do
-//    and their lse and D) stream through a ring of 4 stages, for each of
+//    and their lse and D) stream through a ring of 4 stages (3 at Dqk 192,
+//    where 4 exceed a block's shared memory), for each of
 //    the split's G / splits query heads in turn, from the tile's first key
 //    on. The producer warp's lanes copy the chunk's lse and D into the
 //    stage and arrive on its barrier beside the TMA bytes (33 arrivals).
@@ -94,6 +95,17 @@
 // warpgroup holding both dK and dV (64 keys a 160-thread block) ran at 255
 // registers with spills, and slower.
 //
+// Head dims. The same design is built at (DQK, DV) = (64, 64), (128, 128)
+// and MLA's (96, 64), (192, 128) and (32, 16) (the smoke dims' 24 q.k
+// columns zero-padded to 32 by the caller). dQ and dK are [.., DQK] and
+// their products span DQK columns; dV, dO and O are [.., DV]. A product
+// over N columns read MN-major (dS.K, dS^T.Q, P^T.dO) is one wgmma of N
+// columns up to 128 (n16, n32, n64, n96, n128), two past it (192: n128 +
+// n64). At DQK 192 the dQ accumulator and the dS warpgroup's dK are 96
+// floats a thread: ptxas spills there (dQ ~0.3 KB, its wgmma serialized;
+// dK/dV ~0.8 KB; chip_smoke.py prints the counts). Splitting dK and dQ
+// into column halves would remove the spills.
+//
 // Rows at or past S come back from TMA as zeros and are masked (their P is
 // 0 where they would reach a valid row); nothing is written for them.
 #include "flash_attn_common.cuh"
@@ -103,6 +115,16 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int kRows = 64;  // a warpgroup's rows, a ring stage's rows
+constexpr int kPBytes = 128 * 32 * 4;  // a warpgroup's P fragment
+
+// The dK/dV block's shared memory with `stages` ring stages: K and V rows
+// (kb + vb bytes), the q/do ring, each stage's lse and D (64 floats
+// each), P's two buffers, a "K/V full" barrier, two a stage and the
+// last-ticket flag, + 1024 so the tiles can start on a 1024-byte boundary.
+constexpr int bwd_kv_smem(int kb, int vb, int stages) {
+  return kb + vb + stages * (kb + vb) + stages * 2 * kRows * 4 + 2 * kPBytes +
+         8 * (1 + 2 * stages) + 8 + 1024;
+}
 
 template <int DQK, int DV>
 struct Bwd {
@@ -121,17 +143,12 @@ struct Bwd {
                                 kQStages * (kKBytes + kVBytes) +
                                 8 * (1 + 3 * kQStages) + 1024;
   // launch 2 (dK/dV): 64 keys a block, the P warpgroup (dV) and the dS
-  // warpgroup (dK), and the producer
+  // warpgroup (dK), and the producer; a ring of 4 stages where they fit
+  // (at 192/128 four take 240,720 bytes, three 199,232)
   static constexpr int kKVThreads = 2 * 128 + 32;
-  static constexpr int kKVStages = 4;
-  static constexpr int kPBytes = 128 * 32 * 4;  // a warpgroup's P fragment
-  // K and V rows, the q/do ring, each stage's lse and D (64 floats each),
-  // P's two buffers, a "K/V full" barrier, two a stage and the last-ticket
-  // flag, + 1024
-  static constexpr int kKVSmem = kKBytes + kVBytes +
-                                 kKVStages * (kKBytes + kVBytes) +
-                                 kKVStages * 2 * kRows * 4 + 2 * kPBytes +
-                                 8 * (1 + 2 * kKVStages) + 8 + 1024;
+  static constexpr int kKVStages =
+      bwd_kv_smem(kKBytes, kVBytes, 4) <= kMaxSmem ? 4 : 3;
+  static constexpr int kKVSmem = bwd_kv_smem(kKBytes, kVBytes, kKVStages);
   static_assert(kKBytes % 1024 == 0 && kVBytes % 1024 == 0,
                 "tile alignment");
   static_assert(kQSmem <= kMaxSmem && kKVSmem <= kMaxSmem, "shared memory");
@@ -142,30 +159,46 @@ __device__ __forceinline__ void consumers_sync(int threads) {
   asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
 }
 
+// acc += a[i] d[i] over the N bf16 values at a and d, in order.
+template <int N>
+__device__ __forceinline__ void dot_pairs(float& acc, const void* a,
+                                          const void* d) {
+  const __nv_bfloat162* ap = static_cast<const __nv_bfloat162*>(a);
+  const __nv_bfloat162* dp = static_cast<const __nv_bfloat162*>(d);
+#pragma unroll
+  for (int x = 0; x < N / 2; ++x) {
+    const float2 af = __bfloat1622float2(ap[x]);
+    const float2 df = __bfloat1622float2(dp[x]);
+    acc = fmaf(af.x, df.x, acc);
+    acc = fmaf(af.y, df.y, acc);
+  }
+}
+
 // D of row `row` of head h (0 at or past S): lane `quarter` of a quad sums
-// its quarter of the columns in order, then two xor shuffles give every
-// lane of the quad the same sum.
+// its quarter of the columns in order (16-byte loads; at DV 16 a quarter
+// is one 8-byte load), then two xor shuffles give every lane of the quad
+// the same sum.
 template <int DV>
 __device__ __forceinline__ float row_delta(const bf16* __restrict__ o,
                                            const bf16* __restrict__ dout,
                                            int b, int row, int h, int S,
                                            int H, int quarter) {
+  constexpr int kQuarter = DV / 4;
+  static_assert(kQuarter % 8 == 0 || kQuarter == 4, "head dim");
   float acc = 0.0f;
   if (row < S) {
     const size_t off = ((static_cast<size_t>(b) * S + row) * H + h) * DV +
-                       quarter * (DV / 4);
+                       quarter * kQuarter;
+    if constexpr (kQuarter == 4) {
+      const uint2 a = *reinterpret_cast<const uint2*>(o + off);
+      const uint2 d = *reinterpret_cast<const uint2*>(dout + off);
+      dot_pairs<4>(acc, &a, &d);
+    } else {
 #pragma unroll
-    for (int c = 0; c < DV / 4; c += 8) {
-      const uint4 a = *reinterpret_cast<const uint4*>(o + off + c);
-      const uint4 d = *reinterpret_cast<const uint4*>(dout + off + c);
-      const __nv_bfloat162* ap = reinterpret_cast<const __nv_bfloat162*>(&a);
-      const __nv_bfloat162* dp = reinterpret_cast<const __nv_bfloat162*>(&d);
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const float2 af = __bfloat1622float2(ap[x]);
-        const float2 df = __bfloat1622float2(dp[x]);
-        acc = fmaf(af.x, df.x, acc);
-        acc = fmaf(af.y, df.y, acc);
+      for (int c = 0; c < kQuarter; c += 8) {
+        const uint4 a = *reinterpret_cast<const uint4*>(o + off + c);
+        const uint4 d = *reinterpret_cast<const uint4*>(dout + off + c);
+        dot_pairs<8>(acc, &a, &d);
       }
     }
   }
@@ -469,7 +502,7 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   float* const lse_s = reinterpret_cast<float*>(basep + rows_off);  // [stage][64]
   float* const del_s = lse_s + kS * kRows;
   float* const pbuf = del_s + kS * kRows;           // [2][32][128 threads]
-  const uint32_t bars = base + rows_off + kS * 2 * kRows * 4 + 2 * T::kPBytes;
+  const uint32_t bars = base + rows_off + kS * 2 * kRows * 4 + 2 * kPBytes;
   const uint32_t kv_full = bars;
   auto full = [&](int st) { return bars + 8u * (1 + st); };
   auto empty = [&](int st) { return bars + 8u * (1 + kS + st); };
@@ -713,7 +746,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 // the design note); with splits > 1, part is float32 scratch of splits x B
 // x S x KH x (dqk + dv) and tickets int32 scratch of ceil(S / keys a block)
 // x B x KH (either may be null with splits = 1). (dqk, dv) one of (64, 64),
-// (128, 128); KH divides H; the causal mask without a window. Two kernel
+// (128, 128), (96, 64), (192, 128), (32, 16); KH divides H; the causal
+// mask without a window. Two kernel
 // launches on the stream. Anything else returns cudaErrorInvalidValue
 // without launching.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
@@ -745,6 +779,9 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
   switch (dqk * 1000 + dv_) {
     case 64064: return launch<64, 64>(FA_BWD_ARGS);
     case 128128: return launch<128, 128>(FA_BWD_ARGS);
+    case 96064: return launch<96, 64>(FA_BWD_ARGS);
+    case 192128: return launch<192, 128>(FA_BWD_ARGS);
+    case 32016: return launch<32, 16>(FA_BWD_ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef FA_BWD_ARGS
@@ -758,6 +795,10 @@ extern "C" int flash_attn_bwd_smem_bytes(int dqk, int dv, int kernel) {
     case 64064: return kernel ? Bwd<64, 64>::kKVSmem : Bwd<64, 64>::kQSmem;
     case 128128:
       return kernel ? Bwd<128, 128>::kKVSmem : Bwd<128, 128>::kQSmem;
+    case 96064: return kernel ? Bwd<96, 64>::kKVSmem : Bwd<96, 64>::kQSmem;
+    case 192128:
+      return kernel ? Bwd<192, 128>::kKVSmem : Bwd<192, 128>::kQSmem;
+    case 32016: return kernel ? Bwd<32, 16>::kKVSmem : Bwd<32, 16>::kQSmem;
     default: return 0;
   }
 }

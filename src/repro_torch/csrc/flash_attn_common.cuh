@@ -158,6 +158,22 @@ __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d[16] += A·B: A [64 x 16] bf16 in registers (a), B [16 x 32] MN-major
+// in shared memory (descriptor db, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d[32] += A·B: A [64 x 16] bf16 in registers (a), B [16 x 64] MN-major
 // in shared memory (descriptor db, transpose bit set).
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
@@ -174,6 +190,28 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[48] += A·B: A [64 x 16] bf16 in registers (a), B [16 x 96] MN-major
+// in shared memory (descriptor db, transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -205,9 +243,12 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 16 || N == 64 || N == 128, "head dim");
+  static_assert(N == 16 || N == 32 || N == 64 || N == 96 || N == 128,
+                "head dim");
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   else if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   else wgmma_rs_n128(d, a, db);
 }
 
@@ -239,27 +280,34 @@ __device__ __forceinline__ void issue_ss(float (&c)[32], uint32_t a,
 // Issue C += A.B over 64 rows of B (4 steps of 16): A [64 x 64] bf16 in
 // registers (a[kk]: columns 16 kk .. 16 kk + 15, in the accumulator layout
 // packed by pairs), B a tile of 64 rows and N columns (b: its first column
-// block) read MN-major (transpose bit set). N 256 runs as two m64n128
-// products a step, each over two of the tile's four 64-column blocks and
-// its half of c (columns 128 x + [0, 128) are c[64 x, 64 x + 64)).
+// block) read MN-major (transpose bit set). Past 128 columns a step runs as
+// two products: the first 128 columns (c[0, 64)), then the other N - 128
+// (c[64, N / 2)), each over its whole column blocks: N 256 as two m64n128,
+// N 192 as m64n128 and m64n64. (An accumulator of n columns is the n / 8
+// blocks of 8 columns in order, so the halves are those of one product.)
 template <int N>
 __device__ __forceinline__ void issue_rs(float (&c)[N / 2],
                                          const uint32_t (&a)[4][4],
                                          uint32_t b) {
   using C = Cols<N>;
-  constexpr int NP = N > 128 ? 128 : N;  // columns a product
-  static_assert(N % NP == 0 && NP % C::kCols == 0, "head dim");
+  constexpr int N0 = N > 128 ? 128 : N;  // the first product's columns
+  constexpr int N1 = N - N0;             // the second's
+  static_assert(N0 % C::kCols == 0 && N1 % C::kCols == 0 && N1 <= 128,
+                "head dim");
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int x = 0; x < N / NP; ++x) {
-      float(&cx)[NP / 2] = *reinterpret_cast<float(*)[NP / 2]>(&c[x * NP / 2]);
-      const uint64_t db =
-          desc(b + x * (NP / C::kCols) * 64 * C::kRowBytes +
-                   kk * 16 * C::kRowBytes,
-               64 * C::kRowBytes, C::kAtomBytes, C::kLayout);
-      wgmma_rs<NP>(cx, a[kk], db);
+  for (int kk = 0; kk < 4; ++kk) {
+    float(&c0)[N0 / 2] = *reinterpret_cast<float(*)[N0 / 2]>(&c[0]);
+    wgmma_rs<N0>(c0, a[kk],
+                 desc(b + kk * 16 * C::kRowBytes, 64 * C::kRowBytes,
+                      C::kAtomBytes, C::kLayout));
+    if constexpr (N1 > 0) {
+      float(&c1)[N1 / 2] = *reinterpret_cast<float(*)[N1 / 2]>(&c[N0 / 2]);
+      wgmma_rs<N1>(c1, a[kk],
+                   desc(b + (N0 / C::kCols) * 64 * C::kRowBytes +
+                            kk * 16 * C::kRowBytes,
+                        64 * C::kRowBytes, C::kAtomBytes, C::kLayout));
     }
+  }
 }
 
 // cuTensorMapEncodeTiled, fetched from the driver the runtime has loaded

@@ -46,8 +46,9 @@ kernels run on the H100 in ``chip_smoke.py``'s training phase. The
 backward takes causal attention without a window, bf16, at the head dims
 of ``BWD_HEAD_DIMS``; a call that needs a gradient of any other variant
 raises ``NotImplementedError`` (nothing detaches the output and nothing
-falls back to the plain version). On the CPU the plain version runs and
-autograd differentiates it.
+falls back to the plain version): ``causal=False`` (whisper's encoder) and
+a window (recurrentgemma-9b) among them. On the CPU the plain version runs
+and autograd differentiates it.
 """
 from __future__ import annotations
 
@@ -81,9 +82,11 @@ bwd_head_dim_launches: dict[tuple[int, int], int] = {}
 #: the (q·k head dim, v head dim) pairs the kernels are built for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (96, 64),
              (192, 128), (32, 16))
-#: the pairs the backward kernel is built for (the dense configs' 128/128
-#: and the 64/64 of ``examples/train_lm_torch.py``'s qwen3-100m)
-BWD_HEAD_DIMS = ((64, 64), (128, 128))
+#: the pairs the backward kernel is built for: the dense configs' 128/128,
+#: the 64/64 of ``examples/train_lm_torch.py``'s qwen3-100m, and MLA's
+#: (96, 64) (minicpm3-4b), (192, 128) (deepseek-v2-lite-16b) and (32, 16)
+#: (the MLA smoke dims 24/16, q and k zero-padded to 32 by the caller)
+BWD_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (192, 128), (32, 16))
 #: the dK/dV launch's grid aim: a wave of the H100's 132 SMs (a dK/dV block
 #: takes an SM's registers and most of its shared memory)
 BWD_MIN_BLOCKS = 132

@@ -9,8 +9,8 @@ attention runs kernel K5 on CUDA: causal, with the config's window when it
 has one, or bidirectional in the whisper encoder (see :mod:`.attention`);
 cross-attention, SSD and the RG-LRU scan are plain torch on both devices,
 as the reference computes them outside any kernel. ``loss_fn`` is the
-training loss of the dense GQA family (``check_trainable``), with K5's
-backward kernel on CUDA.
+training loss of the dense (GQA and MLA), vision and MoE families
+(``check_trainable``), with K5's backward kernel on CUDA.
 """
 from .model import (LM, EncDecCache, HybridCache, check_ported,
                     check_trainable, decode_step, init, init_cache,

@@ -64,24 +64,35 @@ order, and each block reads its own index of its kind's stack:
   K, hd] the prefill computed (decode reads it and never writes it).
 
 ``decode_step`` writes the cache in place. The MoE layers' load-balancing
-loss is computed and dropped, as the reference's serving drops it.
-``check_ported`` refuses a family outside the registry's.
+loss is computed and dropped, as the reference's serving drops it (the
+loss keeps it). ``check_ported`` refuses a family outside the registry's.
 
 Training: :func:`loss_fn` is the reference's ``loss_fn`` (inputs
 ``tokens[:, :-1]``, labels ``tokens[:, 1:]``, positions ``arange(S)``,
-``ce + 0.01·aux``) over a trunk that builds no decode cache, with
+``ce + 0.01·aux``, aux the MoE layers' balance losses summed in layer
+order; a vision config's patch slots, the first ``n_patches`` positions,
+masked out of ``ce``) over a trunk that builds no decode cache, with
 ``remat`` as non-reentrant ``torch.utils.checkpoint`` per block (the
 reference's ``jax.checkpoint`` of each scanned layer). It differentiates
 with respect to whatever parameters of the ``LM`` require a gradient; the
 serving parameters do not (``prefill``/``decode_step`` run under
 ``no_grad``), and ``repro_torch.train`` keeps a compute copy that does.
-:func:`check_trainable` refuses every family but the dense GQA one, on
-every device.
+:func:`check_trainable` accepts the dense (GQA or MLA), vlm and MoE
+families and refuses SSM, the hybrid and the encoder-decoder, on every
+device.
+
+``routing=`` (``prefill``, ``decode_step``, ``loss_fn``) is a test hook
+``(layer, probs, k) -> expert indices [T, k]``: ``moe.route``'s signature
+after the index of the MoE layer whose expert choice it makes. Under
+``remat`` a MoE layer's router runs again in the backward, in reverse
+layer order, so a hook that records or replays choices keys them on the
+layer, never on the order of its calls.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -119,17 +130,18 @@ def check_ported(cfg, device: torch.device | str | None = None) -> None:
             "(ROADMAP queue 1)")
 
 
+#: the families that train: dense (GQA or MLA attention), vision and MoE
+TRAINABLE = ("dense", "vlm", "moe")
+
+
 def check_trainable(cfg) -> None:
     """Raise ``NotImplementedError`` for a config whose training is not yet
-    ported: every family but the dense one with GQA attention (MoE, MLA,
-    SSM, hybrid, audio and vlm wait, ROADMAP queue 1 item 14b.7); the same
-    on every device."""
+    ported: SSM, the hybrid and the encoder-decoder (audio) wait, ROADMAP
+    queue 1 item 14b.7; the same on every device."""
     check_ported(cfg)
     why = None
-    if cfg.family != "dense":
+    if cfg.family not in TRAINABLE:
         why = f"the {cfg.family} family"
-    elif cfg.attn_kind != "gqa":
-        why = f"{cfg.attn_kind} attention"
     elif cfg.window:
         why = "a sliding window"
     if why is not None:
@@ -261,9 +273,11 @@ class Block(torch.nn.Module):
     def forward(self, x, positions, cache=None, cache_pos=None, *,
                 attention=None, routing: Optional[Routing] = None,
                 enc_kv: Optional[attn.KVCache] = None):
+        """(x, the layer's new cache or None); a MoE layer's balance loss
+        is dropped, as serving drops it (the loss's trunk keeps it)."""
         return _block_apply(self, self.cfg, x, positions, cache, cache_pos,
                             attention=attention, routing=routing,
-                            enc_kv=enc_kv)
+                            enc_kv=enc_kv)[:2]
 
 
 def _cross_attn(p: attn.GQAttention, cfg, x: torch.Tensor,
@@ -290,17 +304,19 @@ def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
                  attention=None, routing: Optional[Routing] = None,
                  enc_kv: Optional[attn.KVCache] = None):
     """``repro.models.model._block_apply``: returns (x, the layer's new
-    cache or None). A ``dec`` block cross-attends to ``enc_kv``; an ``enc``
-    block's attention is bidirectional. Neither uses rope (the reference's
-    ``use_rope = not cfg.is_encdec``)."""
+    cache or None, the MoE balance loss: a float32 scalar, None for a block
+    without experts, whose aux the reference adds as 0). A ``dec`` block
+    cross-attends to ``enc_kv``; an ``enc`` block's attention is
+    bidirectional. Neither uses rope (the reference's ``use_rope = not
+    cfg.is_encdec``)."""
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if p.kind == "ssm":
         h, new_cache = p.ssm(h, cache, cache_pos)
-        return x + h, new_cache
+        return x + h, new_cache, None
     if p.kind == "rglru":
         h, new_cache = p.lru(h, cache, cache_pos)
         x = x + h
-        return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), new_cache
+        return x + p.mlp(rms_norm(x, p.ln2, cfg.norm_eps)), new_cache, None
     kw = {}
     if p.kind in ("enc", "dec"):
         kw = dict(causal=p.kind == "dec", use_rope=False)
@@ -311,11 +327,12 @@ def _block_apply(p: Block, cfg, x, positions, cache, cache_pos, *,
         x = x + _cross_attn(p.xattn, cfg, rms_norm(x, p.lnx, cfg.norm_eps),
                             enc_kv)
     h = rms_norm(x, p.ln2, cfg.norm_eps)
+    aux = None
     if p.moe is not None:
-        h, _ = p.moe(h, routing=routing)
+        h, aux = p.moe(h, routing=routing)
     else:
         h = p.mlp(h)
-    return x + h, new_cache
+    return x + h, new_cache, aux
 
 
 def _slots(cfg) -> list[tuple[str, int]]:
@@ -440,40 +457,66 @@ def _encode(model: LM, frames: torch.Tensor, attention=None) -> torch.Tensor:
     return rms_norm(x, model.enc_ln, cfg.norm_eps)
 
 
-def _block_hidden(block: Block, x: torch.Tensor, attention) -> torch.Tensor:
-    """One block of the loss's trunk (positions arange(S), no cache)."""
-    return block(x, None, attention=attention)[0]
+#: the model's ``routing=`` hook: (layer, probs, k) -> expert indices
+LayerRouting = Callable[[int, torch.Tensor, int], torch.Tensor]
+
+
+def _layer_routing(routing: Optional[LayerRouting],
+                   layer: int) -> Optional[Routing]:
+    """Block ``layer``'s ``moe_apply`` hook: ``routing`` bound to the
+    layer."""
+    return None if routing is None else functools.partial(routing, layer)
+
+
+def _block_hidden(block: Block, x: torch.Tensor, attention,
+                  routing: Optional[Routing]):
+    """One block of the loss's trunk (positions arange(S), no cache) ->
+    (x, its MoE balance loss or None)."""
+    x, _, aux = _block_apply(block, block.cfg, x, None, None, None,
+                             attention=attention, routing=routing)
+    return x, aux
+
+
+def _loss_trunk(model: LM, tokens: torch.Tensor,
+                images: Optional[torch.Tensor], attention,
+                routing: Optional[LayerRouting],
+                remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The loss's trunk (the reference's ``_forward`` with
+    ``want_cache=False``) -> (hidden [B, S, d], aux): positions arange(S),
+    no layer builds a cache; ``remat`` recomputes each block in the
+    backward (``torch.utils.checkpoint``, non-reentrant) in place of
+    keeping its activations. ``aux`` is the MoE layers' balance losses
+    summed in layer order from a float32 0 (the reference's ``aux_total``:
+    its lead, scanned and tail blocks in that order)."""
+    cfg = model.cfg
+    if cfg.is_encdec:
+        raise ValueError("_loss_trunk: a trunk without caches runs a "
+                         "decoder-only model")
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x = _embed_inputs(model, tokens, None, images)
+    for i, block in enumerate(model.layers):
+        args = (block, x, attention, _layer_routing(routing, i))
+        x, a = checkpoint(_block_hidden, *args, use_reentrant=False) \
+            if remat else _block_hidden(*args)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(x, model.final_ln, cfg.norm_eps), aux
 
 
 def _forward(model: LM, tokens: torch.Tensor,
              positions: Optional[torch.Tensor],
-             cache_pos: Optional[int], cache: Optional[Cache] = None,
-             attention=None, routing: Optional[Routing] = None,
+             cache_pos: int, cache: Optional[Cache] = None,
+             attention=None, routing: Optional[LayerRouting] = None,
              frames: Optional[torch.Tensor] = None,
-             images: Optional[torch.Tensor] = None,
-             remat: bool = False) -> tuple[torch.Tensor, Optional[Cache]]:
-    """The train/prefill/decode trunk -> (hidden [B, S, d], cache): a
-    prefill (``cache`` and ``positions`` None: positions arange(S)) returns
-    the layers' new caches stacked by kind, field by field (and, for an
+             images: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, Cache]:
+    """The prefill/decode trunk -> (hidden [B, S, d], cache): a prefill
+    (``cache`` and ``positions`` None: positions arange(S)) returns the
+    layers' new caches stacked by kind, field by field (and, for an
     encoder-decoder, the cross K/V of ``frames``' encoding), a decode step
-    the ``cache`` it wrote into. With ``cache_pos`` None (the loss: the
-    reference's ``want_cache=False``) no layer builds a cache and None is
-    returned in its place; ``remat`` then recomputes each block in the
-    backward (``torch.utils.checkpoint``, non-reentrant) in place of
-    keeping its activations."""
+    the ``cache`` it wrote into. The MoE layers' balance losses are
+    dropped, as the reference's serving drops them."""
     cfg = model.cfg
-    if cache_pos is None:
-        if cache is not None or cfg.is_encdec:
-            raise ValueError("_forward: a trunk without caches runs a "
-                             "decoder-only prefill")
-        x = _embed_inputs(model, tokens, None, images)
-        for block in model.layers:
-            if remat:
-                x = checkpoint(_block_hidden, block, x, attention,
-                               use_reentrant=False)
-            else:
-                x = _block_hidden(block, x, attention)
-        return rms_norm(x, model.final_ln, cfg.norm_eps), None
     x = _embed_inputs(model, tokens, positions, images)
     stacks = None if cache is None else _stacks(cfg, cache)
     enc_kv = None
@@ -482,7 +525,7 @@ def _forward(model: LM, tokens: torch.Tensor,
         enc_kv = [_enc_kv(block.xattn, enc_out) for block in model.layers]
         del enc_out
     new: dict[str, list] = {}
-    for block in model.layers:
+    for i, block in enumerate(model.layers):
         name, j = block.slot
         c = None if stacks is None else \
             type(stacks[name])(*(f[j] for f in stacks[name]))
@@ -493,7 +536,7 @@ def _forward(model: LM, tokens: torch.Tensor,
             if stacks is None:
                 new.setdefault("cross", []).append(kv)
         x, nc = block(x, positions, c, cache_pos, attention=attention,
-                      routing=routing, enc_kv=kv)
+                      routing=_layer_routing(routing, i), enc_kv=kv)
         new.setdefault(name, []).append(nc)
     x = rms_norm(x, model.final_ln, cfg.norm_eps)
     if cache is None:
@@ -507,51 +550,62 @@ def _head(model: LM) -> torch.Tensor:
     return model.embed if model.cfg.tie_embeddings else model.head
 
 
-def _check_inputs(cfg, tokens: torch.Tensor, frames, images) -> None:
+def _check_inputs(cfg, tokens: torch.Tensor, frames, images,
+                  what: str = "prefill") -> None:
     B, S = tokens.shape
     if cfg.is_encdec:
         if frames is None:
-            raise ValueError(f"prefill: {cfg.arch_id} needs frames [B, "
+            raise ValueError(f"{what}: {cfg.arch_id} needs frames [B, "
                              f"{cfg.enc_len}, {cfg.d_model}]")
         if tuple(frames.shape) != (B, cfg.enc_len, cfg.d_model):
-            raise ValueError(f"prefill: frames must be [{B}, {cfg.enc_len}, "
+            raise ValueError(f"{what}: frames must be [{B}, {cfg.enc_len}, "
                              f"{cfg.d_model}] (the decode cache holds "
                              f"enc_len cross positions), got "
                              f"{tuple(frames.shape)}")
     elif frames is not None:
-        raise ValueError(f"prefill: {cfg.arch_id} has no encoder for frames")
+        raise ValueError(f"{what}: {cfg.arch_id} has no encoder for frames")
     if images is not None:
         if cfg.frontend != "vision":
-            raise ValueError(f"prefill: {cfg.arch_id} has no vision "
+            raise ValueError(f"{what}: {cfg.arch_id} has no vision "
                              "frontend for images")
         P = min(cfg.n_patches, S)
         if images.dim() != 3 or images.shape[0] != B or \
                 images.shape[1] < P or images.shape[2] != cfg.d_model:
-            raise ValueError(f"prefill: images must be [{B}, >= {P}, "
+            raise ValueError(f"{what}: images must be [{B}, >= {P}, "
                              f"{cfg.d_model}], got {tuple(images.shape)}")
 
 
 def loss_fn(model: LM, batch: dict, remat: Optional[bool] = None,
-            attention=None) -> tuple[torch.Tensor, dict]:
+            attention=None, routing: Optional[LayerRouting] = None
+            ) -> tuple[torch.Tensor, dict]:
     """``repro.models.model.loss_fn``: ``batch["tokens"]`` [B, S+1]
-    (inputs ``[:, :-1]``, labels ``[:, 1:]``, positions arange(S)) ->
-    (loss, {"ce", "aux"}), loss = ce + 0.01·aux (aux, the MoE balance loss,
-    is 0 for the dense family). ``remat`` (default ``cfg.remat``)
-    recomputes each block in the backward; ``attention`` replaces the
-    attention as in :func:`prefill`. Dense GQA configs only
-    (:func:`check_trainable`)."""
+    (inputs ``[:, :-1]``, labels ``[:, 1:]``, positions arange(S)) and,
+    for a vision config, optionally ``batch["images"]`` [B, >=
+    min(n_patches, S), d], the patch embeddings of the first slots ->
+    (loss, {"ce", "aux"}), loss = ce + 0.01·aux: aux the MoE layers'
+    balance losses summed in layer order (0 without experts), ce over the
+    positions at and past ``n_patches`` for a vision config (with or
+    without images, as the reference masks them), over all else.
+    ``frames`` or ``images`` a config cannot take are refused. ``remat``
+    (default ``cfg.remat``) recomputes each block in the backward;
+    ``attention`` replaces the attention as in :func:`prefill`;
+    ``routing`` as in :func:`prefill` (see the module docstring: under
+    remat a layer's hook runs again in the backward). The families of
+    :func:`check_trainable`."""
     cfg = model.cfg
     check_trainable(cfg)
     remat = cfg.remat if remat is None else remat
     tokens_full = batch["tokens"].to(torch.int64)
     tokens, labels = tokens_full[:, :-1], tokens_full[:, 1:]
     B, S = tokens.shape
-    x, _ = _forward(model, tokens, None, None, attention=attention,
-                    remat=remat)
+    images = batch.get("images")
+    _check_inputs(cfg, tokens, batch.get("frames"), images, "loss_fn")
+    x, aux = _loss_trunk(model, tokens, images, attention, routing, remat)
     mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+    if cfg.frontend == "vision":
+        mask &= (torch.arange(S, device=x.device) >= cfg.n_patches)[None, :]
     ce = cross_entropy(_head(model), x, labels, mask, cfg.tie_embeddings,
                        n_chunks=xent_chunks(cfg))
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
 
@@ -560,7 +614,8 @@ def loss_fn(model: LM, batch: dict, remat: Optional[bool] = None,
 def prefill(model: LM, tokens: torch.Tensor, *,
             frames: Optional[torch.Tensor] = None,
             images: Optional[torch.Tensor] = None, attention=None,
-            routing: Optional[Routing] = None) -> tuple[Cache, torch.Tensor]:
+            routing: Optional[LayerRouting] = None
+            ) -> tuple[Cache, torch.Tensor]:
     """Process the prompt ``tokens`` [B, S]; returns (the cache, its layers
     stacked by kind: [L, B, S, K, hd] K/V, the MLA latent and rope key, the
     SSM states, a ``HybridCache`` of the attention layers' K/V and the
@@ -571,8 +626,8 @@ def prefill(model: LM, tokens: torch.Tensor, *,
     ``images`` [B, >= min(n_patches, S), d], the patch embeddings of its
     prompt's first slots. ``attention`` replaces the prefill attention, the
     encoder's included (see :mod:`repro_torch.models.attention`);
-    ``routing`` is called for the expert choice of each MoE layer in turn
-    (see :mod:`repro_torch.models.moe`)."""
+    ``routing(layer, probs, k)`` makes each MoE layer's expert choice
+    (see the module docstring and :mod:`repro_torch.models.moe`)."""
     _check_inputs(model.cfg, tokens, frames, images)
     x, cache = _forward(model, tokens, None, tokens.shape[1],
                         attention=attention, routing=routing, frames=frames,
@@ -583,7 +638,7 @@ def prefill(model: LM, tokens: torch.Tensor, *,
 
 @torch.no_grad()
 def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int, *,
-                routing: Optional[Routing] = None
+                routing: Optional[LayerRouting] = None
                 ) -> tuple[Cache, torch.Tensor]:
     """One decode step. ``token`` [B], ``pos`` the write position (the
     number of tokens already in the cache). The cache is updated in place

@@ -77,11 +77,13 @@ def _compute_copy(cfg, device) -> LM:
 
 
 def make_train_step(cfg, tcfg: TrainConfig, device=None) -> Callable:
-    """``step_fn(state, batch, ef) -> (state, ef, metrics)`` for the dense
-    GQA family (``check_trainable``). ``ef`` is the error-feedback residual
-    (None when ``compress_grads`` is off); ``metrics`` holds 0-d tensors
-    ``ce``, ``aux``, ``loss`` and ``lr``. The state is updated in place.
-    ``step_fn.model`` is the compute copy."""
+    """``step_fn(state, batch, ef) -> (state, ef, metrics)`` for the
+    families of ``check_trainable``. ``batch`` holds ``tokens`` and may hold
+    ``images`` (a vision config), split with the tokens into microbatches.
+    ``ef`` is the error-feedback residual (None when ``compress_grads`` is
+    off); ``metrics`` holds 0-d tensors ``ce``, ``aux``, ``loss`` and
+    ``lr``. The state is updated in place. ``step_fn.model`` is the
+    compute copy."""
     check_trainable(cfg)
     dev = resolve_device(device)
     model = _compute_copy(cfg, dev)
@@ -96,14 +98,14 @@ def make_train_step(cfg, tcfg: TrainConfig, device=None) -> Callable:
         with torch.no_grad():
             for n, p in zip(names, params):  # the compute copy
                 p.copy_(state.params[n])
-        tokens = batch["tokens"]
         n = tcfg.microbatch
         if n and n > 1:
-            mb = tokens.reshape((n, tokens.shape[0] // n) + tokens.shape[1:])
+            mb = {k: t.reshape((n, t.shape[0] // n) + t.shape[1:])
+                  for k, t in batch.items()}
             acc = [torch.zeros_like(p, dtype=torch.float32) for p in params]
             losses, metricses = [], []
             for i in range(n):
-                loss, metrics, g = grad_of({"tokens": mb[i]})
+                loss, metrics, g = grad_of({k: t[i] for k, t in mb.items()})
                 with torch.no_grad():
                     for a, gi in zip(acc, g):
                         a.add_(gi.to(torch.float32) / n)

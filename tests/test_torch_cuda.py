@@ -1188,13 +1188,14 @@ def _bwd_close(got, want) -> bool:
     (2, 2048, 24, 2, 128), (16, 128, 8, 4, 64), (2, 100, 8, 4, 64),
     (2, 2000, 24, 2, 128), (1, 4096, 32, 8, 128), (1, 1, 4, 2, 64),
     (3, 65, 8, 8, 128), (2, 300, 16, 1, 128), (2, 40, 8, 4, 64),
-    (1, 333, 6, 2, 128), (1, 256, 4, 4, 128)])
+    (1, 333, 6, 2, 128), (1, 256, 4, 4, 128), (2, 2048, 32, 8, 128)])
 def test_flash_attn_backward_matches_plain(dev, B, S, H, K, hd):
     """The backward kernel and the forward's row statistic against their
     plain versions (the lse within float32 sums in another order), at
     starcoder2-3b's and qwen3-100m's training shapes, ragged S, S 4096, one
     position, no grouping, 16 query heads on one KV head, S shorter than a
-    tile, a part-filled last chunk and a grid of fewer blocks than SMs;
+    tile, a part-filled last chunk, a grid of fewer blocks than SMs and
+    pixtral-12b's and phi3.5-moe's training shape;
     four planted faults (D left out of dS, the mask shifted by a key, the
     last 64 keys left out, the lse 0.05 high from row S/2 on) fail the same
     tolerance."""
@@ -1251,6 +1252,70 @@ def test_flash_attn_backward_matches_plain(dev, B, S, H, K, hd):
         assert not _bwd_close(grads(p, p * (dp - delta)), want)
 
 
+@pytest.mark.parametrize("B,S,H,K,dqk,dv,used", [
+    (2, 2048, 40, 40, 96, 64, 96), (2, 2048, 16, 16, 192, 128, 192),
+    (1, 333, 16, 16, 192, 128, 192), (2, 40, 4, 4, 32, 16, 24),
+    (2, 300, 8, 2, 96, 64, 96), (1, 65, 4, 4, 32, 16, 24),
+    (4, 64, 4, 4, 32, 16, 24)])
+def test_flash_attn_backward_matches_plain_at_mla_dims(dev, B, S, H, K, dqk,
+                                                       dv, used):
+    """The backward at MLA's head dims (q·k ≠ v: minicpm3-4b's 96/64,
+    deepseek-v2-lite-16b's 192/128, the smoke dims' 24/16 zero-padded to
+    32/16 at scale 1/√24, also at the MLA smoke training's B 4 x S 64)
+    against the plain version with the same
+    tolerance, twice bitwise equal; the padded columns' dq and dk are 0."""
+    from repro_torch.kernels import flash_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(S + dqk)
+    q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev).bfloat16()
+               for n, d in ((H, dqk), (K, dqk), (K, dv)))
+    q[..., used:] = 0
+    k[..., used:] = 0
+    dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
+    scale = 1.0 / used ** 0.5
+    before = K5.bwd_head_dim_launches.get((dqk, dv), 0)
+    out, lse = K5.flash_attention_lse(q, k, v, scale)
+    got = K5.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    assert K5.bwd_head_dim_launches[(dqk, dv)] == before + 1
+    out_p, lse_p = K5.flash_attention_lse_plain(q, k, v, scale)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
+    assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
+    assert _bwd_close(got, want)
+    assert not got[0][..., used:].any() and not got[1][..., used:].any()
+    again = K5.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
+def test_mla_smoke_training_runs_the_backward_kernel(dev, arch):
+    """A train step at an MLA smoke config (q·k 24 zero-padded to 32, v 16;
+    deepseek with MoE) on the card: 2 forward (remat) and 1 backward K5
+    launch a layer, all at (32, 16); the loss within 1e-2 of the CPU's
+    step from the same masters."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.train import (DataConfig, TrainConfig, adamw_init,
+                                   init_params, make_batch, make_train_step)
+
+    cfg = get_config(arch, smoke=True)
+    dcfg = DataConfig(cfg.vocab, 64, 4)
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    losses = []
+    for d in (dev, "cpu"):
+        kernels.reset_launches()
+        st = adamw_init({n: t.to(d, copy=True) for n, t in masters.items()})
+        _, _, m = make_train_step(cfg, TrainConfig(), d)(
+            st, make_batch(dcfg, 0, device=d), None)
+        losses.append(float(m["loss"]))
+        if d == dev:
+            assert (K5.launches, K5.bwd_launches) == \
+                (2 * cfg.n_layers, cfg.n_layers)
+            assert K5.bwd_head_dim_launches == {(32, 16): cfg.n_layers}
+    assert abs(losses[0] - losses[1]) <= 1e-2, losses
+
+
 def test_flash_attn_autograd_runs_the_backward_kernel(dev):
     """A call that needs a gradient goes through the autograd Function:
     one forward launch (with the row statistic), one backward launch, and
@@ -1273,10 +1338,11 @@ def test_flash_attn_autograd_runs_the_backward_kernel(dev):
 
 
 @pytest.mark.parametrize("variant", ["window", "noncausal", "float32",
-                                     "head_dim_16", "mla_96_64"])
+                                     "head_dim_16", "head_dim_256"])
 def test_flash_attn_gradient_of_other_variants_raises(dev, variant):
     """A CUDA call that needs a gradient the backward does not take raises
-    NotImplementedError naming ROADMAP; without a gradient it runs."""
+    NotImplementedError naming ROADMAP (a window, causal=False, float32,
+    head dims 16/16 and 256/256); without a gradient it runs."""
     from repro_torch.kernels import flash_attn as K5
 
     hd, hv, dtype, kw = 128, 128, torch.bfloat16, {}
@@ -1289,7 +1355,7 @@ def test_flash_attn_gradient_of_other_variants_raises(dev, variant):
     elif variant == "head_dim_16":
         hd = hv = 16
     else:
-        hd, hv = 96, 64
+        hd = hv = 256
     g = torch.Generator(device=dev).manual_seed(3)
     q = torch.randn((1, 64, 4, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((1, 64, 2, hd), generator=g, device=dev).to(dtype)

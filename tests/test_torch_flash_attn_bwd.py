@@ -7,8 +7,9 @@ rounding scheme of that kernel, its plan, and the kernels' build hash.
   package: ``jax.vjp`` of the reference's ``_sdpa`` over ``_repeat_kv``'d
   K/V (``repro/models/attention.py``), and the logsumexp of its masked
   logits, in float32 from the same numpy inputs, with fewer KV heads than
-  query heads, one KV head, as many as query heads, ragged S and S 1.
-  Tolerance: float32 work summed in another order, rtol = atol = 2e-5 (the
+  query heads, one KV head, as many as query heads, ragged S and S 1;
+  and at MLA's unequal head dims (96/64, 192/128, and the smoke dims' 24/16
+  zero-padded to 32/16 at scale 1/√24). Tolerance: float32 work summed in another order, rtol = atol = 2e-5 (the
   reference's own kernel-test bound).
 - The kernel's roundings emulated in float32: P and dS rounded to bf16 once
   before their products, D from the bf16 output, dK and dV of a KV head
@@ -16,7 +17,8 @@ rounding scheme of that kernel, its plan, and the kernels' build hash.
   added in split order (``bwd_plan``), each output rounded to bf16. The
   emulation sits inside ``chip_smoke.py``'s unchanged ``K5_BWD_*``
   tolerance, and the four planted faults of ``chip_smoke.bwd_faults_plain``
-  fall outside it, at the small shapes of ``K5_BWD_SHAPES``.
+  fall outside it, at the small shapes of ``K5_BWD_SHAPES`` and
+  ``K5_BWD_MLA_SHAPES``.
 - ``bwd_plan``'s splits, grids and partial bytes.
 - ``kernels/build.py``: an edited ``*.cuh`` header gives the library
   another name, so a stale library is never reused.
@@ -100,6 +102,62 @@ def test_plain_backward_and_lse_match_jax_vjp_of_sdpa(B, S, H, K, hd):
     assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
 
 
+def _mla_inputs(B, S, H, K, dqk, dv, used, seed):
+    """q, k [.., dqk] whose columns from ``used`` on are 0 (the MLA smoke
+    dims' q·k of 24 zero-padded to 32), v [.., dv], dout [.., dv]."""
+    rng = np.random.default_rng(seed)
+    q, k = (rng.normal(size=(B, S, n, dqk)).astype(np.float32)
+            for n in (H, K))
+    q[..., used:] = 0
+    k[..., used:] = 0
+    v = rng.normal(size=(B, S, K, dv)).astype(np.float32)
+    dout = rng.normal(size=(B, S, H, dv)).astype(np.float32)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("B,S,H,K,dqk,dv,used", [
+    (2, 37, 4, 4, 96, 64, 96),      # minicpm3-4b's pair, ragged S
+    (1, 70, 4, 2, 192, 128, 192),   # deepseek-v2-lite-16b's, GQA
+    (2, 40, 4, 4, 32, 16, 24)])     # the smoke dims: 24 zero-padded to 32
+def test_plain_backward_matches_jax_vjp_of_sdpa_at_unequal_head_dims(
+        B, S, H, K, dqk, dv, used):
+    """MLA's pairs (q·k head dim ≠ v's): dq and dk at Dqk, dv at Dv, and the
+    row statistic, against ``jax.vjp`` of the reference's ``_sdpa`` over
+    the ``used`` q·k columns, at scale 1/√used (the padded smoke pair keeps
+    the unpadded 1/√24); the padded columns' dq and dk are 0."""
+    q, k, v, dout = _mla_inputs(B, S, H, K, dqk, dv, used, seed=S + dqk)
+    scale = 1.0 / np.sqrt(used)
+    pos = jnp.broadcast_to(jnp.arange(S), (B, S))
+
+    def ref(q, k, v):
+        return jattn._sdpa(q, jattn._repeat_kv(k, H), jattn._repeat_kv(v, H),
+                           scale, qpos=pos, kpos=pos)
+
+    @jax.jit
+    def reference(q, k, v, dout):
+        out, vjp = jax.vjp(ref, q, k, v)
+        logits = jnp.einsum("bqhd,bkhd->bhqk", q,
+                            jattn._repeat_kv(k, H)) * scale
+        logits = jnp.where(jnp.tril(jnp.ones((S, S), bool)), logits,
+                           K5.NEG_INF)
+        return out, vjp(dout), jax.nn.logsumexp(logits, axis=-1) * K5.LOG2E
+
+    out_j, (dq_j, dk_j, dv_j), lse_j = reference(
+        q[..., :used], k[..., :used], v, dout)
+    tq, tk, tv, td = map(torch.from_numpy, (q, k, v, dout))
+    dq, dk, dvv = K5.flash_attention_backward_plain(tq, tk, tv, td, scale)
+    out_t, lse_t = K5.flash_attention_lse_plain(tq, tk, tv, scale)
+    assert (dq.shape, dk.shape, dvv.shape) == (tq.shape, tk.shape, tv.shape)
+    np.testing.assert_allclose(dq[..., :used].numpy(), np.asarray(dq_j),
+                               **F32)
+    np.testing.assert_allclose(dk[..., :used].numpy(), np.asarray(dk_j),
+                               **F32)
+    np.testing.assert_allclose(dvv.numpy(), np.asarray(dv_j), **F32)
+    assert not dq[..., used:].any() and not dk[..., used:].any()
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **F32)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **F32)
+
+
 def emulate_kernel(q, k, v, out, lse, dout, scale):
     """The backward kernel's arithmetic in float32 on the CPU (bf16 inputs,
     the forward's bf16 ``out`` and float32 ``lse``): dS from float32 P,
@@ -152,6 +210,27 @@ def test_kernel_roundings_sit_inside_the_card_tolerance(B, S, H, K, hd):
     assert set(faults) == {"no_delta", "mask_shift", "last_key_tile",
                            "late_lse"}
     for name, f_grads in faults.items():
+        f_err, f_worst, f_ok = CS._bwd_close(f_grads, want)
+        assert not f_ok, (name, f_err, f_worst)
+
+
+@pytest.mark.parametrize("B,S,H,K,dqk,dv,used", [
+    shape for shape in CS.K5_BWD_MLA_SHAPES if shape[0] * shape[1] <= 2048])
+def test_kernel_roundings_at_mla_dims_sit_inside_the_card_tolerance(
+        B, S, H, K, dqk, dv, used):
+    """The emulated kernel at chip_smoke's MLA backward shapes (Dqk ≠ Dv;
+    the smoke pair zero-padded, scale 1/√24) passes ``_bwd_close`` against
+    the plain backward; every planted fault fails it."""
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in
+                     _mla_inputs(B, S, H, K, dqk, dv, used, seed=B * S + H))
+    scale = 1.0 / used ** 0.5
+    out, lse = K5.flash_attention_lse_plain(q, k, v, scale)
+    want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
+    got = emulate_kernel(q, k, v, out, lse, dout, scale)
+    err, worst, ok = CS._bwd_close(got, want)
+    assert ok, (err, worst)
+    for name, f_grads in CS.bwd_faults_plain(q, k, v, out, dout, lse,
+                                             scale).items():
         f_err, f_worst, f_ok = CS._bwd_close(f_grads, want)
         assert not f_ok, (name, f_err, f_worst)
 

@@ -280,8 +280,10 @@ def test_prefill_cache_and_teacher_forced_decode(arch, cf):
     dropped = 0
     for i in range(STEPS):
         seen = []
+        rec = _recorder(seen)
         dec, tl = decode_step(model, dec, torch.as_tensor(toks[:, S0 + i]),
-                              S0 + i, routing=_recorder(seen))
+                              S0 + i, routing=lambda layer, probs, k:
+                              rec(probs, k))
         _close(tl, forced[i])
         C = tmoe.capacity(B, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
         dropped += sum(int((tmoe.arrival_slots(e.reshape(-1),

@@ -4,8 +4,10 @@ bigram stream, checkpoints (round trip, ``LATEST``, shape checks, the
 asynchronous writer, restore onto a device), the loss falling on the
 bigram stream toward its floor, a preempted run resumed from its
 checkpoint equal to an uninterrupted one bit for bit, the int8 round trip
-and its error feedback, compressed training, and ``check_trainable``
-refusing every family but the dense GQA one on either device. The port
+and its error feedback, compressed training, ``check_trainable``
+refusing SSM, the hybrid and audio and accepting the dense (GQA, MLA),
+vision and MoE families on either device, and the launcher at MoE and MLA
+smoke configs. The port
 against the live JAX package is ``tests/test_torch_train.py``.
 """
 import dataclasses
@@ -186,15 +188,17 @@ def test_compressed_training_still_learns():
 
 
 # ---------------------------------------------------------- trainability
-@pytest.mark.parametrize("arch", ["minicpm3-4b", "phi3.5-moe-42b-a6.6b",
-                                  "deepseek-v2-lite-16b", "mamba2-370m",
-                                  "recurrentgemma-9b", "whisper-tiny",
-                                  "pixtral-12b"])
+PORTED = ["minicpm3-4b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b",
+          "pixtral-12b"]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
+                                  "whisper-tiny"])
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_check_trainable_refuses_other_families(arch, device):
-    """MLA, MoE, SSM, hybrid, audio and vlm are refused the same way on
-    either device, before any device is touched (no card is needed to be
-    told); the dense GQA configs pass."""
+    """SSM, the hybrid and audio are refused the same way on either
+    device, before any device is touched (no card is needed to be told);
+    the dense, MLA, vision and MoE configs pass."""
     cfg = get_config(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         check_trainable(cfg)
@@ -207,8 +211,40 @@ def test_check_trainable_refuses_other_families(arch, device):
         model = init(cfg, torch.Generator().manual_seed(0), "cpu")
         with pytest.raises(NotImplementedError, match="not yet ported"):
             loss_fn(model, {"tokens": torch.zeros((1, 9), dtype=torch.long)})
-    for dense in ("mistral-nemo-12b", "qwen3-14b", "starcoder2-3b"):
-        check_trainable(get_config(dense))
+    for ok in ("mistral-nemo-12b", "qwen3-14b", "starcoder2-3b", *PORTED):
+        check_trainable(get_config(ok))
+
+
+@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_check_trainable_accepts_ported_families(arch, device):
+    """MLA (minicpm3-4b), MoE (phi3.5-moe-42b-a6.6b; deepseek-v2-lite-16b,
+    MoE and MLA) and vision (pixtral-12b) pass ``check_trainable`` at
+    their published and smoke configs, the same on either device: the
+    train step is built on the CPU, and without a card the CUDA one fails
+    only for the device, never as not ported."""
+    for smoke in (False, True):
+        check_trainable(get_config(arch, smoke=smoke))
+    cfg = get_config(arch, smoke=True)
+    if device == "cuda" and not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_train_step(cfg, TrainConfig(), device=device)
+        return
+    assert make_train_step(cfg, TrainConfig(), device=device).model.cfg is cfg
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "minicpm3-4b"])
+def test_launcher_trains_moe_and_mla_on_the_cpu(arch, capsys):
+    """``launch/train.py`` at a MoE + MLA smoke config (deepseek) and an MLA
+    one (minicpm3) on the bigram stream: the loss falls over 8 steps."""
+    from repro_torch.launch.train import main
+
+    assert main(["--arch", arch, "--device", "cpu", "--steps", "8",
+                 "--batch", "4", "--seq", "16", "--lr", "3e-3"]) == 0
+    out = capsys.readouterr().out
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in out.splitlines() if "loss=" in line]
+    assert len(losses) == 8 and losses[-1] < losses[0] - 0.05, losses
 
 
 def test_launcher_trains_on_the_cpu(capsys):

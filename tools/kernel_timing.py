@@ -39,7 +39,8 @@ sys.path.insert(0, str(ROOT))
 def time_k5(cs, dev, out: dict) -> None:
     """K5 (bf16, causal) at ``chip_smoke.K5_SHAPES``, with the inputs of
     ``chip_smoke.check_flash_attn``; in a tree with a backward, the
-    training forward and the backward at ``chip_smoke.K5_BWD_SHAPES``, with
+    training forward and the backward at ``chip_smoke.K5_BWD_SHAPES`` and
+    ``K5_BWD_MLA_SHAPES`` (the head dims the tree's backward takes), with
     the inputs of ``chip_smoke.check_flash_attn_backward``, beside the
     backward of ``scaled_dot_product_attention`` (timed as chip_smoke times
     it; the port never calls it)."""
@@ -62,23 +63,29 @@ def time_k5(cs, dev, out: dict) -> None:
     if not hasattr(K5, "flash_attention_backward"):
         return
     out["flash_attn_train"], out["flash_attn_bwd"] = {}, {}
-    for B, S, H, K, hd in cs.K5_BWD_SHAPES:
+    shapes = [(B, S, H, K, hd, hd, hd) for B, S, H, K, hd in cs.K5_BWD_SHAPES]
+    for B, S, H, K, dqk, dv, used in shapes + cs.K5_BWD_MLA_SHAPES:
+        if (dqk, dv) not in K5.BWD_HEAD_DIMS:  # an older tree's backward
+            continue
         g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
-        q, k, v = (torch.randn((B, S, n, hd), generator=g, device=dev)
-                   .bfloat16() for n in (H, K, K))
-        dout = torch.randn((B, S, H, hd), generator=g, device=dev).bfloat16()
-        out_k, lse = K5.flash_attention_lse(q, k, v)
-        key = f"{B}x{S}x{H}/{K}x{hd}"
-        fwd = cs.time_ms(lambda: K5.flash_attention_lse(q, k, v), reps=5,
-                         repeats=7)[0]
+        q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev)
+                   .bfloat16() for n, d in ((H, dqk), (K, dqk), (K, dv)))
+        q[..., used:] = 0
+        k[..., used:] = 0
+        dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
+        scale = 1.0 / used ** 0.5
+        out_k, lse = K5.flash_attention_lse(q, k, v, scale)
+        key = f"{B}x{S}x{H}/{K}x{dqk}" + ("" if dv == dqk else f"/{dv}")
+        fwd = cs.time_ms(lambda: K5.flash_attention_lse(q, k, v, scale),
+                         reps=5, repeats=7)[0]
         bwd = cs.time_ms(lambda: K5.flash_attention_backward(
-            q, k, v, out_k, lse, dout), reps=5, repeats=7)[0]
+            q, k, v, out_k, lse, dout, scale), reps=5, repeats=7)[0]
         # the library yardstick as chip_smoke times it: the backward of
         # sdpa(is_causal, enable_gqa) alone, eager
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                       for t in (q, k, v))
         o_lib = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
         lib = cs._event_ms(lambda: [torch.autograd.grad(
             o_lib, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True)
             for _ in range(5)], 5) / 5
@@ -123,7 +130,7 @@ def time_train(cs, dev, out: dict) -> None:
           f"{TRAIN_QWEN_STEPS})")
     del state, step
     torch.cuda.empty_cache()
-    full = cs.train_full(dev)
+    full = cs.train_full(dev, cs.TRAIN_FULL)
     out["train"] = dict(
         qwen3_100m_step_s=qwen,
         starcoder2_3b={k: full.get(k) for k in (
