@@ -166,8 +166,9 @@ K1's and K3's against the protocol's; the build report gives the K1-K4
 kernels' registers, spills and shared memory, and their plans.
 
 Training, after the serve phases: K5's backward (``csrc/flash_attn_bwd.cu``:
-causal, no window, (64, 64), (128, 128) and MLA's (96, 64), (192, 128)
-and (32, 16); two launches, dQ then dK/dV,
+causal, with a window or without the causal mask, at every head-dim pair
+of the forward, (16, 16), (64, 64), (128, 128), (256, 256) and MLA's (96,
+64), (192, 128) and (32, 16); two launches, dQ then dK/dV,
 ``wgmma`` on TMA tiles; GQA's dk/dv summed over each KV head's query heads
 in a fixed order), its two kernels' registers, spills, shared memory and
 HGMMA/UTMALDG counts, then the backward against its plain version, and
@@ -180,8 +181,9 @@ grid of fewer blocks than SMs) and pixtral-12b's and phi3.5-moe's [2,
 40/40, 96/64], deepseek-v2-lite-16b [2, 2048, 16/16, 192/128], ragged [1,
 333, 16/16, 192/128] and the smoke dims' [2, 40, 4/4, 32/16] and [4, 64,
 4/4, 32/16] (q·k 24 zero-padded, scale 1/√24; ``K5_BWD_MLA_SHAPES``),
-timed beside the backward of ``scaled_dot_product_attention`` (the
-backend PyTorch picks printed), with a tolerance scaled by
+timed beside the backward of ``scaled_dot_product_attention`` (both
+replayed from a CUDA graph; the backend PyTorch picks printed), with a
+tolerance scaled by
 each 64-position tile's largest gradient and a mean bound, and a second
 call bitwise equal to the first; four planted faults (D left out of dS,
 the mask shifted by a key, the last key tile left out, lse off by 0.05
@@ -216,7 +218,28 @@ to 7 of 27 layers (``TRAIN_FULL_MLA``, ``TRAIN_FULL_MOE_MLA``) timed as
 starcoder2-3b is (124 / 62 and 14 / 7 K5 launches a step; deepseek's
 assignments past capacity a layer); and minicpm3-4b@smoke and
 deepseek-v2-lite-16b@smoke trained through ``launch/train.py`` (K5 at
-(32, 16): 2 forward and 1 backward launch a layer a step).
+(32, 16): 2 forward and 1 backward launch a layer a step). The same
+check, in the same loop (``k5_bwd_cases``), holds the backward without
+the causal mask and with a window (``K5_BWD_MASK_SHAPES``:
+whisper-tiny's encoder [2, 1500, 6/6, 64/64] and a ragged S 100,
+recurrentgemma-9b's [1, 4096, 16/1, 256/256, W 2048] and [2, 1000, 16/1,
+256/256, W 100], the smoke dims 16/16 at [4, 64, 4/2] under each mask)
+against its plain version, timed beside SDPA's backward under the same
+mask, with the planted faults under the mask (the last key tile, the
+late lse, the window's lower bound off by a key, the ragged tile's zero
+keys taking mass; ``K5_BWD_FAULT_UNSEEN`` names the one the tolerance
+cannot see at S 1500). Then whisper-tiny whole (4 encoder and 4 decoder
+layers, B 2 x S 448 over random frames [2, 1500, 384]) and
+recurrentgemma-9b cut to 9 of 38 layers (B 1 x S 4096) with the same
+gradient check and planted fault (``TRAIN_GRAD_NEW``), their timed steps
+(recurrentgemma-9b's at 6 layers: at 9 AdamW ran out of memory) and
+mamba2-370m's at full depth (B 2 x S 2048; every leaf's gradient
+finite at the SSD's chunk of 256), K5's launches a step by mask; the
+smoke twins of the dense, vision, phi3.5-moe, hybrid and SSM families
+trained through ``launch/train.py`` and whisper-tiny's through
+``make_train_step`` with frames (``TRAIN_SMOKE``), and the first step's
+gradients of the SSM, hybrid and encoder-decoder twins on the card
+against the CPU's.
 
 It prints the card (``nvidia-smi``), the build time, one line per kernel
 check, the rounds, the service, baselines, serve and training phases, its wall time
@@ -436,22 +459,25 @@ def _event_ms(fn, repeats: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def time_ms(fn, reps: int = 20, repeats: int = 7) -> tuple[float, float]:
+def time_ms(fn, reps: int = 20, repeats: int = 7,
+            stream=None) -> tuple[float, float]:
     """Per-call milliseconds of ``fn`` by CUDA events, median of ``repeats``
     windows of ``reps`` calls (warm L2): ``(device, eager)``. ``device``
     replays the calls from a CUDA graph, so the card runs them back to back
     and the time is the device's; ``eager`` issues them from Python, so it
-    includes whatever the host adds between launches."""
+    includes whatever the host adds between launches. ``stream`` (a side
+    stream, not the default one) is where the graph is captured, where
+    ``fn``'s work must run."""
     import torch
 
-    side = torch.cuda.Stream()
+    side = stream or torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture stream
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(reps):
             fn()
     graph.replay()
@@ -745,16 +771,16 @@ def _pool_icd(res, pool, dev):
 
 
 def device_busy(fn, wall_s: float, groups: dict | None = None) -> dict:
-    """Run ``fn`` once under torch.profiler: the device's busy seconds, its
-    share of ``wall_s`` (an unprofiled run of the same work: the profiler
-    slows the host, not the card), launches and the busiest kernels; with
-    ``groups`` (name -> regex), the device seconds and launches of the
-    kernels whose names match each, the first match winning, the rest
-    under ``other``."""
+    """Run ``fn`` once under torch.profiler, tracing the device alone: the
+    device's busy seconds, its share of ``wall_s`` (an unprofiled run of
+    the same work: the profiler slows the host, not the card), launches and
+    the busiest kernels; with ``groups`` (name -> regex), the device
+    seconds and launches of the kernels whose names match each, the first
+    match winning, the rest under ``other``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
     dev_events = [e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -2775,7 +2801,7 @@ K5_BWD_SHAPES = [(2, 2048, 24, 2, 128), (16, 128, 8, 4, 64),
 #: v 64), deepseek-v2-lite-16b's (16 heads, 192 = 128 + 64, v 128; its
 #: dK/dV ring has 3 stages), a ragged S 333 at 192/128, and the MLA smoke
 #: dims (q·k 16 + 8 = 24 zero-padded to 32 as the model pads them, scale
-#: 1/√24, v 16) at TRAIN_SMOKE_MLA's B 4 x S 64 (one full tile; the
+#: 1/√24, v 16) at TRAIN_SMOKE's B 4 x S 64 (one full tile; the
 #: kernel line's shape) and at S 40 (one partial tile)
 K5_BWD_MLA_SHAPES = [(2, 2048, 40, 40, 96, 64, 96),
                      (2, 2048, 16, 16, 192, 128, 192),
@@ -2802,14 +2828,17 @@ K5_BWD_MEAN_REL, K5_BWD_TILE = 2.0 ** -6, 64
 K5_LSE_RTOL, K5_LSE_ATOL = 1e-5, 1e-4
 
 
-def k5_bwd_bytes_ops(B, S, H, K, dqk, dv) -> tuple[int, int]:
+def k5_bwd_bytes_ops(B, S, H, K, dqk, dv, window=None,
+                     causal: bool = True) -> tuple[int, int]:
     """Bytes K5's backward must move (q, k, v, o, do read and dq, dk, dv
     written once, bf16; the float32 lse read once) and its operations: five
-    products over the causal pairs, 2·pairs·(3·Dqk + 2·Dv) a (b, h) (Q·Kᵀ,
-    dS·K and dSᵀ·Q contract or span Dqk; dO·Vᵀ and Pᵀ·dO, Dv)."""
+    products over the pairs the mask leaves (``k5_pairs``),
+    2·pairs·(3·Dqk + 2·Dv) a (b, h) (Q·Kᵀ, dS·K and dSᵀ·Q contract or span
+    Dqk; dO·Vᵀ and Pᵀ·dO, Dv)."""
     n_bytes = 2 * B * S * (2 * (H * dqk + K * dqk + K * dv) + 2 * H * dv) \
         + 4 * B * H * S
-    return n_bytes, 2 * B * H * k5_pairs(S) * (3 * dqk + 2 * dv)
+    return n_bytes, 2 * B * H * k5_pairs(S, window, causal) * (
+        3 * dqk + 2 * dv)
 
 
 def _bwd_close(got, want) -> tuple[float, float, bool]:
@@ -2834,16 +2863,43 @@ def _bwd_close(got, want) -> tuple[float, float, bool]:
     return err, worst, worst <= 1.0
 
 
-def bwd_faults_plain(q, k, v, out, dout, lse, scale):
+#: the training forward's output with its low part (out + out_lo, ~16
+#: bits) against the plain float32 output's: P taken as bf16 hi + lo
+#: products and float32 sums in another order (the bf16 output alone is
+#: 2^-9 off)
+K5_HI_LO_RTOL, K5_HI_LO_ATOL = 2.0 ** -12, 1e-4
+
+
+def _hi_lo_close(out, lo, out_p, lo_p) -> bool:
+    """The kernel's out + out_lo within the hi/lo tolerance of the plain
+    version's."""
+    import torch
+
+    return bool(torch.allclose(out.float() + lo.float(),
+                               out_p.float() + lo_p.float(),
+                               rtol=K5_HI_LO_RTOL, atol=K5_HI_LO_ATOL))
+
+
+def bwd_faults_plain(q, k, v, out, dout, lse, scale, window=None,
+                     causal: bool = True):
     """The backward with a planted fault, from the plain float32 math and
-    the kernel run's ``lse``: ``no_delta`` leaves D out of dS (dS = P∘dP);
-    ``mask_shift`` rebuilds P with the mask shifted by one key (query i
-    also gets key i + 1, weighted exp2(s·c − lse)); ``last_key_tile``
-    leaves the last K5_BWD_TILE keys out (a key loop that stops a tile
-    early: their dk and dv stay 0 and no row's dq sees them); ``late_lse``
-    rebuilds P from lse + 0.05 in the rows from S/2 on (P 3.4 % low there,
-    the rows before exact). The last two touch late positions only. Each
-    returns (dq, dk, dv) in bf16."""
+    the kernel run's ``lse``, under the call's mask (causal, causal over a
+    window, or none): ``no_delta`` leaves D out of dS (dS = P∘dP);
+    ``last_key_tile`` leaves the last K5_BWD_TILE keys out (a key loop that
+    stops a tile early: their dk and dv stay 0 and no row's dq sees them);
+    ``late_lse`` rebuilds P from lse + 0.05 in the rows from S/2 on (P 3.4 %
+    low there, the rows before exact). The last two touch late positions
+    only. Causal: ``mask_shift`` rebuilds P with the mask shifted by one
+    key (query i also gets key i + 1, weighted exp2(s·c − lse)). With a
+    window: ``window_low``, its lower bound off by one key (query i also
+    gets key i − W). Without the causal mask at a ragged S:
+    ``keys_past_s``, the last tile's keys at or past S left unmasked in the
+    forward and the backward: TMA's zero keys (logit 0, v 0) take softmax
+    mass, so the row statistic, P, O and D are those over S padded to a
+    tile multiple (the reference's wrapper's mistake, ROADMAP queue 3; a
+    backward alone that weighs them still gives every dq 0 from their zero
+    k and writes no dk or dv for them). Each returns (dq, dk, dv) in
+    bf16."""
     import torch
 
     from repro_torch.kernels.flash_attn import LOG2E
@@ -2859,7 +2915,17 @@ def bwd_faults_plain(q, k, v, out, dout, lse, scale):
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * LOG2E)
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    causal = ones.tril()
+    pos = torch.arange(S, device=q.device)
+
+    def masked(shift: int = 0, low: int = 0):
+        """The call's mask, its causal edge ``shift`` keys later and its
+        window's lower edge ``low`` keys earlier."""
+        if not causal:
+            return ones
+        m = ones.tril(shift)
+        if window:
+            m &= ~ones.tril(-window - low)
+        return m
 
     def grads(p, ds):
         def summed(t):
@@ -2872,77 +2938,180 @@ def bwd_faults_plain(q, k, v, out, dout, lse, scale):
     def softmax(mask, row_lse):
         return torch.where(mask, torch.exp2(s - row_lse[..., None]), 0.0)
 
+    mask = masked()
     out_f = {}
-    p = softmax(causal, lse)
+    p = softmax(mask, lse)
     out_f["no_delta"] = grads(p, p * dp)
-    p = softmax(ones.tril(1), lse)
-    out_f["mask_shift"] = grads(p, p * (dp - delta))
     last = (S - 1) // K5_BWD_TILE * K5_BWD_TILE
-    p = softmax(causal & (torch.arange(S, device=q.device) < last), lse)
+    p = softmax(mask & (pos < last), lse)
     out_f["last_key_tile"] = grads(p, p * (dp - delta))
-    p = softmax(causal, lse + 0.05 * (torch.arange(S, device=q.device)
-                                      >= S // 2))
+    p = softmax(mask, lse + 0.05 * (pos >= S // 2))
     out_f["late_lse"] = grads(p, p * (dp - delta))
+    if causal:
+        p = softmax(masked(shift=1), lse)
+        out_f["mask_shift"] = grads(p, p * (dp - delta))
+    if causal and window and window < S:
+        p = softmax(masked(low=1), lse)
+        out_f["window_low"] = grads(p, p * (dp - delta))
+    pad = -S % K5_BWD_TILE
+    if not causal and pad:
+        # pad zero keys each add exp2(0) to the row sum of exp2(s)
+        lse_pad = torch.logaddexp2(lse, torch.full_like(lse, math.log2(pad)))
+        p = softmax(mask, lse_pad)
+        o_pad = torch.matmul(p, vf)                     # [B, H, S, Dv]
+        d_pad = (dof * o_pad).sum(-1, keepdim=True)
+        out_f["keys_past_s"] = grads(p, p * (dp - d_pad))
     return out_f
 
 
-def _sdpa_backend(q, k, v, scale: float) -> str:
-    """The backend ``scaled_dot_product_attention`` picks for these
-    [B, H, S, D] inputs (causal, GQA), by PyTorch's own choice function."""
+#: K5's backward under the masks of the encoder-decoder, the hybrid and the
+#: smoke twins (B, S, H, KV heads, Dqk, Dv, window, causal, the kernel-line
+#: suffix): whisper-tiny's encoder in a training step (B 2, S 1500, 6/6,
+#: 64/64, no causal mask; the last key tile ragged) and a ragged S 100;
+#: recurrentgemma-9b's step (B 1, S 4096, 16/1, 256/256, window 2048) and
+#: the edge [2, 1000, 16/1, W 100]; the smoke dims 16/16 at the smoke
+#: twins' B 4 x S 64, 4/2 heads, causal, with their window of 32 and
+#: without the causal mask
+K5_BWD_MASK_SHAPES = [(2, 1500, 6, 6, 64, 64, None, False, "_noncausal"),
+                      (2, 100, 4, 4, 64, 64, None, False, "_noncausal"),
+                      (1, 4096, 16, 1, 256, 256, 2048, True, "_window"),
+                      (2, 1000, 16, 1, 256, 256, 100, True, "_window"),
+                      (4, 64, 4, 2, 16, 16, None, True, "_16"),
+                      (4, 64, 4, 2, 16, 16, 32, True, "_16"),
+                      (4, 64, 4, 2, 16, 16, None, False, "_16")]
+#: planted faults the tolerance cannot see at a shape, printed there and
+#: not required: at S 1500 the 36 zero keys of the last tile take ~1.5 % of
+#: each row's mass (P scaled by ~0.985 everywhere), inside the relative
+#: tolerance 2^-6 (measured on the CPU: 0.81 of it); at S 100 (28 zero
+#: keys of 128) the same fault is 9.4 times the tolerance, and required
+K5_BWD_FAULT_UNSEEN = {("keys_past_s", (2, 1500, 6, 6, 64, 64))}
+
+
+
+
+def k5_bwd_cases() -> list[tuple]:
+    """Every case of :func:`check_flash_attn_backward`, in order: (B, S, H,
+    KV heads, Dqk, Dv, the q·k columns in use, window, causal, the
+    kernel-line suffix) from ``K5_BWD_SHAPES`` and ``K5_BWD_MLA_SHAPES``
+    (causal, no window) and ``K5_BWD_MASK_SHAPES``."""
+    return ([(B, S, H, K, hd, hd, hd, None, True, K5_BWD_NAMES[(hd, hd)])
+             for B, S, H, K, hd in K5_BWD_SHAPES]
+            + [(B, S, H, K, dqk, dv, used, None, True, K5_BWD_NAMES[(dqk, dv)])
+               for B, S, H, K, dqk, dv, used in K5_BWD_MLA_SHAPES]
+            + [(B, S, H, K, dqk, dv, dqk, W, causal, suffix)
+               for B, S, H, K, dqk, dv, W, causal, suffix
+               in K5_BWD_MASK_SHAPES])
+
+
+def k5_bwd_inputs(dev, B, S, H, K, dqk, dv, used) -> tuple:
+    """(q, k, v, dout, scale) of a backward case, bf16 from a seed: q and k
+    zero past the ``used`` q·k columns, the scale 1/√used."""
     import torch
 
+    g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
+    q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev)
+               .bfloat16() for n, d in ((H, dqk), (K, dqk), (K, dv)))
+    q[..., used:] = 0
+    k[..., used:] = 0
+    dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
+    return q, k, v, dout, 1.0 / math.sqrt(used)
+
+
+def sdpa_mask(S: int, window, causal: bool, dev) -> tuple[dict, str]:
+    """The keyword arguments that give ``scaled_dot_product_attention``
+    K5's mask (``is_causal``, or a boolean ``attn_mask`` for the window),
+    and their text."""
+    import torch
+
+    if window:
+        pos = torch.arange(S, device=dev)
+        return (dict(attn_mask=(pos[None, :] <= pos[:, None])
+                     & (pos[None, :] > pos[:, None] - window)),
+                "a boolean attn_mask of the window")
+    return dict(is_causal=causal), f"is_causal={causal}"
+
+
+def sdpa_backward(q, k, v, dout, scale: float, mask: dict) -> tuple:
+    """The backward of ``scaled_dot_product_attention(..., enable_gqa=True,
+    **mask)`` alone, the library yardstick of K5's (the port never calls
+    it): its forward runs once, outside the timing, on a side stream, so
+    that autograd (which runs each backward op on its forward op's stream)
+    issues the backward where :func:`time_ms` captures it in a CUDA graph;
+    timed as K5's backward is. Returns ((device, eager) ms, its dq, dk, dv
+    in [B, S, H, D], the backend PyTorch picks)."""
+    import torch
+    import torch.nn.functional as F
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    do_t = dout.transpose(1, 2)
     try:
         from torch.nn.attention import SDPBackend
 
-        return SDPBackend(torch._fused_sdp_choice(
-            q, k, v, is_causal=True, scale=scale, enable_gqa=True)).name
+        backend = SDPBackend(torch._fused_sdp_choice(
+            qt, kt, vt, scale=scale, enable_gqa=True, **mask)).name
     except Exception as e:  # a PyTorch without the private chooser
-        return f"unknown ({type(e).__name__})"
+        backend = f"unknown ({type(e).__name__})"
+    with torch.cuda.stream(stream):
+        o = F.scaled_dot_product_attention(qt, kt, vt, scale=scale,
+                                           enable_gqa=True, **mask)
+    torch.cuda.current_stream().wait_stream(stream)
+
+    def library():
+        return torch.autograd.grad(o, (qt, kt, vt), do_t, retain_graph=True)
+
+    grads = [t.transpose(1, 2) for t in library()]
+    return time_ms(library, reps=5, repeats=5, stream=stream), grads, backend
 
 
 def check_flash_attn_backward(dev, results: dict) -> None:
     """K5's backward (``csrc/flash_attn_bwd.cu``) against its plain version
-    at ``K5_BWD_SHAPES`` (Dqk = Dv) and ``K5_BWD_MLA_SHAPES`` (and a second
-    call bitwise equal to the first; its ``bwd_plan`` printed), and the
-    forward's row statistic against the plain logsumexp; the planted faults
-    of :func:`bwd_faults_plain`, each of which the tolerance must reject at
-    every shape; timed beside the plain version and the backward of
-    ``scaled_dot_product_attention(is_causal=True, enable_gqa=True)`` alone
-    (the library call, timed eagerly: its forward is run once outside the
-    window; the port never calls it; the backend PyTorch picks is
-    printed)."""
+    under the same mask at every case of :func:`k5_bwd_cases` (causal at
+    Dqk = Dv and at MLA's dims; without the causal mask, with a window, and
+    at the (16, 16) and (256, 256) instances): the tile-scaled and mean
+    tolerance, a second call bitwise equal to the first (its ``bwd_plan``
+    printed), the forward's row statistic against the plain logsumexp and
+    its output with its low part; the planted faults of
+    :func:`bwd_faults_plain` under the mask, each of which the tolerance
+    must reject, but those of ``K5_BWD_FAULT_UNSEEN`` (printed); timed
+    beside the plain version and the backward of
+    ``scaled_dot_product_attention`` under the same mask
+    (:func:`sdpa_backward`). The training forward with its row statistic
+    is recorded beside it."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attn as K5
 
-    shapes = [(B, S, H, K, hd, hd, hd) for B, S, H, K, hd in K5_BWD_SHAPES]
-    for B, S, H, K, dqk, dv, used in shapes + K5_BWD_MLA_SHAPES:
-        at = [B, S, H, K, dqk, dv] + ([f"q·k {used}"] if used < dqk else [])
-        g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
-        q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev)
-                   .bfloat16() for n, d in ((H, dqk), (K, dqk), (K, dv)))
-        q[..., used:] = 0
-        k[..., used:] = 0
-        dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
-        scale = 1.0 / math.sqrt(used)
+    for B, S, H, K, dqk, dv, used, W, causal, suffix in k5_bwd_cases():
+        at = [B, S, H, K, dqk, dv] + ([f"q·k {used}"] if used < dqk else []) \
+            + (["no causal mask"] if not causal else
+               [f"window {W}"] if W else [])
+        q, k, v, dout, scale = k5_bwd_inputs(dev, B, S, H, K, dqk, dv, used)
         before = (K5.launches, K5.bwd_launches)
-        out_k, lse_k = K5.flash_attention_lse(q, k, v, scale)
-        got = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout, scale)
+        out_k, lse_k, lo_k = K5.flash_attention_lse(q, k, v, scale, W,
+                                                    causal)
+        got = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout, scale,
+                                          W, causal, out_lo=lo_k)
         if (K5.launches, K5.bwd_launches) != (before[0] + 1, before[1] + 1):
             raise AssertionError("flash_attention_lse/backward did not "
                                  "launch once each")
-        out_p, lse_p = K5.flash_attention_lse_plain(q, k, v, scale)
-        want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
+        out_p, lse_p, lo_p = K5.flash_attention_lse_plain(q, k, v, scale, W,
+                                                          causal)
+        want = K5.flash_attention_backward_plain(q, k, v, dout, scale, W,
+                                                 causal)
         torch.cuda.synchronize()
         lse_err = float((lse_k - lse_p).abs().max())
         lse_ok = bool(torch.allclose(lse_k, lse_p, rtol=K5_LSE_RTOL,
                                      atol=K5_LSE_ATOL))
         out_ok = bool(torch.allclose(out_k.float(), out_p.float(),
-                                     rtol=K5_RTOL, atol=K5_ATOL))
+                                     rtol=K5_RTOL, atol=K5_ATOL)) and \
+            _hi_lo_close(out_k, lo_k, out_p, lo_p)
         err, worst, ok = _bwd_close(got, want)
         again = K5.flash_attention_backward(q, k, v, out_k, lse_k, dout,
-                                            scale)
+                                            scale, W, causal, out_lo=lo_k)
         repeats = all(torch.equal(a, b) for a, b in zip(got, again))
         del again
         plan = K5.bwd_plan(B, S, H, K, dqk, dv)
@@ -2962,64 +3131,64 @@ def check_flash_attn_backward(dev, results: dict) -> None:
                                  "with the plain version")
         faults = {}
         for name, f_grads in bwd_faults_plain(q, k, v, out_k, dout, lse_k,
-                                              scale).items():
+                                              scale, W, causal).items():
             f_err, f_worst, f_ok = _bwd_close(f_grads, want)
+            unseen = (name, (B, S, H, K, dqk, dv)) in K5_BWD_FAULT_UNSEEN
             faults[name] = dict(max_abs_err=f_err, err_over_tol=f_worst,
-                                rejected=not f_ok)
+                                rejected=not f_ok, required=not unseen)
             print(f"    planted fault {name}: max abs err {f_err:.3e}, "
                   f"largest error / tolerance {f_worst:.3f}, rejected: "
-                  f"{not f_ok}")
-            if f_ok:
+                  f"{not f_ok}" + (" (not required here: "
+                                   "K5_BWD_FAULT_UNSEEN)" if unseen else ""))
+            if f_ok and not unseen:
                 raise AssertionError(f"the planted backward fault {name} "
                                      f"passes the check at {at}")
         del f_grads
+        if "late_lse" not in faults or "last_key_tile" not in faults or \
+                (causal and "mask_shift" not in faults) or \
+                (W and "window_low" not in faults) or \
+                (not causal and S % K5_BWD_TILE and
+                 "keys_past_s" not in faults):
+            raise AssertionError(f"a planted fault is missing at {at}")
 
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        backend = _sdpa_backend(qt, kt, vt, scale)
-        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               scale=scale, enable_gqa=True)
-        do_t = dout.transpose(1, 2)
-
-        def library():
-            return torch.autograd.grad(o_lib, (qt, kt, vt), do_t,
-                                       retain_graph=True)
-
-        lib_err = _bwd_close([t.transpose(1, 2) for t in library()], want)[0]
-        t_lib = _event_ms(lambda: [library() for _ in range(5)], 5) / 5
-        n_bytes, n_ops = k5_bwd_bytes_ops(B, S, H, K, dqk, dv)
-        suffix = K5_BWD_NAMES[(dqk, dv)]
+        mask, mask_txt = sdpa_mask(S, W, causal, dev)
+        t_lib, lib_grads, backend = sdpa_backward(q, k, v, dout, scale, mask)
+        lib_err = _bwd_close(lib_grads, want)[0]
+        del lib_grads
+        n_bytes, n_ops = k5_bwd_bytes_ops(B, S, H, K, dqk, dv, W, causal)
+        lib_txt = f"sdpa({mask_txt}, enable_gqa) backward"
         _record(results, "flash_attn_bwd" + suffix, at, err, ok,
                 time_ms(lambda: K5.flash_attention_backward(
-                    q, k, v, out_k, lse_k, dout, scale), reps=5, repeats=5),
+                    q, k, v, out_k, lse_k, dout, scale, W, causal,
+                    out_lo=lo_k), reps=5, repeats=5),
                 time_ms(lambda: K5.flash_attention_backward_plain(
-                    q, k, v, dout, scale), reps=1, repeats=3),
-                (t_lib, t_lib), bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
+                    q, k, v, dout, scale, W, causal), reps=1, repeats=3),
+                t_lib, bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
                 grad_max_abs_err=errs, err_over_tol=worst,
-                lse_max_abs_err=lse_err, plan=plan,
-                faults=faults, library_max_abs_err=lib_err,
-                library=f"sdpa(is_causal, enable_gqa) backward, eager; "
-                        f"backend {backend}",
+                lse_max_abs_err=lse_err, plan=plan, faults=faults,
+                library_max_abs_err=lib_err,
+                library=f"{lib_txt}, backend {backend}",
                 source="src/repro_torch/csrc/flash_attn_bwd.cu")
-        print(f"    (library: the backward of sdpa(is_causal=True, "
-              f"enable_gqa=True), eager, backend {backend}; its max abs err "
-              f"against the plain version {lib_err:.3e})")
+        print(f"    (library: the {lib_txt}, backend {backend}; its max abs "
+              f"err against the plain version {lib_err:.3e})")
         # the training forward: K5 with its row statistic
-        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv)
+        n_bytes, n_ops = k5_bytes_ops(B, S, H, K, dqk, dv, W, causal)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         _record(results, "flash_attn_train" + suffix, at + ["lse"],
                 float((out_k.float() - out_p.float()).abs().max()), out_ok,
-                time_ms(lambda: K5.flash_attention_lse(q, k, v, scale),
+                time_ms(lambda: K5.flash_attention_lse(q, k, v, scale, W,
+                                                       causal),
                         reps=5, repeats=5),
-                time_ms(lambda: K5.flash_attention_lse_plain(q, k, v, scale),
-                        reps=1, repeats=3),
+                time_ms(lambda: K5.flash_attention_lse_plain(
+                    q, k, v, scale, W, causal), reps=1, repeats=3),
                 time_ms(lambda: F.scaled_dot_product_attention(
-                    qt.detach(), kt.detach(), vt.detach(), is_causal=True,
-                    scale=scale, enable_gqa=True), reps=5, repeats=5),
+                    qt, kt, vt, scale=scale, enable_gqa=True, **mask),
+                    reps=5, repeats=5),
                 bound_ms(n_bytes + 4 * B * H * S, n_ops, PEAK_BF16_OPS_S),
-                lse_max_abs_err=lse_err, library="sdpa(is_causal)",
+                lse_max_abs_err=lse_err, library=f"sdpa({mask_txt})",
                 source="src/repro_torch/csrc/flash_attn_tc.cu")
-        del q, k, v, dout, out_k, lse_k, got, want, out_p, lse_p, o_lib
-        del qt, kt, vt
+        del q, k, v, dout, out_k, lse_k, lo_k, got, want, out_p, lse_p, lo_p
+        del qt, kt, vt, mask
         torch.cuda.empty_cache()
 
 
@@ -3084,10 +3253,37 @@ TRAIN_GRAD_FAMILIES = [dict(arch="pixtral-12b", layers=4),
 #: ~64 GB of state, room for the step's activations in 80 GB)
 TRAIN_FULL_MLA = dict(TRAIN_FULL, arch="minicpm3-4b")
 TRAIN_FULL_MOE_MLA = dict(TRAIN_FULL, arch="deepseek-v2-lite-16b", layers=7)
-#: the MLA smoke configs trained through launch/train.py on the card
-#: (q·k 16 + 8 zero-padded to 32, v 16: K5 at (32, 16))
-TRAIN_SMOKE_MLA = dict(archs=("minicpm3-4b", "deepseek-v2-lite-16b"),
-                       steps=4, batch=4, seq=64)
+#: the encoder-decoder, the hybrid and SSM at their published widths, with
+#: remat: K5's gradients against the plain attention's, leaf by leaf, as
+#: TRAIN_GRAD_FAMILIES (whisper-tiny whole, 4 encoder and 4 decoder layers,
+#: B 2 x S 448 over random frames [2, 1500, 384]; recurrentgemma-9b cut to
+#: 3 periods, 9 of its 38 layers, B 1 x S 4096: past its window of 2048),
+#: then timed steps as TRAIN_FULL's, whisper-tiny whole, recurrentgemma-9b
+#: cut to 6 layers (2 periods: at 9 layers, 3.87 B parameters and ~62 GB of
+#: state, AdamW's float32 temporaries of the 1.05 B-parameter embedding ran
+#: the card out of memory) and mamba2-370m whole (0.37 B, B 2 x S 2048, the
+#: SSD in its chunks of 256; no K5; its step issues ~72,000 launches)
+TRAIN_GRAD_NEW = [dict(arch="whisper-tiny", layers=None, batch=2, seq=448),
+                  dict(arch="recurrentgemma-9b", layers=9, batch=1,
+                       seq=4096)]
+TRAIN_FULL_AUDIO = dict(arch="whisper-tiny", batch=2, seq=448, timed=3)
+TRAIN_FULL_HYBRID = dict(arch="recurrentgemma-9b", batch=1, seq=4096,
+                         layers=6, timed=3)
+TRAIN_FULL_SSM = dict(arch="mamba2-370m", batch=2, seq=2048, timed=3)
+#: the smoke twin of every config, through launch/train.py as a user runs
+#: it (the launcher's own example is qwen3-14b's twin; the dense, vision
+#: and MoE twins take K5 at 16/16, the hybrid's with its window of 32 at S
+#: 64, the MLA twins at (32, 16): q·k 16 + 8 zero-padded to 32, v 16;
+#: mamba2's none), and whisper's through make_train_step with random
+#: frames (the launcher's bigram stream has none); with the card-vs-CPU
+#: first-step gradients of the SSM, hybrid and encoder-decoder twins
+TRAIN_SMOKE = dict(archs=("qwen3-14b", "mistral-nemo-12b", "starcoder2-3b",
+                          "pixtral-12b", "phi3.5-moe-42b-a6.6b",
+                          "minicpm3-4b", "deepseek-v2-lite-16b",
+                          "recurrentgemma-9b", "mamba2-370m"),
+                   steps=4, batch=4, seq=64)
+TRAIN_SMOKE_MLA = ("minicpm3-4b", "deepseek-v2-lite-16b")
+TRAIN_SMOKE_CPU = ("mamba2-370m", "recurrentgemma-9b", "whisper-tiny")
 #: the loss of the same step on the card and on the CPU (same masters and
 #: tokens): bf16 rounds in other places (cuBLAS and the CPU's GEMMs, K5
 #: against _sdpa) and the masters part where a gradient near 0 takes the
@@ -3331,10 +3527,39 @@ def _detached_attention(q, k, v, **kw):
     return K5.flash_attention(q.detach(), k.detach(), v.detach(), **kw)
 
 
-def train_full_grads(dev, arch: str, n_layers: int) -> dict:
-    """``arch`` at its published width, cut to ``n_layers`` layers: one
-    step's gradients (TRAIN_FULL's B 2 x S 2048, remat on; a vision
-    config's patch slots given random patch embeddings) with K5 forward
+def _k5_step_launches(cfg) -> tuple[int, int]:
+    """K5's (forward, backward) launches in one loss and gradient of
+    ``cfg``: one of each an attention block (none in an SSM or RG-LRU
+    block), and under remat the decoder blocks' forwards again in the
+    backward (an encoder's blocks run outside remat, as the reference's)."""
+    from repro_torch.models import layer_kinds
+
+    n_dec = sum(k not in ("ssm", "rglru") for k in layer_kinds(cfg))
+    n_enc = cfg.enc_layers if cfg.is_encdec else 0
+    return (2 if cfg.remat else 1) * n_dec + n_enc, n_dec + n_enc
+
+
+def _with_frames(cfg, batch: dict, seed: int) -> dict:
+    """``batch`` and, for an encoder-decoder, random frame embeddings [B,
+    enc_len, d] from ``seed`` on the batch's device (the reference's stub
+    feeds random frames too)."""
+    import torch
+
+    if cfg.is_encdec:
+        tok = batch["tokens"]
+        batch["frames"] = torch.randn(
+            (tok.shape[0], cfg.enc_len, cfg.d_model), device=tok.device,
+            generator=torch.Generator(device=tok.device).manual_seed(seed))
+    return batch
+
+
+def train_full_grads(dev, arch: str, n_layers: int | None,
+                     conf: dict = TRAIN_FULL) -> dict:
+    """``arch`` at its published width, cut to ``n_layers`` layers (None:
+    its own depth): one step's gradients (``conf``'s B x S, TRAIN_FULL's 2
+    x 2048 by default, remat on; a vision config's patch slots given
+    random patch embeddings, an encoder-decoder random frames) with K5
+    forward
     and backward against the same step with K5's plain version as the
     attention, leaf by leaf; every leaf's gradient must be nonzero. A MoE
     config's K5 run records each layer's expert choices, which must be the
@@ -3342,24 +3567,25 @@ def train_full_grads(dev, arch: str, n_layers: int) -> dict:
     them layer by layer (on the card the two attentions' bf16 outputs
     part by an ulp and reorder near-tied experts). The planted fault, K5
     called on detached q, k, v (the autograd Function bypassed), must
-    leave every attention parameter but ``wo`` without a gradient, which
-    the nonzero check rejects."""
+    leave every self-attention parameter but ``wo`` (an encoder's too)
+    without a gradient, which the nonzero check rejects."""
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as K5
     from repro_torch.train import DataConfig, init_params, make_batch
 
-    conf = TRAIN_FULL
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = get_config(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     masters = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
                           dev)
     names = list(masters)
     model = _grad_model(cfg, masters, dev)
     del masters
-    batch = make_batch(DataConfig(cfg.vocab, conf["seq"], conf["batch"]), 0,
-                       device=dev)
+    batch = _with_frames(cfg, make_batch(
+        DataConfig(cfg.vocab, conf["seq"], conf["batch"]), 0, device=dev), 3)
     if cfg.frontend == "vision":
         batch["images"] = torch.randn(
             (conf["batch"], cfg.n_patches, cfg.d_model), device=dev,
@@ -3391,8 +3617,10 @@ def train_full_grads(dev, arch: str, n_layers: int) -> dict:
         if rerun_differs or sorted(k_calls) != sorted(p_calls):
             raise AssertionError(f"{arch}: remat's rerun chose other "
                                  f"experts in layers {rerun_differs}")
-    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers, B "
-          f"{conf['batch']} x S {conf['seq']}"
+    print(f"  {cfg.arch_id} at full width, {cfg.n_layers} layers"
+          + (f" and {cfg.enc_layers} encoder layers over frames [{conf['batch']}"
+             f", {cfg.enc_len}, {cfg.d_model}]" if cfg.is_encdec else "")
+          + f", B {conf['batch']} x S {conf['seq']}"
           + (f" ({cfg.n_patches} patch slots)" if "images" in batch else "")
           + f": loss K5 {loss_k:.5f}, plain {loss_p:.5f}; K5 launches in the "
           f"step: {moved[0]} forward (with remat), {moved[1]} backward; "
@@ -3402,16 +3630,21 @@ def train_full_grads(dev, arch: str, n_layers: int) -> dict:
     if failed or zero:
         raise AssertionError(f"{arch}: K5's gradients part from the plain "
                              f"attention's: {failed}; zero: {zero}")
-    if moved != (2 * cfg.n_layers, cfg.n_layers):
+    if moved != _k5_step_launches(cfg):
         raise AssertionError(f"K5 launched {moved} in a step of "
-                             f"{cfg.n_layers} layers with remat")
+                             f"{cfg.n_layers} layers with remat; want "
+                             f"{_k5_step_launches(cfg)}")
     del g_k, g_p
     loss_f, g_f = _leaf_grads(model, batch, _detached_attention,
                               _recorder({}, k_calls) if moe else None)
     dead = [n for n, g in zip(names, g_f)
             if g is None or not bool(g.abs().max() > 0)]
-    want_dead = {f"layers.{i}.attn.{n}" for i, block in
-                 enumerate(model.layers)
+    blocks = [(f"layers.{i}", b) for i, b in enumerate(model.layers)]
+    if model.enc_layers is not None:
+        blocks += [(f"enc_layers.{g}", b)
+                   for g, b in enumerate(model.enc_layers)]
+    want_dead = {f"{prefix}.attn.{n}" for prefix, block in blocks
+                 if block.attn is not None
                  for n, _ in block.attn.named_parameters() if n != "wo"}
     print(f"  planted fault, K5 on detached q/k/v (the autograd Function "
           f"bypassed): {len(dead)} leaves with no or zero gradient "
@@ -3431,15 +3664,20 @@ def train_full_grads(dev, arch: str, n_layers: int) -> dict:
 
 def train_full(dev, conf: dict) -> dict:
     """``conf``'s arch (TRAIN_FULL: starcoder2-3b; TRAIN_FULL_MLA:
-    minicpm3-4b; TRAIN_FULL_MOE_MLA: deepseek-v2-lite-16b) at its
-    published width, at its depth or cut to ``conf["layers"]``, B 2 x S
-    2048, remat on: the float32 masters and moments, the bf16 compute copy
-    and its gradients on the card; one warm-up step, then the timed steps
-    with every count set to 0 just before them (s a step, tokens/s, K5
-    forward and backward launches a step: with remat, 2 forward and 1
-    backward a layer), the peak memory of the whole run, one more step
-    under torch.profiler (the busy share) and, for a MoE config, the
-    assignments past capacity in each MoE layer of one forward."""
+    minicpm3-4b; TRAIN_FULL_MOE_MLA: deepseek-v2-lite-16b; TRAIN_FULL_AUDIO,
+    _HYBRID, _SSM: whisper-tiny, recurrentgemma-9b, mamba2-370m) at its
+    published width, at its depth or cut to ``conf["layers"]``, at
+    ``conf``'s B x S (an encoder-decoder's batches with random frames),
+    remat on: the float32 masters and moments, the bf16 compute copy and
+    its gradients on the card; one warm-up step, then the timed steps with
+    every count set to 0 just before them (s a step, tokens/s, K5 forward
+    and backward launches a step, by mask: with remat, 2 forward and 1
+    backward a decoder attention layer, 1 and 1 an encoder layer, none in
+    an SSM or RG-LRU layer), the peak memory of the whole run, one forward
+    and backward whose every leaf's gradient must be finite (mamba2's SSD
+    at its chunk of 256 among them), one more step under torch.profiler
+    (the busy share) and, for a MoE config, the assignments past capacity
+    in each MoE layer of one forward."""
     import torch
 
     from repro_torch import kernels
@@ -3465,13 +3703,14 @@ def train_full(dev, conf: dict) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    state, _, m = step_fn(state, make_batch(dcfg, 0, device=dev), None)
+    state, _, m = step_fn(state, _with_frames(
+        cfg, make_batch(dcfg, 0, device=dev), 0), None)
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
     kernels.reset_launches()
     times, losses = [], [float(m["loss"])]
     for k in range(1, 1 + conf["timed"]):
-        batch = make_batch(dcfg, k, device=dev)
+        batch = _with_frames(cfg, make_batch(dcfg, k, device=dev), k)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, _, m = step_fn(state, batch, None)
@@ -3481,13 +3720,15 @@ def train_full(dev, conf: dict) -> dict:
     launches = dict(forward=K5.launches / conf["timed"],
                     backward=K5.bwd_launches / conf["timed"],
                     backward_total=K5.bwd_launches,
-                    forward_total=K5.launches)
+                    forward_total=K5.launches,
+                    forward_by_mask=dict(K5.class_launches),
+                    backward_by_mask=dict(K5.bwd_class_launches))
     peak = torch.cuda.max_memory_allocated() / 1e9
     # the step's parts: the masters copied into the compute copy, then its
     # forward and backward (AdamW is the rest of a step)
     model = step_fn.model
     params = list(model.parameters())
-    batch = make_batch(dcfg, 99, device=dev)
+    batch = _with_frames(cfg, make_batch(dcfg, 99, device=dev), 99)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -3499,6 +3740,9 @@ def train_full(dev, conf: dict) -> dict:
     grads = torch.autograd.grad(loss_fn(model, batch)[0], params)
     torch.cuda.synchronize()
     fwd_bwd_s = time.perf_counter() - t0
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).cpu()
+    not_finite = [n for (n, _), ok in zip(model.named_parameters(), finite)
+                  if not ok]
     del grads
     dropped = None
     if cfg.n_experts:
@@ -3530,12 +3774,15 @@ def train_full(dev, conf: dict) -> dict:
               f"{g} {v['device_s']:.4f} s ({v['launches']})"
               for g, v in busy.get("by_group", {}).items()))
     _print_top(busy)
-    want = (2 * cfg.n_layers, cfg.n_layers) if cfg.remat else \
-        (cfg.n_layers, cfg.n_layers)
+    print(f"    every leaf's gradient finite in one forward and backward "
+          f"({len(finite)} leaves): {not not_finite}")
+    want = _k5_step_launches(cfg)
     if (launches["forward"], launches["backward"]) != want:
         raise AssertionError(f"K5 launched {launches} a step; want {want}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite losses {losses}")
+    if not_finite:
+        raise AssertionError(f"non-finite gradients of {not_finite}")
     out = dict(arch=cfg.arch_id, layers=cfg.n_layers, params=n_params,
                dropped=dropped,
                batch=conf["batch"], seq=conf["seq"], remat=cfg.remat,
@@ -3550,49 +3797,103 @@ def train_full(dev, conf: dict) -> dict:
     return out
 
 
-def train_smoke_mla(dev) -> dict:
-    """The MLA smoke configs (TRAIN_SMOKE_MLA) trained on the card through
-    ``launch/train.py``'s ``main``, as a user runs it, with every count set
-    to 0 just before each run: K5 forward and backward at (32, 16) (q·k 24
-    zero-padded), 2 forward (remat) and 1 backward launch a layer a step;
-    the losses finite."""
+def train_smoke_families(dev) -> dict:
+    """The smoke twins of TRAIN_SMOKE trained on the card through
+    ``launch/train.py``'s ``main`` (whisper-tiny's through
+    ``make_train_step`` with random frames), with every count set to 0
+    just before each run: K5's launches a step by mask and head dims as
+    :func:`_k5_step_launches` says, the losses finite; then, for
+    TRAIN_SMOKE_CPU, the first step's gradients on the card against the
+    CPU's from the same masters and batch, leaf by leaf within the
+    TRAIN_GRAD tolerances, every leaf nonzero and finite."""
     import contextlib
     import io
+
+    import torch
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attn as K5
     from repro_torch.launch.train import main as launch_train
+    from repro_torch.train import (DataConfig, TrainConfig, adamw_init,
+                                   init_params, make_batch, make_train_step)
 
-    conf = TRAIN_SMOKE_MLA
+    conf = TRAIN_SMOKE
     out = {}
-    for arch in conf["archs"]:
+    for arch in conf["archs"] + ("whisper-tiny",):
         cfg = get_config(arch, smoke=True)
         kernels.reset_launches()
-        log = io.StringIO()
-        with contextlib.redirect_stdout(log):
-            rc = launch_train(["--arch", arch, "--steps", str(conf["steps"]),
-                               "--batch", str(conf["batch"]), "--seq",
-                               str(conf["seq"])])
-        losses = [float(line.split("loss=")[1].split()[0])
-                  for line in log.getvalue().splitlines() if "loss=" in line]
+        t0 = time.perf_counter()
+        if cfg.is_encdec:
+            dcfg = DataConfig(cfg.vocab, conf["seq"], conf["batch"])
+            st = adamw_init(init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev))
+            step = make_train_step(cfg, TrainConfig(), dev)
+            losses = []
+            for k in range(conf["steps"]):
+                st, _, m = step(st, _with_frames(
+                    cfg, make_batch(dcfg, k, device=dev), k), None)
+                losses.append(float(m["loss"]))
+            rc = 0
+        else:
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                rc = launch_train(["--arch", arch, "--steps",
+                                   str(conf["steps"]), "--batch",
+                                   str(conf["batch"]), "--seq",
+                                   str(conf["seq"])])
+            losses = [float(line.split("loss=")[1].split()[0])
+                      for line in log.getvalue().splitlines()
+                      if "loss=" in line]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
         launches = dict(forward=K5.launches, backward=K5.bwd_launches,
                         by_dims={f"{a}x{b}": n for (a, b), n in
-                                 K5.bwd_head_dim_launches.items()})
-        print(f"  {arch}@smoke through launch/train.py, {conf['steps']} "
-              f"steps of B {conf['batch']} x S {conf['seq']}: losses "
+                                 K5.bwd_head_dim_launches.items()},
+                        backward_by_mask=dict(K5.bwd_class_launches))
+        fwd, bwd = (conf["steps"] * n for n in _k5_step_launches(cfg))
+        dqk, dv = (-(-(cfg.qk_nope_dim + cfg.qk_rope_dim) // 16) * 16,
+                   cfg.v_head_dim) if cfg.attn_kind == "mla" else \
+            (cfg.head_dim, cfg.head_dim)
+        want = (fwd, bwd, {f"{dqk}x{dv}": bwd} if bwd else {})
+        how = "make_train_step with frames" if cfg.is_encdec else \
+            "launch/train.py"
+        print(f"  {arch}@smoke through {how}, {conf['steps']} steps of B "
+              f"{conf['batch']} x S {conf['seq']} ({wall:.1f} s): losses "
               f"{losses}; K5 launches {launches}")
-        want = conf["steps"] * cfg.n_layers
-        if rc != 0 or not losses or \
+        if rc != 0 or len(losses) != conf["steps"] or \
                 not all(math.isfinite(x) for x in losses):
-            raise AssertionError(f"{arch}@smoke: launch/train.py returned "
-                                 f"{rc} with losses {losses}")
-        if (launches["forward"], launches["backward"], launches["by_dims"]) \
-                != (2 * want, want, {"32x16": want}):
+            raise AssertionError(f"{arch}@smoke: {how} returned {rc} with "
+                                 f"losses {losses}")
+        if (launches["forward"], launches["backward"],
+                launches["by_dims"]) != want:
             raise AssertionError(f"{arch}@smoke: K5 launched {launches}; "
-                                 f"want {2 * want} forward and {want} "
-                                 f"backward at 32x16")
-        out[arch] = dict(losses=losses, launches=launches)
+                                 f"want {want}")
+        out[arch] = dict(losses=losses, launches=launches, wall_s=wall)
+
+    for arch in TRAIN_SMOKE_CPU:
+        cfg = get_config(arch, smoke=True)
+        masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        names = list(masters)
+        batch = _with_frames(cfg, make_batch(DataConfig(
+            cfg.vocab, conf["seq"], conf["batch"]), 0), 1)
+        g_cpu = [g.to(dev) for g in
+                 _leaf_grads(_grad_model(cfg, masters, "cpu"), batch)[1]]
+        g_card = _leaf_grads(_grad_model(cfg, masters, dev),
+                             {k: t.to(dev) for k, t in batch.items()})[1]
+        worst, failed, zero = _compare_grads(names, g_card, g_cpu)
+        finite = all(bool(torch.isfinite(g).all()) for g in g_card)
+        print(f"  {arch}@smoke card vs CPU, first step's gradients of "
+              f"{len(names)} leaves: worst max/mean relative difference "
+              f"{worst[0]:.3e}/{worst[1]:.3e} ({worst[2]}); leaves outside "
+              f"{failed}, with no or zero gradient {zero}, all finite "
+              f"{finite}")
+        if failed or zero or not finite:
+            raise AssertionError(f"{arch}@smoke: the card's gradients part "
+                                 f"from the CPU's: {failed}; zero: {zero}")
+        out[arch]["card_vs_cpu"] = dict(worst_max_rel=worst[0],
+                                        worst_mean_rel=worst[1],
+                                        worst_leaf=worst[2])
     return out
 
 
@@ -3600,8 +3901,10 @@ def train_phase(dev) -> dict:
     """The training phase: qwen3-100m (loss, drill, card vs CPU), then
     starcoder2-3b's full-width gradients and timed steps; the vision, MLA
     and MoE families' full-width gradients (TRAIN_GRAD_FAMILIES), then
-    minicpm3-4b's and deepseek-v2-lite-16b's timed steps and the MLA smoke
-    configs through the launcher."""
+    minicpm3-4b's and deepseek-v2-lite-16b's timed steps; the
+    encoder-decoder's and the hybrid's full-width gradients
+    (TRAIN_GRAD_NEW), whisper-tiny's, recurrentgemma-9b's and
+    mamba2-370m's timed steps, and every smoke twin (TRAIN_SMOKE)."""
     t0 = time.perf_counter()
     out = dict(small=train_small(dev),
                grads=train_full_grads(dev, TRAIN_FULL["arch"],
@@ -3612,9 +3915,18 @@ def train_phase(dev) -> dict:
                        for f in TRAIN_GRAD_FAMILIES}
     out["full_mla"] = train_full(dev, TRAIN_FULL_MLA)
     out["full_moe_mla"] = train_full(dev, TRAIN_FULL_MOE_MLA)
-    out["smoke_mla"] = train_smoke_mla(dev)
+    t1 = time.perf_counter()
+    out["families"].update({f["arch"]: train_full_grads(
+        dev, f["arch"], f["layers"], f) for f in TRAIN_GRAD_NEW})
+    out["full_audio"] = train_full(dev, TRAIN_FULL_AUDIO)
+    out["full_hybrid"] = train_full(dev, TRAIN_FULL_HYBRID)
+    out["full_ssm"] = train_full(dev, TRAIN_FULL_SSM)
+    out["smoke"] = train_smoke_families(dev)
+    out["new_families_s"] = time.perf_counter() - t1
     out["phase_s"] = time.perf_counter() - t0
-    print(f"  training phase: {out['phase_s']:.1f} s")
+    print(f"  training phase: {out['phase_s']:.1f} s (the encoder-decoder, "
+          f"hybrid and SSM families and the smoke twins: "
+          f"{out['new_families_s']:.1f} s)")
     return out
 
 
@@ -4791,13 +5103,44 @@ def main() -> int:
         "flash_attn_train_mla_32": (
             "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
             {"flash_attn_train_mla_32": sum(
-                r["launches"]["forward"]
-                for r in training["smoke_mla"].values())}),
+                training["smoke"][a]["launches"]["forward"]
+                for a in TRAIN_SMOKE_MLA)}),
         "flash_attn_bwd_mla_32": (
             "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
             {"flash_attn_bwd_mla_32": sum(
-                r["launches"]["backward"]
-                for r in training["smoke_mla"].values())}),
+                training["smoke"][a]["launches"]["backward"]
+                for a in TRAIN_SMOKE_MLA)}),
+        # the encoder-decoder's, the hybrid's and the smoke twins' training:
+        # whisper-tiny's encoder without the causal mask (64, 64) in its
+        # timed steps, recurrentgemma-9b's windowed (256, 256) in its timed
+        # steps, the smoke twins' (16, 16) through launch/train.py (and
+        # whisper's through make_train_step)
+        "flash_attn_train_noncausal": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_noncausal": training["full_audio"]["launches"][
+                "forward_by_mask"]["noncausal"]}),
+        "flash_attn_bwd_noncausal": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_noncausal": training["full_audio"]["launches"][
+                "backward_by_mask"]["noncausal"]}),
+        "flash_attn_train_window": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_window":
+             training["full_hybrid"]["launches"]["forward_total"]}),
+        "flash_attn_bwd_window": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_window": training["full_hybrid"]["launches"][
+                "backward_by_mask"]["window"]}),
+        "flash_attn_train_16": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_train_16": sum(
+                r["launches"]["forward"] for a, r in training["smoke"].items()
+                if a not in TRAIN_SMOKE_MLA)}),
+        "flash_attn_bwd_16": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_16": sum(
+                r["launches"]["backward"] for a, r in training["smoke"].items()
+                if a not in TRAIN_SMOKE_MLA)}),
     }
     entries = []
     for name, (cu, replaces, counts) in meta.items():

@@ -94,7 +94,12 @@
 // - Epilogue: acc / max(l, 1e-30), round to nearest even, 4-byte stores;
 //   no row at or past S is written. When the caller asks for it (training),
 //   each row's lse = m c + log2(max(l, 1e-30)) in float32 [B, H, S] (m the
-//   raw max, c = scale log2(e)), one store by a quad's first lane.
+//   raw max, c = scale log2(e)), one store by a quad's first lane, and the
+//   output's low part o_lo = bf16_rne(o32 - o) (o32 the float32 quotient,
+//   o its bf16 rounding): o + o_lo holds o32 to ~16 bits, from which the
+//   backward takes D = rowsum(dO o32). From o alone D is off by ~2^-9 of
+//   |dO||O|, and where dS = P (dP - D) cancels (whisper's encoder over 1500
+//   frames) that error reached the size of the gradient of wq and wk.
 #include "flash_attn_common.cuh"
 
 namespace {
@@ -243,7 +248,8 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_k,
                      const __grid_constant__ CUtensorMap map_v,
                      __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int S, int H, int KH,
+                     float* __restrict__ lse, __nv_bfloat16* __restrict__ o_lo,
+                     int S, int H, int KH,
                      int BH, int nq, int window, int causal,
                      float scale_log2) {
   using T = Tiles<DQK, DV>;
@@ -472,25 +478,48 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                  log2f(den1);
   }
   const size_t step = static_cast<size_t>(H) * DV;  // elements per position
-  __nv_bfloat16* ob = o + (static_cast<size_t>(b) * S * H + h) * DV + col_of;
-  if (row0 < S) {
-    uint32_t* out = reinterpret_cast<uint32_t*>(ob + row0 * step);
+  const size_t first = (static_cast<size_t>(b) * S * H + h) * DV + col_of;
+  __nv_bfloat16* ob = o + first;
+  if (o_lo == nullptr) {  // serving
+    if (row0 < S) {
+      uint32_t* out = reinterpret_cast<uint32_t*>(ob + row0 * step);
 #pragma unroll
-    for (int c = 0; c < DV / 8; ++c)
-      out[4 * c] = pack_bf16(oacc[4 * c] / den0, oacc[4 * c + 1] / den0);
+      for (int c = 0; c < DV / 8; ++c)
+        out[4 * c] = pack_bf16(oacc[4 * c] / den0, oacc[4 * c + 1] / den0);
+    }
+    if (row1 < S) {
+      uint32_t* out = reinterpret_cast<uint32_t*>(ob + row1 * step);
+#pragma unroll
+      for (int c = 0; c < DV / 8; ++c)
+        out[4 * c] = pack_bf16(oacc[4 * c + 2] / den1, oacc[4 * c + 3] / den1);
+    }
+    return;
   }
-  if (row1 < S) {
-    uint32_t* out = reinterpret_cast<uint32_t*>(ob + row1 * step);
+  // training: o and its low part o_lo
+  __nv_bfloat16* lb = o_lo + first;
 #pragma unroll
-    for (int c = 0; c < DV / 8; ++c)
-      out[4 * c] = pack_bf16(oacc[4 * c + 2] / den1, oacc[4 * c + 3] / den1);
+  for (int r2 = 0; r2 < 2; ++r2) {
+    const int row = r2 ? row1 : row0;
+    const float den = r2 ? den1 : den0;
+    if (row >= S) continue;
+    uint32_t* out = reinterpret_cast<uint32_t*>(ob + row * step);
+    uint32_t* lo = reinterpret_cast<uint32_t*>(lb + row * step);
+#pragma unroll
+    for (int c = 0; c < DV / 8; ++c) {
+      const float x = oacc[4 * c + 2 * r2] / den;
+      const float y = oacc[4 * c + 2 * r2 + 1] / den;
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(x, y);
+      const float2 hf = __bfloat1622float2(hi);
+      out[4 * c] = *reinterpret_cast<const uint32_t*>(&hi);
+      lo[4 * c] = pack_bf16(x - hf.x, y - hf.y);
+    }
   }
 }
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int KH, int window, int causal, float scale,
-           cudaStream_t stream) {
+           void* o_lo, int B, int S, int H, int KH, int window, int causal,
+           float scale, cudaStream_t stream) {
   using T = Tiles<DQK, DV>;
   CUtensorMap mq, mk, mv;
   if (!encode<DQK>(&mq, q, B, S, H, T::kBQ) ||
@@ -509,9 +538,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const long long blocks = (long long)nq * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attn_tc_kernel<DQK, DV><<<(unsigned)blocks, T::kThreads,
-                                  T::kSmemBytes, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse, S,
-                                            H, KH, B * H, nq, window,
-                                            causal, scale * kLog2e);
+                                  T::kSmemBytes, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse,
+                                            (__nv_bfloat16*)o_lo, S, H, KH,
+                                            B * H, nq, window, causal,
+                                            scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -522,20 +552,23 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 // (64, 64), (128, 128), (256, 256), (96, 64), (192, 128), (32, 16); KH
 // divides H; window the sliding window in positions, or <= 0 for none;
 // causal 1 for the causal mask, 0 for none (then the window is ignored).
-// lse: null (serving), or float32 [B, H, S] that takes each row's
-// log2-sum-exp2 of its scaled logits, the statistic the backward
-// (flash_attn_bwd.cu) rebuilds P from; rows past S are not written.
-// Anything else returns cudaErrorInvalidValue without launching.
+// lse and o_lo: both null (serving), or (training) float32 [B, H, S]
+// that takes each row's log2-sum-exp2 of its scaled logits, the statistic
+// the backward (flash_attn_bwd.cu) rebuilds P from, and bf16 [B, S, H, dv]
+// (16-byte aligned) that takes the output's low part; rows past S are not
+// written. Anything else returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
-                                    int B, int S,
+                                    void* o_lo, int B, int S,
                                     int H, int KH, int dqk, int dv,
                                     int window, int causal, float scale,
                                     void* stream) {
   if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
+       reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
+       reinterpret_cast<uintptr_t>(o_lo)) % 16 ||
+      (lse == nullptr) != (o_lo == nullptr))
     return (int)cudaErrorInvalidValue;
   // no window, one that covers the sequence, or no causality: no key is
   // outside it, and no tile is masked for it
@@ -544,13 +577,13 @@ extern "C" int flash_attn_tc_launch(const void* q, const void* k,
   const cudaStream_t st = (cudaStream_t)stream;
   float* lf = static_cast<float*>(lse);
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
-    case 256256: return launch<256, 256>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, lf, B, S, H, KH, window, causal, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

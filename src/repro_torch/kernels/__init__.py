@@ -34,7 +34,8 @@ def reset_launches() -> None:
             k.launches = 0
             if hasattr(k, "bwd_launches"):
                 k.bwd_launches = 0
-            for by in ("route_launches", "class_launches"):
+            for by in ("route_launches", "class_launches",
+                       "bwd_class_launches"):
                 counts = getattr(k, by, {})
                 for key in counts:
                     counts[key] = 0

@@ -44,8 +44,8 @@ SIGNATURES = {
     "pareto_count_launch": [_P, _P] + [_I] * 8 + [_P],
     "round_fused_launch": [_P] * 15 + [_I] * 14 + [_P],
     "flash_attn_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
-    "flash_attn_tc_launch": [_P] * 5 + [_I] * 8 + [_F, _P],
-    "flash_attn_bwd_launch": [_P] * 12 + [_I] * 7 + [_F, _P],
+    "flash_attn_tc_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "flash_attn_bwd_launch": [_P] * 13 + [_I] * 9 + [_F, _P],
     "flash_attn_tc_smem_bytes": [_I, _I],
     "flash_attn_bwd_smem_bytes": [_I, _I, _I],
 }

@@ -35,7 +35,9 @@ Training: where a CUDA call needs a gradient (grad mode on and an input
 that requires one), :func:`flash_attention` runs through an
 ``autograd.Function`` whose forward launches the bf16 kernel with its row
 statistic (:func:`flash_attention_lse`: each row's log2-sum-exp2 of the
-scaled logits, [B, H, S] float32) and whose backward launches
+scaled logits, [B, H, S] float32) and its output's low part (the float32
+output less its bf16 rounding, in bf16: the backward's D = rowsum(dO∘O)
+from the output to ~16 bits) and whose backward launches
 ``csrc/flash_attn_bwd.cu`` (:func:`flash_attention_backward`): on Hopper
 tensor cores (``wgmma`` on tiles that TMA loads into an ``mbarrier``
 ring), two kernel launches a call: dQ (which also writes each row's
@@ -43,12 +45,12 @@ D = rowsum(dO∘O)), then dK/dV, whose blocks sum a split of each KV head's
 query heads and add the splits' float32 partials in a fixed order
 (:func:`bwd_plan`). No float atomics, so a call repeats bit for bit. Both
 kernels run on the H100 in ``chip_smoke.py``'s training phase. The
-backward takes causal attention without a window, bf16, at the head dims
-of ``BWD_HEAD_DIMS``; a call that needs a gradient of any other variant
-raises ``NotImplementedError`` (nothing detaches the output and nothing
-falls back to the plain version): ``causal=False`` (whisper's encoder) and
-a window (recurrentgemma-9b) among them. On the CPU the plain version runs
-and autograd differentiates it.
+backward takes every mask of the forward (causal, a window, ``causal=False``)
+as run-time arguments, bf16, at every head-dim pair of ``HEAD_DIMS``
+(``BWD_HEAD_DIMS``); a call that needs a gradient of float32 inputs raises
+``NotImplementedError`` (nothing detaches the output and nothing falls back
+to the plain version). On the CPU the plain version runs and autograd
+differentiates it.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "HEAD_DIMS",
            "class_launches", "flash_attention_lse", "flash_attention_lse_plain",
            "flash_attention_backward", "flash_attention_backward_plain",
            "BWD_HEAD_DIMS", "LOG2E", "bwd_launches", "bwd_head_dim_launches",
-           "bwd_plan", "BWD_MIN_BLOCKS", "BWD_MAX_SPLITS"]
+           "bwd_plan", "BWD_MIN_BLOCKS", "BWD_MAX_SPLITS", "bwd_class_launches"]
 
 #: kernel launches since the count was last set to 0
 launches = 0
@@ -78,15 +80,18 @@ class_launches = {"causal": 0, "noncausal": 0}
 bwd_launches = 0
 #: the same by (q·k head dim, v head dim)
 bwd_head_dim_launches: dict[tuple[int, int], int] = {}
+#: the same by mask: causal, causal over a window, or not causal
+bwd_class_launches = {"causal": 0, "window": 0, "noncausal": 0}
 
 #: the (q·k head dim, v head dim) pairs the kernels are built for
 HEAD_DIMS = ((16, 16), (64, 64), (128, 128), (256, 256), (96, 64),
              (192, 128), (32, 16))
-#: the pairs the backward kernel is built for: the dense configs' 128/128,
-#: the 64/64 of ``examples/train_lm_torch.py``'s qwen3-100m, and MLA's
-#: (96, 64) (minicpm3-4b), (192, 128) (deepseek-v2-lite-16b) and (32, 16)
-#: (the MLA smoke dims 24/16, q and k zero-padded to 32 by the caller)
-BWD_HEAD_DIMS = ((64, 64), (128, 128), (96, 64), (192, 128), (32, 16))
+#: the pairs the backward kernel is built for: those of the forward, the
+#: dense configs' 128/128, whisper-tiny's and qwen3-100m's 64/64,
+#: recurrentgemma-9b's 256/256, the smoke dims' 16/16, and MLA's (96, 64)
+#: (minicpm3-4b), (192, 128) (deepseek-v2-lite-16b) and (32, 16) (the MLA
+#: smoke dims 24/16, q and k zero-padded to 32 by the caller)
+BWD_HEAD_DIMS = HEAD_DIMS
 #: the dK/dV launch's grid aim: a wave of the H100's 132 SMs (a dK/dV block
 #: takes an SM's registers and most of its shared memory)
 BWD_MIN_BLOCKS = 132
@@ -114,22 +119,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     window is given, as the reference's ``_sdpa`` masks them; no mask with
     ``causal=False``), softmax, ``·v`` [B, S, K, Dv], cast to ``q``'s dtype.
     K/V heads are repeated to H."""
-    B, S, H, dqk = q.shape
     if scale is None:
-        scale = 1.0 / math.sqrt(dqk)
-    group = H // k.shape[2]
-    qf = q.float().transpose(1, 2)                     # [B, H, S, Dqk]
-    kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
+        scale = 1.0 / math.sqrt(q.shape[3])
+    return _plain_f32(q, k, v, scale, window, causal)[0].to(q.dtype)
+
+
+def _plain_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               scale: float, window: int | None, causal: bool
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_plain` before its cast ([B, S, H, Dv]
+    float32) and its masked logits [B, H, S, S]."""
+    group = q.shape[2] // k.shape[2]
+    logits = _masked_logits(q, k, scale, window, causal)[2]
     vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    if causal:
-        ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
-        mask = ones.tril()
-        if window:
-            mask &= ~ones.tril(-window)
-        logits = torch.where(mask, logits, NEG_INF)
     out = torch.matmul(torch.softmax(logits, dim=-1), vf)
-    return out.transpose(1, 2).to(q.dtype)
+    return out.transpose(1, 2), logits
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -167,21 +171,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
             window: int | None, causal: bool,
-            lse: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the kernel of the inputs' dtype (``lse``: bf16 only)."""
+            lse: torch.Tensor | None = None,
+            out_lo: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the kernel of the inputs' dtype (``lse`` and ``out_lo``, the
+    training forward's outputs: bf16 only)."""
     global launches
     B, S, H, dqk = q.shape
     dv = v.shape[3]
     out = q.new_empty((B, S, H, dv))
     if B == 0 or S == 0:
         return out
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
+    if any(t.data_ptr() % 16 for t in (q, k, v) + (
+            () if out_lo is None else (out_lo,))):
         raise ValueError("flash_attention: kernel inputs must be 16-byte "
                          "aligned")
     route, fn, _ = ROUTES[q.dtype]
     ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()]
-    if q.dtype == torch.bfloat16:  # the tensor-core entry takes the lse
-        ptrs.append(None if lse is None else lse.data_ptr())
+    if q.dtype == torch.bfloat16:  # the tensor-core entry takes lse, out_lo
+        ptrs += [None if t is None else t.data_ptr() for t in (lse, out_lo)]
     err = getattr(build.library(), fn)(
         *ptrs, B, S, H, k.shape[2], dqk, dv, window or 0, int(causal), scale,
         build.stream_ptr(q))
@@ -193,42 +200,39 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
     return out
 
 
-def _check_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: int | None, causal: bool) -> None:
-    """Raise ``NotImplementedError`` for a variant the backward kernel does
-    not take."""
-    why = None
+def _mask_class(window: int | None, causal: bool) -> str:
+    """The key of ``bwd_class_launches`` for a call's mask."""
+    return "noncausal" if not causal else "window" if window else "causal"
+
+
+def _check_backward(q: torch.Tensor) -> None:
+    """Raise ``NotImplementedError`` for inputs the backward kernel does
+    not take: it takes bf16 (at every pair of ``HEAD_DIMS``, which
+    :func:`_check` has checked, and under every mask)."""
     if q.dtype != torch.bfloat16:
-        why = f"{q.dtype} inputs"
-    elif not causal:
-        why = "causal=False"
-    elif window is not None:
-        why = f"a window ({window})"
-    elif (q.shape[3], v.shape[3]) not in BWD_HEAD_DIMS:
-        why = f"head dims (q·k {q.shape[3]}, v {v.shape[3]})"
-    if why is not None:
         raise NotImplementedError(
-            f"flash_attention: the backward kernel does not take {why} "
-            f"(it takes causal bf16 at {BWD_HEAD_DIMS}); ROADMAP queue 1, "
-            "item 14b.7 lists the variants training still needs")
+            f"flash_attention: the backward kernel does not take {q.dtype} "
+            "inputs (it takes bf16); ROADMAP queue 2 lists the kernels")
 
 
 class _Attention(torch.autograd.Function):
-    """Causal bf16 K5 with its backward kernel (see the module docstring)."""
+    """bf16 K5 with its backward kernel, under any mask (see the module
+    docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
-        out, lse = flash_attention_lse(q, k, v, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
-        ctx.scale = scale
+    def forward(ctx, q, k, v, scale, window, causal):
+        out, lse, out_lo = flash_attention_lse(q, k, v, scale, window, causal)
+        ctx.save_for_backward(q, k, v, out, lse, out_lo)
+        ctx.mask = (scale, window, causal)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, out_lo = ctx.saved_tensors
         dq, dk, dv = flash_attention_backward(q, k, v, out, lse,
-                                              dout.contiguous(), ctx.scale)
-        return dq, dk, dv, None
+                                              dout.contiguous(), *ctx.mask,
+                                              out_lo=out_lo)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -245,76 +249,98 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale, window, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        _check_backward(q, k, v, window, causal)
-        return _Attention.apply(q, k, v, scale)
+        _check_backward(q)
+        return _Attention.apply(q, k, v, scale, window, causal)
     return _launch(q, k, v, scale, window, causal)
 
 
-def _causal_logits(q: torch.Tensor, k: torch.Tensor, scale: float
+def _masked_logits(q: torch.Tensor, k: torch.Tensor, scale: float,
+                   window: int | None, causal: bool
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(q [B, H, S, Dqk] float32, k repeated to H heads [B, H, S, Dqk]
-    float32, the logits ``q·kᵀ·scale`` [B, H, S, S] with the causal mask at
-    ``NEG_INF``): the plain row statistic's and backward's common part."""
+    float32, the logits ``q·kᵀ·scale`` [B, H, S, S] with
+    :func:`flash_attention_plain`'s mask at ``NEG_INF``): the plain row
+    statistic's and backward's common part."""
     S = q.shape[1]
     group = q.shape[2] // k.shape[2]
     qf = q.float().transpose(1, 2)
     kf = k.repeat_interleave(group, dim=2).float().transpose(1, 2)
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    return qf, kf, torch.where(mask, logits, NEG_INF)
+    if causal:
+        ones = torch.ones((S, S), dtype=torch.bool, device=q.device)
+        mask = ones.tril()
+        if window:
+            mask &= ~ones.tril(-window)
+        logits = torch.where(mask, logits, NEG_INF)
+    return qf, kf, logits
 
 
 def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, scale: float | None = None
-                              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal :func:`flash_attention_plain` and each row's statistic
-    ``logsumexp(q·kᵀ·scale)·log2(e)`` [B, H, S] float32 (the causal mask
-    applied)."""
+                              v: torch.Tensor, scale: float | None = None,
+                              window: int | None = None, causal: bool = True
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """:func:`flash_attention_plain`, each row's statistic
+    ``logsumexp(q·kᵀ·scale)·log2(e)`` [B, H, S] float32 (the mask applied)
+    and the output's low part: the float32 output less the output, in the
+    inputs' dtype (0 for float32)."""
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
-    logits = _causal_logits(q, k, scale)[2]
-    return (flash_attention_plain(q, k, v, scale),
-            torch.logsumexp(logits, dim=-1) * LOG2E)
+    out32, logits = _plain_f32(q, k, v, scale, window, causal)
+    out = out32.to(q.dtype)
+    return (out, torch.logsumexp(logits, dim=-1) * LOG2E,
+            (out32 - out.float()).to(q.dtype))
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: float | None = None
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Causal attention without a window and its row statistic
+                        scale: float | None = None,
+                        window: int | None = None, causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention under :func:`flash_attention`'s mask, its row statistic
     ``lse`` [B, H, S] float32, the log2-sum-exp2 of each row's scaled
     logits (``P = exp2(q·k·scale·log2(e) - lse)``), which the backward
-    rebuilds the softmax from. CUDA: the bf16 kernel, one launch; CPU:
+    rebuilds the softmax from, and the output's low part ``out_lo`` (the
+    float32 output less ``out``, rounded to bf16: ``out + out_lo`` holds
+    it to ~16 bits, from which the backward takes D = rowsum(dO∘O)).
+    CUDA: the bf16 kernel, one launch; CPU:
     :func:`flash_attention_lse_plain`."""
-    _check(q, k, v, None, True)
+    causal = bool(causal)
+    _check(q, k, v, window, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     if on_cpu(q, k, v):
-        return flash_attention_lse_plain(q, k, v, scale)
+        return flash_attention_lse_plain(q, k, v, scale, window, causal)
     if q.dtype != torch.bfloat16:
         raise NotImplementedError("flash_attention_lse: the row statistic "
                                   "comes from the bf16 kernel only")
     B, S, H, _ = q.shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    return _launch(q, k, v, scale, None, True, lse), lse
+    out_lo = q.new_empty((B, S, H, v.shape[3]))
+    return (_launch(q, k, v, scale, window, causal, lse, out_lo), lse,
+            out_lo)
 
 
 def flash_attention_backward_plain(q: torch.Tensor, k: torch.Tensor,
                                    v: torch.Tensor, dout: torch.Tensor,
-                                   scale: float | None = None
+                                   scale: float | None = None,
+                                   window: int | None = None,
+                                   causal: bool = True
                                    ) -> tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]:
-    """The gradient of causal :func:`flash_attention_plain` (``ref.py``'s
-    materialized float32 softmax) for the output gradient ``dout``: with K/V
-    repeated to H heads, P = softmax(mask(q·kᵀ·scale)), dP = dout·vᵀ,
-    dS = P ∘ (dP − rowsum(P ∘ dP)), dq = scale·dS·k, dk = scale·dSᵀ·q,
-    dv = Pᵀ·dout, in float32; dk and dv then summed over each KV head's
-    H/K query heads. Returns (dq, dk, dv) in the inputs' dtypes."""
+    """The gradient of :func:`flash_attention_plain` (``ref.py``'s
+    materialized float32 softmax, under the same mask: causal, causal over
+    the last ``window`` keys, or none with ``causal=False``) for the output
+    gradient ``dout``: with K/V repeated to H heads, P =
+    softmax(mask(q·kᵀ·scale)), dP = dout·vᵀ, dS = P ∘ (dP − rowsum(P ∘
+    dP)), dq = scale·dS·k, dk = scale·dSᵀ·q, dv = Pᵀ·dout, in float32; dk
+    and dv then summed over each KV head's H/K query heads. Returns (dq,
+    dk, dv) in the inputs' dtypes."""
     B, S, H, dqk = q.shape
     K = k.shape[2]
     group = H // K
     if scale is None:
         scale = 1.0 / math.sqrt(dqk)
-    qf, kf, logits = _causal_logits(q, k, scale)
+    qf, kf, logits = _masked_logits(q, k, scale, window, causal)
     vf = v.repeat_interleave(group, dim=2).float().transpose(1, 2)
     dof = dout.float().transpose(1, 2)                 # [B, H, S, Dv]
     p = torch.softmax(logits, dim=-1)
@@ -366,23 +392,30 @@ def bwd_plan(B: int, S: int, H: int, K: int, dqk: int, dv: int,
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, out: torch.Tensor,
                              lse: torch.Tensor, dout: torch.Tensor,
-                             scale: float | None = None
+                             scale: float | None = None,
+                             window: int | None = None, causal: bool = True,
+                             out_lo: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """(dq, dk, dv) of causal attention without a window, given the
-    forward's ``out`` and ``lse`` (:func:`flash_attention_lse`) and the
-    output's gradient ``dout`` [B, S, H, Dv]. CUDA: ``csrc/flash_attn_bwd.cu``
-    (bf16, ``BWD_HEAD_DIMS``; two kernel launches; each KV head's query
-    heads summed in a fixed order, :func:`bwd_plan`; no float atomics), one
-    count in ``bwd_launches``; CPU: :func:`flash_attention_backward_plain`
-    (``out`` and ``lse`` unused)."""
+    """(dq, dk, dv) of attention under :func:`flash_attention`'s mask
+    (causal, causal over the last ``window`` keys, or none with
+    ``causal=False``), given the forward's ``out``, ``lse`` and ``out_lo``
+    (:func:`flash_attention_lse` under the same mask; ``out_lo`` is needed
+    on CUDA) and the output's gradient ``dout`` [B, S, H, Dv]. CUDA:
+    ``csrc/flash_attn_bwd.cu`` (bf16, ``BWD_HEAD_DIMS``, the mask as
+    run-time arguments; two kernel launches; each KV head's query heads
+    summed in a fixed order, :func:`bwd_plan`; no float atomics), one count
+    in ``bwd_launches``; CPU: :func:`flash_attention_backward_plain`
+    (``out``, ``lse`` and ``out_lo`` unused)."""
     global bwd_launches
-    _check(q, k, v, None, True)
+    causal = bool(causal)
+    _check(q, k, v, window, causal)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[3])
     if on_cpu(q, k, v, out, lse, dout):
-        return flash_attention_backward_plain(q, k, v, dout, scale)
-    _check_backward(q, k, v, None, True)
+        return flash_attention_backward_plain(q, k, v, dout, scale, window,
+                                              causal)
+    _check_backward(q)
     B, S, H, dqk = q.shape
     K, dv = k.shape[2], v.shape[3]
     if out.shape != (B, S, H, dv) or dout.shape != out.shape or \
@@ -395,6 +428,11 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention_backward: lse must be float32 "
                          f"[{B}, {H}, {S}], got {tuple(lse.shape)} "
                          f"{lse.dtype}")
+    if out_lo is None or out_lo.shape != out.shape or \
+            out_lo.dtype != out.dtype:
+        raise ValueError("flash_attention_backward: out_lo, the forward's "
+                         "output's low part (flash_attention_lse), must be "
+                         f"{out.dtype} {tuple(out.shape)}")
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if B == 0 or S == 0:
         return dq, dk, dvv
@@ -404,16 +442,18 @@ def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
                        device=q.device)             # the splits' partials
     tickets = torch.empty((plan["tickets"],), dtype=torch.int32,
                           device=q.device)          # zeroed by the dQ kernel
-    tensors = (q, k, v, out, dout, lse, dq, dk, dvv, delta, part, tickets)
+    tensors = (q, k, v, out, out_lo, dout, lse, dq, dk, dvv, delta, part,
+               tickets)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("flash_attention_backward: kernel tensors must be "
                          "16-byte aligned")
     err = build.library().flash_attn_bwd_launch(
         *(t.data_ptr() or None for t in tensors), B, S, H, K, dqk, dv,
-        plan["splits"], scale, build.stream_ptr(q))
+        window or 0, int(causal), plan["splits"], scale, build.stream_ptr(q))
     build.check(err, "flash_attn backward")
     with COUNT_LOCK:
         bwd_launches += 1
         bwd_head_dim_launches[(dqk, dv)] = \
             bwd_head_dim_launches.get((dqk, dv), 0) + 1
+        bwd_class_launches[_mask_class(window, causal)] += 1
     return dq, dk, dvv

@@ -10,14 +10,18 @@ by default (attention forward and backward through kernel K5), ``cpu`` for
 the plain PyTorch versions. Without ``--full`` the arch's smoke twin
 trains; ``--full`` takes the published config on the card (one 80 GB card
 holds starcoder2-3b's or minicpm3-4b's float32 masters, moments, bf16 copy
-and gradients, ~69 and ~68 GB; ``chip_smoke.py`` trains both). The dense
-family (GQA: mistral-nemo-12b, qwen3-14b, starcoder2-3b; MLA:
-minicpm3-4b), the vision one (pixtral-12b: tokens only, as the
-reference's launcher feeds it, with the patch slots masked out of the
-loss) and MoE (phi3.5-moe-42b-a6.6b, deepseek-v2-lite-16b) train; SSM, the
-hybrid and the encoder-decoder raise ``NotImplementedError``. The masters
-are drawn in float32 from a generator seeded with ``--seed`` on the
-device.
+and gradients, ~69 and ~68 GB; ``chip_smoke.py`` trains both, and
+mamba2-370m). Every decoder-only config trains: dense (GQA:
+mistral-nemo-12b, qwen3-14b, starcoder2-3b; MLA: minicpm3-4b), vision
+(pixtral-12b: tokens only, as the reference's launcher feeds it, with the
+patch slots masked out of the loss), MoE (phi3.5-moe-42b-a6.6b,
+deepseek-v2-lite-16b), SSM (mamba2-370m) and the hybrid
+(recurrentgemma-9b, its windowed attention through K5). The
+encoder-decoder (whisper-tiny) raises ``ValueError``: its loss needs
+frames, which the bigram stream does not hold (the reference's launcher
+cannot train it either); ``repro_torch.train.make_train_step`` trains it
+on batches with frames. The masters are drawn in float32 from a generator
+seeded with ``--seed`` on the device.
 """
 from __future__ import annotations
 

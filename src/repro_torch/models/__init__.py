@@ -9,12 +9,13 @@ attention runs kernel K5 on CUDA: causal, with the config's window when it
 has one, or bidirectional in the whisper encoder (see :mod:`.attention`);
 cross-attention, SSD and the RG-LRU scan are plain torch on both devices,
 as the reference computes them outside any kernel. ``loss_fn`` is the
-training loss of the dense (GQA and MLA), vision and MoE families
-(``check_trainable``), with K5's backward kernel on CUDA.
+training loss of every family (``check_ported`` refuses the rest), with
+K5's backward kernel on CUDA under each of its masks; autograd
+differentiates the plain-torch parts.
 """
 from .model import (LM, EncDecCache, HybridCache, check_ported,
-                    check_trainable, decode_step, init, init_cache,
-                    layer_kinds, loss_fn, prefill, xent_chunks)
+                    decode_step, init, init_cache, layer_kinds, loss_fn,
+                    prefill, xent_chunks)
 from .layers import rms_norm, rope
 from .moe import MoE, moe_apply
 from .rglru import RGLRU, LRUCache, init_lru_cache, rglru_apply
@@ -23,7 +24,7 @@ from . import attention, moe, rglru, ssm
 
 __all__ = ["LM", "HybridCache", "EncDecCache", "check_ported", "init",
            "prefill", "decode_step", "init_cache", "layer_kinds", "rms_norm",
-           "loss_fn", "xent_chunks", "check_trainable",
+           "loss_fn", "xent_chunks",
            "rope", "attention", "moe", "MoE", "moe_apply", "ssm", "Mamba2",
            "mamba2_apply", "SSMCache", "init_ssm_cache", "rglru", "RGLRU",
            "rglru_apply", "LRUCache", "init_lru_cache"]

@@ -71,15 +71,15 @@ Training: :func:`loss_fn` is the reference's ``loss_fn`` (inputs
 ``tokens[:, :-1]``, labels ``tokens[:, 1:]``, positions ``arange(S)``,
 ``ce + 0.01·aux``, aux the MoE layers' balance losses summed in layer
 order; a vision config's patch slots, the first ``n_patches`` positions,
-masked out of ``ce``) over a trunk that builds no decode cache, with
-``remat`` as non-reentrant ``torch.utils.checkpoint`` per block (the
-reference's ``jax.checkpoint`` of each scanned layer). It differentiates
-with respect to whatever parameters of the ``LM`` require a gradient; the
-serving parameters do not (``prefill``/``decode_step`` run under
-``no_grad``), and ``repro_torch.train`` keeps a compute copy that does.
-:func:`check_trainable` accepts the dense (GQA or MLA), vlm and MoE
-families and refuses SSM, the hybrid and the encoder-decoder, on every
-device.
+masked out of ``ce``; an encoder-decoder's ``frames`` encoded first) over
+a trunk that builds no decode cache, with ``remat`` as non-reentrant
+``torch.utils.checkpoint`` per decoder block (the reference's
+``jax.checkpoint`` of each scanned layer; as there, an encoder's blocks
+keep their activations). It differentiates with respect to whatever
+parameters of the ``LM`` require a gradient; the serving parameters do not
+(``prefill``/``decode_step`` run under ``no_grad``), and
+``repro_torch.train`` keeps a compute copy that does. Every family of the
+registry trains; :func:`check_ported` refuses the rest, on every device.
 
 ``routing=`` (``prefill``, ``decode_step``, ``loss_fn``) is a test hook
 ``(layer, probs, k) -> expert indices [T, k]``: ``moe.route``'s signature
@@ -108,7 +108,7 @@ from .layers import (GatedMLP, cross_entropy, embed, embedding_init_,
 
 __all__ = ["LM", "Block", "HybridCache", "EncDecCache", "init", "prefill",
            "decode_step", "init_cache", "check_ported", "layer_kinds",
-           "reference_slot", "loss_fn", "xent_chunks", "check_trainable"]
+           "reference_slot", "loss_fn", "xent_chunks"]
 
 #: the families the port runs: every family of the registry
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -128,26 +128,6 @@ def check_ported(cfg, device: torch.device | str | None = None) -> None:
         raise NotImplementedError(
             f"repro_torch: {why} ({cfg.arch_id}) is not yet ported "
             "(ROADMAP queue 1)")
-
-
-#: the families that train: dense (GQA or MLA attention), vision and MoE
-TRAINABLE = ("dense", "vlm", "moe")
-
-
-def check_trainable(cfg) -> None:
-    """Raise ``NotImplementedError`` for a config whose training is not yet
-    ported: SSM, the hybrid and the encoder-decoder (audio) wait, ROADMAP
-    queue 1 item 14b.7; the same on every device."""
-    check_ported(cfg)
-    why = None
-    if cfg.family not in TRAINABLE:
-        why = f"the {cfg.family} family"
-    elif cfg.window:
-        why = "a sliding window"
-    if why is not None:
-        raise NotImplementedError(
-            f"repro_torch: training {why} ({cfg.arch_id}) is not yet ported "
-            "(ROADMAP queue 1, item 14b.7)")
 
 
 def xent_chunks(cfg) -> int:
@@ -469,33 +449,43 @@ def _layer_routing(routing: Optional[LayerRouting],
 
 
 def _block_hidden(block: Block, x: torch.Tensor, attention,
-                  routing: Optional[Routing]):
-    """One block of the loss's trunk (positions arange(S), no cache) ->
-    (x, its MoE balance loss or None)."""
+                  routing: Optional[Routing],
+                  enc_kv: Optional[attn.KVCache] = None):
+    """One block of the loss's trunk (positions arange(S), no cache; a
+    ``dec`` block cross-attends to ``enc_kv``) -> (x, its MoE balance loss
+    or None)."""
     x, _, aux = _block_apply(block, block.cfg, x, None, None, None,
-                             attention=attention, routing=routing)
+                             attention=attention, routing=routing,
+                             enc_kv=enc_kv)
     return x, aux
 
 
 def _loss_trunk(model: LM, tokens: torch.Tensor,
                 images: Optional[torch.Tensor], attention,
-                routing: Optional[LayerRouting],
-                remat: bool) -> tuple[torch.Tensor, torch.Tensor]:
+                routing: Optional[LayerRouting], remat: bool,
+                frames: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
     """The loss's trunk (the reference's ``_forward`` with
     ``want_cache=False``) -> (hidden [B, S, d], aux): positions arange(S),
-    no layer builds a cache; ``remat`` recomputes each block in the
+    no layer builds a cache; ``remat`` recomputes each decoder block in the
     backward (``torch.utils.checkpoint``, non-reentrant) in place of
-    keeping its activations. ``aux`` is the MoE layers' balance losses
-    summed in layer order from a float32 0 (the reference's ``aux_total``:
-    its lead, scanned and tail blocks in that order)."""
+    keeping its activations. An encoder-decoder first encodes ``frames``
+    (its encoder blocks outside remat, as the reference's ``_encode`` runs
+    outside its checkpointed scan) and takes each decoder layer's cross K/V
+    of the encoding outside its block, as the reference's ``vmap`` of
+    ``_enc_kv`` does. ``aux`` is the MoE layers' balance losses summed in
+    layer order from a float32 0 (the reference's ``aux_total``: its lead,
+    scanned and tail blocks in that order)."""
     cfg = model.cfg
-    if cfg.is_encdec:
-        raise ValueError("_loss_trunk: a trunk without caches runs a "
-                         "decoder-only model")
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     x = _embed_inputs(model, tokens, None, images)
+    enc_kv = [None] * len(model.layers)
+    if cfg.is_encdec:
+        enc_out = _encode(model, frames, attention)
+        enc_kv = [_enc_kv(block.xattn, enc_out) for block in model.layers]
+        del enc_out
     for i, block in enumerate(model.layers):
-        args = (block, x, attention, _layer_routing(routing, i))
+        args = (block, x, attention, _layer_routing(routing, i), enc_kv[i])
         x, a = checkpoint(_block_hidden, *args, use_reentrant=False) \
             if remat else _block_hidden(*args)
         if a is not None:
@@ -579,9 +569,11 @@ def loss_fn(model: LM, batch: dict, remat: Optional[bool] = None,
             attention=None, routing: Optional[LayerRouting] = None
             ) -> tuple[torch.Tensor, dict]:
     """``repro.models.model.loss_fn``: ``batch["tokens"]`` [B, S+1]
-    (inputs ``[:, :-1]``, labels ``[:, 1:]``, positions arange(S)) and,
-    for a vision config, optionally ``batch["images"]`` [B, >=
-    min(n_patches, S), d], the patch embeddings of the first slots ->
+    (inputs ``[:, :-1]``, labels ``[:, 1:]``, positions arange(S)); for an
+    encoder-decoder ``batch["frames"]`` [B, enc_len, d], the frame
+    embeddings its encoder reads; for a vision config, optionally
+    ``batch["images"]`` [B, >= min(n_patches, S), d], the patch embeddings
+    of the first slots ->
     (loss, {"ce", "aux"}), loss = ce + 0.01·aux: aux the MoE layers'
     balance losses summed in layer order (0 without experts), ce over the
     positions at and past ``n_patches`` for a vision config (with or
@@ -590,17 +582,18 @@ def loss_fn(model: LM, batch: dict, remat: Optional[bool] = None,
     (default ``cfg.remat``) recomputes each block in the backward;
     ``attention`` replaces the attention as in :func:`prefill`;
     ``routing`` as in :func:`prefill` (see the module docstring: under
-    remat a layer's hook runs again in the backward). The families of
-    :func:`check_trainable`."""
+    remat a layer's hook runs again in the backward). Every family of the
+    registry."""
     cfg = model.cfg
-    check_trainable(cfg)
+    check_ported(cfg)
     remat = cfg.remat if remat is None else remat
     tokens_full = batch["tokens"].to(torch.int64)
     tokens, labels = tokens_full[:, :-1], tokens_full[:, 1:]
     B, S = tokens.shape
-    images = batch.get("images")
-    _check_inputs(cfg, tokens, batch.get("frames"), images, "loss_fn")
-    x, aux = _loss_trunk(model, tokens, images, attention, routing, remat)
+    images, frames = batch.get("images"), batch.get("frames")
+    _check_inputs(cfg, tokens, frames, images, "loss_fn")
+    x, aux = _loss_trunk(model, tokens, images, attention, routing, remat,
+                         frames)
     mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
     if cfg.frontend == "vision":
         mask &= (torch.arange(S, device=x.device) >= cfg.n_patches)[None, :]

@@ -8,10 +8,12 @@ plain torch on both devices, in the reference's own form:
   in the compute dtype in the order i = 0..W-1, then SiLU step by step
   (:func:`~.layers.silu`); the new window is the last W-1 rows of the
   padded input (zero rows while the sequence is shorter than W-1).
-- ``_ssd_chunked``: the prefill, in float32. Within a chunk, the
-  decay-masked quadratic form; across chunks, the carried state [B, H, hd,
-  N] in a Python loop over the chunks (the reference's ``lax.scan``); it
-  returns the final state.
+- ``_ssd_chunked``: the prefill (and the loss's trunk), in float32. Within
+  a chunk, the decay-masked quadratic form, its mask applied before the
+  exponential (the reference applies it after, and its gradient at a chunk
+  of 256 is NaN: ROADMAP queue 3); across chunks, the carried state [B, H,
+  hd, N] in a Python loop over the chunks (the reference's ``lax.scan``);
+  it returns the final state.
 - ``mamba2_apply``: the prefill right-pads the sequence to a whole
   ``ssm_chunk`` with dt = 0 (identity steps), decode is the one-token
   recurrence ``h = exp(dt·A)·h + dt·x·Bᵀ``, ``y = C·h``; then the ``D``
@@ -22,6 +24,7 @@ new cache with the same values).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -114,9 +117,17 @@ def _ssd_chunked(xh, B_, C_, dt, A, chunk: int):
         c, dtt = C_[:, c0:c0 + chunk].float(), dt[:, c0:c0 + chunk]
         # per-step log decay dt_t·A (A negative), inclusive cumulative sum
         cum = torch.cumsum(dtt * A[None, None, :], dim=1)   # [B, c, H]
-        # within the chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0
+        # within the chunk: L[i, j] = exp(cum_i - cum_j) for i >= j, else 0.
+        # The mask goes before the exponential: above the diagonal cum_i -
+        # cum_j > 0, and over a chunk of 256 steps it passes 88.7, where
+        # exp overflows to inf. The reference's where(tri, exp(diff), 0)
+        # drops those entries in the forward (so this form's values are
+        # the same bit for bit: exp(-inf) = 0), but its backward multiplies
+        # their zero gradient by inf, NaN (ROADMAP queue 3). wdec and
+        # exp(cum) below take arguments <= 0 (cum falls): they never
+        # overflow.
         diff = cum[:, :, None, :] - cum[:, None, :, :]      # [B, i, j, H]
-        L = torch.where(tri[None, :, :, None], torch.exp(diff), 0.0)
+        L = torch.exp(diff.masked_fill(~tri[None, :, :, None], -math.inf))
         g = torch.einsum("bin,bjn->bij", c, b)[..., None] * L
         xin = x.float() * dtt[..., None].float()
         y_intra = torch.einsum("bijh,bjhp->bihp", g, xin)

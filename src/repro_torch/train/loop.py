@@ -32,7 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.model import LM, check_trainable, loss_fn
+from repro_torch.models.model import LM, check_ported, loss_fn
 from repro_torch.parallel.collectives import ef_update, init_error_feedback
 from .checkpoint import AsyncCheckpointer, latest_step, restore
 from .data import DataConfig, make_batch
@@ -77,14 +77,16 @@ def _compute_copy(cfg, device) -> LM:
 
 
 def make_train_step(cfg, tcfg: TrainConfig, device=None) -> Callable:
-    """``step_fn(state, batch, ef) -> (state, ef, metrics)`` for the
-    families of ``check_trainable``. ``batch`` holds ``tokens`` and may hold
-    ``images`` (a vision config), split with the tokens into microbatches.
+    """``step_fn(state, batch, ef) -> (state, ef, metrics)`` for every
+    family of the registry (``check_ported``). ``batch`` holds ``tokens``
+    and, for an encoder-decoder, ``frames`` [B, enc_len, d]; it may hold
+    ``images`` (a vision config); every key is split with the tokens into
+    microbatches.
     ``ef`` is the error-feedback residual (None when ``compress_grads`` is
     off); ``metrics`` holds 0-d tensors ``ce``, ``aux``, ``loss`` and
     ``lr``. The state is updated in place. ``step_fn.model`` is the
     compute copy."""
-    check_trainable(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
     model = _compute_copy(cfg, dev)
     names = [n for n, _ in model.named_parameters()]
@@ -144,8 +146,17 @@ def train(cfg, tcfg: TrainConfig, data_cfg: DataConfig,
     a reference state through ``convert``), on ``device``. Resumes from
     ``tcfg.ckpt_dir`` when it holds a checkpoint. Returns (the final state,
     the history: a record ``{"step", "ce", "aux", "loss", "lr",
-    "wall_s"}`` every ``log_every`` steps and at the last)."""
-    check_trainable(cfg)
+    "wall_s"}`` every ``log_every`` steps and at the last). An
+    encoder-decoder is refused (``ValueError``): its loss reads frames,
+    which the bigram stream does not hold (the reference's ``train`` feeds
+    ``make_batch``'s tokens alone too); :func:`make_train_step` trains it
+    on batches that carry them."""
+    check_ported(cfg)
+    if cfg.is_encdec:
+        raise ValueError(f"train: {cfg.arch_id} needs frames [B, "
+                         f"{cfg.enc_len}, {cfg.d_model}] in every batch, and "
+                         "the bigram stream holds tokens only; give "
+                         "make_train_step batches with frames")
     dev = resolve_device(device)
     state = adamw_init(init_params_fn())
     ef = init_error_feedback(state.params) if tcfg.compress_grads else None

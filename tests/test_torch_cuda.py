@@ -1204,12 +1204,12 @@ def test_flash_attn_backward_matches_plain(dev, B, S, H, K, hd):
     q, k, v, dout = _bwd_inputs(dev, B, S, H, K, hd)
     before = (K5.launches, K5.bwd_launches,
               K5.bwd_head_dim_launches.get((hd, hd), 0))
-    out, lse = K5.flash_attention_lse(q, k, v)
-    got = K5.flash_attention_backward(q, k, v, out, lse, dout)
+    out, lse, lo = K5.flash_attention_lse(q, k, v)
+    got = K5.flash_attention_backward(q, k, v, out, lse, dout, out_lo=lo)
     assert (K5.launches, K5.bwd_launches,
             K5.bwd_head_dim_launches[(hd, hd)]) == tuple(
                 n + 1 for n in before)
-    out_p, lse_p = K5.flash_attention_lse_plain(q, k, v)
+    out_p, lse_p, _ = K5.flash_attention_lse_plain(q, k, v)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(out.float(), out_p.float(),
                                **K5_TOL[torch.bfloat16])
@@ -1217,7 +1217,7 @@ def test_flash_attn_backward_matches_plain(dev, B, S, H, K, hd):
     assert [t.dtype for t in got] == [torch.bfloat16] * 3
     assert _bwd_close(got, want)
     # the same inputs twice: bitwise equal (no atomics anywhere)
-    again = K5.flash_attention_backward(q, k, v, out, lse, dout)
+    again = K5.flash_attention_backward(q, k, v, out, lse, dout, out_lo=lo)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     if S > 1:
         scale = 1.0 / hd ** 0.5
@@ -1274,16 +1274,18 @@ def test_flash_attn_backward_matches_plain_at_mla_dims(dev, B, S, H, K, dqk,
     dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
     scale = 1.0 / used ** 0.5
     before = K5.bwd_head_dim_launches.get((dqk, dv), 0)
-    out, lse = K5.flash_attention_lse(q, k, v, scale)
-    got = K5.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    out, lse, lo = K5.flash_attention_lse(q, k, v, scale)
+    got = K5.flash_attention_backward(q, k, v, out, lse, dout, scale,
+                                      out_lo=lo)
     assert K5.bwd_head_dim_launches[(dqk, dv)] == before + 1
-    out_p, lse_p = K5.flash_attention_lse_plain(q, k, v, scale)
+    out_p, lse_p, _ = K5.flash_attention_lse_plain(q, k, v, scale)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
     want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
     assert [t.shape for t in got] == [q.shape, k.shape, v.shape]
     assert _bwd_close(got, want)
     assert not got[0][..., used:].any() and not got[1][..., used:].any()
-    again = K5.flash_attention_backward(q, k, v, out, lse, dout, scale)
+    again = K5.flash_attention_backward(q, k, v, out, lse, dout, scale,
+                                        out_lo=lo)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -1329,41 +1331,196 @@ def test_flash_attn_autograd_runs_the_backward_kernel(dev):
     assert out.requires_grad and K5.launches == before[0] + 1
     out.backward(dout)
     assert K5.bwd_launches == before[1] + 1
-    o, lse = K5.flash_attention_lse(q, k, v)
+    o, lse, lo = K5.flash_attention_lse(q, k, v)
     assert torch.equal(out.detach(), o)
-    want = K5.flash_attention_backward(q, k, v, o, lse, dout)
+    want = K5.flash_attention_backward(q, k, v, o, lse, dout, out_lo=lo)
     assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
     with torch.no_grad():  # serving: no row statistic, no graph
         assert not K5.flash_attention(*leaves).requires_grad
 
 
-@pytest.mark.parametrize("variant", ["window", "noncausal", "float32",
-                                     "head_dim_16", "head_dim_256"])
+@pytest.mark.parametrize("variant", ["float32", "head_dims_64_128"])
 def test_flash_attn_gradient_of_other_variants_raises(dev, variant):
     """A CUDA call that needs a gradient the backward does not take raises
-    NotImplementedError naming ROADMAP (a window, causal=False, float32,
-    head dims 16/16 and 256/256); without a gradient it runs."""
+    and never falls back: float32 inputs (the forward runs them without a
+    gradient; the backward is bf16 only) raise NotImplementedError naming
+    ROADMAP; a head-dim pair neither kernel is built for, (64, 128), is
+    refused with or without a gradient. (Every mask and every pair of
+    HEAD_DIMS has its backward.)"""
     from repro_torch.kernels import flash_attn as K5
 
-    hd, hv, dtype, kw = 128, 128, torch.bfloat16, {}
-    if variant == "window":
-        kw = dict(window=16)
-    elif variant == "noncausal":
-        kw = dict(causal=False)
-    elif variant == "float32":
+    hd, hv, dtype = 128, 128, torch.bfloat16
+    if variant == "float32":
         dtype = torch.float32
-    elif variant == "head_dim_16":
-        hd = hv = 16
     else:
-        hd = hv = 256
+        hd, hv = 64, 128
     g = torch.Generator(device=dev).manual_seed(3)
     q = torch.randn((1, 64, 4, hd), generator=g, device=dev).to(dtype)
     k = torch.randn((1, 64, 2, hd), generator=g, device=dev).to(dtype)
     v = torch.randn((1, 64, 2, hv), generator=g, device=dev).to(dtype)
-    with torch.no_grad():
-        K5.flash_attention(q, k, v, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        K5.flash_attention(q.requires_grad_(True), k, v, **kw)
+    if variant == "float32":
+        with torch.no_grad():
+            K5.flash_attention(q, k, v)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            K5.flash_attention(q.requires_grad_(True), k, v)
+        return
+    with pytest.raises(ValueError, match="head dims"):
+        with torch.no_grad():
+            K5.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        K5.flash_attention(q.requires_grad_(True), k, v)
+
+
+#: the backward under the masks the new configs need (B, S, H, K, Dqk, Dv,
+#: window, causal): whisper-tiny's encoder (64/64, no causal mask, S 1500:
+#: the last key tile ragged) and a ragged S 100; recurrentgemma-9b's step
+#: (256/256, window 2048, S 4096), the edge [2, 1000, 16/1, W 100] and a
+#: part-filled 256/256 S 333 causal; the smoke dims 16/16 under each mask
+#: (the smoke twins' B 4 x S 64, 4/2 heads; window 32) and at S 100
+BWD_MASK_SHAPES = [
+    (2, 1500, 6, 6, 64, 64, None, False), (2, 100, 4, 4, 64, 64, None, False),
+    (1, 4096, 16, 1, 256, 256, 2048, True),
+    (2, 1000, 16, 1, 256, 256, 100, True),
+    (1, 333, 4, 2, 256, 256, None, True), (1, 200, 4, 4, 256, 256, None, False),
+    (4, 64, 4, 2, 16, 16, None, True), (4, 64, 4, 2, 16, 16, 32, True),
+    (4, 64, 4, 2, 16, 16, None, False), (2, 100, 4, 4, 16, 16, 32, True),
+    (2, 100, 4, 4, 16, 16, None, False), (2, 1000, 8, 2, 128, 128, 100, True)]
+
+
+@pytest.mark.parametrize("B,S,H,K,dqk,dv,window,causal", BWD_MASK_SHAPES)
+def test_flash_attn_backward_under_masks_matches_plain(dev, B, S, H, K, dqk,
+                                                       dv, window, causal):
+    """The backward with ``causal=False`` and with a window, at (16, 16),
+    (64, 64), (256, 256) and (128, 128), against the plain version under
+    the same mask (tile-scaled and mean tolerance), the row statistic
+    against the plain one, twice bitwise equal, counted by mask; two
+    planted faults (the last 64 keys left out, the lse 0.05 high from row
+    S/2 on) fail the same tolerance."""
+    from repro_torch.kernels import flash_attn as K5
+
+    g = torch.Generator(device=dev).manual_seed(S + dqk + H)
+    q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev).bfloat16()
+               for n, d in ((H, dqk), (K, dqk), (K, dv)))
+    dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
+    scale = dqk ** -0.5
+    cls = "noncausal" if not causal else "window" if window else "causal"
+    before = K5.bwd_class_launches[cls]
+    out, lse, lo = K5.flash_attention_lse(q, k, v, scale, window, causal)
+    got = K5.flash_attention_backward(q, k, v, out, lse, dout, scale, window,
+                                      causal, out_lo=lo)
+    assert K5.bwd_class_launches[cls] == before + 1
+    out_p, lse_p, lo_p = K5.flash_attention_lse_plain(q, k, v, scale, window,
+                                                      causal)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(out.float(), out_p.float(),
+                               **K5_TOL[torch.bfloat16])
+    # out + its low part: the float32 output to ~16 bits (P as bf16 hi +
+    # lo products, float32 sums in another order)
+    torch.testing.assert_close(out.float() + lo.float(),
+                               out_p.float() + lo_p.float(),
+                               rtol=2.0 ** -12, atol=1e-4)
+    want = K5.flash_attention_backward_plain(q, k, v, dout, scale, window,
+                                             causal)
+    assert _bwd_close(got, want)
+    again = K5.flash_attention_backward(q, k, v, out, lse, dout, scale,
+                                        window, causal, out_lo=lo)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    G = H // K
+    qf = q.float().transpose(1, 2)
+    kf = k.repeat_interleave(G, 2).float().transpose(1, 2)
+    vf = v.repeat_interleave(G, 2).float().transpose(1, 2)
+    dof = dout.float().transpose(1, 2)
+    s = (qf @ kf.transpose(-1, -2)) * (scale * K5.LOG2E)
+    dp = dof @ vf.transpose(-1, -2)
+    pos = torch.arange(S, device=dev)
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask.tril()
+        if window:
+            mask &= ~torch.ones_like(mask).tril(-window)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+
+    def grads(keep, row_lse):
+        p = torch.where(keep, torch.exp2(s - row_lse[..., None]), 0.0)
+        ds = p * (dp - delta)
+
+        def summed(t):
+            return t.view(B, K, G, S, t.shape[-1]).sum(2).transpose(1, 2)
+        return ((ds @ kf * scale).transpose(1, 2),
+                summed(ds.transpose(-1, -2) @ qf * scale),
+                summed(p.transpose(-1, -2) @ dof))
+
+    assert not _bwd_close(grads(mask & (pos < (S - 1) // 64 * 64), lse),
+                          want)                             # last keys
+    assert not _bwd_close(grads(mask, lse + 0.05 * (pos >= S // 2)), want)
+
+
+def test_flash_attn_autograd_takes_every_mask(dev):
+    """Calls that need a gradient with ``causal=False`` and with a window
+    go through the autograd Function: one forward (with the row statistic)
+    and one backward launch each, under the call's mask."""
+    from repro_torch.kernels import flash_attn as K5
+
+    for kw, cls in ((dict(causal=False), "noncausal"),
+                    (dict(window=40), "window")):
+        q, k, v, dout = _bwd_inputs(dev, 2, 130, 4, 2, 64, seed=2)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = (K5.bwd_launches, K5.bwd_class_launches[cls])
+        out = K5.flash_attention(*leaves, **kw)
+        out.backward(dout)
+        assert (K5.bwd_launches, K5.bwd_class_launches[cls]) == \
+            (before[0] + 1, before[1] + 1)
+        o, lse, lo = K5.flash_attention_lse(q, k, v, **kw)
+        assert torch.equal(out.detach(), o)
+        want = K5.flash_attention_backward(q, k, v, o, lse, dout, **kw,
+                                           out_lo=lo)
+        assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-9b",
+                                  "mamba2-370m", "qwen3-14b"])
+def test_smoke_training_of_every_family_runs_the_backward_kernel(dev, arch):
+    """A train step at the smoke configs of the encoder-decoder (whisper:
+    frames in the batch; its encoder K5 without the causal mask, outside
+    remat), the hybrid (window 32 at S 64), SSM (no K5) and a dense one
+    (16/16) on the card: K5's launches a step by mask follow from remat
+    (2 forward and 1 backward a decoder attention layer, 1 and 1 an
+    encoder layer), all at (16, 16); the loss within 1e-2 of the CPU's step
+    from the same masters."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import layer_kinds
+    from repro_torch.train import (DataConfig, TrainConfig, adamw_init,
+                                   init_params, make_batch, make_train_step)
+
+    cfg = get_config(arch, smoke=True)
+    dcfg = DataConfig(cfg.vocab, 64, 4)
+    masters = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    frames = torch.randn((4, cfg.enc_len, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1)) \
+        if cfg.is_encdec else None
+    n_attn = sum(kind != "ssm" and kind != "rglru"
+                 for kind in layer_kinds(cfg))
+    n_enc = cfg.enc_layers if cfg.is_encdec else 0
+    losses = []
+    for d in (dev, "cpu"):
+        kernels.reset_launches()
+        st = adamw_init({n: t.to(d, copy=True) for n, t in masters.items()})
+        batch = make_batch(dcfg, 0, device=d)
+        if frames is not None:
+            batch["frames"] = frames.to(d)
+        _, _, m = make_train_step(cfg, TrainConfig(), d)(st, batch, None)
+        losses.append(float(m["loss"]))
+        if d == dev:
+            assert (K5.launches, K5.bwd_launches) == \
+                (2 * n_attn + n_enc, n_attn + n_enc)
+            assert K5.bwd_class_launches == {
+                "causal": 0 if cfg.window else n_attn,
+                "window": n_attn if cfg.window else 0, "noncausal": n_enc}
+            assert K5.bwd_head_dim_launches == (
+                {(16, 16): n_attn + n_enc} if n_attn else {})
+    assert abs(losses[0] - losses[1]) <= 1e-2, losses
 
 
 def test_training_steps_on_the_card_are_repeatable_and_count_k5(dev):

@@ -12,7 +12,8 @@ rounding scheme of that kernel, its plan, and the kernels' build hash.
   zero-padded to 32/16 at scale 1/√24). Tolerance: float32 work summed in another order, rtol = atol = 2e-5 (the
   reference's own kernel-test bound).
 - The kernel's roundings emulated in float32: P and dS rounded to bf16 once
-  before their products, D from the bf16 output, dK and dV of a KV head
+  before their products, D from the bf16 output and its low part (the
+  forward's float32 output to ~16 bits), dK and dV of a KV head
   summed over each split's query heads and the splits' float32 partials
   added in split order (``bwd_plan``), each output rounded to bf16. The
   emulation sits inside ``chip_smoke.py``'s unchanged ``K5_BWD_*``
@@ -91,7 +92,7 @@ def test_plain_backward_and_lse_match_jax_vjp_of_sdpa(B, S, H, K, hd):
 
     tq, tk, tv, td = map(torch.from_numpy, (q, k, v, dout))
     got = K5.flash_attention_backward_plain(tq, tk, tv, td, scale)
-    out_t, lse_t = K5.flash_attention_lse_plain(tq, tk, tv, scale)
+    out_t, lse_t, _ = K5.flash_attention_lse_plain(tq, tk, tv, scale)
     for g, w in zip(got, want):
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **F32)
@@ -146,7 +147,7 @@ def test_plain_backward_matches_jax_vjp_of_sdpa_at_unequal_head_dims(
         q[..., :used], k[..., :used], v, dout)
     tq, tk, tv, td = map(torch.from_numpy, (q, k, v, dout))
     dq, dk, dvv = K5.flash_attention_backward_plain(tq, tk, tv, td, scale)
-    out_t, lse_t = K5.flash_attention_lse_plain(tq, tk, tv, scale)
+    out_t, lse_t, _ = K5.flash_attention_lse_plain(tq, tk, tv, scale)
     assert (dq.shape, dk.shape, dvv.shape) == (tq.shape, tk.shape, tv.shape)
     np.testing.assert_allclose(dq[..., :used].numpy(), np.asarray(dq_j),
                                **F32)
@@ -158,9 +159,10 @@ def test_plain_backward_matches_jax_vjp_of_sdpa_at_unequal_head_dims(
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), **F32)
 
 
-def emulate_kernel(q, k, v, out, lse, dout, scale):
+def emulate_kernel(q, k, v, out, out_lo, lse, dout, scale):
     """The backward kernel's arithmetic in float32 on the CPU (bf16 inputs,
-    the forward's bf16 ``out`` and float32 ``lse``): dS from float32 P,
+    the forward's bf16 ``out`` and its low part ``out_lo``, float32
+    ``lse``): D from out + out_lo, dS from float32 P,
     P and dS rounded to bf16 for their products, dq = bf16(scale dS K), and
     dk, dv of each KV head as the sum of ``bwd_plan``'s splits' float32
     partials in split order, then bf16 (dk times the scale)."""
@@ -172,7 +174,8 @@ def emulate_kernel(q, k, v, out, lse, dout, scale):
     kf = k.repeat_interleave(G, 2).float().transpose(1, 2)
     vf = v.repeat_interleave(G, 2).float().transpose(1, 2)
     dof = dout.float().transpose(1, 2)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = (dout.float() * (out.float() + out_lo.float())).sum(
+        -1).transpose(1, 2)
     s = torch.matmul(qf, kf.transpose(-1, -2)) * (scale * K5.LOG2E)
     causal = torch.ones((S, S), dtype=torch.bool).tril()
     p = torch.where(causal, torch.exp2(s - lse[..., None]), 0.0)
@@ -200,9 +203,9 @@ def test_kernel_roundings_sit_inside_the_card_tolerance(B, S, H, K, hd):
     q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in
                      _inputs(B, S, H, K, hd, seed=B * S + H))
     scale = 1.0 / hd ** 0.5
-    out, lse = K5.flash_attention_lse_plain(q, k, v, scale)
+    out, lse, out_lo = K5.flash_attention_lse_plain(q, k, v, scale)
     want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
-    got = emulate_kernel(q, k, v, out, lse, dout, scale)
+    got = emulate_kernel(q, k, v, out, out_lo, lse, dout, scale)
     assert [t.dtype for t in got] == [torch.bfloat16] * 3
     err, worst, ok = CS._bwd_close(got, want)
     assert ok, (err, worst)
@@ -224,9 +227,9 @@ def test_kernel_roundings_at_mla_dims_sit_inside_the_card_tolerance(
     q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in
                      _mla_inputs(B, S, H, K, dqk, dv, used, seed=B * S + H))
     scale = 1.0 / used ** 0.5
-    out, lse = K5.flash_attention_lse_plain(q, k, v, scale)
+    out, lse, out_lo = K5.flash_attention_lse_plain(q, k, v, scale)
     want = K5.flash_attention_backward_plain(q, k, v, dout, scale)
-    got = emulate_kernel(q, k, v, out, lse, dout, scale)
+    got = emulate_kernel(q, k, v, out, out_lo, lse, dout, scale)
     err, worst, ok = CS._bwd_close(got, want)
     assert ok, (err, worst)
     for name, f_grads in CS.bwd_faults_plain(q, k, v, out, dout, lse,

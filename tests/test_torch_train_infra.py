@@ -4,9 +4,8 @@ bigram stream, checkpoints (round trip, ``LATEST``, shape checks, the
 asynchronous writer, restore onto a device), the loss falling on the
 bigram stream toward its floor, a preempted run resumed from its
 checkpoint equal to an uninterrupted one bit for bit, the int8 round trip
-and its error feedback, compressed training, ``check_trainable``
-refusing SSM, the hybrid and audio and accepting the dense (GQA, MLA),
-vision and MoE families on either device, and the launcher at MoE and MLA
+and its error feedback, compressed training, ``check_ported``
+accepting every family on either device, and the launcher at MoE and MLA
 smoke configs. The port
 against the live JAX package is ``tests/test_torch_train.py``.
 """
@@ -22,8 +21,8 @@ torch.set_num_threads(1)
 import numpy as np
 
 from repro_torch.configs import get_config
-from repro_torch.models import init, loss_fn, prefill
-from repro_torch.models.model import check_trainable
+from repro_torch.models import init, prefill
+from repro_torch.models.model import check_ported
 from repro_torch.parallel import (dequantize_tree, ef_update,
                                   init_error_feedback, quantize_tree)
 from repro_torch.train import (AsyncCheckpointer, DataConfig, LRSchedule,
@@ -189,42 +188,20 @@ def test_compressed_training_still_learns():
 
 # ---------------------------------------------------------- trainability
 PORTED = ["minicpm3-4b", "phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b",
-          "pixtral-12b"]
-
-
-@pytest.mark.parametrize("arch", ["mamba2-370m", "recurrentgemma-9b",
-                                  "whisper-tiny"])
-@pytest.mark.parametrize("device", ["cpu", "cuda"])
-def test_check_trainable_refuses_other_families(arch, device):
-    """SSM, the hybrid and audio are refused the same way on either
-    device, before any device is touched (no card is needed to be told);
-    the dense, MLA, vision and MoE configs pass."""
-    cfg = get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        check_trainable(cfg)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        make_train_step(cfg, TrainConfig(), device=device)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        train(cfg, TrainConfig(), DataConfig(cfg.vocab, 8, 2), dict,
-              device=device)
-    if device == "cpu":
-        model = init(cfg, torch.Generator().manual_seed(0), "cpu")
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            loss_fn(model, {"tokens": torch.zeros((1, 9), dtype=torch.long)})
-    for ok in ("mistral-nemo-12b", "qwen3-14b", "starcoder2-3b", *PORTED):
-        check_trainable(get_config(ok))
+          "pixtral-12b", "mamba2-370m", "recurrentgemma-9b", "whisper-tiny"]
 
 
 @pytest.mark.parametrize("arch", PORTED)
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_check_trainable_accepts_ported_families(arch, device):
     """MLA (minicpm3-4b), MoE (phi3.5-moe-42b-a6.6b; deepseek-v2-lite-16b,
-    MoE and MLA) and vision (pixtral-12b) pass ``check_trainable`` at
-    their published and smoke configs, the same on either device: the
-    train step is built on the CPU, and without a card the CUDA one fails
-    only for the device, never as not ported."""
+    MoE and MLA), vision (pixtral-12b), SSM (mamba2-370m), the hybrid
+    (recurrentgemma-9b) and the encoder-decoder (whisper-tiny) pass
+    ``check_ported`` (which ``loss_fn`` and the train step call) at their
+    published and smoke configs, the same on either device: the train step is built on the CPU, and without a card
+    the CUDA one fails only for the device, never as not ported."""
     for smoke in (False, True):
-        check_trainable(get_config(arch, smoke=smoke))
+        check_ported(get_config(arch, smoke=smoke))
     cfg = get_config(arch, smoke=True)
     if device == "cuda" and not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -20,8 +20,10 @@ keeps a sha1 of K1's output at each shape (the multi entry's too), so two
 trees' JSON files show whether their K1 agrees bitwise. ``--bwd-splits``
 times K5's backward at every split count of its plan. ``--train`` also
 times training steps with the tree's port (qwen3-100m's, and starcoder2-3b's
-at full width and depth through ``chip_smoke.train_full``). Needs a CUDA
-device.
+and mamba2-370m's at full width and depth through
+``chip_smoke.train_full``, in a tree that trains them), the full-width
+ones beside the host's microseconds to issue one tiny eager op. Needs a
+CUDA device.
 """
 from __future__ import annotations
 
@@ -39,11 +41,11 @@ sys.path.insert(0, str(ROOT))
 def time_k5(cs, dev, out: dict) -> None:
     """K5 (bf16, causal) at ``chip_smoke.K5_SHAPES``, with the inputs of
     ``chip_smoke.check_flash_attn``; in a tree with a backward, the
-    training forward and the backward at ``chip_smoke.K5_BWD_SHAPES`` and
-    ``K5_BWD_MLA_SHAPES`` (the head dims the tree's backward takes), with
-    the inputs of ``chip_smoke.check_flash_attn_backward``, beside the
-    backward of ``scaled_dot_product_attention`` (timed as chip_smoke times
-    it; the port never calls it)."""
+    training forward and the backward at ``chip_smoke.k5_bwd_cases`` (the
+    head dims and masks the tree's backward takes), with the inputs of
+    ``chip_smoke.check_flash_attn_backward``, beside the device time of the
+    backward of ``scaled_dot_product_attention`` under the same mask
+    (``chip_smoke.sdpa_backward``; the port never calls it)."""
     import torch
 
     from repro_torch.kernels import flash_attn as K5
@@ -63,38 +65,51 @@ def time_k5(cs, dev, out: dict) -> None:
     if not hasattr(K5, "flash_attention_backward"):
         return
     out["flash_attn_train"], out["flash_attn_bwd"] = {}, {}
-    shapes = [(B, S, H, K, hd, hd, hd) for B, S, H, K, hd in cs.K5_BWD_SHAPES]
-    for B, S, H, K, dqk, dv, used in shapes + cs.K5_BWD_MLA_SHAPES:
-        if (dqk, dv) not in K5.BWD_HEAD_DIMS:  # an older tree's backward
-            continue
-        g = torch.Generator(device=dev).manual_seed(B * S + H + 7)
-        q, k, v = (torch.randn((B, S, n, d), generator=g, device=dev)
-                   .bfloat16() for n, d in ((H, dqk), (K, dqk), (K, dv)))
-        q[..., used:] = 0
-        k[..., used:] = 0
-        dout = torch.randn((B, S, H, dv), generator=g, device=dev).bfloat16()
-        scale = 1.0 / used ** 0.5
-        out_k, lse = K5.flash_attention_lse(q, k, v, scale)
-        key = f"{B}x{S}x{H}/{K}x{dqk}" + ("" if dv == dqk else f"/{dv}")
-        fwd = cs.time_ms(lambda: K5.flash_attention_lse(q, k, v, scale),
+    masks = hasattr(K5, "bwd_class_launches")  # an older tree: causal only
+    for B, S, H, K, dqk, dv, used, W, causal, _ in cs.k5_bwd_cases():
+        masked = bool(W) or not causal
+        if (dqk, dv) not in K5.BWD_HEAD_DIMS or (masked and not masks):
+            continue  # a case an older tree's backward lacks
+        q, k, v, dout, scale = cs.k5_bwd_inputs(dev, B, S, H, K, dqk, dv,
+                                                used)
+        mask = (W, causal) if masked else ()
+        out_k, lse, *lo = K5.flash_attention_lse(q, k, v, scale, *mask)
+        kw = dict(out_lo=lo[0]) if lo else {}  # an older tree has no out_lo
+        key = f"{B}x{S}x{H}/{K}x{dqk}" + ("" if dv == dqk else f"/{dv}") + (
+            " no causal mask" if not causal else f" window {W}" if W else "")
+        fwd = cs.time_ms(lambda: K5.flash_attention_lse(q, k, v, scale,
+                                                        *mask),
                          reps=5, repeats=7)[0]
         bwd = cs.time_ms(lambda: K5.flash_attention_backward(
-            q, k, v, out_k, lse, dout, scale), reps=5, repeats=7)[0]
-        # the library yardstick as chip_smoke times it: the backward of
-        # sdpa(is_causal, enable_gqa) alone, eager
-        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                      for t in (q, k, v))
-        o_lib = torch.nn.functional.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
-        lib = cs._event_ms(lambda: [torch.autograd.grad(
-            o_lib, (qt, kt, vt), dout.transpose(1, 2), retain_graph=True)
-            for _ in range(5)], 5) / 5
+            q, k, v, out_k, lse, dout, scale, *mask, **kw), reps=5,
+            repeats=7)[0]
+        lib = cs.sdpa_backward(q, k, v, dout, scale,
+                               cs.sdpa_mask(S, W, causal, dev)[0])[0][0]
         out["flash_attn_train"][key], out["flash_attn_bwd"][key] = fwd, bwd
         out.setdefault("sdpa_bwd", {})[key] = lib
         print(f"  flash_attn [{key}] with lse: {fwd:.4f} ms; backward "
               f"{bwd:.4f} ms; sdpa's backward {lib:.4f} ms")
-        del qt, kt, vt, o_lib, q, k, v, dout, out_k, lse
+        del q, k, v, dout, out_k, lse, lo
         torch.cuda.empty_cache()
+
+
+def host_op_us(n: int = 20000) -> float:
+    """Microseconds the host takes to issue one tiny eager CUDA op (an add
+    on a 1-element tensor), over ``n`` calls: the rate that bounds a
+    training step of tens of thousands of launches."""
+    import time
+
+    import torch
+
+    a = torch.zeros(1, device="cuda")
+    for _ in range(100):
+        a.add_(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        a.add_(1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def time_train(cs, dev, out: dict) -> None:
@@ -102,15 +117,21 @@ def time_train(cs, dev, out: dict) -> None:
     x S 128) over TRAIN_QWEN_STEPS steps after TRAIN_QWEN_WARM, median; then
     ``chip_smoke.train_full`` (starcoder2-3b at full width and depth, B 2 x
     S 2048, remat: its timed steps, the step's parts and device time by
-    kernel group under the profiler)."""
+    kernel group under the profiler), and mamba2-370m's
+    (``chip_smoke.TRAIN_FULL_SSM``) in a tree that trains the SSM family;
+    each beside :func:`host_op_us`, taken just before."""
     import statistics
     import time
 
     import torch
 
+    from repro_torch.kernels import flash_attn as K5
     from repro_torch.train import (DataConfig, TrainConfig, init_params,
                                    make_batch, make_train_step)
     from repro_torch.train.optimizer import adamw_init
+
+    if not hasattr(K5, "bwd_class_launches"):  # an older tree: no masks
+        K5.bwd_class_launches = {}
 
     cfg = cs.qwen3_100m()
     dcfg = DataConfig(vocab=cfg.vocab, **cs.TRAIN_DATA)
@@ -130,12 +151,21 @@ def time_train(cs, dev, out: dict) -> None:
           f"{TRAIN_QWEN_STEPS})")
     del state, step
     torch.cuda.empty_cache()
-    full = cs.train_full(dev, cs.TRAIN_FULL)
-    out["train"] = dict(
-        qwen3_100m_step_s=qwen,
-        starcoder2_3b={k: full.get(k) for k in (
-            "step_median_s", "step_s", "fwd_bwd_s", "adamw_s", "copy_s",
-            "device_busy_share", "by_group", "peak_gb")})
+    keys = ("step_median_s", "step_s", "fwd_bwd_s", "adamw_s", "copy_s",
+            "device_busy_s", "device_busy_share", "device_launches",
+            "by_group", "peak_gb")
+    out["train"] = dict(qwen3_100m_step_s=qwen)
+    for name, conf in (("starcoder2_3b", cs.TRAIN_FULL),
+                       ("mamba2_370m", cs.TRAIN_FULL_SSM)):
+        host = host_op_us()
+        print(f"  host: {host:.2f} us to issue a tiny eager op")
+        try:
+            full = cs.train_full(dev, conf)
+        except NotImplementedError as e:  # an older tree: not trainable
+            print(f"  {conf['arch']}: {e}")
+            continue
+        out["train"][name] = dict({k: full.get(k) for k in keys},
+                                  host_op_us=host)
 
 
 def time_bwd_splits(cs, dev, out: dict) -> None:
@@ -156,13 +186,14 @@ def time_bwd_splits(cs, dev, out: dict) -> None:
                        .bfloat16() for n in (H, K, K))
             dout = torch.randn((B, S, H, hd), generator=g,
                                device=dev).bfloat16()
-            o, lse = K5.flash_attention_lse(q, k, v)
+            o, lse, *lo = K5.flash_attention_lse(q, k, v)
+            kw = dict(out_lo=lo[0]) if lo else {}  # an older tree: none
             key = f"{B}x{S}x{H}/{K}x{hd}"
             times = {}
             for d in (d for d in range(1, H // K + 1) if (H // K) % d == 0):
                 K5.bwd_plan = functools.partial(plan, splits=d)
                 times[d] = cs.time_ms(lambda: K5.flash_attention_backward(
-                    q, k, v, o, lse, dout), reps=5, repeats=7)[0]
+                    q, k, v, o, lse, dout, **kw), reps=5, repeats=7)[0]
             K5.bwd_plan = plan
             out["bwd_splits"][key] = times
             print(f"  flash_attn backward [{key}] by splits (the plan takes "
@@ -351,8 +382,9 @@ def main() -> int:
                     help="also time K5's backward at every split count of "
                          "its plan (a tree whose backward has bwd_plan)")
     ap.add_argument("--train", action="store_true",
-                    help="also time training steps: qwen3-100m and "
-                         "starcoder2-3b at full width and depth")
+                    help="also time training steps: qwen3-100m, and "
+                         "starcoder2-3b and mamba2-370m at full width and "
+                         "depth")
     args = ap.parse_args()
 
     import chip_smoke as cs  # puts this checkout's src first on sys.path
