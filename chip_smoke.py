@@ -29,6 +29,15 @@ fleet picks equal the CPU's. K1's multi-workload entry is held against its
 plain version at 3 x {60, 40, 2, 2500} designs (``K1_MULTI_SHAPES``), each
 workload's slice bitwise a single launch.
 
+The fleet over a mesh (``fleet_tuner(mesh=...)``): the same six scenarios,
+incremental, over ``Mesh`` on axis ("fleet",) of 2 and of 3 scenario
+groups (the card repeated; one group a card where several are visible),
+every count set to 0 before each run: K4 6 launches in every round, K1's
+multi-workload entry, K2 and K3 launched, the two runs' rows and metrics
+equal, and equal to the unsharded incremental fleet's where that run had
+no mixed round (the mesh decides refactors fleet-wide); the seconds of a
+fleet round under each mesh beside the unsharded run's.
+
 The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
 route, ``csrc/flash_attn_tc.cu``, whose ptxas registers and spills and whose
 ``wgmma`` and TMA instructions in the built SASS are printed first) against
@@ -1156,6 +1165,8 @@ def fleet_phase(dev, single: dict, card: str) -> dict:
               f"{brk['device_launches']} launches, a soc_tuner round "
               f"{single[label]['device_launches']}")
         out[label] = dict(
+            rows=[r.evaluated_rows.tolist() for r in fr.results],
+            y=[r.y.tolist() for r in fr.results],
             wall_s=wall, round_wall_s=round_s, breakdown=brk,
             single_round_s=one, launches=launches, systolic_eval=k1_single,
             systolic_eval_multi=k1_multi, round_fused_per_round=k4_rounds,
@@ -1166,6 +1177,102 @@ def fleet_phase(dev, single: dict, card: str) -> dict:
     print(f"  [{card}]", end="")
     out["adam_step"] = adam_step_launches(dev, S)
     return out
+
+
+#: the mesh phase's scenario groups: the fleet over 2 and over 3 groups
+MESH_GROUPS = (2, 3)
+
+
+def mesh_phase(dev, fleet: dict, card: str) -> dict:
+    """The six-scenario incremental fleet at the paper protocol over a
+    ``Mesh`` on axis ("fleet",) of 2 and of 3 scenario groups (``dev``
+    repeated; one group a card when more than one card is visible), every
+    count set to 0 before each run: K4 must launch 6 times in every round,
+    K1's multi-workload entry, K2 and K3 must launch; the two mesh runs
+    must pick the same rows and metrics, and equal the fleet phase's
+    unsharded incremental run (``fleet``) when that run had no mixed round
+    (its per-scenario refactors then match the mesh's fleet-wide decision).
+    The seconds of a fleet round under each mesh are printed beside the
+    unsharded run's and ``card`` (nvidia-smi's name and power limit)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import round_fused as K4
+    from repro_torch.kernels import systolic_eval as K1
+    from repro_torch.parallel import Mesh
+    from repro_torch.random import GeneratorDraws
+
+    scen = [(w, s) for w in FLEET_WORKLOADS for s in FLEET_SEEDS]
+    S, T = len(scen), MAIN["T"]
+    pool, fronts = fleet_inputs(MAIN, dev)
+    base = fleet["incremental"]
+    ncards = torch.cuda.device_count()
+    out = {}
+    for G in MESH_GROUPS:
+        devs = ([dev] * G if ncards < 2 else
+                [torch.device("cuda", g % ncards) for g in range(G)])
+        mesh = Mesh(devs, ("fleet",))
+        probe = RoundProbe(GeneratorDraws(scen[0][1], dev))
+        draws = [probe] + [GeneratorDraws(s, dev) for _, s in scen[1:]]
+        print(f"fleet over {mesh}: fleet_tuner, {S} scenarios, incremental")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        fr = run_fleet(MAIN, dev, scen, pool, fronts, draws=draws,
+                       incremental=True, mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k4_rounds = np.diff(probe.k4_at_round + [K4.launches]).tolist()
+        launches = {k.__name__.rsplit(".", 1)[1]: k.launches
+                    for k in kernels.KERNELS}
+        k1_multi = sum(K1.multi_shape_launches.values())
+        round_s = [h["wall_s"] for h in fr.results[0].history[1:]]
+        st = fr.results[0].engine_stats
+        for sc, res in zip(fr.scenarios, fr.results):
+            check_result(res, pool, fronts[sc.workload],
+                         {**MAIN, "workload": sc.workload})
+        print(f"  {G} groups [{card}]: {wall:.1f} s, {np.mean(round_s):.4f} s "
+              f"a fleet round (median {np.median(round_s):.4f}) against the "
+              f"unsharded {np.mean(base['round_wall_s']):.4f} (median "
+              f"{np.median(base['round_wall_s']):.4f}); launches {launches}, "
+              f"systolic_eval multi {k1_multi}; round_fused launches a round: "
+              f"{k4_rounds}; engine refactors {st['refactors']}, block "
+              f"updates {st['block_updates']}, mixed rounds "
+              f"{st['mixed_rounds']}, scenario refactors "
+              f"{st['scenario_refactors']}")
+        if k4_rounds != [S] * T or launches["round_fused"] != S * T:
+            raise AssertionError(
+                f"mesh ({G} groups): round_fused launched {k4_rounds} a "
+                f"round, not {S} in each of {T}")
+        missing = [k for k in ("systolic_eval", "pairdist", "pareto_count")
+                   if not launches[k]] + ([] if k1_multi else
+                                          ["systolic_eval multi"])
+        if missing:
+            raise AssertionError(f"mesh ({G} groups): not launched: "
+                                 f"{missing}")
+        out[G] = dict(devices=[str(d) for d in devs], wall_s=wall,
+                      round_wall_s=round_s, launches=launches,
+                      systolic_eval_multi=k1_multi,
+                      round_fused_per_round=k4_rounds, engine_stats=st,
+                      final_adrs=fr.final_adrs(),
+                      rows=[r.evaluated_rows.tolist() for r in fr.results],
+                      y=[r.y.tolist() for r in fr.results])
+    a, b = (out[G] for G in MESH_GROUPS)
+    if a["rows"] != b["rows"] or a["y"] != b["y"]:
+        raise AssertionError("the 2- and 3-group mesh runs picked other rows")
+    mixed = base["engine_stats"]["mixed_rounds"]
+    if mixed == 0:
+        if a["rows"] != base["rows"] or a["y"] != base["y"]:
+            raise AssertionError("the mesh runs' rows differ from the "
+                                 "unsharded run's, which had no mixed round")
+        held = "equal to the unsharded run (no mixed round there)"
+    else:
+        held = (f"not compared with the unsharded run: it had {mixed} mixed "
+                "rounds, which a mesh decides fleet-wide")
+    print(f"  mesh: {MESH_GROUPS[0]} and {MESH_GROUPS[1]} groups pick the "
+          f"same rows and y; {held}")
+    out["held"] = held
+    return {str(k): v for k, v in out.items()}
 
 
 def fleet_of_one(dev, main_runs: dict) -> None:
@@ -4942,6 +5049,9 @@ def main() -> int:
     # a fleet of one against the main runs, and the card against the CPU.
     fleet = fleet_phase(dev, {"exact": breakdown, "incremental": breakdown_i},
                         card)
+    # The fleet over a mesh: scenario groups, one a device (the card
+    # repeated), against each other and the unsharded run.
+    mesh = mesh_phase(dev, fleet, card)
     fleet_of_one(dev, {"exact": res, "incremental": res_i})
     fleet_card_vs_cpu()
 
@@ -5013,6 +5123,25 @@ def main() -> int:
         "round_fused": ("round_fused.cu",
                         "src/repro/kernels/round_fused/kernel.py:142",
                         launches_i),
+        # the fleet over a mesh of 2 groups: K1's multi-workload entry, K2,
+        # K3 and K4 as launched there (held against their plain versions
+        # at the checks named last)
+        "systolic_eval_multi_mesh": (
+            "systolic_eval.cu", "src/repro/kernels/systolic_eval/kernel.py:33",
+            {"systolic_eval_multi_mesh": mesh["2"]["systolic_eval_multi"]},
+            "systolic_eval_multi"),
+        "pairdist_mesh": ("pairdist.cu",
+                          "src/repro/kernels/pairdist/kernel.py:36",
+                          {"pairdist_mesh": mesh["2"]["launches"]["pairdist"]},
+                          "pairdist"),
+        "pareto_count_mesh": (
+            "pareto_count.cu", "src/repro/kernels/pareto_count/kernel.py:34",
+            {"pareto_count_mesh": mesh["2"]["launches"]["pareto_count"]},
+            "pareto_count"),
+        "round_fused_mesh": (
+            "round_fused.cu", "src/repro/kernels/round_fused/kernel.py:142",
+            {"round_fused_mesh": mesh["2"]["launches"]["round_fused"]},
+            "round_fused"),
         # K4's pool uses: their launches in the proposer run
         "round_fused_refresh": (
             "round_fused.cu", "src/repro/kernels/round_fused/kernel.py:142",
@@ -5143,10 +5272,11 @@ def main() -> int:
                 if a not in TRAIN_SMOKE_MLA)}),
     }
     entries = []
-    for name, (cu, replaces, counts) in meta.items():
-        head = checks[name][0]
+    for name, (cu, replaces, counts, *check) in meta.items():
+        key = check[0] if check else name  # the check a mesh entry reads
+        head = checks[key][0]
         errs = [c["max_abs_err"] for k in checks  # pairdist_rbf with pairdist
-                if k == name or k.startswith(name + "_") and k not in meta
+                if k == key or k.startswith(key + "_") and k not in meta
                 for c in checks[k]]
         entries.append(dict(
             name=name, route="cuda", source=src + cu, replaces=replaces,
@@ -5175,7 +5305,8 @@ def main() -> int:
                              flow_calls=flow_i.calls, launches=launches_i,
                              launches_by_class=by_class["incremental"],
                              round_breakdown=breakdown_i),
-            fleet=fleet, proposer=proposer, fleet_proposer=fleet_proposer,
+            fleet=fleet, mesh=mesh, proposer=proposer,
+            fleet_proposer=fleet_proposer,
             service=service, baselines=baselines, serve=serve,
             serve_mla=serve_mla, serve_moe_mla=serve_moe_mla,
             serve_moe=serve_moe, serve_ssm=serve_ssm,

@@ -48,6 +48,7 @@ one batch of G·m factors; :class:`BOEngine` calls them with G = 1.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -62,7 +63,7 @@ from repro_torch.kernels import round_fused as _rf
 from .acquisition import imoo_scores, imoo_scores_batch
 from .gp import (JITTER, PAD_BUCKET, GPParams, _cholesky, _fit, _fit_batch,
                  _kernels, _standardize, default_params, fit_gp, fit_gp_batch,
-                 fold, pad_training, take)
+                 fold, pad_training, solve_lower, take)
 
 __all__ = ["BOEngine", "BatchedBOEngine", "EngineStats", "EngineState",
            "FANTASY_MODES", "PROFILE_STAGES", "ENGINE_STATE_FORMAT",
@@ -241,8 +242,7 @@ def _chol_block_batch(params_ref: GPParams, L, x, mask, s0: int) -> torch.Tensor
     K12 = _kernels_batch(params_ref, xa, xb)                    # [G·m, s0, B]
     K22 = _kernels_batch(params_ref, xb, xb) + noise + pads
     Lf = L.reshape(-1, P, P)
-    L21 = torch.linalg.solve_triangular(Lf[:, :s0, :s0], K12,
-                                        upper=False).transpose(1, 2)
+    L21 = solve_lower(Lf[:, :s0, :s0], K12).transpose(1, 2)
     L22 = _cholesky(K22 - L21 @ L21.transpose(1, 2))
     out = Lf.clone()
     out[:, s0:, :s0] = L21
@@ -273,8 +273,7 @@ def _train_beta_batch(L, yn) -> torch.Tensor:
     """[G, m, P] whitened targets β = L⁻¹·y per scenario and objective."""
     G, m, P, _ = L.shape
     yt = yn.transpose(1, 2).reshape(G * m, P)
-    beta = torch.linalg.solve_triangular(L.reshape(G * m, P, P),
-                                         yt[:, :, None], upper=False)
+    beta = solve_lower(L.reshape(G * m, P, P), yt[:, :, None])
     return beta[:, :, 0].reshape(G, m, P)
 
 
@@ -292,8 +291,7 @@ def _frontier_ystar_batch(params_ref: GPParams, L, beta, x, xq, y_mean,
     q, s = xq.shape[1], eps.shape[-1]
     pf = fold(params_ref)
     Ks = _kernels_batch(params_ref, x, xq)                      # [G·m, P, q]
-    Vs = torch.linalg.solve_triangular(L.reshape(G * m, P, P), Ks,
-                                       upper=False)
+    Vs = solve_lower(L.reshape(G * m, P, P), Ks)
     mean_q, _ = _col_moments(pf.log_var, beta.reshape(G * m, P), Vs)
     cov = _kernels_batch(params_ref, xq, xq) - Vs.transpose(1, 2) @ Vs
     jit = 1e-4 * torch.exp(pf.log_var) + 1e-6
@@ -1164,6 +1162,20 @@ def _scatter(old: torch.Tensor, new: torch.Tensor, idx: torch.Tensor):
     return out
 
 
+def _on(device: torch.device):
+    """The guard a scenario group's work runs under: its card current (so
+    each kernel launches on that card's stream), nothing on the CPU."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _part(x, sl: slice):
+    """A scenario group's slice of a per-scenario input (None stays
+    None)."""
+    return None if x is None else x[sl]
+
+
 class BatchedBOEngine(_EngineBase):
     """:class:`BOEngine` with a leading scenario axis [S]: the fleet's
     backend (``repro.core.engine.BatchedBOEngine``)::
@@ -1184,11 +1196,11 @@ class BatchedBOEngine(_EngineBase):
     The incremental path: the warm fits of every scenario in one Adam loop
     and each scenario's drift (phase 1); then, decided on the host per
     scenario in float32 against ``drift_tol``, a refactor or a block update
-    of its factors. A fresh or grown padded size refactors the whole fleet;
-    otherwise only the drifting scenarios refactor, and a mixed round runs
-    each group on its own and scatters L, V, y* and the picks back, with
-    ``params_ref`` mixed per scenario. The factors and the frontier samples
-    of a group are one batch of G·m.
+    of its factors (phase 2). A fresh or grown padded size refactors the
+    whole fleet; otherwise only the drifting scenarios refactor, and a
+    mixed round runs each group on its own and scatters L, V, y* and the
+    picks back, with ``params_ref`` mixed per scenario. The factors and the
+    frontier samples of a group are one batch of G·m.
 
     **K4 runs once per scenario a round, one scenario after another on one
     stream**, as the reference's vmapped round calls ``round_score_auto``
@@ -1197,9 +1209,29 @@ class BatchedBOEngine(_EngineBase):
     own need a scratch a stream first. K4 writes each scenario's V rows in
     place into the cached [S, nc, m, P, C] tensor.
 
-    ``mesh`` (the reference's ``shard_map`` of the scenario axis) is not
-    ported: the port runs a fleet on one device (ROADMAP queue 1, item
-    14b.8).
+    ``mesh`` (a :class:`repro_torch.parallel.sharding.Mesh`; the
+    reference's ``shard_map`` of the scenario axis) splits the fleet into
+    scenario groups, one a device of the mesh axis ``mesh_axis`` (default:
+    the mesh's first axis; over any other axis the reference replicates,
+    and the port runs each group once, on the first device of its slice).
+    ``S`` must divide evenly over that axis, and a mesh requires
+    ``incremental=True``. Scenarios ``[g·S/G, (g+1)·S/G)`` live on device
+    g: a batched engine of their own holds their pool slice, factors, V
+    cache, masks and hyperparameters, and no tensor of one group touches
+    another device inside a round. A round issues phase 1 on every group
+    before the host reads any group's drift, then phase 2 on every group,
+    and gathers the [S] picks in scenario order. As in the reference, the
+    refactor decision under a mesh is **fleet-wide**: a fresh or grown
+    padded size, or nothing reusable (s0 <= 0), refactors every scenario,
+    and so does any one scenario's drift past ``drift_tol``. A mesh run
+    therefore picks what the unsharded run picks only where the unsharded
+    run has no mixed round; there it does so bit for bit on the card too,
+    as a GP's bits do not depend on how many share its batch
+    (:mod:`repro_torch.core.gp`). ``stats`` count fleet rounds, as one engine
+    does; :meth:`state_dict` gathers the groups into the unsharded layout
+    and :meth:`load_state_dict` scatters it. Here ``device`` holds the
+    fleet's host-side bookkeeping (observations, the evaluated mask, the
+    pool as passed), the mesh's devices the groups.
     """
 
     #: fit_gp_batch, frontier + predict, scores: the ``dispatches`` unit
@@ -1211,11 +1243,6 @@ class BatchedBOEngine(_EngineBase):
                  bucket: int = PAD_BUCKET, s_frontiers: int = 10,
                  weights=None, pool_chunk: int | str | None = None,
                  mesh=None, mesh_axis: str | None = None, device=None):
-        if mesh is not None or mesh_axis is not None:
-            raise NotImplementedError(
-                "repro_torch: BatchedBOEngine(mesh=...) is not ported; a "
-                "fleet runs on one device (ROADMAP queue 1, item 14b.8: "
-                "scenario groups, one engine a GPU)")
         # weights: [S, m] per-scenario acquisition weights or None (None
         # stays None: the unweighted scores, bit for bit)
         self._configure(pool_icd, incremental=incremental,
@@ -1231,12 +1258,48 @@ class BatchedBOEngine(_EngineBase):
         self._ys: list[np.ndarray | None] = [None] * self.S
         self._eval_mask = torch.zeros((self.S, self.N), dtype=torch.bool,
                                       device=self.device)
+        self.mesh = mesh
+        self.mesh_axis = None
+        self._groups: list[BatchedBOEngine] | None = None
+        self._slices = [slice(0, self.S)]
+        if mesh is not None:
+            if not self.incremental:
+                raise ValueError(
+                    "mesh sharding requires incremental=True: the exact "
+                    "historical path is host-driven per round")
+            self.mesh_axis = mesh_axis or mesh.axis_names[0]
+            ndev = dict(zip(mesh.axis_names,
+                            mesh.devices.shape))[self.mesh_axis]
+            if self.S % ndev:
+                raise ValueError(
+                    f"fleet size S={self.S} must divide evenly over the "
+                    f"{ndev} devices of mesh axis {self.mesh_axis!r}")
+            size = self.S // ndev
+            self._slices = [slice(g * size, (g + 1) * size)
+                            for g in range(ndev)]
+            self._groups = [
+                BatchedBOEngine(
+                    self.pool[sl], incremental=True,
+                    warm_start=self.warm_start, gp_steps=self.gp_steps,
+                    warm_steps=self.warm_steps, drift_tol=self.drift_tol,
+                    bucket=self.bucket, s_frontiers=self.s_frontiers,
+                    weights=(None if self.weights is None
+                             else self.weights[sl].cpu().numpy()),
+                    pool_chunk=self._C,
+                    device=resolve_device(dev))
+                for sl, dev in zip(self._slices,
+                                   mesh.axis_devices(self.mesh_axis))]
 
     @property
     def m(self) -> int:
         if self._ys[0] is None:
             raise RuntimeError("engine has no observations yet")
         return self._ys[0].shape[1]
+
+    def _engines(self) -> list:
+        """The engines that run rounds: the groups under a mesh, else
+        this one."""
+        return self._groups or [self]
 
     def _weights(self) -> torch.Tensor:
         return (torch.ones((self.S, self.m), device=self.device)
@@ -1276,6 +1339,9 @@ class BatchedBOEngine(_EngineBase):
         if scat_r:
             self._eval_mask[torch.as_tensor(scat_s, device=self.device),
                             torch.as_tensor(scat_r, device=self.device)] = True
+        for grp, sl in zip(self._groups or (), self._slices):
+            grp.observe(list(rows_per_scenario)[sl],
+                        list(ys_per_scenario)[sl])
 
     # -------------------------------------------------------------- select
     def select(self, eps, sub_rows=None) -> np.ndarray:
@@ -1301,7 +1367,8 @@ class BatchedBOEngine(_EngineBase):
         with nothing pending is :meth:`select`. As in the reference, a
         scenario that runs out of unevaluated rows mid-chain may repeat
         picks; the caller consumes at most ``N − #evaluated − #pending``
-        fresh picks a scenario."""
+        fresh picks a scenario. Under a mesh each group runs its scenarios'
+        chains on its device, step by step with the others."""
         self._check_live()
         pending = ([[] for _ in range(self.S)] if pending is None
                    else [[int(r) for r in p] for p in pending])
@@ -1333,64 +1400,94 @@ class BatchedBOEngine(_EngineBase):
         picks0 = self._select_incremental(eps, sub_rows,
                                           reserve=k_max + q - 1,
                                           do_select=(k_max == 0))
-        state, ystar = self._state, self._last_ystar
-        rows_np, y_pad, mask_np = self._last_batch
-        dev, P = self.device, self._P
-        rows_pad = list(torch.as_tensor(rows_np, dtype=torch.int64,
-                                        device=dev))
-        mask = list(torch.as_tensor(mask_np, device=dev))
-        yt = torch.as_tensor(y_pad, device=dev)
-        yn, y_mean, y_std = map(list, zip(*(_standardize(yt[si], mask[si])
-                                            for si in range(self.S))))
         s0 = (self._n_at_last_select // self.bucket) * self.bucket
-        L, V, weights = list(state.L), state.V, self._weights()
-        evalm = list(self._evalm_chunks())
-        pool_c = self._pool_c
-
+        engines = self._engines()
         chains = [[None] * (k_max - len(p)) + list(p) for p in pending]
         picks: list[list[int]] = ([[] for _ in range(self.S)] if k_max
                                   else [[int(x)] for x in picks0])
         ns = [len(r) for r in self._rows]
         appended = [0] * self.S
         try:
+            chain = []
+            for e in engines:
+                with _on(e.device):
+                    chain.append(e._chain_start())
             for step in range(k_max + q - 1):
                 need_pick = step >= k_max - 1
-                nxt_step = []
-                for si in range(self.S):
-                    row = (chains[si][step] if step < k_max
-                           else picks[si][-1])
-                    pr = take(state.params_ref, si)
-                    if row is not None:
-                        (L[si], _, rows_pad[si], mask[si], yn[si], evalm[si],
-                         nxt) = _fantasy_step(
-                            pr, L[si], V[si], rows_pad[si], yn[si], mask[si],
-                            pool_c[si], evalm[si], weights[si], y_mean[si],
-                            y_std[si], ystar[si], row, ns[si] + appended[si],
-                            s0=s0, liar=fantasy)
-                        appended[si] += 1
-                        self.stats.fantasy_steps += 1
-                    elif need_pick:  # an idle step: the round's own pick
-                        x = (pool_c[si].reshape(-1, self.d)[rows_pad[si]]
-                             + 10.0 * mask[si][:, None])
-                        _, nxt = _round_fused(
-                            pr, L[si], V[si], x, _train_beta(L[si], yn[si]),
-                            ystar[si], pool_c[si], evalm[si], y_mean[si],
-                            y_std[si], weights[si], P)
-                    if need_pick:
-                        nxt_step.append(nxt)
+                nxt = []
+                for e, ctx, sl in zip(engines, chain, self._slices):
+                    idx = range(self.S)[sl]
+                    rows = [chains[si][step] if step < k_max
+                            else picks[si][-1] for si in idx]
+                    with _on(e.device):
+                        nxt.append(e._chain_step(
+                            ctx, rows, [ns[si] + appended[si] for si in idx],
+                            s0=s0, fantasy=fantasy, need_pick=need_pick))
+                    for si, row in zip(idx, rows):
+                        if row is not None:
+                            appended[si] += 1
+                            self.stats.fantasy_steps += 1
                 self.stats.dispatches += 1
-                if need_pick:
-                    for si, p in enumerate(torch.stack(nxt_step).tolist()):
+                if need_pick:  # every group's launches issued: gather
+                    flat = [p for part in nxt
+                            for p in torch.stack(part).tolist()]
+                    for si, p in enumerate(flat):
                         picks[si].append(int(p))
         except BaseException:
             # K4 updates V in place; a broken chain leaves it half written.
             # Drop to a cold rebuild (observations are on the host).
-            self._state = None
-            self._P = 0
+            for e in engines + [self]:
+                e._state = None
+                e._P = 0
             raise
         # fantasy rows live in [s0, P), which the next round recomputes
-        self._state = state._replace(L=torch.stack(L), V=V)
+        for e, ctx in zip(engines, chain):
+            e._state = e._state._replace(L=torch.stack(ctx["L"]), V=ctx["V"])
         return np.asarray(picks, np.int64)
+
+    def _chain_start(self) -> dict:
+        """This engine's per-scenario fantasy state after a round phase."""
+        rows_np, y_pad, mask_np = self._last_batch
+        dev = self.device
+        mask = list(torch.as_tensor(mask_np, device=dev))
+        yt = torch.as_tensor(y_pad, device=dev)
+        yn, y_mean, y_std = map(list, zip(*(_standardize(yt[si], mask[si])
+                                            for si in range(self.S))))
+        return dict(rows_pad=list(torch.as_tensor(rows_np, dtype=torch.int64,
+                                                  device=dev)),
+                    mask=mask, yn=yn, y_mean=y_mean, y_std=y_std,
+                    L=list(self._state.L), V=self._state.V,
+                    evalm=list(self._evalm_chunks()), weights=self._weights())
+
+    def _chain_step(self, ctx: dict, rows: list, pos: list, *, s0: int,
+                    fantasy: str, need_pick: bool) -> list:
+        """One fantasy step of each of this engine's scenarios: ``rows[i]``
+        is appended at pad position ``pos[i]`` (None: the scenario idles).
+        Returns the picks (0-dim tensors) when ``need_pick``; an idle
+        scenario's is the round's own pick under its frozen state."""
+        out = []
+        state, ystar, pool_c = self._state, self._last_ystar, self._pool_c
+        for si, row in enumerate(rows):
+            pr = take(state.params_ref, si)
+            if row is not None:
+                (ctx["L"][si], _, ctx["rows_pad"][si], ctx["mask"][si],
+                 ctx["yn"][si], ctx["evalm"][si], nxt) = _fantasy_step(
+                    pr, ctx["L"][si], ctx["V"][si], ctx["rows_pad"][si],
+                    ctx["yn"][si], ctx["mask"][si], pool_c[si],
+                    ctx["evalm"][si], ctx["weights"][si], ctx["y_mean"][si],
+                    ctx["y_std"][si], ystar[si], row, pos[si], s0=s0,
+                    liar=fantasy)
+            elif need_pick:  # an idle step: the round's own pick
+                x = (pool_c[si].reshape(-1, self.d)[ctx["rows_pad"][si]]
+                     + 10.0 * ctx["mask"][si][:, None])
+                _, nxt = _round_fused(
+                    pr, ctx["L"][si], ctx["V"][si], x,
+                    _train_beta(ctx["L"][si], ctx["yn"][si]), ystar[si],
+                    pool_c[si], ctx["evalm"][si], ctx["y_mean"][si],
+                    ctx["y_std"][si], ctx["weights"][si], self._P)
+            if need_pick:
+                out.append(nxt)
+        return out
 
     def _select_exact(self, eps, sub_rows) -> np.ndarray:
         """The reference's exact fleet round: every scenario padded to the
@@ -1433,12 +1530,59 @@ class BatchedBOEngine(_EngineBase):
         """One incremental fleet round. ``reserve`` extra pad rows are
         provisioned beyond the fleet-wide largest training set for a
         following fantasy chain; ``do_select=False`` discards the picks
-        (returns -1s)."""
+        (returns -1s). Under a mesh every group runs phase 1, then the
+        host decides fleet-wide, then every group runs phase 2."""
         n_max = max(len(r) for r in self._rows)
         P = n_max + reserve
         P = P + (-P) % self.bucket
         grew = P != self._P
-        first = self._state is None
+        engines = self._engines()
+        first = engines[0]._state is None
+        S = self.S
+        s0 = 0 if (first or grew) else \
+            (self._n_at_last_select // self.bucket) * self.bucket
+        ph1 = []
+        for e in engines:  # phase 1 everywhere before any host read
+            with _on(e.device):
+                ph1.append(e._phase1(P, first, grew))
+        drift = np.concatenate([r["drift"].cpu().numpy() for r in ph1])
+        if first or grew or s0 <= 0:
+            ref_idx = np.arange(S)
+        else:
+            ref_idx = np.flatnonzero(drift > np.float32(self.drift_tol))
+            if self._groups is not None and ref_idx.size:
+                ref_idx = np.arange(S)  # a mesh decides fleet-wide
+        upd_idx = np.setdiff1d(np.arange(S), ref_idx)
+        picks = []
+        for e, r, sl in zip(engines, ph1, self._slices):
+            mine = ref_idx[(ref_idx >= sl.start) & (ref_idx < sl.stop)]
+            with _on(e.device):
+                picks.append(e._phase2(r, mine - sl.start, s0,
+                                       _part(eps, sl), _part(sub_rows, sl)))
+        if ref_idx.size == S:
+            self.stats.refactors += 1
+        elif upd_idx.size == S:
+            self.stats.block_updates += 1
+        else:
+            self.stats.mixed_rounds += 1
+            self.stats.dispatches += 1  # the group split costs one extra
+        self.stats.scenario_refactors += int(ref_idx.size)
+        self.stats.scenario_block_updates += int(upd_idx.size)
+        self._P = P
+        self._n_at_last_select = min(len(r) for r in self._rows)
+        self.stats.rounds += 1
+        self.stats.dispatches += 2
+        self.stats.frontier_resamples += 1
+        self.stats.last_drift = float(drift.max())
+        if not do_select:
+            return np.full((S,), -1, np.int64)
+        return np.concatenate([p.cpu().numpy() for p in picks]).astype(
+            np.int64)
+
+    def _phase1(self, P: int, first: bool, grew: bool) -> dict:
+        """Phase 1 of a round on this engine's scenarios: the padded batch,
+        the warm fits in one Adam loop and each scenario's drift (left on
+        the device)."""
         S, dev = self.S, self.device
         padded = [self._padded_batch(self._rows[si], self._ys[si], P)
                   for si in range(S)]
@@ -1451,8 +1595,6 @@ class BatchedBOEngine(_EngineBase):
         else:
             params0 = self._state.params
         state = self._alloc_state(params0, P, first or grew)
-
-        # phase 1: the fleet's fits in one Adam loop, each scenario's drift
         mask = torch.as_tensor(mask_np, device=dev)
         pool_flat = self._pool_c.reshape(S, self._N_pad, self.d)
         sidx = torch.arange(S, device=dev)
@@ -1463,17 +1605,21 @@ class BatchedBOEngine(_EngineBase):
         yn, y_mean, y_std = (torch.stack(t) for t in zip(
             *(_standardize(yt[si], mask[si]) for si in range(S))))
         params = _fit_batch(state.params, x, yn, mask, steps)
-        drift = _drift_batch(params, state.params_ref).cpu().numpy()
-        s0 = 0 if (first or grew) else \
-            (self._n_at_last_select // self.bucket) * self.bucket
-        if first or grew or s0 <= 0:
-            ref_idx = np.arange(S)
-        else:
-            ref_idx = np.flatnonzero(drift > np.float32(self.drift_tol))
-        upd_idx = np.setdiff1d(np.arange(S), ref_idx)
+        return dict(P=P, batch=(rows_np, y_pad, mask_np), state=state,
+                    params=params, x=x, yn=yn, y_mean=y_mean, y_std=y_std,
+                    mask=mask, pool_flat=pool_flat,
+                    drift=_drift_batch(params, state.params_ref))
 
-        # phase 2: each group's factors and frontier samples, then one K4
-        # launch a scenario (V updated in place)
+    def _phase2(self, r: dict, ref_idx: np.ndarray, s0: int, eps,
+                sub_rows) -> torch.Tensor:
+        """Phase 2 of a round on this engine's scenarios: the scenarios
+        ``ref_idx`` refactor, the rest block-update from ``s0``; each
+        group's factors and frontier samples, then one K4 launch a scenario
+        (V updated in place). Keeps the new state; returns the picks [S] on
+        the device."""
+        S, dev = self.S, self.device
+        state, params, x, mask = r["state"], r["params"], r["x"], r["mask"]
+        upd_idx = np.setdiff1d(np.arange(S), ref_idx)
         if upd_idx.size == 0:
             params_ref = params
         elif ref_idx.size == 0:
@@ -1495,43 +1641,89 @@ class BatchedBOEngine(_EngineBase):
             pr = params_ref if idx.size == S else take(params_ref, ii)
             L_g = (_chol_refactor_batch(pr, g(x), g(mask)) if refactor else
                    _chol_block_batch(pr, g(state.L), g(x), g(mask), s0))
-            beta, ystar_g = _beta_ystar_batch(pr, L_g, g(x), g(yn),
-                                              g(y_mean), g(y_std),
-                                              g(pool_flat), g(sub), g(eps_t))
+            beta, ystar_g = _beta_ystar_batch(pr, L_g, g(x), g(r["yn"]),
+                                              g(r["y_mean"]), g(r["y_std"]),
+                                              g(r["pool_flat"]), g(sub),
+                                              g(eps_t))
             L[ii], ystar[ii] = L_g, ystar_g
             for j, si in enumerate(idx):
                 _, picks_t[si] = _round_fused(
                     take(pr, j), L_g[j], state.V[si], x[si], beta[j],
-                    ystar_g[j], self._pool_c[si], evalm[si], y_mean[si],
-                    y_std[si], weights[si], 0 if refactor else s0)
-        if ref_idx.size == S:
-            self.stats.refactors += 1
-        elif upd_idx.size == S:
-            self.stats.block_updates += 1
-        else:
-            self.stats.mixed_rounds += 1
-            self.stats.dispatches += 1  # the group split costs one extra
-        self.stats.scenario_refactors += int(ref_idx.size)
-        self.stats.scenario_block_updates += int(upd_idx.size)
-
+                    ystar_g[j], self._pool_c[si], evalm[si], r["y_mean"][si],
+                    r["y_std"][si], weights[si], 0 if refactor else s0)
         self._state = EngineState(params, params_ref, L, state.V)
-        self._P = P
-        self._n_at_last_select = min(len(r) for r in self._rows)
-        self._last_batch = (rows_np, y_pad, mask_np)
+        self._P = r["P"]
+        self._n_at_last_select = min(len(rows) for rows in self._rows)
+        self._last_batch = r["batch"]
         self._last_ystar = ystar
-        self.stats.rounds += 1
-        self.stats.dispatches += 2
-        self.stats.frontier_resamples += 1
-        self.stats.last_drift = float(drift.max())
-        if not do_select:
-            return np.full((S,), -1, np.int64)
-        return torch.stack(picks_t).cpu().numpy().astype(np.int64)
+        return torch.stack(picks_t)
+
+    # ------------------------------------------ pool edits under a mesh
+    def pool_append(self, cols) -> np.ndarray:
+        rows = super().pool_append(cols)
+        self._edit_groups("pool_append", cols)
+        return rows
+
+    def pool_replace(self, rows, cols) -> None:
+        super().pool_replace(rows, cols)  # validates for the whole fleet
+        self._edit_groups("pool_replace", cols, rows)
+
+    def _edit_groups(self, name: str, cols, *rows) -> None:
+        """Apply a pool edit, already made to this engine's own copy, to
+        each group's slice; the V chunks the groups refresh count once."""
+        if self._groups is None:
+            return
+        cols = self._check_cols(cols, name)
+        before = self._groups[0].stats.v_chunk_refreshes
+        for grp, sl in zip(self._groups, self._slices):
+            with _on(grp.device):
+                getattr(grp, name)(*rows, cols[sl])
+        self.stats.v_chunk_refreshes += (
+            self._groups[0].stats.v_chunk_refreshes - before)
+
+    pool_append.__doc__ = _EngineBase.pool_append.__doc__
+    pool_replace.__doc__ = _EngineBase.pool_replace.__doc__
+
+    def pool_scores(self) -> np.ndarray:
+        if self._groups is None:
+            return super().pool_scores()
+        self._check_live()
+        out = []
+        for grp in self._groups:
+            with _on(grp.device):
+                out.append(grp.pool_scores())
+        return np.concatenate(out)
+
+    pool_scores.__doc__ = _EngineBase.pool_scores.__doc__
+
+    def device_bytes(self) -> int:
+        return super().device_bytes() + sum(
+            g.device_bytes() for g in self._groups or ())
+
+    device_bytes.__doc__ = _EngineBase.device_bytes.__doc__
+
+    def release(self) -> None:
+        super().release()
+        for g in self._groups or ():
+            g.release()
+
+    release.__doc__ = _EngineBase.release.__doc__
 
     # -------------------------------------------- state (de)serialization
+    #: the snapshot's per-scenario blocks a mesh gathers and scatters
+    _GROUP_KEYS = ("state", "last_batch", "last_ystar")
+
     def state_dict(self) -> dict:
         """:meth:`BOEngine.state_dict` of the fleet: the training sets are
-        ragged, so rows and targets are stored per scenario index."""
+        ragged, so rows and targets are stored per scenario index. Under a
+        mesh the groups' blocks are gathered along the scenario axis: the
+        layout is the unsharded engine's."""
         d = self._base_state_dict()
+        if self._groups is not None:
+            parts = [g.state_dict() for g in self._groups]
+            for key in self._GROUP_KEYS:
+                if key in parts[0]:
+                    d[key] = _cat_tree([p[key] for p in parts])
         d["rows"] = {str(si): np.asarray(r, np.int64)
                      for si, r in enumerate(self._rows)}
         d["ys"] = {str(si): None if y is None else y.copy()
@@ -1539,7 +1731,11 @@ class BatchedBOEngine(_EngineBase):
         return d
 
     def load_state_dict(self, d: dict) -> None:
-        self._load_base_state_dict(d)
+        """Restore a :meth:`state_dict` snapshot; under a mesh each group
+        takes its scenarios' slice of it."""
+        own = ({k: v for k, v in d.items() if k not in self._GROUP_KEYS}
+               if self._groups is not None else d)
+        self._load_base_state_dict(own)
         self._rows = [[int(r) for r in
                        np.asarray(d["rows"][str(si)]).reshape(-1)]
                       for si in range(self.S)]
@@ -1553,3 +1749,33 @@ class BatchedBOEngine(_EngineBase):
         if scat_r:
             self._eval_mask[torch.as_tensor(scat_s, device=self.device),
                             torch.as_tensor(scat_r, device=self.device)] = True
+        for grp, sl in zip(self._groups or (), self._slices):
+            part = dict(own, pool_shape=list(grp.pool.shape),
+                        rows={str(i): d["rows"][str(si)] for i, si in
+                              enumerate(range(self.S)[sl])},
+                        ys={str(i): d["ys"].get(str(si)) for i, si in
+                            enumerate(range(self.S)[sl])})
+            if "pool_edit" in d:
+                part["pool_edit"] = dict(
+                    d["pool_edit"],
+                    pool=np.asarray(d["pool_edit"]["pool"])[sl])
+            for key in self._GROUP_KEYS:
+                if key in d:
+                    part[key] = _slice_tree(d[key], sl)
+            with _on(grp.device):
+                grp.load_state_dict(part)
+
+
+def _cat_tree(trees: list):
+    """The groups' snapshot blocks (nested dicts of arrays) joined along
+    the scenario axis."""
+    if isinstance(trees[0], dict):
+        return {k: _cat_tree([t[k] for t in trees]) for k in trees[0]}
+    return np.concatenate(trees)
+
+
+def _slice_tree(tree, sl: slice):
+    """One group's scenarios of a snapshot block."""
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, sl) for k, v in tree.items()}
+    return np.asarray(tree)[sl]

@@ -412,13 +412,16 @@ def fleet_tuner(
     ``disk_cache`` (a path or a
     :class:`repro_torch.service.flowcache.FlowDiskCache`) backs the memo
     with the on-disk cache that service runs, other fleets and the
-    reference share (see :class:`FlowEvalCache`). ``mesh``/``mesh_axis``
-    (ROADMAP queue 1, item 14b.8) are not ported yet and raise.
+    reference share (see :class:`FlowEvalCache`).
+
+    ``mesh`` (a :class:`repro_torch.parallel.sharding.Mesh`; incremental
+    only, not with ``proposer``) splits the fleet into scenario groups, one
+    a device of the mesh axis ``mesh_axis`` (default: its first axis); ``S``
+    must divide evenly over it. Each round runs every group's fits, then
+    decides the refactor fleet-wide, then every group's factors and K4
+    launches, and gathers the picks (``BatchedBOEngine``). The prologue,
+    the flow cache and the fronts stay on ``device``.
     """
-    if mesh is not None or mesh_axis is not None:
-        raise NotImplementedError(
-            "repro_torch.fleet_tuner: mesh is not ported yet (ROADMAP queue "
-            "1, item 14b.8)")
     t0 = time.monotonic()
     scenarios = list(scenarios)
     pool_idx = np.asarray(pool_idx)
@@ -429,6 +432,11 @@ def fleet_tuner(
             raise ValueError(
                 "proposer requires incremental=True: victim scoring runs on "
                 "the incremental engine's cached round state (pool_scores)")
+        if mesh is not None:
+            raise ValueError(
+                "proposer is incompatible with mesh sharding: pool edits "
+                "rewrite host-gathered V chunks (run unsharded, or propose "
+                "offline between sharded runs)")
         # a private copy: the proposer edits it, and the cache below
         # aliases the same array, so its flushes see the live designs
         pool_idx = np.array(pool_idx)
@@ -506,7 +514,7 @@ def fleet_tuner(
                              gp_steps=gp_steps, warm_steps=warm_steps,
                              drift_tol=drift_tol, s_frontiers=s_frontiers,
                              weights=weights, pool_chunk=pool_chunk,
-                             device=dev)
+                             mesh=mesh, mesh_axis=mesh_axis, device=dev)
     if snap is None:
         engine.observe([st.evaluated for st in states],
                        [st.y for st in states])

@@ -10,12 +10,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means ``cuda``; a CUDA request without a card raises.
 
     The port never carries on quietly on the CPU: the CPU runs only when
-    the caller names it."""
+    the caller names it. ``meta`` is accepted too: it holds shapes and
+    computes nothing, so it hides no device (an LM built there has its
+    published shapes without memory)."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "repro_torch: CUDA is not available; pass device='cpu' to run "
             "the plain PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"repro_torch: unsupported device {dev}")
     return dev

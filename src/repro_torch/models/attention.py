@@ -74,6 +74,17 @@ class MLACache(NamedTuple):
     k_rope: torch.Tensor  # [B, S_cache, qk_rope]
 
 
+#: the logical axes of one layer's caches (``init_kv_cache``'s and
+#: ``init_mla_cache``'s), and of a decoder layer's cross K/V over the
+#: encoder's positions (``init_cache``'s ``cross``)
+_KV = ("batch", "cache_seq", "kv_heads", None)
+KV_CACHE_AXES = KVCache(_KV, _KV)
+_LAT = ("batch", "cache_seq", None)
+MLA_CACHE_AXES = MLACache(_LAT, _LAT)
+_XKV = ("batch", None, "kv_heads", None)
+CROSS_CACHE_AXES = KVCache(_XKV, _XKV)
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"repro_torch: {what} is not yet ported to "
                                "CUDA (ROADMAP queue 1)")
@@ -83,6 +94,13 @@ class GQAttention(torch.nn.Module):
     """The parameters of ``gqa_init``: ``wq`` [d, H, hd], ``wk``/``wv``
     [d, K, hd], ``wo`` [H, hd, d] in bf16 and, with ``qk_norm``, ``q_norm``/
     ``k_norm`` [hd] in float32."""
+
+    #: each parameter's logical axes (``gqa_init``'s)
+    AXES = {"wq": ("embed_fsdp", "heads", "head_dim"),
+            "wk": ("embed_fsdp", "kv_heads", "head_dim"),
+            "wv": ("embed_fsdp", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed_fsdp"),
+            "q_norm": (None,), "k_norm": (None,)}
 
     def __init__(self, cfg, device=None):
         super().__init__()
@@ -287,6 +305,12 @@ class MLAttention(torch.nn.Module):
     [q_lora, H, nope + rope] (``wq`` [d, H, nope + rope] when ``q_lora`` is
     0), ``wkv_a`` [d, kv_lora + rope], ``wkv_b`` [kv_lora, H, nope + v],
     ``wo`` [H, v, d] in bf16 and ``kv_norm`` [kv_lora] in float32."""
+
+    #: each parameter's logical axes (``mla_init``'s)
+    AXES = {"wq_a": ("embed_fsdp", None), "wq_b": (None, "heads", None),
+            "wq": ("embed_fsdp", "heads", None),
+            "wkv_a": ("embed_fsdp", None), "wkv_b": (None, "heads", None),
+            "wo": ("heads", None, "embed_fsdp"), "kv_norm": (None,)}
 
     def __init__(self, cfg, device=None):
         super().__init__()

@@ -157,6 +157,10 @@ class GatedMLP(torch.nn.Module):
     """The parameters of ``gated_mlp_init``: ``wg``, ``wu`` [d, ff] and
     ``wd`` [ff, d]."""
 
+    #: each parameter's logical axes (``gated_mlp_init``'s)
+    AXES = {"wg": ("embed_fsdp", "ff"), "wu": ("embed_fsdp", "ff"),
+            "wd": ("ff", "embed_fsdp")}
+
     def __init__(self, d: int, ff: int, device=None):
         super().__init__()
         self.wg = param((d, ff), device)

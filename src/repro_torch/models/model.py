@@ -100,15 +100,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from . import attention as attn
 from .moe import MoE, Routing
-from .rglru import RGLRU, LRUCache, init_lru_cache
-from .ssm import Mamba2, SSMCache, init_ssm_cache
+from .rglru import LRU_CACHE_AXES, RGLRU, LRUCache, init_lru_cache
+from .ssm import SSM_CACHE_AXES, Mamba2, SSMCache, init_ssm_cache
 from .layers import (GatedMLP, cross_entropy, embed, embedding_init_,
                      dense_init_, lm_head, normal_init_, param, rms_norm,
                      rms_norm_init_)
 
 __all__ = ["LM", "Block", "HybridCache", "EncDecCache", "init", "prefill",
            "decode_step", "init_cache", "check_ported", "layer_kinds",
-           "reference_slot", "loss_fn", "xent_chunks"]
+           "reference_slot", "loss_fn", "xent_chunks", "param_axes",
+           "cache_axes", "cache_leaves"]
 
 #: the families the port runs: every family of the registry
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
@@ -208,6 +209,9 @@ class Block(torch.nn.Module):
     config), with ``lnx`` and ``xattn`` (GQA) besides (``dec``); ``ln1``,
     ``ssm`` (``ssm``); or ``ln1``, ``lru``, ``ln2``, ``mlp`` (``rglru``).
     ``slot`` is (the cache stack it reads, its index there)."""
+
+    #: the logical axes of the block's own parameters (``rms_norm_init``'s)
+    AXES = {"ln1": (None,), "ln2": (None,), "lnx": (None,)}
 
     def __init__(self, cfg, layer: int = 0, device=None,
                  slot: Optional[tuple[str, int]] = ("attn", 0),
@@ -330,7 +334,13 @@ class LM(torch.nn.Module):
     """An LM (dense, vision or MoE with GQA or MLA attention, Mamba-2, the
     RG-LRU hybrid, or an encoder-decoder) with uninitialized bf16 weights on
     ``device`` (default: CUDA); :func:`init` fills them from a
-    generator."""
+    generator. ``device="meta"`` builds it without memory (shapes only:
+    :func:`param_axes` and the sharding specs at published widths)."""
+
+    #: the logical axes of the model's own parameters (``init``'s)
+    AXES = {"embed": ("vocab", "embed_fsdp"), "head": ("embed_fsdp", "vocab"),
+            "final_ln": (None,), "pos_embed": (None, "embed_fsdp"),
+            "enc_ln": (None,)}
 
     def __init__(self, cfg, device=None):
         check_ported(cfg, device)
@@ -379,6 +389,50 @@ def init(cfg, generator: torch.Generator, device=None) -> LM:
 
 
 Cache = attn.KVCache | attn.MLACache | SSMCache | HybridCache | EncDecCache
+
+
+def param_axes(cfg, model: LM) -> dict[str, tuple]:
+    """``{parameter name: logical axes}`` for every parameter of ``model``
+    (an :class:`LM` of ``cfg``), from the tables each module keeps
+    (``AXES``, copied from the reference's ``*_init``). The reference
+    stacks scanned layers and gives their axes a leading None
+    (``stack_inits``); the port's blocks are one module each, so a block's
+    leaf has the stacked leaf's axes without it."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, _ in mod.named_parameters(recurse=False):
+            out[f"{prefix}.{name}" if prefix else name] = type(mod).AXES[name]
+    return out
+
+
+def cache_leaves(cache: Cache) -> dict[str, torch.Tensor]:
+    """``{leaf name: tensor}`` of a decode cache: a stack's fields (``k``,
+    ``v``; ``latent``, ``k_rope``; ``conv``, ``state``), under the stack's
+    name for a :class:`HybridCache` or :class:`EncDecCache` (``attn.k``,
+    ``lru.h``, ``cross.v``)."""
+    if isinstance(cache, (HybridCache, EncDecCache)):
+        return {f"{s}.{f}": t for s, part in cache._asdict().items()
+                for f, t in part._asdict().items()}
+    return dict(cache._asdict())
+
+
+def cache_axes(cfg) -> dict[str, tuple]:
+    """``{leaf name: logical axes}`` of :func:`init_cache`'s cache, named as
+    :func:`cache_leaves` names them. Each stack holds its layers on a
+    leading dim (None); the rest is one layer's axes, the reference's
+    ``init_cache``'s."""
+    one = {"ssm": SSM_CACHE_AXES, "lru": LRU_CACHE_AXES,
+           "cross": attn.CROSS_CACHE_AXES,
+           "attn": attn.MLA_CACHE_AXES if cfg.attn_kind == "mla"
+           else attn.KV_CACHE_AXES}
+    stacks = list(dict.fromkeys(name for name, _ in _slots(cfg)))
+    stacks += ["cross"] if cfg.is_encdec else []
+    out = {}
+    for stack in stacks:
+        for field, axes in one[stack]._asdict().items():
+            name = field if len(stacks) == 1 else f"{stack}.{field}"
+            out[name] = (None,) + axes
+    return out
 
 
 def _stacks(cfg, cache: Cache) -> dict:

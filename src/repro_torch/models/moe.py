@@ -62,6 +62,13 @@ class MoE(torch.nn.Module):
     [E, d, ff], ``wd`` [E, ff, d] in bf16 and, when the config has shared
     experts, ``shared``, a gated MLP of width ``n_shared · moe_d_ff``."""
 
+    #: each parameter's logical axes (``moe_init``'s; ``shared`` has
+    #: :class:`~repro_torch.models.layers.GatedMLP`'s)
+    AXES = {"router": ("embed_fsdp", None),
+            "wg": ("experts", "embed_fsdp", None),
+            "wu": ("experts", "embed_fsdp", None),
+            "wd": ("experts", None, "embed_fsdp")}
+
     def __init__(self, cfg, device=None):
         super().__init__()
         d, E, ff = cfg.d_model, cfg.n_experts, cfg.moe_d_ff

@@ -36,11 +36,21 @@ class LRUCache(NamedTuple):
     h: torch.Tensor      # [B, width] recurrent state, float32
 
 
+#: one layer's cache axes (``init_lru_cache``'s)
+LRU_CACHE_AXES = LRUCache(("batch", None, "width"), ("batch", "width"))
+
+
 class RGLRU(torch.nn.Module):
     """The parameters of ``rglru_init``: ``wx``/``wg`` [d, w], ``conv_w``
     [W, w], ``wa``/``wi`` [w, 1] and ``wo`` [w, d] in bf16 (the reference's
     launcher casts every parameter of more than one dim); ``lam`` [w] in
     float32."""
+
+    #: each parameter's logical axes (``rglru_init``'s)
+    AXES = {"wx": ("embed_fsdp", "width"), "wg": ("embed_fsdp", "width"),
+            "conv_w": (None, "width"), "wa": ("width", None),
+            "wi": ("width", None), "lam": ("width",),
+            "wo": ("width", "embed_fsdp")}
 
     def __init__(self, cfg, device=None):
         super().__init__()

@@ -41,6 +41,11 @@ class SSMCache(NamedTuple):
     state: torch.Tensor  # [B, H, hd, N] recurrent SSD state, float32
 
 
+#: one layer's cache axes (``init_ssm_cache``'s)
+SSM_CACHE_AXES = SSMCache(("batch", None, "conv_dim"),
+                          ("batch", "ssm_heads", None, None))
+
+
 def _dims(cfg) -> tuple[int, int, int]:
     d_in = cfg.ssm_heads * cfg.ssm_head_dim
     n = cfg.ssm_state * cfg.ssm_groups
@@ -52,6 +57,13 @@ class Mamba2(torch.nn.Module):
     [d, 2N], ``wdt`` [d, H], ``conv_w`` [W, conv_dim] and ``wo`` [d_in, d]
     in bf16; ``A_log``, ``D``, ``dt_bias`` [H] and ``norm`` [d_in] in
     float32."""
+
+    #: each parameter's logical axes (``mamba2_init``'s)
+    AXES = {"wz": ("embed_fsdp", "d_inner"), "wx": ("embed_fsdp", "d_inner"),
+            "wbc": ("embed_fsdp", None), "wdt": ("embed_fsdp", "ssm_heads"),
+            "conv_w": (None, "conv_dim"), "A_log": ("ssm_heads",),
+            "D": ("ssm_heads",), "dt_bias": ("ssm_heads",), "norm": (None,),
+            "wo": ("d_inner", "embed_fsdp")}
 
     def __init__(self, cfg, device=None):
         super().__init__()

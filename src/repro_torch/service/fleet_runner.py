@@ -81,6 +81,8 @@ def fleet_service(
     drift_tol: float = 1.0,
     pool_chunk: int | str | None = None,
     bucket: int | None = None,
+    mesh=None,
+    mesh_axis: str | None = None,
     flow_factory=None,
     cache_dir: str | None = None,
     checkpoint_dir: str | None = None,
@@ -115,6 +117,11 @@ def fleet_service(
     fleet: columns no scenario values and none has in flight are replaced;
     their memo entries are dropped and checkpoints carry the live pool.
 
+    ``mesh``/``mesh_axis`` split the fleet into scenario groups, one a
+    device (:func:`repro_torch.core.fleet.fleet_tuner`'s; not with
+    ``proposer``): each refill's fantasy chains run group by group, step by
+    step.
+
     Telemetry (host-side; trajectories do not move): ``metrics`` joins a
     registry (one is made otherwise); ``events`` is an
     :class:`repro_torch.obs.EventLog` or a path to open one.
@@ -144,6 +151,11 @@ def fleet_service(
             raise ValueError(
                 "proposer requires incremental=True: victim scoring runs on "
                 "the incremental engine's cached round state (pool_scores)")
+        if mesh is not None:
+            raise ValueError(
+                "proposer is incompatible with mesh sharding: pool edits "
+                "rewrite host-gathered V chunks (run unsharded, or propose "
+                "offline between sharded runs)")
         # a private copy: the proposer edits it, and the evaluation cache
         # and submit_pick alias the same array
         pool_idx = np.array(pool_idx)
@@ -222,7 +234,8 @@ def fleet_service(
     engine_kw = dict(incremental=incremental, warm_start=warm_start,
                      gp_steps=gp_steps, warm_steps=warm_steps,
                      drift_tol=drift_tol, s_frontiers=s_frontiers,
-                     weights=weights, pool_chunk=pool_chunk, device=dev)
+                     weights=weights, pool_chunk=pool_chunk, mesh=mesh,
+                     mesh_axis=mesh_axis, device=dev)
     if bucket is not None:
         engine_kw["bucket"] = int(bucket)
     engine = BatchedBOEngine(torch.stack([st.pool_icd for st in states]),

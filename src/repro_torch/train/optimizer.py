@@ -10,9 +10,15 @@ operation for operation in float32: the global-norm clip over every
 gradient, bias correction, and decoupled weight decay on every leaf.
 Unlike the reference, which returns new arrays (and donates the old ones
 under ``jit``), it updates the masters and moments in place, leaf by leaf,
-so a step holds no second copy of the state. The reference's ZeRO-1
-specs (``zero1_spec``, ``tree_zero1_specs``) shard the state over a mesh;
-they go with ``parallel/`` (ROADMAP queue 1, item 14b.8).
+so a step holds no second copy of the state.
+
+ZeRO-1 (:func:`zero1_spec`, :func:`tree_zero1_specs`): the masters and
+moments take the tensor-parallel spec of their parameter plus data-parallel
+sharding of the largest unsharded dim that the data-parallel degree
+divides. The reference picks that dim on its *stacked* leaf ``[layers,
+...]``; the port's blocks are one module each, so where the reference's
+choice is the layer dim, the port's unstacked leaf picks another dim or
+none (ROADMAP queue 3 lists every such leaf of the registry).
 """
 from __future__ import annotations
 
@@ -21,8 +27,10 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.parallel.sharding import AxisRules, P, _is_axes
+
 __all__ = ["TrainState", "LRSchedule", "cosine_lr", "adamw_init",
-           "adamw_update"]
+           "adamw_update", "zero1_spec", "tree_zero1_specs"]
 
 
 class TrainState(NamedTuple):
@@ -89,3 +97,50 @@ def adamw_update(state: TrainState, grads: dict[str, torch.Tensor],
         step = (m / c1) / (torch.sqrt(v / c2) + eps)
         p.sub_(lr * (step + wd * p))
     return TrainState(state.step + 1, state.params, state.m, state.v)
+
+
+# ---------------------------------------------------------------- ZeRO-1
+def zero1_spec(base: P, shape: tuple[int, ...], rules: AxisRules) -> P:
+    """``base`` with data-parallel sharding added to the largest unsharded
+    dim that the data-parallel degree divides (the last such dim on a
+    tie); ``base`` itself where the mesh has no data axis, ``base`` uses
+    one already, or no dim fits."""
+    if not rules.axis_sizes:
+        return base
+    dp_axes = tuple(a for a in ("pod", "data") if a in rules.axis_sizes)
+    if not dp_axes:
+        return base
+    dp = 1
+    for a in dp_axes:
+        dp *= rules.axis_sizes[a]
+    entries = list(base) + [None] * (len(shape) - len(base))
+    taken = set()
+    for e in entries:
+        for a in (e if isinstance(e, tuple) else (e,)):
+            if a:
+                taken.add(a)
+    if any(a in taken for a in dp_axes):
+        return base
+    cand = [(shape[i], i) for i in range(len(shape))
+            if entries[i] is None and shape[i] % dp == 0 and shape[i] >= dp]
+    if not cand:
+        return base
+    _, i = max(cand)
+    entries[i] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    while entries and entries[-1] is None:
+        entries.pop()
+    return P(*entries)
+
+
+def tree_zero1_specs(axes_tree, params, rules: AxisRules):
+    """The ZeRO-1 :class:`P` of every leaf of the masters (or m, v): a tree
+    of logical-axes tuples (``param_axes``' ``{name: axes}``) and a
+    matching tree of tensors."""
+    def walk(a, p):
+        if _is_axes(a):
+            return zero1_spec(rules.spec(a, p.shape), tuple(p.shape), rules)
+        if isinstance(a, dict):
+            return {k: walk(a[k], p[k]) for k in a}
+        return type(a)(walk(x, y) for x, y in zip(a, p))
+
+    return walk(axes_tree, params)

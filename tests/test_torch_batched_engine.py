@@ -239,8 +239,18 @@ def test_fleet_of_one_is_the_sequential_engine(incremental):
 
 def test_batched_engine_refusals(monkeypatch):
     pools = _pools()
-    with pytest.raises(NotImplementedError, match="14b.8"):
-        et.BatchedBOEngine(pools, mesh=object(), device="cpu")
+    # the reference's mesh refusals, word for word: the exact path, and a
+    # fleet that does not divide evenly over the mesh axis
+    from repro_torch.parallel import Mesh
+
+    with pytest.raises(ValueError, match="mesh sharding requires "
+                       "incremental=True"):
+        et.BatchedBOEngine(pools, incremental=False, device="cpu",
+                           mesh=Mesh(["cpu"], ("fleet",)))
+    with pytest.raises(ValueError, match=r"fleet size S=2 must divide "
+                       r"evenly over the 3 devices of mesh axis 'fleet'"):
+        et.BatchedBOEngine(pools, device="cpu",
+                           mesh=Mesh(["cpu"] * 3, ("fleet",)))
     with pytest.raises(ValueError, match=r"\[S, N, d\]"):
         et.BatchedBOEngine(pools[0], device="cpu")
     with monkeypatch.context() as mp:

@@ -1557,3 +1557,88 @@ def test_training_steps_on_the_card_are_repeatable_and_count_k5(dev):
                for n in a.params)
     assert not torch.equal(a.params["layers.0.attn.wq"].cpu(),
                            masters["layers.0.attn.wq"])
+
+
+def test_gp_fit_and_factors_do_not_depend_on_the_batch(dev):
+    """A GP's bits do not depend on how many GPs share its batch: the fit
+    of 6 scenarios (18 GPs) and their factors, whitened targets and
+    frontier samples equal those of groups of 3, 2 and 1 scenarios (the
+    smaller batches padded to ``BATCHED_SOLVE_MIN``), as a mesh's scenario
+    groups need."""
+    from repro_torch.core import engine as E
+    from repro_torch.core import gp
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    S, P, d, m = 6, 72, 26, 3
+    mask = torch.zeros((S, P), device=dev)
+    mask[:, 60:] = 1.0
+    x = 0.3 * torch.randn((S, P, d), generator=g, device=dev) \
+        + 10.0 * mask[:, :, None]
+    yn = torch.randn((S, P, m), generator=g, device=dev)
+    eps = torch.randn((S, m, 64, 10), generator=g, device=dev)
+    pool = 0.3 * torch.randn((S, 500, d), generator=g, device=dev)
+    sub = torch.arange(64, device=dev).expand(S, 64)
+    mean, std = torch.zeros((S, m), device=dev), torch.ones((S, m),
+                                                           device=dev)
+    p0 = gp.default_params(m, d, dev)
+    p0 = gp.GPParams(*(t.expand(S, *t.shape).contiguous() for t in p0))
+
+    def cut(p, sl):
+        return gp.GPParams(*(t[sl] for t in p))
+
+    def run(sl):
+        fit = gp._fit_batch(cut(p0, sl), x[sl], yn[sl], mask[sl], 15)
+        L0 = E._chol_refactor_batch(fit, x[sl], mask[sl])
+        L = E._chol_block_batch(fit, L0, x[sl], mask[sl], 64)
+        beta, ystar = E._beta_ystar_batch(fit, L, x[sl], yn[sl], mean[sl],
+                                          std[sl], pool[sl], sub[sl],
+                                          eps[sl])
+        return [*fit, L, beta, ystar]
+
+    whole = run(slice(0, S))
+    for G in (3, 2, 1):
+        parts = [run(slice(i, i + G)) for i in range(0, S, G)]
+        for k, t in enumerate(whole):
+            assert torch.equal(t, torch.cat([p[k] for p in parts])), (G, k)
+
+
+def test_mesh_groups_pick_what_the_whole_fleet_picks(dev):
+    """Four scenarios on the card, whole and over meshes of 2 and 4
+    groups (the card repeated): the same picks and factors every round
+    (no round mixes at this drift_tol), one K4 launch a scenario a
+    round."""
+    from repro_torch.core.engine import BatchedBOEngine
+    from repro_torch.parallel import Mesh
+
+    rng = np.random.default_rng(3)
+    pools = np.stack([rng.normal(size=(300, 8)) / np.sqrt(8)
+                      for _ in range(4)]).astype(np.float32)
+    W = np.random.default_rng(9).normal(size=(8, 3))
+    kw = dict(gp_steps=30, warm_steps=10, drift_tol=5.0, pool_chunk=128,
+              device=dev)
+    engines = [BatchedBOEngine(pools, **kw)] + [
+        BatchedBOEngine(pools, mesh=Mesh([dev] * G, "fleet"), **kw)
+        for G in (2, 4)]
+    init = [list(range(5 * si, 5 * si + 12)) for si in range(4)]
+    for e in engines:
+        e.observe(init, [np.tanh(pools[si][r] @ W) for si, r in
+                         enumerate(init)])
+    gen = np.random.default_rng(4)
+    for _ in range(4):
+        eps = gen.normal(size=(4, 3, 300, 10)).astype(np.float32)
+        before = K4.launches
+        picks = [e.select(eps) for e in engines]
+        assert K4.launches - before == 3 * 4
+        for p in picks[1:]:
+            np.testing.assert_array_equal(p, picks[0])
+        for e in engines:
+            e.observe([[int(p)] for p in picks[0]],
+                      [np.tanh(pools[si][[int(p)]] @ W)
+                       for si, p in enumerate(picks[0])])
+    assert engines[0].stats.mixed_rounds == 0
+    snaps = [e.state_dict() for e in engines]
+    for s in snaps[1:]:
+        np.testing.assert_array_equal(s["state"]["L"],
+                                      snaps[0]["state"]["L"])
+        np.testing.assert_array_equal(s["state"]["V"],
+                                      snaps[0]["state"]["V"])

@@ -333,17 +333,32 @@ def test_flow_factory_calls_each_pending_workload(golden):
     (dict(resume=True), "12"), (dict(proposer=True), "11"),
     (dict(mesh=object()), "14b.8")])
 def test_unported_fleet_options_raise(kw, item, tmp_path):
-    """``mesh`` (14b.8) still raises, naming its ROADMAP item.
-    ``disk_cache``, ``checkpoint_dir``/``resume`` (item 12) and
-    ``proposer`` (item 11) are ported: a fleet takes them (the proposer on
-    the incremental engine), and ``disk_cache`` writes every evaluated
-    design to the disk."""
+    """Each option is ported (by the ROADMAP item named): ``disk_cache``,
+    ``checkpoint_dir``/``resume`` (item 12) and ``proposer`` (item 11) are
+    taken (the proposer on the incremental engine), and ``disk_cache``
+    writes every evaluated design to the disk; ``mesh`` (item 14b.8) is
+    refused with the reference's ValueErrors where the reference refuses
+    it: the exact path, a fleet that does not divide evenly over the mesh
+    axis, and the proposer."""
     space = make_space()
     pool = space.sample(torch.Generator().manual_seed(0), 16).numpy()
     run = dict(T=1, n=4, b=2, device="cpu")
     if "mesh" in kw:
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            fleet_tuner(space, pool, [FleetScenario("resnet50")], **run, **kw)
+        from repro_torch.parallel import Mesh
+
+        two = [FleetScenario("resnet50", seed=s) for s in (0, 1)]
+        with pytest.raises(ValueError, match="mesh sharding requires "
+                           "incremental=True"):
+            fleet_tuner(space, pool, two, mesh=Mesh(["cpu"] * 2, "fleet"),
+                        **run)
+        with pytest.raises(ValueError, match="fleet size S=2 must divide "
+                           "evenly over the 3 devices"):
+            fleet_tuner(space, pool, two, incremental=True,
+                        mesh=Mesh(["cpu"] * 3, "fleet"), **run)
+        with pytest.raises(ValueError, match="proposer is incompatible "
+                           "with mesh sharding"):
+            fleet_tuner(space, pool, two, incremental=True, proposer=True,
+                        mesh=Mesh(["cpu"] * 2, "fleet"), **run)
         return
     for name in ("checkpoint_dir", "disk_cache"):
         if name in kw:
