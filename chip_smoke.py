@@ -30,12 +30,13 @@ plain version at 3 x {60, 40, 2, 2500} designs (``K1_MULTI_SHAPES``), each
 workload's slice bitwise a single launch.
 
 The fleet over a mesh (``fleet_tuner(mesh=...)``): the same six scenarios,
-incremental, over ``Mesh`` on axis ("fleet",) of 2 and of 3 scenario
+incremental, over ``Mesh`` on axis ("fleet",) of 1, 2 and 3 scenario
 groups (the card repeated; one group a card where several are visible),
 every count set to 0 before each run: K4 6 launches in every round, K1's
-multi-workload entry, K2 and K3 launched, the two runs' rows and metrics
-equal, and equal to the unsharded incremental fleet's where that run had
-no mixed round (the mesh decides refactors fleet-wide); the seconds of a
+multi-workload entry, K2 and K3 launched, the 2- and 3-group runs' rows
+and metrics equal to the one-group run's (the whole fleet under the
+mesh's fleet-wide refactor decision), and all equal to the unsharded
+incremental fleet's where that run had no mixed round; the seconds of a
 fleet round under each mesh beside the unsharded run's.
 
 The LM serving path: ``flash_attn`` (K5; bf16 inputs take its tensor-core
@@ -1179,21 +1180,25 @@ def fleet_phase(dev, single: dict, card: str) -> dict:
     return out
 
 
-#: the mesh phase's scenario groups: the fleet over 2 and over 3 groups
-MESH_GROUPS = (2, 3)
+#: the mesh phase's scenario groups: the fleet over 1, 2 and 3 groups (one
+#: group is the whole fleet under the mesh's fleet-wide refactor decision)
+MESH_GROUPS = (1, 2, 3)
 
 
 def mesh_phase(dev, fleet: dict, card: str) -> dict:
     """The six-scenario incremental fleet at the paper protocol over a
-    ``Mesh`` on axis ("fleet",) of 2 and of 3 scenario groups (``dev``
+    ``Mesh`` on axis ("fleet",) of 1, 2 and 3 scenario groups (``dev``
     repeated; one group a card when more than one card is visible), every
     count set to 0 before each run: K4 must launch 6 times in every round,
-    K1's multi-workload entry, K2 and K3 must launch; the two mesh runs
-    must pick the same rows and metrics, and equal the fleet phase's
-    unsharded incremental run (``fleet``) when that run had no mixed round
-    (its per-scenario refactors then match the mesh's fleet-wide decision).
-    The seconds of a fleet round under each mesh are printed beside the
-    unsharded run's and ``card`` (nvidia-smi's name and power limit)."""
+    K1's multi-workload entry, K2 and K3 must launch. The one-group run is
+    the whole fleet under the mesh's fleet-wide refactor decision; the 2-
+    and 3-group runs must pick its rows and metrics, bit for bit (each
+    group pads its GP work to the fleet's batch), and all must equal the
+    fleet phase's unsharded incremental run (``fleet``) when that run had
+    no mixed round (its per-scenario refactors then match the fleet-wide
+    decision). The seconds of a fleet round under each mesh are printed
+    beside the unsharded run's and ``card`` (nvidia-smi's name and power
+    limit)."""
     import numpy as np
     import torch
 
@@ -1257,9 +1262,11 @@ def mesh_phase(dev, fleet: dict, card: str) -> dict:
                       final_adrs=fr.final_adrs(),
                       rows=[r.evaluated_rows.tolist() for r in fr.results],
                       y=[r.y.tolist() for r in fr.results])
-    a, b = (out[G] for G in MESH_GROUPS)
-    if a["rows"] != b["rows"] or a["y"] != b["y"]:
-        raise AssertionError("the 2- and 3-group mesh runs picked other rows")
+    a = out[1]
+    for G in MESH_GROUPS[1:]:
+        if out[G]["rows"] != a["rows"] or out[G]["y"] != a["y"]:
+            raise AssertionError(f"the {G}-group mesh run picked other rows "
+                                 "than the one-group run")
     mixed = base["engine_stats"]["mixed_rounds"]
     if mixed == 0:
         if a["rows"] != base["rows"] or a["y"] != base["y"]:
@@ -1269,7 +1276,7 @@ def mesh_phase(dev, fleet: dict, card: str) -> dict:
     else:
         held = (f"not compared with the unsharded run: it had {mixed} mixed "
                 "rounds, which a mesh decides fleet-wide")
-    print(f"  mesh: {MESH_GROUPS[0]} and {MESH_GROUPS[1]} groups pick the "
+    print(f"  mesh: {', '.join(map(str, MESH_GROUPS))} groups pick the "
           f"same rows and y; {held}")
     out["held"] = held
     return {str(k): v for k, v in out.items()}

@@ -63,7 +63,7 @@ from repro_torch.kernels import round_fused as _rf
 from .acquisition import imoo_scores, imoo_scores_batch
 from .gp import (JITTER, PAD_BUCKET, GPParams, _cholesky, _fit, _fit_batch,
                  _kernels, _standardize, default_params, fit_gp, fit_gp_batch,
-                 fold, pad_training, solve_lower, take)
+                 fold, pad_training, take)
 
 __all__ = ["BOEngine", "BatchedBOEngine", "EngineStats", "EngineState",
            "FANTASY_MODES", "PROFILE_STAGES", "ENGINE_STATE_FORMAT",
@@ -242,7 +242,8 @@ def _chol_block_batch(params_ref: GPParams, L, x, mask, s0: int) -> torch.Tensor
     K12 = _kernels_batch(params_ref, xa, xb)                    # [G·m, s0, B]
     K22 = _kernels_batch(params_ref, xb, xb) + noise + pads
     Lf = L.reshape(-1, P, P)
-    L21 = solve_lower(Lf[:, :s0, :s0], K12).transpose(1, 2)
+    L21 = torch.linalg.solve_triangular(Lf[:, :s0, :s0], K12,
+                                        upper=False).transpose(1, 2)
     L22 = _cholesky(K22 - L21 @ L21.transpose(1, 2))
     out = Lf.clone()
     out[:, s0:, :s0] = L21
@@ -273,7 +274,8 @@ def _train_beta_batch(L, yn) -> torch.Tensor:
     """[G, m, P] whitened targets β = L⁻¹·y per scenario and objective."""
     G, m, P, _ = L.shape
     yt = yn.transpose(1, 2).reshape(G * m, P)
-    beta = solve_lower(L.reshape(G * m, P, P), yt[:, :, None])
+    beta = torch.linalg.solve_triangular(L.reshape(G * m, P, P),
+                                         yt[:, :, None], upper=False)
     return beta[:, :, 0].reshape(G, m, P)
 
 
@@ -291,7 +293,8 @@ def _frontier_ystar_batch(params_ref: GPParams, L, beta, x, xq, y_mean,
     q, s = xq.shape[1], eps.shape[-1]
     pf = fold(params_ref)
     Ks = _kernels_batch(params_ref, x, xq)                      # [G·m, P, q]
-    Vs = solve_lower(L.reshape(G * m, P, P), Ks)
+    Vs = torch.linalg.solve_triangular(L.reshape(G * m, P, P), Ks,
+                                       upper=False)
     mean_q, _ = _col_moments(pf.log_var, beta.reshape(G * m, P), Vs)
     cov = _kernels_batch(params_ref, xq, xq) - Vs.transpose(1, 2) @ Vs
     jit = 1e-4 * torch.exp(pf.log_var) + 1e-6
@@ -423,11 +426,14 @@ class _EngineBase:
     def _configure(self, pool_icd, *, incremental: bool,
                    warm_start: bool | None, gp_steps: int,
                    warm_steps: int | None, drift_tol: float, bucket: int,
-                   s_frontiers: int, weights, pool_chunk, device) -> None:
+                   s_frontiers: int, weights, pool_chunk, device,
+                   hold_pool: bool = True) -> torch.Tensor:
+        """Set the knobs; returns the pool as a float32 tensor. Unless
+        ``hold_pool`` (a mesh's fleet, whose scenario groups hold it), the
+        pool, its chunk grid and its ids stay off this engine."""
         self.device = resolve_device(device)
-        self.pool = torch.as_tensor(pool_icd, dtype=torch.float32).to(
-            self.device).contiguous()
-        self.N, self.d = self.pool.shape[-2:]
+        pool = torch.as_tensor(pool_icd, dtype=torch.float32)
+        self.N, self.d = pool.shape[-2:]
         self.incremental = bool(incremental)
         self.warm_start = (self.incremental if warm_start is None
                            else bool(warm_start))
@@ -441,14 +447,18 @@ class _EngineBase:
             np.asarray(weights), dtype=torch.float32, device=self.device))
         self.stats = EngineStats()
         self._C = self._resolve_chunk(pool_chunk, self.N)
-        self._regrid()
-        self._init_pool_ids()
+        self.pool = self._pool_c = None
+        if hold_pool:
+            self.pool = pool.to(self.device).contiguous()
+            self._regrid()
+            self._init_pool_ids()
         self._state: EngineState | None = None
         self._last_params: GPParams | None = None   # exact-path warm start
         self._P = 0                              # current padded train size
         self._n_at_last_select = 0
         self._last_batch = None                  # (rows_pad, y_pad, mask)
         self._last_ystar: torch.Tensor | None = None
+        return pool
 
     # ---------------------------------------------------------- chunk grid
     def _fit_schedule(self, first: bool) -> tuple[bool, int]:
@@ -553,7 +563,7 @@ class _EngineBase:
 
     def _check_cols(self, cols, what: str) -> torch.Tensor:
         cols = torch.as_tensor(cols, dtype=torch.float32, device=self.device)
-        want = self.pool.dim()
+        want = len(self._pool_shape())
         ok = cols.dim() == want and cols.shape[-1] == self.d and (
             want == 2 or cols.shape[0] == self.S)
         if not ok:
@@ -598,25 +608,9 @@ class _EngineBase:
         factorization only the chunks holding them are refreshed (and the
         pad chunk when row 0 changes: pad columns copy row 0)."""
         self._check_live()
-        rows = np.asarray(rows, np.int64).reshape(-1)
-        cols = self._check_cols(cols, "pool_replace")
-        if int(cols.shape[-2]) != len(rows):
-            raise ValueError(f"pool_replace: {len(rows)} rows but "
-                             f"{int(cols.shape[-2])} replacement columns")
+        rows, cols = self._check_replace(rows, cols)
         if len(rows) == 0:
             return
-        if rows.min() < 0 or rows.max() >= self.N:
-            raise ValueError(f"pool_replace: row indices must be in "
-                             f"[0, {self.N}), got {rows.tolist()}")
-        if len(np.unique(rows)) != len(rows):
-            raise ValueError("pool_replace: duplicate target rows")
-        ev_any = self._eval_mask.reshape(-1, self.N).any(0).cpu().numpy()
-        bad = rows[ev_any[rows]]
-        if bad.size:
-            raise ValueError(
-                f"pool_replace: rows {bad.tolist()} have been evaluated — "
-                "evaluated rows are observation keys and can never be "
-                "replaced (append instead)")
         pool = self.pool.clone()  # never write into a caller's tensor
         pool[..., torch.as_tensor(rows, device=self.device), :] = cols
         self.pool = pool
@@ -631,6 +625,35 @@ class _EngineBase:
         self._regrid()
         self._refresh_v(sorted(dirty))
         self.stats.pool_replacements += len(rows)
+
+    def _check_replace(self, rows, cols) -> tuple:
+        """:meth:`pool_replace`'s arguments validated: (rows [k], cols)."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        cols = self._check_cols(cols, "pool_replace")
+        if int(cols.shape[-2]) != len(rows):
+            raise ValueError(f"pool_replace: {len(rows)} rows but "
+                             f"{int(cols.shape[-2])} replacement columns")
+        if len(rows) == 0:
+            return rows, cols
+        if rows.min() < 0 or rows.max() >= self.N:
+            raise ValueError(f"pool_replace: row indices must be in "
+                             f"[0, {self.N}), got {rows.tolist()}")
+        if len(np.unique(rows)) != len(rows):
+            raise ValueError("pool_replace: duplicate target rows")
+        bad = rows[self._evaluated_any()[rows]]
+        if bad.size:
+            raise ValueError(
+                f"pool_replace: rows {bad.tolist()} have been evaluated — "
+                "evaluated rows are observation keys and can never be "
+                "replaced (append instead)")
+        return rows, cols
+
+    def _evaluated_any(self) -> np.ndarray:
+        """[N] bool: the rows evaluated in any scenario."""
+        return self._eval_mask.reshape(-1, self.N).any(0).cpu().numpy()
+
+    def _pool_shape(self) -> list:
+        return list(self.pool.shape)
 
     def _frozen_args(self, si: int | None, scored: bool = True) -> dict:
         """K4's arguments under the last round's frozen state, for scenario
@@ -769,7 +792,7 @@ class _EngineBase:
         self._check_live()
         d = {"format": ENGINE_STATE_FORMAT, "kind": type(self).__name__,
              "incremental": self.incremental, "bucket": self.bucket,
-             "pool_shape": list(self.pool.shape), "P": self._P,
+             "pool_shape": self._pool_shape(), "P": self._P,
              "n_at_last_select": self._n_at_last_select,
              "stats": self.stats.as_dict()}
         if self._state is not None:
@@ -793,9 +816,9 @@ class _EngineBase:
                               "C": int(self._C)}
         return d
 
-    def _load_base_state_dict(self, d: dict) -> None:
-        """Restore the shared half (validates format, engine kind,
-        bucket/incremental flags, pool shape and chunk grid)."""
+    def _check_snapshot(self, d: dict) -> None:
+        """Refuse a snapshot of another format, engine kind,
+        bucket/incremental flags or pool shape."""
         self._check_live()
         if d.get("format") != ENGINE_STATE_FORMAT:
             raise ValueError(
@@ -809,11 +832,16 @@ class _EngineBase:
                 raise ValueError(
                     f"snapshot {key}={d.get(key)!r} does not match this "
                     f"engine's {key}={getattr(self, key)!r}")
-        if list(d.get("pool_shape", [])) != list(self.pool.shape):
+        if list(d.get("pool_shape", [])) != self._pool_shape():
             raise ValueError(
                 f"snapshot pool shape {d.get('pool_shape')} does not match "
-                f"this engine's pool {list(self.pool.shape)}: resume must "
+                f"this engine's pool {self._pool_shape()}: resume must "
                 "use the identical candidate pool")
+
+    def _load_base_state_dict(self, d: dict) -> None:
+        """Restore the shared half (validates it with
+        :meth:`_check_snapshot`, and the chunk grid)."""
+        self._check_snapshot(d)
         pe = d.get("pool_edit")
         if pe is not None:
             if not np.array_equal(np.asarray(pe["pool"], np.float32),
@@ -1226,12 +1254,12 @@ class BatchedBOEngine(_EngineBase):
     and so does any one scenario's drift past ``drift_tol``. A mesh run
     therefore picks what the unsharded run picks only where the unsharded
     run has no mixed round; there it does so bit for bit on the card too,
-    as a GP's bits do not depend on how many share its batch
-    (:mod:`repro_torch.core.gp`). ``stats`` count fleet rounds, as one engine
-    does; :meth:`state_dict` gathers the groups into the unsharded layout
-    and :meth:`load_state_dict` scatters it. Here ``device`` holds the
-    fleet's host-side bookkeeping (observations, the evaluated mask, the
-    pool as passed), the mesh's devices the groups.
+    as each group pads its batched GP work to the fleet's S
+    (:meth:`_fleet_index`). This engine then keeps only the host's
+    bookkeeping (observations, the refactor decision, ``stats``, which
+    count fleet rounds as one engine does); the groups hold every device
+    array. :meth:`state_dict` gathers the groups into the unsharded layout
+    and :meth:`load_state_dict` scatters it.
     """
 
     #: fit_gp_batch, frontier + predict, scores: the ``dispatches`` unit
@@ -1245,50 +1273,52 @@ class BatchedBOEngine(_EngineBase):
                  mesh=None, mesh_axis: str | None = None, device=None):
         # weights: [S, m] per-scenario acquisition weights or None (None
         # stays None: the unweighted scores, bit for bit)
-        self._configure(pool_icd, incremental=incremental,
-                        warm_start=warm_start, gp_steps=gp_steps,
-                        warm_steps=warm_steps, drift_tol=drift_tol,
-                        bucket=bucket, s_frontiers=s_frontiers,
-                        weights=weights, pool_chunk=pool_chunk, device=device)
-        if self.pool.dim() != 3:
+        pool = self._configure(pool_icd, incremental=incremental,
+                               warm_start=warm_start, gp_steps=gp_steps,
+                               warm_steps=warm_steps, drift_tol=drift_tol,
+                               bucket=bucket, s_frontiers=s_frontiers,
+                               weights=weights, pool_chunk=pool_chunk,
+                               device=device, hold_pool=mesh is None)
+        if pool.dim() != 3:
             raise ValueError("BatchedBOEngine: pool_icd must be [S, N, d], "
-                             f"got {tuple(self.pool.shape)}")
-        self.S = self.pool.shape[0]
+                             f"got {tuple(pool.shape)}")
+        self.S = pool.shape[0]
         self._rows: list[list[int]] = [[] for _ in range(self.S)]
         self._ys: list[np.ndarray | None] = [None] * self.S
-        self._eval_mask = torch.zeros((self.S, self.N), dtype=torch.bool,
-                                      device=self.device)
         self.mesh = mesh
         self.mesh_axis = None
         self._groups: list[BatchedBOEngine] | None = None
         self._slices = [slice(0, self.S)]
-        if mesh is not None:
-            if not self.incremental:
-                raise ValueError(
-                    "mesh sharding requires incremental=True: the exact "
-                    "historical path is host-driven per round")
-            self.mesh_axis = mesh_axis or mesh.axis_names[0]
-            ndev = dict(zip(mesh.axis_names,
-                            mesh.devices.shape))[self.mesh_axis]
-            if self.S % ndev:
-                raise ValueError(
-                    f"fleet size S={self.S} must divide evenly over the "
-                    f"{ndev} devices of mesh axis {self.mesh_axis!r}")
-            size = self.S // ndev
-            self._slices = [slice(g * size, (g + 1) * size)
-                            for g in range(ndev)]
-            self._groups = [
-                BatchedBOEngine(
-                    self.pool[sl], incremental=True,
-                    warm_start=self.warm_start, gp_steps=self.gp_steps,
-                    warm_steps=self.warm_steps, drift_tol=self.drift_tol,
-                    bucket=self.bucket, s_frontiers=self.s_frontiers,
-                    weights=(None if self.weights is None
-                             else self.weights[sl].cpu().numpy()),
-                    pool_chunk=self._C,
-                    device=resolve_device(dev))
-                for sl, dev in zip(self._slices,
-                                   mesh.axis_devices(self.mesh_axis))]
+        #: the batch a mesh group pads its GP work to (the fleet's S)
+        self._batch_S: int | None = None
+        if mesh is None:
+            self._eval_mask = torch.zeros((self.S, self.N), dtype=torch.bool,
+                                          device=self.device)
+            return
+        if not self.incremental:
+            raise ValueError(
+                "mesh sharding requires incremental=True: the exact "
+                "historical path is host-driven per round")
+        self.mesh_axis = mesh_axis or mesh.axis_names[0]
+        ndev = dict(zip(mesh.axis_names, mesh.devices.shape))[self.mesh_axis]
+        if self.S % ndev:
+            raise ValueError(
+                f"fleet size S={self.S} must divide evenly over the "
+                f"{ndev} devices of mesh axis {self.mesh_axis!r}")
+        size = self.S // ndev
+        self._slices = [slice(g * size, (g + 1) * size) for g in range(ndev)]
+        self._groups = []
+        for sl, dev in zip(self._slices, mesh.axis_devices(self.mesh_axis)):
+            grp = BatchedBOEngine(
+                pool[sl], incremental=True, warm_start=self.warm_start,
+                gp_steps=self.gp_steps, warm_steps=self.warm_steps,
+                drift_tol=self.drift_tol, bucket=self.bucket,
+                s_frontiers=self.s_frontiers,
+                weights=(None if self.weights is None
+                         else self.weights[sl].cpu().numpy()),
+                pool_chunk=self._C, device=dev)
+            grp._batch_S = self.S
+            self._groups.append(grp)
 
     @property
     def m(self) -> int:
@@ -1300,6 +1330,9 @@ class BatchedBOEngine(_EngineBase):
         """The engines that run rounds: the groups under a mesh, else
         this one."""
         return self._groups or [self]
+
+    def _pool_shape(self) -> list:
+        return [self.S, self.N, self.d]
 
     def _weights(self) -> torch.Tensor:
         return (torch.ones((self.S, self.m), device=self.device)
@@ -1336,12 +1369,13 @@ class BatchedBOEngine(_EngineBase):
                             else np.concatenate([self._ys[si], y], 0))
             scat_s += [si] * len(rows)
             scat_r += rows
-        if scat_r:
+        if self._groups is not None:
+            for grp, sl in zip(self._groups, self._slices):
+                grp.observe(list(rows_per_scenario)[sl],
+                            list(ys_per_scenario)[sl])
+        elif scat_r:
             self._eval_mask[torch.as_tensor(scat_s, device=self.device),
                             torch.as_tensor(scat_r, device=self.device)] = True
-        for grp, sl in zip(self._groups or (), self._slices):
-            grp.observe(list(rows_per_scenario)[sl],
-                        list(ys_per_scenario)[sl])
 
     # -------------------------------------------------------------- select
     def select(self, eps, sub_rows=None) -> np.ndarray:
@@ -1579,6 +1613,16 @@ class BatchedBOEngine(_EngineBase):
         return np.concatenate([p.cpu().numpy() for p in picks]).astype(
             np.int64)
 
+    def _fleet_index(self, idx: torch.Tensor) -> torch.Tensor:
+        """``idx`` (scenarios of this engine), on a mesh group followed by
+        copies of its first entry up to the whole fleet's S: a group runs
+        its batched GP work (the fit, the factors, the solves and the
+        frontier samples) at the unsharded fleet's batch, since on the card
+        torch's batched solves and reductions pick their plan, and so a
+        GP's bits, by the batch's size."""
+        k = (self._batch_S or 0) - idx.numel()
+        return idx if k <= 0 else torch.cat([idx, idx[:1].expand(k)])
+
     def _phase1(self, P: int, first: bool, grew: bool) -> dict:
         """Phase 1 of a round on this engine's scenarios: the padded batch,
         the warm fits in one Adam loop and each scenario's drift (left on
@@ -1604,7 +1648,10 @@ class BatchedBOEngine(_EngineBase):
         yt = torch.as_tensor(y_pad, device=dev)
         yn, y_mean, y_std = (torch.stack(t) for t in zip(
             *(_standardize(yt[si], mask[si]) for si in range(S))))
-        params = _fit_batch(state.params, x, yn, mask, steps)
+        gi = self._fleet_index(torch.arange(S, device=dev))
+        g = (lambda t: t) if gi.numel() == S else (lambda t: t[gi])
+        params = take(_fit_batch(GPParams(*map(g, state.params)), g(x),
+                                 g(yn), g(mask), steps), slice(0, S))
         return dict(P=P, batch=(rows_np, y_pad, mask_np), state=state,
                     params=params, x=x, yn=yn, y_mean=y_mean, y_std=y_std,
                     mask=mask, pool_flat=pool_flat,
@@ -1636,15 +1683,19 @@ class BatchedBOEngine(_EngineBase):
         for idx, refactor in ((ref_idx, True), (upd_idx, False)):
             if not idx.size:
                 continue
+            n = idx.size
             ii = torch.as_tensor(idx, device=dev)
-            g = ((lambda t: t) if idx.size == S else (lambda t: t[ii]))
-            pr = params_ref if idx.size == S else take(params_ref, ii)
+            gi = self._fleet_index(ii)
+            whole = gi.numel() == n == S
+            g = (lambda t: t) if whole else (lambda t: t[gi])
+            pr = params_ref if whole else take(params_ref, gi)
             L_g = (_chol_refactor_batch(pr, g(x), g(mask)) if refactor else
                    _chol_block_batch(pr, g(state.L), g(x), g(mask), s0))
             beta, ystar_g = _beta_ystar_batch(pr, L_g, g(x), g(r["yn"]),
                                               g(r["y_mean"]), g(r["y_std"]),
                                               g(r["pool_flat"]), g(sub),
                                               g(eps_t))
+            L_g, beta, ystar_g = L_g[:n], beta[:n], ystar_g[:n]
             L[ii], ystar[ii] = L_g, ystar_g
             for j, si in enumerate(idx):
                 _, picks_t[si] = _round_fused(
@@ -1659,30 +1710,56 @@ class BatchedBOEngine(_EngineBase):
         return torch.stack(picks_t)
 
     # ------------------------------------------ pool edits under a mesh
+    # Under a mesh this engine keeps the host bookkeeping (rows, targets,
+    # stats); the groups hold the pool, the evaluated masks and the state.
     def pool_append(self, cols) -> np.ndarray:
-        rows = super().pool_append(cols)
-        self._edit_groups("pool_append", cols)
-        return rows
+        if self._groups is None:
+            return super().pool_append(cols)
+        self._check_live()
+        cols = self._check_cols(cols, "pool_append")
+        n_old = self.N
+        if cols.shape[-2]:
+            self._edit_groups("pool_append", cols)
+            self.N = self._groups[0].N
+            self.stats.pool_appends += self.N - n_old
+        return np.arange(n_old, self.N, dtype=np.int64)
 
     def pool_replace(self, rows, cols) -> None:
-        super().pool_replace(rows, cols)  # validates for the whole fleet
-        self._edit_groups("pool_replace", cols, rows)
-
-    def _edit_groups(self, name: str, cols, *rows) -> None:
-        """Apply a pool edit, already made to this engine's own copy, to
-        each group's slice; the V chunks the groups refresh count once."""
         if self._groups is None:
-            return
-        cols = self._check_cols(cols, name)
+            return super().pool_replace(rows, cols)
+        self._check_live()
+        rows, cols = self._check_replace(rows, cols)  # the whole fleet's
+        if len(rows):
+            self._edit_groups("pool_replace", rows, cols)
+            self.stats.pool_replacements += len(rows)
+
+    def _edit_groups(self, name: str, *args) -> None:
+        """Make a pool edit (the [S, k, d] columns last) in every group,
+        each on its scenarios' columns; the V chunks the groups refresh,
+        the same in each, count once."""
+        *head, cols = args
         before = self._groups[0].stats.v_chunk_refreshes
         for grp, sl in zip(self._groups, self._slices):
             with _on(grp.device):
-                getattr(grp, name)(*rows, cols[sl])
+                getattr(grp, name)(*head, cols[sl])
         self.stats.v_chunk_refreshes += (
             self._groups[0].stats.v_chunk_refreshes - before)
 
+    def _evaluated_any(self) -> np.ndarray:
+        if self._groups is None:
+            return super()._evaluated_any()
+        return np.logical_or.reduce([g._evaluated_any()
+                                     for g in self._groups])
+
+    @property
+    def candidate_ids(self) -> np.ndarray:
+        # the groups edit the same columns, so they hold the same ids
+        return (super() if self._groups is None
+                else self._groups[0]).candidate_ids
+
     pool_append.__doc__ = _EngineBase.pool_append.__doc__
     pool_replace.__doc__ = _EngineBase.pool_replace.__doc__
+    candidate_ids.__doc__ = _EngineBase.candidate_ids.__doc__
 
     def pool_scores(self) -> np.ndarray:
         if self._groups is None:
@@ -1697,8 +1774,9 @@ class BatchedBOEngine(_EngineBase):
     pool_scores.__doc__ = _EngineBase.pool_scores.__doc__
 
     def device_bytes(self) -> int:
-        return super().device_bytes() + sum(
-            g.device_bytes() for g in self._groups or ())
+        if self._groups is None:
+            return super().device_bytes()
+        return sum(g.device_bytes() for g in self._groups)
 
     device_bytes.__doc__ = _EngineBase.device_bytes.__doc__
 
@@ -1718,30 +1796,45 @@ class BatchedBOEngine(_EngineBase):
         ragged, so rows and targets are stored per scenario index. Under a
         mesh the groups' blocks are gathered along the scenario axis: the
         layout is the unsharded engine's."""
-        d = self._base_state_dict()
-        if self._groups is not None:
-            parts = [g.state_dict() for g in self._groups]
-            for key in self._GROUP_KEYS:
-                if key in parts[0]:
-                    d[key] = _cat_tree([p[key] for p in parts])
+        d = (self._base_state_dict() if self._groups is None
+             else self._gather_state_dict())
         d["rows"] = {str(si): np.asarray(r, np.int64)
                      for si, r in enumerate(self._rows)}
         d["ys"] = {str(si): None if y is None else y.copy()
                    for si, y in enumerate(self._ys)}
         return d
 
+    def _gather_state_dict(self) -> dict:
+        """The groups' snapshots joined along the scenario axis, with this
+        engine's fleet-wide scalars and stats."""
+        self._check_live()
+        parts = [g.state_dict() for g in self._groups]
+        d = dict(parts[0], pool_shape=self._pool_shape(), P=self._P,
+                 n_at_last_select=self._n_at_last_select,
+                 stats=self.stats.as_dict())
+        for key in self._GROUP_KEYS:
+            if key in d:
+                d[key] = _cat_tree([p[key] for p in parts])
+        if "pool_edit" in d:
+            d["pool_edit"] = dict(d["pool_edit"], pool=np.concatenate(
+                [p["pool_edit"]["pool"] for p in parts]))
+        return d
+
     def load_state_dict(self, d: dict) -> None:
         """Restore a :meth:`state_dict` snapshot; under a mesh each group
         takes its scenarios' slice of it."""
-        own = ({k: v for k, v in d.items() if k not in self._GROUP_KEYS}
-               if self._groups is not None else d)
-        self._load_base_state_dict(own)
+        if self._groups is None:
+            self._load_base_state_dict(d)
+        else:
+            self._scatter_state_dict(d)
         self._rows = [[int(r) for r in
                        np.asarray(d["rows"][str(si)]).reshape(-1)]
                       for si in range(self.S)]
         self._ys = [None if d["ys"].get(str(si)) is None
                     else np.array(d["ys"][str(si)], np.float32)
                     for si in range(self.S)]
+        if self._groups is not None:
+            return
         self._eval_mask = torch.zeros((self.S, self.N), dtype=torch.bool,
                                       device=self.device)
         scat_s = [si for si, rows in enumerate(self._rows) for _ in rows]
@@ -1749,12 +1842,18 @@ class BatchedBOEngine(_EngineBase):
         if scat_r:
             self._eval_mask[torch.as_tensor(scat_s, device=self.device),
                             torch.as_tensor(scat_r, device=self.device)] = True
-        for grp, sl in zip(self._groups or (), self._slices):
-            part = dict(own, pool_shape=list(grp.pool.shape),
-                        rows={str(i): d["rows"][str(si)] for i, si in
-                              enumerate(range(self.S)[sl])},
-                        ys={str(i): d["ys"].get(str(si)) for i, si in
-                            enumerate(range(self.S)[sl])})
+
+    def _scatter_state_dict(self, d: dict) -> None:
+        """Each group loads its scenarios' slice of the fleet's snapshot;
+        this engine keeps the fleet-wide scalars and stats."""
+        self._check_snapshot(d)
+        for grp, sl in zip(self._groups, self._slices):
+            idx = range(self.S)[sl]
+            part = dict(d, pool_shape=grp._pool_shape(),
+                        rows={str(i): d["rows"][str(si)]
+                              for i, si in enumerate(idx)},
+                        ys={str(i): d["ys"].get(str(si))
+                            for i, si in enumerate(idx)})
             if "pool_edit" in d:
                 part["pool_edit"] = dict(
                     d["pool_edit"],
@@ -1764,6 +1863,9 @@ class BatchedBOEngine(_EngineBase):
                     part[key] = _slice_tree(d[key], sl)
             with _on(grp.device):
                 grp.load_state_dict(part)
+        self._P = int(d["P"])
+        self._n_at_last_select = int(d["n_at_last_select"])
+        self.stats = EngineStats.from_dict(d["stats"])
 
 
 def _cat_tree(trees: list):

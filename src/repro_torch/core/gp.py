@@ -12,18 +12,6 @@ gradient path stays on differentiable PyTorch ops.
 :func:`fit_gp_batch` fits S scenarios at once by folding the scenario axis
 into the objective axis that ``_nll`` already batches: one Adam step for S
 scenarios launches what one step for one scenario launches.
-
-On the card a GP's bits do not depend on how many GPs share its batch, as
-they do not on the CPU, so a fleet split into scenario groups (a mesh)
-picks what it picks whole. Two library choices would break that: torch's
-CUDA triangular solve loops over a batch of up to 8 matrices of 64 rows
-or more and takes cuBLAS's batched solve above, and a CUDA reduction of
-more than 32 entries to each of fewer than 16 outputs gives each output
-more lanes the fewer outputs there are. So a fit's batch is padded to
-``BATCHED_SOLVE_MIN`` GPs (:func:`solve_lower` does the same for the
-engines' solves), and ``_nll`` sums the gradients of the signal variance
-and the noise, n² entries a GP, row by row and then in steps of at most
-32 (:class:`_ScaledPair`). The CPU needs neither, and runs the same code.
 """
 from __future__ import annotations
 
@@ -42,10 +30,6 @@ __all__ = ["GPParams", "GPState", "fit_gp", "fit_gp_batch", "pad_training",
 JITTER = 1e-5
 #: padding granularity of the growing training set
 PAD_BUCKET = 8
-#: the smallest batch that torch's CUDA triangular solve hands to cuBLAS's
-#: batched solve (it loops over up to 8 matrices of 64 rows or more): GP
-#: batches on the card are padded to it
-BATCHED_SOLVE_MIN = 9
 
 
 class GPParams(NamedTuple):
@@ -77,59 +61,6 @@ def _cholesky(K: torch.Tensor) -> torch.Tensor:
     return _nan_where_failed(L, info)
 
 
-def _pad_rows(t: torch.Tensor, n: int, dim: int = 0) -> torch.Tensor:
-    """``t`` with copies of its first entry along ``dim`` up to ``n``."""
-    k = n - t.shape[dim]
-    if k <= 0:
-        return t
-    first = t.narrow(dim, 0, 1)
-    return torch.cat([t, first.expand(*(k if i == dim else s for i, s in
-                                        enumerate(first.shape)))], dim=dim)
-
-
-def _row_sums(t: torch.Tensor) -> torch.Tensor:
-    """[B, n] -> [B]: the sum of each row in two reductions of at most 32
-    entries where n has such factors (r·c = n, r, c <= 32), whose order
-    does not depend on B (module docstring)."""
-    B, n = t.shape
-    for c in range(min(n, 32), 1, -1):
-        if n % c == 0 and n // c <= 32:
-            return t.reshape(B, n // c, c).sum(-1).sum(-1)
-    return t.sum(-1)
-
-
-class _ScaledPair(torch.autograd.Function):
-    """``v[:, None, None] * E + w[:, None, None] * I`` for per-GP scalars
-    ``v``, ``w`` [B], E [B, n, n] and the identity I [n, n] (the kernel
-    matrix's signal and noise terms), whose backward sums v's and w's
-    gradients row by row (:func:`_row_sums`) where autograd would reduce
-    n² entries to each of B outputs in one pass."""
-
-    @staticmethod
-    def forward(ctx, v, E, w, eye):
-        ctx.save_for_backward(v, E)
-        return v[:, None, None] * E + w[:, None, None] * eye
-
-    @staticmethod
-    def backward(ctx, g):
-        v, E = ctx.saved_tensors
-        gv = _row_sums((g * E).sum(-1))
-        gw = _row_sums(torch.diagonal(g, dim1=-2, dim2=-1))
-        return gv, g * v[:, None, None], gw, None
-
-
-def solve_lower(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """``solve_triangular(L, B, upper=False)`` for batches [G, n, n] and
-    [G, n, k]; a batch of fewer than ``BATCHED_SOLVE_MIN`` is padded, so
-    that on the card every batch takes cuBLAS's batched solve."""
-    G = L.shape[0]
-    if G < BATCHED_SOLVE_MIN:
-        return torch.linalg.solve_triangular(
-            _pad_rows(L, BATCHED_SOLVE_MIN), _pad_rows(B, BATCHED_SOLVE_MIN),
-            upper=False)[:G]
-    return torch.linalg.solve_triangular(L, B, upper=False)
-
-
 def _kernel(log_ls: torch.Tensor, log_var: torch.Tensor, a: torch.Tensor,
             b: torch.Tensor) -> torch.Tensor:
     """ARD RBF kernel of one objective for inference (``pairdist`` kernel on
@@ -152,17 +83,16 @@ def _nll(log_ls, log_var, log_noise, x, y, mask) -> torch.Tensor:
     hyperpriors. Differentiable. ``y`` is [n, B]; ``x`` [n, d] and ``mask``
     [n] are shared by the B GPs (the m objectives of one scenario) or given
     per GP as [B, n, d] and [B, n] (the folded scenarios of
-    :func:`fit_gp_batch`). The signal variance's and the noise's gradients
-    are summed in an order independent of B (:class:`_ScaledPair`)."""
+    :func:`fit_gp_batch`)."""
     n = x.shape[-2]
     xb = x if x.dim() == 3 else x[None, :, :]
     a = xb / torch.exp(log_ls)[:, None, :]                      # [B, n, d]
     aa = torch.sum(a * a, dim=-1)
     d2 = torch.maximum(aa[:, :, None] + aa[:, None, :]
                        - 2.0 * (a @ a.transpose(1, 2)), x.new_zeros(()))
+    K = torch.exp(log_var)[:, None, None] * torch.exp(-0.5 * d2)
     eye = torch.eye(n, dtype=x.dtype, device=x.device)
-    K = _ScaledPair.apply(torch.exp(log_var), torch.exp(-0.5 * d2),
-                          torch.exp(log_noise) + JITTER, eye)
+    K = K + (torch.exp(log_noise) + JITTER)[:, None, None] * eye
     K = K + (torch.diag(1e6 * mask) if mask.dim() == 1
              else torch.diag_embed(1e6 * mask))
     L = _cholesky(K)
@@ -180,16 +110,7 @@ def _fit(params: GPParams, x, y, mask, steps: int = 200,
          lr: float = 5e-2) -> GPParams:
     """Adam on the summed per-objective NLL, written out: the same update
     order, bias correction at ``t + 1`` in float32 and clamps as
-    ``repro.core.gp._fit`` (``torch.optim.Adam`` rounds differently). A
-    batch of fewer than ``BATCHED_SOLVE_MIN`` GPs is fitted padded with
-    copies of its first GP (each GP's gradient is its own)."""
-    nb = params.log_var.shape[0]
-    if nb < BATCHED_SOLVE_MIN:
-        k = BATCHED_SOLVE_MIN
-        out = _fit(GPParams(*(_pad_rows(t, k) for t in params)),
-                   _pad_rows(x, k) if x.dim() == 3 else x, _pad_rows(y, k, 1),
-                   _pad_rows(mask, k) if mask.dim() == 2 else mask, steps, lr)
-        return GPParams(*(t[:nb] for t in out))
+    ``repro.core.gp._fit`` (``torch.optim.Adam`` rounds differently)."""
     b1, b2, eps = 0.9, 0.999, 1e-8
     p = [t.detach().clone() for t in params]
     m = [torch.zeros_like(t) for t in p]

@@ -1560,11 +1560,12 @@ def test_training_steps_on_the_card_are_repeatable_and_count_k5(dev):
 
 
 def test_gp_fit_and_factors_do_not_depend_on_the_batch(dev):
-    """A GP's bits do not depend on how many GPs share its batch: the fit
-    of 6 scenarios (18 GPs) and their factors, whitened targets and
-    frontier samples equal those of groups of 3, 2 and 1 scenarios (the
-    smaller batches padded to ``BATCHED_SOLVE_MIN``), as a mesh's scenario
-    groups need."""
+    """A mesh group pads its GP work to the whole fleet's batch: the fit of
+    6 scenarios (18 GPs) and their factors, whitened targets and frontier
+    samples equal those of groups of 3, 2 and 1 scenarios each padded to 6
+    with copies of its first (``BatchedBOEngine._fleet_index``), bit for
+    bit on the card, where a batch's size picks the plan of torch's
+    triangular solves and reductions."""
     from repro_torch.core import engine as E
     from repro_torch.core import gp
 
@@ -1583,23 +1584,25 @@ def test_gp_fit_and_factors_do_not_depend_on_the_batch(dev):
     p0 = gp.default_params(m, d, dev)
     p0 = gp.GPParams(*(t.expand(S, *t.shape).contiguous() for t in p0))
 
-    def cut(p, sl):
-        return gp.GPParams(*(t[sl] for t in p))
+    def run(idx, n):
+        def c(t):
+            return t[idx]
 
-    def run(sl):
-        fit = gp._fit_batch(cut(p0, sl), x[sl], yn[sl], mask[sl], 15)
-        L0 = E._chol_refactor_batch(fit, x[sl], mask[sl])
-        L = E._chol_block_batch(fit, L0, x[sl], mask[sl], 64)
-        beta, ystar = E._beta_ystar_batch(fit, L, x[sl], yn[sl], mean[sl],
-                                          std[sl], pool[sl], sub[sl],
-                                          eps[sl])
-        return [*fit, L, beta, ystar]
+        fit = gp._fit_batch(gp.GPParams(*map(c, p0)), c(x), c(yn), c(mask),
+                            15)
+        L0 = E._chol_refactor_batch(fit, c(x), c(mask))
+        L = E._chol_block_batch(fit, L0, c(x), c(mask), 64)
+        beta, ystar = E._beta_ystar_batch(fit, L, c(x), c(yn), c(mean),
+                                          c(std), c(pool), c(sub), c(eps))
+        return [t[:n] for t in (*fit, L, beta, ystar)]
 
-    whole = run(slice(0, S))
+    whole = run(torch.arange(S, device=dev), S)
     for G in (3, 2, 1):
-        parts = [run(slice(i, i + G)) for i in range(0, S, G)]
-        for k, t in enumerate(whole):
-            assert torch.equal(t, torch.cat([p[k] for p in parts])), (G, k)
+        for lo in range(0, S, G):
+            idx = torch.arange(lo, lo + G, device=dev)
+            part = run(torch.cat([idx, idx[:1].expand(S - G)]), G)
+            for k, t in enumerate(whole):
+                assert torch.equal(part[k], t[lo:lo + G]), (G, lo, k)
 
 
 def test_mesh_groups_pick_what_the_whole_fleet_picks(dev):

@@ -1,12 +1,11 @@
-"""The GP fit's batch-invariant formulation (``repro_torch.core.gp``): on
-the card a fit's gradients reduce in an order that does not depend on how
-many GPs share the batch (the card itself is tested in
-``tests/test_torch_cuda.py``). Here, on the CPU: the formulation computes
-the reference's NLL and its gradients up to the order of float32 sums (its
-row sums too), a padded fit is each GP's own, and the batch padding of the
-triangular solves returns the unpadded solve's values."""
-import math
-
+"""The port's batched GP work against the reference on the CPU: the NLL
+that ``repro_torch.core.gp._fit`` descends equals the reference's
+(``repro.core.gp._nll_one`` summed over a vmap) in value and gradients,
+for GPs that share their rows and for GPs with rows of their own; and a
+batch padded with copies of its first scenario, as a mesh's scenario group
+pads its GP work to the whole fleet's batch, gives each scenario the
+values the whole fleet gives it (on the card:
+``tests/test_torch_cuda.py``)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -14,112 +13,92 @@ torch = pytest.importorskip("torch")
 # cores, and torch's per-process thread pools oversubscribe them
 torch.set_num_threads(1)
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from repro.core import gp as gp_j
+from repro_torch.core import engine as E
 from repro_torch.core import gp
 
 
-@pytest.mark.parametrize("n", [8, 37, 72, 1024, 1031])
-def test_row_sums_and_the_scaled_pair(n):
-    """``_row_sums`` sums each row (in two steps where n factors into two
-    of at most 32); ``_ScaledPair`` is ``v·E + w·I`` bit for bit, and its
-    gradients are autograd's up to the order of float32 sums."""
-    gen = torch.Generator().manual_seed(n)
-    t = torch.randn((3, n), generator=gen)
-    torch.testing.assert_close(gp._row_sums(t), t.sum(-1), rtol=1e-5,
-                               atol=1e-5)
-    if n > 100:
-        return
-    v, w = torch.rand(3, generator=gen) + 0.5, torch.rand(3, generator=gen)
-    E = torch.rand((3, n, n), generator=gen)
-    g = torch.randn((3, n, n), generator=gen)
-    eye = torch.eye(n)
-    out = []
-    for fn in (lambda v, E, w: v[:, None, None] * E + w[:, None, None] * eye,
-               lambda v, E, w: gp._ScaledPair.apply(v, E, w, eye)):
-        leaves = [u.clone().requires_grad_(True) for u in (v, E, w)]
-        val = fn(*leaves)
-        out.append((val, torch.autograd.grad(val, leaves, g)))
-    (k0, g0), (k1, g1) = out
-    assert torch.equal(k0, k1)
-    for a, b in zip(g0, g1):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
-
-
-def _nll_plain(log_ls, log_var, log_noise, x, y, mask):
-    """The NLL as the reference writes it: each hyperparameter broadcast in
-    one step."""
-    n = x.shape[-2]
-    xb = x if x.dim() == 3 else x[None, :, :]
-    a = xb / torch.exp(log_ls)[:, None, :]
-    aa = torch.sum(a * a, dim=-1)
-    d2 = torch.maximum(aa[:, :, None] + aa[:, None, :]
-                       - 2.0 * (a @ a.transpose(1, 2)), x.new_zeros(()))
-    K = torch.exp(log_var)[:, None, None] * torch.exp(-0.5 * d2)
-    eye = torch.eye(n, dtype=x.dtype)
-    K = K + (torch.exp(log_noise) + gp.JITTER)[:, None, None] * eye
-    K = K + (torch.diag(1e6 * mask) if mask.dim() == 1
-             else torch.diag_embed(1e6 * mask))
-    L = gp._cholesky(K)
-    yt = y.T
-    alpha = torch.cholesky_solve(yt[:, :, None], L)[:, :, 0]
-    nll = (torch.sum(0.5 * yt * alpha, dim=-1)
-           + torch.sum(torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1)
-           + 0.5 * n * math.log(2 * math.pi))
-    prior = 0.05 * (torch.sum(log_ls ** 2, dim=-1) + log_var ** 2
-                    + (log_noise + 4.0) ** 2)
-    return torch.sum(nll + prior)
-
-
 @pytest.mark.parametrize("shared_x", [True, False])
-def test_batch_invariant_nll_is_the_plain_nll(shared_x):
-    gen = torch.Generator().manual_seed(1)
+def test_nll_matches_the_reference(shared_x):
+    """Value and gradients of the summed NLL of 6 GPs (shared rows [n, d],
+    or rows of their own [6, n, d]) within float32 sum order of
+    ``jax.value_and_grad`` of the reference's."""
+    rng = np.random.default_rng(1)
     B, n, d = 6, 24, 5
-    x = 0.3 * torch.randn((n, d) if shared_x else (B, n, d), generator=gen)
-    y = torch.randn((n, B), generator=gen)
-    mask = torch.zeros(n) if shared_x else torch.zeros((B, n))
+    x = (0.3 * rng.normal(size=(n, d) if shared_x else (B, n, d))
+         ).astype(np.float32)
+    y = rng.normal(size=(n, B)).astype(np.float32)
+    mask = np.zeros((n,) if shared_x else (B, n), np.float32)
     mask[..., 20:] = 1.0
-    params = [0.1 * torch.randn((B, d), generator=gen) - 0.5,
-              0.1 * torch.randn(B, generator=gen),
-              0.1 * torch.randn(B, generator=gen) - 4.0]
-    out = []
-    for nll in (_nll_plain, gp._nll):
-        leaves = [t.clone().requires_grad_(True) for t in params]
-        val = nll(*leaves, x, y, mask)
-        out.append((val, torch.autograd.grad(val, leaves)))
-    (v0, g0), (v1, g1) = out
-    assert torch.equal(v0, v1)  # the forward values are the same bits
-    for a, b in zip(g0, g1):  # float32 sums in another order
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    params = [(0.1 * rng.normal(size=(B, d)) - 0.5).astype(np.float32),
+              (0.1 * rng.normal(size=B)).astype(np.float32),
+              (0.1 * rng.normal(size=B) - 4.0).astype(np.float32)]
+
+    leaves = [torch.tensor(t, requires_grad=True) for t in params]
+    val = gp._nll(*leaves, torch.tensor(x), torch.tensor(y),
+                  torch.tensor(mask))
+    grads = torch.autograd.grad(val, leaves)
+
+    rows = None if shared_x else 0
+
+    def loss(ls, var, noise):
+        return jnp.sum(jax.vmap(gp_j._nll_one,
+                                in_axes=(0, 0, 0, rows, 1, rows))(
+            ls, var, noise, x, y, mask))
+
+    want, want_grads = jax.value_and_grad(loss, argnums=(0, 1, 2))(*params)
+    np.testing.assert_allclose(val.item(), float(want), rtol=1e-5)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=5e-5,
+                                   atol=1e-5)
 
 
-def test_padded_fit_is_each_gps_own():
-    """A fit of 3 GPs (padded to ``BATCHED_SOLVE_MIN``) equals, GP for GP,
-    the same GPs fitted among 9 others."""
-    gen = torch.Generator().manual_seed(3)
-    S, P, d, m = 4, 16, 5, 3
-    x = 0.3 * torch.randn((S, P, d), generator=gen)
-    yn = torch.randn((S, P, m), generator=gen)
+def _inputs(S=6, P=24, d=5, m=3, seed=0):
+    gen = torch.Generator().manual_seed(seed)
     mask = torch.zeros((S, P))
-    mask[:, 13:] = 1.0
+    mask[:, 20:] = 1.0
+    x = 0.3 * torch.randn((S, P, d), generator=gen) + 10.0 * mask[:, :, None]
+    yn = torch.randn((S, P, m), generator=gen)
+    eps = torch.randn((S, m, 16, 4), generator=gen)
+    pool = 0.3 * torch.randn((S, 40, d), generator=gen)
+    sub = torch.arange(16).expand(S, 16)
     p0 = gp.default_params(m, d, "cpu")
     p0 = gp.GPParams(*(t.expand(S, *t.shape).contiguous() for t in p0))
-    whole = gp._fit_batch(p0, x, yn, mask, 5)
-    one = gp._fit_batch(gp.GPParams(*(t[1:2] for t in p0)), x[1:2],
-                        yn[1:2], mask[1:2], 5)
-    for a, b in zip(whole, one):
-        assert torch.equal(a[1:2], b)
+    return dict(p0=p0, x=x, yn=yn, mask=mask, eps=eps, pool=pool, sub=sub,
+                mean=torch.zeros((S, m)), std=torch.ones((S, m)))
 
 
-def test_solve_lower_and_padding():
-    gen = torch.Generator().manual_seed(2)
-    A = torch.randn((3, 10, 10), generator=gen)
-    L = torch.linalg.cholesky(A @ A.transpose(1, 2) + 10 * torch.eye(10))
-    Bm = torch.randn((3, 10, 4), generator=gen)
-    assert torch.equal(gp.solve_lower(L, Bm),
-                       torch.linalg.solve_triangular(L, Bm, upper=False))
-    padded = gp._pad_rows(L, gp.BATCHED_SOLVE_MIN)
-    assert padded.shape[0] == gp.BATCHED_SOLVE_MIN
-    assert all(torch.equal(padded[i], L[0]) for i in range(3, 9))
-    assert torch.equal(padded[:3], L)
-    assert gp._pad_rows(Bm, 2) is Bm
-    y = torch.randn((10, 3), generator=gen)
-    assert torch.equal(gp._pad_rows(y, 5, 1)[:, 3:], y[:, :1].expand(10, 2))
+def _gp_work(a: dict, idx: torch.Tensor, n: int) -> list:
+    """The engine's batched GP work on the scenarios ``idx``: the fit, a
+    refactor, a block update from 16 and the frontier samples; the first
+    ``n`` scenarios' results."""
+    def g(t):
+        return t[idx]
+
+    fit = gp._fit_batch(gp.GPParams(*map(g, a["p0"])), g(a["x"]), g(a["yn"]),
+                        g(a["mask"]), 8)
+    L0 = E._chol_refactor_batch(fit, g(a["x"]), g(a["mask"]))
+    L = E._chol_block_batch(fit, L0, g(a["x"]), g(a["mask"]), 16)
+    beta, ystar = E._beta_ystar_batch(fit, L, g(a["x"]), g(a["yn"]),
+                                      g(a["mean"]), g(a["std"]), g(a["pool"]),
+                                      g(a["sub"]), g(a["eps"]))
+    return [t[:n] for t in (*fit, L0, L, beta, ystar)]
+
+
+@pytest.mark.parametrize("G", [1, 2, 3])
+def test_a_padded_group_gets_the_whole_fleets_gp_work(G):
+    """Groups of G of 6 scenarios, each padded to 6 with copies of its
+    first (``BatchedBOEngine._fleet_index``): every group's fit, factors,
+    whitened targets and frontier samples are the whole fleet's, bit for
+    bit."""
+    a = _inputs()
+    whole = _gp_work(a, torch.arange(6), 6)
+    for lo in range(0, 6, G):
+        idx = torch.arange(lo, lo + G)
+        padded = torch.cat([idx, idx[:1].expand(6 - G)])
+        for k, (got, want) in enumerate(zip(_gp_work(a, padded, G), whole)):
+            assert torch.equal(got, want[lo:lo + G]), (lo, k)

@@ -255,3 +255,106 @@ def test_mesh_refusals_match_the_reference(pool):
         BatchedBOEngine(pools, mesh=_mesh(2), mesh_axis="data", device="cpu")
     with pytest.raises(KeyError):
         BatchedBOEngineJ(pools, mesh=one, mesh_axis="data")
+
+
+def _engines(mesh_groups, pools, **kw):
+    return (BatchedBOEngine(pools, **kw),
+            BatchedBOEngine(pools, mesh=_mesh(mesh_groups), **kw))
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+def test_pool_edits_under_a_mesh_equal_the_unsharded_engine(groups):
+    """Under a mesh the fleet's engine holds no device array: the groups
+    hold the pool, the masks and the state. A replacement, an append, a
+    refused replacement of an evaluated row, the ids, the stats, the
+    scores, the picks and the snapshot (with its ``pool_edit`` block) equal
+    the unsharded engine's; a fresh mesh engine on the edited pool resumes
+    from that snapshot; ``release`` frees every group."""
+    rng = np.random.default_rng(5)
+    pools = np.stack([rng.normal(size=(20, 5)) / np.sqrt(5)
+                      for _ in range(4)]).astype(np.float32)
+    kw = dict(gp_steps=12, warm_steps=4, pool_chunk=6, device="cpu")
+    plain, sharded = _engines(groups, pools, **kw)
+    assert sharded.pool is None and sharded._pool_c is None
+    assert sharded.device_bytes() == plain.device_bytes()  # the fleet once
+    W = np.random.default_rng(2).normal(size=(5, 3))
+
+    def flow(eng, si, rows):  # the unsharded engine holds the live pool
+        return np.tanh(plain.pool[si][rows].numpy() @ W)
+
+    init = [[0, 1, 2, 3], [4, 5, 6], [1, 7, 8], [2, 9, 10, 11]]
+    gen = np.random.default_rng(6)
+    for eng in (plain, sharded):
+        eng.observe(init, [flow(eng, si, r) for si, r in enumerate(init)])
+    eps = gen.normal(size=(4, 3, 20, 10)).astype(np.float32)
+    np.testing.assert_array_equal(plain.select(eps), sharded.select(eps))
+    cols = (rng.normal(size=(4, 2, 5)) / np.sqrt(5)).astype(np.float32)
+    new = (rng.normal(size=(4, 3, 5)) / np.sqrt(5)).astype(np.float32)
+    for eng in (plain, sharded):
+        with pytest.raises(ValueError) as err:
+            eng.pool_replace([3, 15], cols)
+        eng.err = str(err.value)
+        eng.pool_replace([13, 15], cols)
+        eng.rows_new = eng.pool_append(new)
+    assert sharded.err == plain.err
+    np.testing.assert_array_equal(sharded.rows_new, plain.rows_new)
+    np.testing.assert_array_equal(sharded.candidate_ids, plain.candidate_ids)
+    np.testing.assert_array_equal(sharded.pool_scores(), plain.pool_scores())
+    assert sharded.N == plain.N == 23
+    eps = gen.normal(size=(4, 3, 23, 10)).astype(np.float32)
+    picks = plain.select(eps)
+    np.testing.assert_array_equal(sharded.select(eps), picks)
+    assert sharded.stats.as_dict() == plain.stats.as_dict()
+    snap, ref = sharded.state_dict(), plain.state_dict()
+    assert snap.keys() == ref.keys()
+    np.testing.assert_array_equal(snap["pool_edit"]["pool"],
+                                  ref["pool_edit"]["pool"])
+    np.testing.assert_array_equal(snap["state"]["V"], ref["state"]["V"])
+    again = BatchedBOEngine(ref["pool_edit"]["pool"], mesh=_mesh(groups),
+                            **kw)
+    again.load_state_dict(snap)
+    np.testing.assert_array_equal(again.candidate_ids, plain.candidate_ids)
+    np.testing.assert_array_equal(again.pool_scores(), plain.pool_scores())
+    assert sharded._state is None
+    assert sharded.device_bytes() == plain.device_bytes() > 0
+    sharded.release()
+    assert sharded.device_bytes() == 0
+    assert all(g.pool is None for g in sharded._groups)
+
+
+@pytest.mark.parametrize("groups", [1, 2, 3])
+def test_mesh_groups_run_their_gp_work_at_the_fleets_batch(groups,
+                                                          monkeypatch):
+    """Every group of a six-scenario fleet fits, factors and samples its
+    frontiers at the whole fleet's batch of 6 scenarios (its own padded
+    with copies of its first): the shapes under which, on the card, its
+    GPs get the unsharded fleet's bits."""
+    from repro_torch.core import engine as E
+
+    seen = []
+    for name in ("_fit_batch", "_chol_refactor_batch", "_chol_block_batch",
+                 "_beta_ystar_batch"):
+        def spy(*args, _f=getattr(E, name), _n=name):
+            lead = args[2] if _n == "_fit_batch" else args[0].log_var
+            seen.append((_n, lead.shape[0]))
+            return _f(*args)
+        monkeypatch.setattr(E, name, spy)
+    rng = np.random.default_rng(7)
+    pools = np.stack([rng.normal(size=(16, 4)) / np.sqrt(4)
+                      for _ in range(6)]).astype(np.float32)
+    kw = dict(gp_steps=6, warm_steps=3, drift_tol=1e9, device="cpu")
+    plain, sharded = _engines(groups, pools, **kw)
+    W = np.random.default_rng(8).normal(size=(4, 3))
+    init = [[(si + k) % 16 for k in range(9)] for si in range(6)]
+    for _ in range(3):
+        for eng in (plain, sharded):
+            eng.observe(init, [np.tanh(pools[si][r] @ W)
+                               for si, r in enumerate(init)])
+        eps = rng.normal(size=(6, 3, 16, 10)).astype(np.float32)
+        seen.clear()
+        picks = sharded.select(eps)
+        assert len(seen) == 3 * groups  # fit, factors, frontier a group
+        assert all(S == 6 for _, S in seen), seen
+        np.testing.assert_array_equal(picks, plain.select(eps))
+        init = [[int(p)] for p in picks]
+    assert sharded.stats.block_updates == plain.stats.block_updates > 0
