@@ -198,10 +198,10 @@ each 64-position tile's largest gradient and a mean bound, and a second
 call bitwise equal to the first; four planted faults (D left out of dS,
 the mask shifted by a key, the last key tile left out, lse off by 0.05
 past S/2) rejected at every shape. Then qwen3-100m
-(``examples/train_lm_torch.py``'s config) on the bigram stream for 100
+(``examples/train_lm_torch.py``'s config) on the bigram stream for 50
 steps with every count set to 0 just before
 (12 K5 forward and 12 backward launches a step): the loss must fall by
->= 0.2 and stay above the bigram floor - 0.05; a run cut at step 40 and
+>= 0.2 and stay above the bigram floor - 0.05; a run cut at step 20 and
 resumed from its checkpoint ends bit for bit equal to the uninterrupted
 one; its first 3 losses within 1e-3 of the CPU's, and its first step's
 gradients leaf by leaf against the CPU's (a zero attention gradient
@@ -251,10 +251,27 @@ trained through ``launch/train.py`` and whisper-tiny's through
 gradients of the SSM, hybrid and encoder-decoder twins on the card
 against the CPU's.
 
+The sharded LM program, after training (``sharded_phase``): a one-rank
+mesh (1, 1) of axes ("data", "model") over NCCL, in a subprocess with its
+own store (``--sharded-worker``): ``starcoder2-3b`` at its published width
+cut to 4 layers (``SHARDED``; B 2 x S 2048, remat) trained one step through
+the sharded ``make_train_step`` (``constraint``, the ZeRO-1
+redistributions, K5 and its backward on the local shards) and prefilled,
+against the unsharded port on the same inputs: the loss, every leaf's
+gradient, m, v, the masters and the prefill's logits bit for bit (or
+within TRAIN_GRAD's tolerances, every differing leaf printed); K5's
+launches (3 a layer in the step, with remat; 1 a layer in the prefill).
+The host dry-runs four production cells over fake process groups of 256
+or 512 ranks (``SHARDED_DRYRUN``: mistral-nemo-12b ``train_4k``
+multi-pod, qwen3-14b ``prefill_32k`` sequence-parallel,
+deepseek-v2-lite-16b ``decode_32k``, mamba2-370m ``long_500k``), one
+``launch.dryrun`` process each at a lower priority, started with the
+one-rank worker, after every timed phase; every record must be ``ok`` and
+is printed.
+
 It prints the card (``nvidia-smi``), the build time, one line per kernel
-check, the rounds, the service, baselines, serve and training phases, its wall time
-in all, a
-``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
+check, the rounds, the service, baselines, serve, training and sharded
+phases, its wall time in all, a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true, "device":
 {...}}``. Any failure raises; no phase is
 caught. It needs a CUDA device and exits non-zero without one.
 """
@@ -3347,7 +3364,7 @@ def k5_bwd_build_report() -> dict:
 #: first 4 layers (K5 gradients against the plain attention's), then all
 #: 30 (B 2 x S 2048, remat on as configured) for TRAIN_TIMED timed steps.
 TRAIN_DATA = dict(seq_len=128, global_batch=16, seed=0)
-TRAIN_STEPS, TRAIN_CUT, TRAIN_CPU_STEPS = 100, 40, 3
+TRAIN_STEPS, TRAIN_CUT, TRAIN_CPU_STEPS = 50, 20, 3
 TRAIN_LR = dict(base=1e-3, warmup=10, total=TRAIN_STEPS)
 TRAIN_FULL = dict(arch="starcoder2-3b", batch=2, seq=2048, grad_layers=4,
                   timed=3)
@@ -4888,6 +4905,243 @@ def serve_small_card_vs_cpu(dev) -> None:
             assert dmax <= 0.0625 and dmean <= 0.01
 
 
+# ------------------------------------------------------------- sharded
+#: the sharded program on the card: starcoder2-3b at its published width,
+#: cut to 4 layers, B 2 x S 2048 (TRAIN_FULL's), remat on, over a one-rank
+#: mesh (1, 1) of axes ("data", "model") under NCCL
+SHARDED = dict(arch="starcoder2-3b", layers=4, batch=2, seq=2048, seed=11)
+#: the host dry run of four production cells over a fake process group of
+#: 256 or 512 ranks, each in a process of its own (``launch.dryrun``)
+SHARDED_DRYRUN = [("mistral-nemo-12b", "train_4k", "multi"),
+                  ("qwen3-14b", "prefill_32k", "single"),
+                  ("deepseek-v2-lite-16b", "decode_32k", "single"),
+                  ("mamba2-370m", "long_500k", "single")]
+
+
+def _tree_diff(got: dict, want: dict) -> dict:
+    """Leaf by leaf (a DTensor taken whole): the leaves that are not bit
+    for bit equal, each with (max |diff| / max |want|, mean |diff| / mean
+    |want|)."""
+    import torch
+
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        g = g.full_tensor() if hasattr(g, "full_tensor") else g
+        if not (g.shape == w.shape and bool(torch.equal(g, w))):
+            d = (g.float() - w.float()).abs()
+            out[k] = (float(d.max() / w.float().abs().max().clamp_min(1e-30)),
+                      float(d.mean() / w.float().abs().mean().clamp_min(
+                          1e-30)))
+    return out
+
+
+def sharded_worker(path: str) -> None:
+    """The one-rank mesh on the card, in a process of its own (NCCL, world
+    size 1, its own in-memory store): SHARDED's config trained one step
+    through the sharded ``make_train_step`` (``constraint``, the ZeRO-1
+    redistributions, K5 forward and backward reached through ``local_map``
+    on the local shards) against the same step unsharded, and a prefill
+    both ways; writes the comparisons and K5's launches to ``path``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.launch.specs import cell_rules
+    from repro_torch.models.model import init, loss_fn, param_axes, prefill
+    from repro_torch.parallel.sharding import (Mesh, axis_rules, distribute,
+                                               mixed_with_dtensors)
+    from repro_torch.train import (TrainConfig, TrainState, adamw_init,
+                                   init_params, make_train_step,
+                                   tree_zero1_specs)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    c = SHARDED
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+    mesh = Mesh(np.full((1, 1), "cuda", dtype=object), ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(c["seed"])
+    tokens = torch.randint(0, cfg.vocab, (c["batch"], c["seq"] + 1),
+                           device=dev, generator=gen)
+    masters = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        c["seed"]), dev)
+    out = {}
+
+    tcfg = TrainConfig()
+    step = make_train_step(cfg, tcfg, dev)
+    st, _, met = step(adamw_init({k: v.clone() for k, v in masters.items()}),
+                      {"tokens": tokens}, None)
+    with axis_rules(mesh, cell_rules(SHAPES["train_4k"], c["arch"])) as r:
+        sstep = make_train_step(cfg, tcfg, dev)
+        zs = tree_zero1_specs(param_axes(cfg, sstep.model), masters, r)
+
+        def dist_(t, k):
+            return distribute(t, None, r, spec=zs[k])
+
+        state = TrainState(torch.zeros((), dtype=torch.int32, device=dev),
+                           {k: dist_(v.clone(), k)
+                            for k, v in masters.items()},
+                           {k: dist_(torch.zeros_like(v), k)
+                            for k, v in masters.items()},
+                           {k: dist_(torch.zeros_like(v), k)
+                            for k, v in masters.items()})
+        batch = {"tokens": distribute(tokens, ("batch", None), r)}
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        sst, _, smet = sstep(state, batch, None)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["k5_forward"], out["k5_backward"] = K5.launches, K5.bwd_launches
+        out["loss"] = [float(met["loss"]), float(smet["loss"])]
+        out["loss_equal"] = bool(torch.equal(smet["loss"].reshape(()),
+                                             met["loss"].reshape(())))
+        out["diff"] = {what: _tree_diff(getattr(sst, what),
+                                        getattr(st, what))
+                       for what in ("params", "m", "v")}
+        # every leaf's gradient, on the two steps' compute copies (each
+        # holds the bf16 cast of the same masters)
+        names = [n for n, _ in step.model.named_parameters()]
+        loss_u, _ = loss_fn(step.model, {"tokens": tokens})
+        g_u = torch.autograd.grad(loss_u, list(step.model.parameters()))
+        loss_s, _ = loss_fn(sstep.model, batch)
+        with mixed_with_dtensors():  # the backward's plain tensors
+            g_s = torch.autograd.grad(loss_s,
+                                      list(sstep.model.parameters()))
+        out["diff"]["grads"] = _tree_diff(dict(zip(names, g_s)),
+                                          dict(zip(names, g_u)))
+        out["n_leaves"] = len(names)
+        del st, sst, state, g_u, g_s, step, sstep
+    torch.cuda.empty_cache()
+
+    model = init(cfg, torch.Generator(device=dev).manual_seed(c["seed"]), dev)
+    _, logits = prefill(model, tokens[:, :-1])
+    with axis_rules(mesh, cell_rules(SHAPES["prefill_32k"], c["arch"])) as r:
+        axes = param_axes(cfg, model)
+        for name, p in list(model.named_parameters()):
+            mod_name, _, leaf = name.rpartition(".")
+            mod = model.get_submodule(mod_name) if mod_name else model
+            setattr(mod, leaf, torch.nn.Parameter(
+                distribute(p.data, axes[name], r), requires_grad=False))
+        kernels.reset_launches()
+        _, slogits = prefill(model, distribute(tokens[:, :-1],
+                                               ("batch", None), r))
+        torch.cuda.synchronize()
+        out["prefill_k5"] = K5.launches
+        out["logits_diff"] = _tree_diff({"logits": slogits},
+                                        {"logits": logits})
+    dist.destroy_process_group()
+    Path(path).write_text(json.dumps(out))
+
+
+def _sharded_env() -> tuple[Path, Path, dict]:
+    root = Path(__file__).resolve().parent
+    # one intra-op thread a process: the dry runs compute nothing (fake
+    # tensors), and they share the host's cores with the card's work
+    return root, root / "results" / "dryrun_torch_smoke", dict(
+        os.environ, PYTHONPATH=str(root / "src"), OMP_NUM_THREADS="1")
+
+
+def start_sharded_dryruns() -> list:
+    """Start SHARDED_DRYRUN's host dry runs, one process each at a lower
+    priority (``nice`` 10), at the start of the sharded phase, beside its
+    one-rank worker: they compute nothing on the card and take up to a
+    minute or so of host time each, after every timed phase. Their stderr
+    goes to a file beside their records."""
+    root, out_dir, env = _sharded_env()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for cell in SHARDED_DRYRUN:
+        err = out_dir / ("__".join(cell) + ".err")
+        with open(err, "w") as fe:
+            procs.append((cell, err, subprocess.Popen(
+                ["nice", "-n", "10", sys.executable, "-m",
+                 "repro_torch.launch.dryrun", "--arch", cell[0], "--shape",
+                 cell[1], "--mesh", cell[2], "--out", str(out_dir)],
+                env=env, cwd=root, stdout=subprocess.PIPE, stderr=fe,
+                text=True)))
+    return procs
+
+
+def sharded_phase(dev, card: str) -> dict:
+    """The sharded LM program: the one-rank mesh on the card
+    (``sharded_worker`` in a subprocess) beside the host dry runs
+    (``start_sharded_dryruns``; the worker's step time is taken beside
+    them), then the dry runs' records; every record must be ``ok``, and
+    the sharded step, its gradients and the prefill must equal the
+    unsharded port's bit for bit, or stay within TRAIN_GRAD's tolerances
+    with every differing leaf printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layer_kinds
+
+    t0 = time.perf_counter()
+    root, out_dir, env = _sharded_env()
+    res_path = out_dir / "one_rank.json"
+    dry = start_sharded_dryruns()
+    try:
+        one, records = _sharded_results(root, env, res_path, dry)
+    finally:
+        for _, _, pr in dry:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    c = SHARDED
+    n_att = sum(k not in ("ssm", "rglru") for k in layer_kinds(
+        dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])))
+    print(f"  one-rank mesh (1, 1) on {card}: {c['arch']} at its published "
+          f"width, {c['layers']} layers, B {c['batch']} x S {c['seq']}: "
+          f"loss {one['loss'][1]:.6f} (unsharded {one['loss'][0]:.6f}, "
+          f"{'bit for bit' if one['loss_equal'] else 'differs'}); step "
+          f"{one['step_s']:.3f} s (beside the dry runs); K5 launches in "
+          f"the step: forward "
+          f"{one['k5_forward']}, backward {one['k5_backward']} "
+          f"({(one['k5_forward'] + one['k5_backward']) / n_att:.0f} a layer)"
+          f"; prefill K5 launches {one['prefill_k5']}")
+    for what, d in list(one["diff"].items()) + [("logits",
+                                                 one["logits_diff"])]:
+        print(f"    {what}: {'bit for bit' if not d else d}")
+        for leaf, (mx, mn) in d.items():
+            assert mx <= TRAIN_GRAD_ATOL_REL and mn <= TRAIN_GRAD_MEAN_REL, \
+                f"sharded {what} {leaf}: {mx:.4g} / {mn:.4g}"
+    assert abs(one["loss"][1] - one["loss"][0]) <= 5e-3, one["loss"]
+    assert one["k5_forward"] == 2 * n_att and one["k5_backward"] == n_att, \
+        (one["k5_forward"], one["k5_backward"])
+    assert one["prefill_k5"] == n_att, one["prefill_k5"]
+    bad = [k for k, r in records.items() if r.get("status") != "ok"]
+    assert not bad, f"dry-run cells not ok: {bad}"
+    phase_s = time.perf_counter() - t0
+    print(f"  sharded phase: {phase_s:.1f} s")
+    return dict(one_rank=one, dryrun=records, phase_s=phase_s)
+
+
+def _sharded_results(root: Path, env: dict, res_path: Path,
+                     dry: list) -> tuple[dict, dict]:
+    """The one-rank worker's results and the dry runs' records (each
+    printed; a record that is not ``ok`` with its stderr's tail)."""
+    worker = subprocess.run([sys.executable, str(root / "chip_smoke.py"),
+                             "--sharded-worker", str(res_path)], env=env,
+                            cwd=root, capture_output=True, text=True,
+                            timeout=600)
+    if worker.returncode:
+        print(worker.stdout[-4000:], worker.stderr[-8000:])
+        raise RuntimeError("the one-rank sharded worker failed")
+    records = {}
+    for cell, err, pr in dry:
+        so, _ = pr.communicate(timeout=900)
+        rec = json.loads(so.strip().splitlines()[-1])
+        records["__".join(cell)] = rec
+        print(f"  dry run {cell}: {json.dumps(rec)}")
+        if rec.get("status") != "ok":
+            print(err.read_text()[-4000:])
+    return json.loads(res_path.read_text()), records
+
+
 def launch_counts() -> tuple[dict, dict]:
     """Every kernel's launches since the counts were set to 0, and K1's and
     K2's by shape, K3's and K4's by class."""
@@ -4921,7 +5175,11 @@ def main() -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--sharded-worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.sharded_worker:  # the sharded phase's one-rank subprocess
+        sharded_worker(args.sharded_worker)
+        return 0
 
     import torch
 
@@ -5111,6 +5369,9 @@ def main() -> int:
     check_flash_attn_backward(dev, checks)
     print("training:")
     training = train_phase(dev)
+    print("the sharded program (one-rank mesh on the card; dry run of four "
+          "production cells on the host beside it):")
+    sharded = sharded_phase(dev, card)
 
     src = "src/repro_torch/csrc/"
     meta = {
@@ -5277,6 +5538,18 @@ def main() -> int:
             {"flash_attn_bwd_16": sum(
                 r["launches"]["backward"] for a, r in training["smoke"].items()
                 if a not in TRAIN_SMOKE_MLA)}),
+        # the sharded program on the one-rank mesh: K5 forward (the step's,
+        # remat's and the prefill's) and backward through local_map, at
+        # starcoder2-3b's training shape (held against their plain
+        # versions at the checks named last)
+        "flash_attn_sharded": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_sharded": sharded["one_rank"]["k5_forward"]
+             + sharded["one_rank"]["prefill_k5"]}, "flash_attn_train"),
+        "flash_attn_bwd_sharded": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_sharded": sharded["one_rank"]["k5_backward"]},
+            "flash_attn_bwd"),
     }
     entries = []
     for name, (cu, replaces, counts, *check) in meta.items():
@@ -5319,6 +5592,7 @@ def main() -> int:
             serve_moe=serve_moe, serve_ssm=serve_ssm,
             serve_hybrid=serve_hybrid, serve_audio=serve_audio,
             serve_vlm=serve_vlm, moe_check=moe_check, training=training,
+            sharded=sharded,
             k5_bwd_build=k5_bwd_build,
             wall_s=time.perf_counter() - t_start),
             indent=1))

@@ -52,7 +52,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import flash_attn
-from .layers import dense_init_, param, rms_norm, rms_norm_init_, rope
+from repro_torch.parallel.sharding import (P, constraint, current_rules,
+                                          from_local, is_sharded,
+                                          redistribute)
+from .layers import (dense_init_, linear, param, rms_norm, rms_norm_init_,
+                     rope)
 
 __all__ = ["GQAttention", "gqa_apply", "KVCache", "init_kv_cache",
            "MLAttention", "mla_apply", "MLACache", "init_mla_cache",
@@ -195,29 +199,61 @@ def _sdpa(q, k, v, scale, qpos=None, kpos=None, causal=True, window=None,
 
 
 def _repeat_kv(t: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """[B,S,K,hd] -> [B,S,H,hd] by repeating each kv head H/K times."""
+    """[B,S,K,hd] -> [B,S,H,hd] by repeating each kv head H/K times (a
+    DTensor by a broadcast and a reshape, which DTensor shards)."""
     K = t.shape[2]
     if K == n_heads:
         return t
+    if is_sharded(t):
+        B, S, _, hd = t.shape
+        return t[:, :, :, None].expand(B, S, K, n_heads // K, hd).reshape(
+            B, S, n_heads, hd)
     return t.repeat_interleave(n_heads // K, dim=2)
 
 
 def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("bsd,dhk->bshk", x, w)`` as one matrix product."""
     B, S, d = x.shape
-    return (x.reshape(B * S, d) @ w.to(x.dtype).reshape(d, -1)).view(
-        B, S, w.shape[1], w.shape[2])
+    return linear(x, w.to(x.dtype).reshape(d, -1)).view(B, S, *w.shape[1:])
+
+
+def _tokens_at(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B, S, d] @ w [d, n] -> [B, S, n]."""
+    return linear(x, w.to(x.dtype))
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, dv] @ wo [H, dv, d] -> [B, S, d] (a DTensor's heads as a
+    split contraction: a partial sum over them)."""
+    B, S, H, dv = out.shape
+    return linear(out.reshape(B, S, H * dv),
+                  wo.to(out.dtype).reshape(H * dv, -1))
 
 
 def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
-                       attention: Optional[Attention],
-                       from_zero: bool) -> torch.Tensor:
+                       attention: Optional[Attention], from_zero: bool,
+                       kpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Prefill attention of q [B, S, H, Dqk] at ``positions`` [B, S] over k
+    [B, Sk, K, Dqk], v [B, Sk, K, Dv] at ``kpos`` (default: ``positions``);
+    DTensors go shard by shard (:func:`_sharded_prefill_attention`)."""
+    if is_sharded(q):
+        return _sharded_prefill_attention(q, k, v, positions, cfg, causal,
+                                          scale, attention, from_zero)
     H = q.shape[2]
+    kpos = positions if kpos is None else kpos
     if attention is None and q.device.type == "cpu":
         return _sdpa(q, _repeat_kv(k, H), _repeat_kv(v, H), scale,
-                     qpos=positions, kpos=positions, causal=causal,
+                     qpos=positions, kpos=kpos, causal=causal,
                      window=cfg.window)
     B, S = q.shape[:2]
+    if k.shape[1] != S:
+        # a query shard of a sequence-parallel prefill: K5's causal mask
+        # has no query-row offset (ROADMAP queue 2); a function that
+        # computes no values (the dry run's) says it takes such a shard
+        if not getattr(attention, "takes_query_shards", False):
+            raise _not_ported("a sequence-sharded causal prefill (K5 with "
+                              "a query-row offset)")
+        return attention(q, k, v, scale=scale)
     # the kernel's causal mask is over positions arange(S): given positions
     # are checked on the device (a synchronize); the model's prefill passes
     # None, so its layers check nothing. A bidirectional call's mask does
@@ -231,6 +267,55 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
         kw = {"window": cfg.window} if cfg.window else {}
     return (attention or flash_attn.flash_attention)(q, k, v, scale=scale,
                                                      **kw)
+
+
+def _sharded_prefill_attention(q, k, v, positions, cfg, causal, scale,
+                               attention, from_zero):
+    """Prefill attention on DTensors: q at the reference's ("batch", "seq",
+    "heads", None), k/v at ("batch", None, "kv_heads", None) (repeated to H
+    heads first where the heads shard and the KV heads cannot, so each
+    rank's query heads meet their own KV heads), then each rank's shards
+    through :func:`_prefill_attention` (the CPU's ``_sdpa``, K5 on CUDA)
+    with its queries' positions against every key's, the way
+    ``local_map`` runs a function on local shards, with k/v's gradient
+    placed by hand (a partial sum where q is split and k/v are not). A
+    sequence-sharded q on CUDA raises there (K5 has no query-row
+    offset)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    r = current_rules()
+    mesh = q.device_mesh
+    H = q.shape[2]
+    qa = ("batch", "seq", "heads", None)
+    q_spec = r.spec(qa, q.shape)
+    kva = ("batch", None, "kv_heads", None)
+    head_of = lambda spec: spec[2] if len(spec) > 2 else None  # noqa: E731
+    if head_of(r.spec(kva, k.shape)) != head_of(q_spec):
+        if head_of(q_spec) is None:
+            kva = ("batch", None, None, None)
+        else:
+            k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+            kva = ("batch", None, "heads", None)
+    q = constraint(q, *qa)
+    k = constraint(k, *kva)
+    v = constraint(v, *kva)
+    if not is_sharded(positions):
+        positions = DTensor.from_local(positions, mesh,
+                                       [Replicate()] * mesh.ndim,
+                                       run_check=False)
+    qpos = redistribute(positions, P(*r.spec(qa, q.shape)[:2]))
+    kpos = redistribute(positions, P(*r.spec(kva, k.shape)[:2]))
+
+    pl = [list(t.placements) for t in (q, k, v)]
+    # where q is split and k/v are whole (sequence parallelism), a rank's
+    # k/v gradient comes from its own queries only: a partial sum
+    kv_grad = [Partial() if a != Replicate() and b == Replicate() else b
+               for a, b in zip(pl[0], pl[1])]
+    out = _prefill_attention(
+        q.to_local(), k.to_local(grad_placements=kv_grad),
+        v.to_local(grad_placements=kv_grad), qpos.to_local(), cfg, causal,
+        scale, attention, from_zero, kpos=kpos.to_local())
+    return from_local(out, mesh, pl[0],
+                      shape=tuple(q.shape[:3]) + (v.shape[-1],))
 
 
 def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
@@ -247,7 +332,7 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
     ``cache_pos % window`` of a ring when the config has a sliding window).
     ``causal=False`` and ``use_rope=False`` serve the whisper encoder
     (bidirectional, absolute positions); its decoder runs without rope."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     from_zero = positions is None
     if from_zero:
@@ -275,16 +360,19 @@ def gqa_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
             raise ValueError(f"gqa_apply: decode takes one token, got S={S}")
         pos = int(cache_pos)
         slot = pos % cfg.window if cfg.window else pos
-        cache.k[:, slot] = k[:, 0]
-        cache.v[:, slot] = v[:, 0]
+        _write_slot(cache.k, k[:, 0], slot)
+        _write_slot(cache.v, v[:, 0], slot)
         # a ring keeps every slot below min(pos + 1, window) valid
         valid_to = min(pos, cfg.window - 1) if cfg.window else pos
-        out = _sdpa(q, _repeat_kv(cache.k, H), _repeat_kv(cache.v, H), scale,
-                    causal=False,
-                    valid_to=torch.full((B,), valid_to, device=x.device))
+        if is_sharded(cache.k):
+            out = _sharded_decode(_gqa_decode_part, scale, valid_to,
+                                  (q,), (cache.k, cache.v)).to(q.dtype)
+        else:
+            out = _sdpa(q, _repeat_kv(cache.k, H), _repeat_kv(cache.v, H),
+                        scale, causal=False,
+                        valid_to=torch.full((B,), valid_to, device=x.device))
         new_cache = cache
-    y = out.reshape(B * S, H * hd) @ p.wo.to(x.dtype).reshape(H * hd, d)
-    return y.view(B, S, d), new_cache
+    return _out_proj(out, p.wo), new_cache
 
 
 def init_kv_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,
@@ -346,9 +434,7 @@ class MLAttention(torch.nn.Module):
 def _mla_q(p, cfg, x: torch.Tensor, positions: torch.Tensor):
     """(q_nope [B,S,H,nope], q_rope [B,S,H,rope] rotated)."""
     if cfg.q_lora:
-        B, S, d = x.shape
-        q = _heads((x.reshape(B * S, d) @ p.wq_a.to(x.dtype)).view(B, S, -1),
-                   p.wq_b)
+        q = _heads(_tokens_at(x, p.wq_a), p.wq_b)
     else:
         q = _heads(x, p.wq)
     q_nope = q[..., : cfg.qk_nope_dim]
@@ -366,7 +452,7 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
     (causal, un-absorbed; returns the layer's MLACache when ``cache_pos`` is
     given), else one absorbed decode step (S == 1) over the latent cache,
     written in place at slot ``cache_pos``."""
-    B, S, d = x.shape
+    B, S, _ = x.shape
     H, nope, rdim = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
     dt = x.dtype
     from_zero = positions is None
@@ -376,13 +462,17 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
     scale = 1.0 / math.sqrt(nope + rdim)
-    kv_a = (x.reshape(B * S, d) @ p.wkv_a.to(dt)).view(B, S, -1)
+    kv_a = _tokens_at(x, p.wkv_a)
     latent = rms_norm(kv_a[..., : cfg.kv_lora], p.kv_norm, cfg.norm_eps)
     k_rope = rope(kv_a[..., None, cfg.kv_lora:], positions,
                   cfg.rope_theta)[:, :, 0]
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
 
     if cache is None:  # prefill: un-absorbed, causal
+        # under a mesh the latent (kv_lora + rope a token) is gathered
+        # before the per-head expansion, as the reference's constraints do
+        latent = constraint(latent, "batch", None, None)
+        k_rope = constraint(k_rope, "batch", None, None)
         kv = _heads(latent, p.wkv_b)                     # [B,S,H,nope+v]
         # K5 takes contiguous tensors: the concatenations are; v is copied
         # out of kv. Where K5 (or a function in its place) runs, zero
@@ -404,24 +494,113 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
         if S != 1:
             raise ValueError(f"mla_apply: decode takes one token, got S={S}")
         pos = int(cache_pos)
-        cache.latent[:, pos] = latent[:, 0]
-        cache.k_rope[:, pos] = k_rope[:, 0]
-        lat = cache.latent.float()                       # [B, Sc, r]
+        _write_slot(cache.latent, latent[:, 0], pos)
+        _write_slot(cache.k_rope, k_rope[:, 0], pos)
         w_uk = p.wkv_b.to(dt)[..., :nope]                # [r, H, nope]
         q_eff = torch.einsum("bqhk,rhk->bqhr", q_nope, w_uk)
-        logits = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(), lat)
-                  + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
-                                 cache.k_rope.float())) * scale
-        valid = torch.arange(lat.shape[1], device=x.device) <= pos
-        logits = torch.where(valid, logits, NEG_INF)
-        w = torch.softmax(logits, dim=-1)
-        lat_sum = torch.einsum("bhqs,bsr->bqhr", w, lat)
+        if is_sharded(cache.latent):
+            lat_sum = _sharded_decode(_mla_decode_part, scale, pos,
+                                      (q_eff, q_rope),
+                                      (cache.latent, cache.k_rope))
+        else:
+            lat = cache.latent.float()                   # [B, Sc, r]
+            logits = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(), lat)
+                      + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
+                                     cache.k_rope.float())) * scale
+            valid = torch.arange(lat.shape[1], device=x.device) <= pos
+            logits = torch.where(valid, logits, NEG_INF)
+            w = torch.softmax(logits, dim=-1)
+            lat_sum = torch.einsum("bhqs,bsr->bqhr", w, lat)
         w_uv = p.wkv_b.to(dt)[..., nope:]                # [r, H, v]
         out = torch.einsum("bqhr,rhv->bqhv", lat_sum.to(dt), w_uv)
         new_cache = cache
-    hv = H * cfg.v_head_dim
-    y = out.reshape(B * S, hv) @ p.wo.to(dt).reshape(hv, d)
-    return y.view(B, S, d), new_cache
+    return _out_proj(out, p.wo), new_cache
+
+
+# ------------------------------------------------------- sharded decode
+def _seq_offset(cache: torch.Tensor) -> int:
+    """The first cache slot (dim 1) this rank holds."""
+    from repro_torch.parallel.sharding import local_shape_offset
+    return local_shape_offset(cache.shape, cache.device_mesh,
+                              cache.placements)[1][1]
+
+
+def _write_slot(cache: torch.Tensor, row: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = row`` in place. A DTensor cache sharded on its
+    slots is written by the rank that holds ``slot`` alone, from ``row``
+    at the cache's placements on the other dims."""
+    if not is_sharded(cache):
+        cache[:, slot] = row
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    pl = [Replicate() if p == Shard(1) or not p.is_shard() else
+          Shard(p.dim - (p.dim > 1)) for p in cache.placements]
+    row = row.redistribute(cache.device_mesh, pl).to_local()
+    local = cache.to_local()
+    i = slot - _seq_offset(cache)
+    if 0 <= i < local.shape[1]:
+        local[:, i] = row
+
+
+def _gqa_decode_part(q, k, v, kpos, valid_to, scale):
+    """One rank's share of a decode step over its cache slots: (the row
+    max [B, H, 1], the sum of exp [B, H, 1], the unnormalized output [B, 1,
+    H, hd]) in float32, slots past ``valid_to`` masked."""
+    H = q.shape[2]
+    logits = torch.einsum("bqhd,bshd->bhqs", q.float() * scale,
+                          _repeat_kv(k, H).float())
+    logits = torch.where(kpos <= valid_to, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    pe = torch.exp(logits - m[..., None])
+    acc = torch.einsum("bhqs,bshd->bqhd", pe, _repeat_kv(v, H).float())
+    return m, pe.sum(-1), acc
+
+
+def _mla_decode_part(q_eff, q_rope, lat, k_rope, kpos, valid_to, scale):
+    """MLA's absorbed decode over this rank's latent slots, as
+    :func:`_gqa_decode_part`; the output is the weighted latent sum."""
+    latf = lat.float()
+    logits = (torch.einsum("bqhr,bsr->bhqs", q_eff.float(), latf)
+              + torch.einsum("bqhk,bsk->bhqs", q_rope.float(),
+                             k_rope.float())) * scale
+    logits = torch.where(kpos <= valid_to, logits, NEG_INF)
+    m = logits.amax(dim=-1)
+    pe = torch.exp(logits - m[..., None])
+    return m, pe.sum(-1), torch.einsum("bhqs,bsr->bqhr", pe, latf)
+
+
+def _sharded_decode(part, scale, valid_to, qs, caches):
+    """A decode step's attention over a DTensor cache, split as the
+    reference's flash-decoding: each rank scores its own slots (``part``),
+    then the row max is all-reduced (max) over the mesh dims that split the
+    slots, each rank's sum and output are rescaled to it and all-reduced
+    (sum), and the output is their quotient. The queries take the cache's
+    batch and head sharding (heads: KV heads' factor) and are whole over
+    the slots' mesh dims. Returns [B, 1, H, ·] in float32 (the caller
+    casts), sharded as the queries."""
+    from torch.distributed import _functional_collectives as funcol
+    from torch.distributed.tensor import Replicate, Shard
+    c0 = caches[0]
+    mesh = c0.device_mesh
+    seq_dims = [i for i, p in enumerate(c0.placements) if p == Shard(1)]
+    q_pl = [Shard(0) if p == Shard(0) else Shard(2) if p == Shard(2)
+            else Replicate() for p in c0.placements]
+    loc_q = [q.redistribute(mesh, q_pl).to_local() if is_sharded(q) else q
+             for q in qs]
+    loc_c = [c.to_local() for c in caches]
+    n = loc_c[0].shape[1]
+    kpos = torch.arange(n, device=loc_c[0].device) + _seq_offset(c0)
+    m, s, acc = part(*loc_q, *loc_c, kpos, valid_to, scale)
+    for d in seq_dims:
+        m_all = funcol.all_reduce(m, "max", (mesh, d))
+        m, w = m_all, torch.exp(m - m_all)
+        s = s * w
+        acc = acc * w.transpose(1, 2)[..., None]
+        s = funcol.all_reduce(s, "sum", (mesh, d))
+        acc = funcol.all_reduce(acc, "sum", (mesh, d))
+    out = acc / torch.clamp(s, min=1e-30).transpose(1, 2)[..., None]
+    return from_local(out, mesh, q_pl, shape=tuple(qs[0].shape[:3]) + (
+        out.shape[-1],))
 
 
 def init_mla_cache(cfg, batch: int, length: int, dtype=torch.bfloat16,

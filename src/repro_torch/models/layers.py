@@ -15,10 +15,13 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import (constraint, from_local,
+                                          is_sharded, local_shape_offset)
+
 __all__ = ["dense_init_", "embedding_init_", "normal_init_",
            "rms_norm_init_", "rms_norm",
            "rope", "gated_mlp", "embed", "lm_head", "GatedMLP", "param",
-           "silu", "gelu", "softplus", "cross_entropy"]
+           "silu", "gelu", "softplus", "cross_entropy", "linear"]
 
 #: float32 elements drawn at a time when a bf16 tensor is initialized, so a
 #: full-width embedding (131072 x 5120) never has a float32 copy
@@ -132,25 +135,126 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x [..., k] (the last dim contracted) and w [k, n]; on
+    DTensors as :func:`_sharded_linear` runs it."""
+    if is_sharded(x) or is_sharded(w):
+        return _sharded_linear(x, w)
+    return x @ w
+
+
+def _sharded_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` on DTensors as GSPMD partitions a token-wise product: on
+    each mesh dim, w's output columns split (tensor parallel) with x whole
+    there; or the contraction split alike in x and w (a partial sum); or
+    else w gathered there (its ``embed_fsdp`` split: the FSDP all-gather)
+    and x kept split on its token dims. Each rank multiplies its shards
+    (one local ``mm``); the gradients are placed by hand (a weight's
+    gradient is a partial sum over the mesh dims that split the tokens, an
+    input's over those that split w's columns). DTensor's own rule for the
+    flattened product searches every placement of a 3-dim mesh anew (tens
+    of seconds an op) and may split the columns where a later view cannot
+    split them."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (x if is_sharded(x) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not is_sharded(x):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not is_sharded(w):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    last = x.dim() - 1
+    xp = [Replicate() if p.is_partial() else p for p in x.placements]
+    wp = [Replicate() if p.is_partial() else p for p in w.placements]
+    out, xg, wg = [], [], []
+    for i in range(mesh.ndim):
+        if wp[i] == Shard(1):                      # output columns
+            xp[i] = Replicate()
+            out.append(Shard(last))
+            xg.append(Partial())
+            wg.append(Shard(1))
+        elif wp[i] == Shard(0) and xp[i] == Shard(last):  # contraction
+            out.append(Partial())
+            xg.append(Shard(last))
+            wg.append(Shard(0))
+        else:                                      # w whole on this dim
+            wp[i] = Replicate()
+            if xp[i] == Shard(last):
+                xp[i] = Replicate()
+            out.append(xp[i])
+            xg.append(xp[i])
+            # any split of the tokens (a Shard, or the strided shard of a
+            # flattened [B, S]) makes w's gradient a partial sum here
+            wg.append(Replicate() if xp[i] == Replicate() else Partial())
+    y = x.redistribute(mesh, xp).to_local(grad_placements=xg) \
+        @ w.redistribute(mesh, wp).to_local(grad_placements=wg)
+    return from_local(y, mesh, out, shape=tuple(x.shape[:-1]) + (
+        w.shape[-1],))
+
+
 def gated_mlp(p, x: torch.Tensor) -> torch.Tensor:
     """``silu(x·wg) * (x·wu) · wd`` for ``p`` with ``wg``/``wu`` [d, ff] and
     ``wd`` [ff, d], with :func:`silu` (``jax.nn.silu``'s steps; ``F.silu``
     rounds once and moves about a third of bf16 values by an ulp)."""
     dt = x.dtype
-    h = silu(x @ p.wg.to(dt)) * (x @ p.wu.to(dt))
-    return h @ p.wd.to(dt)
+    h = silu(linear(x, p.wg.to(dt))) * linear(x, p.wu.to(dt))
+    # "ff" wins where it divides (tensor parallel); with ff disabled by the
+    # sequence-parallel cell rules, "seq" keeps the MLP token-sharded
+    h = constraint(h, "batch", "seq", "ff") if h.dim() == 3 else \
+        constraint(h, "batch", "ff")
+    return linear(h, p.wd.to(dt))
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           dtype=torch.bfloat16) -> torch.Tensor:
+    """The rows of ``table`` [V, d] at ``tokens``, in ``dtype``. A DTensor
+    table sharded on its vocab dim looks its tokens up shard by shard
+    (:func:`_embed_sharded`)."""
+    if is_sharded(table):
+        return _embed_sharded(table, tokens, dtype)
     return F.embedding(tokens, table.to(dtype))
+
+
+def _embed_sharded(table, tokens, dtype):
+    """A lookup in a DTensor table, as GSPMD gathers from a vocab-sharded
+    one: its other dims gathered, each rank takes the rows of its vocab
+    slice (0 for a token outside it) and the result is a partial sum over
+    the vocab's mesh dims (one rank holds each row, so the sum is exact).
+    DTensor's own embedding rule masks with the wrong shape when the
+    tokens are sharded on another mesh dim (torch 2.13)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = table.device_mesh
+    t_pl = tuple(p if p == Shard(0) else Replicate() for p in table.placements)
+    table = table.redistribute(mesh, t_pl)
+    if not is_sharded(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    k_pl = tuple(Replicate() if t == Shard(0) else p
+                 for t, p in zip(t_pl, tokens.placements))
+    tokens = tokens.redistribute(mesh, k_pl)
+    (rows, _), (off, _) = local_shape_offset(table.shape, mesh, t_pl)
+    out_pl = tuple(Partial() if t == Shard(0) else p
+                   for t, p in zip(t_pl, k_pl))
+
+    def lookup(t, ids):
+        hit = (ids >= off) & (ids < off + rows)
+        e = F.embedding(torch.clamp(ids - off, 0, rows - 1), t.to(dtype))
+        return torch.where(hit[..., None], e, torch.zeros((), dtype=dtype,
+                                                          device=e.device))
+
+    # a rank's table gradient holds its own tokens' rows only: a partial
+    # sum over the mesh dims that split the tokens
+    g_pl = [t if t == Shard(0) else Partial() if k != Replicate() else t
+            for t, k in zip(t_pl, k_pl)]
+    return from_local(lookup(table.to_local(grad_placements=g_pl),
+                             tokens.to_local()), mesh, out_pl,
+                      shape=tuple(tokens.shape) + (table.shape[1],))
 
 
 def lm_head(table_or_w: torch.Tensor, x: torch.Tensor,
             tied: bool) -> torch.Tensor:
     """Logits [..., V]. ``tied`` uses the embedding table transposed."""
     w = table_or_w.to(x.dtype)
-    return x @ (w.T if tied else w)
+    return linear(x, w.T if tied else w)
 
 
 class GatedMLP(torch.nn.Module):
@@ -175,6 +279,38 @@ class GatedMLP(torch.nn.Module):
         return gated_mlp(self, x)
 
 
+def _label_logit(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``logits[..., labels]``: [B, S, V] at [B, S] -> [B, S]. DTensor
+    logits sharded on the vocab pick shard by shard (a rank gives 0 for a
+    label outside its slice; the result is a partial sum over the vocab's
+    mesh dims, exact), as :func:`_embed_sharded` looks up."""
+    if not is_sharded(logits):
+        return torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, last = logits.device_mesh, logits.dim() - 1
+    l_pl = tuple(Replicate() if p.is_partial() else p
+                 for p in logits.placements)
+    logits = logits.redistribute(mesh, l_pl)
+    if not is_sharded(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    k_pl = tuple(Replicate() if p == Shard(last) else p for p in l_pl)
+    labels = labels.redistribute(mesh, k_pl)
+    (*_, n), (*_, off) = local_shape_offset(logits.shape, mesh, l_pl)
+    out_pl = [Partial() if p == Shard(last) else q
+              for p, q in zip(l_pl, k_pl)]
+
+    def pick(lg, lab):
+        hit = (lab >= off) & (lab < off + n)
+        v = torch.take_along_dim(lg, torch.clamp(lab - off, 0, n - 1)[
+            ..., None], dim=-1)[..., 0]
+        return torch.where(hit, v, torch.zeros((), dtype=v.dtype,
+                                               device=v.device))
+
+    return from_local(pick(logits.to_local(), labels.to_local()), mesh,
+                      out_pl, shape=labels.shape)
+
+
 def cross_entropy(head_w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
                   mask: torch.Tensor, tied: bool,
                   n_chunks: int = 1) -> torch.Tensor:
@@ -191,9 +327,9 @@ def cross_entropy(head_w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     maskf = mask.float()
     denom = torch.clamp(maskf.sum(), min=1.0)
     if n_chunks <= 1:
-        logits = (x @ w.to(x.dtype)).float()
+        logits = linear(x, w.to(x.dtype)).float()
         lse = torch.logsumexp(logits, dim=-1)
-        lab = torch.take_along_dim(logits, labels[..., None], dim=-1)[..., 0]
+        lab = _label_logit(logits, labels)
         return torch.sum((lse - lab) * maskf) / denom
     if V % n_chunks:
         raise ValueError(f"cross_entropy: {n_chunks} chunks do not divide "
@@ -204,14 +340,13 @@ def cross_entropy(head_w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
     s = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     lab = torch.zeros((B, S), dtype=torch.float32, device=x.device)
     for i in range(n_chunks):
-        logits = (x @ w[:, i * C:(i + 1) * C].to(x.dtype)).float()
+        logits = linear(x, w[:, i * C:(i + 1) * C].to(x.dtype)).float()
         new_m = torch.maximum(m, logits.amax(dim=-1))
         s = s * torch.exp(m - new_m) + torch.sum(
             torch.exp(logits - new_m[..., None]), dim=-1)
         local = labels - i * C
         hit = (local >= 0) & (local < C)
-        lab_logit = torch.take_along_dim(
-            logits, local.clamp(0, C - 1)[..., None], dim=-1)[..., 0]
+        lab_logit = _label_logit(logits, local.clamp(0, C - 1))
         lab = torch.where(hit, lab_logit, lab)
         m = new_m
     lse = m + torch.log(s)

@@ -98,6 +98,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.parallel.sharding import (constraint, mixed_with_dtensors,
+                                          remat_contexts)
 from . import attention as attn
 from .moe import MoE, Routing
 from .rglru import LRU_CACHE_AXES, RGLRU, LRUCache, init_lru_cache
@@ -268,14 +270,12 @@ def _cross_attn(p: attn.GQAttention, cfg, x: torch.Tensor,
                 enc_kv: attn.KVCache) -> torch.Tensor:
     """``repro.models.model._cross_attn``: q from x, then ``_sdpa`` without
     a mask over the encoder's K/V (repeated to H heads), then ``wo``."""
-    B, S, d = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q = attn._heads(x, p.wq)
     out = attn._sdpa(q, attn._repeat_kv(enc_kv.k, H),
                      attn._repeat_kv(enc_kv.v, H), 1.0 / math.sqrt(hd),
                      causal=False)
-    y = out.reshape(B * S, H * hd) @ p.wo.to(x.dtype).reshape(H * hd, d)
-    return y.view(B, S, d)
+    return attn._out_proj(out, p.wo)
 
 
 def _enc_kv(p: attn.GQAttention, enc_out: torch.Tensor) -> attn.KVCache:
@@ -476,7 +476,11 @@ def _embed_inputs(model: LM, tokens: torch.Tensor,
     if images is not None:
         P = min(cfg.n_patches, x.shape[1])
         x = torch.cat([images[:, :P].to(x.dtype), x[:, P:]], dim=1)
-    return x
+    # anchor the residual stream; "seq" resolves only under the sequence-
+    # parallel cell rules (a decode step's S = 1 stays unsharded)
+    if x.shape[1] > 1:
+        return constraint(x, "batch", "seq", None)
+    return constraint(x, "batch", None, None)
 
 
 def _encode(model: LM, frames: torch.Tensor, attention=None) -> torch.Tensor:
@@ -500,6 +504,15 @@ def _layer_routing(routing: Optional[LayerRouting],
     """Block ``layer``'s ``moe_apply`` hook: ``routing`` bound to the
     layer."""
     return None if routing is None else functools.partial(routing, layer)
+
+
+def _reanchor(cfg, layer: int, x: torch.Tensor) -> torch.Tensor:
+    """The reference's per-layer re-anchor of the residual stream, inside
+    its scanned stack only (not its ``lead_{i}``/``tail_{i}`` blocks): a
+    no-op without a mesh or for a decode step."""
+    if x.shape[1] > 1 and reference_slot(cfg, layer)[1] is not None:
+        return constraint(x, "batch", "seq", None)
+    return x
 
 
 def _block_hidden(block: Block, x: torch.Tensor, attention,
@@ -540,8 +553,10 @@ def _loss_trunk(model: LM, tokens: torch.Tensor,
         del enc_out
     for i, block in enumerate(model.layers):
         args = (block, x, attention, _layer_routing(routing, i), enc_kv[i])
-        x, a = checkpoint(_block_hidden, *args, use_reentrant=False) \
+        x, a = checkpoint(_block_hidden, *args, use_reentrant=False,
+                          context_fn=remat_contexts) \
             if remat else _block_hidden(*args)
+        x = _reanchor(cfg, i, x)
         if a is not None:
             aux = aux + a
     return rms_norm(x, model.final_ln, cfg.norm_eps), aux
@@ -581,6 +596,7 @@ def _forward(model: LM, tokens: torch.Tensor,
                 new.setdefault("cross", []).append(kv)
         x, nc = block(x, positions, c, cache_pos, attention=attention,
                       routing=_layer_routing(routing, i), enc_kv=kv)
+        x = _reanchor(cfg, i, x)
         new.setdefault(name, []).append(nc)
     x = rms_norm(x, model.final_ln, cfg.norm_eps)
     if cache is None:
@@ -646,14 +662,16 @@ def loss_fn(model: LM, batch: dict, remat: Optional[bool] = None,
     B, S = tokens.shape
     images, frames = batch.get("images"), batch.get("frames")
     _check_inputs(cfg, tokens, frames, images, "loss_fn")
-    x, aux = _loss_trunk(model, tokens, images, attention, routing, remat,
-                         frames)
-    mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
-    if cfg.frontend == "vision":
-        mask &= (torch.arange(S, device=x.device) >= cfg.n_patches)[None, :]
-    ce = cross_entropy(_head(model), x, labels, mask, cfg.tie_embeddings,
-                       n_chunks=xent_chunks(cfg))
-    loss = ce + 0.01 * aux
+    with mixed_with_dtensors():
+        x, aux = _loss_trunk(model, tokens, images, attention, routing,
+                             remat, frames)
+        mask = torch.ones((B, S), dtype=torch.bool, device=x.device)
+        if cfg.frontend == "vision":
+            mask &= (torch.arange(S, device=x.device)
+                     >= cfg.n_patches)[None, :]
+        ce = cross_entropy(_head(model), x, labels, mask,
+                           cfg.tie_embeddings, n_chunks=xent_chunks(cfg))
+        loss = ce + 0.01 * aux
     return loss, {"ce": ce, "aux": aux}
 
 
@@ -676,10 +694,12 @@ def prefill(model: LM, tokens: torch.Tensor, *,
     ``routing(layer, probs, k)`` makes each MoE layer's expert choice
     (see the module docstring and :mod:`repro_torch.models.moe`)."""
     _check_inputs(model.cfg, tokens, frames, images)
-    x, cache = _forward(model, tokens, None, tokens.shape[1],
-                        attention=attention, routing=routing, frames=frames,
-                        images=images)
-    logits = lm_head(_head(model), x[:, -1:], model.cfg.tie_embeddings)[:, 0]
+    with mixed_with_dtensors():
+        x, cache = _forward(model, tokens, None, tokens.shape[1],
+                            attention=attention, routing=routing,
+                            frames=frames, images=images)
+        logits = lm_head(_head(model), x[:, -1:],
+                         model.cfg.tie_embeddings)[:, 0]
     return cache, logits
 
 
@@ -694,9 +714,10 @@ def decode_step(model: LM, cache: Cache, token: torch.Tensor, pos: int, *,
     B = token.shape[0]
     positions = torch.full((B, 1), int(pos), dtype=torch.int32,
                            device=token.device)
-    x, cache = _forward(model, token[:, None], positions, int(pos), cache,
-                        routing=routing)
-    logits = lm_head(_head(model), x, model.cfg.tie_embeddings)[:, 0]
+    with mixed_with_dtensors():
+        x, cache = _forward(model, token[:, None], positions, int(pos),
+                            cache, routing=routing)
+        logits = lm_head(_head(model), x, model.cfg.tie_embeddings)[:, 0]
     return cache, logits
 
 

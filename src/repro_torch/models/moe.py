@@ -6,9 +6,9 @@ expert are gathered into [E, C, d] slabs (a zero row stands for an empty
 slot), the experts' gated MLPs run as three batched products over the slabs
 (``torch.bmm``; the reference leaves its einsums to XLA, outside any
 kernel), and the weighted outputs go back to their tokens. The one-hot
-[T, E, C] dispatch matrix is never built. The reference's ``constraint``
-calls are sharding hints for its expert-parallel mesh; one device has no
-counterpart, so they are left out.
+[T, E, C] dispatch matrix is never built. Under a mesh the slabs take the
+reference's constraints (("experts", "expert_cap", None): expert-parallel
+products) and the index work runs whole on every rank (``_whole``).
 
 The semantics are the reference's, to the tie and the rounding:
 
@@ -48,7 +48,9 @@ from typing import Callable, Optional
 
 import torch
 
-from .layers import GatedMLP, dense_init_, gated_mlp, param, silu
+from repro_torch.parallel.sharding import (constraint, from_local,
+                                          is_sharded)
+from .layers import GatedMLP, dense_init_, gated_mlp, linear, param, silu
 
 __all__ = ["MoE", "moe_apply", "route", "capacity", "arrival_slots",
            "normalize_gates", "silu"]
@@ -133,20 +135,13 @@ def _scatter_slots(e_flat, slot, keep, tok_id, E: int, C: int,
     return slots[:E * C].view(E, C)
 
 
-def moe_apply(p, cfg, x: torch.Tensor, *,
-              routing: Optional[Routing] = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, d] -> (y [B, S, d], the Switch load-balancing aux loss, a
-    float32 scalar). ``p`` holds ``moe_init``'s parameters (a :class:`MoE`);
-    they are cast to ``x``'s dtype at use."""
-    B, S, d = x.shape
-    E, k = cfg.n_experts, cfg.top_k
-    T = B * S
-    dt = x.dtype
-    dev = x.device
-    xt = x.reshape(T, d)
-
-    probs = torch.softmax((xt @ p.router.to(dt)).float(), dim=-1)  # [T, E]
+def _route_and_slot(probs: torch.Tensor, k: int, E: int, C: int,
+                    routing: Optional[Routing]):
+    """The index work of a layer on its whole [T, E] probabilities: (the
+    experts [T, k], the gates [T, k], the aux loss, the slot table [E, C]
+    of token ids (T for an empty slot), each assignment's row of the
+    flattened [E·C] slabs (E·C for a dropped one) [T, k])."""
+    T, dev = probs.shape[0], probs.device
     eidx = (routing or route)(probs, k)                             # [T, k]
     gate = normalize_gates(torch.gather(probs, 1, eidx))
 
@@ -154,22 +149,31 @@ def moe_apply(p, cfg, x: torch.Tensor, *,
     frac = (eidx[:, :1] == torch.arange(E, device=dev)).float().mean(0)
     aux = E * torch.sum(frac * probs.mean(0))
 
-    C = capacity(T, k, E, getattr(cfg, "capacity_factor", 1.25))
     e_flat = eidx.reshape(-1)                                       # [T*k]
     slot = arrival_slots(e_flat, E)
     keep = slot < C
     tok_id = torch.arange(T, device=dev).repeat_interleave(k)
     slots = _scatter_slots(e_flat, slot, keep, tok_id, E, C, T)     # [E, C]
+    row = torch.where(keep, e_flat * C + slot, E * C)
+    return eidx, gate, aux, slots, row
 
-    xpad = torch.cat([xt, xt.new_zeros((1, d))])
-    xs = xpad[slots]                                                # [E, C, d]
-    h = silu(torch.bmm(xs, p.wg.to(dt))) * torch.bmm(xs, p.wu.to(dt))
-    ys = torch.bmm(h, p.wd.to(dt))                                  # [E, C, d]
 
+def _gather_slabs(xt: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """[E, C, d]: each slot's token row (a zero row for an empty one)."""
+    xpad = torch.cat([xt, xt.new_zeros((1, xt.shape[1]))])
+    return xpad[slots]
+
+
+def _combine(ys: torch.Tensor, gate: torch.Tensor, row: torch.Tensor,
+             eidx: torch.Tensor) -> torch.Tensor:
+    """Each token's kept expert outputs times their gates, in float32, in
+    ascending expert order, cast to ys's dtype: [T, d]."""
+    E, C, d = ys.shape
+    T, k = eidx.shape
+    dt, dev = ys.dtype, ys.device
     # each kept assignment's row of ys times its gate, in float32; a zero
     # row at E*C stands for a dropped one (whose gates land in the spare
     # entry E*C of gslot and are cut off)
-    row = torch.where(keep, e_flat * C + slot, E * C)
     gslot = torch.zeros(E * C + 1, dtype=torch.float32, device=dev)
     gslot[row] = gate.reshape(-1)
     contrib = (ys.reshape(E * C, d) * gslot[:E * C, None].to(dt)).float()
@@ -180,7 +184,55 @@ def moe_apply(p, cfg, x: torch.Tensor, *,
     y = torch.zeros((T, d), dtype=torch.float32, device=dev)
     for j in range(k):
         y = y + contrib[row[:, j]]
-    y = y.to(dt)
+    return y.to(dt)
+
+
+def _whole(fn, *tensors):
+    """``fn`` on plain tensors; on DTensors it runs on each rank's whole
+    (replicated) copies and returns replicated DTensors. The routing's
+    sort, ``searchsorted``, scatters and gathers count over every token of
+    the layer (an arrival slot depends on all earlier tokens), which no
+    sharded rule of DTensor's computes (it has none for ``searchsorted``),
+    so they run whole, as GSPMD gathers them."""
+    if not any(is_sharded(t) for t in tensors):
+        return fn(*tensors)
+    from torch.distributed.tensor import Replicate
+    mesh = next(t for t in tensors if is_sharded(t)).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    out = fn(*[t.redistribute(mesh, rep).to_local() if is_sharded(t) else t
+               for t in tensors])
+    if isinstance(out, tuple):
+        return tuple(from_local(o, mesh, rep) for o in out)
+    return from_local(out, mesh, rep)
+
+
+def moe_apply(p, cfg, x: torch.Tensor, *,
+              routing: Optional[Routing] = None
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> (y [B, S, d], the Switch load-balancing aux loss, a
+    float32 scalar). ``p`` holds ``moe_init``'s parameters (a :class:`MoE`);
+    they are cast to ``x``'s dtype at use. On DTensors the routing, the
+    slab gather and the combine run whole on every rank (:func:`_whole`)
+    and the experts' products on slabs sharded over ("experts",
+    "expert_cap", None), the reference's constraints."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    dt = x.dtype
+    xt = x.reshape(T, d)
+
+    probs = torch.softmax(linear(xt, p.router.to(dt)).float(), dim=-1)  # [T, E]
+    C = capacity(T, k, E, getattr(cfg, "capacity_factor", 1.25))
+
+    eidx, gate, aux, slots, row = _whole(
+        lambda pr: _route_and_slot(pr, k, E, C, routing), probs)
+
+    xs = constraint(_whole(_gather_slabs, xt, slots),
+                    "experts", "expert_cap", None)                  # [E, C, d]
+    h = silu(torch.bmm(xs, p.wg.to(dt))) * torch.bmm(xs, p.wu.to(dt))
+    ys = torch.bmm(h, p.wd.to(dt))                                  # [E, C, d]
+    ys = constraint(ys, "experts", "expert_cap", None)
+    y = _whole(_combine, ys, gate, row, eidx)
     if p.shared is not None:
         y = y + gated_mlp(p.shared, xt)
     return y.view(B, S, d), aux

@@ -24,7 +24,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .layers import dense_init_, gelu, param
+from repro_torch.parallel.sharding import constraint
+from .layers import dense_init_, gelu, linear, param
 
 __all__ = ["RGLRU", "rglru_apply", "LRUCache", "init_lru_cache", "scan"]
 
@@ -115,8 +116,8 @@ def rglru_apply(p, cfg, x: torch.Tensor, cache: Optional[LRUCache] = None,
     ``cache`` in place."""
     B, S, d = x.shape
     dt = x.dtype
-    xb = x @ p.wx.to(dt)
-    gb = gelu(x @ p.wg.to(dt))
+    xb = linear(x, p.wx.to(dt))
+    gb = gelu(linear(x, p.wg.to(dt)))
     # the temporal conv on the x branch
     W = p.conv_w.shape[0]
     prev = xb.new_zeros((B, W - 1, xb.shape[-1])) if cache is None \
@@ -124,6 +125,7 @@ def rglru_apply(p, cfg, x: torch.Tensor, cache: Optional[LRUCache] = None,
     xp = torch.cat([prev, xb], dim=1)
     xb = sum(xp[:, i: i + S] * p.conv_w[i].to(dt) for i in range(W))
     conv_new = xp[:, -(W - 1):]
+    xb = constraint(xb, "batch", None, "width")
 
     a, i = _gates(p, xb)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * i * xb.float()
@@ -141,7 +143,7 @@ def rglru_apply(p, cfg, x: torch.Tensor, cache: Optional[LRUCache] = None,
         cache.h.copy_(h)
         new_cache = cache
     y = hs.to(dt) * gb
-    return y @ p.wo.to(dt), new_cache
+    return linear(y, p.wo.to(dt)), new_cache
 
 
 def init_lru_cache(cfg, batch: int, dtype=torch.bfloat16, device=None,

@@ -30,8 +30,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import (dense_init_, param, rms_norm, rms_norm_init_, silu,
-                     softplus)
+from repro_torch.parallel.sharding import constraint, from_local, is_sharded
+from .layers import (dense_init_, linear, param, rms_norm, rms_norm_init_,
+                     silu, softplus)
 
 __all__ = ["Mamba2", "mamba2_apply", "SSMCache", "init_ssm_cache"]
 
@@ -154,6 +155,55 @@ def _ssd_chunked(xh, B_, C_, dt, A, chunk: int):
     return torch.cat(ys, dim=1), state
 
 
+def _heads_view(x: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """x [B, S, H·hd] viewed [B, S, H, hd]. A DTensor split on its last dim
+    into a number of shards that does not divide H is gathered there first
+    (a shard boundary inside a head cannot be viewed)."""
+    if is_sharded(x):
+        from torch.distributed.tensor import Replicate, Shard
+        n = 1
+        for size, p in zip(x.device_mesh.shape, x.placements):
+            n *= size if p == Shard(2) else 1
+        if H % n:
+            x = x.redistribute(x.device_mesh, [
+                Replicate() if p == Shard(2) else p for p in x.placements])
+    B, S, _ = x.shape
+    return x.reshape(B, S, H, hd)
+
+
+def _ssd_sharded(xh, B_, C_, dt, A, chunk: int):
+    """:func:`_ssd_chunked` on DTensors, on each rank's shards: every
+    (sequence, head) pair is independent, so x, dt and A keep their batch
+    and head splits, B and C their batch split (whole over the heads';
+    their gradient there is a partial sum, as A's over the batch's), and
+    the loop over chunks runs on local tensors."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = xh.device_mesh
+    xp = [p if p in (Shard(0), Shard(2)) else Replicate()
+          for p in xh.placements]
+    bp = [Shard(0) if p == Shard(0) else Replicate() for p in xp]
+    heads = [Shard(0) if p == Shard(2) else Replicate() for p in xp]
+    dtp = [p if p in (Shard(0), Shard(2)) else Replicate() for p in xp]
+    bgrad = [Partial() if p == Shard(2) else q for p, q in zip(xp, bp)]
+    # A [H] serves every sequence of the rank: a partial sum over the
+    # batch's splits
+    agrad = [Partial() if p == Shard(0) else q for p, q in zip(xp, heads)]
+    if not is_sharded(A):
+        A = DTensor.from_local(A, mesh, [Replicate()] * mesh.ndim,
+                               run_check=False)
+    y, state = _ssd_chunked(
+        xh.redistribute(mesh, xp).to_local(),
+        B_.redistribute(mesh, bp).to_local(grad_placements=bgrad),
+        C_.redistribute(mesh, bp).to_local(grad_placements=bgrad),
+        dt.redistribute(mesh, dtp).to_local(),
+        A.redistribute(mesh, heads).to_local(grad_placements=agrad), chunk)
+    Bb, S, H, hd = xh.shape
+    st_pl = [Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+             else Replicate() for p in xp]
+    return (from_local(y, mesh, xp, shape=xh.shape),
+            from_local(state, mesh, st_pl, shape=(Bb, H, hd, B_.shape[-1])))
+
+
 def mamba2_apply(p, cfg, x: torch.Tensor, cache: Optional[SSMCache] = None,
                  cache_pos: Optional[int] = None
                  ) -> tuple[torch.Tensor, Optional[SSMCache]]:
@@ -165,10 +215,10 @@ def mamba2_apply(p, cfg, x: torch.Tensor, cache: Optional[SSMCache] = None,
     H, hd = cfg.ssm_heads, cfg.ssm_head_dim
     d_in, n, _ = _dims(cfg)
     dt_ = x.dtype
-    z = x @ p.wz.to(dt_)
-    xr = x @ p.wx.to(dt_)
-    bc = x @ p.wbc.to(dt_)
-    dt_raw = x @ p.wdt.to(dt_)
+    z = linear(x, p.wz.to(dt_))
+    xr = linear(x, p.wx.to(dt_))
+    bc = linear(x, p.wbc.to(dt_))
+    dt_raw = linear(x, p.wdt.to(dt_))
     dt = softplus(dt_raw.float() + p.dt_bias[None, None, :])   # [B, S, H]
     A = -torch.exp(p.A_log.float())                             # [H]
 
@@ -176,7 +226,8 @@ def mamba2_apply(p, cfg, x: torch.Tensor, cache: Optional[SSMCache] = None,
                             None if cache is None else cache.conv)
     B_ = xbc[..., d_in: d_in + n]
     C_ = xbc[..., d_in + n:]
-    xh = xbc[..., :d_in].reshape(B, S, H, hd)
+    xh = _heads_view(constraint(xbc[..., :d_in], "batch", None, "d_inner"),
+                     H, hd)
 
     if cache is None:
         pad = (-S) % cfg.ssm_chunk
@@ -184,8 +235,8 @@ def mamba2_apply(p, cfg, x: torch.Tensor, cache: Optional[SSMCache] = None,
         if pad:  # right-pad to a whole chunk (dt = 0: identity steps)
             xs = F.pad(xh, (0, 0, 0, 0, 0, pad))
             Bs, Cs, dts = (F.pad(t, (0, 0, 0, pad)) for t in (B_, C_, dt))
-        y, state = _ssd_chunked(xs, Bs, Cs, dts, A,
-                                min(cfg.ssm_chunk, xs.shape[1]))
+        ssd = _ssd_sharded if is_sharded(xs) else _ssd_chunked
+        y, state = ssd(xs, Bs, Cs, dts, A, min(cfg.ssm_chunk, xs.shape[1]))
         y = y[:, :S]
         new_cache = SSMCache(conv_new, state) if cache_pos is not None \
             else None
@@ -205,7 +256,7 @@ def mamba2_apply(p, cfg, x: torch.Tensor, cache: Optional[SSMCache] = None,
     y = y + xh.float() * p.D[None, None, :, None]
     y = y.reshape(B, S, d_in).to(dt_)
     y = rms_norm(y * silu(z), p.norm, cfg.norm_eps)             # gated norm
-    return y @ p.wo.to(dt_), new_cache
+    return linear(y, p.wo.to(dt_)), new_cache
 
 
 def init_ssm_cache(cfg, batch: int, dtype=torch.bfloat16, device=None,

@@ -21,8 +21,14 @@ no per-arch case in model code.
   (``BatchedBOEngine(mesh=...)``) places one scenario group on each
   device of its mesh axis.
 
-``constraint`` (the reference's ``with_sharding_constraint`` by logical
-axes) has no counterpart here: see :mod:`repro_torch.parallel`.
+- :func:`constraint` is the reference's ``with_sharding_constraint`` by
+  logical axes: under a mesh it redistributes a DTensor
+  (``torch.distributed.tensor``) to the placements its resolved spec gives
+  (:func:`placements`); without a mesh, or on a plain tensor, it returns
+  ``x`` itself, so the same model code runs on one device unchanged.
+  :meth:`AxisRules.device_mesh` is the ``DeviceMesh`` of the rules' mesh
+  over the default process group's ranks (rank i at flat position i), and
+  :func:`distribute` places a whole tensor at a leaf's spec.
 """
 from __future__ import annotations
 
@@ -32,10 +38,14 @@ from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["AxisRules", "Mesh", "NamedSharding", "P", "axis_rules",
            "current_rules", "resolve_spec", "named_sharding", "tree_specs",
-           "DEFAULT_RULES"]
+           "DEFAULT_RULES", "constraint", "placements", "distribute",
+           "redistribute", "is_sharded", "local_shape_offset",
+           "mixed_with_dtensors", "from_local", "contiguous_strides",
+           "remat_contexts"]
 
 # logical axis -> ordered mesh-axis candidates; the first that divides wins.
 # ("model",) entries are tensor/expert parallel; "embed_fsdp" is ZeRO weight
@@ -156,6 +166,31 @@ class AxisRules:
             self.rules.update(rules)
         self.axis_sizes = (dict(zip(mesh.axis_names, mesh.devices.shape))
                            if mesh else {})
+        self._dmesh = None
+
+    @property
+    def device_mesh(self):
+        """The ``DeviceMesh`` of ``mesh`` over the default process group
+        (which must have ``mesh``'s size): rank i at flat position i, the
+        mesh's axis names as its dim names, the device type of its devices.
+        Built once per rules object (so per thread under ``axis_rules``)."""
+        if self._dmesh is None:
+            import torch.distributed as dist
+            from torch.distributed.device_mesh import DeviceMesh
+            n = int(self.mesh.devices.size)
+            if not dist.is_initialized() or dist.get_world_size() != n:
+                have = dist.get_world_size() if dist.is_initialized() else 0
+                raise RuntimeError(
+                    f"a mesh of {n} devices needs a process group of {n} "
+                    f"ranks; the default group has {have}")
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+            with unset_fake_temporarily():  # the mesh holds real rank ids
+                self._dmesh = DeviceMesh(
+                    self.mesh.devices.flat[0].type,
+                    torch.arange(n, device="cpu").reshape(
+                        self.mesh.devices.shape),
+                    mesh_dim_names=self.mesh.axis_names)
+        return self._dmesh
 
     def _candidates(self, name: Optional[str]) -> tuple[tuple[str, ...], ...]:
         if name is None:
@@ -201,25 +236,180 @@ class AxisRules:
 
 
 _STATE = threading.local()
+#: the rules of a thread that entered none: no mesh, everything replicated
+_NO_RULES = AxisRules(None)
 
 
 def current_rules() -> AxisRules:
-    return getattr(_STATE, "rules", None) or AxisRules(None)
+    return getattr(_STATE, "rules", None) or _NO_RULES
 
 
 @contextlib.contextmanager
-def axis_rules(mesh: Optional[Mesh], rules: Optional[dict] = None):
-    """Make ``AxisRules(mesh, rules)`` the thread's current rules."""
+def _using(rules: Optional[AxisRules]):
+    """``rules`` as the thread's current rules (None: none) until exit."""
     prev = getattr(_STATE, "rules", None)
-    _STATE.rules = AxisRules(mesh, rules)
+    _STATE.rules = rules
     try:
-        yield _STATE.rules
+        yield rules
     finally:
         _STATE.rules = prev
 
 
+def axis_rules(mesh: Optional[Mesh], rules: Optional[dict] = None):
+    """Make ``AxisRules(mesh, rules)`` the thread's current rules."""
+    return _using(AxisRules(mesh, rules))
+
+
+def remat_contexts():
+    """``torch.utils.checkpoint``'s ``context_fn``: the forward runs as it
+    is, the recompute under the rules current now. Autograd runs a CUDA
+    backward, remat's recompute included, on a thread of its own, which
+    entered no rules."""
+    return contextlib.nullcontext(), _using(getattr(_STATE, "rules", None))
+
+
 def resolve_spec(axes: Sequence[Optional[str]], shape: Sequence[int]) -> P:
     return current_rules().spec(axes, shape)
+
+
+def placements(spec: P, mesh: Mesh) -> tuple:
+    """DTensor placements of ``spec`` on ``mesh``: ``Shard(d)`` on every mesh
+    dim that entry d names, ``Replicate()`` on the rest. An entry that names
+    several axes, ``("pod", "data")``, shards dim d over all of them, the
+    first the major one, as JAX's; DTensor splits a dim over its mesh dims
+    left to right, so the entry's axes must come in the mesh's order."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = [Replicate()] * len(mesh.axis_names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        names = entry if isinstance(entry, tuple) else (entry,)
+        idx = [mesh.axis_names.index(a) for a in names]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis "
+                             f"order {mesh.axis_names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def local_shape_offset(shape: Sequence[int], dmesh, pl) -> tuple:
+    """(this rank's local shape, its offset in the whole tensor) of a
+    tensor of ``shape`` at placements ``pl`` on ``dmesh`` (computed on real
+    tensors, also under a fake tensor mode)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(
+            torch.Size(shape), dmesh, pl)
+
+
+def contiguous_strides(shape: Sequence[int]) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of ``shape`` (computed, so that no
+    tensor is made: under a fake mode one would count as memory)."""
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+class _FromLocal(torch.autograd.Function):
+    """``DTensor.from_local`` whose incoming gradient is redistributed to
+    given placements before it is taken local."""
+
+    @staticmethod
+    def forward(ctx, local, dmesh, pl, grad_pl, shape, stride):
+        ctx.dmesh, ctx.grad_pl = dmesh, grad_pl
+        return DTensor.from_local(local, dmesh, list(pl), run_check=False,
+                                  shape=shape, stride=stride)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if tuple(grad.placements) != tuple(ctx.grad_pl):
+            grad = grad.redistribute(ctx.dmesh, list(ctx.grad_pl))
+        return grad.to_local(), None, None, None, None, None
+
+
+def from_local(local: torch.Tensor, dmesh, pl, grad_pl=None,
+               shape=None) -> torch.Tensor:
+    """``local`` as a DTensor at ``pl`` (no check) of global ``shape``
+    (default: the local shape times the shards, right for even splits
+    only), whose gradient comes back at ``grad_pl`` (default: ``pl`` with
+    every ``Partial`` replicated: the derivative of a sum is one for each
+    of its parts; DTensor's own ``from_local`` would split the incoming
+    gradient over the ranks, and only newer torch takes
+    ``grad_placements`` there)."""
+    from torch.distributed.tensor import Replicate
+    stride = None
+    if shape is not None:  # a contiguous whole over a contiguous shard
+        shape = torch.Size(shape)
+        stride = contiguous_strides(shape)
+        local = local.contiguous()
+    if grad_pl is None:
+        grad_pl = [Replicate() if p.is_partial() else p for p in pl]
+    if not local.requires_grad:
+        return DTensor.from_local(local, dmesh, list(pl), run_check=False,
+                                  shape=shape, stride=stride)
+    return _FromLocal.apply(local, dmesh, tuple(pl), tuple(grad_pl), shape,
+                            stride)
+
+
+def mixed_with_dtensors():
+    """Under a mesh, DTensor's ``implicit_replication``: plain tensors that
+    the model code makes itself (positions, masks, a float32 zero) take
+    part in DTensor ops as replicated ones; a null context otherwise."""
+    if current_rules().mesh is None:
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+    return implicit_replication()
+
+
+def is_sharded(x) -> bool:
+    """Whether ``x`` is a DTensor (a tensor of the sharded program)."""
+    return isinstance(x, DTensor)
+
+
+def constraint(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """``with_sharding_constraint`` by logical axes: ``x`` redistributed to
+    the placements of ``current_rules().spec(axes, x.shape)``; ``x`` itself
+    when it is a plain tensor or without a mesh."""
+    if not isinstance(x, DTensor):
+        return x
+    r = current_rules()
+    if r.mesh is None:
+        return x
+    return redistribute(x, r.spec(axes, x.shape))
+
+
+def redistribute(x: torch.Tensor, spec: P) -> torch.Tensor:
+    """A DTensor ``x`` at ``spec`` under the current rules' mesh (``x``
+    itself where it is there already)."""
+    r = current_rules()
+    want = placements(spec, r.mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(r.device_mesh, want)
+
+
+def distribute(t: torch.Tensor, axes: Sequence[Optional[str]],
+               rules: Optional[AxisRules] = None,
+               spec: Optional[P] = None) -> torch.Tensor:
+    """``t`` (the whole tensor, the same on every rank) as a DTensor at the
+    spec of ``axes`` under ``rules`` (the current ones by default), or at
+    ``spec`` when given: each rank keeps its own slice, nothing is sent.
+    ``t`` itself without a mesh."""
+    r = rules or current_rules()
+    if r.mesh is None:
+        return t
+    spec = r.spec(axes, t.shape) if spec is None else spec
+    pl = placements(spec, r.mesh)
+    shape, offset = local_shape_offset(t.shape, r.device_mesh, pl)
+    local = t[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    return DTensor.from_local(local.contiguous(), r.device_mesh, pl,
+                              run_check=False, shape=t.shape,
+                              stride=contiguous_strides(t.shape))
 
 
 def named_sharding(axes: Sequence[Optional[str]], shape: Sequence[int],

@@ -7,7 +7,7 @@ them, its training forward with the row statistic and its backward) at
 ``chip_smoke.py``'s shapes, for one source tree of the port.
 
     python3 tools/kernel_timing.py [--tree DIR] [--sweep] [--kernels k5]
-                                   [--bwd-splits] [--train]
+                                   [--bwd-splits] [--train] [--decode]
                                    [--out results.json]
 
 Imports ``repro_torch`` from ``DIR/src`` (default: this checkout), so a
@@ -22,8 +22,10 @@ times K5's backward at every split count of its plan. ``--train`` also
 times training steps with the tree's port (qwen3-100m's, and starcoder2-3b's
 and mamba2-370m's at full width and depth through
 ``chip_smoke.train_full``, in a tree that trains them), the full-width
-ones beside the host's microseconds to issue one tiny eager op. Needs a
-CUDA device.
+ones beside the host's microseconds to issue one tiny eager op.
+``--decode`` times the serve phase's decode (``chip_smoke.SERVE``'s
+mistral-nemo-12b and ``SERVE_SSM``'s mamba2-370m) through the tree's
+``Engine.generate``. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -166,6 +168,58 @@ def time_train(cs, dev, out: dict) -> None:
             continue
         out["train"][name] = dict({k: full.get(k) for k in keys},
                                   host_op_us=host)
+
+
+#: the decode timing's runs of ``generate`` after one warm-up
+DECODE_REPS = 3
+
+
+def time_decode(cs, dev, out: dict) -> None:
+    """Milliseconds a decode step of the serve phase's ``Engine.generate``
+    (batch 4, prompt 2048, 32 greedy tokens, random bf16 weights at full
+    width and depth): ``chip_smoke.SERVE`` (mistral-nemo-12b) and
+    ``SERVE_SSM`` (mamba2-370m), each run DECODE_REPS times after a
+    warm-up, median, beside :func:`host_op_us` taken just before."""
+    import statistics
+    import time
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init
+    from repro_torch.serve import Engine, ServeConfig
+
+    out["decode"] = {}
+    for conf in (cs.SERVE, cs.SERVE_SSM):
+        cfg = get_config(conf["arch"])
+        gen = torch.Generator(device=dev).manual_seed(conf["seed"])
+        model = init(cfg, gen, dev)
+        tokens = torch.randint(0, cfg.vocab, (conf["batch"], conf["prompt"]),
+                               generator=gen, device=dev)
+        eng = Engine(cfg, model, ServeConfig(max_len=conf["max_len"]))
+        marks = {}
+
+        def timed(name, fn, *args, **kw):
+            res = fn(*args, **kw)
+            if name == "prefill":
+                torch.cuda.synchronize()
+                marks["t1"] = time.perf_counter()
+            return res
+
+        host = host_op_us()
+        ms = []
+        for _ in range(1 + DECODE_REPS):
+            eng.generate(tokens, conf["gen"], timed=timed)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - marks["t1"]) / conf["gen"] * 1e3)
+        med = statistics.median(ms[1:])
+        print(f"  decode {cfg.arch_id}: {med:.2f} ms a step (median of "
+              f"{DECODE_REPS}: {[round(x, 2) for x in ms[1:]]}); host "
+              f"{host:.2f} us an op")
+        out["decode"][cfg.arch_id] = dict(ms=med, runs_ms=ms[1:],
+                                          host_op_us=host)
+        del model, eng
+        torch.cuda.empty_cache()
 
 
 def time_bwd_splits(cs, dev, out: dict) -> None:
@@ -385,6 +439,9 @@ def main() -> int:
                     help="also time training steps: qwen3-100m, and "
                          "starcoder2-3b and mamba2-370m at full width and "
                          "depth")
+    ap.add_argument("--decode", action="store_true",
+                    help="also time the serve phase's decode steps: "
+                         "mistral-nemo-12b and mamba2-370m")
     args = ap.parse_args()
 
     import chip_smoke as cs  # puts this checkout's src first on sys.path
@@ -412,6 +469,8 @@ def main() -> int:
         time_bwd_splits(cs, dev, out)
     if args.train:
         time_train(cs, dev, out)
+    if args.decode:
+        time_decode(cs, dev, out)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
