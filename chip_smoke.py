@@ -52,7 +52,7 @@ of 2048, without it and at a window of 100, timed beside
 ``mistral-nemo-12b`` at full width
 (40 layers, d_model 5120, 32 heads / 8 KV heads, vocab 131072; random bf16
 weights from a seed) serving ``Engine.generate`` at batch 4, a 2048-token
-prompt and 32 greedy tokens, with exactly 40 K5 launches in the prefill,
+prompt and 16 greedy tokens, with exactly 40 K5 launches in the prefill,
 all on the tensor-core route;
 the same prefill again with K5's plain version passed in, its logits, its
 teacher-forced decode logits and its greedy tokens held against the kernel
@@ -251,7 +251,23 @@ trained through ``launch/train.py`` and whisper-tiny's through
 gradients of the SSM, hybrid and encoder-decoder twins on the card
 against the CPU's.
 
-The sharded LM program, after training (``sharded_phase``): a one-rank
+Before training, K5 and its backward on query shards
+(``check_flash_attn_query_shards``, ``K5_QSHARD_SHAPES``: qwen3-14b's
+prefill_32k shard of 2048 of 32768 positions at offsets 30720, 0 and
+14336, the train_4k shards of starcoder2-3b and minicpm3-4b, a window of
+100 at an offset off the tiles, no causal mask): each shard against the
+unsharded call's rows (bit for bit) and the plain version with the offset,
+every piece of the sequence through the backward, their dq against the
+unsharded rows and their dk/dv summed against the unsharded dk/dv, the
+offset a tile short rejected forward and backward.
+
+The sharded LM program, after training (``sharded_phase``): the
+sequence-parallel check (``seq_parallel_check``: ``starcoder2-3b`` at
+its published width cut to 4 layers, every attention layer's queries in
+4 shards through ``_prefill_attention``'s query-shard branch, K5 at each
+shard's offset forward and backward, in the prefill and the loss's
+gradient, against the unsplit run: logits and every leaf within
+TRAIN_GRAD's tolerances, only query-shard K5 launches); a one-rank
 mesh (1, 1) of axes ("data", "model") over NCCL, in a subprocess with its
 own store (``--sharded-worker``): ``starcoder2-3b`` at its published width
 cut to 4 layers (``SHARDED``; B 2 x S 2048, remat) trained one step through
@@ -1770,7 +1786,8 @@ K5_NONCAUSAL_SHAPES = [(4, 1500, 6, 6, 64), (2, 65, 6, 6, 64),
 K5_RTOL, K5_ATOL = 2.0 ** -7, 1e-3
 #: the serve phases: mistral-nemo-12b (GQA) and minicpm3-4b (MLA) at full
 #: width, Engine.generate
-SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=32,
+#: (16 greedy tokens: 32 before the query-shard checks were added)
+SERVE = dict(arch="mistral-nemo-12b", batch=4, prompt=2048, gen=16,
              max_len=2080, seed=0)
 SERVE_MLA = dict(SERVE, arch="minicpm3-4b")
 #: the MoE serve phases: deepseek-v2-lite-16b (MLA, 64 routed experts,
@@ -1843,7 +1860,7 @@ SERVE_ATOL, SERVE_MEAN_TOL = 0.125, 0.02
 #: workers, so q = 2 a scenario); the server's mix
 #: (``tools/regen_golden.py``'s ``server_two_jobs``) at T 20 a job; and the
 #: evaluation after which the CLI run is SIGKILLed.
-SERVICE_DELAY_S = 1.0
+SERVICE_DELAY_S = 0.5  # 1.0 before the query-shard checks were added
 SERVICE_Q = 4
 SERVICE_FLEET = dict(scenarios=(("resnet50", 0), ("transformer", 0)), T=24,
                      workers=4)
@@ -2470,10 +2487,15 @@ def uncapped_ted(dev) -> dict:
                 by_shape=by["pairdist"])
 
 
+#: Fig. 4(c)'s rounds over SimplifiedFlow (MAIN's 20 before the query-shard
+#: checks were added; the gap is read from the front after them)
+FIG4C_T = 10
+
+
 def fig4c(dev, space, pool, ref, adrs_full: float) -> dict:
-    """``soc_tuner`` (exact) over ``SimplifiedFlow``, its front re-evaluated
-    with ``VLSIFlow``: the believed-against-actual gap. The simplified
-    flow launches no K1."""
+    """``soc_tuner`` (exact, FIG4C_T rounds) over ``SimplifiedFlow``, its
+    front re-evaluated with ``VLSIFlow``: the believed-against-actual gap.
+    The simplified flow launches no K1."""
     import numpy as np
     import torch
 
@@ -2486,7 +2508,7 @@ def fig4c(dev, space, pool, ref, adrs_full: float) -> dict:
                                            device=dev)(pool), device=dev)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    res = soc_tuner(space, pool, simp, T=MAIN["T"], reference_front=simp_ref,
+    res = soc_tuner(space, pool, simp, T=FIG4C_T, reference_front=simp_ref,
                     seed=MAIN["seed"], device=dev, **_protocol())
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3320,6 +3342,284 @@ def check_flash_attn_backward(dev, results: dict) -> None:
                 source="src/repro_torch/csrc/flash_attn_tc.cu")
         del q, k, v, dout, out_k, lse_k, lo_k, got, want, out_p, lse_p, lo_p
         del qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------ query shards
+#: K5 on the query shard of a sequence-parallel cell (B, Sk, Sq, H, KV
+#: heads, Dqk, Dv, window, causal, the offsets held against the unsharded
+#: call): the model-level check's own shard (starcoder2-3b at SHARDED's S
+#: 2048 on two ranks: rank 1's 1024 rows); qwen3-14b's prefill_32k shard
+#: on the production 16-way model axis (2048 of 32768 positions: the
+#: last, the first and a middle shard); starcoder2-3b's and minicpm3-4b's
+#: train_4k shards (256 of 4096, the last; MLA's 96/64 at 40/40 heads); a
+#: small shape whose window (100) is shorter than the shard and whose
+#: offset (437) is off the 64- and 128-row tiles; one without the causal
+#: mask. Every shard of a shape runs in the backward (their dk/dv are
+#: summed); the listed ones are held against the plain version.
+K5_QSHARD_SHAPES = [
+    (2, 2048, 1024, 24, 2, 128, 128, None, True, (1024,)),
+    (2, 32768, 2048, 40, 8, 128, 128, None, True, (30720, 0, 14336)),
+    (2, 4096, 256, 24, 2, 128, 128, None, True, (3840,)),
+    (2, 4096, 256, 40, 40, 96, 64, None, True, (3840,)),
+    (2, 1000, 200, 16, 1, 256, 256, 100, True, (437,)),
+    (2, 1500, 300, 6, 6, 64, 64, None, False, (600,))]
+
+
+def k5_shard_pairs(Sk: int, Sq: int, o: int, window=None,
+                   causal: bool = True) -> int:
+    """The (query, key) pairs K5's mask leaves a (b, h) of a query shard:
+    row i at position o + i sees keys max(0, o + i - W + 1) … o + i (all
+    Sk without the causal mask)."""
+    if not causal:
+        return Sq * Sk
+    W = window or Sk
+    return sum(p - max(0, p - W + 1) + 1 for p in range(o, o + Sq))
+
+
+def k5_shard_bytes_ops(B, Sk, Sq, o, H, K, dqk, dv, window=None,
+                       causal: bool = True, backward: bool = False
+                       ) -> tuple[int, int]:
+    """Bytes and operations of K5 (or, with ``backward``, of its backward)
+    on a query shard, as ``k5_bytes_ops`` / ``k5_bwd_bytes_ops`` count
+    them: q and o (the backward: q, dq, o and do) of the Sq rows, k and v
+    (the backward: and dk, dv) of all Sk keys, each moved once in bf16 (and
+    the float32 lse of the Sq rows in the backward); the operations over
+    the shard's pairs (``k5_shard_pairs``)."""
+    pairs = k5_shard_pairs(Sk, Sq, o, window, causal)
+    q, out = B * Sq * H * dqk, B * Sq * H * dv
+    kv = B * Sk * K * (dqk + dv)
+    if not backward:
+        return 2 * (q + kv + out), 2 * B * H * pairs * (dqk + dv)
+    return (2 * (2 * q + 2 * kv + 2 * out) + 4 * B * H * Sq,
+            2 * B * H * pairs * (3 * dqk + 2 * dv))
+
+
+def _by_kv_heads(fn, q, k, v, *rest, groups: int = 8):
+    """The plain version ``fn(q, k, v, *rest)`` run over slices of the KV
+    heads (each with its query heads; ``rest`` tensors [B, S, H, ·] are
+    sliced like q), at most ``groups`` slices, joined on the heads: the same
+    values, in memory a qwen3-14b prefill_32k shard's [B, H, Sq, Sk]
+    float32 logits (21 GB) would not leave for the softmax's temporaries."""
+    import torch
+
+    H, K = q.shape[2], k.shape[2]
+    step = -(-K // groups)
+    outs = []
+    for g0 in range(0, K, step):
+        g1 = min(K, g0 + step)
+        h0, h1 = g0 * H // K, g1 * H // K
+        outs.append(fn(q[:, :, h0:h1], k[:, :, g0:g1], v[:, :, g0:g1],
+                       *(t[:, :, h0:h1] for t in rest)))
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs, dim=2)
+    return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
+
+
+def shard_mask(Sq: int, Sk: int, o: int, window, causal: bool, dev) -> dict:
+    """``scaled_dot_product_attention``'s keyword arguments for K5's mask of
+    a query shard: a boolean ``attn_mask`` [Sq, Sk] (SDPA's ``is_causal``
+    aligns its diagonal top-left when Sq ≠ Sk), or none without the causal
+    mask."""
+    import torch
+
+    if not causal:
+        return dict(is_causal=False)
+    qpos = o + torch.arange(Sq, device=dev)[:, None]
+    kpos = torch.arange(Sk, device=dev)[None, :]
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return dict(attn_mask=mask)
+
+
+def _shard_pieces(Sk: int, Sq: int, o: int) -> list[tuple[int, int]]:
+    """Contiguous (offset, rows) pieces of Sq rows (shorter at the ends)
+    that cover [0, Sk) and include the shard at ``o``."""
+    cuts = sorted({0, Sk} | set(range(o % Sq, Sk, Sq)))
+    return [(a, b - a) for a, b in zip(cuts, cuts[1:])]
+
+
+def check_flash_attn_query_shards(dev, results: dict) -> None:
+    """K5 on query shards (``K5_QSHARD_SHAPES``), forward and backward.
+    Forward: each listed shard against rows o … o + Sq of the unsharded K5
+    call (bit for bit, or K5's tolerance where not) and against the plain
+    version with the offset (K5's tolerance); the offset a tile short (o -
+    64) must fail that tolerance. Backward: every piece of the sequence
+    (``_shard_pieces``) through K5's backward with its offset; their dq
+    against the unsharded backward's rows (bit for bit, or the backward's
+    tolerance), their dk/dv summed in piece order against the unsharded
+    dk/dv (the backward's tolerance); each listed shard against the plain
+    backward with the offset (the backward's tolerance), twice bitwise
+    equal, and its o - 64 run rejected. Timed beside the plain version
+    (over KV-head slices, ``_by_kv_heads``) and SDPA under the offset's
+    boolean mask; bounds over the shard's pairs (``k5_shard_pairs``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as K5
+
+    def sdpa(q, k, v, mask, scale):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            scale=scale, enable_gqa=True, **mask).transpose(1, 2)
+
+    for B, Sk, Sq, H, K, dqk, dv, W, causal, offsets in K5_QSHARD_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(Sk + Sq + H)
+        q, k, v, dout = (torch.randn((B, Sk, n, d), generator=g,
+                                     device=dev).bfloat16()
+                         for n, d in ((H, dqk), (K, dqk), (K, dv), (H, dv)))
+        scale = dqk ** -0.5
+        at = [B, f"Sq {Sq} of Sk {Sk}", H, K, dqk, dv] + (
+            ["no causal mask"] if not causal else
+            [f"window {W}"] if W else [])
+        full = K5.flash_attention(q, k, v, scale, W, causal)
+        for o in offsets:
+            qs = q[:, o:o + Sq].contiguous()
+            before = K5.class_launches["query_shard"]
+            got = K5.flash_attention(qs, k, v, scale, W, causal, q_offset=o)
+            if K5.class_launches["query_shard"] != before + 1:
+                raise AssertionError("a query-shard call was not counted")
+            rows = full[:, o:o + Sq]
+            bitwise = bool(torch.equal(got, rows))
+            rows_ok = bitwise or bool(torch.allclose(
+                got.float(), rows.float(), rtol=K5_RTOL, atol=K5_ATOL))
+            want = _by_kv_heads(lambda a, b, c: K5.flash_attention_plain(
+                a, b, c, scale, W, causal, o), qs, k, v)
+            err = float((got.float() - want.float()).abs().max())
+            ok = rows_ok and bool(torch.allclose(
+                got.float(), want.float(), rtol=K5_RTOL, atol=K5_ATOL))
+            fault = None
+            if causal and o >= 64:
+                short = K5.flash_attention(qs, k, v, scale, W, causal,
+                                           q_offset=o - 64)
+                fault = float((short.float() - want.float()).abs().max())
+                if torch.allclose(short.float(), want.float(), rtol=K5_RTOL,
+                                  atol=K5_ATOL):
+                    raise AssertionError(f"K5 at offset {o} - 64 passes the "
+                                         f"check at {at}")
+            print(f"  query shard {at} at offset {o}: the unsharded call's "
+                  f"rows {'bit for bit' if bitwise else 'within tolerance'}"
+                  f" ({rows_ok}); max abs err against the plain version "
+                  f"{err:.3e}" + ("" if fault is None else
+                                  f"; the offset a tile short: {fault:.3e}, "
+                                  "rejected"))
+            if o == offsets[0]:
+                mask = shard_mask(Sq, Sk, o, W, causal, dev)
+                n_bytes, n_ops = k5_shard_bytes_ops(B, Sk, Sq, o, H, K, dqk,
+                                                    dv, W, causal)
+                _record(results, "flash_attn_qshard",
+                        at + [f"offset {o}"], err, ok,
+                        time_ms(lambda: K5.flash_attention(
+                            qs, k, v, scale, W, causal, q_offset=o),
+                            reps=5, repeats=5),
+                        time_ms(lambda: _by_kv_heads(
+                            lambda a, b, c: K5.flash_attention_plain(
+                                a, b, c, scale, W, causal, o), qs, k, v),
+                            reps=1, repeats=3),
+                        time_ms(lambda: sdpa(qs, k, v, mask, scale), reps=5,
+                                repeats=5),
+                        bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
+                        bitwise_unsharded_rows=bitwise,
+                        offset_short_err=fault,
+                        library="sdpa(boolean attn_mask of the offset)"
+                        if causal else "sdpa(is_causal=False)",
+                        source="src/repro_torch/csrc/flash_attn_tc.cu")
+            elif not ok:
+                raise AssertionError(f"K5's query shard at offset {o} of {at}"
+                                     " disagrees")
+            del got, want, rows, qs
+        del full
+
+        # the backward: every piece, the listed shards against the plain
+        out, lse, lo = K5.flash_attention_lse(q, k, v, scale, W, causal)
+        fdq, fdk, fdv = K5.flash_attention_backward(q, k, v, out, lse, dout,
+                                                    scale, W, causal,
+                                                    out_lo=lo)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+        dvs = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+        dq_bitwise = True
+        for o, n in _shard_pieces(Sk, Sq, offsets[0]):
+            qs, ds = q[:, o:o + n].contiguous(), dout[:, o:o + n].contiguous()
+            so, sl, slo = K5.flash_attention_lse(qs, k, v, scale, W, causal,
+                                                 o)
+            before = K5.bwd_class_launches["query_shard"]
+            got = K5.flash_attention_backward(qs, k, v, so, sl, ds, scale, W,
+                                              causal, out_lo=slo, q_offset=o)
+            if K5.bwd_class_launches["query_shard"] != before + 1:
+                raise AssertionError("a query-shard backward was not counted")
+            rows = fdq[:, o:o + n]
+            if not torch.equal(got[0], rows):
+                dq_bitwise = False
+                if not _bwd_close((got[0],), (rows,))[2]:
+                    raise AssertionError(f"dq of the piece at {o} of {at} is "
+                                         "not the unsharded call's rows")
+            dk += got[1].float()
+            dvs += got[2].float()
+            if o in offsets:
+                want = _by_kv_heads(
+                    lambda a, b, c, d: K5.flash_attention_backward_plain(
+                        a, b, c, d, scale, W, causal, o), qs, k, v, ds)
+                err, worst, ok = _bwd_close(got, want)
+                again = K5.flash_attention_backward(
+                    qs, k, v, so, sl, ds, scale, W, causal, out_lo=slo,
+                    q_offset=o)
+                repeats = all(torch.equal(a, b) for a, b in zip(got, again))
+                fault = None
+                if causal and o >= 64:
+                    short = K5.flash_attention_backward(
+                        qs, k, v, so, sl, ds, scale, W, causal, out_lo=slo,
+                        q_offset=o - 64)
+                    fault = _bwd_close(short, want)
+                    if fault[2]:
+                        raise AssertionError(f"K5's backward at offset {o} - "
+                                             f"64 passes the check at {at}")
+                print(f"  query shard backward {at} at offset {o}: largest "
+                      f"error / tolerance {worst:.3f} (max abs err "
+                      f"{err:.3e}); a second call bitwise equal: {repeats}"
+                      + ("" if fault is None else
+                         f"; the offset a tile short: error / tolerance "
+                         f"{fault[1]:.3f}, rejected"))
+                if not (ok and repeats):
+                    raise AssertionError(f"K5's backward at offset {o} of "
+                                         f"{at} disagrees or does not repeat")
+                if o == offsets[0]:
+                    mask = shard_mask(n, Sk, o, W, causal, dev)
+                    t_lib, _, backend = sdpa_backward(qs, k, v, ds, scale,
+                                                      mask)
+                    n_bytes, n_ops = k5_shard_bytes_ops(
+                        B, Sk, n, o, H, K, dqk, dv, W, causal, backward=True)
+                    _record(results, "flash_attn_bwd_qshard",
+                            at + [f"offset {o}"], err, ok,
+                            time_ms(lambda: K5.flash_attention_backward(
+                                qs, k, v, so, sl, ds, scale, W, causal,
+                                out_lo=slo, q_offset=o), reps=5, repeats=5),
+                            time_ms(lambda: _by_kv_heads(
+                                lambda a, b, c, d:
+                                K5.flash_attention_backward_plain(
+                                    a, b, c, d, scale, W, causal, o),
+                                qs, k, v, ds), reps=1, repeats=3),
+                            t_lib, bound_ms(n_bytes, n_ops, PEAK_BF16_OPS_S),
+                            err_over_tol=worst, offset_short_err_over_tol=(
+                                None if fault is None else fault[1]),
+                            library=f"sdpa backward ({backend}), "
+                            + ("boolean attn_mask of the offset" if causal
+                               else "is_causal=False"),
+                            source="src/repro_torch/csrc/flash_attn_bwd.cu")
+                del want, again
+            del got, qs, ds, so, sl, slo
+        err, worst, ok = _bwd_close((dk, dvs), (fdk, fdv))
+        print(f"  query shard backward {at}: "
+              f"{len(_shard_pieces(Sk, Sq, offsets[0]))} pieces' dq "
+              f"{'bit for bit' if dq_bitwise else 'within tolerance'} the "
+              f"unsharded rows; their dk/dv summed against the unsharded: "
+              f"largest error / tolerance {worst:.3f}")
+        if not ok:
+            raise AssertionError(f"the pieces' dk/dv of {at} do not sum to "
+                                 "the unsharded call's")
+        results["flash_attn_bwd_qshard"][-1]["pieces_dkdv_err_over_tol"] = \
+            worst
+        del q, k, v, dout, out, lse, lo, fdq, fdk, fdv, dk, dvs
         torch.cuda.empty_cache()
 
 
@@ -4350,7 +4650,8 @@ def serve_phase(dev, conf: dict) -> dict:
     if k5_routes != {"tensor_core": n_attn, "cuda_core": 0}:
         raise AssertionError(f"the bf16 prefill's flash_attn launches went "
                              f"by {k5_routes}, not all by the tensor cores")
-    if k5_classes != {"causal": n_attn - n_enc, "noncausal": n_enc}:
+    if k5_classes != {"causal": n_attn - n_enc, "noncausal": n_enc,
+                      "query_shard": 0}:
         raise AssertionError(f"flash_attn launched {k5_classes} by mask, not "
                              f"{n_attn - n_enc} causal and {n_enc} "
                              "non-causal (the encoder's)")
@@ -5040,6 +5341,123 @@ def sharded_worker(path: str) -> None:
     Path(path).write_text(json.dumps(out))
 
 
+#: the sequence-parallel model check: SHARDED's starcoder2-3b (published
+#: width, 4 layers, B 2 x S 2048) with every attention layer's queries
+#: split into SEQPAR_SHARDS shards, each run through the query-shard branch
+#: of ``models.attention._prefill_attention`` (K5 at its offset against all
+#: 2048 keys, forward and backward), in the prefill and the loss's
+#: gradient, against the same unsplit. Not two ranks on the card: NCCL
+#: refuses two ranks on one device ("invalid usage"), and gloo crashed
+#: (SIGSEGV) in DTensor's first all-gather of the program on a (1, 2) mesh
+#: (the k/v constraint of the first attention layer), though all-gathers
+#: of bf16 and float32 CUDA tensors of that size ran on its default group
+SEQPAR_SHARDS = 4
+
+
+def seq_parallel_check(dev) -> dict:
+    """SHARDED's config, the prefill's logits and the loss's gradient of
+    every leaf (``loss_fn`` with remat, as a train step takes it) with each
+    attention layer run as SEQPAR_SHARDS query shards (rows o … o + S/n at
+    positions o + arange(S/n) against every key, through
+    ``_prefill_attention`` with ``q_offset=o``; the shards concatenated)
+    against the same run unsplit (K5 on all rows). The logits and every
+    leaf within TRAIN_GRAD's tolerances (each differing leaf printed), the
+    loss within 5e-3; K5's launches by class counted around each run: the
+    split runs launch only query-shard K5, SEQPAR_SHARDS a layer in the
+    prefill, twice that forward (remat) and once backward in the
+    gradient."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attn as K5
+    from repro_torch.models import layer_kinds
+    from repro_torch.models.attention import _prefill_attention
+    from repro_torch.models.model import init, loss_fn, prefill
+
+    t0 = time.perf_counter()
+    c = SHARDED
+    cfg = dataclasses.replace(get_config(c["arch"]), n_layers=c["layers"])
+    n_att = sum(k not in ("ssm", "rglru") for k in layer_kinds(cfg))
+    tokens = torch.randint(0, cfg.vocab, (c["batch"], c["seq"] + 1),
+                           device=dev, generator=torch.Generator(
+                               device=dev).manual_seed(c["seed"]))
+    model = init(cfg, torch.Generator(device=dev).manual_seed(c["seed"]), dev)
+    names = [n for n, _ in model.named_parameters()]
+
+    def shards(q, k, v, scale, window=None, causal=True):
+        B, S = q.shape[:2]
+        n = S // SEQPAR_SHARDS
+        pos = torch.arange(S, device=q.device).expand(B, S)
+        return torch.cat([_prefill_attention(
+            q[:, o:o + n].contiguous(), k, v, pos[:, o:o + n], cfg, causal,
+            scale, None, True, kpos=pos, q_offset=o)
+            for o in range(0, S, n)], dim=1)
+
+    out, launches = {}, {}
+
+    def counted(what, fn):
+        kernels.reset_launches()
+        r = fn()
+        torch.cuda.synchronize()
+        launches[what] = dict(forward=dict(K5.class_launches),
+                              backward=dict(K5.bwd_class_launches))
+        return r
+
+    logits = {}
+    with torch.no_grad():
+        for what, att in (("prefill", None), ("split_prefill", shards)):
+            logits[what] = counted(what, lambda: prefill(
+                model, tokens[:, :-1], attention=att)[1])
+    out["logits_diff"] = _tree_diff({"logits": logits["split_prefill"]},
+                                    {"logits": logits["prefill"]})
+    del logits
+    model.requires_grad_(True)
+    grads, losses = {}, {}
+    for what, att in (("loss", None), ("split_loss", shards)):
+        def step():
+            loss, _ = loss_fn(model, {"tokens": tokens}, remat=True,
+                              attention=att)
+            return loss, torch.autograd.grad(loss, list(model.parameters()))
+        loss, g = counted(what, step)
+        losses[what] = float(loss.detach())
+        grads[what] = dict(zip(names, g))
+        del g
+    out["grads_diff"] = _tree_diff(grads["split_loss"], grads["loss"])
+    out["loss"] = [losses["loss"], losses["split_loss"]]
+    out.update(launches=launches, n_leaves=len(names),
+               seconds=time.perf_counter() - t0)
+    del grads, model
+    torch.cuda.empty_cache()
+    print(f"  sequence parallel on the card: {c['arch']} at its published "
+          f"width, {c['layers']} layers, B {c['batch']} x S {c['seq']}, "
+          f"queries in {SEQPAR_SHARDS} shards through _prefill_attention's "
+          f"query-shard branch: loss {out['loss'][1]:.6f} (unsplit "
+          f"{out['loss'][0]:.6f}); {out['seconds']:.1f} s")
+    for what, d in (("logits", out["logits_diff"]),
+                    ("grads", out["grads_diff"])):
+        worst = max(d.items(), key=lambda kv: kv[1][0], default=None)
+        print(f"    {what}: " + ("bit for bit" if not d else
+                                 f"{len(d)} of {out['n_leaves']} leaves "
+                                 f"differ, the largest max / mean relative "
+                                 f"difference {worst}"))
+        for leaf, (mx, mn) in d.items():
+            assert mx <= TRAIN_GRAD_ATOL_REL and mn <= TRAIN_GRAD_MEAN_REL, \
+                f"sequence-parallel {what} {leaf}: {mx:.4g} / {mn:.4g}"
+    assert abs(out["loss"][1] - out["loss"][0]) <= 5e-3, out["loss"]
+    print(f"    K5 launches by class: {launches}")
+    shard_runs = {"split_prefill": (SEQPAR_SHARDS * n_att, 0),
+                  "split_loss": (2 * SEQPAR_SHARDS * n_att,
+                                 SEQPAR_SHARDS * n_att)}
+    for what, (fwd, bwd) in shard_runs.items():
+        got = launches[what]
+        assert got["forward"] == dict(causal=0, noncausal=0,
+                                      query_shard=fwd), (what, got)
+        assert got["backward"] == dict(causal=0, window=0, noncausal=0,
+                                       query_shard=bwd), (what, got)
+    return out
+
+
 def _sharded_env() -> tuple[Path, Path, dict]:
     root = Path(__file__).resolve().parent
     # one intra-op thread a process: the dry runs compute nothing (fake
@@ -5070,8 +5488,9 @@ def start_sharded_dryruns() -> list:
 
 
 def sharded_phase(dev, card: str) -> dict:
-    """The sharded LM program: the one-rank mesh on the card
-    (``sharded_worker`` in a subprocess) beside the host dry runs
+    """The sharded LM program: the sequence-parallel check
+    (``seq_parallel_check``, in this process) and the one-rank mesh on the
+    card (``sharded_worker`` in a subprocess) beside the host dry runs
     (``start_sharded_dryruns``; the worker's step time is taken beside
     them), then the dry runs' records; every record must be ``ok``, and
     the sharded step, its gradients and the prefill must equal the
@@ -5085,6 +5504,9 @@ def sharded_phase(dev, card: str) -> dict:
     res_path = out_dir / "one_rank.json"
     dry = start_sharded_dryruns()
     try:
+        # the query-shard check on the card while the dry runs start on
+        # the host, then the one-rank worker
+        seq_parallel = seq_parallel_check(dev)
         one, records = _sharded_results(root, env, res_path, dry)
     finally:
         for _, _, pr in dry:
@@ -5117,7 +5539,8 @@ def sharded_phase(dev, card: str) -> dict:
     assert not bad, f"dry-run cells not ok: {bad}"
     phase_s = time.perf_counter() - t0
     print(f"  sharded phase: {phase_s:.1f} s")
-    return dict(one_rank=one, dryrun=records, phase_s=phase_s)
+    return dict(one_rank=one, dryrun=records, seq_parallel=seq_parallel,
+                phase_s=phase_s)
 
 
 def _sharded_results(root: Path, env: dict, res_path: Path,
@@ -5204,6 +5627,12 @@ def main() -> int:
     card = smi.splitlines()[0]
     print(f"card: {card} | torch {torch.__version__} | CUDA {torch.version.cuda}")
 
+    def clock(what: str) -> None:
+        """The wall time since the start, at the start of a phase (the
+        script's clock: it must finish well inside its 1200 s)."""
+        print(f"[clock] {what}: {time.perf_counter() - t_start:.1f} s since "
+              "the start", flush=True)
+
     build.library()
     print(f"kernel build: {build.build_seconds():.1f} s")
     for name, info in ptxas_report(build.build_log()).items():
@@ -5275,6 +5704,7 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the exact path: {missing}")
     breakdown = round_breakdown(res, pool, flow, MAIN, dev)
 
+    clock('incremental main path')
     res_i, pool_i, ref_i, flow_i, launches_i, wall_i = drive(
         "incremental", incremental=True)
     missing = [k for k, n in launches_i.items()
@@ -5312,10 +5742,12 @@ def main() -> int:
 
     # The fleet: six scenarios at the paper protocol (exact, incremental),
     # a fleet of one against the main runs, and the card against the CPU.
+    clock('fleet phase')
     fleet = fleet_phase(dev, {"exact": breakdown, "incremental": breakdown_i},
                         card)
     # The fleet over a mesh: scenario groups, one a device (the card
     # repeated), against each other and the unsharded run.
+    clock('mesh phase')
     mesh = mesh_phase(dev, fleet, card)
     fleet_of_one(dev, {"exact": res, "incremental": res_i})
     fleet_card_vs_cpu()
@@ -5323,6 +5755,7 @@ def main() -> int:
     # The mutable pool: K4's refresh and scores against their plain
     # versions, the proposer at full width (soc_tuner and the fleet), the
     # proposer off, resumed runs, and the card against the CPU.
+    clock('proposer phases')
     print("round_fused on a mutable pool (chunk refresh, pool scores):")
     check_k4_pool_uses(dev, _pool_icd(res_i, pool_i, dev).shape[1], checks)
     proposer = proposer_phase(dev, res_i, launches_i, card)
@@ -5332,6 +5765,7 @@ def main() -> int:
     # The exploration service: service_tuner (q = 1 against the main
     # incremental run; q = 4 over threads and spawn processes), the fleet
     # service, the server over the wire, and the CLI killed and resumed.
+    clock('service phase')
     service = service_phase(dev, res_i, launches_i, by_class["incremental"],
                             card)
 
@@ -5339,17 +5773,20 @@ def main() -> int:
     # then the six baselines (Fig. 7(a)), card against CPU, the uncapped
     # TED, the simplified flow's gap (Fig. 4(c)) and the area breakdown of
     # the main exact run's balanced optimum (Fig. 7(b)).
+    clock('baselines phase')
     print("pareto_count and pairdist at the baselines' shapes:")
     check_baseline_kernels(dev, checks)
     baselines = baselines_phase(
         dev, res, {"exact": res.history[-1]["adrs"],
                    "incremental": res_i.history[-1]["adrs"]}, card)
 
+    clock('K5 checks')
     print("flash_attn checks (bf16; bound_ms at the bf16 tensor-core peak):")
     check_flash_attn(dev, checks)
     print("flash_attn with causal=False (both routes; bound_ms at the "
           "route's peak, all S² pairs):")
     check_flash_attn_noncausal(dev, checks)
+    clock('serve phases')
     serve = serve_phase(dev, SERVE)
     serve_mla = serve_phase(dev, SERVE_MLA)
     serve_moe_mla = serve_phase(dev, SERVE_MOE_MLA)
@@ -5358,21 +5795,30 @@ def main() -> int:
     serve_hybrid = serve_phase(dev, SERVE_HYBRID)
     serve_audio = serve_phase(dev, SERVE_AUDIO)
     serve_vlm = serve_phase(dev, SERVE_VLM)
+    clock('card-vs-CPU checks')
     moe_check = moe_card_vs_cpu(dev)
     serve_small_card_vs_cpu(dev)
 
     # Training: K5's backward and the forward's row statistic against their
     # plain versions, then qwen3-100m and starcoder2-3b trained on the card.
+    clock('K5 backward checks')
     print("flash_attn backward (csrc/flash_attn_bwd.cu) and the forward's "
           "row statistic (bound_ms at the bf16 tensor-core peak):")
     k5_bwd_build = k5_bwd_build_report()
     check_flash_attn_backward(dev, checks)
+    clock('K5 query-shard checks')
+    print("flash_attn on query shards (sequence parallelism; bound_ms over "
+          "the shard's pairs at the bf16 tensor-core peak):")
+    check_flash_attn_query_shards(dev, checks)
+    clock('training phase')
     print("training:")
     training = train_phase(dev)
+    clock('sharded phase')
     print("the sharded program (one-rank mesh on the card; dry run of four "
           "production cells on the host beside it):")
     sharded = sharded_phase(dev, card)
 
+    clock('the end of the phases')
     src = "src/repro_torch/csrc/"
     meta = {
         "systolic_eval": ("systolic_eval.cu",
@@ -5550,6 +5996,19 @@ def main() -> int:
             "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
             {"flash_attn_bwd_sharded": sharded["one_rank"]["k5_backward"]},
             "flash_attn_bwd"),
+        # K5 with a query-row offset: its query-shard launches in the
+        # sequence-parallel check (the split prefill and the split loss's
+        # gradient)
+        "flash_attn_qshard": (
+            "flash_attn_tc.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_qshard": sum(
+                c["forward"]["query_shard"] for c in
+                sharded["seq_parallel"]["launches"].values())}),
+        "flash_attn_bwd_qshard": (
+            "flash_attn_bwd.cu", "src/repro/kernels/flash_attn/kernel.py:61",
+            {"flash_attn_bwd_qshard": sum(
+                c["backward"]["query_shard"] for c in
+                sharded["seq_parallel"]["launches"].values())}),
     }
     entries = []
     for name, (cu, replaces, counts, *check) in meta.items():

@@ -21,6 +21,10 @@
 // sum and accumulator in float32, and o = acc / max(l, 1e-30). The caller
 // gives the scale (1/sqrt(DQK) by default in the wrapper).
 //
+// A query shard: q and o hold Sq rows at positions qoff + [0, Sq) against
+// all Sk keys (flash_attn_tc.cu's rule), i above being the row's position;
+// the unsharded call is Sq = Sk = S, qoff = 0.
+//
 // What bounds it here: at the prefill's shape (B 4, S 2048, H 32, KH 8,
 // hd 128) 2*B*H*S^2*hd = 1.37e11 causal operations, 2.05 ms at the
 // float32 CUDA-core peak; its arithmetic is float32 on the CUDA cores.
@@ -60,8 +64,9 @@ constexpr int smem_floats() {
 template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int S,
-                  int H, int KH, int window, int causal, float scale) {
+                  const float* __restrict__ v, float* __restrict__ o, int Sq,
+                  int Sk, int qoff, int H, int KH, int window, int causal,
+                  float scale) {
   static_assert(DQK % 16 == 0 && DV % 16 == 0, "head dims");
   constexpr int kQS = DQK + 1;  // row strides in shared memory
   constexpr int kKS = DQK + 1;
@@ -76,8 +81,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int bh = blockIdx.x;
   const int b = bh / H, h = bh % H;
   const int g = h / (H / KH);
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int q0 = (nq - 1 - (int)blockIdx.y) * kBQ;
+  const int nq = (Sq + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kBQ;  // its position q0 + qoff
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   const int r0 = ty * 4;  // this thread's first query row in the tile
@@ -86,14 +91,14 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t k_step = (size_t)KH * DQK;
   const size_t v_step = (size_t)KH * DV;
   const size_t o_step = (size_t)H * DV;
-  const float* qb = q + ((size_t)b * S * H + h) * DQK;
-  const float* kb = k + ((size_t)b * S * KH + g) * DQK;
-  const float* vb = v + ((size_t)b * S * KH + g) * DV;
-  float* ob = o + ((size_t)b * S * H + h) * DV;
+  const float* qb = q + ((size_t)b * Sq * H + h) * DQK;
+  const float* kb = k + ((size_t)b * Sk * KH + g) * DQK;
+  const float* vb = v + ((size_t)b * Sk * KH + g) * DV;
+  float* ob = o + ((size_t)b * Sq * H + h) * DV;
 
   for (int e = tid; e < kBQ * DQK; e += kThreads) {
     const int r = e / DQK, c = e % DQK, s = q0 + r;
-    qs[r * kQS + c] = s < S ? qb[s * q_step + c] * scale : 0.0f;
+    qs[r * kQS + c] = s < Sq ? qb[s * q_step + c] * scale : 0.0f;
   }
 
   float m[4], l[4], acc[4][kCols];
@@ -105,19 +110,21 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.0f;
   }
 
-  // the last key the tile's rows see (its last valid row, or S - 1 without
-  // causality), and the first key tile of its first row's window
-  const int last = causal ? min(q0 + kBQ, S) - 1 : S - 1;
-  const int first = max(0, q0 - window + 1) / kBK * kBK;
+  // the last key the tile's rows see (its last row's position, at most
+  // Sk - 1, or Sk - 1 without causality), and the first key tile of its
+  // first row's window
+  const int p0 = q0 + qoff;
+  const int last = causal ? min(p0 + kBQ, Sk) - 1 : Sk - 1;
+  const int first = max(0, p0 - window + 1) / kBK * kBK;
   for (int k0 = first; k0 <= last; k0 += kBK) {
     __syncthreads();  // the previous tile's ks/vs/ps are consumed
     for (int e = tid; e < kBK * DQK; e += kThreads) {
       const int r = e / DQK, c = e % DQK, s = k0 + r;
-      ks[r * kKS + c] = s < S ? kb[s * k_step + c] : 0.0f;
+      ks[r * kKS + c] = s < Sk ? kb[s * k_step + c] : 0.0f;
     }
     for (int e = tid; e < kBK * DV; e += kThreads) {
       const int r = e / DV, c = e % DV, s = k0 + r;
-      vs[r * DV + c] = s < S ? vb[s * v_step + c] : 0.0f;
+      vs[r * DV + c] = s < Sk ? vb[s * v_step + c] : 0.0f;
     }
     __syncthreads();
 
@@ -141,12 +148,12 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qp = q0 + r0 + i;
+      const int qp = p0 + r0 + i;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kp = k0 + tx + 16 * j;
-        if ((causal && kp > qp) || kp >= S || kp <= qp - window)
+        if ((causal && kp > qp) || kp >= Sk || kp <= qp - window)
           sc[i][j] = kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -190,7 +197,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + r0 + i;
-    if (s >= S) continue;
+    if (s >= Sq) continue;
     const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
@@ -199,9 +206,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int DQK, int DV>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KH, int window, int causal, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Sk, int qoff, int H, int KH, int window, int causal,
+           float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DQK, DV>() * (int)sizeof(float);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
@@ -212,39 +219,42 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const dim3 grid(B * H, (S + kBQ - 1) / kBQ);
+  const dim3 grid(B * H, (Sq + kBQ - 1) / kBQ);
   flash_attn_kernel<DQK, DV><<<grid, kThreads, bytes, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v, (float*)o, S, H, KH,
-      window, causal, scale);
+      (const float*)q, (const float*)k, (const float*)v, (float*)o, Sq, Sk,
+      qoff, H, KH, window, causal, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv],
-// contiguous float32; (dqk, dv) one of (16, 16), (64, 64), (128, 128),
-// (256, 256), (96, 64), (192, 128), (32, 16); KH divides H; window the
+// q [B, Sq, H, dqk], k [B, Sk, KH, dqk], v [B, Sk, KH, dv] and o [B, Sq, H,
+// dv], contiguous float32; (dqk, dv) one of (16, 16), (64, 64), (128, 128),
+// (256, 256), (96, 64), (192, 128), (32, 16); KH divides H; q's rows at
+// positions qoff + [0, Sq) (flash_attn_tc_launch's rule); window the
 // sliding window in positions, or <= 0 for none; causal 1 for the causal
-// mask, 0 for none (then the window is ignored). Anything else returns
-// cudaErrorInvalidValue without launching.
+// mask, 0 for none (then the window and qoff are ignored). Anything else
+// returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_launch(const void* q, const void* k, const void* v,
-                                 void* o, int B, int S, int H, int KH, int dqk,
-                                 int dv, int window, int causal, float scale,
-                                 void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || S > 65535 * kBQ)
+                                 void* o, int B, int Sq, int Sk, int qoff,
+                                 int H, int KH, int dqk, int dv, int window,
+                                 int causal, float scale, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < Sq || qoff < 0 || KH <= 0 || H % KH != 0 ||
+      Sq > 65535 * kBQ || (causal != 0 && qoff > Sk - Sq))
     return (int)cudaErrorInvalidValue;
   causal = causal != 0;
   // no window (or one without causality): no key outside it
-  if (!causal || window <= 0 || window >= S) window = 1 << 30;
+  if (!causal || window <= 0 || window >= Sk) window = 1 << 30;
+  if (!causal) qoff = 0;
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 256256: return launch<256, 256>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, B, S, H, KH, window, causal, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -29,6 +29,16 @@
 // bf16 once, from float32) and float32 accumulators; outputs are bf16
 // (round to nearest even).
 //
+// A query shard (sequence-parallel training): q, o, o_lo, do, dq hold Sq
+// rows at positions qoff + [0, Sq), lse and delta [B, H, Sq], and k, v, dk,
+// dv all Sk keys (flash_attn_tc.cu's rule; the unsharded call is Sq = Sk =
+// S, qoff = 0). i above is then the row's position: dQ of a row runs over
+// keys j <= qoff + i (and j > qoff + i - W), and key j takes the rows from
+// j - qoff (to j - qoff + W - 1 with a window). dK/dV cover every key:
+// a key tile no row of the shard sees gets exact zeros (its block has no
+// query chunk and writes its zero accumulators), so the shards' dk and dv
+// add up to the whole sequence's.
+//
 // What bounds it: five products of 2 hd operations a (query, key) pair: at
 // starcoder2-3b's training shape (B 2, S 2048, H 24, KH 2, hd 128)
 // 2,098,176 causal pairs a (b, h) x 48 x 10 x 128 = 1.29e11 operations,
@@ -271,8 +281,9 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
               const bf16* __restrict__ dout,
               const float* __restrict__ lse, float* __restrict__ delta,
               bf16* __restrict__ dq, int* __restrict__ tickets,
-              int n_tickets, int S, int H, int KH, int BH, int nq,
-              int window, int causal, float scale, float scale_log2) {
+              int n_tickets, int Sq, int Sk, int qoff, int H, int KH,
+              int BH, int nq, int window, int causal, float scale,
+              float scale_log2) {
   using T = Bwd<DQK, DV>;
   using QK = typename T::QK;
   using VC = typename T::VC;
@@ -293,11 +304,12 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   const int tile = nq - 1 - static_cast<int>(blockIdx.x) / BH;  // heaviest first
   const int bh = static_cast<int>(blockIdx.x) % BH;
   const int b = bh / H, h = bh % H, g = h / (H / KH);
-  const int q0 = tile * kBQ;
+  const int q0 = tile * kBQ;  // the block's first row; its position p0
+  const int p0 = q0 + qoff;
   // key tiles of the block: from the first row's window (tile 0 without
-  // one) to the last row (to key S - 1 without causality)
-  const int jb = max(0, q0 - window + 1) / kRows;
-  const int nk = ((causal ? min(q0 + kBQ, S) : S) - 1) / kRows + 1;
+  // one) to the last row (to key Sk - 1 without causality)
+  const int jb = max(0, p0 - window + 1) / kRows;
+  const int nk = ((causal ? min(p0 + kBQ, Sk) : Sk) - 1) / kRows + 1;
   // tile j sits in stage (j - jb) % kS, in that stage's phase (j - jb) / kS
   auto stage = [&](int j) { return (j - jb) % kS; };
   auto phase = [&](int j) {
@@ -348,36 +360,38 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64); this
-  // thread holds rows r and r + 8 of them
+  // thread holds rows r and r + 8 of them (row0, row1 index q and dq;
+  // pos0, pos1 are their positions)
   const int wg = warp / 4;
   const int t = threadIdx.x % 128;
   const int r = (t / 32) * 16 + lane / 4;
   const int row0 = q0 + wg * kRows + r, row1 = row0 + 8;
-  const int wg_first = q0 + wg * kRows;
+  const int pos0 = row0 + qoff, pos1 = row1 + qoff;
+  const int wg_first = p0 + wg * kRows;  // the warpgroup's first position
   // the warpgroup's key tiles: to its last row's (a causal warpgroup wholly
-  // past S takes them all; without causality nkw = nk), from the tile of
-  // its first row's window (>= jb; a warpgroup wholly past S takes its
+  // past Sk takes them all; without causality nkw = nk), from the tile of
+  // its first row's window (>= jb; a warpgroup wholly past Sk takes its
   // last tile alone)
   const int nkw =
-      (causal ? min(wg_first + kRows - 1, S - 1) : S - 1) / kRows + 1;
+      (causal ? min(wg_first + kRows - 1, Sk - 1) : Sk - 1) / kRows + 1;
   const int jw = min(max(0, wg_first - window + 1) / kRows, nkw - 1);
   const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
   // the keys rows row0 and row1 see: (lo, last]
-  const int last0 = causal ? row0 : S - 1, last1 = causal ? row1 : S - 1;
-  const int lo0 = row0 - window, lo1 = row1 - window;
+  const int last0 = causal ? pos0 : Sk - 1, last1 = causal ? pos1 : Sk - 1;
+  const int lo0 = pos0 - window, lo1 = pos1 - window;
   // a tile is masked where it reaches past the first row's last key or
   // holds a key at or before the last row's first one
-  const int mask_last = causal ? min(wg_first, S - 1) : S - 1;
+  const int mask_last = causal ? min(wg_first, Sk - 1) : Sk - 1;
   const int mask_first = wg_first + kRows - 1 - window;
 
-  const float* lse_b = lse + static_cast<size_t>(bh) * S;
-  const float l0 = row0 < S ? lse_b[row0] : 0.0f;
-  const float l1 = row1 < S ? lse_b[row1] : 0.0f;
-  const float d0 = row_delta<DV>(o, o_lo, dout, b, row0, h, S, H, lane % 4);
-  const float d1 = row_delta<DV>(o, o_lo, dout, b, row1, h, S, H, lane % 4);
+  const float* lse_b = lse + static_cast<size_t>(bh) * Sq;
+  const float l0 = row0 < Sq ? lse_b[row0] : 0.0f;
+  const float l1 = row1 < Sq ? lse_b[row1] : 0.0f;
+  const float d0 = row_delta<DV>(o, o_lo, dout, b, row0, h, Sq, H, lane % 4);
+  const float d1 = row_delta<DV>(o, o_lo, dout, b, row1, h, Sq, H, lane % 4);
   if (lane % 4 == 0) {
-    if (row0 < S) delta[static_cast<size_t>(bh) * S + row0] = d0;
-    if (row1 < S) delta[static_cast<size_t>(bh) * S + row1] = d1;
+    if (row0 < Sq) delta[static_cast<size_t>(bh) * Sq + row0] = d0;
+    if (row1 < Sq) delta[static_cast<size_t>(bh) * Sq + row1] = d1;
   }
 
   const uint32_t qa = qs + wg * kRows * QK::kRowBytes;   // this warpgroup's rows
@@ -415,7 +429,7 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
     keep(s);
     keep(dp);
     // dS = P (dP - D), P 0 (a select) outside a row's keys (lo, last], in a
-    // tile that reaches past the warpgroup's first row (causal) or S, or
+    // tile that reaches past the warpgroup's first row (causal) or Sk, or
     // holds a key at or before its last row's position minus the window
     const int k0 = j * kRows;
     const bool masked = k0 + kRows - 1 > mask_last || k0 <= mask_first;
@@ -445,14 +459,14 @@ bwd_dq_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   const size_t step = static_cast<size_t>(H) * DQK;  // elements per position
-  bf16* dqb = dq + (static_cast<size_t>(b) * S * H + h) * DQK + col_of;
-  if (row0 < S) {
+  bf16* dqb = dq + (static_cast<size_t>(b) * Sq * H + h) * DQK + col_of;
+  if (row0 < Sq) {
     uint32_t* out = reinterpret_cast<uint32_t*>(dqb + row0 * step);
 #pragma unroll
     for (int c = 0; c < DQK / 8; ++c)
       out[4 * c] = pack_bf16(scale * acc[4 * c], scale * acc[4 * c + 1]);
   }
-  if (row1 < S) {
+  if (row1 < Sq) {
     uint32_t* out = reinterpret_cast<uint32_t*>(dqb + row1 * step);
 #pragma unroll
     for (int c = 0; c < DQK / 8; ++c)
@@ -555,9 +569,9 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, bf16* __restrict__ dk,
                 bf16* __restrict__ dv, float* __restrict__ part,
-                int* __restrict__ tickets, int B, int S, int H, int KH,
-                int splits, int window, int causal, float scale,
-                float scale_log2) {
+                int* __restrict__ tickets, int B, int Sq, int Sk, int qoff,
+                int H, int KH, int splits, int window, int causal,
+                float scale, float scale_log2) {
   using T = Bwd<DQK, DV>;
   using QK = typename T::QK;
   using VC = typename T::VC;
@@ -590,12 +604,15 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int G = H / KH, Gs = G / splits;
   const int h0 = g * G + split * Gs;  // the split's first query head
   const int k0 = tile * kRows;
-  // chunks of 64 queries a head, from chunk cf: causal, from the tile's
-  // first key to the last query the window of its last key reaches (the
-  // tile's last key + W - 1, or S - 1 without a window); else every chunk
-  const int cf = causal ? tile : 0;
-  const int q_end = causal ? min(S, k0 + kRows - 1 + window) : S;
-  const int nc = (q_end - 1) / kRows - cf + 1;
+  // chunks of 64 query rows a head, from chunk cf: causal, from the row at
+  // the tile's first key (row = position - qoff) to the last row the window
+  // of its last key reaches (the tile's last key + W - 1, or Sq - 1 without
+  // a window); else every chunk. None where no row of the shard sees a key
+  // of the tile (a key past the shard's last position, or before its first
+  // row's window): the block writes zeros.
+  const int cf = causal ? max(0, k0 - qoff) / kRows : 0;
+  const int q_end = causal ? min(Sq, k0 + kRows - 1 + window - qoff) : Sq;
+  const int nc = q_end > cf * kRows ? (q_end - 1) / kRows - cf + 1 : 0;
   const int items = Gs * nc;
 
   if (threadIdx.x == 0) {
@@ -636,11 +653,11 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
           tma_load(dt + cb * kRows * VC::kRowBytes, &map_do, full(st),
                    cb * VC::kCols, h, c0, b);
       }
-      const size_t row = (static_cast<size_t>(b) * H + h) * S;
+      const size_t row = (static_cast<size_t>(b) * H + h) * Sq;
       for (int x = lane; x < kRows; x += 32) {
         const int qi = c0 + x;
-        lse_s[st * kRows + x] = qi < S ? lse[row + qi] : 0.0f;
-        del_s[st * kRows + x] = qi < S ? delta[row + qi] : 0.0f;
+        lse_s[st * kRows + x] = qi < Sq ? lse[row + qi] : 0.0f;
+        del_s[st * kRows + x] = qi < Sq ? delta[row + qi] : 0.0f;
       }
       mbar_arrive(full(st));
     }
@@ -654,17 +671,18 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
   const int r = (t / 32) * 16 + lane / 4;
   const int key0 = k0 + r, key1 = key0 + 8;
   const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
-  // the queries that see keys key0 and key1: [qlo, qhi) (the key itself
-  // to the key + W - 1 with causality, else every query before S)
-  const int qlo0 = causal ? key0 : 0, qlo1 = causal ? key1 : 0;
-  const int qhi0 = causal ? min(S, key0 + window) : S;
-  const int qhi1 = causal ? min(S, key1 + window) : S;
-  // a chunk is masked where it starts before the last key's first query
-  // or ends at or past the first key's last one
-  const int mask_lo = causal ? k0 + kRows - 1 : 0;
-  const int mask_hi = causal ? min(S, k0 + window) : S;
+  // the query rows that see keys key0 and key1: [qlo, qhi) (the key's
+  // position to the key + W - 1 with causality, less qoff; else every row
+  // before Sq)
+  const int qlo0 = causal ? key0 - qoff : 0, qlo1 = causal ? key1 - qoff : 0;
+  const int qhi0 = causal ? min(Sq, key0 + window - qoff) : Sq;
+  const int qhi1 = causal ? min(Sq, key1 + window - qoff) : Sq;
+  // a chunk is masked where it starts before the last key's first row or
+  // ends at or past the first key's last one
+  const int mask_lo = causal ? k0 + kRows - 1 - qoff : 0;
+  const int mask_hi = causal ? min(Sq, k0 + window - qoff) : Sq;
   const size_t sk = static_cast<size_t>(KH) * DQK, sv = static_cast<size_t>(KH) * DV;
-  const size_t off_b = static_cast<size_t>(b) * S;  // the batch's first row
+  const size_t off_b = static_cast<size_t>(b) * Sk;  // the batch's first key
   int* const ticket = tickets + (tile * B + b) * KH + g;
   float s[32];
   uint32_t a[4][4];
@@ -692,9 +710,9 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       wgmma_commit();
       wgmma_wait<0>();
       keep(s);
-      // P^T, 0 (a select) where the query is at or past S, before the key
+      // P^T, 0 (a select) where the row is at or past Sq, before the key
       // (causal) or at or past the key + W: in the chunk on the diagonal,
-      // one reaching past S, or one reaching the window's end
+      // one reaching past Sq, or one reaching the window's end
       const bool masked = c0 < mask_lo || c0 + kRows > mask_hi;
 #pragma unroll
       for (int i8 = 0; i8 < 8; ++i8)
@@ -725,10 +743,10 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       keep(a);
       release(st);
     }
-    float* const pv = part + static_cast<size_t>(splits) * B * S * sk +
+    float* const pv = part + static_cast<size_t>(splits) * B * Sk * sk +
                       off_b * sv + g * DV + col_of;
-    finish<DV>(acc, dv + off_b * sv + g * DV + col_of, pv, B * S * sv,
-               splits, split, ticket, last_flag, key0, S, sv, 1.0f);
+    finish<DV>(acc, dv + off_b * sv + g * DV + col_of, pv, B * Sk * sv,
+               splits, split, ticket, last_flag, key0, Sk, sv, 1.0f);
   } else {
     // the dS warpgroup: dP^T = V.dO^T, dS^T = P^T (dP^T - D), dK += dS^T.Q
     float acc[DQK / 2];
@@ -768,8 +786,8 @@ bwd_dkdv_kernel(const __grid_constant__ CUtensorMap map_q,
       release(st);
     }
     float* const pk = part + off_b * sk + g * DQK + col_of;
-    finish<DQK>(acc, dk + off_b * sk + g * DQK + col_of, pk, B * S * sk,
-                splits, split, ticket, last_flag, key0, S, sk, scale);
+    finish<DQK>(acc, dk + off_b * sk + g * DQK + col_of, pk, B * Sk * sk,
+                splits, split, ticket, last_flag, key0, Sk, sk, scale);
   }
 }
 
@@ -777,19 +795,19 @@ template <int DQK, int DV>
 int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
            const bf16* o_lo, const bf16* dout, const float* lse, bf16* dq,
            bf16* dk, bf16* dv,
-           float* delta, float* part, int* tickets, int B, int S, int H,
-           int KH, int splits, int window, int causal, float scale,
-           cudaStream_t stream) {
+           float* delta, float* part, int* tickets, int B, int Sq, int Sk,
+           int qoff, int H, int KH, int splits, int window, int causal,
+           float scale, cudaStream_t stream) {
   using T = Bwd<DQK, DV>;
   // launch 1 reads kBQ-row Q and dO tiles, launch 2 64-row chunks; both
   // read K and V in 64-row tiles
   CUtensorMap mq, mdo, mk, mv, cq, cdo;
-  if (!encode<DQK>(&mq, q, B, S, H, T::kBQ) ||
-      !encode<DV>(&mdo, dout, B, S, H, T::kBQ) ||
-      !encode<DQK>(&mk, k, B, S, KH, kRows) ||
-      !encode<DV>(&mv, v, B, S, KH, kRows) ||
-      !encode<DQK>(&cq, q, B, S, H, kRows) ||
-      !encode<DV>(&cdo, dout, B, S, H, kRows))
+  if (!encode<DQK>(&mq, q, B, Sq, H, T::kBQ) ||
+      !encode<DV>(&mdo, dout, B, Sq, H, T::kBQ) ||
+      !encode<DQK>(&mk, k, B, Sk, KH, kRows) ||
+      !encode<DV>(&mv, v, B, Sk, KH, kRows) ||
+      !encode<DQK>(&cq, q, B, Sq, H, kRows) ||
+      !encode<DV>(&cdo, dout, B, Sq, H, kRows))
     return static_cast<int>(cudaErrorInvalidValue);
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
@@ -803,8 +821,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const int nq = (S + T::kBQ - 1) / T::kBQ;
-  const int nk = (S + kRows - 1) / kRows;
+  const int nq = (Sq + T::kBQ - 1) / T::kBQ;
+  const int nk = (Sk + kRows - 1) / kRows;
   const long long q_blocks = static_cast<long long>(nq) * B * H;
   const long long kv_blocks = static_cast<long long>(nk) * B * KH * splits;
   const int n_tickets = splits > 1 ? nk * B * KH : 0;
@@ -813,15 +831,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
   const float scale_log2 = scale * kLog2e;
   bwd_dq_kernel<DQK, DV><<<static_cast<unsigned>(q_blocks), T::kQThreads,
                            T::kQSmem, stream>>>(
-      mq, mdo, mk, mv, o, o_lo, dout, lse, delta, dq, tickets, n_tickets, S,
-      H, KH,
-      B * H, nq, window, causal, scale, scale_log2);
+      mq, mdo, mk, mv, o, o_lo, dout, lse, delta, dq, tickets, n_tickets, Sq,
+      Sk, qoff, H, KH, B * H, nq, window, causal, scale, scale_log2);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   bwd_dkdv_kernel<DQK, DV><<<static_cast<unsigned>(kv_blocks), T::kKVThreads,
                              T::kKVSmem, stream>>>(
-      cq, cdo, mk, mv, lse, delta, dk, dv, part, tickets, B, S, H, KH, splits,
-      window, causal, scale, scale_log2);
+      cq, cdo, mk, mv, lse, delta, dk, dv, part, tickets, B, Sq, Sk, qoff, H,
+      KH, splits, window, causal, scale, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -831,29 +848,32 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
 #define FA_BWD_PAIRS(X) \
   X(16, 16) X(64, 64) X(128, 128) X(256, 256) X(96, 64) X(192, 128) X(32, 16)
 
-// q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv], o, o_lo (the
-// forward's output's low part) and dout [B, S, H, dv], dq [B, S, H, dqk],
-// dk [B, S, KH, dqk], dv [B, S, KH, dv]:
-// contiguous bfloat16, 16-byte aligned; lse [B, H, S] (the forward's, base
-// 2) and the scratch delta [B, H, S]: float32. splits divides H / KH (see
+// q [B, Sq, H, dqk], k [B, Sk, KH, dqk], v [B, Sk, KH, dv], o, o_lo (the
+// forward's output's low part) and dout [B, Sq, H, dv], dq [B, Sq, H, dqk],
+// dk [B, Sk, KH, dqk], dv [B, Sk, KH, dv]:
+// contiguous bfloat16, 16-byte aligned; lse [B, H, Sq] (the forward's, base
+// 2) and the scratch delta [B, H, Sq]: float32. splits divides H / KH (see
 // the design note); with splits > 1, part is float32 scratch of splits x B
-// x S x KH x (dqk + dv) and tickets int32 scratch of ceil(S / keys a block)
-// x B x KH (either may be null with splits = 1). (dqk, dv) one of
-// FA_BWD_PAIRS; KH divides H; window the sliding window in positions, or
-// <= 0 for none; causal 1 for the causal mask, 0 for none (then the window
-// is ignored): the forward's mask (flash_attn_tc_launch). Two kernel
-// launches on the stream. Anything else returns cudaErrorInvalidValue
-// without launching.
+// x Sk x KH x (dqk + dv) and tickets int32 scratch of ceil(Sk / keys a
+// block) x B x KH (either may be null with splits = 1). (dqk, dv) one of
+// FA_BWD_PAIRS; KH divides H; q's rows at positions qoff + [0, Sq), window
+// the sliding window in positions, or <= 0 for none; causal 1 for the
+// causal mask, 0 for none (then the window and qoff are ignored): the
+// forward's mask and rows (flash_attn_tc_launch). Two kernel launches on
+// the stream. Anything else returns cudaErrorInvalidValue without
+// launching.
 extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
                                      const void* v, const void* o,
                                      const void* o_lo, const void* dout,
                                      const void* lse,
                                      void* dq, void* dk, void* dv,
                                      void* delta, void* part, void* tickets,
-                                     int B, int S, int H, int KH, int dqk,
-                                     int dv_, int window, int causal,
-                                     int splits, float scale, void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0 || splits <= 0 ||
+                                     int B, int Sq, int Sk, int qoff, int H,
+                                     int KH, int dqk, int dv_, int window,
+                                     int causal, int splits, float scale,
+                                     void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk < Sq || qoff < 0 || KH <= 0 || H % KH != 0 ||
+      (causal != 0 && qoff > Sk - Sq) || splits <= 0 ||
       (H / KH) % splits != 0 ||
       (splits > 1 && (part == nullptr || tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -867,7 +887,8 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
   // no window, one that covers the sequence, or no causality: no key is
   // outside it (as the forward takes it)
   causal = causal != 0;
-  if (!causal || window <= 0 || window >= S) window = 1 << 30;
+  if (!causal || window <= 0 || window >= Sk) window = 1 << 30;
+  if (!causal) qoff = 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FA_BWD_CASE(DQK, DV)                                                \
   case DQK * 1000 + DV:                                                     \
@@ -878,8 +899,8 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k,
         static_cast<const float*>(lse),                                     \
         static_cast<bf16*>(dq), static_cast<bf16*>(dk),                     \
         static_cast<bf16*>(dv), static_cast<float*>(delta),                 \
-        static_cast<float*>(part), static_cast<int*>(tickets), B, S, H, KH, \
-        splits, window, causal, scale, st);
+        static_cast<float*>(part), static_cast<int*>(tickets), B, Sq, Sk,   \
+        qoff, H, KH, splits, window, causal, scale, st);
   switch (dqk * 1000 + dv_) {
     FA_BWD_PAIRS(FA_BWD_CASE)
     default: return static_cast<int>(cudaErrorInvalidValue);

@@ -20,6 +20,15 @@
 // sum runs over every key j < S and there is no window. The caller gives
 // the scale.
 //
+// A query shard (sequence-parallel prefill and training): q and o hold Sq
+// rows at positions qoff + [0, Sq) of a sequence whose k and v hold all Sk
+// positions (Sq <= Sk; qoff + Sq <= Sk under causality), and the sums above
+// run with i the row's position qoff + r: the reference's _sdpa mask with
+// qpos = qoff + arange(Sq), kpos = arange(Sk). Q/O and K/V have tensor maps
+// of their own lengths; a block's key tiles start from its first row's
+// position, and every mask test below compares key indices with positions.
+// The unsharded call is Sq = Sk = S, qoff = 0.
+//
 // What bounds it: at the prefill's shape (B 4, S 2048, H 32, KH 8, hd 128)
 // 2*B*H*S^2*hd = 1.37e11 causal operations, 0.139 ms at the bf16
 // tensor-core peak; its 168 MB take 0.050 ms. At recurrentgemma-9b's
@@ -172,7 +181,8 @@ __device__ __forceinline__ void issue_pv(float (&o)[DV / 2],
 // log2(e), and this thread's share of the row sum. Returns the factors
 // alpha that rescale the earlier sums and outputs.
 // Rows r0 and r1 of the thread see keys in (lo, last]: last the row
-// itself (causal) or S - 1, at most S - 1; lo the row minus the window.
+// itself (causal: its position) or Sk - 1, at most Sk - 1; lo the row's
+// position minus the window.
 template <int BK>
 __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], int k0,
                                              bool masked, int last0, int last1,
@@ -249,7 +259,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                      const __grid_constant__ CUtensorMap map_v,
                      __nv_bfloat16* __restrict__ o,
                      float* __restrict__ lse, __nv_bfloat16* __restrict__ o_lo,
-                     int S, int H, int KH,
+                     int Sq, int Sk, int qoff, int H, int KH,
                      int BH, int nq, int window, int causal,
                      float scale_log2) {
   using T = Tiles<DQK, DV>;
@@ -273,11 +283,12 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int bh = static_cast<int>(blockIdx.x) % BH;
   const int b = bh / H, h = bh % H;
   const int g = h / (H / KH);
-  const int q0 = tile * kBQ;
+  const int q0 = tile * kBQ;  // the block's first row; its position p0
+  const int p0 = q0 + qoff;
   // key tiles of the block: from the first row's window to the last row
   // (to the last key without causality)
-  const int jb = max(0, q0 - window + 1) / BK;
-  const int nk = ((causal ? min(q0 + kBQ, S) : S) - 1) / BK + 1;
+  const int jb = max(0, p0 - window + 1) / BK;
+  const int nk = ((causal ? min(p0 + kBQ, Sk) : Sk) - 1) / BK + 1;
   // tile j sits in stage (j - jb) % kS, in that stage's phase (j - jb) / kS
   auto stage = [&](int j) { return (j - jb) % kS; };
   auto phase = [&](int j) { return static_cast<uint32_t>((j - jb) / kS) & 1u; };
@@ -319,22 +330,24 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // consumers: warpgroup wg owns query rows q0 + 64 wg + [0, 64); this
-  // thread holds rows r and r + 8 of them
+  // thread holds rows r and r + 8 of them (row0, row1 index q and o; pos0,
+  // pos1 are their positions)
   const int wg = warp / 4;
   const int t = threadIdx.x % 128;
   const int r = (t / 32) * 16 + lane / 4;
   const int row0 = q0 + wg * 64 + r, row1 = row0 + 8;
-  const int wg_first = q0 + wg * 64;
+  const int pos0 = row0 + qoff, pos1 = row1 + qoff;
+  const int wg_first = p0 + wg * 64;  // the warpgroup's first position
   const int nkw =  // <= nk; nk itself without causality
-      (causal ? min(wg_first + 63, S - 1) : S - 1) / BK + 1;
+      (causal ? min(wg_first + 63, Sk - 1) : Sk - 1) / BK + 1;
   // the first tile that holds a key of the warpgroup's first row's window
-  // (a causal warpgroup wholly at or past S takes its last tile alone)
+  // (a causal warpgroup wholly at or past Sk takes its last tile alone)
   const int jw = min(max(0, wg_first - window + 1) / BK, nkw - 1);  // >= jb
   const int col_of = 2 * (lane % 4);  // this thread's first column in an n8
   // the keys rows row0 and row1 see: (lo, last]
-  const int last0 = causal ? min(row0, S - 1) : S - 1;
-  const int last1 = causal ? min(row1, S - 1) : S - 1;
-  const int lo0 = row0 - window, lo1 = row1 - window;
+  const int last0 = causal ? min(pos0, Sk - 1) : Sk - 1;
+  const int last1 = causal ? min(pos1, Sk - 1) : Sk - 1;
+  const int lo0 = pos0 - window, lo1 = pos1 - window;
 
   const uint32_t qa = qs + wg * 64 * QK::kRowBytes;  // this warpgroup's rows
   float oacc[DV / 2];
@@ -344,10 +357,10 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   float sacc[BK / 2];
   uint32_t phi[BK / 16][4], plo[BK / 16][4];
   float alpha0, alpha1;
-  // a tile reaches past the first row's diagonal (when causal) or S, or
+  // a tile reaches past the first row's diagonal (when causal) or Sk, or
   // holds a key at or before the last row's position minus the window
   auto masked = [&](int k0) {
-    return (causal && k0 + BK - 1 > wg_first) || k0 + BK > S ||
+    return (causal && k0 + BK - 1 > wg_first) || k0 + BK > Sk ||
            k0 <= wg_first + 63 - window;
   };
   auto release = [&](int st) {  // this warp is done with stage st
@@ -469,25 +482,25 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     // the row statistic for the backward, in base 2 of the scaled logits:
     // lse = m c + log2(l), so that P = exp2(s c - lse) (m the raw max; a
     // row with no key yet has m = -2e38 and subtracts 0, as above)
-    float* lb = lse + static_cast<size_t>(bh) * S;
-    if (row0 < S)
+    float* lb = lse + static_cast<size_t>(bh) * Sq;
+    if (row0 < Sq)
       lb[row0] = (st_rows.m0 == kNegInf ? 0.0f : st_rows.m0 * scale_log2) +
                  log2f(den0);
-    if (row1 < S)
+    if (row1 < Sq)
       lb[row1] = (st_rows.m1 == kNegInf ? 0.0f : st_rows.m1 * scale_log2) +
                  log2f(den1);
   }
   const size_t step = static_cast<size_t>(H) * DV;  // elements per position
-  const size_t first = (static_cast<size_t>(b) * S * H + h) * DV + col_of;
+  const size_t first = (static_cast<size_t>(b) * Sq * H + h) * DV + col_of;
   __nv_bfloat16* ob = o + first;
   if (o_lo == nullptr) {  // serving
-    if (row0 < S) {
+    if (row0 < Sq) {
       uint32_t* out = reinterpret_cast<uint32_t*>(ob + row0 * step);
 #pragma unroll
       for (int c = 0; c < DV / 8; ++c)
         out[4 * c] = pack_bf16(oacc[4 * c] / den0, oacc[4 * c + 1] / den0);
     }
-    if (row1 < S) {
+    if (row1 < Sq) {
       uint32_t* out = reinterpret_cast<uint32_t*>(ob + row1 * step);
 #pragma unroll
       for (int c = 0; c < DV / 8; ++c)
@@ -501,7 +514,7 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   for (int r2 = 0; r2 < 2; ++r2) {
     const int row = r2 ? row1 : row0;
     const float den = r2 ? den1 : den0;
-    if (row >= S) continue;
+    if (row >= Sq) continue;
     uint32_t* out = reinterpret_cast<uint32_t*>(ob + row * step);
     uint32_t* lo = reinterpret_cast<uint32_t*>(lb + row * step);
 #pragma unroll
@@ -518,13 +531,13 @@ flash_attn_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           void* o_lo, int B, int S, int H, int KH, int window, int causal,
-           float scale, cudaStream_t stream) {
+           void* o_lo, int B, int Sq, int Sk, int qoff, int H, int KH,
+           int window, int causal, float scale, cudaStream_t stream) {
   using T = Tiles<DQK, DV>;
   CUtensorMap mq, mk, mv;
-  if (!encode<DQK>(&mq, q, B, S, H, T::kBQ) ||
-      !encode<DQK>(&mk, k, B, S, KH, kBK) ||
-      !encode<DV>(&mv, v, B, S, KH, kBK))
+  if (!encode<DQK>(&mq, q, B, Sq, H, T::kBQ) ||
+      !encode<DQK>(&mk, k, B, Sk, KH, kBK) ||
+      !encode<DV>(&mv, v, B, Sk, KH, kBK))
     return (int)cudaErrorInvalidValue;
   static bool configured = false;  // above 48 KB only after opting in
   if (!configured) {
@@ -534,12 +547,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int nq = (S + T::kBQ - 1) / T::kBQ;
+  const int nq = (Sq + T::kBQ - 1) / T::kBQ;
   const long long blocks = (long long)nq * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   flash_attn_tc_kernel<DQK, DV><<<(unsigned)blocks, T::kThreads,
                                   T::kSmemBytes, stream>>>(mq, mk, mv, (__nv_bfloat16*)o, lse,
-                                            (__nv_bfloat16*)o_lo, S, H, KH,
+                                            (__nv_bfloat16*)o_lo, Sq, Sk,
+                                            qoff, H, KH,
                                             B * H, nq, window, causal,
                                             scale * kLog2e);
   return (int)cudaGetLastError();
@@ -547,23 +561,26 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 
 }  // namespace
 
-// q [B, S, H, dqk], k [B, S, KH, dqk], v [B, S, KH, dv] and o [B, S, H, dv]:
-// contiguous bfloat16, 16-byte aligned; (dqk, dv) one of (16, 16),
+// q [B, Sq, H, dqk], k [B, Sk, KH, dqk], v [B, Sk, KH, dv] and o [B, Sq, H,
+// dv]: contiguous bfloat16, 16-byte aligned; (dqk, dv) one of (16, 16),
 // (64, 64), (128, 128), (256, 256), (96, 64), (192, 128), (32, 16); KH
-// divides H; window the sliding window in positions, or <= 0 for none;
-// causal 1 for the causal mask, 0 for none (then the window is ignored).
-// lse and o_lo: both null (serving), or (training) float32 [B, H, S]
+// divides H; q's rows at positions qoff + [0, Sq) (qoff >= 0, Sq <= Sk,
+// qoff + Sq <= Sk with causality; the unsharded call: Sq = Sk, qoff 0);
+// window the sliding window in positions, or <= 0 for none; causal 1 for
+// the causal mask, 0 for none (then the window and qoff are ignored).
+// lse and o_lo: both null (serving), or (training) float32 [B, H, Sq]
 // that takes each row's log2-sum-exp2 of its scaled logits, the statistic
-// the backward (flash_attn_bwd.cu) rebuilds P from, and bf16 [B, S, H, dv]
-// (16-byte aligned) that takes the output's low part; rows past S are not
+// the backward (flash_attn_bwd.cu) rebuilds P from, and bf16 [B, Sq, H, dv]
+// (16-byte aligned) that takes the output's low part; rows past Sq are not
 // written. Anything else returns cudaErrorInvalidValue without launching.
 extern "C" int flash_attn_tc_launch(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
-                                    void* o_lo, int B, int S,
-                                    int H, int KH, int dqk, int dv,
+                                    void* o_lo, int B, int Sq, int Sk,
+                                    int qoff, int H, int KH, int dqk, int dv,
                                     int window, int causal, float scale,
                                     void* stream) {
-  if (B <= 0 || S <= 0 || KH <= 0 || H % KH != 0)
+  if (B <= 0 || Sq <= 0 || Sk < Sq || qoff < 0 || KH <= 0 || H % KH != 0 ||
+      (causal != 0 && qoff > Sk - Sq))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o) |
@@ -573,17 +590,18 @@ extern "C" int flash_attn_tc_launch(const void* q, const void* k,
   // no window, one that covers the sequence, or no causality: no key is
   // outside it, and no tile is masked for it
   causal = causal != 0;
-  if (!causal || window <= 0 || window >= S) window = 1 << 30;
+  if (!causal || window <= 0 || window >= Sk) window = 1 << 30;
+  if (!causal) qoff = 0;  // every key is seen, wherever the rows sit
   const cudaStream_t st = (cudaStream_t)stream;
   float* lf = static_cast<float*>(lse);
   switch (dqk * 1000 + dv) {
-    case 16016: return launch<16, 16>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
-    case 64064: return launch<64, 64>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
-    case 128128: return launch<128, 128>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
-    case 256256: return launch<256, 256>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
-    case 96064: return launch<96, 64>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
-    case 192128: return launch<192, 128>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
-    case 32016: return launch<32, 16>(q, k, v, o, lf, o_lo, B, S, H, KH, window, causal, scale, st);
+    case 16016: return launch<16, 16>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 64064: return launch<64, 64>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 128128: return launch<128, 128>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 256256: return launch<256, 256>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 96064: return launch<96, 64>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 192128: return launch<192, 128>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
+    case 32016: return launch<32, 16>(q, k, v, o, lf, o_lo, B, Sq, Sk, qoff, H, KH, window, causal, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -43,9 +43,11 @@ SIGNATURES = {
     "pairdist_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
     "pareto_count_launch": [_P, _P] + [_I] * 8 + [_P],
     "round_fused_launch": [_P] * 15 + [_I] * 14 + [_P],
-    "flash_attn_launch": [_P] * 4 + [_I] * 8 + [_F, _P],
-    "flash_attn_tc_launch": [_P] * 6 + [_I] * 8 + [_F, _P],
-    "flash_attn_bwd_launch": [_P] * 13 + [_I] * 9 + [_F, _P],
+    # K5: (pointers, B, Sq, Sk, q_offset, H, KH, dqk, dv, window, causal
+    # [, splits], scale, stream)
+    "flash_attn_launch": [_P] * 4 + [_I] * 10 + [_F, _P],
+    "flash_attn_tc_launch": [_P] * 6 + [_I] * 10 + [_F, _P],
+    "flash_attn_bwd_launch": [_P] * 13 + [_I] * 11 + [_F, _P],
     "flash_attn_tc_smem_bytes": [_I, _I],
     "flash_attn_bwd_smem_bytes": [_I, _I, _I],
 }
@@ -174,8 +176,22 @@ def check(err: int, name: str) -> None:
                            f"error {err}")
 
 
+#: the device each thread has made current for a launch (``stream_ptr``)
+_CURRENT = threading.local()
+
+
 def stream_ptr(t) -> int:
-    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s device."""
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``t``'s
+    device, with that device made current in the calling thread first
+    (once a thread, and again if the thread's device changed): a launch
+    from a thread that has made no CUDA call through PyTorch (a worker
+    thread, or autograd's device thread when K5's backward is the first
+    node it runs) fails with ``cudaErrorInvalidValue`` on the H100, every
+    time, and succeeds after ``torch.cuda.set_device``."""
     import torch
 
+    if getattr(_CURRENT, "device", None) != t.device or \
+            torch.cuda.current_device() != t.device.index:
+        torch.cuda.set_device(t.device)
+        _CURRENT.device = t.device
     return torch.cuda.current_stream(t.device).cuda_stream

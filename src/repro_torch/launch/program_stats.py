@@ -224,17 +224,19 @@ class _DryAttention(torch.autograd.Function):
 
 
 def dry_attention(q, k, v, scale: float, window: Optional[int] = None,
-                  causal: bool = True) -> torch.Tensor:
-    """K5's signature for a dry run: the output's shape [B, S, H, Dv] and
+                  causal: bool = True, q_offset: int = 0) -> torch.Tensor:
+    """K5's signature for a dry run: the output's shape [B, Sq, H, Dv] and
     the reference's ``_sdpa`` dots counted (a fake tensor holds no values,
     so there is nothing to compute), with no [B, H, Sq, Sk] temporaries, as
-    K5 keeps none."""
+    K5 keeps none. A query shard (``q_offset``, Sq < Sk) counts its own
+    rows against every key, as ``_sdpa`` does."""
     return _DryAttention.apply(q, k, v)
 
 
-#: a sequence-parallel prefill's query shard (q [B, S/n, ...] against every
-#: key) is taken too: the shapes and the dots are all the dry run needs
-dry_attention.takes_query_shards = True
+#: any q·k width is taken, so MLA's prefill hands it q and k at the
+#: reference's width (K5 takes multiples of 16: the smoke dims' 24 are
+#: zero-padded to 32 for it), and the dots are counted at that width
+dry_attention.takes_any_head_dim = True
 
 
 # ---------------------------------------------------- fake-mode DTensor

@@ -29,6 +29,11 @@ Dispatch follows the port's device rule:
   when nope + rope is not a multiple of 16 (the smoke dims, 24) q and k are
   zero-padded to the next one (also for an ``attention=`` function on the
   CPU), which leaves every q·k unchanged.
+- A query shard of a sequence-parallel prefill or training step (q of Sq
+  positions against all Sk keys, under a mesh that splits q's sequence)
+  runs K5 with ``q_offset``, the shard's first position, read from the
+  mesh coordinate (:func:`_sharded_prefill_attention`); its backward runs
+  K5's backward with the same offset.
 - Causal prefill at other positions on CUDA raises
   ``NotImplementedError``; it never drops to the plain version.
 - Cross-attention (the whisper decoder's queries over the encoder's K/V,
@@ -37,9 +42,10 @@ Dispatch follows the port's device rule:
 
 Only ``attention=`` changes what prefill runs: a function with K5's
 signature (``q`` [B,S,H,Dqk], ``k`` [B,S,K,Dqk], ``v`` [B,S,K,Dv],
-``scale=``, ``window=`` when the config has a window and ``causal=False``
-for a bidirectional layer) used in its place, encoder and decoder alike,
-as the tests and ``chip_smoke.py`` pass K5's plain version to compare.
+``scale=``, ``window=`` when the config has a window, ``causal=False``
+for a bidirectional layer and ``q_offset=`` for a query shard) used in its
+place, encoder and decoder alike, as the tests and ``chip_smoke.py`` pass
+K5's plain version to compare.
 
 The decode cache is written in place (the reference's ``_scatter_time``
 returns a new array with the same values).
@@ -54,7 +60,7 @@ import torch
 from repro_torch.kernels import flash_attn
 from repro_torch.parallel.sharding import (P, constraint, current_rules,
                                           from_local, is_sharded,
-                                          redistribute)
+                                          local_shape_offset, redistribute)
 from .layers import (dense_init_, linear, param, rms_norm, rms_norm_init_,
                      rope)
 
@@ -90,8 +96,9 @@ CROSS_CACHE_AXES = KVCache(_XKV, _XKV)
 
 
 def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"repro_torch: {what} is not yet ported to "
-                               "CUDA (ROADMAP queue 1)")
+    return NotImplementedError(
+        f"repro_torch: {what} is not yet ported to CUDA: K5's causal mask "
+        "takes queries at q_offset + arange(Sq) over keys at arange(Sk)")
 
 
 class GQAttention(torch.nn.Module):
@@ -232,10 +239,14 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
 
 def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
                        attention: Optional[Attention], from_zero: bool,
-                       kpos: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Prefill attention of q [B, S, H, Dqk] at ``positions`` [B, S] over k
-    [B, Sk, K, Dqk], v [B, Sk, K, Dv] at ``kpos`` (default: ``positions``);
-    DTensors go shard by shard (:func:`_sharded_prefill_attention`)."""
+                       kpos: Optional[torch.Tensor] = None,
+                       q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention of q [B, Sq, H, Dqk] at ``positions`` [B, Sq] over
+    k [B, Sk, K, Dqk], v [B, Sk, K, Dv] at ``kpos`` (default:
+    ``positions``); DTensors go shard by shard
+    (:func:`_sharded_prefill_attention`). A query shard (Sq < Sk) sits at
+    positions ``q_offset + arange(Sq)`` over keys at ``arange(Sk)`` where K5
+    or an ``attention`` function runs it."""
     if is_sharded(q):
         return _sharded_prefill_attention(q, k, v, positions, cfg, causal,
                                           scale, attention, from_zero)
@@ -246,25 +257,24 @@ def _prefill_attention(q, k, v, positions, cfg, causal: bool, scale: float,
                      qpos=positions, kpos=kpos, causal=causal,
                      window=cfg.window)
     B, S = q.shape[:2]
-    if k.shape[1] != S:
-        # a query shard of a sequence-parallel prefill: K5's causal mask
-        # has no query-row offset (ROADMAP queue 2); a function that
-        # computes no values (the dry run's) says it takes such a shard
-        if not getattr(attention, "takes_query_shards", False):
-            raise _not_ported("a sequence-sharded causal prefill (K5 with "
-                              "a query-row offset)")
-        return attention(q, k, v, scale=scale)
-    # the kernel's causal mask is over positions arange(S): given positions
-    # are checked on the device (a synchronize); the model's prefill passes
-    # None, so its layers check nothing. A bidirectional call's mask does
+    Sk = k.shape[1]
+    # the kernel's causal mask is over positions q_offset + arange(S) and
+    # keys at arange(Sk): given positions are checked on the device (a
+    # synchronize); the model's prefill passes None, so its layers (and
+    # their query shards) check nothing. A bidirectional call's mask does
     # not depend on them (and _sdpa applies a window only under causal).
-    if causal and not from_zero and not torch.equal(positions, torch.arange(
-            S, dtype=positions.dtype, device=positions.device).expand(B, S)):
+    if causal and not from_zero and not (
+            torch.equal(positions, q_offset + torch.arange(
+                S, dtype=positions.dtype, device=positions.device
+            ).expand(B, S)) and torch.equal(kpos, torch.arange(
+                Sk, dtype=kpos.dtype, device=kpos.device).expand(B, Sk))):
         raise _not_ported("prefill at positions other than arange(S)")
     if not causal:
         kw = {"causal": False}
     else:
         kw = {"window": cfg.window} if cfg.window else {}
+    if Sk != S:  # a query shard of a sequence-parallel prefill
+        kw["q_offset"] = q_offset
     return (attention or flash_attn.flash_attention)(q, k, v, scale=scale,
                                                      **kw)
 
@@ -278,9 +288,10 @@ def _sharded_prefill_attention(q, k, v, positions, cfg, causal, scale,
     through :func:`_prefill_attention` (the CPU's ``_sdpa``, K5 on CUDA)
     with its queries' positions against every key's, the way
     ``local_map`` runs a function on local shards, with k/v's gradient
-    placed by hand (a partial sum where q is split and k/v are not). A
-    sequence-sharded q on CUDA raises there (K5 has no query-row
-    offset)."""
+    placed by hand (a partial sum where q is split and k/v are not). Where
+    q's sequence is split (sequence parallelism) the rank's first query
+    position, its shard's offset on dim 1 from the mesh coordinate (no
+    host sync), is K5's ``q_offset``, forward and backward."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     r = current_rules()
     mesh = q.device_mesh
@@ -310,10 +321,11 @@ def _sharded_prefill_attention(q, k, v, positions, cfg, causal, scale,
     # k/v gradient comes from its own queries only: a partial sum
     kv_grad = [Partial() if a != Replicate() and b == Replicate() else b
                for a, b in zip(pl[0], pl[1])]
+    q_offset = local_shape_offset(q.shape, mesh, q.placements)[1][1]
     out = _prefill_attention(
         q.to_local(), k.to_local(grad_placements=kv_grad),
         v.to_local(grad_placements=kv_grad), qpos.to_local(), cfg, causal,
-        scale, attention, from_zero, kpos=kpos.to_local())
+        scale, attention, from_zero, kpos=kpos.to_local(), q_offset=q_offset)
     return from_local(out, mesh, pl[0],
                       shape=tuple(q.shape[:3]) + (v.shape[-1],))
 
@@ -476,10 +488,12 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
         kv = _heads(latent, p.wkv_b)                     # [B,S,H,nope+v]
         # K5 takes contiguous tensors: the concatenations are; v is copied
         # out of kv. Where K5 (or a function in its place) runs, zero
-        # features pad q·k to a multiple of 16, the kernel's dims.
+        # features pad q·k to a multiple of 16, the kernel's dims (not for
+        # a function that takes any width: the dry run's)
         pad = []
-        if (attention is not None or x.device.type != "cpu") and \
-                (nope + rdim) % 16:
+        kernel_dims = x.device.type != "cpu" if attention is None else \
+            not getattr(attention, "takes_any_head_dim", False)
+        if kernel_dims and (nope + rdim) % 16:
             pad = [q_nope.new_zeros((B, S, H, -(nope + rdim) % 16))]
         q_cat = torch.cat([q_nope, q_rope] + pad, dim=-1)
         k_cat = torch.cat([kv[..., :nope],
@@ -520,7 +534,6 @@ def mla_apply(p, cfg, x: torch.Tensor, positions: Optional[torch.Tensor],
 # ------------------------------------------------------- sharded decode
 def _seq_offset(cache: torch.Tensor) -> int:
     """The first cache slot (dim 1) this rank holds."""
-    from repro_torch.parallel.sharding import local_shape_offset
     return local_shape_offset(cache.shape, cache.device_mesh,
                               cache.placements)[1][1]
 

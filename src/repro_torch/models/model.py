@@ -129,8 +129,8 @@ def check_ported(cfg, device: torch.device | str | None = None) -> None:
         why = f"an encoder-decoder with {cfg.attn_kind} attention"
     if why is not None:
         raise NotImplementedError(
-            f"repro_torch: {why} ({cfg.arch_id}) is not yet ported "
-            "(ROADMAP queue 1)")
+            f"repro_torch: {why} ({cfg.arch_id}) is not yet ported: no "
+            "config of the reference's registry has it")
 
 
 def xent_chunks(cfg) -> int:

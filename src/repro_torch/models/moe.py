@@ -8,7 +8,9 @@ slot), the experts' gated MLPs run as three batched products over the slabs
 kernel), and the weighted outputs go back to their tokens. The one-hot
 [T, E, C] dispatch matrix is never built. Under a mesh the slabs take the
 reference's constraints (("experts", "expert_cap", None): expert-parallel
-products) and the index work runs whole on every rank (``_whole``).
+products), the expert weights are gathered but on their experts' dim, as
+GSPMD partitions the reference's einsums (``_expert_bmm``), and the index
+work runs whole on every rank (``_whole``).
 
 The semantics are the reference's, to the tie and the rounding:
 
@@ -49,7 +51,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.parallel.sharding import (constraint, from_local,
-                                          is_sharded)
+                                          is_sharded, local_shape_offset)
 from .layers import GatedMLP, dense_init_, gated_mlp, linear, param, silu
 
 __all__ = ["MoE", "moe_apply", "route", "capacity", "arrival_slots",
@@ -187,6 +189,87 @@ def _combine(ys: torch.Tensor, gate: torch.Tensor, row: torch.Tensor,
     return y.to(dt)
 
 
+class _ExpertProduct(torch.autograd.Function):
+    """``x @ w`` on a rank's local slabs x [e, c, n] and its experts' whole
+    weights ``w`` [e, n, m] (no gradient of its own), whose backward gives
+    x's gradient whole and the weight's at this rank's slice ``[lo, lo +
+    n_part)`` of its ff dim ``dim`` only (2: the columns of ``wg``/``wu``;
+    1: the rows of ``wd``), the gradient of ``w_part``."""
+
+    @staticmethod
+    def forward(ctx, x, w_part, w, dim, lo):
+        ctx.save_for_backward(x, w)
+        ctx.slice = (dim, slice(lo, lo + w_part.shape[dim]))
+        return torch.bmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dim, sl = ctx.slice
+        dx = torch.bmm(dy, w.transpose(1, 2))
+        dw = torch.bmm(x.transpose(1, 2), dy[..., sl]) if dim == 2 else \
+            torch.bmm(x[..., sl].transpose(1, 2), dy)
+        return dx, dw, None, None, None
+
+
+def _expert_bmm(x: torch.Tensor, w: torch.Tensor, ff_dim: int
+                ) -> torch.Tensor:
+    """``torch.bmm(x, w)`` for slabs x [E, C, n] and expert weights w [E, n,
+    m] whose ff dim is ``ff_dim`` (2 for ``wg``/``wu``, 1 for ``wd``); on
+    DTensors as GSPMD partitions the reference's einsums and their
+    gradients:
+
+    - the experts split alike in x and w (expert parallelism);
+    - on every other mesh dim w gathered (its ``embed_fsdp`` split: the
+      FSDP all-gather) and x kept at its placements (its capacity split, or
+      whole), so each rank multiplies its experts' slabs by their whole
+      weights (one local ``bmm``) and x's gradient is whole there;
+    - the weight's gradient split on its ff dim over the mesh dims where x
+      is whole (each rank computes its slice only: ``_ExpertProduct``),
+      as a partial sum over those that split the capacity.
+
+    DTensor's own rule would split the contraction over the data axis
+    (partial sums), and in the backward the weights' gradients over the
+    capacity dim."""
+    if not (is_sharded(x) or is_sharded(w)):
+        return torch.bmm(x, w)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = (x if is_sharded(x) else w).device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not is_sharded(x):
+        x = DTensor.from_local(x, mesh, rep, run_check=False)
+    if not is_sharded(w):
+        w = DTensor.from_local(w, mesh, rep, run_check=False)
+    xp, wp, part, part_grad = [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if a == Shard(0) or b == Shard(0):         # experts
+            xp.append(Shard(0))
+            wp.append(Shard(0))
+            part.append(Shard(0))
+            part_grad.append(Shard(0))
+        elif a == Shard(1):                        # the capacity
+            xp.append(Shard(1))
+            wp.append(Replicate())
+            part.append(Replicate())
+            part_grad.append(Partial())
+        else:                                      # x whole: ff split
+            xp.append(Replicate())
+            wp.append(Replicate())
+            part.append(Shard(ff_dim))
+            part_grad.append(Shard(ff_dim))
+    x_loc = x.redistribute(mesh, xp).to_local(grad_placements=xp)
+    w_loc = w.detach().redistribute(mesh, wp).to_local()
+    if torch.is_grad_enabled() and w.requires_grad:
+        lo = local_shape_offset(w.shape, mesh, part)[1][ff_dim]
+        y = _ExpertProduct.apply(
+            x_loc, w.redistribute(mesh, part).to_local(
+                grad_placements=part_grad), w_loc, ff_dim, lo)
+    else:  # no weight gradient (a prefill): the product alone
+        y = torch.bmm(x_loc, w_loc)
+    return from_local(y, mesh, xp, shape=tuple(x.shape[:2]) + (
+        w.shape[-1],))
+
+
 def _whole(fn, *tensors):
     """``fn`` on plain tensors; on DTensors it runs on each rank's whole
     (replicated) copies and returns replicated DTensors. The routing's
@@ -214,7 +297,8 @@ def moe_apply(p, cfg, x: torch.Tensor, *,
     they are cast to ``x``'s dtype at use. On DTensors the routing, the
     slab gather and the combine run whole on every rank (:func:`_whole`)
     and the experts' products on slabs sharded over ("experts",
-    "expert_cap", None), the reference's constraints."""
+    "expert_cap", None), the reference's constraints, with the expert
+    weights gathered but on their experts (:func:`_expert_bmm`)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -229,8 +313,9 @@ def moe_apply(p, cfg, x: torch.Tensor, *,
 
     xs = constraint(_whole(_gather_slabs, xt, slots),
                     "experts", "expert_cap", None)                  # [E, C, d]
-    h = silu(torch.bmm(xs, p.wg.to(dt))) * torch.bmm(xs, p.wu.to(dt))
-    ys = torch.bmm(h, p.wd.to(dt))                                  # [E, C, d]
+    h = silu(_expert_bmm(xs, p.wg.to(dt), 2)) * \
+        _expert_bmm(xs, p.wu.to(dt), 2)
+    ys = _expert_bmm(h, p.wd.to(dt), 1)                             # [E, C, d]
     ys = constraint(ys, "experts", "expert_cap", None)
     y = _whole(_combine, ys, gate, row, eidx)
     if p.shared is not None:

@@ -6,11 +6,14 @@ blocks of 256 (a float32 scale a block, ``max|block| / 127 + 1e-12``,
 values rounded half to even and clipped to ±127), lets the mesh all-reduce
 the int8 payload, dequantizes, and carries the quantization error into the
 next step (error feedback), so the compression stays unbiased over time.
-On one device there is nothing to all-reduce: :func:`ef_update` is the
-round trip the train loop's ``compress_grads`` calls. Trees are dicts of
-tensors keyed alike (the train state's parameter names). The rest of
-``parallel/`` (sharding rules, the mesh) waits for ROADMAP queue 1, item
-14b.8.
+:func:`ef_update` is the round trip the train loop's ``compress_grads``
+calls. On one device there is nothing to all-reduce; under a mesh the
+train step hands it the gradients already reduce-scattered to their ZeRO-1
+specs (DTensor's collectives, ``train/loop.py``), as the reference's XLA
+emits its reductions from the specs around the same round trip. Trees are
+dicts of tensors keyed alike (the train state's parameter names). The
+rest of ``parallel/`` is ``sharding.py``: the rules, the mesh and
+``constraint``.
 """
 from __future__ import annotations
 

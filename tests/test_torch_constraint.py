@@ -8,6 +8,9 @@ held against the unsharded port on the same inputs:
 ``mistral-nemo-12b@smoke`` head-parallel, the same with sequence
 parallelism forced (heads unsharded, q split on its sequence, so each
 rank's queries meet every key at their own positions) and two microbatches,
+that case once more with ``attention=flash_attention`` (K5's plain version
+on the CPU: the dispatch a CUDA rank takes, each query shard at its
+``q_offset``) against the unsharded ``_sdpa`` run,
 ``deepseek-v2-lite-16b@smoke`` (MLA, MoE with expert-parallel slabs) and
 ``mamba2-370m@smoke`` (the SSD on each rank's batch and head shards):
 prefill logits, a decode step's logits after it (over a cache sharded on
@@ -53,13 +56,16 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 from repro_torch.parallel.sharding import (Mesh, P, axis_rules, constraint,
                                            placements)
 
-#: case -> (arch at smoke size, rule overrides, microbatches)
+#: case -> (arch at smoke size, rule overrides, microbatches, the sharded
+#: runs' attention: None for the CPU's ``_sdpa``, or "k5" for K5's
+#: ``flash_attention``, whose plain version runs here)
+SEQ_PARALLEL = {"heads": (), "kv_heads": ()}
 CASES = {
-    "dense": ("mistral-nemo-12b", None, 0),
-    "dense_seq_parallel": ("mistral-nemo-12b",
-                           {"heads": (), "kv_heads": ()}, 2),
-    "moe_mla": ("deepseek-v2-lite-16b", None, 0),
-    "ssm": ("mamba2-370m", None, 0),
+    "dense": ("mistral-nemo-12b", None, 0, None),
+    "dense_seq_parallel": ("mistral-nemo-12b", SEQ_PARALLEL, 2, None),
+    "dense_seq_parallel_k5": ("mistral-nemo-12b", SEQ_PARALLEL, 2, "k5"),
+    "moe_mla": ("deepseek-v2-lite-16b", None, 0, None),
+    "ssm": ("mamba2-370m", None, 0, None),
 }
 #: (max, mean) relative error of the prefill logits and of each leaf of m
 #: (relative to the leaf's largest entry), and the loss's absolute error:
@@ -208,8 +214,9 @@ def _rel(a, b):
     return float(d.max()), float(d.mean())
 
 
-def _case(arch, rules, micro):
+def _case(arch, rules, micro, attention):
     from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
     from repro_torch.launch.specs import _rebuild_cache
     from repro_torch.models.model import (cache_axes, cache_leaves,
                                           decode_step, init, init_cache,
@@ -224,6 +231,13 @@ def _case(arch, rules, micro):
     tokens = torch.as_tensor(np.random.default_rng(1).integers(
         0, cfg.vocab, (4, 17)), dtype=torch.int64)
     out = {}
+    offsets = set()  # the query offsets K5 took on this rank
+
+    def k5(q, k, v, **kw):
+        offsets.add(kw.get("q_offset"))
+        return flash_attention(q, k, v, **kw)
+
+    attention = {None: None, "k5": k5}[attention]
 
     choices = {}
 
@@ -258,7 +272,7 @@ def _case(arch, rules, micro):
             setattr(mod, leaf, torch.nn.Parameter(
                 distribute(p.data, axes[name], r), requires_grad=False))
         _, got = prefill(sm, distribute(tokens[:, :16], ("batch", None), r),
-                         routing=replay)
+                         routing=replay, attention=attention)
         out["logits"] = _rel(got.full_tensor(), ref)
         c_axes = cache_axes(cfg)
         scache = _rebuild_cache(cache, {
@@ -278,7 +292,8 @@ def _case(arch, rules, micro):
     st, _, met = step(adamw_init({k: v.clone() for k, v in masters.items()}),
                       {"tokens": tokens}, None)
     with axis_rules(mesh, rules) as r:
-        sstep = make_train_step(cfg, tcfg, "cpu", routing=replay)
+        sstep = make_train_step(cfg, tcfg, "cpu", routing=replay,
+                                attention=attention)
         zs = tree_zero1_specs(param_axes(cfg, sstep.model), masters, r)
 
         def dist(t, k):
@@ -295,6 +310,9 @@ def _case(arch, rules, micro):
             any(p.is_shard() for p in t.placements) for t in sst.m.values())
         out["loss"] = abs(float(smet["loss"]) - float(met["loss"]))
         errs = {k: _rel(sst.m[k].full_tensor(), st.m[k]) for k in st.m}
+    ranks = [None] * WORLD
+    torch.distributed.all_gather_object(ranks, sorted(offsets, key=str))
+    out["q_offsets"] = ranks
     out["m_max"] = max(e[0] for e in errs.values())
     out["m_mean"] = max(e[1] for e in errs.values())
     out["m_worst"] = max(errs, key=lambda k: errs[k][0])
@@ -398,6 +416,8 @@ def results(tmp_path_factory):
 def test_sharded_program_matches_unsharded(results, case):
     r = results[case]
     assert r["sharded_leaves"] > 0  # the state really is sharded
+    if CASES[case][3]:  # K5 took each rank's query shard at its offset
+        assert r["q_offsets"] == [[0], [8], [0], [8]], r["q_offsets"]
     for what in ("logits", "decode"):
         assert r[what][0] <= TOL["logits"][0], (what, r)
         assert r[what][1] <= TOL["logits"][1], (what, r)

@@ -1477,6 +1477,127 @@ def test_flash_attn_autograd_takes_every_mask(dev):
         assert all(torch.equal(t.grad, w) for t, w in zip(leaves, want))
 
 
+#: query shards of a sequence-parallel prefill or step (B, Sk, H, K, Dqk,
+#: Dv, window, causal, the shards' rows): even shards, ragged ones whose
+#: offsets sit off the 64- and 128-row tiles, MLA's and the hybrid's dims,
+#: windows shorter than a shard and no causal mask
+QSHARD_SHAPES = [
+    (2, 1024, 8, 2, 128, 128, None, True, (256, 256, 256, 256)),
+    (2, 1000, 8, 2, 128, 128, None, True, (437, 100, 463)),
+    (2, 1024, 8, 8, 96, 64, None, True, (300, 724)),
+    (1, 2048, 4, 1, 256, 256, 512, True, (1948, 100)),
+    (2, 500, 4, 2, 16, 16, 32, True, (101, 96, 303)),
+    (2, 700, 8, 2, 192, 128, 100, True, (600, 100)),
+    (2, 520, 4, 4, 32, 16, None, True, (13, 40, 467)),
+    (2, 300, 4, 4, 64, 64, None, False, (50, 100, 150))]
+
+
+def _qshard_inputs(dev, B, Sk, H, K, dqk, dv, dtype=torch.bfloat16):
+    g = torch.Generator(device=dev).manual_seed(Sk + dqk + H)
+    q, k, v = (torch.randn((B, Sk, n, d), generator=g, device=dev).to(dtype)
+               for n, d in ((H, dqk), (K, dqk), (K, dv)))
+    dout = torch.randn((B, Sk, H, dv), generator=g, device=dev).to(dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,Sk,H,K,dqk,dv,window,causal,rows", QSHARD_SHAPES)
+def test_flash_attn_query_shards_are_the_unsharded_rows(dev, dtype, B, Sk, H,
+                                                        K, dqk, dv, window,
+                                                        causal, rows):
+    """K5 on each query shard (rows o .. o + Sq at ``q_offset=o``, against
+    every key) equals rows o .. o + Sq of the unsharded call bit for bit
+    (a row meets the same key tiles in the same order; the tiles a shard's
+    block adds before a row's window or past its diagonal add exact
+    zeros), and the plain version with the offset within K5's tolerance;
+    each shard counts as a query-shard launch."""
+    from repro_torch.kernels import flash_attn as K5
+
+    q, k, v, _ = _qshard_inputs(dev, B, Sk, H, K, dqk, dv, dtype)
+    scale = dqk ** -0.5
+    full = K5.flash_attention(q, k, v, scale, window, causal)
+    o = 0
+    for n in rows:
+        qs = q[:, o:o + n].contiguous()
+        before = K5.class_launches["query_shard"]
+        got = K5.flash_attention(qs, k, v, scale, window, causal, q_offset=o)
+        assert K5.class_launches["query_shard"] == before + 1
+        assert torch.equal(got, full[:, o:o + n]), (o, n)
+        want = K5.flash_attention_plain(qs, k, v, scale, window, causal, o)
+        torch.testing.assert_close(got.float(), want.float(), **K5_TOL[dtype])
+        o += n
+    assert o == Sk
+
+
+@pytest.mark.parametrize("B,Sk,H,K,dqk,dv,window,causal,rows", QSHARD_SHAPES)
+def test_flash_attn_backward_query_shards_sum_to_the_unsharded(dev, B, Sk, H,
+                                                               K, dqk, dv,
+                                                               window, causal,
+                                                               rows):
+    """K5's backward on each query shard against its plain version with the
+    offset (the tile-scaled tolerance), twice bitwise equal; the shards' dq
+    are the unsharded call's rows bit for bit, and their dk/dv (every key:
+    zeros where no row of a shard sees it), summed in shard order, the
+    unsharded dk/dv within the same tolerance. A planted fault, the offset
+    a tile short (o - 64), fails the tolerance."""
+    from repro_torch.kernels import flash_attn as K5
+
+    q, k, v, dout = _qshard_inputs(dev, B, Sk, H, K, dqk, dv)
+    scale = dqk ** -0.5
+    out, lse, lo = K5.flash_attention_lse(q, k, v, scale, window, causal)
+    full = K5.flash_attention_backward(q, k, v, out, lse, dout, scale, window,
+                                       causal, out_lo=lo)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+    dv_ = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+    o = 0
+    for n in rows:
+        qs, ds = q[:, o:o + n].contiguous(), dout[:, o:o + n].contiguous()
+        so, sl, slo = K5.flash_attention_lse(qs, k, v, scale, window, causal,
+                                             q_offset=o)
+        assert torch.equal(so, out[:, o:o + n])
+        assert torch.equal(sl, lse[:, :, o:o + n].contiguous())
+        before = K5.bwd_class_launches["query_shard"]
+        got = K5.flash_attention_backward(qs, k, v, so, sl, ds, scale, window,
+                                          causal, out_lo=slo, q_offset=o)
+        assert K5.bwd_class_launches["query_shard"] == before + 1
+        want = K5.flash_attention_backward_plain(qs, k, v, ds, scale, window,
+                                                 causal, o)
+        assert _bwd_close(got, want), (o, n)
+        again = K5.flash_attention_backward(qs, k, v, so, sl, ds, scale,
+                                            window, causal, out_lo=slo,
+                                            q_offset=o)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        assert torch.equal(got[0], full[0][:, o:o + n]), (o, n)
+        if causal and o >= 64:
+            short = K5.flash_attention_backward_plain(
+                qs, k, v, ds, scale, window, causal, o - 64)
+            assert not _bwd_close(short, want), (o, n)
+        dk += got[1].float()
+        dv_ += got[2].float()
+        o += n
+    assert _bwd_close((dk, dv_), full[1:])
+
+
+def test_flash_attn_autograd_takes_query_shards(dev):
+    """Calls on query shards that need a gradient run the autograd Function
+    with the offset: a forward and a backward launch each, and autograd's
+    sum of the shards' k/v gradients is the unsharded call's within the
+    backward's tolerance."""
+    from repro_torch.kernels import flash_attn as K5
+
+    q, k, v, dout = _qshard_inputs(dev, 2, 512, 8, 2, 128, 128)
+    kl, vl = (t.clone().requires_grad_(True) for t in (k, v))
+    before = (K5.launches, K5.bwd_launches)
+    outs = [K5.flash_attention(q[:, o:o + 128].clone().requires_grad_(True),
+                               kl, vl, q_offset=o) for o in range(0, 512, 128)]
+    torch.cat(outs, dim=1).backward(dout)
+    assert (K5.launches, K5.bwd_launches) == (before[0] + 4, before[1] + 4)
+    o, lse, lo = K5.flash_attention_lse(q, k, v)
+    want = K5.flash_attention_backward(q, k, v, o, lse, dout, out_lo=lo)
+    assert _bwd_close((kl.grad, vl.grad), want[1:])
+
+
 @pytest.mark.parametrize("arch", ["whisper-tiny", "recurrentgemma-9b",
                                   "mamba2-370m", "qwen3-14b"])
 def test_smoke_training_of_every_family_runs_the_backward_kernel(dev, arch):
@@ -1517,7 +1638,8 @@ def test_smoke_training_of_every_family_runs_the_backward_kernel(dev, arch):
                 (2 * n_attn + n_enc, n_attn + n_enc)
             assert K5.bwd_class_launches == {
                 "causal": 0 if cfg.window else n_attn,
-                "window": n_attn if cfg.window else 0, "noncausal": n_enc}
+                "window": n_attn if cfg.window else 0, "noncausal": n_enc,
+                "query_shard": 0}
             assert K5.bwd_head_dim_launches == (
                 {(16, 16): n_attn + n_enc} if n_attn else {})
     assert abs(losses[0] - losses[1]) <= 1e-2, losses

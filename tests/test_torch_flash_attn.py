@@ -118,9 +118,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="do not divide"):
         K5.flash_attention(q, torch.zeros((1, 8, 3, 16)),
                            torch.zeros((1, 8, 3, 16)))
+    # more queries than keys (fewer is a query shard, which K5 takes)
     with pytest.raises(ValueError, match="disagree"):
-        K5.flash_attention(q, torch.zeros((1, 9, 2, 16)),
-                           torch.zeros((1, 9, 2, 16)))
+        K5.flash_attention(q, torch.zeros((1, 7, 2, 16)),
+                           torch.zeros((1, 7, 2, 16)))
     before = K5.launches
     K5.flash_attention(q, q, q)  # CPU: the plain version, no launch
     assert K5.launches == before
@@ -231,7 +232,8 @@ def test_routes_and_their_counts():
         K5.class_launches.update(causal=4, noncausal=1)
         kernels.reset_launches()
         assert K5.route_launches == {"tensor_core": 0, "cuda_core": 0}
-        assert K5.class_launches == {"causal": 0, "noncausal": 0}
+        assert K5.class_launches == {"causal": 0, "noncausal": 0,
+                                     "query_shard": 0}
     finally:
         K5.route_launches.update(saved[0])
         K5.launches = saved[1]

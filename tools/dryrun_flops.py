@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Per-device dot flops of the port's dry run against the reference's
-``analyze_hlo``, on the same smoke programs over a (2, 2) data x model
-mesh.
+"""Per-device dot flops and collective bytes of the port's dry run
+against the reference's ``analyze_hlo``, on the same smoke programs over a
+(2, 2) data x model mesh.
 
-    PYTHONPATH=src python tools/dryrun_flops.py [--cases dense,moe]
+    PYTHONPATH=src python tools/dryrun_flops.py [--cases dense_train,moe_train]
 
 The port's side runs in this process over a fake process group of 4 ranks
 (``repro_torch.launch.program_stats``); the reference's compiles the same
 cell (its ``launch.specs.build_cell`` at the smoke config and a small
 shape) in a subprocess that forces 4 CPU host devices, and walks its HLO.
-Prints one JSON object: per case, both counts and their ratio; with
-``--indices`` also the reference's per-device slice of a leaf sharded over
-two mesh axes.
+Prints one JSON object: per case, both dot-flop counts and their ratio,
+and each side's collective result bytes by kind (DTensor's collectives
+against the ones XLA chose: they need not agree, and no bound holds them);
+the reference's side can also give its per-device slice of a leaf sharded
+over two mesh axes (``index_shape``).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import os
 import subprocess
 import sys
 import textwrap
+from typing import Optional
 
 #: name -> (arch, kind, global batch, sequence length): the smoke programs
 CASES = {
@@ -48,7 +51,10 @@ _REFERENCE = textwrap.dedent("""
         with mesh, axis_rules(mesh) as rules:
             cell = S.build_cell(arch, name, rules)
             hlo = jax.jit(cell.fn).lower(*cell.args).compile().as_text()
-        out[name] = analyze_hlo(hlo).dot_flops
+        st = analyze_hlo(hlo)
+        out[name] = st.dot_flops
+        out["collectives"] = dict(out.get("collectives", {}),
+                                  **{name: dict(st.coll_bytes)})
     if index_shape:
         pod = Mesh(np.asarray(jax.devices()).reshape(2, 2), ("pod", "data"))
         sh = NamedSharding(pod, PartitionSpec(("pod", "data"), None))
@@ -93,10 +99,11 @@ def reference_flops(cases: dict, index_shape=None) -> dict:
     return reference_result(start_reference(cases, index_shape))
 
 
-def port_flops(cases: dict) -> dict:
+def port_flops(cases: dict, collectives: Optional[dict] = None) -> dict:
     """The port's per-device dot flops of ``cases``: each cell built by
     ``launch.specs.build_cell`` at the smoke config and run once over a
-    fake process group of 4 ranks (torn down after)."""
+    fake process group of 4 ranks (torn down after). ``collectives``, when
+    given, takes each case's collective result bytes by kind."""
     import numpy as np
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -121,6 +128,8 @@ def port_flops(cases: dict) -> dict:
                 with counter, mixed_with_dtensors():
                     cell.fn(*cell.args)
             out[name] = counter.stats.dot_flops
+            if collectives is not None:
+                collectives[name] = dict(counter.stats.coll_bytes)
     finally:
         torch.distributed.destroy_process_group()
     return out
@@ -132,10 +141,16 @@ def main() -> int:
     ap.add_argument("--cases", default=",".join(CASES))
     args = ap.parse_args()
     cases = {k: CASES[k] for k in args.cases.split(",")}
-    ref = reference_flops(cases)
-    port = port_flops(cases)
+    proc = start_reference(cases)
+    coll = {}
+    port = port_flops(cases, coll)
+    ref = reference_result(proc)
     print(json.dumps({k: {"port": port[k], "reference": ref[k],
-                          "ratio": port[k] / ref[k]} for k in cases}))
+                          "ratio": port[k] / ref[k],
+                          "collective_bytes": {
+                              "port": coll[k],
+                              "reference": ref["collectives"][k]}}
+                      for k in cases}))
     return 0
 
 
