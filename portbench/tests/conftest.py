@@ -1,0 +1,9 @@
+"""The benchmark's own tests (CPU unless marked ``cuda``): run from the
+repository's root with ``python -m pytest portbench/tests``."""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (ROOT, ROOT / "src"):
+    if str(p) not in sys.path:
+        sys.path.insert(0, str(p))
